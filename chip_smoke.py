@@ -6,18 +6,29 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each prints its results on its own lines):
   1. device: nvidia-smi name and power limit; exit 1 without a CUDA device;
-  2. build: kernels A (csrc/nms.cu) and B (csrc/gn.cu) from the sources;
+  2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu) and C (csrc/qblock.cu)
+     from the sources, one nvcc per source, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
   4. kernel A vs its plain version: random [8,1000] boxes, the adversarial
      case of tests/test_pallas_nms.py, and (after phase 5) the pipeline's own
      decoded boxes; exact equality;
-  5. the serving pipeline: full-width HISFCOS(20, 256) from a seed, 8 seeded
-     uint8 512x512 frames through make_eval_pipeline in bf16; shapes,
+  5. the float serving pipeline: full-width HISFCOS(20, 256) from a seed, 8
+     seeded uint8 512x512 frames through make_eval_pipeline in bf16; shapes,
      finiteness, launch counters (20 GN launches per forward, 1 NMS launch per
      batch), and per-level maps against the same weights on the plain versions;
-  6. timing with CUDA events: kernel vs plain for A and B, pipeline images/s
-     at B=8 and B=64.
+  5b. the int8-backbone serving pipeline: the same model through
+     make_eval_pipeline_int8(int8_fpn=False) in bf16, calibrated on the same
+     8 frames; launch counters (13 K2, 3 K3, 20 GN, 1 NMS per call), C3..C5
+     int8 identical between kernel C and its plain version, per-level maps
+     against the plain pipeline, cosine of the dequantized C3..C5 against
+     the float backbone's (>= 0.99), finite detections;
+  5c. kernel C vs its plain version at the 16 bottleneck shapes, B=8: on the
+     ladder's own int8 activations and on random int8 inputs, with the
+     calibrated weights; 0 differing elements;
+  6. timing with CUDA events: kernel vs plain for A, B and C (per block
+     shape), float and int8 pipeline images/s at B=8 and B=64;
+  6b/6c. torch.profiler breakdowns of one B=64 float and int8 pipeline call.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -50,6 +61,10 @@ GN_TOL_BF16 = dict(rtol=2**-7, atol=1e-3)
 # layers of the head (and the exp of ScaleExp); allow 2**-5 of the level
 # range (about four bf16 steps at the top of the range)
 LEVEL_TOL = 2**-5
+# dequantized int8 C3..C5 against the float backbone's, bf16: per-tensor
+# abs-max int8 keeps about two decimal digits of each activation
+INT8_COS_MIN = 0.99
+K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 
 
 class Smoke:
@@ -110,10 +125,16 @@ def main() -> int:
         return 1
     # the port itself: fails here when the script stands without the repo
     from pytorch_object_detection_tpu_torch import _build
-    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline
+    from pytorch_object_detection_tpu_torch.eval.evaluator import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        make_eval_pipeline,
+        make_eval_pipeline_int8,
+    )
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
-    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn
+    from pytorch_object_detection_tpu_torch.nn import resnet_int8
+    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock
     from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
     smoke = Smoke()
@@ -132,9 +153,13 @@ def main() -> int:
         print("  TF32 off: torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False")
 
     def phase2():
+        from concurrent.futures import ThreadPoolExecutor
+
         t0 = time.perf_counter()
-        gn._lib()
-        cuda_nms._lib()
+        libs = (gn._lib, cuda_nms._lib, qblock._lib)
+        with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+            for fut in [pool.submit(lib) for lib in libs]:
+                fut.result()  # a failed build raises here
         print(f"  build wall {time.perf_counter() - t0:.2f} s")
         for src, (secs, log) in _build.build_log.items():
             print(f"  {src}: nvcc {secs:.2f} s" + ("" if secs else " (already built)"))
@@ -230,22 +255,107 @@ def main() -> int:
         smoke.check(all(0 < n <= k for n in n_valid), "every image has detections")
 
         levels = pipe.forward_levels(frames)
-        plain_levels = plain_pipe.forward_levels(frames)
-        torch.cuda.synchronize()
-        for name, got_b, want_b in zip(("cls", "cnt", "reg"), levels, plain_levels):
-            scale = max(float(t.abs().max()) for t in want_b)
-            err = max(float((a - b).abs().max()) for a, b in zip(got_b, want_b))
-            finite = all(bool(torch.isfinite(t).all()) for t in got_b)
-            shapes = [tuple(t.shape) for t in got_b]
-            smoke.check(finite and err <= LEVEL_TOL * scale,
-                        f"{name} levels {shapes}: kernel vs plain max abs err {err:.4g} "
-                        f"(range {scale:.4g}, tol {LEVEL_TOL * scale:.4g}), finite {finite}")
+        print(f"  level shapes (cls): {[tuple(t.shape) for t in levels[0]]}")
+        compare_levels(levels, plain_pipe.forward_levels(frames), "float pipeline")
 
         # phase 4, third input: the pipeline's own decoded boxes
         valid_in = dets.scores >= 0.05
         nms_compare(dets.boxes.contiguous(), dets.classes, valid_in, "pipeline boxes")
         res["nms_boxes"] = (dets.boxes.contiguous(), dets.classes, valid_in)
         res["frames"] = frames
+
+    def compare_levels(levels, plain_levels, what):
+        for name, got_b, want_b in zip(("cls", "cnt", "reg"), levels, plain_levels):
+            scale = max(float(t.abs().max()) for t in want_b)
+            err = max(float((a - b).abs().max()) for a, b in zip(got_b, want_b))
+            finite = all(bool(torch.isfinite(t).all()) for t in got_b)
+            smoke.check(finite and err <= LEVEL_TOL * scale,
+                        f"{what} {name} levels: kernel vs plain max abs err {err:.4g} "
+                        f"(range {scale:.4g}, tol {LEVEL_TOL * scale:.4g}), finite {finite}")
+
+    def phase5b():
+        model, frames = res["model"], res["frames"]
+        mean = torch.tensor(IMAGENET_MEAN, device=dev)
+        std = torch.tensor(IMAGENET_STD, device=dev)
+        norm = (frames.float() / 255.0 - mean) / std
+        t0 = time.perf_counter()
+        ipipe = make_eval_pipeline_int8(model, norm, default_strides(), CANVAS, int8_fpn=False,
+                                        compute_dtype=torch.bfloat16)
+        iplain = make_eval_pipeline_int8(model, norm, default_strides(), CANVAS, int8_fpn=False,
+                                         compute_dtype=torch.bfloat16, plain=True)
+        # one calibration for both: two bf16 calibrations on cuDNN need not
+        # give the same taps, and the comparison needs the same int8 weights
+        iplain.qtree = ipipe.qtree
+        torch.cuda.synchronize()
+        print(f"  int8 pipelines built (calibration on the 8 frames, bf16) in {time.perf_counter() - t0:.2f} s")
+        res.update(ipipe=ipipe, iplain=iplain, norm=norm)
+
+        # the main path, counted: counters to 0 just before, read just after
+        for counter in (qblock.qbottleneck, qblock.qbottleneck_s2, gn.groupnorm_act, cuda_nms.cuda_nms_keep_mask):
+            counter.launches = 0
+        dets = ipipe(frames)
+        torch.cuda.synchronize()
+        res["int8_launches"] = {"qbottleneck": qblock.qbottleneck.launches,
+                                "qbottleneck_s2": qblock.qbottleneck_s2.launches,
+                                "gn": gn.groupnorm_act.launches, "nms": cuda_nms.cuda_nms_keep_mask.launches}
+        print(f"  launches in one int8 pipeline call (B=8): {res['int8_launches']}")
+        smoke.check(res["int8_launches"] == {"qbottleneck": K2_PER_FORWARD, "qbottleneck_s2": K3_PER_FORWARD,
+                                             "gn": 20, "nms": 1},
+                    f"kernel C launched {K2_PER_FORWARD} (K2) + {K3_PER_FORWARD} (K3) times, kernel B 20, "
+                    "kernel A once")
+        smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
+                    and bool(torch.isfinite(dets.boxes).all()), "int8 detections [8, 1000] and finite")
+        n_valid = dets.valid.sum(dim=1).tolist()
+        print(f"  int8 valid detections per image: {n_valid}; top score {float(dets.scores[:, 0].max()):.4f}")
+        smoke.check(all(0 < n <= 1000 for n in n_valid), "every image has int8 detections")
+
+        with torch.inference_mode():
+            feats = {}
+            for plain in (False, True):
+                feats[plain] = resnet_int8.resnet50_int8_forward(
+                    ipipe.qtree, norm, torch.bfloat16, backend="pallas_block", fuse_strided=True,
+                    dequant=False, plain=plain)
+            float_feats = res["pipe"].model.backbone(norm.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous())
+        torch.cuda.synchronize()
+        cosines = []
+        for i, (q, want, s, f) in enumerate(zip(feats[False][0], feats[True][0], feats[False][1], float_feats)):
+            n_diff = int((q != want).sum())
+            smoke.check(q.dtype == torch.int8 and n_diff == 0,
+                        f"C{i + 3} int8 {tuple(q.shape)}: kernel vs plain ladder, {n_diff} elements differ")
+            deq = (q.float() * s).permute(0, 3, 1, 2)
+            ff = f.float()
+            cos = float((deq * ff).sum() / (deq.norm() * ff.norm()))
+            cosines.append(cos)
+            smoke.check(cos >= INT8_COS_MIN, f"C{i + 3} cosine of the dequantized int8 vs the float backbone: "
+                                             f"{cos:.6f} (min {INT8_COS_MIN})")
+        res["int8_cos"] = cosines
+        compare_levels(ipipe.forward_levels(frames), iplain.forward_levels(frames), "int8 pipeline")
+
+    def phase5c():
+        qtree, norm = res["ipipe"].qtree, res["norm"]
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        cases, worst = [], 0
+        with torch.inference_mode():
+            x = resnet_int8.resnet50_int8_stem(qtree, norm, torch.bfloat16, "pallas_block")
+            for scope, stage, b in resnet_int8.block_scopes():
+                stride = 2 if (b == 0 and stage > 0) else 1
+                blk = qtree[scope]
+                rand_x = torch.randint(-127, 128, x.shape, generator=g, device=dev, dtype=torch.int8)
+                nxt = None
+                for what, inp in (("ladder", x), ("random", rand_x)):
+                    got = resnet_int8.bottleneck_int8(blk, inp, stride, "pallas_block")
+                    want = resnet_int8.bottleneck_int8(blk, inp, stride, "pallas_block", plain=True)
+                    torch.cuda.synchronize()
+                    diff = (got.int() - want.int()).abs()
+                    n_diff, worst = int((diff > 0).sum()), max(worst, int(diff.max()))
+                    smoke.check(n_diff == 0 and got.shape == want.shape,
+                                f"kernel C {scope} s{stride} {tuple(inp.shape)} -> {tuple(got.shape)} {what}: "
+                                f"{n_diff} of {want.numel()} int8 elements differ, "
+                                f"{float((want > 0).float().mean()):.3f} nonzero")
+                    nxt = want if nxt is None else nxt
+                cases.append((scope, stride, blk, x))
+                x = nxt  # the plain ladder's output feeds the next block
+        res["qblock_cases"], res["qblock_err"] = cases, float(worst)
 
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
@@ -276,20 +386,35 @@ def main() -> int:
             if b == 8:
                 res["nms_ms"], res["nms_plain_ms"] = tk, tp
 
+        qk = {1: 0.0, 2: 0.0}
+        qp = {1: 0.0, 2: 0.0}
+        with torch.inference_mode():
+            for scope, stride, blk, x in res.get("qblock_cases", []):
+                tk = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block"))
+                tp = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block", plain=True))
+                qk[stride] += tk
+                qp[stride] += tp
+                print(f"  kernel C {scope} s{stride} B=8 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+        print(f"  kernel C per forward (B=8): K2 13 blocks kernel {qk[1]:.4f} ms, plain {qp[1]:.4f} ms; "
+              f"K3 3 blocks kernel {qk[2]:.4f} ms, plain {qp[2]:.4f} ms {card}")
+        res["qblock_ms"], res["qblock_plain_ms"] = qk, qp
+
+        pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
+        if "ipipe" in res:
+            pipes += [("int8 kernels", res["ipipe"]), ("int8 plain", res["iplain"])]
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
-            for name, p in (("kernels", pipe), ("plain", plain_pipe)):
+            for name, p in pipes:
                 ms = cuda_ms(lambda: p(fr), iters=iters, reps=3)
                 print(f"  pipeline B={b} bf16 512x512 ({name}): {ms:.3f} ms/batch, "
                       f"{b * 1000.0 / ms:.1f} img/s {card}")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    def phase6_profile():
+    def phase6_profile(pipe, ours=("gn_act_kernel", "nms_")):
         """Where the time goes in one B=64 pipeline call (torch.profiler)."""
         from torch.profiler import ProfilerActivity, profile
 
         fr = res["frames"].repeat(8, 1, 1, 1)
-        pipe = res["pipe"]
         for _ in range(2):
             pipe(fr)
         torch.cuda.synchronize()
@@ -309,19 +434,26 @@ def main() -> int:
         print(f"  3 calls: wall {wall_ms:.2f} ms, device kernel time {total_us / 1000.0:.2f} ms, "
               f"device idle share {max(0.0, 1.0 - total_us / 1000.0 / wall_ms):.3f} {card}")
         ranked = sorted(events, key=lambda e: -getattr(e, attr))
-        ours = [e for e in ranked[15:] if "gn_act_kernel" in e.key or "nms_" in e.key]
-        for e in ranked[:15] + ours:
+        mine = [e for e in ranked[15:] if any(k in e.key for k in ours)]
+        for e in ranked[:15] + mine:
             print(f"    {getattr(e, attr) / 1000.0:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
     smoke.phase("phase 1: device", phase1)
     smoke.phase("phase 2: build", phase2)
     smoke.phase("phase 3: kernel B (GroupNorm) vs plain", phase3)
     smoke.phase("phase 4: kernel A (NMS) vs plain", phase4)
-    smoke.phase("phase 5: serving pipeline, HISFCOS(20, 256) bf16 512x512 B=8", phase5)
+    smoke.phase("phase 5: float serving pipeline, HISFCOS(20, 256) bf16 512x512 B=8", phase5)
+    if "pipe" in res:
+        smoke.phase("phase 5b: int8-backbone serving pipeline, HISFCOS(20, 256) bf16 512x512 B=8", phase5b)
+    if "ipipe" in res:
+        smoke.phase("phase 5c: kernel C (int8 bottleneck) vs plain at the 16 block shapes, B=8", phase5c)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
-        smoke.phase("phase 6b: profile (not a pass/fail check)", phase6_profile)
-        smoke.failures = [f for f in smoke.failures if not f.startswith("phase 6b")]
+        smoke.phase("phase 6b: profile, float pipeline (not a pass/fail check)", phase6_profile, res["pipe"])
+    if "ipipe" in res:
+        smoke.phase("phase 6c: profile, int8 pipeline (not a pass/fail check)", phase6_profile, res["ipipe"],
+                    ("qblock_kernel", "gn_act_kernel", "nms_"))
+    smoke.failures = [f for f in smoke.failures if not f.startswith(("phase 6b", "phase 6c"))]
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
@@ -336,6 +468,17 @@ def main() -> int:
          "replaces": "pytorch_object_detection_tpu/ops/pallas_nms.py:66",
          "launches": res["launches"]["nms"], "max_abs_err": res["nms_err"],
          "ms": res["nms_ms"], "plain_ms": res["nms_plain_ms"]},
+        # kernel C serves both; ms: all blocks of one forward at B=8
+        {"name": "qbottleneck", "route": "cuda",
+         "source": "pytorch_object_detection_tpu_torch/csrc/qblock.cu",
+         "replaces": "pytorch_object_detection_tpu/ops/pallas_qblock.py:393",
+         "launches": res["int8_launches"]["qbottleneck"], "max_abs_err": res["qblock_err"],
+         "ms": res["qblock_ms"][1], "plain_ms": res["qblock_plain_ms"][1]},
+        {"name": "qbottleneck_s2", "route": "cuda",
+         "source": "pytorch_object_detection_tpu_torch/csrc/qblock.cu",
+         "replaces": "pytorch_object_detection_tpu/ops/pallas_qblock.py:275",
+         "launches": res["int8_launches"]["qbottleneck_s2"], "max_abs_err": res["qblock_err"],
+         "ms": res["qblock_ms"][2], "plain_ms": res["qblock_plain_ms"][2]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

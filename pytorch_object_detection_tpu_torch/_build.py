@@ -39,7 +39,10 @@ BASE_FLAGS = (
     "-v",
 )
 
-_lock = threading.Lock()
+# one lock per source: different sources build in parallel threads, one
+# source builds once
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 # source name -> (seconds spent in nvcc, nvcc's stderr incl. ptxas -v); empty
 # seconds when the library was found already built
 build_log: Dict[str, Tuple[float, str]] = {}
@@ -69,7 +72,9 @@ def _digest(source: Path, flags: Sequence[str]) -> str:
 
 def load_library(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content) and return the loaded library."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         src = CSRC_DIR / source
         flags = [*BASE_FLAGS, *extra_flags]
         out = BUILD_DIR / f"{src.stem}-{_digest(src, flags)}.so"

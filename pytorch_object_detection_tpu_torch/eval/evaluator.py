@@ -1,14 +1,16 @@
-"""Serving pipeline: uint8 frames -> normalize -> forward -> decode -> NMS.
+"""Serving pipelines: uint8 frames -> normalize -> forward -> decode -> NMS.
 
-Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py:
-make_eval_pipeline`` (float path).  The JAX version is one jitted program;
-here the pipeline runs eagerly on the model's device, with the head's
-GroupNorms on kernel B and the NMS on kernel A when that device is CUDA.
+Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
+``make_eval_pipeline`` (float path) and ``make_eval_pipeline_int8`` (the
+int8 backbone, ``int8_fpn=False``).  The JAX versions are one jitted
+program each; here the pipelines run eagerly on the model's device, with
+the backbone blocks on kernel C, the head's GroupNorms on kernel B and the
+NMS on kernel A when that device is CUDA.
 """
 from __future__ import annotations
 
 import copy
-from typing import List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,37 +24,35 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 
 
-class EvalPipeline:
+class _Pipeline:
     """``pipeline(images_u8) -> Detections`` for ``[B, H, W, 3]`` uint8 frames.
 
-    ``forward_levels`` returns the per-level f32 NHWC maps and ``decode``
-    turns them into detections; ``__call__`` does both.
+    ``forward_levels`` normalizes, runs the forward (``_forward``, given by
+    the subclass) and returns the per-level f32 NHWC maps; ``decode`` turns
+    them into detections; ``__call__`` does both.
     """
 
-    def __init__(self, model: nn.Module, strides: Sequence[int], canvas_hw: Tuple[int, int],
-                 score_threshold: float, nms_iou: float, max_detections: int,
-                 compute_dtype: torch.dtype, plain: bool):
-        param = next(model.parameters())
-        # the JAX pipeline casts the f32 params to the compute dtype on each
-        # call; here the cast copy is made once (the caller's model is not
-        # modified, and later changes to it are not seen)
-        self.model = model if param.dtype == compute_dtype else copy.deepcopy(model).to(compute_dtype)
-        self.model.eval()
-        self.device = param.device
+    def __init__(self, device: torch.device, strides: Sequence[int], canvas_hw: Tuple[int, int],
+                 score_threshold: float, nms_iou: float, max_detections: int, plain: bool,
+                 mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD):
+        self.device = device
         self.strides = tuple(strides)
         self.canvas_hw = tuple(canvas_hw)
         self.score_threshold, self.nms_iou, self.max_detections = score_threshold, nms_iou, max_detections
-        self.compute_dtype = compute_dtype
-        self.mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=self.device)
-        self.std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=self.device)
+        self.mean = torch.tensor(mean, dtype=torch.float32, device=device)
+        self.std = torch.tensor(std, dtype=torch.float32, device=device)
         self.plain = plain
+
+    def _forward(self, x: torch.Tensor) -> Levels:
+        """Per-level NHWC maps from normalized f32 NHWC images."""
+        raise NotImplementedError
 
     @torch.inference_mode()
     def forward_levels(self, images_u8: torch.Tensor) -> Levels:
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
             raise ValueError(f"images must be uint8 [B, H, W, 3]; got {images_u8.dtype} {tuple(images_u8.shape)}")
         x = (images_u8.to(self.device, torch.float32) / 255.0 - self.mean) / self.std
-        cls_l, cnt_l, reg_l = self.model(x.to(self.compute_dtype), plain=self.plain)
+        cls_l, cnt_l, reg_l = self._forward(x)
         f32 = lambda xs: [t.float() for t in xs]
         return f32(cls_l), f32(cnt_l), f32(reg_l)
 
@@ -72,6 +72,39 @@ class EvalPipeline:
 
     def __call__(self, images_u8: torch.Tensor) -> Detections:
         return self.decode(self.forward_levels(images_u8))
+
+
+class EvalPipeline(_Pipeline):
+    """The float serving pipeline over a detector module."""
+
+    def __init__(self, model: nn.Module, strides: Sequence[int], canvas_hw: Tuple[int, int],
+                 score_threshold: float, nms_iou: float, max_detections: int,
+                 compute_dtype: torch.dtype, plain: bool):
+        param = next(model.parameters())
+        super().__init__(param.device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain)
+        # the JAX pipeline casts the f32 params to the compute dtype on each
+        # call; here the cast copy is made once (the caller's model is not
+        # modified, and later changes to it are not seen)
+        self.model = model if param.dtype == compute_dtype else copy.deepcopy(model).to(compute_dtype)
+        self.model.eval()
+        self.compute_dtype = compute_dtype
+
+    def _forward(self, x: torch.Tensor) -> Levels:
+        return self.model(x.to(self.compute_dtype), plain=self.plain)
+
+
+class Int8EvalPipeline(_Pipeline):
+    """The int8-backbone serving pipeline: ``forward(qtree, x)`` from
+    ``train/trainer.make_eval_forward_int8`` over a calibrated qtree."""
+
+    def __init__(self, forward: Callable[[Dict, torch.Tensor], Levels], qtree: Dict, device: torch.device,
+                 strides: Sequence[int], canvas_hw: Tuple[int, int], score_threshold: float, nms_iou: float,
+                 max_detections: int, plain: bool, mean: Sequence[float], std: Sequence[float]):
+        super().__init__(device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain, mean, std)
+        self.forward, self.qtree = forward, qtree
+
+    def _forward(self, x: torch.Tensor) -> Levels:
+        return self.forward(self.qtree, x)
 
 
 def make_eval_pipeline(
@@ -94,3 +127,57 @@ def make_eval_pipeline(
     """
     return EvalPipeline(model, strides, canvas_hw, score_threshold, nms_iou, max_detections,
                         compute_dtype, plain)
+
+
+def make_eval_pipeline_int8(
+    model: nn.Module,
+    calib_images: torch.Tensor,
+    strides: Sequence[int],
+    canvas_hw: Tuple[int, int],
+    score_threshold: float = 0.05,
+    nms_iou: float = 0.6,
+    max_detections: int = 1000,
+    mean: Sequence[float] = None,
+    std: Sequence[float] = None,
+    nms_impl: str = "auto",
+    backend: str = "pallas_block",
+    int8_fpn: bool = True,
+    int8_head: bool = True,
+    mesh=None,
+    device_resize: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    plain: bool = False,
+) -> Int8EvalPipeline:
+    """int8-PTQ serving pipeline: calibrated int8 ResNet-50 (kernel C on
+    CUDA), BN-folded float HisFPN, float HISHead (kernel B), decode + NMS
+    (kernel A).
+
+    Counterpart of the JAX ``eval/evaluator.make_eval_pipeline_int8``, with
+    its defaults; the model carries its weights, so there is no
+    ``variables`` argument.  ``calib_images``: a representative NORMALIZED
+    NHWC float batch on the model's device; the activation scales are
+    calibrated on it in ``compute_dtype`` (bf16 on the card, f32 in the CPU
+    tests).  Only ``int8_fpn=False`` is ported: pass it explicitly
+    (``int8_head`` only matters with ``int8_fpn``, as in the JAX function).
+    ``plain=True`` runs every kernel's plain version, for comparisons only.
+    """
+    from pytorch_object_detection_tpu_torch.train.trainer import (
+        INT8_FPN_ITEM,
+        make_eval_forward_int8,
+        quantize_backbone,
+    )
+
+    if int8_fpn:
+        raise NotImplementedError(f"int8_fpn=True is not ported yet: {INT8_FPN_ITEM}; pass int8_fpn=False")
+    if mesh is not None:
+        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
+    if device_resize:
+        raise NotImplementedError("device_resize=True is not ported yet: ROADMAP.md queue 1 item 9")
+    if nms_impl != "auto":
+        raise ValueError(f"nms_impl must be 'auto' (kernel A on CUDA, its plain version on the CPU); "
+                         f"got {nms_impl!r}")
+    qtree = quantize_backbone(model, calib_images, compute_dtype)
+    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, plain=plain)
+    return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
+                            nms_iou, max_detections, plain, IMAGENET_MEAN if mean is None else mean,
+                            IMAGENET_STD if std is None else std)

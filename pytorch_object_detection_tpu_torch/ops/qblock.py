@@ -1,0 +1,228 @@
+"""Kernel C: a whole int8 ResNet bottleneck in CUDA (``csrc/qblock.cu``), and its plain version.
+
+Replaces ``pytorch_object_detection_tpu/ops/pallas_qblock.py``:
+``qbottleneck`` (K2, the stride-1 blocks) and ``qbottleneck_s2`` (K3, the
+three stride-2 blocks).  One kernel serves both, with the stride as an
+argument.  The source note in ``csrc/qblock.cu`` says what bounds it on the
+card and how the design answers.
+
+Layouts: activations int8 NHWC ``[B, H, W, C]``, contiguous.  Weights int8
+with each output channel's K-vector contiguous (the JAX HWIO kernels
+transposed): ``w1 [Cw, Cin]``, ``w2 [Cw, 3, 3, Cw]``, ``w3 [Cout, Cw]``,
+``wd [Cout, Cin]``.  Epilogue vectors f32 per channel; ``short_mul`` a 0-d
+f32 tensor.  Channel counts must be multiples of 16 (the kernel reads
+16-byte words).
+
+The plain version is the XLA oracle of ``nn/resnet_int8.py:546-555``,
+operation for operation: exact int32 accumulation through ``torch._int_mm``
+over an im2col of the int8 input, then the f32 epilogues in the oracle's
+order.  On a CPU tensor the wrappers run it; on a CUDA tensor they launch
+kernel C or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from pytorch_object_detection_tpu_torch.ops.quant import INT8_MAX, requantize
+
+SOURCE = "qblock.cu"
+# no FMA contraction anywhere in the kernel (its epilogues also spell out
+# __fmul_rn/__fadd_rn): a fused multiply-add moves values across a requant
+# boundary
+NVCC_FLAGS = ("-fmad=false",)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load kernel C; the C function's signature is
+    declared once here."""
+    from pytorch_object_detection_tpu_torch._build import load_library
+
+    lib = load_library(SOURCE, NVCC_FLAGS)
+    fn = lib.qblock_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def out_hw(h: int, w: int, stride: int):
+    """Output size of the block: 3x3 pad 1 (and 1x1 pad 0) at ``stride``."""
+    return (h - 1) // stride + 1, (w - 1) // stride + 1
+
+
+def smem_bytes(rows: int, stride: int, w: int, cw: int) -> int:
+    """Kernel C's shared memory for a band of ``rows`` output rows: a1 with
+    its halo rows and two zero columns, then a2."""
+    wo = (w - 1) // stride + 1
+    return ((rows - 1) * stride + 3) * (w + 2) * cw + rows * wo * cw
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int):
+    """(SM count, bytes of shared memory one block may opt in to) of a CUDA device."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def pick_rows(batch: int, h: int, w: int, cw: int, stride: int, sm_count: int, smem_max: int) -> int:
+    """Output rows per thread block: the largest of 8, 4, 2, 1 that leaves two
+    blocks' shared memory per SM and at least two waves of blocks on the
+    card; else the smallest band (most blocks) that fits."""
+    ho = (h - 1) // stride + 1
+    fits = [r for r in (8, 4, 2, 1) if r <= max(ho, 1) and smem_bytes(r, stride, w, cw) <= smem_max]
+    if not fits:
+        raise ValueError(f"kernel C: one output row of a {h}x{w} map with {cw} channels needs "
+                         f"{smem_bytes(1, stride, w, cw)} bytes of shared memory (> {smem_max})")
+    for r in fits:
+        if smem_bytes(r, stride, w, cw) <= smem_max // 2 and batch * -(-ho // r) >= 2 * sm_count:
+            return r
+    return fits[-1]
+
+
+def _int_acc(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """Exact int32 accumulator of an int8 conv, as f32 (rounded to nearest
+    where it exceeds 2**24, as the oracle's ``astype`` does).
+
+    x ``[B, H, W, C]`` int8; w ``[N, C]`` (1x1, pad 0) or ``[N, 3, 3, C]``
+    (3x3, pad 1); returns ``[B, Ho, Wo, N]`` f32.
+    """
+    b, h, wd_, c = x.shape
+    ho, wo = out_hw(h, wd_, stride)
+    if w.dim() == 4:
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
+                          for ky in range(3) for kx in range(3)], dim=-1)
+    else:
+        cols = x[:, ::stride, ::stride]
+    m = cols.reshape(b * ho * wo, -1)
+    rows = m.shape[0]
+    if rows <= 16:  # torch._int_mm takes more than 16 rows
+        m = F.pad(m, (0, 0, 0, 17 - rows))
+    acc = torch._int_mm(m, w.reshape(w.shape[0], -1).t())[:rows]
+    return acc.float().reshape(b, ho, wo, -1)
+
+
+def qbottleneck_plain(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, stride: int = 1, short_mul=None,
+                      wd=None, ad=None, bd=None) -> torch.Tensor:
+    """The bottleneck in plain PyTorch ops (the reference for kernel C)."""
+    y1 = requantize(_int_acc(x, w1, 1), a1, b1)
+    y2 = requantize(_int_acc(y1, w2, stride), a2, b2)
+    pre = _int_acc(y2, w3, 1) * a3 + b3
+    if wd is not None:
+        short = _int_acc(x, wd, stride) * ad + bd
+    else:
+        short = x.float() * short_mul
+    y = torch.clamp(pre + short, min=0.0)
+    return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def _check(x, w1, w2, w3, vecs, stride, wd, short_mul) -> None:
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
+    cin, cw, cout = x.shape[-1], w1.shape[0], w3.shape[0]
+    want = {"w1": (cw, cin), "w2": (cw, 3, 3, cw), "w3": (cout, cw)}
+    if wd is not None:
+        want["wd"] = (cout, cin)
+    elif cin != cout:
+        raise ValueError(f"an identity shortcut needs Cin == Cout; got {cin} and {cout} (NCHW input?)")
+    for name, t in (("w1", w1), ("w2", w2), ("w3", w3), ("wd", wd)):
+        if name in want and (t.dtype != torch.int8 or tuple(t.shape) != want[name]):
+            raise ValueError(f"{name} must be int8 {want[name]} for x {tuple(x.shape)}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    for name, v in vecs.items():
+        n = cw if name[-1] in "12" else cout
+        if v.dtype != torch.float32 or tuple(v.shape) != (n,):
+            raise ValueError(f"{name} must be float32 [{n}]; got {v.dtype} {tuple(v.shape)}")
+    if wd is None and (short_mul is None or short_mul.numel() != 1):
+        raise ValueError("an identity shortcut needs short_mul (one f32 value)")
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2; got {stride}")
+
+
+def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows: Optional[int]) -> torch.Tensor:
+    """Kernel C on CUDA tensors (checked by ``_check`` first)."""
+    tensors = [x, w1, w2, w3, *vecs.values()] + ([wd] if wd is not None else [short_mul])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"kernel C: every operand must be on {x.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel C takes contiguous operands (x NHWC-contiguous)")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2, w3, wd) if t is not None):
+        raise ValueError("kernel C reads x and the weights in 16-byte words: they must start 16-byte aligned")
+    b, h, w, cin = x.shape
+    cw, cout = w1.shape[0], w3.shape[0]
+    if cin % 16 or cw % 16 or cout % 16:
+        raise ValueError(f"kernel C needs channel counts divisible by 16; got {cin}, {cw}, {cout}")
+    ho, wo = out_hw(h, w, stride)
+    sm_count, smem_max = _card(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    rows = pick_rows(b, h, w, cw, stride, sm_count, smem_max) if rows is None else rows
+    if not 1 <= rows or smem_bytes(rows, stride, w, cw) > smem_max:
+        raise ValueError(f"rows={rows}: kernel C's band does not fit in shared memory")
+    out = torch.empty((b, ho, wo, cout), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    if b > 65535:
+        raise ValueError(f"kernel C takes at most 65535 images per call; got {b}")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ad = vecs.get("ad", short_mul)
+    lib = _lib()
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = lib.qblock_launch(
+            ptr(x), ptr(w1), ptr(w2), ptr(w3), ptr(wd), ptr(vecs["a1"]), ptr(vecs["b1"]), ptr(vecs["a2"]),
+            ptr(vecs["b2"]), ptr(vecs["a3"]), ptr(vecs["b3"]), ptr(ad), ptr(vecs.get("bd")), ptr(out),
+            b, h, w, cin, cw, cout, stride, rows, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel C launch failed: cudaError {err}")
+    return out
+
+
+def _run(x, w1, w2, w3, vecs, stride, wd, short_mul, rows, plain, counter) -> torch.Tensor:
+    """The plain version on a CPU tensor (or with ``plain=True``), else kernel
+    C; ``counter`` is the wrapper whose ``launches`` a launch adds one to."""
+    if short_mul is not None and not isinstance(short_mul, torch.Tensor):
+        short_mul = torch.tensor(float(short_mul), dtype=torch.float32, device=x.device)
+    _check(x, w1, w2, w3, vecs, stride, wd, short_mul)
+    if plain or x.device.type == "cpu":
+        return qbottleneck_plain(x, w1, w2, w3, **vecs, stride=stride, short_mul=short_mul, wd=wd)
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel C runs on CUDA tensors; got {x.device}")
+    out = _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows)
+    if out.numel():
+        counter.launches += 1
+    return out
+
+
+def qbottleneck(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, short_mul=None, wd=None, ad=None, bd=None,
+                rows: Optional[int] = None, plain: bool = False) -> torch.Tensor:
+    """Fused stride-1 bottleneck (K2): x ``[B, H, W, Cin]`` int8 ->
+    ``[B, H, W, Cout]`` int8.  Identity shortcut: ``short_mul`` (requires
+    Cin == Cout); projection: ``wd``, ``ad``, ``bd``.
+
+    On a CPU tensor this is :func:`qbottleneck_plain`; on a CUDA tensor it
+    launches kernel C or raises.  ``plain=True`` runs the plain version on
+    any device, for the comparison only.  ``rows`` overrides the band height
+    (:func:`pick_rows`); the result does not depend on it.
+    ``qbottleneck.launches`` counts kernel launches.
+    """
+    vecs = dict(a1=a1, b1=b1, a2=a2, b2=b2, a3=a3, b3=b3)
+    if wd is not None:
+        vecs.update(ad=ad, bd=bd)
+    return _run(x, w1, w2, w3, vecs, 1, wd, short_mul, rows, plain, qbottleneck)
+
+
+def qbottleneck_s2(x, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd, *, rows: Optional[int] = None,
+                   plain: bool = False) -> torch.Tensor:
+    """Fused stride-2 bottleneck with its projection shortcut (K3):
+    x ``[B, H, W, Cin]`` int8 -> ``[B, (H+1)//2, (W+1)//2, Cout]`` int8.
+    Device rules as :func:`qbottleneck`; ``qbottleneck_s2.launches`` counts
+    kernel launches."""
+    vecs = dict(a1=a1, b1=b1, a2=a2, b2=b2, a3=a3, b3=b3, ad=ad, bd=bd)
+    return _run(x, w1, w2, w3, vecs, 2, wd, None, rows, plain, qbottleneck_s2)
+
+
+qbottleneck.launches = 0
+qbottleneck_s2.launches = 0

@@ -1,0 +1,428 @@
+"""The int8-backbone slice of the port against the JAX package (CPU, f32).
+
+  (a) quantization primitives, bit-exact against ``ops/quant.py``;
+  (b) calibration and quantization of the same ResNet-50 weights;
+  (c) one bottleneck: the port's plain version bit-exact against the JAX
+      XLA oracle's block math, and the JAX Pallas kernels (interpret mode)
+      on the same inputs;
+  (d) the 16-block ladder from the JAX stem's int8 output, bit-exact;
+  (e) the whole int8-backbone serving slice from uint8 frames.
+
+Inputs come from numpy seeds and reach both frameworks as numpy arrays.
+JAX is imported inside the functions that use it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from pytorch_object_detection_tpu_torch.eval.evaluator import IMAGENET_MEAN, IMAGENET_STD, make_eval_pipeline_int8
+from pytorch_object_detection_tpu_torch.models.registry import build_model
+from pytorch_object_detection_tpu_torch.nn import resnet_int8
+from pytorch_object_detection_tpu_torch.ops import quant
+from pytorch_object_detection_tpu_torch.ops.boxes import pairwise_iou
+from pytorch_object_detection_tpu_torch.train.checkpoints import load_backbone_qtree, load_flax_variables
+from pytorch_object_detection_tpu_torch.train.trainer import (
+    _backbone_int8_feats,
+    make_eval_forward_int8,
+    quantize_backbone,
+)
+from torch_port_fixtures import (
+    BATCH,
+    FEATURES,
+    NUM_CLASSES,
+    STRIDES,
+    jax_model,
+    perturbed_variables,
+    port_block,
+    rand_qblock,
+    run_port_block,
+)
+
+LADDER_HW = (96, 80)  # stem output 24x20; stages 24x20, 12x10, 6x5, 3x3 (odd, not powers of two)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------- (a)
+
+def test_quant_primitives_bit_exact():
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.ops import quant as jq
+
+    rng = np.random.default_rng(0)
+    w = rng.normal(0.0, 0.05, (3, 3, 32, 48)).astype(np.float32)
+    w[..., 5] = 0.0  # an all-zero channel takes the eps floor
+    wq_j, s_j = jq.weight_qparams(jnp.asarray(w))
+    wq_t, s_t = quant.weight_qparams(torch.from_numpy(w))
+    np.testing.assert_array_equal(_np(wq_t), np.asarray(wq_j))
+    np.testing.assert_array_equal(_np(s_t), np.asarray(s_j))
+
+    for absmax in (0.0, 1e-20, 3.7, 250.0):
+        np.testing.assert_array_equal(_np(quant.act_scale(absmax)), np.asarray(jq.act_scale(absmax)))
+    scale = jq.act_scale(10.0)
+    # ties at every half step (round half to even), the clip, and random values
+    x = np.concatenate([np.arange(-130, 130, 0.5, dtype=np.float32) * np.float32(scale),
+                        rng.normal(0, 6, 4096).astype(np.float32)])
+    np.testing.assert_array_equal(_np(quant.quantize_act(torch.from_numpy(x), torch.from_numpy(np.array(scale)))),
+                                  np.asarray(jq.quantize_act(jnp.asarray(x), scale)))
+    acc = rng.integers(-2**26, 2**26, 8192).astype(np.float32)
+    mul = (np.abs(rng.normal(size=8192)) * 1e-6).astype(np.float32)
+    shift = rng.normal(0, 4, 8192).astype(np.float32)
+    for relu in (True, False):
+        got = quant.requantize(torch.from_numpy(acc), torch.from_numpy(mul), torch.from_numpy(shift), relu)
+        np.testing.assert_array_equal(_np(got), np.asarray(jq.requantize(jnp.asarray(acc), mul, shift, relu)))
+
+
+# ---------------------------------------------------------------- shared set-up
+
+@pytest.fixture(scope="module")
+def backbones():
+    """The same ResNet-50 weights in both packages, a calibration batch, and
+    both sides' taps and qtrees."""
+    import jax
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.nn import resnet_int8 as jr
+
+    params, stats = perturbed_variables(seed=2)
+    jvars = {"params": params["backbone"], "batch_stats": stats["backbone"]}
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    load_flax_variables(model, params, stats)
+    images = np.random.default_rng(3).normal(0, 1, (BATCH, *LADDER_HW, 3)).astype(np.float32)
+    jtaps = jax.jit(lambda v, x: jr.calibrate_resnet50(v, x, jnp.float32))(jvars, jnp.asarray(images))
+    jtaps = {k: float(v) for k, v in jtaps.items()}
+    ttaps = resnet_int8.calibrate_resnet50(model.backbone, torch.from_numpy(images), torch.float32)
+    jq = jax.tree_util.tree_map(np.asarray, jr.quantize_resnet50(jvars, jtaps))
+    return dict(jvars=jvars, model=model, images=images, jtaps=jtaps, ttaps=ttaps, jqtree=jq)
+
+
+# ---------------------------------------------------------------- (b)
+
+def test_calibration_taps_match_jax(backbones):
+    """Both float forwards run the same f32 ops in another summation order
+    (oneDNN vs XLA:CPU convolutions, K up to 4608), and that rounding noise
+    grows over the 16 blocks: the largest relative difference of the 49
+    taps was 1.22e-6 (layer3_3.a1) on an x86-64 CPU, so rtol 1e-6 is
+    too tight.  rtol 1e-5 keeps an order of magnitude of margin; a wrong
+    fold or a missed BN moves a tap by 1e-2 or more."""
+    jtaps, ttaps = backbones["jtaps"], backbones["ttaps"]
+    assert sorted(ttaps) == sorted(jtaps) and len(ttaps) == 49
+    rel = {k: abs(ttaps[k] - jtaps[k]) / abs(jtaps[k]) for k in jtaps}
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 1e-5, f"{worst}: relative difference {rel[worst]:.3g}"
+
+
+def test_quantize_resnet50_matches_jax(backbones):
+    """From the same taps: scales and the A vectors within rtol 1e-6, the B
+    vectors within 4 ulps of their largest value, int8 weights identical
+    but for a bounded count.
+
+    Both sides fold BN with rsqrt, and torch's and XLA:CPU's rsqrt round
+    differently (neither is correctly rounded: they disagree on about a
+    third of f32 inputs), so ``mult`` differs by an ulp.  A = s_in * sw /
+    s_out carries that as an ulp of relative error.  B = (bias - mean *
+    mult) / s_out cancels where bias is close to mean * mult, so its
+    error is an ulp of the terms, not of B: measured up to 1.50 ulps of
+    max|B| (layer4_0.B1).  An ulp of the fold moves a weight's int8 value
+    only where w / scale lies within about 1e-7 of a half step: 7 of the
+    23.4 M weights differ here, bounded at 0.001 %."""
+    port = resnet_int8.quantize_resnet50(backbones["model"].backbone, backbones["jtaps"])
+    want = load_backbone_qtree(backbones["jqtree"])
+    n_diff = n_all = 0
+    for scope, blk in want.items():
+        if scope == "stem":
+            for k, v in blk["bn"].items():
+                torch.testing.assert_close(port["stem"]["bn"][k], v, rtol=0, atol=0)
+            torch.testing.assert_close(port["stem"]["kernel"], blk["kernel"], rtol=0, atol=0)
+            continue
+        if scope == "stem_scale":
+            torch.testing.assert_close(port[scope], blk, rtol=0, atol=0)
+            continue
+        assert sorted(port[scope]) == sorted(blk), scope
+        for k, v in blk.items():
+            if v.dtype == torch.int8:
+                assert port[scope][k].shape == v.shape, (scope, k)
+                n_diff += int((port[scope][k] != v).sum())
+                n_all += v.numel()
+            elif k.startswith("B"):
+                atol = 4 * torch.finfo(torch.float32).eps * float(v.abs().max())
+                torch.testing.assert_close(port[scope][k], v, rtol=0, atol=atol, msg=f"{scope}.{k}")
+            else:
+                torch.testing.assert_close(port[scope][k], v, rtol=1e-6, atol=0, msg=f"{scope}.{k}")
+    assert n_all == 23445504 and n_diff <= n_all // 100000, n_diff
+
+
+def test_load_backbone_qtree_rejects_bad_trees(backbones):
+    import copy
+
+    jq = backbones["jqtree"]
+    bad = copy.deepcopy(jq)
+    del bad["layer2_1"]["A2"]
+    with pytest.raises(KeyError, match="missing"):
+        load_backbone_qtree(bad)
+    bad = copy.deepcopy(jq)
+    bad["layer2_1"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="unused"):
+        load_backbone_qtree(bad)
+    bad = copy.deepcopy(jq)
+    bad["layer3_0"]["w2"] = bad["layer3_0"]["w2"][:, :, :128]
+    with pytest.raises(ValueError, match="layer3_0/w2"):
+        load_backbone_qtree(bad)
+    bad = copy.deepcopy(jq)
+    bad["stem_s2d"] = {"w": np.zeros((256, 64), np.int8)}  # the documented u8-stem entry is dropped
+    assert "stem_s2d" not in load_backbone_qtree(bad)
+
+
+# ---------------------------------------------------------------- (c)
+
+def _jax_oracle_block(x, blk, stride):
+    """The XLA oracle's block math, nn/resnet_int8.py:547-555, verbatim."""
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.nn.resnet_int8 import INT8_MAX, _qconv, requantize
+
+    a1 = requantize(_qconv(x, blk["w1"]), blk["A1"], blk["B1"])
+    a2 = requantize(_qconv(a1, blk["w2"], stride), blk["A2"], blk["B2"])
+    pre = _qconv(a2, blk["w3"]) * blk["A3"] + blk["B3"]
+    if "wd" in blk:
+        short = _qconv(x, blk["wd"], stride) * blk["Ad"] + blk["Bd"]
+    else:
+        short = x.astype(jnp.float32) * blk["short_mul"]
+    y = jnp.maximum(pre + short, 0.0)
+    return np.asarray(jnp.clip(jnp.round(y), -INT8_MAX, INT8_MAX).astype(jnp.int8))
+
+
+def _jax_pallas_block(x, blk, stride):
+    """The JAX Pallas kernels in interpret mode (even sizes only)."""
+    from pytorch_object_detection_tpu.ops.pallas_qblock import qbottleneck, qbottleneck_s2
+
+    cw = blk["w1"].shape[-1]
+    common = (x, blk["w1"].reshape(-1, cw), blk["w2"], blk["w3"].reshape(cw, -1))
+    vecs = [blk[k] for k in ("A1", "B1", "A2", "B2", "A3", "B3")]
+    if stride == 2:
+        out = qbottleneck_s2(*common, blk["wd"][0, 0], *vecs, blk["Ad"], blk["Bd"], interpret=True)
+    elif "wd" in blk:
+        out = qbottleneck(*common, *vecs, wd=blk["wd"][0, 0], ad=blk["Ad"], bd=blk["Bd"], interpret=True)
+    else:
+        out = qbottleneck(*common, *vecs, short_mul=blk["short_mul"], interpret=True)
+    return np.asarray(out)
+
+
+# (name, H, W, Cin, Cw, Cout, stride, projection)
+BLOCK_CASES = [
+    ("identity", 16, 16, 64, 16, 64, 1, False),
+    ("projection", 16, 16, 32, 16, 64, 1, True),
+    ("stride2", 16, 16, 64, 32, 128, 2, True),
+    ("nonpow2", 12, 20, 64, 16, 64, 1, False),
+    ("stride2_nonpow2", 12, 20, 64, 16, 128, 2, True),
+    ("stride2_odd", 13, 11, 32, 16, 64, 2, True),
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=[c[0] for c in BLOCK_CASES])
+def test_plain_block_bit_exact_vs_jax_oracle(case):
+    import jax.numpy as jnp
+
+    name, h, w, cin, cw, cout, stride, projection = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    blk = rand_qblock(rng, cin, cw, cout, projection)
+    x = rng.integers(-127, 128, (2, h, w, cin)).astype(np.int8)
+    want = _jax_oracle_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in blk.items()}, stride)
+    got = run_port_block(port_block(blk), torch.from_numpy(x), stride)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    np.testing.assert_array_equal(_np(got), want)
+    assert 0 < (want > 0).mean() and (want == 127).mean() < 0.05  # the case is not degenerate
+
+    if h % 2 or w % 2:
+        return  # the Pallas kernels take even sizes only
+    pallas = _jax_pallas_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in blk.items()}, stride)
+    n_diff = int((pallas != want).sum())
+    # The Pallas kernel adds the projection as ((acc3*A3 + B3) + accd*Ad) + Bd,
+    # the oracle as (acc3*A3 + B3) + (accd*Ad + Bd): a finding about the JAX
+    # package (ROADMAP queue 3), not a fault of the port.  The identity
+    # shortcut associates alike in both.
+    print(f"{name}: JAX Pallas kernel vs JAX oracle: {n_diff} of {want.size} int8 elements differ, "
+          f"max |diff| {int(np.abs(pallas.astype(int) - want).max())}")
+    assert np.abs(pallas.astype(int) - want).max() <= 1
+    if not projection:
+        assert n_diff == 0
+
+
+# ---------------------------------------------------------------- (d)
+
+def test_ladder_bit_exact_vs_jax_oracle(backbones):
+    """C3..C5 int8 from the JAX stem's int8 output, with the JAX qtree
+    carried across by load_backbone_qtree: bit-exact, on both of the port's
+    backends (kernel C's plain version on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.nn import resnet_int8 as jr
+
+    jq, images = backbones["jqtree"], jnp.asarray(backbones["images"])
+    mult, shift = jr._fold_bn(*jq["stem"]["bn"])
+    x = jr._conv_bn_act(images, jnp.asarray(jq["stem"]["kernel"]), mult, shift, stride=2)
+    x = jax.lax.reduce_window(x, -jnp.inf, jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
+                              [(0, 0), (1, 1), (1, 1), (0, 0)])
+    x_q = np.asarray(jr.quantize_act(x, jq["stem_scale"]))
+    want, _ = jr.resnet50_int8_forward(jq, images, jnp.float32, backend="xla", dequant=False)
+    qtree = load_backbone_qtree(jq)
+    for backend in ("xla", "pallas_block"):
+        got = resnet_int8.resnet50_int8_ladder(qtree, torch.from_numpy(x_q), backend)
+        assert len(got) == 4
+        for (g, _), wnt in zip(got[-3:], want):
+            assert g.shape == wnt.shape
+            np.testing.assert_array_equal(_np(g), np.asarray(wnt))
+
+
+def test_int8_stems_agree_and_unported_options_raise(backbones):
+    """The two stems (float pool then quantize; quantize then int8 pool) are
+    bit-identical: max commutes with the monotone quantize."""
+    qtree = resnet_int8.quantize_resnet50(backbones["model"].backbone, backbones["ttaps"])
+    images = torch.from_numpy(backbones["images"])
+    xla, s_xla = _backbone_int8_feats(qtree, images)
+    blk, s_blk = _backbone_int8_feats(qtree, images, backend="pallas_block", fuse_strided=True)
+    for a, b in zip(xla, blk):
+        assert a.dtype == torch.int8 and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(s_xla, s_blk))
+    with pytest.raises(NotImplementedError, match="K4"):
+        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas")
+    with pytest.raises(NotImplementedError, match="fuse_strided"):
+        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_block", fuse_strided=False)
+    with pytest.raises(NotImplementedError, match="K1"):
+        resnet_int8.resnet50_int8_forward(qtree, images, u8_stem=True)
+
+
+# ---------------------------------------------------------------- the folded HisFPN
+
+def test_hisfpn_folded_matches_jax():
+    """``nn/fused_fpn.hisfpn_folded_forward`` against the JAX function of the
+    same name, from the same numpy C3..C5 and weights, f32: P3..P7 within
+    ``assert_close_to_ref`` (1e-4 of the range; only summation order and the
+    fold's rounding differ).  The unfolded module forward agrees as well."""
+    import jax
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.nn.fused_fpn import hisfpn_folded_forward as jax_folded
+
+    from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN
+    from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
+    from torch_port_fixtures import assert_close_to_ref, nchw, nhwc
+
+    params, stats = perturbed_variables(seed=6)
+    rng = np.random.default_rng(7)
+    feats = [np.abs(rng.normal(0, 1, (BATCH, 16 // 2**i, 16 // 2**i, c))).astype(np.float32)
+             for i, c in enumerate((512, 1024, 2048))]
+    want = jax.jit(lambda p, s, f: jax_folded(p, s, f, jnp.float32))(params["fpn"], stats["fpn"], feats)
+    fpn = load_flax_variables(HisFPN((512, 1024, 2048), FEATURES), params["fpn"], stats["fpn"]).eval()
+    with torch.no_grad():
+        got = hisfpn_folded_forward(fpn, [nchw(f) for f in feats], torch.float32)
+        unfolded = fpn([nchw(f) for f in feats])
+    assert len(got) == 5
+    for i, (g, u, w) in enumerate(zip(got, unfolded, want)):
+        assert g.dtype == torch.float32
+        assert_close_to_ref(nhwc(g), np.asarray(w), f"P{i + 3} folded vs JAX")
+        assert_close_to_ref(nhwc(g), nhwc(u), f"P{i + 3} folded vs the module")
+
+
+# ---------------------------------------------------------------- (e)
+
+CANVAS = 256
+# The int8 ladder is exact (test d), but its input is not: the two stems'
+# f32 convs differ in summation order (about 1e-7 of the range), so a stem
+# value that lies that close to a quantization half step rounds the other
+# way.  With the JAX qtree carried across, 1 of the 524,288 stem int8 values
+# of this case flips; each flip moves the next accumulators by a weight's
+# worth, which flips more values block after block, and at C5 14 % of the
+# int8 values differ by up to 8 steps.  The port's own calibration differs
+# from JAX's by f32 ulps (test b), which moves every requant boundary as
+# well.  Measured on an x86-64 CPU, port pipeline vs JAX composition:
+# max abs error up to 0.117 of a level's range (reg, stride 8) and cosine
+# at least 0.99669 (cnt, stride 8).  Tolerances: 0.25 of the range and
+# cosine >= 0.99 per level; a graft or layout error gives cosines far
+# below 0.9.
+LEVEL_ERR = 0.25
+LEVEL_COS = 0.99
+
+
+@pytest.fixture(scope="module")
+def slice_runs():
+    import jax
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.ops.postprocess import decode_detections
+    from pytorch_object_detection_tpu.train import trainer as jt
+
+    params, stats = perturbed_variables(seed=4)
+    frames = np.random.default_rng(5).integers(0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)
+    norm = ((frames.astype(np.float32) / np.float32(255.0) - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32))
+    variables = {"params": params, "batch_stats": stats}
+    jqtree = jt.quantize_backbone(jax_model(), variables, jnp.asarray(norm), compute_dtype=jnp.float32)
+    jfwd = jt.make_eval_forward_int8(jax_model(), compute_dtype=jnp.float32, backend="xla", int8_fpn=False)
+    x = (jnp.asarray(frames).astype(jnp.float32) / 255.0 - jnp.asarray(IMAGENET_MEAN)) / jnp.asarray(IMAGENET_STD)
+    jlevels = jax.jit(jfwd)(jqtree, params, stats, x)
+    jdets = decode_detections(*jlevels, STRIDES, 0.05, 0.6, 1000, (CANVAS, CANVAS))
+
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    load_flax_variables(model, params, stats)
+    pipe = make_eval_pipeline_int8(model, torch.from_numpy(norm), STRIDES, (CANVAS, CANVAS), int8_fpn=False,
+                                   compute_dtype=torch.float32)
+    levels = pipe.forward_levels(torch.from_numpy(frames))
+    return {
+        "jax_levels": tuple([np.asarray(t) for t in branch] for branch in jlevels),
+        "jax_dets": [np.asarray(a) for a in jdets],
+        "levels": levels, "dets": pipe.decode(levels), "pipe": pipe, "model": model, "norm": norm,
+    }
+
+
+@pytest.mark.parametrize("branch", [0, 1, 2], ids=["cls", "cnt", "reg"])
+def test_int8_slice_levels_match_jax(slice_runs, branch):
+    for i, (got, want) in enumerate(zip(slice_runs["levels"][branch], slice_runs["jax_levels"][branch])):
+        got = _np(got)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        err = float(np.abs(got - want).max())
+        rng = float(np.abs(want).max())
+        cos = float((got * want).sum() / (np.linalg.norm(got) * np.linalg.norm(want)))
+        assert err <= LEVEL_ERR * rng and cos >= LEVEL_COS, \
+            f"branch {branch} level {i}: max abs err {err:.4g} (range {rng:.4g}), cosine {cos:.8f}"
+
+
+def test_int8_slice_detections_match_jax(slice_runs):
+    """At least 90 of each image's top-100 JAX detections have a port
+    detection of the same class at IoU > 0.7 (measured: 100 of 100 for both
+    images).  The float slice's test asks IoU > 0.99; here the regression
+    maps differ by up to 0.117 of their range (see LEVEL_ERR), so boxes
+    move by a few pixels (at IoU > 0.9, 82 and 59 of 100 match)."""
+    scores, classes, boxes, valid = slice_runs["jax_dets"]
+    dets = slice_runs["dets"]
+    for b in range(BATCH):
+        want_idx = np.nonzero(valid[b])[0][:100]
+        assert len(want_idx) == 100
+        got_v = dets.valid[b]
+        assert torch.isfinite(dets.scores[b]).all() and torch.isfinite(dets.boxes[b]).all()
+        iou = pairwise_iou(torch.from_numpy(boxes[b][want_idx]), dets.boxes[b][got_v])
+        same_class = torch.from_numpy(classes[b][want_idx])[:, None] == dets.classes[b][got_v][None, :]
+        matched = ((iou > 0.7) & same_class).any(dim=1)
+        assert int(matched.sum()) >= 90, int(matched.sum())
+
+
+def test_int8_pipeline_options(slice_runs):
+    model, norm = slice_runs["model"], torch.from_numpy(slice_runs["norm"])
+    args = (model, norm, STRIDES, (CANVAS, CANVAS))
+    with pytest.raises(NotImplementedError, match="int8_fpn"):
+        make_eval_pipeline_int8(*args)  # the JAX default int8_fpn=True waits for its slice
+    for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
+        with pytest.raises(NotImplementedError, match=what):
+            make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
+    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True), "K5"),
+                     (dict(backend="pallas"), "K11"), (dict(fuse_strided=False), "fuse_strided"),
+                     (dict(u8_input=True), "K1")):
+        with pytest.raises(NotImplementedError, match=what):
+            fwd = make_eval_forward_int8(model, torch.float32, **kw)
+            fwd(quantize_backbone(model, norm[:1, :64, :64], torch.float32), norm[:1, :64, :64])
+    four = make_eval_pipeline_int8(*args[:2], STRIDES[:4], (CANVAS, CANVAS), int8_fpn=False,
+                                   compute_dtype=torch.float32)
+    assert four.decode(slice_runs["levels"]).scores.shape[1] == min(1000, sum((CANVAS // s) ** 2 for s in STRIDES[:4]))
+    with pytest.raises(ValueError, match="strides"):
+        make_eval_pipeline_int8(*args[:2], STRIDES[:3], (CANVAS, CANVAS), int8_fpn=False,
+                                compute_dtype=torch.float32).decode(slice_runs["levels"])

@@ -1,4 +1,4 @@
-"""Kernels A (NMS) and B (GroupNorm) against their plain versions.
+"""Kernels A (NMS), B (GroupNorm) and C (int8 bottleneck) against their plain versions.
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -6,17 +6,19 @@ This file imports no JAX, so it runs on the card's machine, which has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_kernels.py
 
 The CPU cases check what the wrappers do without a card: plain version,
-no launch counted.
+no launch counted, bad operands refused.
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
 from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_nms, cuda_nms_keep_mask
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
-from torch_port_fixtures import ADVERSARIAL_KEEP, nms_case
+from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
+from torch_port_fixtures import ADVERSARIAL_KEEP, nms_case, port_block, rand_qblock, resnet50_block_shapes, run_port_block
 
 # (C, H=W) of the head's GroupNorms at the 512x512 canvas: stem_gn1/2 on
 # 2*256 channels, cls/reg on 256, levels 64x64 .. 4x4
@@ -114,3 +116,92 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     assert torch.equal(groupnorm_act(x, scale, bias, act="relu"),
                        groupnorm_act_plain(x, scale, bias, act="relu"))
     assert (groupnorm_act.launches, cuda_nms_keep_mask.launches) == (gn_before, nms_before)
+
+
+# (name, H, W, Cin, Cw, Cout, stride, projection): identity, projection and
+# stride 2, then odd and not-power-of-two maps at both strides
+QBLOCK_CASES = [
+    ("identity", 16, 16, 64, 16, 64, 1, False),
+    ("projection", 16, 16, 32, 16, 64, 1, True),
+    ("stride2", 16, 16, 64, 32, 128, 2, True),
+    ("odd", 13, 11, 64, 32, 64, 1, False),
+    ("odd_stride2", 13, 11, 32, 16, 64, 2, True),
+    ("nonpow2", 12, 20, 64, 16, 64, 1, False),
+    ("nonpow2_stride2", 24, 40, 64, 16, 128, 2, True),
+]
+
+
+def _qblock_case(cin, cw, cout, projection, b, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    blk = port_block(rand_qblock(rng, cin, cw, cout, projection), device)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)).to(device)
+    return blk, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QBLOCK_CASES, ids=[c[0] for c in QBLOCK_CASES])
+def test_qblock_kernel_matches_plain_exactly(cuda, case):
+    """0 differing int8 elements against the plain version on the card and
+    on the CPU, whatever the band height (``rows`` 3 leaves a ragged last
+    band); each launch adds one to its own wrapper's count only."""
+    name, h, w, cin, cw, cout, stride, projection = case
+    blk, x = _qblock_case(cin, cw, cout, projection, 2, h, w, sum(map(ord, name)), cuda)
+    want = run_port_block(blk, x, stride, plain=True)
+    cpu = run_port_block({k: v.cpu() for k, v in blk.items()}, x.cpu(), stride)
+    assert torch.equal(want.cpu(), cpu)
+    counter, other = (qbottleneck_s2, qbottleneck) if stride == 2 else (qbottleneck, qbottleneck_s2)
+    for rows in (None, 1, 3):
+        before = (counter.launches, other.launches)
+        got = run_port_block(blk, x, stride, rows=rows)
+        torch.cuda.synchronize()
+        assert (counter.launches, other.launches) == (before[0] + 1, before[1])
+        assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
+        n_diff = int((got != want).sum())
+        assert n_diff == 0, f"{name} rows={rows}: {n_diff} of {want.numel()} int8 elements differ"
+    assert 0 < (want > 0).float().mean() and (want == 127).float().mean() < 0.05  # not degenerate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", resnet50_block_shapes(), ids=[s[0] for s in resnet50_block_shapes()])
+def test_qblock_kernel_at_resnet50_shapes(cuda, shape):
+    """The 16 bottlenecks of ResNet-50 at the 512x512 canvas, B=2: 0 differing elements."""
+    scope, h, w, cin, cw, cout, stride = shape
+    blk, x = _qblock_case(cin, cw, cout, scope.endswith("_0"), 2, h, w, len(scope) + h, cuda)
+    got = run_port_block(blk, x, stride)
+    want = run_port_block(blk, x, stride, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == (2, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    assert torch.equal(got, want), f"{scope}: {int((got != want).sum())} int8 elements differ"
+
+
+@pytest.mark.cuda
+def test_qblock_kernel_rejects_other_layouts(cuda):
+    blk, x = _qblock_case(64, 16, 64, False, 2, 8, 8, 0, cuda)
+    with pytest.raises(ValueError):  # NCHW
+        run_port_block(blk, x.permute(0, 3, 1, 2).contiguous(), 1)
+    with pytest.raises(ValueError):  # not int8
+        run_port_block(blk, x.float(), 1)
+    with pytest.raises(ValueError):  # NHWC-shaped but not contiguous
+        run_port_block(blk, x.transpose(1, 2), 1)
+    with pytest.raises(ValueError):  # a weight on another device
+        run_port_block(dict(blk, w2=blk["w2"].cpu()), x, 1)
+
+
+def test_qblock_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
+    from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck_plain
+
+    before = (qbottleneck.launches, qbottleneck_s2.launches)
+    for stride, projection in ((1, False), (1, True), (2, True)):
+        blk, x = _qblock_case(32, 16, 32 if not projection else 64, projection, 2, 9, 7, stride, "cpu")
+        got = run_port_block(blk, x, stride)
+        vecs = {k.lower(): blk[k] for k in ("A1", "B1", "A2", "B2", "A3", "B3")}
+        short = (dict(wd=blk["wd"], ad=blk["Ad"], bd=blk["Bd"]) if projection
+                 else dict(short_mul=torch.tensor(float(blk["short_mul"]))))
+        assert torch.equal(got, qbottleneck_plain(x, blk["w1"], blk["w2"], blk["w3"], **vecs, stride=stride,
+                                                  **short))
+    assert (qbottleneck.launches, qbottleneck_s2.launches) == before
+    blk, x = _qblock_case(32, 16, 32, False, 1, 8, 8, 0, "cpu")
+    with pytest.raises(ValueError, match="int8"):
+        run_port_block(blk, x.float(), 1)
+    with pytest.raises(ValueError):  # NCHW: w1 does not match the channel dim
+        run_port_block(blk, x.permute(0, 3, 1, 2).contiguous(), 1)

@@ -142,3 +142,69 @@ def nms_case(name):
 
 
 ADVERSARIAL_KEEP = np.array([[1, 0, 0, 1, 1, 1, 1, 0, 0]], bool)
+
+
+def resnet50_block_shapes(canvas=(512, 512)):
+    """(scope, H, W, Cin, Cw, Cout, stride) of the 16 ResNet-50 bottlenecks
+    at ``canvas``: H, W are the block's INPUT size (the stem divides by 4)."""
+    h, w = (canvas[0] - 1) // 2 + 1, (canvas[1] - 1) // 2 + 1  # 7x7/2 conv
+    h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1  # 3x3/2 pool
+    shapes, cin = [], 64
+    for stage, (blocks, cw) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for b in range(blocks):
+            stride = 2 if (b == 0 and stage > 0) else 1
+            shapes.append((f"layer{stage + 1}_{b}", h, w, cin, cw, 4 * cw, stride))
+            h, w, cin = (h - 1) // stride + 1, (w - 1) // stride + 1, 4 * cw
+    return shapes
+
+
+def rand_qblock(rng, cin, cw, cout, projection):
+    """Random int8 bottleneck in the JAX package's layout (HWIO kernels,
+    f32 epilogue vectors), scaled so that each requant lands mostly inside
+    +-127: an int8 x int8 sum over K terms has a standard deviation of
+    about 670 * sqrt(K) here, so A is drawn around 0.06 / sqrt(K); B shifts
+    values by a few steps.  Without a projection the block has
+    ``short_mul``."""
+    def w(*shape):
+        return rng.integers(-16, 16, shape).astype(np.int8)
+
+    def a(n, k):
+        return (np.abs(rng.normal(size=n)) * 0.06 / np.sqrt(k) + 1e-4).astype(np.float32)
+
+    def b(n):
+        return rng.normal(0.0, 5.0, n).astype(np.float32)
+
+    blk = {"w1": w(1, 1, cin, cw), "A1": a(cw, cin), "B1": b(cw),
+           "w2": w(3, 3, cw, cw), "A2": a(cw, 9 * cw), "B2": b(cw),
+           "w3": w(1, 1, cw, cout), "A3": a(cout, cw), "B3": b(cout)}
+    if projection:
+        blk.update(wd=w(1, 1, cin, cout), Ad=a(cout, cin), Bd=b(cout))
+    else:
+        blk["short_mul"] = np.float32(rng.uniform(0.3, 1.2))
+    return blk
+
+
+def port_block(blk, device="cpu"):
+    """A :func:`rand_qblock` dict as the port's tensors: int8 HWIO kernels
+    to ``[O, I]`` / ``[O, 3, 3, I]`` (the layout of ``ops/qblock.py``)."""
+    out = {}
+    for key, arr in blk.items():
+        arr = np.asarray(arr)
+        if arr.dtype == np.int8:
+            arr = arr.transpose(3, 0, 1, 2)
+            arr = arr.reshape(arr.shape[0], -1) if arr.shape[1] == 1 else arr
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return out
+
+
+def run_port_block(blk, x, stride, **kw):
+    """``ops/qblock.qbottleneck`` / ``qbottleneck_s2`` on a :func:`port_block`."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
+
+    vecs = [blk[k] for k in ("A1", "B1", "A2", "B2", "A3", "B3")]
+    common = (x, blk["w1"], blk["w2"], blk["w3"])
+    if stride == 2:
+        return qbottleneck_s2(*common, blk["wd"], *vecs, blk["Ad"], blk["Bd"], **kw)
+    if "wd" in blk:
+        return qbottleneck(*common, *vecs, wd=blk["wd"], ad=blk["Ad"], bd=blk["Bd"], **kw)
+    return qbottleneck(*common, *vecs, short_mul=blk["short_mul"], **kw)
