@@ -6,8 +6,10 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each prints its results on its own lines):
   1. device: nvidia-smi name and power limit; exit 1 without a CUDA device;
-  2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu) and C (csrc/qblock.cu)
-     from the sources, one nvcc per source, all started together;
+  2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu), C (csrc/qblock.cu), K1
+     (csrc/qstem.cu), K4 (csrc/qconv.cu), K5 (csrc/qhis.cu) and K6
+     (csrc/qpool.cu) from the sources, one nvcc per source, all started
+     together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
   4. kernel A vs its plain version: random [8,1000] boxes, the adversarial
@@ -26,9 +28,24 @@ Phases (each prints its results on its own lines):
   5c. kernel C vs its plain version at the 16 bottleneck shapes, B=8: on the
      ladder's own int8 activations and on random int8 inputs, with the
      calibrated weights; 0 differing elements;
-  6. timing with CUDA events: kernel vs plain for A, B and C (per block
-     shape), float and int8 pipeline images/s at B=8 and B=64;
-  6b/6c. torch.profiler breakdowns of one B=64 float and int8 pipeline call.
+  5d. the int8-FPN serving pipeline from raw uint8 frames: the same model
+     through make_eval_pipeline_int8(int8_fpn=True, int8_head=False) in bf16
+     (the JAX default int8_head=True raises, naming K7); launch counters (1
+     K1, 13 K2, 3 K3, 3 K4, 7 K5, 6 K6, 20 GN, 1 NMS per call), finite
+     detections, per-level maps against the plain pipeline, the uint8 stem
+     within one int8 step of the float stem (f32, TF32 off), cosine of each
+     dequantized int8 level against the BN-folded float HisFPN on the same
+     dequantized C3..C5 (>= 0.99);
+  5e. K1, K4, K5 and K6 vs their plain versions at the shapes of that call,
+     on its own inputs and on random ones: 0 differing elements for K1, K4
+     (and its residual variant) and K6, at most one step and under 5 %
+     differing for K5;
+  6. timing with CUDA events: kernel vs plain for A, B, C (per block
+     shape), K1, K4, K5 and K6, the library call where one PyTorch call
+     computes the same function, and each pipeline's images/s at B=8 and
+     B=64;
+  6b/6c/6d. torch.profiler breakdowns of one B=64 call of the float, the
+     int8-backbone and the int8-FPN pipeline.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -65,6 +82,22 @@ LEVEL_TOL = 2**-5
 # abs-max int8 keeps about two decimal digits of each activation
 INT8_COS_MIN = 0.99
 K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
+# launches in one call of the int8-FPN pipeline, by wrapper
+FPN_PIPELINE_LAUNCHES = {"qstem_conv": 1, "qbottleneck": 13, "qbottleneck_s2": 3, "qmatmul": 3, "qhisblock": 7,
+                         "qmaxpool2x2": 6, "groupnorm_act": 20, "cuda_nms_keep_mask": 1}
+# K5 against its plain version: SiLU/sigmoid through expf and the SE dots in
+# another order move an element by one int8 step now and then
+K5_MAX_STEP, K5_MAX_SHARE = 1, 0.05
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# device memory, int8 tensor-core operations, f32 on the CUDA cores
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1979e12, 67e12
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    work that moves ``nbytes`` and does ``ops`` operations at ``peak_ops``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Smoke:
@@ -117,24 +150,43 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(per_call)
 
 
+def host_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Milliseconds of host time per call of ``fn()``: ``iters`` calls
+    back to back on the host clock, with no wait for the card inside (a
+    few launches do not fill the launch queue), median over ``reps``
+    repetitions.  Where it exceeds the card's time per call, the host
+    bounds the calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t0) * 1000.0 / iters)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     # the port itself: fails here when the script stands without the repo
     from pytorch_object_detection_tpu_torch import _build
-    from pytorch_object_detection_tpu_torch.eval.evaluator import (
-        IMAGENET_MEAN,
-        IMAGENET_STD,
-        make_eval_pipeline,
-        make_eval_pipeline_int8,
-    )
+    from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline, make_eval_pipeline_int8
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
-    from pytorch_object_detection_tpu_torch.nn import resnet_int8
-    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock
+    from pytorch_object_detection_tpu_torch.nn import fpn_int8, resnet_int8
+    from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
+    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock, qconv, qhis, qpool, qstem
     from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
     smoke = Smoke()
@@ -156,7 +208,7 @@ def main() -> int:
         from concurrent.futures import ThreadPoolExecutor
 
         t0 = time.perf_counter()
-        libs = (gn._lib, cuda_nms._lib, qblock._lib)
+        libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib)
         with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
             for fut in [pool.submit(lib) for lib in libs]:
                 fut.result()  # a failed build raises here
@@ -357,22 +409,177 @@ def main() -> int:
                 x = nxt  # the plain ladder's output feeds the next block
         res["qblock_cases"], res["qblock_err"] = cases, float(worst)
 
+
+    fpn_counters = {"qstem_conv": qstem.qstem_conv, "qbottleneck": qblock.qbottleneck,
+                    "qbottleneck_s2": qblock.qbottleneck_s2, "qmatmul": qconv.qmatmul, "qhisblock": qhis.qhisblock,
+                    "qmaxpool2x2": qpool.qmaxpool2x2, "groupnorm_act": gn.groupnorm_act,
+                    "cuda_nms_keep_mask": cuda_nms.cuda_nms_keep_mask}
+
+    def record_fpn_calls(qtree_fpn, feats_q):
+        """One int8 HisFPN forward on the kernels, keeping the arguments of
+        each K4 (qconv1x1), K5 and K6 call: the kernels' real inputs."""
+        calls = {"qconv1x1": [], "qhisblock": [], "qmaxpool2x2": []}
+        saved = {name: getattr(fpn_int8, name) for name in calls}
+
+        def keep(name):
+            def wrapper(*args, **kw):
+                calls[name].append((args, kw))
+                return saved[name](*args, **kw)
+            return wrapper
+
+        try:
+            for name in calls:
+                setattr(fpn_int8, name, keep(name))
+            with torch.inference_mode():
+                fpn_int8.hisfpn_int8_forward(qtree_fpn, feats_q, backend="pallas", dequant=False)
+        finally:
+            for name, fn in saved.items():
+                setattr(fpn_int8, name, fn)
+        return calls
+
+    def cosine(a, b):
+        a, b = a.float(), b.float()
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    def phase5d():
+        model, frames, norm = res["model"], res["frames"], res["norm"]
+        args = (model, norm, default_strides(), CANVAS)
+        try:
+            make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16)
+            smoke.check(False, "int8_head=True (the JAX default) raises NotImplementedError")
+        except NotImplementedError as e:
+            smoke.check("K7" in str(e), f"int8_head=True (the JAX default) raises NotImplementedError: {e}")
+        t0 = time.perf_counter()
+        fpipe = make_eval_pipeline_int8(*args, int8_fpn=True, int8_head=False, compute_dtype=torch.bfloat16)
+        fplain = make_eval_pipeline_int8(*args, int8_fpn=True, int8_head=False, compute_dtype=torch.bfloat16,
+                                         plain=True)
+        fplain.qtree = fpipe.qtree  # one calibration for both, as in phase 5b
+        torch.cuda.synchronize()
+        print(f"  int8-FPN pipelines built (calibration on the 8 frames) in {time.perf_counter() - t0:.2f} s")
+        res.update(fpipe=fpipe, fplain=fplain)
+
+        # the main path, counted: counters to 0 just before, read just after
+        for counter in fpn_counters.values():
+            counter.launches = 0
+        dets = fpipe(frames)  # raw uint8 frames: no normalize pass
+        torch.cuda.synchronize()
+        res["fpn_launches"] = {k: c.launches for k, c in fpn_counters.items()}
+        print(f"  launches in one int8-FPN pipeline call (B=8): {res['fpn_launches']}")
+        smoke.check(res["fpn_launches"] == FPN_PIPELINE_LAUNCHES,
+                    "K1 1, K2 13, K3 3, K4 3, K5 7, K6 6, kernel B 20 and kernel A 1 launches per call")
+        smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
+                    and bool(torch.isfinite(dets.boxes).all()), "int8-FPN detections [8, 1000] and finite")
+        n_valid = dets.valid.sum(dim=1).tolist()
+        print(f"  int8-FPN valid detections per image: {n_valid}; top score {float(dets.scores[:, 0].max()):.4f}")
+        smoke.check(all(0 < n <= 1000 for n in n_valid), "every image has int8-FPN detections")
+
+        # kernel run vs plain run: K5's one-step flips pass through the later
+        # blocks and the head, so the maps are held by cosine, not by a bound
+        for name, got_b, want_b in zip(("cls", "cnt", "reg"), fpipe.forward_levels(frames),
+                                       fplain.forward_levels(frames)):
+            for i, (a, b) in enumerate(zip(got_b, want_b)):
+                c = cosine(a, b)
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                smoke.check(bool(torch.isfinite(a).all()) and c >= INT8_COS_MIN,
+                            f"int8-FPN {name} P{i + 3}: kernel vs plain pipeline cosine {c:.6f}, "
+                            f"max abs err {err:.4g} of the range")
+
+        qbb, qfpn = fpipe.qtree["backbone"], fpipe.qtree["fpn"]
+        with torch.inference_mode():
+            stem_q = qstem.qstem_conv(frames, qbb["stem_s2d"])
+            stem_f = resnet_int8.resnet50_int8_stem(qbb, norm, torch.float32, "xla")  # f32, TF32 off
+        d = (stem_q.int() - stem_f.int()).abs()
+        smoke.check(stem_q.shape == stem_f.shape and int(d.max()) <= 1,
+                    f"uint8 stem (K1) vs float stem (f32, pooled, quantized) {tuple(stem_q.shape)}: max "
+                    f"{int(d.max())} step, {float((d > 0).float().mean()):.4%} of elements differ")
+
+        with torch.inference_mode():
+            feats_q, scales = resnet_int8.resnet50_int8_forward(qbb, frames, torch.float32, backend="pallas_block",
+                                                                fuse_strided=True, dequant=False, u8_stem=True)
+            levels = fpn_int8.hisfpn_int8_forward(qfpn, feats_q, torch.float32, backend="pallas")
+            ref = hisfpn_folded_forward(model.fpn, [(q.float() * s).permute(0, 3, 1, 2).contiguous()
+                                                    for q, s in zip(feats_q, scales)], torch.float32)
+        cosines = []
+        for i, (lv, r) in enumerate(zip(levels, ref)):
+            c = cosine(lv, r.permute(0, 2, 3, 1))
+            cosines.append(c)
+            smoke.check(c >= INT8_COS_MIN, f"P{i + 3} {tuple(lv.shape)}: cosine of the dequantized int8 HisFPN "
+                                           f"vs the BN-folded float HisFPN (f32) {c:.6f} (min {INT8_COS_MIN})")
+        res["fpn_cos"] = cosines
+        res["fpn_calls"] = record_fpn_calls(qfpn, feats_q)
+        print(f"  recorded calls: {({k: len(v) for k, v in res['fpn_calls'].items()})}")
+
+    def phase5e():
+        frames, st = res["frames"], res["fpipe"].qtree["backbone"]["stem_s2d"]
+        calls = res["fpn_calls"]
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        err = {"qstem": 0, "qmatmul": 0, "qhisblock": 0, "qmaxpool2x2": 0}
+
+        def exact(key, got, want, what):
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            err[key] = max(err[key], int((got.int() - want.int()).abs().max()) if got.numel() else 0)
+            smoke.check(n_diff == 0 and got.shape == want.shape,
+                        f"{what} -> {tuple(got.shape)}: {n_diff} of {want.numel()} int8 elements differ")
+
+        with torch.inference_mode():
+            rand = torch.randint(0, 256, frames.shape, generator=g, device=dev, dtype=torch.uint8)
+            for what, fr in (("seeded frames", frames), ("random frames", rand)):
+                exact("qstem", qstem.qstem_conv(fr, st), qstem.qstem_conv(fr, st, plain=True),
+                      f"K1 {what} {tuple(fr.shape)}")
+            for (x, w, a, b), kw in calls["qconv1x1"]:
+                exact("qmatmul", qconv.qconv1x1(x, w, a, b), qconv.qconv1x1(x, w, a, b, plain=True),
+                      f"K4 lateral {tuple(x.shape)} x {tuple(w.shape)}")
+            (x, w, a, b), _ = calls["qconv1x1"][-1]  # tf3, the largest
+            r = torch.randint(-127, 128, (*x.shape[:3], w.shape[0]), generator=g, device=dev, dtype=torch.int8)
+            for relu in (True, False):
+                kw = dict(relu=relu, res=r, res_scale=torch.tensor(0.37, device=dev))
+                exact("qmatmul", qconv.qconv1x1(x, w, a, b, **kw), qconv.qconv1x1(x, w, a, b, plain=True, **kw),
+                      f"K4 residual variant relu={relu} {tuple(x.shape)}")
+            for (x,), _ in calls["qmaxpool2x2"]:
+                exact("qmaxpool2x2", qpool.qmaxpool2x2(x), qpool.qmaxpool2x2(x, plain=True), f"K6 {tuple(x.shape)}")
+            for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                rand_kw = dict(kw)
+                if kw.get("xb_q") is not None:
+                    rand_kw["xb_q"] = torch.randint(-127, 128, kw["xb_q"].shape, generator=g, device=dev,
+                                                    dtype=torch.int8)
+                rand_xa = torch.randint(-127, 128, xa.shape, generator=g, device=dev, dtype=torch.int8)
+                for what, (x_in, k_in) in (("pipeline", (xa, kw)), ("random", (rand_xa, rand_kw))):
+                    got = qhis.qhisblock(blk, x_in, **k_in)
+                    want = qhis.qhisblock(blk, x_in, plain=True, **k_in)
+                    torch.cuda.synchronize()
+                    d = (got.int() - want.int()).abs()
+                    step, share = int(d.max()), float((d > 0).float().mean())
+                    err["qhisblock"] = max(err["qhisblock"], step)
+                    smoke.check(step <= K5_MAX_STEP and share < K5_MAX_SHARE,
+                                f"K5 his{i + 1} {kw.get('combine')} {what} {tuple(x_in.shape)} -> "
+                                f"{tuple(got.shape)}: max {step} step, {share:.4%} of {want.numel()} differ, "
+                                f"{float((want != 0).float().mean()):.3f} nonzero")
+        res["fpn_err"] = err
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
         g = torch.Generator(device=dev).manual_seed(SEED + 3)
-        gn_k = gn_p = 0.0
+        gn_k = gn_p = gn_l = gn_bytes = gn_ops = 0.0
         for c, h in HEAD_SHAPES:
             x = torch.randn(8, c, h, h, generator=g, device=dev).to(torch.bfloat16)
             scale, bias = torch.ones(c, device=dev), torch.zeros(c, device=dev)
             with torch.inference_mode():
                 tk = cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu"))
                 tp = cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu", plain=True))
+                tl = cuda_ms(lambda: F.group_norm(x, 32, scale.to(x.dtype), bias.to(x.dtype), 1e-5))
             gn_k += 2 * tk  # two GNs of this width per level
             gn_p += 2 * tp
-            print(f"  GN bf16 B=8 C={c} {h}x{h}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
-        print(f"  GN per forward (20 launches, B=8): kernel {gn_k:.4f} ms, plain {gn_p:.4f} ms {card}")
-        res["gn_ms"], res["gn_plain_ms"] = gn_k, gn_p
+            gn_l += 2 * tl
+            gn_bytes += 2 * (2 * x.numel() * 2 + 2 * c * 4)  # bf16 in and out, f32 scale and bias
+            gn_ops += 2 * 8 * x.numel()  # sum, sum of squares, normalize, affine, act: ~8 f32 ops each
+            print(f"  GN bf16 B=8 C={c} {h}x{h}: kernel {tk:.4f} ms, plain {tp:.4f} ms, F.group_norm {tl:.4f} ms")
+        print(f"  GN per forward (20 launches, B=8): kernel {gn_k:.4f} ms, plain {gn_p:.4f} ms, "
+              f"F.group_norm (act none) {gn_l:.4f} ms {card}")
+        res["gn_ms"], res["gn_plain_ms"], res["gn_lib_ms"] = gn_k, gn_p, gn_l
+        res["gn_bound"] = bound(gn_bytes, gn_ops, F32_OPS_S)
 
         boxes, classes, valid = res["nms_boxes"]
         scores = torch.linspace(1.0, 0.0, boxes.shape[1], device=dev).expand(boxes.shape[0], -1)
@@ -385,23 +592,40 @@ def main() -> int:
             print(f"  NMS B={b} K=1000 (pipeline boxes): kernel {tk:.4f} ms, plain {tp:.4f} ms {card}")
             if b == 8:
                 res["nms_ms"], res["nms_plain_ms"] = tk, tp
+                k = bx.shape[1]
+                # boxes, scores, classes, valid in, keep out; ~12 f32 ops per IoU pair
+                res["nms_bound"] = bound(b * k * (16 + 4 + 4 + 1 + 1), b * k * (k - 1) / 2 * 12, F32_OPS_S)
 
         qk = {1: 0.0, 2: 0.0}
         qp = {1: 0.0, 2: 0.0}
+        qwork = {1: [0.0, 0.0], 2: [0.0, 0.0]}  # bytes, operations
         with torch.inference_mode():
             for scope, stride, blk, x in res.get("qblock_cases", []):
                 tk = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block"))
                 tp = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block", plain=True))
                 qk[stride] += tk
                 qp[stride] += tp
+                b, h, w, cin = x.shape
+                cw, cout = blk["w1"].shape[0], blk["w3"].shape[0]
+                ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+                macs = b * (h * w * cin * cw + ho * wo * (9 * cw * cw + cw * cout + (cin * cout if "wd" in blk else 0)))
+                weights = sum(blk[k].numel() for k in ("w1", "w2", "w3", "wd") if k in blk)
+                qwork[stride][0] += x.numel() + b * ho * wo * cout + weights + 4 * (2 * cw * 2 + 4 * cout)
+                qwork[stride][1] += 2 * macs
                 print(f"  kernel C {scope} s{stride} B=8 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
         print(f"  kernel C per forward (B=8): K2 13 blocks kernel {qk[1]:.4f} ms, plain {qp[1]:.4f} ms; "
               f"K3 3 blocks kernel {qk[2]:.4f} ms, plain {qp[2]:.4f} ms {card}")
         res["qblock_ms"], res["qblock_plain_ms"] = qk, qp
+        res["qblock_bound"] = {st: bound(nb, ops, INT8_OPS_S) for st, (nb, ops) in qwork.items()}
+
+        if "fpn_calls" in res:
+            time_fpn_kernels()
 
         pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
         if "ipipe" in res:
             pipes += [("int8 kernels", res["ipipe"]), ("int8 plain", res["iplain"])]
+        if "fpipe" in res:
+            pipes += [("int8-FPN u8 kernels", res["fpipe"]), ("int8-FPN u8 plain", res["fplain"])]
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
             for name, p in pipes:
@@ -409,6 +633,75 @@ def main() -> int:
                 print(f"  pipeline B={b} bf16 512x512 ({name}): {ms:.3f} ms/batch, "
                       f"{b * 1000.0 / ms:.1f} img/s {card}")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def time_fpn_kernels():
+        """K1, K4, K5, K6 per B=8 forward of the int8-FPN pipeline, on the
+        inputs phase 5d recorded, against their plain versions and, where one
+        PyTorch call computes the same function, that call; each one's bound
+        from these inputs; and the wrappers' host time per forward."""
+        frames, st = res["frames"], res["fpipe"].qtree["backbone"]["stem_s2d"]
+        calls = res["fpn_calls"]
+        t, work, host = {}, {}, {}
+        with torch.inference_mode():
+            tk = cuda_ms(lambda: qstem.qstem_conv(frames, st))
+            host["qstem"] = host_ms(lambda: qstem.qstem_conv(frames, st))
+            tp = cuda_ms(lambda: qstem.qstem_conv(frames, st, plain=True))
+            b, h, w, _ = frames.shape
+            hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            out = b * ((hc - 1) // 2 + 1) * ((wc - 1) // 2 + 1) * 64
+            t["qstem"] = (tk, tp, None)
+            work["qstem"] = (frames.numel() + out + st["w7"].numel() + 8 * 64, 2 * b * hc * wc * 64 * 147,
+                             INT8_OPS_S)  # 7x7 taps over the 3 colour channels
+            print(f"  K1 u8 stem B=8 {tuple(frames.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+
+            tk = tp = th = nbytes = ops = 0.0
+            for (x, wt, a, bb), _ in calls["qconv1x1"]:
+                k1 = cuda_ms(lambda: qconv.qconv1x1(x, wt, a, bb))
+                th += host_ms(lambda: qconv.qconv1x1(x, wt, a, bb))
+                p1 = cuda_ms(lambda: qconv.qconv1x1(x, wt, a, bb, plain=True))
+                m, k, n = x.numel() // x.shape[-1], x.shape[-1], wt.shape[0]
+                tk, tp, nbytes, ops = tk + k1, tp + p1, nbytes + m * k + n * k + m * n + 8 * n, ops + 2 * m * k * n
+                print(f"  K4 lateral [{m}, {k}] x [{k}, {n}]: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+            t["qmatmul"], work["qmatmul"], host["qmatmul"] = (tk, tp, None), (nbytes, ops, INT8_OPS_S), th
+
+            tk = tp = th = nbytes = ops = 0.0
+            for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                k1 = cuda_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=10)
+                th += host_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=10)
+                p1 = cuda_ms(lambda: qhis.qhisblock(blk, xa, plain=True, **kw), iters=5)
+                xb = kw.get("xb_q")
+                b, h, w, cin = (xb if xb is not None else xa).shape
+                half, r = blk["w1"].shape[0], blk["se_w1"].shape[1]
+                macs = b * h * w * (2 * cin * half + 9 * half + 9 * cin * half + 9 * cin * cin) + b * 2 * half * r
+                weights = sum(blk[k].numel() for k in ("w1", "w2", "wdw", "w3", "w4"))
+                nbytes += xa.numel() + (xb.numel() if xb is not None else 0) + b * h * w * cin + weights
+                tk, tp, ops = tk + k1, tp + p1, ops + 2 * macs
+                print(f"  K5 his{i + 1} {kw.get('combine')} B=8 {h}x{w}x{cin}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+            t["qhisblock"], work["qhisblock"], host["qhisblock"] = (tk, tp, None), (nbytes, ops, INT8_OPS_S), th
+
+            tk = tp = tl = th = nbytes = ops = 0.0
+            for (x,), _ in calls["qmaxpool2x2"]:
+                k1 = cuda_ms(lambda: qpool.qmaxpool2x2(x))
+                th += host_ms(lambda: qpool.qmaxpool2x2(x))
+                p1 = cuda_ms(lambda: qpool.qmaxpool2x2(x, plain=True))
+                try:  # the library call, where PyTorch takes int8 on the card
+                    l1 = cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2))
+                except (RuntimeError, NotImplementedError) as e:
+                    print(f"  F.max_pool2d refuses int8 on the card: {str(e).splitlines()[0]}")
+                    l1 = None
+                out = x.numel() // 4
+                tk, tp, nbytes, ops = tk + k1, tp + p1, nbytes + x.numel() + out, ops + 3 * out
+                tl = None if l1 is None or tl is None else tl + l1
+                print(f"  K6 {tuple(x.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms, F.max_pool2d "
+                      f"{'none' if l1 is None else f'{l1:.4f} ms'}")
+            t["qmaxpool2x2"], work["qmaxpool2x2"], host["qmaxpool2x2"] = (tk, tp, tl), (nbytes, ops, F32_OPS_S), th
+        for key, (tk, tp, tl) in t.items():
+            b_ms, b_by = bound(*work[key])
+            print(f"  {key} per forward (B=8): kernel {tk:.4f} ms, plain {tp:.4f} ms, library "
+                  f"{'none' if tl is None else f'{tl:.4f} ms'}, bound {b_ms:.5f} ms ({b_by}), "
+                  f"wrapper host time {host[key]:.4f} ms {card}")
+        res["fpn_ms"], res["fpn_bound"] = t, {k: bound(*v) for k, v in work.items()}
 
     def phase6_profile(pipe, ours=("gn_act_kernel", "nms_")):
         """Where the time goes in one B=64 pipeline call (torch.profiler)."""
@@ -448,37 +741,50 @@ def main() -> int:
     if "ipipe" in res:
         smoke.phase("phase 5c: kernel C (int8 bottleneck) vs plain at the 16 block shapes, B=8", phase5c)
     if "pipe" in res:
+        smoke.phase("phase 5d: int8-FPN serving pipeline from uint8 frames, HISFCOS(20, 256) bf16 512x512 B=8",
+                    phase5d)
+    if "fpn_calls" in res:
+        smoke.phase("phase 5e: K1, K4, K5, K6 vs plain at the pipeline's shapes, B=8", phase5e)
+    if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline (not a pass/fail check)", phase6_profile, res["pipe"])
     if "ipipe" in res:
         smoke.phase("phase 6c: profile, int8 pipeline (not a pass/fail check)", phase6_profile, res["ipipe"],
                     ("qblock_kernel", "gn_act_kernel", "nms_"))
-    smoke.failures = [f for f in smoke.failures if not f.startswith(("phase 6b", "phase 6c"))]
+    if "fpipe" in res:
+        smoke.phase("phase 6d: profile, int8-FPN pipeline (not a pass/fail check)", phase6_profile, res["fpipe"],
+                    ("qstem_kernel", "qblock_kernel", "qmm_kernel", "his_", "qpool_", "gn_act_kernel", "nms_"))
+    smoke.failures = [f for f in smoke.failures if not f.startswith(("phase 6b", "phase 6c", "phase 6d"))]
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
+    launches = res["fpn_launches"]
+    fpn_ms, fpn_bound, fpn_err = res["fpn_ms"], res["fpn_bound"], res["fpn_err"]
+    pkg, tpu = "pytorch_object_detection_tpu_torch/csrc/", "pytorch_object_detection_tpu/ops/"
+
+    def entry(name, source, replaces, counter, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": pkg + source, "replaces": tpu + replaces,
+                "launches": launches[counter], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+    # ms: all launches of one B=8 forward (kernel C: 13 K2 blocks, 3 K3 blocks)
     kernels = [
-        {"name": "groupnorm_act", "route": "cuda",
-         "source": "pytorch_object_detection_tpu_torch/csrc/gn.cu",
-         "replaces": "pytorch_object_detection_tpu/ops/pallas_gn.py:66",
-         "launches": res["launches"]["gn"], "max_abs_err": res["gn_err"],
-         "ms": res["gn_ms"], "plain_ms": res["gn_plain_ms"]},
-        {"name": "nms_keep_mask", "route": "cuda",
-         "source": "pytorch_object_detection_tpu_torch/csrc/nms.cu",
-         "replaces": "pytorch_object_detection_tpu/ops/pallas_nms.py:66",
-         "launches": res["launches"]["nms"], "max_abs_err": res["nms_err"],
-         "ms": res["nms_ms"], "plain_ms": res["nms_plain_ms"]},
-        # kernel C serves both; ms: all blocks of one forward at B=8
-        {"name": "qbottleneck", "route": "cuda",
-         "source": "pytorch_object_detection_tpu_torch/csrc/qblock.cu",
-         "replaces": "pytorch_object_detection_tpu/ops/pallas_qblock.py:393",
-         "launches": res["int8_launches"]["qbottleneck"], "max_abs_err": res["qblock_err"],
-         "ms": res["qblock_ms"][1], "plain_ms": res["qblock_plain_ms"][1]},
-        {"name": "qbottleneck_s2", "route": "cuda",
-         "source": "pytorch_object_detection_tpu_torch/csrc/qblock.cu",
-         "replaces": "pytorch_object_detection_tpu/ops/pallas_qblock.py:275",
-         "launches": res["int8_launches"]["qbottleneck_s2"], "max_abs_err": res["qblock_err"],
-         "ms": res["qblock_ms"][2], "plain_ms": res["qblock_plain_ms"][2]},
+        entry("groupnorm_act", "gn.cu", "pallas_gn.py:66", "groupnorm_act", res["gn_err"], res["gn_ms"],
+              res["gn_plain_ms"], res["gn_bound"], res["gn_lib_ms"]),
+        entry("nms_keep_mask", "nms.cu", "pallas_nms.py:66", "cuda_nms_keep_mask", res["nms_err"], res["nms_ms"],
+              res["nms_plain_ms"], res["nms_bound"]),
+        entry("qbottleneck", "qblock.cu", "pallas_qblock.py:393", "qbottleneck", res["qblock_err"],
+              res["qblock_ms"][1], res["qblock_plain_ms"][1], res["qblock_bound"][1]),
+        entry("qbottleneck_s2", "qblock.cu", "pallas_qblock.py:275", "qbottleneck_s2", res["qblock_err"],
+              res["qblock_ms"][2], res["qblock_plain_ms"][2], res["qblock_bound"][2]),
+        entry("qstem_conv", "qstem.cu", "pallas_qstem.py:322", "qstem_conv", fpn_err["qstem"], *fpn_ms["qstem"][:2],
+              fpn_bound["qstem"]),
+        entry("qmatmul", "qconv.cu", "pallas_qconv.py:64", "qmatmul", fpn_err["qmatmul"], *fpn_ms["qmatmul"][:2],
+              fpn_bound["qmatmul"]),
+        entry("qhisblock", "qhis.cu", "pallas_qhis.py:196", "qhisblock", fpn_err["qhisblock"],
+              *fpn_ms["qhisblock"][:2], fpn_bound["qhisblock"]),
+        entry("qmaxpool2x2", "qpool.cu", "pallas_pool.py:113", "qmaxpool2x2", fpn_err["qmaxpool2x2"],
+              *fpn_ms["qmaxpool2x2"][:2], fpn_bound["qmaxpool2x2"], fpn_ms["qmaxpool2x2"][2]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

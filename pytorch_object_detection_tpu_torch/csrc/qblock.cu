@@ -39,11 +39,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kP = 8;  // output positions per thread per step
-constexpr int kQ = 4;  // output channels per thread per step
 
 struct Args {
   const int8_t* x;
@@ -55,45 +55,6 @@ struct Args {
   int8_t* out;
   int h, w, cin, cw, cout, stride, ho, wo, rows;
 };
-
-__device__ __forceinline__ float epilogue(int acc, float a, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), a), b);
-}
-
-// relu, round half to even, clip to 127 (the value is >= 0 after relu)
-__device__ __forceinline__ int8_t requant_relu(float y) {
-  return static_cast<int8_t>(static_cast<int>(fminf(rintf(fmaxf(y, 0.0f)), 127.0f)));
-}
-
-// acc[p][q] += dot(act[p][0:k], w[(q * wstride) + 0:k]) over 16-byte words
-__device__ __forceinline__ void dot_tile(int (&acc)[kP][kQ], const int8_t* const (&act)[kP],
-                                         const int8_t* __restrict__ w, int wstride, int k) {
-  for (int kk = 0; kk < k; kk += 16) {
-    int4 wv[kQ];
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) wv[q] = __ldg(reinterpret_cast<const int4*>(w + q * wstride + kk));
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int4 av = *reinterpret_cast<const int4*>(act[p] + kk);
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int s = acc[p][q];
-        s = __dp4a(av.x, wv[q].x, s);
-        s = __dp4a(av.y, wv[q].y, s);
-        s = __dp4a(av.z, wv[q].z, s);
-        s = __dp4a(av.w, wv[q].w, s);
-        acc[p][q] = s;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(int (&acc)[kP][kQ]) {
-#pragma unroll
-  for (int p = 0; p < kP; ++p)
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) acc[p][q] = 0;
-}
 
 // grid (bands, batch), block kThreads, dynamic smem a1 + a2
 __global__ void __launch_bounds__(kThreads) qblock_kernel(const Args g) {

@@ -1,0 +1,86 @@
+// K6: int8 2x2 / stride 2 max pool (VALID), NHWC.
+//
+// Replaces pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool2x2, the
+// HisFPN's downsamples and extra-level seeds.  That kernel keeps row bands of
+// one image in VMEM and takes bf16 maxes over int8 values; it falls back to
+// XLA's reduce_window for odd sizes or C % 128.  Here one thread makes one
+// 16-byte word of one output position from four 16-byte loads (per-byte
+// signed max, __vmaxs4), for every H, W (odd sizes floor, as VALID does);
+// channel counts that are not a multiple of 16 take the one-byte form.
+//
+// Bound on the card: device memory.  Each input byte is read once and each
+// output byte written once (1.25 bytes moved per input byte); there is no
+// arithmetic to speak of.  At the pyramid's sizes (<= 4 MB per call at B=8)
+// a call is as short as a launch, so launch cost, not bandwidth, dominates.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int vmax(int a, int b) {
+  return static_cast<int>(__vmaxs4(static_cast<unsigned>(a), static_cast<unsigned>(b)));
+}
+
+// grid-stride over [B, Ho, Wo, C / 16] 16-byte words
+__global__ void __launch_bounds__(kThreads)
+    qpool_vec16(const int4* __restrict__ x, int4* __restrict__ out, int h, int w, int c16, int ho, int wo,
+                int64_t total) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int c = static_cast<int>(i % c16);
+    int64_t p = i / c16;
+    const int ox = static_cast<int>(p % wo);
+    p /= wo;
+    const int oy = static_cast<int>(p % ho);
+    const int64_t b = p / ho;
+    const int4* r0 = x + ((b * h + 2 * oy) * w + 2 * ox) * c16 + c;
+    const int4* r1 = r0 + static_cast<int64_t>(w) * c16;
+    const int4 a = __ldg(r0), bb = __ldg(r0 + c16), cc = __ldg(r1), d = __ldg(r1 + c16);
+    out[i] = make_int4(vmax(vmax(a.x, bb.x), vmax(cc.x, d.x)), vmax(vmax(a.y, bb.y), vmax(cc.y, d.y)),
+                       vmax(vmax(a.z, bb.z), vmax(cc.z, d.z)), vmax(vmax(a.w, bb.w), vmax(cc.w, d.w)));
+  }
+}
+
+// the same over single bytes, for C % 16 != 0
+__global__ void __launch_bounds__(kThreads)
+    qpool_byte(const int8_t* __restrict__ x, int8_t* __restrict__ out, int h, int w, int c, int ho, int wo,
+               int64_t total) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int ch = static_cast<int>(i % c);
+    int64_t p = i / c;
+    const int ox = static_cast<int>(p % wo);
+    p /= wo;
+    const int oy = static_cast<int>(p % ho);
+    const int64_t b = p / ho;
+    const int8_t* r0 = x + ((b * h + 2 * oy) * w + 2 * ox) * c + ch;
+    const int8_t* r1 = r0 + static_cast<int64_t>(w) * c;
+    const int m0 = max(static_cast<int>(r0[0]), static_cast<int>(r0[c]));
+    const int m1 = max(static_cast<int>(r1[0]), static_cast<int>(r1[c]));
+    out[i] = static_cast<int8_t>(max(m0, m1));
+  }
+}
+
+}  // namespace
+
+// x [B, H, W, C] int8 NHWC contiguous (16-byte aligned when C % 16 == 0);
+// out [B, H / 2, W / 2, C].  Returns a cudaError_t (0 = launched).
+extern "C" int qpool_launch(const void* x, void* out, int batch, int h, int w, int c, void* stream) {
+  const int ho = h / 2, wo = w / 2;
+  const bool vec = c % 16 == 0;
+  const int64_t total = static_cast<int64_t>(batch) * ho * wo * (vec ? c / 16 : c);
+  if (total == 0) return 0;
+  const int64_t want = (total + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    qpool_vec16<<<blocks, kThreads, 0, s>>>(static_cast<const int4*>(x), static_cast<int4*>(out), h, w, c / 16,
+                                           ho, wo, total);
+  } else {
+    qpool_byte<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out), h, w, c, ho,
+                                          wo, total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

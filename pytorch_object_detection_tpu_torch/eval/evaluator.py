@@ -2,10 +2,11 @@
 
 Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
 ``make_eval_pipeline`` (float path) and ``make_eval_pipeline_int8`` (the
-int8 backbone, ``int8_fpn=False``).  The JAX versions are one jitted
+int8 backbone with the float HisFPN, ``int8_fpn=False``, or from raw uint8
+frames through the exact uint8 stem, the int8 backbone and the int8 HisFPN,
+``int8_fpn=True, int8_head=False``).  The JAX versions are one jitted
 program each; here the pipelines run eagerly on the model's device, with
-the backbone blocks on kernel C, the head's GroupNorms on kernel B and the
-NMS on kernel A when that device is CUDA.
+the kernels (``ops/``) wherever that device is CUDA.
 """
 from __future__ import annotations
 
@@ -15,11 +16,14 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections
-
-# copied from the JAX package's data/pipeline.py (that module imports jax)
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
+from pytorch_object_detection_tpu_torch.train.trainer import (
+    INT8_HEAD_ITEM,
+    make_eval_forward_int8,
+    quantize_backbone,
+    quantize_fpn,
+)
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 
@@ -27,8 +31,9 @@ Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 class _Pipeline:
     """``pipeline(images_u8) -> Detections`` for ``[B, H, W, 3]`` uint8 frames.
 
-    ``forward_levels`` normalizes, runs the forward (``_forward``, given by
-    the subclass) and returns the per-level f32 NHWC maps; ``decode`` turns
+    ``forward_levels`` normalizes (``_input``), runs the forward
+    (``_forward``, given by the subclass) and returns the per-level f32 NHWC
+    maps; ``decode`` turns
     them into detections; ``__call__`` does both.
     """
 
@@ -44,15 +49,18 @@ class _Pipeline:
         self.plain = plain
 
     def _forward(self, x: torch.Tensor) -> Levels:
-        """Per-level NHWC maps from normalized f32 NHWC images."""
+        """Per-level NHWC maps from what ``_input`` makes of the frames."""
         raise NotImplementedError
+
+    def _input(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """The frames on the device, normalized to f32 NHWC."""
+        return (images_u8.to(self.device, torch.float32) / 255.0 - self.mean) / self.std
 
     @torch.inference_mode()
     def forward_levels(self, images_u8: torch.Tensor) -> Levels:
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
             raise ValueError(f"images must be uint8 [B, H, W, 3]; got {images_u8.dtype} {tuple(images_u8.shape)}")
-        x = (images_u8.to(self.device, torch.float32) / 255.0 - self.mean) / self.std
-        cls_l, cnt_l, reg_l = self._forward(x)
+        cls_l, cnt_l, reg_l = self._forward(self._input(images_u8))
         f32 = lambda xs: [t.float() for t in xs]
         return f32(cls_l), f32(cnt_l), f32(reg_l)
 
@@ -94,14 +102,20 @@ class EvalPipeline(_Pipeline):
 
 
 class Int8EvalPipeline(_Pipeline):
-    """The int8-backbone serving pipeline: ``forward(qtree, x)`` from
-    ``train/trainer.make_eval_forward_int8`` over a calibrated qtree."""
+    """The int8 serving pipeline: ``forward(qtree, x)`` from
+    ``train/trainer.make_eval_forward_int8`` over a calibrated qtree.  With
+    ``u8_input`` the raw uint8 frames go to the device as they are: the
+    normalize is folded into the exact uint8 stem."""
 
     def __init__(self, forward: Callable[[Dict, torch.Tensor], Levels], qtree: Dict, device: torch.device,
                  strides: Sequence[int], canvas_hw: Tuple[int, int], score_threshold: float, nms_iou: float,
-                 max_detections: int, plain: bool, mean: Sequence[float], std: Sequence[float]):
+                 max_detections: int, plain: bool, mean: Sequence[float], std: Sequence[float],
+                 u8_input: bool = False):
         super().__init__(device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain, mean, std)
-        self.forward, self.qtree = forward, qtree
+        self.forward, self.qtree, self.u8_input = forward, qtree, u8_input
+
+    def _input(self, images_u8: torch.Tensor) -> torch.Tensor:
+        return images_u8.to(self.device).contiguous() if self.u8_input else super()._input(images_u8)
 
     def _forward(self, x: torch.Tensor) -> Levels:
         return self.forward(self.qtree, x)
@@ -148,27 +162,31 @@ def make_eval_pipeline_int8(
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
 ) -> Int8EvalPipeline:
-    """int8-PTQ serving pipeline: calibrated int8 ResNet-50 (kernel C on
-    CUDA), BN-folded float HisFPN, float HISHead (kernel B), decode + NMS
-    (kernel A).
+    """int8-PTQ serving pipeline (the JAX function's signature and defaults;
+    the model carries its weights, so there is no ``variables`` argument).
 
-    Counterpart of the JAX ``eval/evaluator.make_eval_pipeline_int8``, with
-    its defaults; the model carries its weights, so there is no
-    ``variables`` argument.  ``calib_images``: a representative NORMALIZED
-    NHWC float batch on the model's device; the activation scales are
-    calibrated on it in ``compute_dtype`` (bf16 on the card, f32 in the CPU
-    tests).  Only ``int8_fpn=False`` is ported: pass it explicitly
-    (``int8_head`` only matters with ``int8_fpn``, as in the JAX function).
+    ``int8_fpn=False``: normalize, calibrated int8 ResNet-50 (kernel C on
+    CUDA), BN-folded float HisFPN, float HISHead (kernel B), decode + NMS
+    (kernel A).  ``int8_fpn=True`` (with ``int8_head=False``, the JAX
+    function's backbone+FPN configuration): the pipeline takes the raw
+    uint8 frames with no normalize pass, as the JAX one does; the exact
+    uint8 stem (K1), the int8 ResNet-50 (kernel C), the int8 HisFPN (K4,
+    K5, K6) dequantized to ``compute_dtype``, then the float HISHead,
+    decode and NMS.  The JAX default ``int8_head=True`` (with
+    ``int8_fpn``) raises ``NotImplementedError``: the int8 head (K7, K9) is
+    not ported.  ``backend="pallas_block"`` runs the kernels on CUDA;
+    ``"xla"`` the per-op oracles.
+
+    ``calib_images``: a representative NORMALIZED NHWC float batch on the
+    model's device; the backbone's activation scales are calibrated on it in
+    ``compute_dtype`` (bf16 on the card, f32 in the CPU tests), the
+    HisFPN's in f32 on the backbone oracle's features (``quantize_fpn``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
-    from pytorch_object_detection_tpu_torch.train.trainer import (
-        INT8_FPN_ITEM,
-        make_eval_forward_int8,
-        quantize_backbone,
-    )
-
-    if int8_fpn:
-        raise NotImplementedError(f"int8_fpn=True is not ported yet: {INT8_FPN_ITEM}; pass int8_fpn=False")
+    int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
+    if int8_head:
+        raise NotImplementedError(f"int8_head=True (the int8 HISHead) is not ported yet: {INT8_HEAD_ITEM}; "
+                                  "pass int8_head=False")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     if device_resize:
@@ -176,8 +194,14 @@ def make_eval_pipeline_int8(
     if nms_impl != "auto":
         raise ValueError(f"nms_impl must be 'auto' (kernel A on CUDA, its plain version on the CPU); "
                          f"got {nms_impl!r}")
-    qtree = quantize_backbone(model, calib_images, compute_dtype)
-    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, plain=plain)
+    mean = IMAGENET_MEAN if mean is None else mean
+    std = IMAGENET_STD if std is None else std
+    # u8 serving input: the normalize affine folds into the exact uint8 stem
+    u8_input = int8_fpn
+    qtree = quantize_backbone(model, calib_images, compute_dtype, mean, std)
+    if int8_fpn:
+        qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}
+    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, int8_fpn=int8_fpn, u8_input=u8_input,
+                                 plain=plain)
     return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
-                            nms_iou, max_detections, plain, IMAGENET_MEAN if mean is None else mean,
-                            IMAGENET_STD if std is None else std)
+                            nms_iou, max_detections, plain, mean, std, u8_input)

@@ -22,19 +22,20 @@ class HISFCOS(nn.Module):
     """Half-Inverted-Stage FCOS, the flagship model.
 
     Weights are drawn on the CPU from ``generator`` (a seed gives the same
-    weights whatever the device) and then moved to ``device``.
+    weights whatever the device) and then moved to ``device``: the card by
+    default (PyTorch raises where there is none); pass ``device="cpu"`` for
+    the CPU.
     """
 
     def __init__(self, num_classes: int = 20, features: int = 256, stem_mode: str = "conv7", *,
-                 device: Optional[torch.device | str] = None,
+                 device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.backbone = ResNet50(stem_mode=stem_mode, generator=generator)
         self.fpn = HisFPN((512, 1024, 2048), features, generator=generator)
         self.head = HISHead(num_classes, features, generator=generator)
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, images: torch.Tensor, plain: bool = False) -> LevelOutputs:
         """images ``[B, H, W, 3]`` float -> per-level ``[B, H_i, W_i, C]``

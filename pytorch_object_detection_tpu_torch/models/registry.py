@@ -24,7 +24,8 @@ def available_models():
 
 def build_model(name: str, num_classes: int, features: int = 256, **kwargs) -> nn.Module:
     """Build a detector by config name.  ``kwargs`` go to the constructor
-    (``stem_mode``, ``device``, ``generator``)."""
+    (``stem_mode``, ``device``, ``generator``); the model goes to the card
+    unless ``device`` says otherwise."""
     key = name.upper()
     if key == "HISFCOS":
         return HISFCOS(num_classes, features, **kwargs)

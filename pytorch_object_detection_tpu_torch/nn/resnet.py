@@ -17,6 +17,24 @@ from torch import nn
 from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm, Conv, relu
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC ``[B, H, W, C]`` -> ``[B, H/b, W/b, b*b*C]``, channels in (dy, dx, c)
+    order (the JAX package's ``nn/resnet.space_to_depth``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // block, w // block, block * block * c)
+
+
+def s2d_stem_kernel(conv7: torch.Tensor) -> torch.Tensor:
+    """A ``[7, 7, C, O]`` (HWIO) stride-2 stem kernel rewritten exactly as the
+    space-to-depth ``[4, 4, 4C, O]`` stride-1 kernel: a leading zero row and
+    column, then each 2x2 group of taps becomes one tap over 4C channels."""
+    k = F.pad(conv7, (0, 0, 0, 0, 1, 0, 1, 0))
+    kh, kw, cin, cout = k.shape
+    k = k.reshape(kh // 2, 2, kw // 2, 2, cin, cout).permute(0, 2, 1, 3, 4, 5)
+    return k.reshape(kh // 2, kw // 2, 4 * cin, cout)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1(x4) with a projection shortcut when the
     stride or the width changes."""
@@ -54,8 +72,8 @@ class ResNet50(nn.Module):
         super().__init__()
         if stem_mode == "s2d":
             raise NotImplementedError(
-                "stem_mode='s2d' (space-to-depth stem) is not ported yet: "
-                "ROADMAP.md queue 1, item 4 (the int8 ladder, which starts with the space-to-depth stem)")
+                "stem_mode='s2d' (the float model with its own conv1_s2d parameter) is not ported yet: "
+                "ROADMAP.md queue 1, item 4; space_to_depth and s2d_stem_kernel are, for the int8 u8 stem")
         if stem_mode != "conv7":
             raise ValueError(f"stem_mode must be 'conv7'; got {stem_mode!r}")
         self.conv1 = Conv(3, 64, 7, stride=2, bias=False, winit="resnet", generator=generator)

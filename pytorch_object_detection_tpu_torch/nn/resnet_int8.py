@@ -10,25 +10,30 @@ int8 x int8 -> int32 with one f32 epilogue per conv:
   sc = x_q * short_mul  |  conv(x_q, Wdq) * Ad + Bd        (stride here)
   out_q = requant((conv(a2, W3q) * A3 + B3) + sc, relu)
 
-The stem (7x7/2 on 3 channels) stays float in the compute dtype.  The int8
-backbone runs NHWC, the JAX package's layout and the one kernel C takes;
+The float stem (7x7/2 on 3 channels, ``u8_stem=False``) runs in the
+compute dtype.  The exact uint8 stem (``u8_stem=True``) takes raw frames:
+the normalize affine and the BN fold live in its int8 weights and f32
+epilogue (:func:`quantize_stem_s2d`), so the conv input is ``u - 128`` with
+no quantization at all; it runs as K1 (``ops/qstem.py``).  The int8
+backbone runs NHWC, the JAX package's layout and the one the kernels take;
 the float modules around it run NCHW.
 
-Ported: the 7x7 stem (``u8_stem=False``), ``backend="xla"`` (the per-op
-oracle, ``ops/qblock.qbottleneck_plain``) and ``backend="pallas_block"``
-with ``fuse_strided=True`` (every block on kernel C).  Left for later
-slices, each raising ``NotImplementedError``: the exact uint8
-space-to-depth stem (``u8_stem=True``, ``quantize_stem_s2d`` and the
-qtree's ``stem_s2d`` entry, ROADMAP queue 2 K1), the per-conv kernels
-(``backend="pallas"`` and ``fuse_strided=False``, K4 and K11) and the bf16
-stem tail (``backend="pallas_stem_tail"``, K17).
+Ported: both stems, ``backend="xla"`` (the per-op oracle) and
+``backend="pallas_block"`` with ``fuse_strided=True`` (every block on
+kernel C, the u8 stem on K1).  Left for later slices, each raising
+``NotImplementedError``: the per-conv kernels (``backend="pallas"`` and
+``fuse_strided=False``, K11) and the bf16 stem tail
+(``backend="pallas_stem_tail"``, K17).  The JAX function's TPU input forms
+of the u8 stem (the 5-D RGBX view and its environment switches) have no
+counterpart: frames come as ``[B, H, W, 3]`` or RGBX ``[B, H, W, 4]``.
 
 The qtree (from :func:`quantize_resnet50` or
 ``train/checkpoints.load_backbone_qtree``): ``stem`` {``kernel`` f32 OIHW,
-``bn`` {``scale``, ``bias``, ``mean``, ``var``}}, ``stem_scale``, and per
-block ``w1 [Cw, Cin]``, ``w2 [Cw, 3, 3, Cw]``, ``w3 [Cout, Cw]`` int8,
-``A1..B3`` f32, then ``wd [Cout, Cin]``, ``Ad``, ``Bd`` (projection) or
-``short_mul`` (identity), and ``out_scale``.
+``bn`` {``scale``, ``bias``, ``mean``, ``var``}}, ``stem_scale``, with
+``mean``/``std`` also ``stem_s2d`` (``ops/qstem.py`` lists its entries),
+and per block ``w1 [Cw, Cin]``, ``w2 [Cw, 3, 3, Cw]``, ``w3 [Cout, Cw]``
+int8, ``A1..B3`` f32, then ``wd [Cout, Cin]``, ``Ad``, ``Bd`` (projection)
+or ``short_mul`` (identity), and ``out_scale``.
 """
 from __future__ import annotations
 
@@ -38,14 +43,15 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_object_detection_tpu_torch.nn.fused_resnet import conv_bn_act, fold_bn, fold_bn_params
-from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
+from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50, s2d_stem_kernel
 from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_plain, qbottleneck_s2
+from pytorch_object_detection_tpu_torch.ops.qstem import maxpool3x3s2_i8, qstem_conv
 from pytorch_object_detection_tpu_torch.ops.quant import act_scale, quantize_act, weight_qparams
 
 STAGE_SIZES = (3, 4, 6, 3)
 BACKENDS = ("xla", "pallas_block")
 _NOT_PORTED = {
-    "pallas": "ROADMAP.md queue 2, K4 (qmatmul / qconv1x1) and K11 (qconv3x3): the per-conv kernels",
+    "pallas": "ROADMAP.md queue 2, K11 (qconv3x3), which the per-conv backend needs beside K4 (qconv1x1)",
     "pallas_stem_tail": "ROADMAP.md queue 2, K17 (stem_bn_pool_quant)",
 }
 
@@ -64,18 +70,6 @@ def _stem_float(kernel: torch.Tensor, mult: torch.Tensor, shift: torch.Tensor, i
     x = images.permute(0, 3, 1, 2).to(compute_dtype)
     y = F.conv2d(x, kernel.to(compute_dtype), None, 2, 3)
     return torch.relu(y * mult.to(y.dtype)[:, None, None] + shift.to(y.dtype)[:, None, None])
-
-
-def maxpool3x3s2_i8(x: torch.Tensor) -> torch.Tensor:
-    """int8 3x3/2 max pool, padding 1 (pad value -128), NHWC."""
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=-128)
-    ho, wo = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
-    out = None
-    for ky in range(3):
-        for kx in range(3):
-            win = xp[:, ky:ky + 2 * ho - 1:2, kx:kx + 2 * wo - 1:2]
-            out = win if out is None else torch.maximum(out, win)
-    return out.contiguous()
 
 
 @torch.no_grad()
@@ -113,13 +107,59 @@ def _port_layout(w_q: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quantize_resnet50(backbone: ResNet50, act_absmax: Dict[str, float]) -> Dict:
+def quantize_stem_s2d(backbone: ResNet50, mean, std, stem_absmax) -> Dict:
+    """The exact uint8 stem (the JAX ``quantize_stem_s2d``, :94-138).
+
+    Frames are uint8, so ``x_f = (u/255 - mean)/std`` is a per-channel
+    affine of u: it folds into the conv weights and bias, and ``u - 128`` is
+    the int8 input, with no input quantization at all.  BN folds per output
+    channel; the requant scale folds into the epilogue.  The input channels
+    are padded 3 -> 4 (a fourth channel of zero weights) before the
+    space-to-depth rewrite.  Returns ``w [256, 64]`` int8 (the s2d taps,
+    (ky, kx, c16) order), ``w7 [64, 7, 7, 4]`` int8 (the same taps in the
+    direct 7x7 form: the rewrite only rearranges them and adds zero taps, so
+    the per-channel scales and rounded values are the same), ``A``, ``B``
+    f32 ``[64]``, ``pad [16]`` and ``pad4 [4]`` int8 (the border fill in the
+    ``v = u - 128`` domain: ``round(255 * mean - 128)``, where ``x_f = 0``)
+    and ``scale``.
+    """
+    dev = backbone.conv1.weight.device
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=dev).reshape(3)
+    std = torch.as_tensor(std, dtype=torch.float32, device=dev).reshape(3)
+    mult, shift = fold_bn(backbone.bn1)
+    w = backbone.conv1.weight.float().permute(2, 3, 1, 0)  # OIHW -> HWIO [7, 7, 3, 64]
+    a_ch = 1.0 / (255.0 * std)  # x_f = u * a + b per input channel
+    b_ch = -mean / std
+    wn = w * a_ch[None, None, :, None]
+    const = torch.sum(w * b_ch[None, None, :, None], dim=(0, 1, 2))
+    weff = wn * mult
+    bias = mult * (128.0 * torch.sum(wn, dim=(0, 1, 2)) + const) + shift
+    weff4 = F.pad(weff, (0, 0, 0, 1))  # [7, 7, 4, 64]
+    wq, sw = weight_qparams(s2d_stem_kernel(weff4))  # [4, 4, 16, 64]
+    wq7, _ = weight_qparams(weff4)
+    s_out = act_scale(stem_absmax).to(dev)
+    inv = 1.0 / s_out
+    pad3 = torch.clamp(torch.round(255.0 * mean - 128.0), -128, 127).to(torch.int8)
+    pad4 = F.pad(pad3, (0, 1))
+    return {
+        "w": wq.reshape(16 * 16, 64),
+        "w7": wq7.permute(3, 0, 1, 2).contiguous(),
+        "A": sw * inv,
+        "B": bias * inv,
+        "pad": pad4.repeat(4),
+        "pad4": pad4,
+        "scale": s_out,
+    }
+
+
+@torch.no_grad()
+def quantize_resnet50(backbone: ResNet50, act_absmax: Dict[str, float], mean=None, std=None) -> Dict:
     """Fold BN, quantize weights, and pre-fold all scale algebra.
 
     act_absmax: the taps of :func:`calibrate_resnet50` (reduced with max over
     calibration batches).  Returns the qtree :func:`resnet50_int8_forward`
-    takes.  The JAX function's ``mean``/``std`` arguments (the u8
-    space-to-depth stem's ``stem_s2d`` entry) are left out with that stem.
+    takes; with ``mean``/``std`` (the input-normalize constants) it also
+    carries the exact uint8 stem, ``stem_s2d`` (:func:`quantize_stem_s2d`).
     """
     bn = backbone.bn1
     q = {
@@ -128,6 +168,8 @@ def quantize_resnet50(backbone: ResNet50, act_absmax: Dict[str, float]) -> Dict:
                         "mean": bn.running_mean.float().clone(), "var": bn.running_var.float().clone()}},
         "stem_scale": act_scale(act_absmax["stem_out"]).to(bn.weight.device),
     }
+    if mean is not None and std is not None:
+        q["stem_s2d"] = quantize_stem_s2d(backbone, mean, std, act_absmax["stem_out"])
     s_prev = q["stem_scale"]
     for scope, _, _ in block_scopes():
         blk = getattr(backbone, scope)
@@ -206,21 +248,23 @@ def resnet50_int8_forward(qtree: Dict, images: torch.Tensor, compute_dtype: torc
                           u8_stem: bool = False, plain: bool = False):
     """(C3, C4, C5) NHWC in ``compute_dtype`` from an int8-quantized backbone.
 
-    ``images``: NHWC normalized floats.  ``dequant=False`` instead returns
-    ``((c3_q, c4_q, c5_q) int8 NHWC, (s3, s4, s5))``.
+    ``images``: NHWC normalized floats, or with ``u8_stem=True`` raw uint8
+    frames ``[B, H, W, 3 or 4]`` (H, W even) through the exact uint8 stem
+    (the qtree needs ``stem_s2d``).
+    ``dequant=False`` instead returns ``((c3_q, c4_q, c5_q) int8 NHWC,
+    (s3, s4, s5))``.
 
-    ``backend="xla"``: float stem, float 3x3/2 max pool, quantize, then the
-    per-op oracle for every block.  ``backend="pallas_block"`` (needs
-    ``fuse_strided=True``): float stem, quantize, then the int8 max pool
-    (max commutes with the monotone quantize, so the two stems agree bit
-    for bit given the same float conv output), then kernel C for every
-    block (``ops/qblock``; its plain version on a CPU tensor or with
-    ``plain=True``).
+    ``backend="xla"``: float stem, float 3x3/2 max pool, quantize (or the u8
+    stem's oracle, ``ops/qstem.qstem_plain`` on the space-to-depth of the
+    frame, a 3-channel frame padded with 128 as the JAX function does), then
+    the per-op oracle for every block.
+    ``backend="pallas_block"`` (needs ``fuse_strided=True``): float stem,
+    quantize, then the int8 max pool (max commutes with the monotone
+    quantize, so the two stems agree bit for bit given the same float conv
+    output), or K1 for the u8 stem; then kernel C for every block
+    (``ops/qblock``).  Kernels run their plain versions on a CPU tensor or
+    with ``plain=True``.
     """
-    if u8_stem:
-        raise NotImplementedError(
-            "u8_stem=True (the exact uint8 space-to-depth stem) is not ported yet: "
-            "ROADMAP.md queue 1 item 4 (s2d stem and u8 path) and queue 2 K1 (qstem_conv)")
     if backend in _NOT_PORTED:
         raise NotImplementedError(f"backend={backend!r} is not ported yet: {_NOT_PORTED[backend]}")
     if backend not in BACKENDS:
@@ -229,8 +273,13 @@ def resnet50_int8_forward(qtree: Dict, images: torch.Tensor, compute_dtype: torc
         raise NotImplementedError(
             "fuse_strided=False (stride-2 blocks on the per-conv kernels) is not ported yet: "
             f"{_NOT_PORTED['pallas']}")
-
-    outputs = resnet50_int8_ladder(qtree, resnet50_int8_stem(qtree, images, compute_dtype, backend), backend, plain)
+    if u8_stem:
+        if "stem_s2d" not in qtree:
+            raise KeyError("u8_stem=True needs the qtree's stem_s2d entry: quantize with mean and std")
+        x_q = qstem_conv(images, qtree["stem_s2d"], plain=plain or backend == "xla")  # K1, or its oracle
+    else:
+        x_q = resnet50_int8_stem(qtree, images, compute_dtype, backend)
+    outputs = resnet50_int8_ladder(qtree, x_q, backend, plain)
     if not dequant:
         return tuple(q for q, _ in outputs[-3:]), tuple(s for _, s in outputs[-3:])
     return tuple((q.float() * s).to(compute_dtype) for q, s in outputs[-3:])

@@ -14,9 +14,9 @@ f32 tensor.  Channel counts must be multiples of 16 (the kernel reads
 16-byte words).
 
 The plain version is the XLA oracle of ``nn/resnet_int8.py:546-555``,
-operation for operation: exact int32 accumulation through ``torch._int_mm``
-over an im2col of the int8 input, then the f32 epilogues in the oracle's
-order.  On a CPU tensor the wrappers run it; on a CUDA tensor they launch
+operation for operation: exact int32 accumulation (``ops/quant.conv_i8``,
+``torch._int_mm`` over an im2col of the int8 input), then the f32
+epilogues in the oracle's order.  On a CPU tensor the wrappers run it; on a CUDA tensor they launch
 kernel C or raise.
 """
 from __future__ import annotations
@@ -26,9 +26,8 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from pytorch_object_detection_tpu_torch.ops.quant import INT8_MAX, requantize
+from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
 
 SOURCE = "qblock.cu"
 # no FMA contraction anywhere in the kernel (its epilogues also spell out
@@ -84,41 +83,17 @@ def pick_rows(batch: int, h: int, w: int, cw: int, stride: int, sm_count: int, s
     return fits[-1]
 
 
-def _int_acc(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    """Exact int32 accumulator of an int8 conv, as f32 (rounded to nearest
-    where it exceeds 2**24, as the oracle's ``astype`` does).
-
-    x ``[B, H, W, C]`` int8; w ``[N, C]`` (1x1, pad 0) or ``[N, 3, 3, C]``
-    (3x3, pad 1); returns ``[B, Ho, Wo, N]`` f32.
-    """
-    b, h, wd_, c = x.shape
-    ho, wo = out_hw(h, wd_, stride)
-    if w.dim() == 4:
-        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-        cols = torch.cat([xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
-                          for ky in range(3) for kx in range(3)], dim=-1)
-    else:
-        cols = x[:, ::stride, ::stride]
-    m = cols.reshape(b * ho * wo, -1)
-    rows = m.shape[0]
-    if rows <= 16:  # torch._int_mm takes more than 16 rows
-        m = F.pad(m, (0, 0, 0, 17 - rows))
-    acc = torch._int_mm(m, w.reshape(w.shape[0], -1).t())[:rows]
-    return acc.float().reshape(b, ho, wo, -1)
-
-
 def qbottleneck_plain(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, stride: int = 1, short_mul=None,
                       wd=None, ad=None, bd=None) -> torch.Tensor:
     """The bottleneck in plain PyTorch ops (the reference for kernel C)."""
-    y1 = requantize(_int_acc(x, w1, 1), a1, b1)
-    y2 = requantize(_int_acc(y1, w2, stride), a2, b2)
-    pre = _int_acc(y2, w3, 1) * a3 + b3
+    y1 = requantize(conv_i8(x, w1), a1, b1)
+    y2 = requantize(conv_i8(y1, w2, stride), a2, b2)
+    pre = conv_i8(y2, w3) * a3 + b3
     if wd is not None:
-        short = _int_acc(x, wd, stride) * ad + bd
+        short = conv_i8(x, wd, stride) * ad + bd
     else:
         short = x.float() * short_mul
-    y = torch.clamp(pre + short, min=0.0)
-    return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return clip8(torch.clamp(pre + short, min=0.0))
 
 
 def _check(x, w1, w2, w3, vecs, stride, wd, short_mul) -> None:

@@ -1,0 +1,183 @@
+"""K5: one whole int8 HisBlock with its level glue in CUDA (``csrc/qhis.cu``), and its plain version.
+
+Replaces ``pytorch_object_detection_tpu/ops/pallas_qhis.py:qhisblock``.
+The block input is ``x_q`` (``combine=None``), ``clip8(x_q * ca + xb_q *
+cb)`` (``"add"``, two maps of one size) or the same with ``x_q`` the coarser
+level, 2x nearest-upsampled (``"up_add"``): the HisFPN's pool-add and
+upsample-add, each rescaling two int8 maps to the block's input scale.
+
+Layouts: int8 NHWC maps, contiguous; one block's parameters as
+``nn/fpn_int8.quantize_hisfpn`` makes them (``cin = 2 * half``, ``r`` the SE
+width): ``w1``, ``w2 [half, cin]``, ``wdw [3, 3, half]``, ``w3 [half, 3, 3,
+cin]``, ``w4 [cin, 3, 3, cin]`` int8; ``A*``, ``B*`` f32 per channel;
+``se_w1 [half, r]``, ``se_b1 [r]``, ``se_w2 [r, half]``, ``se_b2 [half]``
+f32; ``inv_x1``, ``inv_out``, ``se_premul`` 0-d f32.  On the card ``half``
+must be a multiple of 16.
+
+The plain version is the JAX oracle ``nn/fpn_int8._hisblock_i8_xla``
+(``:303-328``) after the glue of ``:64-67``, operation for operation: exact
+int32 convolutions, the f32 epilogues in the oracle's order, the SE mean as
+``float(sum) / (H * W) * se_premul``.  The kernel agrees with it within one
+int8 step on a few elements: SiLU and sigmoid go through the card's
+``expf`` and the SE dots sum in another order.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
+
+SOURCE = "qhis.cu"
+# no FMA contraction: a fused multiply-add moves values across a requant boundary
+NVCC_FLAGS = ("-fmad=false",)
+COMBINES = (None, "add", "up_add")
+# the pointer table of qhis_launch, in csrc/qhis.cu's order
+_PARAMS = ("w1", "w2", "A1", "B1", "A2", "B2", "wdw", "Adw", "Bdw", "se_w1", "se_b1", "se_w2", "se_b2",
+           "w3", "A3", "B3", "w4", "A4", "B4")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load K5; its C signature is declared here."""
+    from pytorch_object_detection_tpu_torch._build import load_library
+
+    lib = load_library(SOURCE, NVCC_FLAGS)
+    lib.qhis_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.qhis_launch.restype = ctypes.c_int
+    return lib
+
+
+def _silu(z: torch.Tensor) -> torch.Tensor:
+    return z * torch.sigmoid(z)  # the oracle's form, not F.silu's
+
+
+def upsample2x_i8(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsample of NHWC ``[B, H, W, C]``."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def combine_plain(x_q, xb_q, combine, ca, cb) -> torch.Tensor:
+    """The block's int8 input: ``x_q``, or ``clip8(xa * ca + xb * cb)`` with
+    ``xa`` 2x-upsampled for ``"up_add"`` (the JAX ``_add_requant``)."""
+    if combine is None:
+        return x_q
+    xa = upsample2x_i8(x_q) if combine == "up_add" else x_q
+    return clip8(xa.float() * ca + xb_q.float() * cb)
+
+
+def depthwise3x3_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-channel 3x3 int8 conv, zero padding 1, exact int32 sum as f32:
+    x ``[B, H, W, C]``, w ``[3, 3, C]``."""
+    _, h, wd, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).int()
+    acc = sum(xp[:, ky:ky + h, kx:kx + wd] * w[ky, kx].int() for ky in range(3) for kx in range(3))
+    return acc.float()
+
+
+def qhisblock_plain(blk: Dict, x_q: torch.Tensor) -> torch.Tensor:
+    """The HisBlock on its int8 input in plain PyTorch ops (the reference for K5)."""
+    h, w = x_q.shape[1:3]
+    x1q = clip8(_silu(conv_i8(x_q, blk["w1"]) * blk["A1"] + blk["B1"]) * blk["inv_x1"])
+    x2q = requantize(conv_i8(x_q, blk["w2"]), blk["A2"], blk["B2"], relu=False)
+    aq = requantize(depthwise3x3_i8(x1q, blk["wdw"]), blk["Adw"], blk["Bdw"])
+    mean = x1q.float().sum(dim=(1, 2)) / float(h * w) * blk["se_premul"]  # [B, half]
+    g = _silu(mean @ blk["se_w1"] + blk["se_b1"])
+    g = torch.sigmoid(g @ blk["se_w2"] + blk["se_b2"])
+    bq = clip8(x1q.float() * g[:, None, None, :])
+    mq = requantize(conv_i8(torch.cat([aq, bq], dim=-1), blk["w3"]), blk["A3"], blk["B3"])
+    acc4 = conv_i8(torch.cat([mq, x2q], dim=-1), blk["w4"], dilation=2)
+    return clip8(_silu(acc4 * blk["A4"] + blk["B4"]) * blk["inv_out"])
+
+
+def _check(blk, x_q, xb_q, combine) -> None:
+    if combine not in COMBINES:
+        raise ValueError(f"combine must be one of {COMBINES}; got {combine!r}")
+    for name, t in (("x_q", x_q), ("xb_q", xb_q)):
+        if t is not None and (t.dtype != torch.int8 or t.dim() != 4):
+            raise ValueError(f"{name} must be int8 [B, H, W, C] (NHWC); got {t.dtype} {tuple(t.shape)}")
+    if (xb_q is None) != (combine is None):
+        raise ValueError(f"combine={combine!r} {'takes no' if combine is None else 'needs an'} xb_q")
+    half, cin = blk["w1"].shape
+    if cin != 2 * half or x_q.shape[-1] != cin:
+        raise ValueError(f"the block takes {cin} = 2 * {half} channels; got x_q {tuple(x_q.shape)}")
+    if combine == "add" and xb_q.shape != x_q.shape:
+        raise ValueError(f"combine='add' takes two maps of one shape; got {tuple(x_q.shape)}, {tuple(xb_q.shape)}")
+    if combine == "up_add":
+        b, h, w, c = xb_q.shape
+        if h % 2 or w % 2 or tuple(x_q.shape) != (b, h // 2, w // 2, c):
+            raise ValueError(f"combine='up_add' takes x_q at half the size of xb_q (even); "
+                             f"got {tuple(x_q.shape)}, {tuple(xb_q.shape)}")
+
+
+def _scalar(v, device) -> torch.Tensor:
+    return v.to(device, torch.float32).reshape(()) if isinstance(v, torch.Tensor) else \
+        torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def _launch(blk, x_q, xb_q, combine, ca, cb) -> torch.Tensor:
+    """K5 on CUDA tensors (checked by ``_check`` first)."""
+    dev = x_q.device
+    params = [blk[k] for k in _PARAMS]
+    maps = [x_q] + ([xb_q] if xb_q is not None else [])
+    if any(t.device != dev for t in params + maps):
+        raise ValueError(f"K5: every operand must be on {dev}")
+    if not all(t.is_contiguous() for t in params + maps):
+        raise ValueError("K5 takes contiguous operands (maps NHWC-contiguous)")
+    if any(t.data_ptr() % 16 for t in maps):
+        raise ValueError("K5 reads the maps in 16-byte words: they must start 16-byte aligned")
+    half, cin = blk["w1"].shape
+    r = blk["se_w1"].shape[1]
+    if half % 16:
+        raise ValueError(f"K5 needs a half width divisible by 16; got {half}")
+    b, h, w, _ = (xb_q if combine is not None else x_q).shape
+    out = torch.empty((b, h, w, cin), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    if b > 65535 or -(-h // 8) > 65535:
+        raise ValueError(f"K5 takes at most 65535 images and {65535 * 8} rows; got {tuple(out.shape)}")
+    scratch = torch.empty((3, b, h, w, half), dtype=torch.int8, device=dev)  # x1q, x2q, mq
+    se_sum = torch.empty((b, half), dtype=torch.int32, device=dev)
+    if combine is None:  # the kernel reads no rescale: fill its slots from the device, with no host copy
+        ca = cb = blk["inv_x1"]
+    sc = torch.stack([_scalar(blk["inv_x1"], dev), _scalar(blk["inv_out"], dev), _scalar(blk["se_premul"], dev),
+                      _scalar(ca, dev), _scalar(cb, dev)])
+    ptrs = [x_q, xb_q, *params, sc, scratch[0], scratch[1], scratch[2], se_sum, out]
+    table = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
+    with torch.cuda.device(dev):  # the launches go to the current device
+        err = _lib().qhis_launch(table, b, h, w, cin, half, r, COMBINES.index(combine),
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: cudaError {err}")
+    return out
+
+
+def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = None, combine: Optional[str] = None,
+              ca=1.0, cb=0.0, plain: bool = False) -> torch.Tensor:
+    """Fused HisBlock (the JAX signature): int8 NHWC in, ``[B, H, W, cin]``
+    int8 out, at the size of ``xb_q`` where there is one.  ``ca``, ``cb``:
+    the glue's f32 rescales (floats or 0-d tensors).
+
+    On a CPU tensor this is :func:`qhisblock_plain` after
+    :func:`combine_plain`; on a CUDA tensor it launches K5 (three CUDA
+    kernels, counted as one launch) or raises.  ``plain=True`` runs the
+    plain version on any device, for the comparison only.
+    ``qhisblock.launches`` counts kernel launches.
+    """
+    _check(blk, x_q, xb_q, combine)
+    if plain or x_q.device.type == "cpu":
+        return qhisblock_plain(blk, combine_plain(x_q, xb_q, combine, ca, cb))
+    if x_q.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA tensors; got {x_q.device}")
+    out = _launch(blk, x_q, xb_q, combine, ca, cb)
+    if out.numel():
+        qhisblock.launches += 1
+    return out
+
+
+qhisblock.launches = 0

@@ -1,0 +1,67 @@
+"""K6: the int8 2x2/2 max pool in CUDA (``csrc/qpool.cu``), and its plain version.
+
+Replaces ``pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool2x2``
+(the HisFPN's downsamples and the seeds of its two extra levels).  Layout
+int8 NHWC ``[B, H, W, C]`` -> ``[B, H // 2, W // 2, C]``: a VALID window,
+so an odd row or column is dropped.  The plain version is the JAX oracle
+``nn/fpn_int8._maxpool2x2_i8`` (``reduce_window`` with init -128).  Unlike
+the Pallas wrapper, the kernel takes every shape and never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+SOURCE = "qpool.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load K6; its C signature is declared here."""
+    from pytorch_object_detection_tpu_torch._build import load_library
+
+    lib = load_library(SOURCE)
+    lib.qpool_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.qpool_launch.restype = ctypes.c_int
+    return lib
+
+
+def qmaxpool2x2_plain(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 VALID max pool of int8 NHWC in plain PyTorch ops."""
+    b, h, w, c = x.shape
+    ho, wo = h // 2, w // 2
+    return x[:, :2 * ho, :2 * wo].reshape(b, ho, 2, wo, 2, c).amax(dim=(2, 4))
+
+
+def qmaxpool2x2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """int8 ``[B, H, W, C]`` -> ``[B, H // 2, W // 2, C]``, 2x2 window, stride 2.
+
+    On a CPU tensor this is :func:`qmaxpool2x2_plain`; on a CUDA tensor it
+    launches K6 (NHWC-contiguous int8) or raises.  ``plain=True`` runs the
+    plain version on any device, for the comparison only.
+    ``qmaxpool2x2.launches`` counts kernel launches.
+    """
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
+    if plain or x.device.type == "cpu":
+        return qmaxpool2x2_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"K6 runs on CUDA tensors; got {x.device}")
+    b, h, w, c = x.shape
+    if not x.is_contiguous() or (c % 16 == 0 and x.data_ptr() % 16):
+        raise ValueError("K6 takes NHWC-contiguous int8 (16-byte aligned where C % 16 == 0)")
+    out = torch.empty((b, h // 2, w // 2, c), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = _lib().qpool_launch(x.data_ptr(), out.data_ptr(), b, h, w, c,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: cudaError {err}")
+    qmaxpool2x2.launches += 1
+    return out
+
+
+qmaxpool2x2.launches = 0

@@ -9,7 +9,7 @@ the same int8 values bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,10 +41,48 @@ def quantize_act(x: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(q, -INT8_MAX, INT8_MAX).to(torch.int8)
 
 
+def clip8(y: torch.Tensor) -> torch.Tensor:
+    """f32 -> int8: round half to even, clip to +-127."""
+    return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
+
+
 def requantize(acc_f32: torch.Tensor, inv_out_scale_mul, shift, relu: bool = True) -> torch.Tensor:
     """Fused epilogue: f32 pre-activation ``acc * mul + shift`` (already
     divided by the output scale) -> int8 at the next layer's scale."""
     y = acc_f32 * inv_out_scale_mul + shift
     if relu:
         y = torch.clamp(y, min=0.0)
-    return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return clip8(y)
+
+
+def int_mm(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``m [M, K] @ w [N, K]^T`` of int8 operands (``torch._int_mm``,
+    which takes more than 16 rows: fewer are padded and cut off again)."""
+    rows = m.shape[0]
+    if rows <= 16:
+        m = torch.nn.functional.pad(m, (0, 0, 0, 17 - rows))
+    return torch._int_mm(m.contiguous(), w.t())[:rows]
+
+
+def conv_i8(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1,
+            pad: Optional[int] = None) -> torch.Tensor:
+    """int8 NHWC conv with an exact int32 accumulator, returned as f32
+    (rounded to nearest where it exceeds 2**24, as the JAX oracle's
+    ``astype`` does).
+
+    x ``[B, H, W, C]`` int8; w ``[N, C]`` (1x1) or ``[N, kh, kw, C]`` int8
+    (each output channel's K-vector contiguous); zero padding ``pad``, by
+    default ``dilation * (k - 1) // 2``.  Returns ``[B, Ho, Wo, N]`` f32.
+    """
+    k = 1 if w.dim() == 2 else w.shape[1]
+    pad = dilation * (k - 1) // 2 if pad is None else pad
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    b, h, wd, _ = x.shape
+    span = dilation * (k - 1)
+    ho, wo = (h - span - 1) // stride + 1, (wd - span - 1) // stride + 1
+    cols = torch.cat([x[:, ky * dilation:ky * dilation + stride * (ho - 1) + 1:stride,
+                        kx * dilation:kx * dilation + stride * (wo - 1) + 1:stride]
+                      for ky in range(k) for kx in range(k)], dim=-1)
+    acc = int_mm(cols.reshape(b * ho * wo, -1), w.reshape(w.shape[0], -1))
+    return acc.float().reshape(b, ho, wo, -1)

@@ -14,8 +14,10 @@ here imports JAX.  The mapping:
 
 A missing key, an unused key or a shape that does not match raises.
 
-``load_backbone_qtree`` carries the JAX package's int8 backbone qtree
-(``nn/resnet_int8.quantize_resnet50``) across in the same way.
+``load_backbone_qtree`` and ``load_fpn_qtree`` carry the JAX package's
+int8 backbone and HisFPN qtrees (``nn/resnet_int8.quantize_resnet50``,
+``nn/fpn_int8.quantize_hisfpn``) across in the same way, to the card unless
+``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -96,13 +98,20 @@ def load_flax_variables(model: nn.Module, params: Mapping[str, Any],
     return model
 
 
-def _backbone_qtree_shapes() -> Dict[Tuple[Any, ...], Tuple[int, ...]]:
+# the uint8 stem's entry (JAX quantize_stem_s2d): leaf -> shape; the int8 leaves
+_STEM_S2D = {"w": (256, 64), "w7": (7, 7, 4, 64), "A": (64,), "B": (64,), "pad": (16,), "pad4": (4,), "scale": ()}
+_STEM_S2D_INT8 = {"w", "w7", "pad", "pad4"}
+
+
+def _backbone_qtree_shapes(with_stem_s2d: bool) -> Dict[Tuple[Any, ...], Tuple[int, ...]]:
     """Leaf path -> shape of the JAX ResNet-50 qtree (HWIO int8 kernels)."""
     from pytorch_object_detection_tpu_torch.nn.resnet_int8 import block_scopes
 
     shapes = {("stem", "kernel"): (7, 7, 3, 64), ("stem_scale",): ()}
     for i, names in enumerate((("scale", "bias"), ("mean", "var"))):
         shapes.update({("stem", "bn", i, "bn", n): (64,) for n in names})
+    if with_stem_s2d:
+        shapes.update({("stem_s2d", k): v for k, v in _STEM_S2D.items()})
     cin = 64
     for scope, stage, b in block_scopes():
         cw = (64, 128, 256, 512)[stage]
@@ -119,46 +128,109 @@ def _backbone_qtree_shapes() -> Dict[Tuple[Any, ...], Tuple[int, ...]]:
     return shapes
 
 
-def load_backbone_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cpu") -> Dict:
+def _check_tree(src: Dict, want: Dict, is_int8, what: str) -> None:
+    """Raise on a missing or unused leaf, or a shape or dtype that does not match."""
+    missing, unused = sorted(map(str, set(want) - set(src))), sorted(map(str, set(src) - set(want)))
+    if missing or unused:
+        raise KeyError(f"qtree does not match {what}: missing {missing[:8]} ({len(missing)}), "
+                       f"unused {unused[:8]} ({len(unused)})")
+    for path, shape in want.items():
+        int8 = is_int8(path)
+        if src[path].shape != shape or (src[path].dtype == np.int8) != int8:
+            raise ValueError(f"{'/'.join(map(str, path))}: expected {'int8' if int8 else 'float'} {shape}, "
+                             f"got {src[path].dtype} {src[path].shape}")
+
+
+def _to_tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)  # a copy, 0-d kept
+
+
+def _port_kernel(arr: np.ndarray) -> np.ndarray:
+    """int8 HWIO -> [O, H, W, I] (each output channel's K-vector contiguous); a 1x1 as [O, I]."""
+    w = arr.transpose(3, 0, 1, 2)
+    return w.reshape(w.shape[0], -1) if w.shape[1:3] == (1, 1) else w
+
+
+def load_backbone_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
     """The JAX ``quantize_resnet50`` qtree, as numpy, in the port's form.
 
     int8 HWIO kernels become the kernel layout of ``ops/qblock.py``
     (``w1/w3/wd [O, I]``, ``w2 [O, 3, 3, I]``); epilogue vectors and scales
     become f32 tensors; the float stem kernel becomes OIHW and its BN pair
-    a dict of ``scale/bias/mean/var``.  The ``stem_s2d`` entry (the u8
-    space-to-depth stem, not ported) is dropped.  Raises ``KeyError`` on a
-    missing or unused key and ``ValueError`` on a shape or dtype that does
-    not match, before anything is converted.
+    a dict of ``scale/bias/mean/var``.  The uint8 stem's ``stem_s2d`` entry,
+    where the tree has one, keeps ``w [256, 64]`` and its border fills and
+    turns ``w7`` from HWIO ``[7, 7, 4, 64]`` into ``[64, 7, 7, 4]``
+    (``ops/qstem.py``).  Raises ``KeyError`` on a missing or unused key and
+    ``ValueError`` on a shape or dtype that does not match, before anything
+    is converted.
     """
-    src = {path: np.asarray(v) for path, v in _leaves(qtree_np) if path[0] != "stem_s2d"}
-    want = _backbone_qtree_shapes()
-    missing, unused = sorted(map(str, set(want) - set(src))), sorted(map(str, set(src) - set(want)))
-    if missing or unused:
-        raise KeyError(f"qtree does not match the ResNet-50 ladder: missing {missing[:8]} ({len(missing)}), "
-                       f"unused {unused[:8]} ({len(unused)})")
-    for path, shape in want.items():
-        int8 = path[-1] in ("w1", "w2", "w3", "wd")
-        if src[path].shape != shape or (src[path].dtype == np.int8) != int8:
-            raise ValueError(f"{'/'.join(map(str, path))}: expected {'int8' if int8 else 'float'} {shape}, "
-                             f"got {src[path].dtype} {src[path].shape}")
-
-    def tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)  # a copy, 0-d kept
-
+    src = {path: np.asarray(v) for path, v in _leaves(qtree_np)}
+    with_s2d = "stem_s2d" in qtree_np
+    _check_tree(src, _backbone_qtree_shapes(with_s2d),
+                lambda p: p[-1] in ("w1", "w2", "w3", "wd") or (p[0] == "stem_s2d" and p[-1] in _STEM_S2D_INT8),
+                "the ResNet-50 ladder")
+    tensor = lambda arr, dtype: _to_tensor(arr, dtype, device)
     out: Dict[str, Any] = {
         "stem": {"kernel": tensor(src[("stem", "kernel")].transpose(3, 2, 0, 1), torch.float32),
                  "bn": {n: tensor(src[("stem", "bn", i, "bn", n)], torch.float32)
                         for i, names in enumerate((("scale", "bias"), ("mean", "var"))) for n in names}},
         "stem_scale": tensor(src[("stem_scale",)], torch.float32),
     }
+    if with_s2d:
+        st = {k: src[("stem_s2d", k)] for k in _STEM_S2D}
+        st["w7"] = st["w7"].transpose(3, 0, 1, 2)
+        out["stem_s2d"] = {k: tensor(v, torch.int8 if k in _STEM_S2D_INT8 else torch.float32)
+                           for k, v in st.items()}
     for (scope, *rest), arr in src.items():
         if not scope.startswith("layer"):
             continue
         key = rest[0]
-        if arr.dtype == np.int8:  # HWIO -> O, H, W, I; a 1x1 as [O, I]
-            w = arr.transpose(3, 0, 1, 2)
-            out.setdefault(scope, {})[key] = tensor(w.reshape(w.shape[0], -1) if w.shape[1] == 1 else w,
-                                                    torch.int8)
+        if arr.dtype == np.int8:
+            out.setdefault(scope, {})[key] = tensor(_port_kernel(arr), torch.int8)
         else:
             out.setdefault(scope, {})[key] = tensor(arr, torch.float32)
+    return out
+
+
+_HIS_SCALARS = ("inv_x1", "se_premul", "inv_out", "s_out", "s_in")
+
+
+def _fpn_qtree_shapes(features: int) -> Dict[Tuple[str, str], Tuple[int, ...]]:
+    """Leaf path -> shape of the JAX HisFPN qtree for ``features`` channels."""
+    f, half, r = features, features // 2, features // 8
+    shapes = {}
+    for name, cin in (("tf1", 2048), ("tf2", 1024), ("tf3", 512)):
+        shapes.update({(name, "w"): (1, 1, cin, f), (name, "A"): (f,), (name, "B"): (f,), (name, "s"): ()})
+    blk = {"w1": (1, 1, f, half), "w2": (1, 1, f, half), "wdw": (3, 3, 1, half), "se_w1": (half, r),
+           "se_b1": (r,), "se_w2": (r, half), "se_b2": (half,), "w3": (3, 3, f, half), "w4": (3, 3, f, f)}
+    blk.update({k: (half,) for k in ("A1", "B1", "A2", "B2", "Adw", "Bdw", "A3", "B3")})
+    blk.update({k: (f,) for k in ("A4", "B4")})
+    blk.update({k: () for k in _HIS_SCALARS})
+    for i in range(1, 8):
+        shapes.update({(f"his{i}", k): v for k, v in blk.items()})
+    return shapes
+
+
+def load_fpn_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_hisfpn`` qtree, as numpy, in the port's form
+    (``nn/fpn_int8.py``): int8 HWIO kernels become ``[O, I]`` (1x1) and
+    ``[O, 3, 3, I]``, the depthwise ``[3, 3, 1, half]`` becomes ``[3, 3,
+    half]``; the rest becomes f32 tensors.  The width comes from ``tf1/w``.
+    Raises ``KeyError`` on a missing or unused key and ``ValueError`` on a
+    shape or dtype that does not match, before anything is converted.
+    """
+    src = {path: np.asarray(v) for path, v in _leaves(qtree_np)}
+    tf1 = src.get(("tf1", "w"))
+    if tf1 is None or tf1.ndim != 4:
+        raise KeyError("qtree does not match the HisFPN: tf1/w [1, 1, 2048, F] is missing")
+    _check_tree(src, _fpn_qtree_shapes(tf1.shape[-1]), lambda p: p[-1] in ("w", "w1", "w2", "wdw", "w3", "w4"),
+                "the HisFPN")
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (scope, key), arr in src.items():
+        if key == "wdw":
+            arr = arr[:, :, 0]
+        elif arr.dtype == np.int8:
+            arr = _port_kernel(arr)
+        out.setdefault(scope, {})[key] = _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32,
+                                                    device)
     return out

@@ -1,15 +1,18 @@
-"""int8 PTQ of the backbone and the int8-backbone eval forward (PyTorch).
+"""int8 PTQ of the backbone and the HisFPN, and the int8 eval forwards (PyTorch).
 
 Counterpart of ``pytorch_object_detection_tpu/train/trainer.py``:
-``quantize_backbone`` and ``_backbone_int8_feats`` (:412-467) and the
-``int8_fpn=False`` branch of ``make_eval_forward_int8`` (:596-776): an int8
-ResNet-50, then the BN-folded float HisFPN and the float HISHead (its
-GroupNorms on kernel B) in the compute dtype.
+``quantize_backbone``, ``_backbone_int8_feats`` and ``quantize_fpn``
+(:412-500, the HISFCOS branch), and ``make_eval_forward_int8`` (:596-776)
+for HISFCOS: an int8 ResNet-50 (its stem float, or the exact uint8 stem
+with ``u8_input=True``), then either the BN-folded float HisFPN
+(``int8_fpn=False``) or the int8 HisFPN dequantized to the compute dtype
+(``int8_fpn=True, int8_head=False``), then the float HISHead (its
+GroupNorms on kernel B).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``int8_fpn=True`` (and so ``int8_head``), ``fused_head=True``, and the
-EfficientNet backbones.  The u8 stem (``u8_input=True``) and the per-conv
-backend raise in ``nn/resnet_int8.py``.
+``int8_head=True`` with ``int8_fpn=True`` (K7, K9), ``fused_head=True``
+(K15), and the other model families.  The per-conv backend raises in
+``nn/resnet_int8.py``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from typing import Callable, Dict, List, Tuple
 import torch
 from torch import nn
 
+from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS
+from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, hisfpn_int8_forward, quantize_hisfpn
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     calibrate_resnet50,
@@ -27,8 +32,8 @@ from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     resnet50_int8_forward,
 )
 
-INT8_FPN_ITEM = ("ROADMAP.md queue 1 item 4 (int8 FPN, int8 head, calibration of FPN and head) "
-                 "and queue 2 K4, K5, K6 (and K7, K9 for the int8 head)")
+INT8_HEAD_ITEM = ("ROADMAP.md queue 2 K7 (qhishead_level) and K9 (qhishead_level2), with queue 1 item 4 "
+                  "(the head's calibration)")
 FUSED_HEAD_ITEM = "ROADMAP.md queue 2 K15 (hishead_level_fused)"
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
@@ -42,15 +47,17 @@ def _require_hisfcos(model: nn.Module) -> None:
 
 
 def quantize_backbone(model: nn.Module, calib_images: torch.Tensor,
-                      compute_dtype: torch.dtype = torch.bfloat16) -> Dict:
+                      compute_dtype: torch.dtype = torch.bfloat16, mean=None, std=None) -> Dict:
     """PTQ of the detector's ResNet-50: calibrate activation scales on
     ``calib_images`` (a representative NORMALIZED NHWC batch, on the
     model's device) in ``compute_dtype`` and return the int8 qtree for
-    :func:`make_eval_forward_int8`.  The JAX function's ``mean``/``std``
-    serve only the u8 space-to-depth stem, which is not ported."""
+    :func:`make_eval_forward_int8`.  ``mean``/``std`` (the input-normalize
+    constants, ImageNet's by default) make the exact uint8 stem's
+    ``stem_s2d`` entry."""
     _require_hisfcos(model)
     taps = calibrate_resnet50(model.backbone, calib_images, compute_dtype)
-    return quantize_resnet50(model.backbone, taps)
+    return quantize_resnet50(model.backbone, taps, IMAGENET_MEAN if mean is None else mean,
+                             IMAGENET_STD if std is None else std)
 
 
 def _backbone_int8_feats(qtree_bb: Dict, images: torch.Tensor, **kw):
@@ -60,35 +67,65 @@ def _backbone_int8_feats(qtree_bb: Dict, images: torch.Tensor, **kw):
     return resnet50_int8_forward(qtree_bb, images, torch.float32, dequant=False, **kw)
 
 
+def quantize_fpn(model: nn.Module, qtree_bb: Dict, calib_images: torch.Tensor) -> Dict:
+    """PTQ of the HisFPN (extends :func:`quantize_backbone`): calibrate its
+    activation scales on the int8 backbone's dequantized C3..C5, the
+    distribution the int8 HisFPN sees when serving, and return the FPN
+    qtree for ``make_eval_forward_int8(int8_fpn=True)``.
+
+    As the JAX function does, the features come from the per-op oracle with
+    the float stem, in f32, on the NORMALIZED ``calib_images`` (not from the
+    uint8 stem), whatever compute dtype the pipeline serves in.
+    """
+    _require_hisfcos(model)
+    feats_q, scales = _backbone_int8_feats(qtree_bb, calib_images)
+    feats = [q.float() * s for q, s in zip(feats_q, scales)]
+    return quantize_hisfpn(model.fpn, calibrate_hisfpn(model.fpn, feats), scales)
+
+
 def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
                            backend: str = "pallas_block", fused_head: bool = False, fuse_strided: bool = True,
                            int8_fpn: bool = False, int8_head: bool = False, u8_input: bool = False,
                            plain: bool = False) -> Callable[[Dict, torch.Tensor], Levels]:
     """Inference forward with an int8-PTQ backbone: ``fwd(qtree, images) ->
-    per-level f32 NHWC (cls, cnt, reg)``, ``images`` normalized NHWC floats.
+    per-level f32 NHWC (cls, cnt, reg)``; ``images`` normalized NHWC
+    floats, or raw uint8 frames with ``u8_input=True`` (the exact uint8
+    stem).
 
-    The int8 C3..C5 are dequantized to ``compute_dtype`` and turned NCHW
-    there, once; the HisFPN runs BN-folded (its kernels folded here, once,
-    from the model's f32 weights) and the head runs on a copy of
-    ``model.head`` in ``compute_dtype``.  Later changes to ``model`` are
-    not seen.  ``plain=True`` runs every kernel's plain version, for the
+    ``int8_fpn=False``: the int8 C3..C5 are dequantized to
+    ``compute_dtype`` and turned NCHW there, once; the HisFPN runs
+    BN-folded (its kernels folded here, once, from the model's f32
+    weights).  ``int8_fpn=True``: ``qtree`` is ``{"backbone": ...,
+    "fpn": ...}`` (:func:`quantize_backbone` + :func:`quantize_fpn`); the
+    int8 C3..C5 go straight into the int8 HisFPN (``backend="xla"``: its
+    per-op oracle; otherwise K4, K5, K6), whose levels are dequantized to
+    ``compute_dtype``.  Either way the head runs on a copy of
+    ``model.head`` in ``compute_dtype``; later changes to ``model`` are not
+    seen.  ``plain=True`` runs every kernel's plain version, for the
     comparison only.
     """
     _require_hisfcos(model)
-    if int8_fpn or int8_head:
-        raise NotImplementedError(f"int8_fpn / int8_head are not ported yet: {INT8_FPN_ITEM}")
+    if int8_fpn and int8_head:
+        raise NotImplementedError(f"int8_head=True (the int8 HISHead) is not ported yet: {INT8_HEAD_ITEM}; "
+                                  "pass int8_head=False")
     if fused_head:
         raise NotImplementedError(f"fused_head=True is not ported yet: {FUSED_HEAD_ITEM}")
     fpn = model.fpn
-    folded = fold_hisfpn(fpn, compute_dtype)
+    folded = None if int8_fpn else fold_hisfpn(fpn, compute_dtype)
     head = copy.deepcopy(model.head).to(compute_dtype).eval()
+    sub = "xla" if backend == "xla" else "pallas"  # the JAX mapping, trainer.py:640
 
     @torch.inference_mode()
     def fwd(qtree: Dict, images: torch.Tensor) -> Levels:
-        feats = resnet50_int8_forward(qtree, images, compute_dtype, backend=backend,
-                                      fuse_strided=fuse_strided, u8_stem=u8_input, plain=plain)
-        feats = [f.permute(0, 3, 1, 2).contiguous() for f in feats]  # the dequant seam: NHWC -> NCHW
-        levels = hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
+        bb_kw = dict(backend=backend, fuse_strided=fuse_strided, u8_stem=u8_input, plain=plain)
+        if int8_fpn:
+            feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
+            levels = hisfpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend="xla" if plain else sub)
+            levels = [lv.permute(0, 3, 1, 2).contiguous() for lv in levels]  # the dequant seam: NHWC -> NCHW
+        else:
+            feats = resnet50_int8_forward(qtree, images, compute_dtype, **bb_kw)
+            feats = [f.permute(0, 3, 1, 2).contiguous() for f in feats]  # the dequant seam: NHWC -> NCHW
+            levels = hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
         outs = head(levels, plain)
         return tuple([o.permute(0, 2, 3, 1).float() for o in branch] for branch in outs)
 

@@ -89,7 +89,7 @@ def backbones():
 
     params, stats = perturbed_variables(seed=2)
     jvars = {"params": params["backbone"], "batch_stats": stats["backbone"]}
-    model = build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES, device="cpu")
     load_flax_variables(model, params, stats)
     images = np.random.default_rng(3).normal(0, 1, (BATCH, *LADDER_HW, 3)).astype(np.float32)
     jtaps = jax.jit(lambda v, x: jr.calibrate_resnet50(v, x, jnp.float32))(jvars, jnp.asarray(images))
@@ -130,7 +130,7 @@ def test_quantize_resnet50_matches_jax(backbones):
     only where w / scale lies within about 1e-7 of a half step: 7 of the
     23.4 M weights differ here, bounded at 0.001 %."""
     port = resnet_int8.quantize_resnet50(backbones["model"].backbone, backbones["jtaps"])
-    want = load_backbone_qtree(backbones["jqtree"])
+    want = load_backbone_qtree(backbones["jqtree"], "cpu")
     n_diff = n_all = 0
     for scope, blk in want.items():
         if scope == "stem":
@@ -162,18 +162,19 @@ def test_load_backbone_qtree_rejects_bad_trees(backbones):
     bad = copy.deepcopy(jq)
     del bad["layer2_1"]["A2"]
     with pytest.raises(KeyError, match="missing"):
-        load_backbone_qtree(bad)
+        load_backbone_qtree(bad, "cpu")
     bad = copy.deepcopy(jq)
     bad["layer2_1"]["extra"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError, match="unused"):
-        load_backbone_qtree(bad)
+        load_backbone_qtree(bad, "cpu")
     bad = copy.deepcopy(jq)
     bad["layer3_0"]["w2"] = bad["layer3_0"]["w2"][:, :, :128]
     with pytest.raises(ValueError, match="layer3_0/w2"):
-        load_backbone_qtree(bad)
+        load_backbone_qtree(bad, "cpu")
     bad = copy.deepcopy(jq)
-    bad["stem_s2d"] = {"w": np.zeros((256, 64), np.int8)}  # the documented u8-stem entry is dropped
-    assert "stem_s2d" not in load_backbone_qtree(bad)
+    bad["stem_s2d"] = {"w": np.zeros((256, 64), np.int8)}  # the u8 stem's entry is kept, so it must be whole
+    with pytest.raises(KeyError, match="stem_s2d"):
+        load_backbone_qtree(bad, "cpu")
 
 
 # ---------------------------------------------------------------- (c)
@@ -267,7 +268,7 @@ def test_ladder_bit_exact_vs_jax_oracle(backbones):
                               [(0, 0), (1, 1), (1, 1), (0, 0)])
     x_q = np.asarray(jr.quantize_act(x, jq["stem_scale"]))
     want, _ = jr.resnet50_int8_forward(jq, images, jnp.float32, backend="xla", dequant=False)
-    qtree = load_backbone_qtree(jq)
+    qtree = load_backbone_qtree(jq, "cpu")
     for backend in ("xla", "pallas_block"):
         got = resnet_int8.resnet50_int8_ladder(qtree, torch.from_numpy(x_q), backend)
         assert len(got) == 4
@@ -290,7 +291,9 @@ def test_int8_stems_agree_and_unported_options_raise(backbones):
         resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas")
     with pytest.raises(NotImplementedError, match="fuse_strided"):
         resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_block", fuse_strided=False)
-    with pytest.raises(NotImplementedError, match="K1"):
+    with pytest.raises(NotImplementedError, match="K17"):
+        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_stem_tail")
+    with pytest.raises(KeyError, match="stem_s2d"):  # quantized without mean/std: no uint8 stem
         resnet_int8.resnet50_int8_forward(qtree, images, u8_stem=True)
 
 
@@ -363,7 +366,7 @@ def slice_runs():
     jlevels = jax.jit(jfwd)(jqtree, params, stats, x)
     jdets = decode_detections(*jlevels, STRIDES, 0.05, 0.6, 1000, (CANVAS, CANVAS))
 
-    model = build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES, device="cpu")
     load_flax_variables(model, params, stats)
     pipe = make_eval_pipeline_int8(model, torch.from_numpy(norm), STRIDES, (CANVAS, CANVAS), int8_fpn=False,
                                    compute_dtype=torch.float32)
@@ -409,14 +412,14 @@ def test_int8_slice_detections_match_jax(slice_runs):
 def test_int8_pipeline_options(slice_runs):
     model, norm = slice_runs["model"], torch.from_numpy(slice_runs["norm"])
     args = (model, norm, STRIDES, (CANVAS, CANVAS))
-    with pytest.raises(NotImplementedError, match="int8_fpn"):
-        make_eval_pipeline_int8(*args)  # the JAX default int8_fpn=True waits for its slice
+    with pytest.raises(NotImplementedError, match="K7"):
+        make_eval_pipeline_int8(*args)  # the JAX default int8_head=True waits for its slice
     for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
         with pytest.raises(NotImplementedError, match=what):
             make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
-    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True), "K5"),
+    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True), "K9"),
                      (dict(backend="pallas"), "K11"), (dict(fuse_strided=False), "fuse_strided"),
-                     (dict(u8_input=True), "K1")):
+                     (dict(backend="pallas_stem_tail"), "K17")):
         with pytest.raises(NotImplementedError, match=what):
             fwd = make_eval_forward_int8(model, torch.float32, **kw)
             fwd(quantize_backbone(model, norm[:1, :64, :64], torch.float32), norm[:1, :64, :64])

@@ -1,4 +1,6 @@
-"""Kernels A (NMS), B (GroupNorm) and C (int8 bottleneck) against their plain versions.
+"""The port's kernels against their plain versions: A (NMS), B (GroupNorm),
+C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K5 (int8 HisBlock)
+and K6 (int8 2x2 pool).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -18,7 +20,20 @@ from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_n
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
-from torch_port_fixtures import ADVERSARIAL_KEEP, nms_case, port_block, rand_qblock, resnet50_block_shapes, run_port_block
+from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qmatmul
+from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2
+from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
+from torch_port_fixtures import (
+    ADVERSARIAL_KEEP,
+    nms_case,
+    port_block,
+    port_hisfpn_qtree,
+    port_stem_s2d,
+    rand_qblock,
+    resnet50_block_shapes,
+    run_port_block,
+)
 
 # (C, H=W) of the head's GroupNorms at the 512x512 canvas: stem_gn1/2 on
 # 2*256 channels, cls/reg on 256, levels 64x64 .. 4x4
@@ -205,3 +220,142 @@ def test_qblock_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
         run_port_block(blk, x.float(), 1)
     with pytest.raises(ValueError):  # NCHW: w1 does not match the channel dim
         run_port_block(blk, x.permute(0, 3, 1, 2).contiguous(), 1)
+
+
+def _on(tree, device):
+    return {k: _on(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _frames(shape, seed):
+    return torch.randint(0, 256, shape, generator=torch.Generator().manual_seed(seed), dtype=torch.uint8)
+
+
+# frames: the serving canvas, canvases that are not powers of two, RGBX, a 2x6 frame
+QSTEM_SHAPES = [(2, 512, 512, 3), (2, 96, 80, 3), (2, 96, 80, 4), (1, 2, 6, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QSTEM_SHAPES, ids=["512", "96x80", "96x80_rgbx", "2x6"])
+def test_qstem_kernel_matches_plain_exactly(cuda, shape):
+    """K1 on raw uint8 frames: 0 differing int8 elements against its plain
+    version (the s2d oracle) on the card and on the CPU; one launch each."""
+    st = port_stem_s2d(0)
+    u8 = _frames(shape, shape[1])
+    want = qstem_conv(u8, st)
+    before = qstem_conv.launches
+    got = qstem_conv(u8.to(cuda), _on(st, cuda))
+    torch.cuda.synchronize()
+    assert qstem_conv.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(qstem_conv(u8.to(cuda), _on(st, cuda), plain=True).cpu(), want)
+    assert torch.equal(got.cpu(), want), f"{int((got.cpu() != want).sum())} int8 elements differ"
+    assert (want > 0).float().mean() > 0.05
+
+
+# (M, K, N): the laterals tf1..tf3 at the 512 canvas, B=2, and a ragged case
+QMM_SHAPES = [(512, 2048, 256), (2048, 1024, 256), (8192, 512, 256), (37, 48, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=["tf1", "tf2", "tf3", "ragged"])
+def test_qmm_kernel_matches_plain_exactly(cuda, shape):
+    """K4 with and without the residual, with and without ReLU: 0 differing
+    elements against ``torch._int_mm`` + the oracle's epilogue."""
+    m, k, n = shape
+    g = torch.Generator().manual_seed(m + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    a = torch.rand(n, generator=g) * 0.01 / k ** 0.5
+    b = torch.randn(n, generator=g) * 5
+    res = torch.randint(-127, 128, (m, n), generator=g, dtype=torch.int8)
+    dev = [t.to(cuda) for t in (x, w, a, b, res)]
+    for relu in (True, False):
+        for with_res in (False, True):
+            kw = dict(relu=relu, res=dev[4] if with_res else None, res_scale=0.37)
+            before = qmatmul.launches
+            got = qmatmul(*dev[:4], **kw)
+            torch.cuda.synchronize()
+            assert qmatmul.launches == before + 1
+            want = qmatmul(*dev[:4], plain=True, **kw)
+            assert got.dtype == torch.int8 and got.shape == (m, n)
+            assert torch.equal(got, want), f"relu={relu} res={with_res}: {int((got != want).sum())} differ"
+            assert torch.equal(want.cpu(), qmatmul(x, w, a, b, **dict(kw, res=res if with_res else None)))
+    got = qconv1x1(dev[0].reshape(1, m, 1, k), dev[1], dev[2], dev[3])
+    assert torch.equal(got.reshape(m, n), qmatmul(*dev[:4], plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 256), (2, 8, 8, 256), (2, 7, 5, 48), (2, 9, 6, 24), (2, 1, 1, 16)],
+                         ids=["64x64", "8x8", "odd", "c24", "1x1"])
+def test_qpool_kernel_matches_plain_exactly(cuda, shape):
+    """K6 at the pyramid's shapes and at odd sizes (VALID floors them) and a
+    channel count that is not a multiple of 16: 0 differing elements."""
+    x = torch.randint(-128, 128, shape, generator=torch.Generator().manual_seed(shape[1]), dtype=torch.int8)
+    before = qmaxpool2x2.launches
+    got = qmaxpool2x2(x.to(cuda))
+    torch.cuda.synchronize()
+    assert qmaxpool2x2.launches == before + (1 if got.numel() else 0)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+    assert torch.equal(got.cpu(), qmaxpool2x2(x))
+
+
+# (features, block, combine, H, W): the full width at 64x64 (his3) down to
+# 4x4 (his7, where the dilated shifts reach past the map) and a narrow
+# block at an odd size and at 1x1
+QHIS_CASES = [(256, "his3", "up_add", 64, 64), (256, "his1", None, 16, 16), (256, "his7", "add", 4, 4),
+              (64, "his4", "add", 13, 11), (64, "his6", "add", 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QHIS_CASES, ids=[f"{c[0]}_{c[1]}_{c[3]}x{c[4]}" for c in QHIS_CASES])
+def test_qhis_kernel_within_one_step_of_plain(cuda, case):
+    """K5 (three CUDA kernels, one counted launch) against its plain version
+    on the card: at most one int8 step, under 5 % of elements differing
+    (SiLU/sigmoid through the card's expf, the SE dots in another order)."""
+    features, name, combine, h, w = case
+    blk = _on(port_hisfpn_qtree(features, 1)[name], cuda)
+    g = torch.Generator().manual_seed(h * w)
+    draw = lambda *s: torch.clamp(torch.round(torch.randn(*s, generator=g) * 40), -127, 127).to(torch.int8)
+    xb = draw(2, h, w, features).to(cuda) if combine else None
+    xa = draw(2, h // 2, w // 2, features) if combine == "up_add" else draw(2, h, w, features)
+    kw = dict(xb_q=xb, combine=combine, ca=0.6, cb=0.7)
+    before = qhisblock.launches
+    got = qhisblock(blk, xa.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert qhisblock.launches == before + 1
+    want = qhisblock(blk, xa.to(cuda), plain=True, **kw)
+    assert got.dtype == torch.int8 and got.shape == want.shape == (2, h, w, features)
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05, (int(d.max()), float((d > 0).float().mean()))
+    assert (want != 0).float().mean() > 0.05
+
+
+def test_int8_fpn_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    from pytorch_object_detection_tpu_torch.ops.qhis import combine_plain, qhisblock_plain
+    from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2_plain
+    from pytorch_object_detection_tpu_torch.ops.qstem import qstem_plain, to_rgbx
+    from pytorch_object_detection_tpu_torch.nn.resnet import space_to_depth
+
+    counters = (qstem_conv, qmatmul, qhisblock, qmaxpool2x2)
+    before = [c.launches for c in counters]
+    st = port_stem_s2d(0)
+    u8 = _frames((1, 16, 12, 3), 0)
+    assert torch.equal(qstem_conv(u8, st), qstem_plain(st, space_to_depth(to_rgbx(u8), 2)))
+    x = torch.randint(-127, 128, (2, 6, 4, 32), dtype=torch.int8)
+    assert torch.equal(qmaxpool2x2(x), qmaxpool2x2_plain(x))
+    blk = port_hisfpn_qtree(32, 2)["his5"]
+    assert torch.equal(qhisblock(blk, x, xb_q=x, combine="add", ca=0.5, cb=0.5),
+                       qhisblock_plain(blk, combine_plain(x, x, "add", 0.5, 0.5)))
+    lat = port_hisfpn_qtree(32, 2)["tf3"]
+    assert qmatmul(x.reshape(-1, 32).repeat(1, 16), lat["w"], lat["A"], lat["B"]).shape == (48, 32)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="uint8"):
+        qstem_conv(u8.float(), st)
+    with pytest.raises(ValueError, match="even"):
+        qstem_conv(u8[:, :15], st)
+    with pytest.raises(ValueError, match="up_add"):
+        qhisblock(blk, x, xb_q=x, combine="up_add")
+    with pytest.raises(ValueError, match="xb_q"):
+        qhisblock(blk, x, combine="add")
+    with pytest.raises(ValueError, match="w must be"):
+        qmatmul(x.reshape(-1, 32), lat["w"], lat["A"], lat["B"])

@@ -110,7 +110,7 @@ def test_port_holds_every_flax_variable(chain):
     """The port has exactly as many parameters + buffers as the flax tree has
     leaves (load_flax_variables checks the names one by one)."""
     n_flax = sum(a.size for a in jax.tree_util.tree_leaves((chain["params"], chain["stats"])))
-    model = HISFCOS(NUM_CLASSES, FEATURES)
+    model = HISFCOS(NUM_CLASSES, FEATURES, device="cpu")
     n_port = sum(t.numel() for t in model.state_dict().values())
     assert n_port == n_flax
 
@@ -127,7 +127,7 @@ def test_load_flax_variables_rejects_mismatched_tree(chain, fault):
     else:
         stats["backbone"]["bn1"]["bn"]["var"] = np.ones(65, np.float32)
         err = ValueError
-    model = HISFCOS(NUM_CLASSES, FEATURES)
+    model = HISFCOS(NUM_CLASSES, FEATURES, device="cpu")
     before = model.backbone.bn1.running_var.clone()
     with pytest.raises(err):
         load_flax_variables(model, params, stats)
@@ -144,8 +144,8 @@ def test_unported_options_raise():
 
 
 def test_seeded_init_is_reproducible_and_follows_jax_distributions():
-    a = build_model("HISFCOS", NUM_CLASSES, FEATURES, generator=torch.Generator().manual_seed(3))
-    b = build_model("HISFCOS", NUM_CLASSES, FEATURES, generator=torch.Generator().manual_seed(3))
+    a = build_model("HISFCOS", NUM_CLASSES, FEATURES, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = build_model("HISFCOS", NUM_CLASSES, FEATURES, device="cpu", generator=torch.Generator().manual_seed(3))
     for (name, ta), tb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(ta, tb), name
     # cls prior bias -log(99); ScaleExp 1.2; torch-default conv bound 1/sqrt(fan_in)

@@ -51,7 +51,7 @@ def runs():
     x = (jnp.asarray(frames).astype(jnp.float32) / 255.0 - jnp.asarray(IMAGENET_MEAN)) / jnp.asarray(IMAGENET_STD)
     jax_levels = jax_make_eval_forward(jax_model(), jnp.float32)(params, stats, x)
 
-    model = build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES, device="cpu")
     load_flax_variables(model, params, stats)
     pipe = make_eval_pipeline(model, STRIDES, (CANVAS, CANVAS), compute_dtype=torch.float32)
     levels = pipe.forward_levels(torch.from_numpy(frames))

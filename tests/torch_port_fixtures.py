@@ -208,3 +208,33 @@ def run_port_block(blk, x, stride, **kw):
     if "wd" in blk:
         return qbottleneck(*common, *vecs, wd=blk["wd"], ad=blk["Ad"], bd=blk["Bd"], **kw)
     return qbottleneck(*common, *vecs, short_mul=blk["short_mul"], **kw)
+
+
+def port_stem_s2d(seed: int = 0):
+    """A uint8 stem entry (``stem_s2d``) of a random ResNet-50, made by the
+    port alone (``nn/resnet_int8.quantize_stem_s2d``), its scale calibrated
+    on two random 64x64 frames."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import IMAGENET_MEAN, IMAGENET_STD
+    from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
+    from pytorch_object_detection_tpu_torch.nn.resnet_int8 import calibrate_resnet50, quantize_stem_s2d
+
+    g = torch.Generator().manual_seed(seed)
+    backbone = ResNet50(generator=g).eval()
+    frames = torch.randint(0, 256, (2, 64, 64, 3), generator=g).float()
+    norm = (frames / 255.0 - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD)
+    absmax = calibrate_resnet50(backbone, norm, torch.float32)["stem_out"]
+    return quantize_stem_s2d(backbone, IMAGENET_MEAN, IMAGENET_STD, absmax)
+
+
+def port_hisfpn_qtree(features: int, seed: int = 0):
+    """An int8 HisFPN qtree of a random HisFPN of ``features`` channels,
+    made by the port alone (``nn/fpn_int8``), calibrated on random C3..C5
+    at 16x16, 8x8 and 4x4."""
+    from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN
+    from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, quantize_hisfpn
+
+    g = torch.Generator().manual_seed(seed)
+    fpn = HisFPN((512, 1024, 2048), features, generator=g).eval()
+    feats = [torch.randn(2, s, s, c, generator=g).abs() for s, c in ((16, 512), (8, 1024), (4, 2048))]
+    scales = [f.abs().max() / 127.0 for f in feats]
+    return quantize_hisfpn(fpn, calibrate_hisfpn(fpn, feats), scales)
