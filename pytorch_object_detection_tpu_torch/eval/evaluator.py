@@ -1,10 +1,11 @@
 """Serving pipelines: uint8 frames -> normalize -> forward -> decode -> NMS.
 
 Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
-``make_eval_pipeline`` (float path) and ``make_eval_pipeline_int8`` (the
-int8 backbone with the float HisFPN, ``int8_fpn=False``, or from raw uint8
-frames through the exact uint8 stem, the int8 backbone and the int8 HisFPN,
-``int8_fpn=True, int8_head=False``).  The JAX versions are one jitted
+``make_eval_pipeline`` (float path) and ``make_eval_pipeline_int8`` (by
+default from raw uint8 frames through the exact uint8 stem, the int8
+backbone, the int8 HisFPN and the int8 HISHead; or with the float head
+behind the int8 HisFPN, ``int8_head=False``; or the int8 backbone with the
+float HisFPN, ``int8_fpn=False``).  The JAX versions are one jitted
 program each; here the pipelines run eagerly on the model's device, with
 the kernels (``ops/``) wherever that device is CUDA.
 """
@@ -19,10 +20,10 @@ from torch import nn
 from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections
 from pytorch_object_detection_tpu_torch.train.trainer import (
-    INT8_HEAD_ITEM,
     make_eval_forward_int8,
     quantize_backbone,
     quantize_fpn,
+    quantize_head,
 )
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
@@ -165,28 +166,25 @@ def make_eval_pipeline_int8(
     """int8-PTQ serving pipeline (the JAX function's signature and defaults;
     the model carries its weights, so there is no ``variables`` argument).
 
-    ``int8_fpn=False``: normalize, calibrated int8 ResNet-50 (kernel C on
-    CUDA), BN-folded float HisFPN, float HISHead (kernel B), decode + NMS
-    (kernel A).  ``int8_fpn=True`` (with ``int8_head=False``, the JAX
-    function's backbone+FPN configuration): the pipeline takes the raw
-    uint8 frames with no normalize pass, as the JAX one does; the exact
-    uint8 stem (K1), the int8 ResNet-50 (kernel C), the int8 HisFPN (K4,
-    K5, K6) dequantized to ``compute_dtype``, then the float HISHead,
-    decode and NMS.  The JAX default ``int8_head=True`` (with
-    ``int8_fpn``) raises ``NotImplementedError``: the int8 head (K7, K9) is
-    not ported.  ``backend="pallas_block"`` runs the kernels on CUDA;
+    The defaults (``int8_fpn=True, int8_head=True``) are the JAX package's
+    shipped serving path: the pipeline takes the raw uint8 frames with no
+    normalize pass; the exact uint8 stem (K1), the int8 ResNet-50 (kernel
+    C), the int8 HisFPN (K4, K5, K6), the int8 HISHead (K7; K9 on levels of
+    more than 64x64 pixels) on the int8 levels, its ScaleExp, decode and
+    NMS (kernel A).  ``int8_head=False``: the int8 HisFPN's levels are
+    dequantized to ``compute_dtype`` into the float HISHead (kernel B).
+    ``int8_fpn=False``: normalize, int8 ResNet-50, BN-folded float HisFPN,
+    float HISHead.  ``backend="pallas_block"`` runs the kernels on CUDA;
     ``"xla"`` the per-op oracles.
 
     ``calib_images``: a representative NORMALIZED NHWC float batch on the
     model's device; the backbone's activation scales are calibrated on it in
     ``compute_dtype`` (bf16 on the card, f32 in the CPU tests), the
-    HisFPN's in f32 on the backbone oracle's features (``quantize_fpn``).
+    HisFPN's and the head's in f32 on the oracles' features and levels
+    (``quantize_fpn``, ``quantize_head``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
-    if int8_head:
-        raise NotImplementedError(f"int8_head=True (the int8 HISHead) is not ported yet: {INT8_HEAD_ITEM}; "
-                                  "pass int8_head=False")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     if device_resize:
@@ -201,7 +199,9 @@ def make_eval_pipeline_int8(
     qtree = quantize_backbone(model, calib_images, compute_dtype, mean, std)
     if int8_fpn:
         qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}
-    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, int8_fpn=int8_fpn, u8_input=u8_input,
-                                 plain=plain)
+        if int8_head:
+            qtree["head"] = quantize_head(model, qtree["backbone"], qtree["fpn"], calib_images)
+    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, int8_fpn=int8_fpn, int8_head=int8_head,
+                                 u8_input=u8_input, plain=plain)
     return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
                             nms_iou, max_detections, plain, mean, std, u8_input)

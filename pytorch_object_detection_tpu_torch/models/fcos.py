@@ -31,6 +31,7 @@ class HISFCOS(nn.Module):
                  device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.num_classes = num_classes
         self.backbone = ResNet50(stem_mode=stem_mode, generator=generator)
         self.fpn = HisFPN((512, 1024, 2048), features, generator=generator)
         self.head = HISHead(num_classes, features, generator=generator)

@@ -1,0 +1,189 @@
+"""K7 and K9: one level of the int8 HISHead in CUDA (``csrc/qhead.cu``), and their plain version.
+
+Replace ``pytorch_object_detection_tpu/ops/pallas_qhead.py``'s
+``qhishead_level`` (K7) and ``qhishead_level2`` (K9).  One call maps an int8
+pyramid level to the head's two prediction maps:
+
+  pw1 (1x1, C -> 2C) -> GN32 + ReLU -> dw3x3 -> GN32 + SiLU -> pw2 (1x1, 2C -> C)
+  + bias + residual -> [cls 3x3 -> GN32 + ReLU -> cls_pred 3x3]
+                       [reg 3x3 -> GN32 + ReLU -> cnt|reg pred 3x3]
+
+Each conv is int8 x int8 with an exact int32 sum; its pre-norm map is
+``float(acc) * A`` (the per-channel dequant comes before the GroupNorm's
+statistics), each GroupNorm output is requantized at a per-level scale.
+
+Layouts: ``x_q`` int8 NHWC ``[B, H, W, C]``, contiguous; the qtree as
+``models/head_int8.quantize_hishead`` makes it: ``w1 [2C, C]``, ``wdw [3, 3,
+2C]``, ``w2 [C, 2C]``, ``wc``/``wr [C, 3, 3, C]``, ``wpc [nc, 3, 3, C]``,
+``wcr [5, 3, 3, C]`` int8 (each output channel's K-vector contiguous);
+``b2``, ``bpc``, ``bcr`` f32; ``gn1``, ``gn2`` (2C) and ``gnc``, ``gnr`` (C)
+as (gamma, beta) f32; ``lv`` one entry of ``q["levels"]`` (``A1, inv_x1,
+Adw, inv_x2, A2, B2, res_mul, Ac, inv_c, Ar, inv_r, Apc, Acr``, the scalars
+0-d).  Returns ``(cls [B, H, W, nc], cr [B, H, W, 5])`` f32, ``cr`` =
+[cnt, reg x 4] before the ScaleExp.  On the card C must be a multiple of 32.
+
+The plain version is the JAX per-op oracle ``models/head_int8.py:
+_hishead_level_i8_xla`` (``:187-205``) operation for operation: exact int32
+convolutions, the f32 epilogues in the oracle's association, each GroupNorm
+in f32 over the whole (H*W, group) extent with a two-pass variance.  The
+kernels take their GroupNorm statistics exactly (int64 sums of the int32
+accumulators, combined in double), so a group mean or variance can differ
+from the plain f32 one in its last bits, and SiLU goes through the card's
+``expf``: an int8 intermediate can move by one step, which the later convs
+carry into the outputs (the JAX kernels' own contract, ``tests/
+test_quant.py:586-629``: max error under 0.05 of max|cls|, cosine over 0.999).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from pytorch_object_detection_tpu_torch.ops.qhis import depthwise3x3_i8
+from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8
+
+SOURCE = "qhead.cu"
+# no FMA contraction: a fused multiply-add moves values across a requant boundary
+NVCC_FLAGS = ("-fmad=false",)
+GN_EPS = 1e-5
+NUM_GROUPS = 32
+# the pointer table of qhead_launch, in csrc/qhead.cu's order (gn* expand to gamma, beta)
+_SHARED = ("w1", "wdw", "w2", "wc", "wr", "wpc", "wcr", "bpc", "bcr", "gn1", "gn2", "gnc", "gnr")
+_LEVEL = ("A1", "inv_x1", "Adw", "inv_x2", "A2", "B2", "res_mul", "Ac", "inv_c", "Ar", "inv_r", "Apc", "Acr")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load K7/K9; their C signatures are declared here."""
+    from pytorch_object_detection_tpu_torch._build import load_library
+
+    lib = load_library(SOURCE, NVCC_FLAGS)
+    lib.qhead_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.qhead_scratch_bytes.restype = ctypes.c_size_t
+    lib.qhead_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    lib.qhead_launch.restype = ctypes.c_int
+    return lib
+
+
+def _gn(z: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, act: str) -> torch.Tensor:
+    """GroupNorm32 + activation on f32 NHWC (the JAX ``_gn``: two-pass
+    variance over the whole (H*W, group) extent, then ``* gamma + beta``)."""
+    b, h, w, c = z.shape
+    g = z.reshape(b, h * w, NUM_GROUPS, c // NUM_GROUPS)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = ((g - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    y = ((g - mean) * torch.rsqrt(var + GN_EPS)).reshape(b, h, w, c)
+    y = y * gamma + beta
+    if act == "relu":
+        return torch.clamp(y, min=0.0)
+    return y * torch.sigmoid(y)  # the oracle's SiLU, not F.silu's
+
+
+def qhishead_level_plain(q: Dict, lv: Dict, x_q: torch.Tensor, num_classes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One head level in plain PyTorch ops (the reference for K7 and K9).
+    ``num_classes`` is unused: the pred weights carry the channel count."""
+    z = conv_i8(x_q, q["w1"]) * lv["A1"]
+    x1q = clip8(_gn(z, *q["gn1"], act="relu") * lv["inv_x1"])
+    z = depthwise3x3_i8(x1q, q["wdw"]) * lv["Adw"]
+    x2q = clip8(_gn(z, *q["gn2"], act="silu") * lv["inv_x2"])
+    y = conv_i8(x2q, q["w2"]) * lv["A2"] + lv["B2"] + x_q.float() * lv["res_mul"]
+    yq = clip8(y)
+    zc = conv_i8(yq, q["wc"]) * lv["Ac"]
+    cq = clip8(_gn(zc, *q["gnc"], act="relu") * lv["inv_c"])
+    zr = conv_i8(yq, q["wr"]) * lv["Ar"]
+    rq = clip8(_gn(zr, *q["gnr"], act="relu") * lv["inv_r"])
+    cls = conv_i8(cq, q["wpc"]) * lv["Apc"] + q["bpc"]
+    cr = conv_i8(rq, q["wcr"]) * lv["Acr"] + q["bcr"]
+    return cls, cr
+
+
+def _check(q: Dict, x_q: torch.Tensor, num_classes) -> int:
+    """Shapes and types of the input; returns the class count."""
+    if x_q.dtype != torch.int8 or x_q.dim() != 4:
+        raise ValueError(f"x_q must be int8 [B, H, W, C] (NHWC); got {x_q.dtype} {tuple(x_q.shape)}")
+    c2, c = q["w1"].shape
+    if c2 != 2 * c or x_q.shape[-1] != c:
+        raise ValueError(f"the head takes C = {c} channels (w1 [2C, C]); got x_q {tuple(x_q.shape)}")
+    nc = q["wpc"].shape[0]
+    if num_classes is not None and int(num_classes) != nc:
+        raise ValueError(f"num_classes={num_classes} but the cls pred weights have {nc} outputs")
+    return nc
+
+
+def _launch(q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 (``pair=False``) or K9 on CUDA tensors (checked by ``_check`` first)."""
+    dev = x_q.device
+    b, h, w, c = x_q.shape
+    if c % 32:
+        raise ValueError(f"K7/K9 need a width divisible by 32; got {c}")
+    shared = [t for k in _SHARED for t in (q[k] if k.startswith("gn") else (q[k],))]
+    level = [lv[k] for k in _LEVEL]
+    if x_q.device.type != "cuda" or any(t.device != dev for t in shared + level):
+        raise ValueError(f"K7/K9: every operand must be on {dev}")
+    if not x_q.is_contiguous() or any(t.data_ptr() % 16 for t in [x_q] + shared[:7]):
+        raise ValueError("K7/K9 take x_q NHWC-contiguous, and x_q and the weights 16-byte aligned")
+    if any(not t.is_contiguous() for t in shared + level) or any(t.dtype != torch.int8 for t in shared[:7]) \
+            or any(t.dtype != torch.float32 for t in shared[7:] + level):
+        raise ValueError("K7/K9 take contiguous int8 weights and f32 vectors and scalars")
+    want = {"A1": 2 * c, "Adw": 2 * c, "A2": c, "B2": c, "Ac": c, "Ar": c, "Apc": nc, "Acr": 5}
+    if any(lv[k].numel() != n for k, n in want.items()) or any(lv[k].numel() != 1 for k in _LEVEL if k not in want):
+        raise ValueError(f"the level's epilogue vectors do not fit C={c}, nc={nc}")
+    cls = torch.empty((b, h, w, nc), dtype=torch.float32, device=dev)
+    cr = torch.empty((b, h, w, 5), dtype=torch.float32, device=dev)
+    if cls.numel() == 0:
+        return cls, cr
+    if -(-w // 8) * -(-h // 8) > 65535 or b > 65535:
+        raise ValueError(f"K7/K9 take at most 65535 8x8 tiles and 65535 images; got {tuple(x_q.shape)}")
+    lib = _lib()
+    scratch = torch.empty(lib.qhead_scratch_bytes(b, h, w, c, int(pair)), dtype=torch.uint8, device=dev)
+    ptrs = [x_q, *shared, *level, cls, cr]
+    table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    with torch.cuda.device(dev):  # the launches go to the current device
+        err = lib.qhead_launch(table, b, h, w, c, nc, int(pair), scratch.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K{9 if pair else 7} launch failed: cudaError {err}")
+    return cls, cr
+
+
+def qhishead_level(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
+                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pyramid level through the int8 head (the JAX signature, less
+    ``row_chunk`` and ``interpret``).
+
+    On a CPU tensor this is :func:`qhishead_level_plain`; on a CUDA tensor
+    it launches K7 (eight CUDA kernels, counted as one launch) or raises.
+    ``plain=True`` runs the plain version on any device, for the comparison
+    only.  ``qhishead_level.launches`` counts kernel launches.
+    """
+    nc = _check(q, x_q, num_classes)
+    if plain or x_q.device.type == "cpu":
+        return qhishead_level_plain(q, lv, x_q)
+    out = _launch(q, lv, x_q, nc, pair=False)
+    if out[0].numel():
+        qhishead_level.launches += 1
+    return out
+
+
+def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
+                    plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9: :func:`qhishead_level` on image pairs, with the pw1 pre-norm map
+    recomputed where the depthwise conv needs it instead of stored.  Same
+    outputs and plain version.  An odd batch runs K7, as the JAX function
+    does (``pallas_qhead.py:658-660``).  ``qhishead_level2.launches``
+    counts K9's launches only."""
+    nc = _check(q, x_q, num_classes)
+    if plain or x_q.device.type == "cpu":
+        return qhishead_level_plain(q, lv, x_q)
+    if x_q.shape[0] % 2:
+        return qhishead_level(q, lv, x_q, num_classes=num_classes)
+    out = _launch(q, lv, x_q, nc, pair=True)
+    if out[0].numel():
+        qhishead_level2.launches += 1
+    return out
+
+
+qhishead_level.launches = 0
+qhishead_level2.launches = 0

@@ -14,10 +14,11 @@ here imports JAX.  The mapping:
 
 A missing key, an unused key or a shape that does not match raises.
 
-``load_backbone_qtree`` and ``load_fpn_qtree`` carry the JAX package's
-int8 backbone and HisFPN qtrees (``nn/resnet_int8.quantize_resnet50``,
-``nn/fpn_int8.quantize_hisfpn``) across in the same way, to the card unless
-``device`` says otherwise.
+``load_backbone_qtree``, ``load_fpn_qtree`` and ``load_head_qtree`` carry
+the JAX package's int8 backbone, HisFPN and HISHead qtrees
+(``nn/resnet_int8.quantize_resnet50``, ``nn/fpn_int8.quantize_hisfpn``,
+``models/head_int8.quantize_hishead``) across in the same way, to the card
+unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -233,4 +234,60 @@ def load_fpn_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cu
             arr = _port_kernel(arr)
         out.setdefault(scope, {})[key] = _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32,
                                                     device)
+    return out
+
+
+_HEAD_INT8 = ("w1", "wdw", "w2", "wc", "wr", "wpc", "wcr")
+_HEAD_GNS = ("gn1", "gn2", "gnc", "gnr")
+
+
+def _head_qtree_shapes(c: int, nc: int, n_levels: int) -> Dict[Tuple[Any, ...], Tuple[int, ...]]:
+    """Leaf path -> shape of the JAX HISHead qtree (width ``c``, ``nc`` classes)."""
+    c2 = 2 * c
+    shapes = {("w1",): (1, 1, c, c2), ("wdw",): (3, 3, 1, c2), ("w2",): (1, 1, c2, c), ("wc",): (3, 3, c, c),
+              ("wr",): (3, 3, c, c), ("wpc",): (3, 3, c, nc), ("wcr",): (3, 3, c, 5), ("b2",): (c,),
+              ("bpc",): (nc,), ("bcr",): (5,), ("scale_exp",): (n_levels,)}
+    for name, n in zip(_HEAD_GNS, (c2, c2, c, c)):
+        shapes.update({(name, 0): (n,), (name, 1): (n,)})
+    lv = {"A1": (c2,), "Adw": (c2,), "A2": (c,), "B2": (c,), "Ac": (c,), "Ar": (c,), "Apc": (nc,), "Acr": (5,)}
+    lv.update({k: () for k in ("inv_x1", "inv_x2", "res_mul", "inv_c", "inv_r")})
+    for i in range(n_levels):
+        shapes.update({("levels", i, k): v for k, v in lv.items()})
+    return shapes
+
+
+def load_head_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_hishead`` qtree, as numpy, in the port's form
+    (``models/head_int8.py``): int8 HWIO kernels become ``[O, I]`` (1x1) and
+    ``[O, 3, 3, I]``, the depthwise ``[3, 3, 1, 2C]`` becomes ``[3, 3, 2C]``;
+    the GroupNorm pairs stay (gamma, beta) tuples and ``levels`` a list of
+    dicts, of f32 tensors (0-d for the scalars); ``num_classes`` stays an
+    int.  The width comes from ``w1``, the class count from
+    ``num_classes``.  Raises ``KeyError`` on a missing or unused key and
+    ``ValueError`` on a shape or dtype that does not match, before anything
+    is converted.
+    """
+    if "num_classes" not in qtree_np or "w1" not in qtree_np or not isinstance(qtree_np.get("levels"), (list, tuple)):
+        raise KeyError("qtree does not match the HISHead: num_classes, w1 or the levels list is missing")
+    nc = np.asarray(qtree_np["num_classes"])
+    if nc.ndim or nc.dtype.kind not in "iu" or int(nc) < 1:
+        raise ValueError(f"num_classes: expected a positive int, got {nc!r}")
+    w1 = np.asarray(qtree_np["w1"])
+    if w1.ndim != 4:
+        raise ValueError(f"w1: expected int8 [1, 1, C, 2C], got {w1.dtype} {w1.shape}")
+    src = {path: np.asarray(v) for path, v in _leaves({k: v for k, v in qtree_np.items() if k != "num_classes"})}
+    _check_tree(src, _head_qtree_shapes(w1.shape[2], int(nc), len(qtree_np["levels"])),
+                lambda p: p[0] in _HEAD_INT8, "the HISHead")
+    tensor = lambda arr: _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32, device)
+    out: Dict[str, Any] = {"num_classes": int(nc), "levels": [{} for _ in qtree_np["levels"]]}
+    for path, arr in src.items():
+        if path[0] == "levels":
+            out["levels"][path[1]][path[2]] = tensor(arr)
+        elif path[0] in _HEAD_GNS:
+            out.setdefault(path[0], [None, None])[path[1]] = tensor(arr)
+        elif path[0] == "wdw":
+            out["wdw"] = tensor(arr[:, :, 0])
+        else:
+            out[path[0]] = tensor(_port_kernel(arr) if arr.dtype == np.int8 else arr)
+    out.update({name: tuple(out[name]) for name in _HEAD_GNS})
     return out

@@ -1,18 +1,18 @@
-"""int8 PTQ of the backbone and the HisFPN, and the int8 eval forwards (PyTorch).
+"""int8 PTQ of the backbone, the HisFPN and the HISHead, and the int8 eval forwards (PyTorch).
 
 Counterpart of ``pytorch_object_detection_tpu/train/trainer.py``:
-``quantize_backbone``, ``_backbone_int8_feats`` and ``quantize_fpn``
-(:412-500, the HISFCOS branch), and ``make_eval_forward_int8`` (:596-776)
-for HISFCOS: an int8 ResNet-50 (its stem float, or the exact uint8 stem
-with ``u8_input=True``), then either the BN-folded float HisFPN
-(``int8_fpn=False``) or the int8 HisFPN dequantized to the compute dtype
-(``int8_fpn=True, int8_head=False``), then the float HISHead (its
-GroupNorms on kernel B).
+``quantize_backbone``, ``_backbone_int8_feats``, ``quantize_fpn`` and
+``quantize_head`` (:412-570, the HISFCOS branches), and
+``make_eval_forward_int8`` (:596-776) for HISFCOS: an int8 ResNet-50 (its
+stem float, or the exact uint8 stem with ``u8_input=True``), then either
+the BN-folded float HisFPN (``int8_fpn=False``) and the float HISHead (its
+GroupNorms on kernel B), or the int8 HisFPN, whose levels go dequantized
+to the float HISHead (``int8_head=False``) or stay int8 into the int8
+HISHead (``int8_head=True``, the JAX default serving path).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``int8_head=True`` with ``int8_fpn=True`` (K7, K9), ``fused_head=True``
-(K15), and the other model families.  The per-conv backend raises in
-``nn/resnet_int8.py``.
+``fused_head=True`` (K15) and the other model families.  The per-conv
+backend raises in ``nn/resnet_int8.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from torch import nn
 
 from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS
+from pytorch_object_detection_tpu_torch.models.head_int8 import calibrate_hishead, hishead_int8_forward, quantize_hishead
 from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, hisfpn_int8_forward, quantize_hisfpn
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
@@ -32,8 +33,6 @@ from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     resnet50_int8_forward,
 )
 
-INT8_HEAD_ITEM = ("ROADMAP.md queue 2 K7 (qhishead_level) and K9 (qhishead_level2), with queue 1 item 4 "
-                  "(the head's calibration)")
 FUSED_HEAD_ITEM = "ROADMAP.md queue 2 K15 (hishead_level_fused)"
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
@@ -83,6 +82,23 @@ def quantize_fpn(model: nn.Module, qtree_bb: Dict, calib_images: torch.Tensor) -
     return quantize_hisfpn(model.fpn, calibrate_hisfpn(model.fpn, feats), scales)
 
 
+def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_images: torch.Tensor) -> Dict:
+    """PTQ of the HISHead (extends :func:`quantize_fpn` through the whole
+    detector): calibrate its per-level activation scales on the int8
+    HisFPN's dequantized levels and return the head qtree for
+    ``make_eval_forward_int8(int8_fpn=True, int8_head=True)``.
+
+    As the JAX function does, the levels come from the per-op oracles, in
+    f32: the backbone with the float stem on the NORMALIZED
+    ``calib_images``, then the int8 HisFPN with ``dequant=False``.
+    """
+    _require_hisfcos(model)
+    feats_q, _ = _backbone_int8_feats(qtree_bb, calib_images)
+    levels_q, level_scales = hisfpn_int8_forward(qtree_fpn, feats_q, torch.float32, backend="xla", dequant=False)
+    levels = [q.float() * s for q, s in zip(levels_q, level_scales)]
+    return quantize_hishead(model.head, calibrate_hishead(model.head, levels), level_scales, model.num_classes)
+
+
 def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
                            backend: str = "pallas_block", fused_head: bool = False, fuse_strided: bool = True,
                            int8_fpn: bool = False, int8_head: bool = False, u8_input: bool = False,
@@ -99,28 +115,33 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     "fpn": ...}`` (:func:`quantize_backbone` + :func:`quantize_fpn`); the
     int8 C3..C5 go straight into the int8 HisFPN (``backend="xla"``: its
     per-op oracle; otherwise K4, K5, K6), whose levels are dequantized to
-    ``compute_dtype``.  Either way the head runs on a copy of
-    ``model.head`` in ``compute_dtype``; later changes to ``model`` are not
-    seen.  ``plain=True`` runs every kernel's plain version, for the
-    comparison only.
+    ``compute_dtype``.  The float head runs on a copy of ``model.head`` in
+    ``compute_dtype``; later changes to ``model`` are not seen.
+    ``int8_fpn=True, int8_head=True``: ``qtree`` also has ``"head"``
+    (:func:`quantize_head`); the int8 levels go straight into the int8
+    head (``backend="xla"``: its per-op oracle; otherwise K7 and K9), which
+    returns f32 maps, with no float seam.  ``plain=True`` runs every
+    kernel's plain version, for the comparison only.
     """
     _require_hisfcos(model)
-    if int8_fpn and int8_head:
-        raise NotImplementedError(f"int8_head=True (the int8 HISHead) is not ported yet: {INT8_HEAD_ITEM}; "
-                                  "pass int8_head=False")
     if fused_head:
         raise NotImplementedError(f"fused_head=True is not ported yet: {FUSED_HEAD_ITEM}")
+    int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
     fpn = model.fpn
     folded = None if int8_fpn else fold_hisfpn(fpn, compute_dtype)
-    head = copy.deepcopy(model.head).to(compute_dtype).eval()
-    sub = "xla" if backend == "xla" else "pallas"  # the JAX mapping, trainer.py:640
+    head = None if int8_head else copy.deepcopy(model.head).to(compute_dtype).eval()
+    sub = "xla" if backend == "xla" or plain else "pallas"  # the JAX mapping, trainer.py:640
 
     @torch.inference_mode()
     def fwd(qtree: Dict, images: torch.Tensor) -> Levels:
         bb_kw = dict(backend=backend, fuse_strided=fuse_strided, u8_stem=u8_input, plain=plain)
+        if int8_head:
+            feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
+            levels_q, _ = hisfpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend=sub, dequant=False)
+            return hishead_int8_forward(qtree["head"], levels_q, backend=sub, num_classes=model.num_classes)
         if int8_fpn:
             feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
-            levels = hisfpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend="xla" if plain else sub)
+            levels = hisfpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend=sub)
             levels = [lv.permute(0, 3, 1, 2).contiguous() for lv in levels]  # the dequant seam: NHWC -> NCHW
         else:
             feats = resnet50_int8_forward(qtree, images, compute_dtype, **bb_kw)

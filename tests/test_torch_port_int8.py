@@ -412,12 +412,18 @@ def test_int8_slice_detections_match_jax(slice_runs):
 def test_int8_pipeline_options(slice_runs):
     model, norm = slice_runs["model"], torch.from_numpy(slice_runs["norm"])
     args = (model, norm, STRIDES, (CANVAS, CANVAS))
-    with pytest.raises(NotImplementedError, match="K7"):
-        make_eval_pipeline_int8(*args)  # the JAX default int8_head=True waits for its slice
+    # the JAX default (int8 FPN and head) runs, and its kernels' plain versions equal the per-op oracles
+    frames = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (1, CANVAS, CANVAS, 3), dtype=np.uint8))
+    default = make_eval_pipeline_int8(*args, compute_dtype=torch.float32)
+    xla = make_eval_pipeline_int8(*args, compute_dtype=torch.float32, backend="xla")
+    xla.qtree = default.qtree
+    assert sorted(default.qtree) == ["backbone", "fpn", "head"]
+    for a_b, b_b in zip(default.forward_levels(frames), xla.forward_levels(frames)):
+        assert all(torch.equal(a, b) and bool(torch.isfinite(a).all()) for a, b in zip(a_b, b_b))
     for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
         with pytest.raises(NotImplementedError, match=what):
             make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
-    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True), "K9"),
+    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True, fused_head=True), "K15"),
                      (dict(backend="pallas"), "K11"), (dict(fuse_strided=False), "fuse_strided"),
                      (dict(backend="pallas_stem_tail"), "K17")):
         with pytest.raises(NotImplementedError, match=what):

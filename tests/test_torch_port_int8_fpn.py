@@ -38,8 +38,22 @@ from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
 from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2
 from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
-from pytorch_object_detection_tpu_torch.train.checkpoints import load_backbone_qtree, load_flax_variables, load_fpn_qtree
-from torch_port_fixtures import BATCH, FEATURES, NUM_CLASSES, STRIDES, jax_model, perturbed_variables
+from pytorch_object_detection_tpu_torch.train.checkpoints import (
+    load_backbone_qtree,
+    load_flax_variables,
+    load_fpn_qtree,
+    load_head_qtree,
+)
+from torch_port_fixtures import (
+    BATCH,
+    FEATURES,
+    NUM_CLASSES,
+    STRIDES,
+    jax_head_form,
+    jax_model,
+    perturbed_variables,
+    port_head_qtree,
+)
 
 CANVAS = 256  # the head's 1x1 stride-128 level at 128 makes its GroupNorm ill-conditioned (test_torch_port_pipeline)
 INT8_EPS = 4 * float(np.finfo(np.float32).eps)
@@ -47,6 +61,12 @@ INT8_EPS = 4 * float(np.finfo(np.float32).eps)
 
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _tensors(tree):
+    """The tensors of a nested dict, in key order."""
+    for k in sorted(tree):
+        yield from _tensors(tree[k]) if isinstance(tree[k], dict) else (tree[k],)
 
 
 def _lsb(got, want):
@@ -407,7 +427,8 @@ def test_int8_fpn_slice_detections_match_jax(slice_runs):
 def test_int8_fpn_pipeline_takes_raw_frames_and_backends_agree(slice_setup, slice_runs):
     """The pipeline skips the normalize (the uint8 frames reach the stem);
     ``backend="xla"`` (the per-op oracles) gives what the kernels' plain
-    versions give; the JAX default ``int8_head=True`` raises, naming K7."""
+    versions give; so does the JAX default ``int8_head=True`` (the int8
+    head on the same backbone and HisFPN qtrees)."""
     pipe, args = slice_runs["pipe"], slice_runs["args"]
     frames = torch.from_numpy(slice_setup["frames"])
     assert pipe.u8_input and torch.equal(pipe._input(frames), frames)
@@ -416,8 +437,14 @@ def test_int8_fpn_pipeline_takes_raw_frames_and_backends_agree(slice_setup, slic
     xla.qtree = pipe.qtree
     for a_b, b_b in zip(xla.forward_levels(frames), slice_runs["own"]):
         assert all(torch.equal(a, b) for a, b in zip(a_b, b_b))
-    with pytest.raises(NotImplementedError, match="K7"):
-        make_eval_pipeline_int8(*args)
+    default = make_eval_pipeline_int8(*args, compute_dtype=torch.float32)
+    default_xla = make_eval_pipeline_int8(*args, compute_dtype=torch.float32, backend="xla")
+    assert sorted(default.qtree) == ["backbone", "fpn", "head"] and default.u8_input
+    assert all(torch.equal(a, b) for k in ("backbone", "fpn") for a, b in
+               zip(_tensors(default.qtree[k]), _tensors(pipe.qtree[k])))
+    default_xla.qtree = default.qtree
+    for a_b, b_b in zip(default.forward_levels(frames), default_xla.forward_levels(frames)):
+        assert all(torch.equal(a, b) and bool(torch.isfinite(a).all()) for a, b in zip(a_b, b_b))
 
 
 # ---------------------------------------------------------------- (e)
@@ -454,3 +481,5 @@ def test_entry_points_default_to_the_card(slice_setup):
         load_backbone_qtree(slice_setup["jq_bb"])
     with pytest.raises(refused):
         load_fpn_qtree(slice_setup["jq_fpn"])
+    with pytest.raises(refused):
+        load_head_qtree(jax_head_form(port_head_qtree(32, NUM_CLASSES, [(2, 2)])[0]))

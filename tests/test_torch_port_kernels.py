@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions: A (NMS), B (GroupNorm),
-C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K5 (int8 HisBlock)
-and K6 (int8 2x2 pool).
+C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K5 (int8 HisBlock),
+K6 (int8 2x2 pool) and K7/K9 (one int8 HISHead level).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -28,6 +28,7 @@ from torch_port_fixtures import (
     ADVERSARIAL_KEEP,
     nms_case,
     port_block,
+    port_head_qtree,
     port_hisfpn_qtree,
     port_stem_s2d,
     rand_qblock,
@@ -223,7 +224,11 @@ def test_qblock_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
 
 
 def _on(tree, device):
-    return {k: _on(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _frames(shape, seed):
@@ -328,6 +333,90 @@ def test_qhis_kernel_within_one_step_of_plain(cuda, case):
     d = (got.int() - want.int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05, (int(d.max()), float((d > 0).float().mean()))
     assert (want != 0).float().mean() > 0.05
+
+
+# (features, classes, H, W, batch): the full width at the 512x512 canvas's
+# P3 and P7, a 1x1 level, the COCO canvas's 7x11 level with 80 classes (odd
+# batch), and a narrow head
+QHEAD_CASES = [(256, 20, 64, 64, 2), (256, 20, 4, 4, 3), (256, 20, 1, 1, 2), (256, 80, 7, 11, 3), (64, 20, 8, 8, 2)]
+# K7/K9 against their plain version: the JAX kernels' contract, max error
+# under 0.05 of the range (here each output's own, stricter for cnt|reg than
+# JAX's max|cls|) and cosine over 0.999, the cosine tightened to what the
+# card shows with margin (worst seen in chip_smoke.py 0.0114 of the range,
+# cosine 0.9999993): the statistics are exact where the plain version's are
+# f32 sums, and SiLU goes through expf, so an int8 step moves now and then
+QHEAD_MAX_ERR, QHEAD_MIN_COS = 0.05, 0.99999
+
+
+def _qhead_case(features, nc, h, w, b, device):
+    qtree, _ = port_head_qtree(features, nc, [(h, w)], batch=1, seed=features + nc + h)
+    g = torch.Generator().manual_seed(h * w + b)
+    x = torch.clamp(torch.round(torch.randn(b, h, w, features, generator=g) * 40), -127, 127).to(torch.int8)
+    return _on(qtree, device), qtree["levels"][0], x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QHEAD_CASES, ids=[f"{c[0]}_{c[1]}cls_{c[2]}x{c[3]}_b{c[4]}" for c in QHEAD_CASES])
+@pytest.mark.parametrize("k9", [False, True], ids=["k7", "k9"])
+def test_qhead_kernels_match_plain(cuda, case, k9):
+    """K7 and K9 (eight CUDA kernels each, one counted launch) against their
+    plain version on the card; K9 on an odd batch runs K7 and counts there."""
+    from pytorch_object_detection_tpu_torch.ops.qhead import qhishead_level, qhishead_level2
+
+    features, nc, h, w, b = case
+    q, _, x = _qhead_case(features, nc, h, w, b, cuda)
+    lv = q["levels"][0]
+    fn = qhishead_level2 if k9 else qhishead_level
+    before = (qhishead_level.launches, qhishead_level2.launches)
+    got = fn(q, lv, x)
+    torch.cuda.synchronize()
+    pair = k9 and b % 2 == 0
+    assert (qhishead_level.launches, qhishead_level2.launches) == (before[0] + (not pair), before[1] + pair)
+    want = qhishead_level(q, lv, x, plain=True)
+    for what, g, r in zip(("cls", "cr"), got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape == (b, h, w, nc if what == "cls" else 5)
+        err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        gd, rd = g.double().flatten(), r.double().flatten()
+        cos = float(gd @ rd / (gd.norm() * rd.norm()))
+        assert bool(torch.isfinite(g).all()) and err <= QHEAD_MAX_ERR and cos >= QHEAD_MIN_COS, (what, err, cos)
+
+
+@pytest.mark.cuda
+def test_qhead_kernels_reject_other_layouts(cuda):
+    from pytorch_object_detection_tpu_torch.ops.qhead import qhishead_level, qhishead_level2
+
+    q, _, x = _qhead_case(64, 20, 7, 11, 2, cuda)
+    lv = q["levels"][0]
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    for fn in (qhishead_level, qhishead_level2):
+        with pytest.raises(ValueError):  # NHWC-shaped but not contiguous
+            fn(q, lv, x.transpose(1, 2))
+        with pytest.raises(ValueError):  # not 16-byte aligned
+            fn(q, lv, flat[1:1 + x.numel()].view(x.shape))
+        with pytest.raises(ValueError):  # not int8
+            fn(q, lv, x.float())
+        with pytest.raises(ValueError):  # a weight on another device
+            fn(dict(q, wc=q["wc"].cpu()), lv, x)
+        with pytest.raises(ValueError):  # a level vector of another width
+            fn(q, dict(lv, Ac=lv["Ac"][:8]), x)
+
+
+def test_qhead_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    from pytorch_object_detection_tpu_torch.ops.qhead import qhishead_level, qhishead_level2, qhishead_level_plain
+
+    before = (qhishead_level.launches, qhishead_level2.launches)
+    for b in (2, 1):
+        q, lv, x = _qhead_case(32, 20, 5, 3, b, "cpu")
+        want = qhishead_level_plain(q, lv, x)
+        for fn in (qhishead_level, qhishead_level2):
+            got = fn(q, lv, x, num_classes=20)
+            assert all(torch.equal(a, c) for a, c in zip(got, want))
+            assert got[0].shape == (b, 5, 3, 20) and got[1].shape == (b, 5, 3, 5)
+    assert (qhishead_level.launches, qhishead_level2.launches) == before
+    with pytest.raises(ValueError, match="int8"):
+        qhishead_level(q, lv, x.float())
+    with pytest.raises(ValueError, match="channels"):
+        qhishead_level2(q, lv, x[..., :16])
 
 
 def test_int8_fpn_wrappers_take_plain_version_on_cpu_and_count_no_launch():

@@ -226,6 +226,41 @@ def port_stem_s2d(seed: int = 0):
     return quantize_stem_s2d(backbone, IMAGENET_MEAN, IMAGENET_STD, absmax)
 
 
+def port_head_qtree(features: int, num_classes: int, sizes, batch: int = 2, seed: int = 0):
+    """An int8 HISHead qtree of a random HISHead made by the port alone
+    (``models/head_int8``), calibrated on random levels of ``sizes`` ((H, W)
+    per level), and those levels quantized: ``(qtree, levels_q)``."""
+    from pytorch_object_detection_tpu_torch.models.head_int8 import calibrate_hishead, quantize_hishead
+    from pytorch_object_detection_tpu_torch.models.heads import HISHead
+
+    g = torch.Generator().manual_seed(seed)
+    head = HISHead(num_classes, features, generator=g).eval()
+    levels = [torch.randn(batch, h, w, features, generator=g) for h, w in sizes]
+    scales = [lv.abs().max() / 127.0 for lv in levels]
+    levels_q = [torch.clamp(torch.round(lv / s), -127, 127).to(torch.int8) for lv, s in zip(levels, scales)]
+    return quantize_hishead(head, calibrate_hishead(head, levels), scales, num_classes), levels_q
+
+
+def jax_head_form(q):
+    """A port HISHead qtree as the JAX ``quantize_hishead`` tree of numpy
+    arrays (HWIO kernels, the depthwise ``[3, 3, 1, 2C]``): the inverse of
+    ``train/checkpoints.load_head_qtree``."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def hwio(t):
+        a = arr(t)
+        return a.T.reshape(1, 1, a.shape[1], a.shape[0]) if a.ndim == 2 else a.transpose(1, 2, 3, 0)
+
+    out = {k: hwio(q[k]) for k in ("w1", "w2", "wc", "wr", "wpc", "wcr")}
+    out["wdw"] = arr(q["wdw"])[:, :, None, :]
+    out.update({k: arr(q[k]) for k in ("b2", "bpc", "bcr", "scale_exp")})
+    out.update({k: tuple(arr(t) for t in q[k]) for k in ("gn1", "gn2", "gnc", "gnr")})
+    out["num_classes"] = q["num_classes"]
+    out["levels"] = [{k: arr(v) for k, v in lv.items()} for lv in q["levels"]]
+    return out
+
+
 def port_hisfpn_qtree(features: int, seed: int = 0):
     """An int8 HisFPN qtree of a random HisFPN of ``features`` channels,
     made by the port alone (``nn/fpn_int8``), calibrated on random C3..C5
