@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases (each prints its results on its own lines):
   1. device: nvidia-smi name and power limit; exit 1 without a CUDA device;
   2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu), C (csrc/qblock.cu), K1
-     (csrc/qstem.cu), K4 (csrc/qconv.cu), K5 (csrc/qhis.cu), K6
-     (csrc/qpool.cu) and K7/K9 (csrc/qhead.cu) from the sources, one nvcc per
+     (csrc/qstem.cu), K4 (csrc/qconv.cu), K5 (csrc/qhis.cu), K6 and K10
+     (csrc/qpool.cu), K7/K9 (csrc/qhead.cu), K11 (csrc/qconv3.cu), K13
+     (csrc/qchain.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
      source, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
@@ -51,15 +52,33 @@ Phases (each prints its results on its own lines):
      HISFCOS(80, 256) on two 896x1408 COCO-canvas frames (K9 on P3 112x176
      and P4 56x88, K7 on P5-P7: counted), and K9 vs its plain version at
      the COCO P3 shape for B=8 and an odd B;
+  5h. the int8 ResNet-50's other backends, each through
+     make_eval_pipeline_int8 on the same model, qtree and 8 frames, counted:
+     1. backend="pallas", the per-conv kernels (1 K1, 39 K4, 13 K11, 7 K5,
+        6 K6, 5 K7, 1 A); its C3..C5 equal to its plain run, and against
+        kernel C's the share of differing C5 values and the dequantized
+        cosine (>= 0.99);
+     2. fuse_strided=False (13 K2, 0 K3, 12 K4, 0 K11);
+     3. direct_stem=True (0 K1, 1 K10): the pooled stem equal to K1's;
+     4. int8_fpn=False, backend="pallas_stem_tail" (1 K17, 0 kernel C, 20
+        B, 1 A): its int8 stem within one step of the float stem's;
+     5. chain_segments=True (3 K13, 0 kernel C): C3..C5 equal to kernel C's;
+     finite detections and per-level maps against each path's plain run
+     (cosine >= 0.99);
+  5i. K11 at the four stage shapes, K10, K17 and K13 (three segments) vs
+     their plain versions on the paths' own inputs and on random ones: 0
+     differing elements;
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
-     shape), K1, K4, K5, K6 and K7 (beside the bf16 float head at the same
-     levels), K9 against K7 at the COCO P3 shape, the library call where
-     one PyTorch call computes the same function, each wrapper's host time,
-     and each pipeline's images/s at B=8 and B=64;
-  6b-6e. torch.profiler breakdowns of one B=64 call of the float, the
-     int8-backbone, the int8-FPN and the default pipeline (a profile that
-     raises fails the run; one whose profiler sees no device events prints
-     "not measured").
+     shape), K1, K4, K5, K6, K7 (beside the bf16 float head at the same
+     levels), K10, K11, K13 (beside kernel C's 16 launches on the same
+     input, in turns, at B=8 and B=64) and K17, K9 against K7 at the COCO
+     P3 shape, the library call where one PyTorch call computes the same
+     function, each wrapper's host time, and each pipeline's images/s at
+     B=8 and B=64 (paths 3 and 4 of 5h at B=64 only, path 2 not timed);
+  6b-6f. torch.profiler breakdowns of one B=64 call of the float, the
+     int8-backbone, the int8-FPN, the default and the per-conv pipeline (a
+     profile that raises fails the run; one whose profiler sees no device
+     events prints "not measured").
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -100,12 +119,26 @@ K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 # launches in one call of the int8-FPN pipeline, by wrapper
 FPN_PIPELINE_LAUNCHES = {"qstem_conv": 1, "qbottleneck": 13, "qbottleneck_s2": 3, "qmatmul": 3, "qhisblock": 7,
                          "qmaxpool2x2": 6, "groupnorm_act": 20, "cuda_nms_keep_mask": 1, "qhishead_level": 0,
-                         "qhishead_level2": 0}
+                         "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0}
 # launches in one call of the default pipeline (int8 FPN and head) at 512x512
 DEFAULT_PIPELINE_LAUNCHES = dict(FPN_PIPELINE_LAUNCHES, groupnorm_act=0, qhishead_level=5)
 # ... and at the 896x1408 COCO canvas: K9 on P3 (112x176) and P4 (56x88), above 64x64 pixels
 COCO_CANVAS = (896, 1408)
 COCO_PIPELINE_LAUNCHES = dict(DEFAULT_PIPELINE_LAUNCHES, qhishead_level=3, qhishead_level2=2)
+# the int8 ResNet-50's other backends (phase 5h): make_eval_pipeline_int8 keywords, launches in one call
+BACKEND_PATHS = {
+    # 16 conv1 + 4 projection shortcuts + 16 conv3 on K4, and the 3 FPN laterals; 13 stride-1 conv2 on K11
+    "per-conv": (dict(backend="pallas"),
+                 dict(DEFAULT_PIPELINE_LAUNCHES, qbottleneck=0, qbottleneck_s2=0, qmatmul=39, qconv3x3=13)),
+    # the 3 stride-2 blocks per conv: 3 conv1 + 3 shortcuts + 3 conv3 on K4
+    "fuse_strided=False": (dict(fuse_strided=False), dict(DEFAULT_PIPELINE_LAUNCHES, qbottleneck_s2=0, qmatmul=12)),
+    "direct stem": (dict(direct_stem=True), dict(DEFAULT_PIPELINE_LAUNCHES, qstem_conv=0, qmaxpool3x3s2=1)),
+    # the float stem, the per-op oracle ladder, the folded float HisFPN and the float head
+    "stem tail": (dict(int8_fpn=False, backend="pallas_stem_tail"),
+                  dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, stem_bn_pool_quant=1, groupnorm_act=20,
+                       cuda_nms_keep_mask=1)),
+    "chained": (dict(chain_segments=True), dict(DEFAULT_PIPELINE_LAUNCHES, qbottleneck=0, qbottleneck_s2=0, qchain=3)),
+}
 # K5 against its plain version: SiLU/sigmoid through expf and the SE dots in
 # another order move an element by one int8 step now and then
 K5_MAX_STEP, K5_MAX_SHARE = 1, 0.05
@@ -215,7 +248,7 @@ def main() -> int:
     from pytorch_object_detection_tpu_torch.models.registry import build_model
     from pytorch_object_detection_tpu_torch.nn import fpn_int8, resnet_int8
     from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
-    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock, qconv, qhead, qhis, qpool, qstem
+    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock, qchain, qconv, qhead, qhis, qpool, qstem, stem
     from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
     smoke = Smoke()
@@ -237,7 +270,8 @@ def main() -> int:
         from concurrent.futures import ThreadPoolExecutor
 
         t0 = time.perf_counter()
-        libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib, qhead._lib)
+        libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib, qhead._lib,
+                qconv._lib3, qchain._lib, stem._lib)
         with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
             for fut in [pool.submit(lib) for lib in libs]:
                 fut.result()  # a failed build raises here
@@ -443,7 +477,9 @@ def main() -> int:
                 "qbottleneck_s2": qblock.qbottleneck_s2, "qmatmul": qconv.qmatmul, "qhisblock": qhis.qhisblock,
                 "qmaxpool2x2": qpool.qmaxpool2x2, "groupnorm_act": gn.groupnorm_act,
                 "cuda_nms_keep_mask": cuda_nms.cuda_nms_keep_mask, "qhishead_level": qhead.qhishead_level,
-                "qhishead_level2": qhead.qhishead_level2}
+                "qhishead_level2": qhead.qhishead_level2, "qconv3x3": qconv.qconv3x3,
+                "qmaxpool3x3s2": qpool.qmaxpool3x3s2, "stem_bn_pool_quant": stem.stem_bn_pool_quant,
+                "qchain": qchain.qchain}
 
     def record_calls(module, names, run):
         """``run()`` with each of ``module``'s functions ``names`` wrapped to
@@ -709,6 +745,115 @@ def main() -> int:
                 if b == 8:
                     res["coco_p3"] = (qh80, qh80["levels"][0], x)
 
+    def phase5h():
+        model, frames, norm = res["model"], res["frames"], res["norm"]
+        args = (model, norm, default_strides(), CANVAS)
+        res["paths"], res["path_launches"] = {}, {}
+        t0 = time.perf_counter()
+        for name, (kw, want) in BACKEND_PATHS.items():
+            pipe = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, **kw)
+            plain = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, plain=True, **kw)
+            # one qtree for all: the default pipeline's (the int8-backbone one's without the int8 FPN)
+            pipe.qtree = plain.qtree = res["dpipe"].qtree if kw.get("int8_fpn", True) else res["ipipe"].qtree
+            res["paths"][name] = (pipe, plain)
+            dets, launches = count_launches(pipe, frames)
+            res["path_launches"][name] = launches
+            print(f"  {name}: launches in one pipeline call (B=8): {launches}")
+            smoke.check(launches == want, f"{name}: launches per call as listed in BACKEND_PATHS")
+            n_valid = dets.valid.sum(dim=1).tolist()
+            smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
+                        and bool(torch.isfinite(dets.boxes).all()) and all(0 < n <= 1000 for n in n_valid),
+                        f"{name}: detections [8, 1000], finite, {n_valid} valid")
+            for branch, got_b, want_b in zip(("cls", "cnt", "reg"), pipe.forward_levels(frames),
+                                             plain.forward_levels(frames)):
+                worst = min(cosine(a, b) for a, b in zip(got_b, want_b))
+                finite = all(bool(torch.isfinite(a).all()) for a in got_b)
+                smoke.check(finite and worst >= INT8_COS_MIN,
+                            f"{name} {branch} P3-P7: kernel vs plain pipeline, lowest cosine {worst:.6f}")
+        torch.cuda.synchronize()
+        print(f"  five backends' pipelines built and checked in {time.perf_counter() - t0:.2f} s")
+
+        qbb, qi = res["dpipe"].qtree["backbone"], res["ipipe"].qtree
+        bb = dict(compute_dtype=torch.bfloat16, dequant=False, u8_stem=True)
+        with torch.inference_mode():
+            block, scales = resnet_int8.resnet50_int8_forward(qbb, frames, backend="pallas_block", fuse_strided=True,
+                                                              **bb)
+            per_conv, per_conv_plain = (resnet_int8.resnet50_int8_forward(qbb, frames, backend="pallas", plain=plain,
+                                                                          **bb)[0] for plain in (False, True))
+            chained, _ = resnet_int8.resnet50_int8_forward(qbb, frames, backend="pallas_block", fuse_strided=True,
+                                                           chain_segments=True, **bb)
+            stem_k1 = qstem.qstem_conv(frames, qbb["stem_s2d"])
+            stem_direct = qpool.qmaxpool3x3s2(resnet_int8.stem_direct_i8(qbb["stem_s2d"], qstem.to_rgbx(frames)))
+            stem_float = resnet_int8.resnet50_int8_stem(qi, norm, torch.bfloat16, "pallas_block")
+            stem_tail = resnet_int8.resnet50_int8_stem(qi, norm, torch.bfloat16, "pallas_stem_tail")
+        torch.cuda.synchronize()
+        for i, (k, p, b, c, s_) in enumerate(zip(per_conv, per_conv_plain, block, chained, scales)):
+            n_diff = int((k != p).sum())
+            smoke.check(n_diff == 0, f"per-conv C{i + 3} {tuple(k.shape)}: kernels vs plain, {n_diff} int8 differ")
+            n_diff = int((c != b).sum())
+            smoke.check(n_diff == 0, f"chained C{i + 3}: K13 vs kernel C, {n_diff} of {b.numel()} int8 differ")
+            share, cos = float((k != b).float().mean()), cosine(k.float() * s_, b.float() * s_)
+            smoke.check(cos >= INT8_COS_MIN, f"per-conv vs kernel C C{i + 3}: {share:.2%} of int8 values differ "
+                                             f"(the shortcut requantized), dequantized cosine {cos:.6f}")
+        n_diff = int((stem_direct != stem_k1).sum())
+        smoke.check(n_diff == 0 and stem_direct.shape == stem_k1.shape,
+                    f"direct stem (7x7/2 conv + K10) vs K1 {tuple(stem_k1.shape)}: {n_diff} int8 differ")
+        d = (stem_tail.int() - stem_float.int()).abs()
+        res["stem_tail_vs_float"] = (int((d > 0).sum()), d.numel())
+        smoke.check(stem_tail.shape == stem_float.shape and int(d.max()) <= 1,
+                    f"stem tail (K17) vs the float stem (bf16, quantize, int8 pool) {tuple(stem_tail.shape)}: "
+                    f"{int((d > 0).sum())} of {d.numel()} differ, max {int(d.max())} step (x * (1 / s) vs x / s)")
+
+        # the kernels' own inputs on these paths, for phases 5i and 6
+        fwd = lambda **kw: resnet_int8.resnet50_int8_forward(qbb, frames, **bb, **kw)
+        calls = record_calls(resnet_int8, ("qconv3x3",), lambda: fwd(backend="pallas"))
+        calls.update(record_calls(resnet_int8, ("qmaxpool3x3s2",), lambda: fwd(backend="pallas_block",
+                                                                                 direct_stem=True)))
+        calls.update(record_calls(resnet_int8, ("qchain",), lambda: fwd(backend="pallas_block", fuse_strided=True,
+                                                                          chain_segments=True)))
+        calls.update(record_calls(resnet_int8, ("stem_bn_pool_quant",), lambda: resnet_int8.resnet50_int8_stem(
+            qi, norm, torch.bfloat16, "pallas_stem_tail")))
+        res["backend_calls"] = calls
+        print(f"  recorded calls: {({k: len(v) for k, v in calls.items()})}")
+
+    def phase5i():
+        calls = res["backend_calls"]
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        err = {"qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0}
+        rand_i8 = lambda shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+        def compare(key, got, want, what, max_step=0):
+            torch.cuda.synchronize()
+            d = (got.int() - want.int()).abs()
+            step, n_diff = int(d.max()) if d.numel() else 0, int((d > 0).sum())
+            err[key] = max(err[key], step)
+            smoke.check(got.shape == want.shape and step <= max_step and (max_step or n_diff == 0),
+                        f"{what} -> {tuple(got.shape)}: {n_diff} of {want.numel()} int8 elements differ, max "
+                        f"{step} step, {float((want > 0).float().mean()):.3f} positive")
+
+        with torch.inference_mode():
+            seen = set()
+            for (x, w, a, b), kw in calls["qconv3x3"]:
+                inputs = [("pipeline", x)] + ([] if x.shape in seen else [("random", rand_i8(x.shape))])
+                seen.add(x.shape)
+                for what, inp in inputs:
+                    compare("qconv3x3", qconv.qconv3x3(inp, w, a, b), qconv.qconv3x3(inp, w, a, b, plain=True),
+                            f"K11 {what} {tuple(inp.shape)} x {tuple(w.shape)}")
+            for (x,), _ in calls["qmaxpool3x3s2"]:
+                for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
+                    compare("qmaxpool3x3s2", qpool.qmaxpool3x3s2(inp), qpool.qmaxpool3x3s2(inp, plain=True),
+                            f"K10 {what} {tuple(inp.shape)}")
+            for (x, mult, shift, scale), _ in calls["stem_bn_pool_quant"]:
+                rand = (torch.randn(x.shape, generator=g, device=dev) * float(x.float().std())).to(x.dtype)
+                for what, inp in (("pipeline", x), ("random", rand)):
+                    compare("stem_bn_pool_quant", stem.stem_bn_pool_quant(inp, mult, shift, scale),
+                            stem.stem_bn_pool_quant(inp, mult, shift, scale, plain=True), f"K17 {what} {tuple(inp.shape)}")
+            for (x, blocks), _ in calls["qchain"]:
+                for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
+                    compare("qchain", qchain.qchain(inp, blocks), qchain.qchain(inp, blocks, plain=True),
+                            f"K13 {what} {len(blocks)} blocks {tuple(inp.shape)}, grid {qchain.qchain.grid}")
+        res["backend_err"] = err
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -762,13 +907,9 @@ def main() -> int:
                 tp = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block", plain=True))
                 qk[stride] += tk
                 qp[stride] += tp
-                b, h, w, cin = x.shape
-                cw, cout = blk["w1"].shape[0], blk["w3"].shape[0]
-                ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-                macs = b * (h * w * cin * cw + ho * wo * (9 * cw * cw + cw * cout + (cin * cout if "wd" in blk else 0)))
-                weights = sum(blk[k].numel() for k in ("w1", "w2", "w3", "wd") if k in blk)
-                qwork[stride][0] += x.numel() + b * ho * wo * cout + weights + 4 * (2 * cw * 2 + 4 * cout)
-                qwork[stride][1] += 2 * macs
+                nbytes, ops = block_work(blk, x, stride)
+                qwork[stride][0] += nbytes
+                qwork[stride][1] += ops
                 print(f"  kernel C {scope} s{stride} B=8 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
         print(f"  kernel C per forward (B=8): K2 13 blocks kernel {qk[1]:.4f} ms, plain {qp[1]:.4f} ms, host "
               f"{qh[1]:.4f} ms; K3 3 blocks kernel {qk[2]:.4f} ms, plain {qp[2]:.4f} ms, host {qh[2]:.4f} ms {card}")
@@ -779,6 +920,8 @@ def main() -> int:
             time_fpn_kernels()
         if "head_calls" in res:
             time_head_kernels()
+        if "backend_calls" in res:
+            time_backend_kernels()
 
         pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
         if "ipipe" in res:
@@ -792,6 +935,17 @@ def main() -> int:
             for name, p in pipes:
                 ms = cuda_ms(lambda: p(fr), iters=iters, reps=3)
                 print(f"  pipeline B={b} bf16 512x512 ({name}): {ms:.3f} ms/batch, "
+                      f"{b * 1000.0 / ms:.1f} img/s {card}")
+        # the other backends of phase 5h: the per-conv and chained paths at both batches, the two stems at B=64
+        for name, batches in (("per-conv", (8, 64)), ("chained", (8, 64)), ("direct stem", (64,)),
+                              ("stem tail", (64,))):
+            if name not in res.get("paths", {}):
+                continue
+            p = res["paths"][name][0]
+            for b in batches:
+                fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
+                ms = cuda_ms(lambda: p(fr), iters=10 if b == 8 else 3, reps=3)
+                print(f"  pipeline B={b} bf16 512x512 ({name} kernels): {ms:.3f} ms/batch, "
                       f"{b * 1000.0 / ms:.1f} img/s {card}")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -863,6 +1017,96 @@ def main() -> int:
                   f"{'none' if tl is None else f'{tl:.4f} ms'}, bound {b_ms:.5f} ms ({b_by}), "
                   f"wrapper host time {host[key]:.4f} ms {card}")
         res["fpn_ms"], res["fpn_bound"] = t, {k: bound(*v) for k, v in work.items()}
+
+    def block_work(blk, x, stride):
+        """(bytes, int8 operations) of one int8 bottleneck on ``x``: input,
+        weights and output once each; its multiply-adds, twice."""
+        b, h, w, cin = x.shape
+        cw, cout = blk["w1"].shape[0], blk["w3"].shape[0]
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        macs = b * (h * w * cin * cw + ho * wo * (9 * cw * cw + cw * cout + (cin * cout if "wd" in blk else 0)))
+        weights = sum(blk[k].numel() for k in ("w1", "w2", "w3", "wd") if k in blk)
+        return x.numel() + b * ho * wo * cout + weights + 4 * (2 * cw * 2 + 4 * cout), 2 * macs
+
+    def time_backend_kernels():
+        """K11, K10, K17 and K13 per B=8 forward of their paths, on the
+        inputs phase 5h recorded, against their plain versions, with each
+        one's bound from these inputs and the wrappers' host time; K13 beside
+        kernel C's launches on the same input, in turns (K13, C, C, K13)."""
+        calls = res["backend_calls"]
+        t = {}  # key: (card ms, plain ms, host ms, (bytes, operations, peak))
+        with torch.inference_mode():
+            tk = tp = th = nbytes = ops = 0.0
+            for (x, w, a, b), _ in calls["qconv3x3"]:
+                k1 = cuda_ms(lambda: qconv.qconv3x3(x, w, a, b))
+                th += host_ms(lambda: qconv.qconv3x3(x, w, a, b))
+                p1 = cuda_ms(lambda: qconv.qconv3x3(x, w, a, b, plain=True), iters=5)
+                bsz, h, wd, cin = x.shape
+                cout = w.shape[0]
+                tk, tp = tk + k1, tp + p1
+                nbytes += x.numel() + w.numel() + bsz * h * wd * cout + 8 * cout
+                ops += 2 * bsz * h * wd * 9 * cin * cout
+                print(f"  K11 {tuple(x.shape)} x {tuple(w.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+            t["qconv3x3"] = (tk, tp, th, (nbytes, ops, INT8_OPS_S))
+
+            (x,), _ = calls["qmaxpool3x3s2"][0]
+            tk, th = cuda_ms(lambda: qpool.qmaxpool3x3s2(x)), host_ms(lambda: qpool.qmaxpool3x3s2(x))
+            tp = cuda_ms(lambda: qpool.qmaxpool3x3s2(x, plain=True))
+            out = x.shape[0] * ((x.shape[1] - 1) // 2 + 1) * ((x.shape[2] - 1) // 2 + 1) * x.shape[3]
+            t["qmaxpool3x3s2"] = (tk, tp, th, (x.numel() + out, 8 * out, F32_OPS_S))  # 8 compares per output
+            print(f"  K10 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+
+            (x, mult, shift, scale), _ = calls["stem_bn_pool_quant"][0]
+            tk = cuda_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale))
+            th = host_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale))
+            tp = cuda_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale, plain=True))
+            out = x.shape[0] * ((x.shape[1] - 1) // 2 + 1) * ((x.shape[2] - 1) // 2 + 1) * x.shape[3]
+            # bf16 in, int8 out; BN, ReLU per input, 8 compares and the quantize's 4 ops per output
+            t["stem_bn_pool_quant"] = (tk, tp, th, (2 * x.numel() + out + 4 * (2 * x.shape[3] + 1),
+                                                    3 * x.numel() + 12 * out, F32_OPS_S))
+            print(f"  K17 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+
+            def kernel_c_chain(xq, blocks):  # the chain's blocks, one kernel C launch each
+                for blk, s in blocks:
+                    xq = resnet_int8.bottleneck_int8(blk, xq, s, "pallas_block")
+                return xq
+
+            def k13_vs_c(x, blocks, iters, reps):
+                """K13 and kernel C on one segment in turns (K13, C, C, K13): their mean ms."""
+                k13 = [cuda_ms(lambda: qchain.qchain(x, blocks), iters=iters, reps=reps)]
+                kc = [cuda_ms(lambda: kernel_c_chain(x, blocks), iters=iters, reps=reps) for _ in range(2)]
+                k13.append(cuda_ms(lambda: qchain.qchain(x, blocks), iters=iters, reps=reps))
+                print(f"  K13 B={x.shape[0]} {len(blocks)} blocks {tuple(x.shape)}: kernel {k13[0]:.4f}/"
+                      f"{k13[1]:.4f} ms, kernel C ({len(blocks)} launches) {kc[0]:.4f}/{kc[1]:.4f} ms, grid "
+                      f"{qchain.qchain.grid} blocks")
+                return statistics.mean(k13), statistics.mean(kc)
+
+            tk = tp = th = tc = nbytes = ops = 0.0
+            for (x, blocks), _ in calls["qchain"]:
+                k1, c1 = k13_vs_c(x, blocks, 10, 5)
+                th += host_ms(lambda: qchain.qchain(x, blocks), iters=10)
+                p1 = cuda_ms(lambda: qchain.qchain(x, blocks, plain=True), iters=3, reps=3)
+                tk, tp, tc = tk + k1, tp + p1, tc + c1
+                xin = x
+                for blk, s in blocks:
+                    ops += block_work(blk, xin, s)[1]
+                    nbytes += sum(blk[k].numel() for k in ("w1", "w2", "w3", "wd") if k in blk)
+                    b, h, w, _ = xin.shape
+                    xin = xin.new_empty((b, (h - 1) // s + 1, (w - 1) // s + 1, blk["w3"].shape[0]))
+                nbytes += x.numel() + xin.numel()  # the segment's input and output; the weights above
+                print(f"  K13 plain {p1:.4f} ms")
+            t["qchain"] = (tk, tp, th, (nbytes, ops, INT8_OPS_S))
+            print(f"  K13 per forward (B=8, 3 launches) {tk:.4f} ms against kernel C's 16 launches on the same "
+                  f"inputs {tc:.4f} ms (K13/C {tk / tc:.3f}) {card}")
+            # the same at B=64, the throughput point: the band heights, and so the grid, depend on the batch
+            t64 = [k13_vs_c(x.repeat(8, 1, 1, 1), blocks, 3, 3) for (x, blocks), _ in calls["qchain"]]
+            k64, c64 = sum(k for k, _ in t64), sum(c for _, c in t64)
+            print(f"  K13 per forward (B=64) {k64:.4f} ms against kernel C's {c64:.4f} ms (K13/C {k64 / c64:.3f}) "
+                  f"{card}")
+        res["backend_ms"] = {k: (tk, tp, th, bound(*w)) for k, (tk, tp, th, w) in t.items()}
+        for key, (tk, tp, th, (b_ms, b_by)) in res["backend_ms"].items():
+            print(f"  {key} per forward (B=8): kernel {tk:.4f} ms, plain {tp:.4f} ms, library none, bound "
+                  f"{b_ms:.5f} ms ({b_by}), wrapper host time {th:.4f} ms {card}")
 
     def head_work(q, x):
         """(bytes, int8 operations) of one head level: input, weights and
@@ -960,6 +1204,11 @@ def main() -> int:
                     "HISFCOS(20, 256) bf16 512x512 B=8", phase5f)
     if "head_calls" in res:
         smoke.phase("phase 5g: K7 vs plain at the pipeline's levels; the COCO canvas and K9", phase5g)
+    if "dpipe" in res and "ipipe" in res:
+        smoke.phase("phase 5h: the int8 ResNet-50's other backends through make_eval_pipeline_int8, "
+                    "HISFCOS(20, 256) bf16 512x512 B=8", phase5h)
+    if "backend_calls" in res:
+        smoke.phase("phase 5i: K11, K10, K17, K13 vs plain at the paths' shapes, B=8", phase5i)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
@@ -972,14 +1221,22 @@ def main() -> int:
     if "dpipe" in res:
         smoke.phase("phase 6e: profile, default pipeline", phase6_profile, res["dpipe"],
                     ("qstem_kernel", "qblock_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
+    if "per-conv" in res.get("paths", {}):
+        smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
+                    ("qstem_kernel", "qconv3_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
     # each kernel's launches on its path's counted call: the default pipeline's
     # at 512x512; kernel B's on the int8-FPN pipeline's (none on the default
-    # path); K9's on the COCO canvas (at 512x512 no level exceeds 64x64)
+    # path); K9's on the COCO canvas (at 512x512 no level exceeds 64x64); K11,
+    # K10, K17 and K13 on their backends' calls (phase 5h)
+    paths = res["path_launches"]
     launches = dict(res["default_launches"], groupnorm_act=res["fpn_launches"]["groupnorm_act"],
-                    qhishead_level2=res["coco_launches"]["qhishead_level2"])
+                    qhishead_level2=res["coco_launches"]["qhishead_level2"],
+                    qconv3x3=paths["per-conv"]["qconv3x3"], qmaxpool3x3s2=paths["direct stem"]["qmaxpool3x3s2"],
+                    stem_bn_pool_quant=paths["stem tail"]["stem_bn_pool_quant"], qchain=paths["chained"]["qchain"])
+    bk, bk_err = res["backend_ms"], res["backend_err"]
     fpn_ms, fpn_bound, fpn_err = res["fpn_ms"], res["fpn_bound"], res["fpn_err"]
     k7, k9, qhead_err = res["k7"], res["k9"], res["qhead_err"]
     pkg, tpu = "pytorch_object_detection_tpu_torch/csrc/", "pytorch_object_detection_tpu/ops/"
@@ -1012,7 +1269,11 @@ def main() -> int:
               qhead_err["qhishead_level"][0], k7["ms"], k7["plain_ms"], k7["bound"]),
         entry("qhishead_level2", "qhead.cu", "pallas_qhead.py:646", "qhishead_level2",
               qhead_err["qhishead_level2"][0], k9["ms"], k9["plain_ms"], k9["bound"]),
-    ]
+    ] + [entry(key, source, replaces, key, bk_err[key], bk[key][0], bk[key][1], bk[key][3])
+         for key, source, replaces in (("qconv3x3", "qconv3.cu", "pallas_qconv.py:149"),
+                                       ("qmaxpool3x3s2", "qpool.cu", "pallas_pool.py:68"),
+                                       ("stem_bn_pool_quant", "stem.cu", "pallas_stem.py:70"),
+                                       ("qchain", "qchain.cu", "pallas_qchain.py:289"))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

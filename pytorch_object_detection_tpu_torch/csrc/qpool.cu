@@ -1,4 +1,5 @@
-// K6: int8 2x2 / stride 2 max pool (VALID), NHWC.
+// K6: int8 2x2 / stride 2 max pool (VALID), NHWC; and K10: int8 3x3 /
+// stride 2 max pool, padding 1, NHWC.
 //
 // Replaces pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool2x2, the
 // HisFPN's downsamples and extra-level seeds.  That kernel keeps row bands of
@@ -12,6 +13,19 @@
 // output byte written once (1.25 bytes moved per input byte); there is no
 // arithmetic to speak of.  At the pyramid's sizes (<= 4 MB per call at B=8)
 // a call is as short as a launch, so launch cost, not bandwidth, dominates.
+//
+// K10 replaces pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool3x3s2,
+// the pool after the direct 7x7/2 uint8 stem conv (the PODT_STEM_XLA7 path).
+// That kernel takes one image's map in VMEM, merges column pairs into the
+// lanes and takes bf16 maxes; it falls back to reduce_window for odd sizes,
+// and can emit the row-pair lane-merged layout of the TPU's stage-1
+// kernels, which the port does not have.  Here one thread makes one 16-byte
+// word of one output position from its nine window words (rows 2y-1 .. 2y+1,
+// columns 2x-1 .. 2x+1; a position outside the map is the pad -128, which
+// never wins: every window holds row 2y, column 2x); any H and W, output
+// (H - 1) / 2 + 1.  Bound on the card: device memory, the input read about
+// once from DRAM (the overlapping windows re-read it from L1/L2) and the
+// quarter-size output written once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +77,56 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K10: grid-stride over [B, Ho, Wo, C / 16] 16-byte words
+__global__ void __launch_bounds__(kThreads)
+    qpool3_vec16(const int4* __restrict__ x, int4* __restrict__ out, int h, int w, int c16, int ho, int wo,
+                 int64_t total) {
+  const int neg = static_cast<int>(0x80808080u);  // -128 in every byte
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int c = static_cast<int>(i % c16);
+    int64_t p = i / c16;
+    const int ox = static_cast<int>(p % wo);
+    p /= wo;
+    const int oy = static_cast<int>(p % ho);
+    const int64_t b = p / ho;
+    int4 m = make_int4(neg, neg, neg, neg);
+    for (int iy = max(2 * oy - 1, 0); iy <= min(2 * oy + 1, h - 1); ++iy) {
+      const int4* row = x + (b * h + iy) * w * c16 + c;
+      for (int ix = max(2 * ox - 1, 0); ix <= min(2 * ox + 1, w - 1); ++ix) {
+        const int4 v = __ldg(row + static_cast<int64_t>(ix) * c16);
+        m = make_int4(vmax(m.x, v.x), vmax(m.y, v.y), vmax(m.z, v.z), vmax(m.w, v.w));
+      }
+    }
+    out[i] = m;
+  }
+}
+
+// the same over single bytes, for C % 16 != 0
+__global__ void __launch_bounds__(kThreads)
+    qpool3_byte(const int8_t* __restrict__ x, int8_t* __restrict__ out, int h, int w, int c, int ho, int wo,
+                int64_t total) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int ch = static_cast<int>(i % c);
+    int64_t p = i / c;
+    const int ox = static_cast<int>(p % wo);
+    p /= wo;
+    const int oy = static_cast<int>(p % ho);
+    const int64_t b = p / ho;
+    int m = -128;
+    for (int iy = max(2 * oy - 1, 0); iy <= min(2 * oy + 1, h - 1); ++iy)
+      for (int ix = max(2 * ox - 1, 0); ix <= min(2 * ox + 1, w - 1); ++ix)
+        m = max(m, static_cast<int>(x[((b * h + iy) * w + ix) * c + ch]));
+    out[i] = static_cast<int8_t>(m);
+  }
+}
+
+int grid_for(int64_t total) {
+  const int64_t want = (total + kThreads - 1) / kThreads;
+  return static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+}
+
 }  // namespace
 
 // x [B, H, W, C] int8 NHWC contiguous (16-byte aligned when C % 16 == 0);
@@ -72,8 +136,7 @@ extern "C" int qpool_launch(const void* x, void* out, int batch, int h, int w, i
   const bool vec = c % 16 == 0;
   const int64_t total = static_cast<int64_t>(batch) * ho * wo * (vec ? c / 16 : c);
   if (total == 0) return 0;
-  const int64_t want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+  const int blocks = grid_for(total);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) {
     qpool_vec16<<<blocks, kThreads, 0, s>>>(static_cast<const int4*>(x), static_cast<int4*>(out), h, w, c / 16,
@@ -81,6 +144,25 @@ extern "C" int qpool_launch(const void* x, void* out, int batch, int h, int w, i
   } else {
     qpool_byte<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out), h, w, c, ho,
                                           wo, total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: x [B, H, W, C] int8 NHWC contiguous (16-byte aligned when C % 16 ==
+// 0); out [B, (H - 1) / 2 + 1, (W - 1) / 2 + 1, C].  Returns a cudaError_t
+// (0 = launched).
+extern "C" int qpool3_launch(const void* x, void* out, int batch, int h, int w, int c, void* stream) {
+  const int ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
+  const bool vec = c % 16 == 0;
+  const int64_t total = static_cast<int64_t>(batch) * ho * wo * (vec ? c / 16 : c);
+  if (total == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    qpool3_vec16<<<grid_for(total), kThreads, 0, s>>>(static_cast<const int4*>(x), static_cast<int4*>(out), h, w,
+                                                     c / 16, ho, wo, total);
+  } else {
+    qpool3_byte<<<grid_for(total), kThreads, 0, s>>>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out), h,
+                                                    w, c, ho, wo, total);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -160,6 +160,9 @@ def make_eval_pipeline_int8(
     int8_head: bool = True,
     mesh=None,
     device_resize: bool = False,
+    fuse_strided: bool = True,
+    direct_stem: bool = False,
+    chain_segments: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
 ) -> Int8EvalPipeline:
@@ -175,7 +178,15 @@ def make_eval_pipeline_int8(
     dequantized to ``compute_dtype`` into the float HISHead (kernel B).
     ``int8_fpn=False``: normalize, int8 ResNet-50, BN-folded float HisFPN,
     float HISHead.  ``backend="pallas_block"`` runs the kernels on CUDA;
-    ``"xla"`` the per-op oracles.
+    ``"xla"`` the per-op oracles; ``"pallas"`` the backbone's per-conv
+    kernels (K4, K11); ``"pallas_stem_tail"`` (with ``int8_fpn=False``, the
+    only case with a float stem) the float stem's tail on K17.
+    ``fuse_strided``, ``direct_stem`` (the JAX package's
+    ``PODT_STEM_XLA7=1``: the u8 stem on K10) and ``chain_segments``
+    (``PODT_QCHAIN=1``: the backbone segments on K13) go to
+    ``nn/resnet_int8.resnet50_int8_forward``; the JAX function takes the
+    first from ``make_eval_forward_int8``'s default and the other two from
+    the environment.
 
     ``calib_images``: a representative NORMALIZED NHWC float batch on the
     model's device; the backbone's activation scales are calibrated on it in
@@ -201,7 +212,8 @@ def make_eval_pipeline_int8(
         qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}
         if int8_head:
             qtree["head"] = quantize_head(model, qtree["backbone"], qtree["fpn"], calib_images)
-    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, int8_fpn=int8_fpn, int8_head=int8_head,
-                                 u8_input=u8_input, plain=plain)
+    fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, fuse_strided=fuse_strided, int8_fpn=int8_fpn,
+                                 int8_head=int8_head, u8_input=u8_input, direct_stem=direct_stem,
+                                 chain_segments=chain_segments, plain=plain)
     return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
                             nms_iou, max_detections, plain, mean, std, u8_input)

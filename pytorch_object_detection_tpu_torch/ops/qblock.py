@@ -61,9 +61,13 @@ def smem_bytes(rows: int, stride: int, w: int, cw: int) -> int:
     return ((rows - 1) * stride + 3) * (w + 2) * cw + rows * wo * cw
 
 
-@functools.lru_cache(maxsize=None)
-def _card(index: int):
+def card_limits(device: torch.device):
     """(SM count, bytes of shared memory one block may opt in to) of a CUDA device."""
+    return _card_limits(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int):
     props = torch.cuda.get_device_properties(index)
     return props.multi_processor_count, props.shared_memory_per_block_optin
 
@@ -133,7 +137,7 @@ def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows: Optional[int]) -> 
     if cin % 16 or cw % 16 or cout % 16:
         raise ValueError(f"kernel C needs channel counts divisible by 16; got {cin}, {cw}, {cout}")
     ho, wo = out_hw(h, w, stride)
-    sm_count, smem_max = _card(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    sm_count, smem_max = card_limits(x.device)
     rows = pick_rows(b, h, w, cw, stride, sm_count, smem_max) if rows is None else rows
     if not 1 <= rows or smem_bytes(rows, stride, w, cw) > smem_max:
         raise ValueError(f"rows={rows}: kernel C's band does not fit in shared memory")

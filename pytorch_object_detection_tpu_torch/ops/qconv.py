@@ -1,9 +1,11 @@
-"""K4: int8 GEMM with the fused requant epilogue in CUDA (``csrc/qconv.cu``), and its plain version.
+"""K4 and K11: the int8 convs of the per-conv backend in CUDA, and their plain versions.
 
-Replaces ``pytorch_object_detection_tpu/ops/pallas_qconv.py:qmatmul`` (with
-and without the int8 residual) and ``:qconv1x1``; on the serving path it
-runs the HisFPN's three lateral 1x1 convs.  The epilogue, in the oracle's
-order (``pallas_qconv.py:38-44``)::
+K4 (``csrc/qconv.cu``), the int8 GEMM with the fused requant epilogue,
+replaces ``pytorch_object_detection_tpu/ops/pallas_qconv.py:qmatmul`` (with
+and without the int8 residual) and ``:qconv1x1``; it runs the HisFPN's three
+lateral 1x1 convs and, on the per-conv backend (``backend="pallas"``), the
+bottlenecks' 1x1 convs.  The epilogue, in the oracle's order
+(``pallas_qconv.py:38-44``)::
 
     y = acc * a + b;  y += res * res_scale;  y = relu(y);  out = clip8(y)
 
@@ -11,8 +13,16 @@ Layouts: ``x [M, K]`` int8 (``qconv1x1``: NHWC ``[B, H, W, K]``), ``w
 [N, K]`` int8 (each output channel's K-vector contiguous, the port's 1x1
 layout), ``a``, ``b`` f32 ``[N]``, ``res [M, N]`` int8 and ``res_scale`` a
 0-d f32 tensor.  K must be a multiple of 16 on the card.  The plain version
-is ``torch._int_mm`` (exact int32) and the same epilogue; on a CPU tensor
-the wrappers run it, on a CUDA tensor they launch K4 or raise.
+is ``torch._int_mm`` (exact int32) and the same epilogue.
+
+K11 (``csrc/qconv3.cu``), :func:`qconv3x3`, replaces ``pallas_qconv.py:
+qconv3x3``: the stride-1 SAME 3x3 conv with the ReLU epilogue, NHWC ``[B, H,
+W, Cin]`` int8 with weights ``[Cout, 3, 3, Cin]`` (the port's 3x3 layout);
+channel counts multiples of 16 on the card, any H and W.  Its plain version
+is ``ops/quant.conv_i8`` and ``requantize``.
+
+On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
+launch their kernel or raise.
 """
 from __future__ import annotations
 
@@ -22,9 +32,11 @@ from typing import Optional
 
 import torch
 
-from pytorch_object_detection_tpu_torch.ops.quant import clip8, int_mm
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, int_mm, requantize
 
 SOURCE = "qconv.cu"
+SOURCE_3X3 = "qconv3.cu"
 # no FMA contraction: a fused multiply-add moves values across a requant boundary
 NVCC_FLAGS = ("-fmad=false",)
 
@@ -37,6 +49,17 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE, NVCC_FLAGS)
     lib.qmm_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.qmm_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib3() -> ctypes.CDLL:
+    """Build (at first use) and load K11; its C signature is declared here."""
+    from pytorch_object_detection_tpu_torch._build import load_library
+
+    lib = load_library(SOURCE_3X3, NVCC_FLAGS)
+    lib.qconv3_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.qconv3_launch.restype = ctypes.c_int
     return lib
 
 
@@ -118,4 +141,74 @@ def qconv1x1(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    plain=plain).reshape(bsz, h, wd, n)
 
 
+def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 3x3 conv and its epilogue in plain PyTorch ops (the reference for K11)."""
+    return requantize(conv_i8(x, w), a, b)
+
+
+def pick_rows_3x3(batch: int, h: int, w: int, cin: int, cout: int, sm_count: int, smem_max: int) -> int:
+    """Output rows per K11 thread block: the largest of 8, 4, 2, 1 whose band
+    leaves two blocks' shared memory per SM and gives at least two waves of
+    blocks on the card; else the smallest band that fits."""
+    fits = [r for r in (8, 4, 2, 1) if r <= max(h, 1) and (r + 2) * (w + 2) * cin <= smem_max]
+    if not fits:
+        raise ValueError(f"K11: one output row of a {h}x{w} map with {cin} channels needs "
+                         f"{3 * (w + 2) * cin} bytes of shared memory (> {smem_max})")
+    for r in fits:
+        if (r + 2) * (w + 2) * cin <= smem_max // 2 and batch * -(-h // r) * -(-cout // 64) >= 2 * sm_count:
+            return r
+    return fits[-1]
+
+
+def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, rows: Optional[int] = None,
+             plain: bool = False) -> torch.Tensor:
+    """Stride-1 SAME 3x3 conv, int8 NHWC ``[B, H, W, Cin]`` x ``w [Cout, 3, 3,
+    Cin]`` -> int8 ``[B, H, W, Cout]``, epilogue ``clip8(relu(acc * a + b))``.
+
+    On a CPU tensor this is :func:`qconv3x3_plain`; on a CUDA tensor it
+    launches K11 or raises.  ``plain=True`` runs the plain version on any
+    device, for the comparison only.  ``rows`` overrides the band height
+    (:func:`pick_rows_3x3`); the result does not depend on it.
+    ``qconv3x3.launches`` counts kernel launches.
+    """
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[0]
+    if w.dtype != torch.int8 or tuple(w.shape) != (cout, 3, 3, cin):
+        raise ValueError(f"w must be int8 [Cout, 3, 3, {cin}]; got {w.dtype} {tuple(w.shape)}")
+    for name, v in (("a", a), ("b", b)):
+        if v.dtype != torch.float32 or tuple(v.shape) != (cout,):
+            raise ValueError(f"{name} must be float32 [{cout}]; got {v.dtype} {tuple(v.shape)}")
+    if plain or x.device.type == "cpu":
+        return qconv3x3_plain(x, w, a, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"K11 runs on CUDA tensors; got {x.device}")
+    operands = (x, w, a, b)
+    if any(t.device != x.device for t in operands):
+        raise ValueError(f"K11: every operand must be on {x.device}")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("K11 takes contiguous operands (x NHWC-contiguous)")
+    if cin % 16 or cout % 16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"K11 reads x and w in 16-byte words: channel counts must be multiples of 16 (got {cin}, "
+                         f"{cout}) and both must start 16-byte aligned")
+    out = torch.empty((bsz, h, wd, cout), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    sm_count, smem_max = card_limits(x.device)
+    rows = pick_rows_3x3(bsz, h, wd, cin, cout, sm_count, smem_max) if rows is None else rows
+    if not 1 <= rows or (rows + 2) * (wd + 2) * cin > smem_max:
+        raise ValueError(f"rows={rows}: K11's band does not fit in shared memory")
+    if bsz > 65535:
+        raise ValueError(f"K11 takes at most 65535 images per call; got {bsz}")
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = _lib3().qconv3_launch(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
+                                    wd, cin, cout, rows, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K11 launch failed: cudaError {err}")
+    qconv3x3.launches += 1
+    return out
+
+
 qmatmul.launches = 0
+qconv3x3.launches = 0

@@ -1,11 +1,19 @@
-"""K6: the int8 2x2/2 max pool in CUDA (``csrc/qpool.cu``), and its plain version.
+"""K6 and K10: the int8 max pools in CUDA (``csrc/qpool.cu``), and their plain versions.
 
-Replaces ``pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool2x2``
+K6 replaces ``pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool2x2``
 (the HisFPN's downsamples and the seeds of its two extra levels).  Layout
 int8 NHWC ``[B, H, W, C]`` -> ``[B, H // 2, W // 2, C]``: a VALID window,
 so an odd row or column is dropped.  The plain version is the JAX oracle
-``nn/fpn_int8._maxpool2x2_i8`` (``reduce_window`` with init -128).  Unlike
-the Pallas wrapper, the kernel takes every shape and never falls back.
+``nn/fpn_int8._maxpool2x2_i8`` (``reduce_window`` with init -128).
+
+K10 replaces ``pallas_pool.py:qmaxpool3x3s2`` (the pool after the direct
+7x7/2 uint8 stem conv): 3x3 window, stride 2, padding 1 with -128, ``[B, H,
+W, C]`` -> ``[B, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C]``; its plain version
+is ``reduce_window`` with init -128 as slices.  The TPU kernel's
+``emit_merged`` (the row-pair lane-merged layout of its stage-1 kernels) has
+no counterpart.
+
+Unlike the Pallas wrappers, the kernels take every shape and never fall back.
 """
 from __future__ import annotations
 
@@ -13,18 +21,21 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 SOURCE = "qpool.cu"
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build (at first use) and load K6; its C signature is declared here."""
+    """Build (at first use) and load K6 and K10; their C signatures are declared here."""
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE)
     lib.qpool_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.qpool_launch.restype = ctypes.c_int
+    lib.qpool3_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.qpool3_launch.restype = ctypes.c_int
     return lib
 
 
@@ -64,4 +75,46 @@ def qmaxpool2x2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     return out
 
 
+def qmaxpool3x3s2_plain(x: torch.Tensor) -> torch.Tensor:
+    """int8 3x3/2 max pool, padding 1 (pad value -128), NHWC, in plain PyTorch ops."""
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=-128)
+    ho, wo = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
+    out = None
+    for ky in range(3):
+        for kx in range(3):
+            win = xp[:, ky:ky + 2 * ho - 1:2, kx:kx + 2 * wo - 1:2]
+            out = win if out is None else torch.maximum(out, win)
+    return out.contiguous()
+
+
+def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """int8 ``[B, H, W, C]`` -> ``[B, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C]``,
+    3x3 window, stride 2, padding 1 (-128).
+
+    On a CPU tensor this is :func:`qmaxpool3x3s2_plain`; on a CUDA tensor it
+    launches K10 (NHWC-contiguous int8) or raises.  ``plain=True`` runs the
+    plain version on any device, for the comparison only.
+    ``qmaxpool3x3s2.launches`` counts kernel launches.
+    """
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
+    if plain or x.device.type == "cpu":
+        return qmaxpool3x3s2_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"K10 runs on CUDA tensors; got {x.device}")
+    b, h, w, c = x.shape
+    if not x.is_contiguous() or (c % 16 == 0 and x.data_ptr() % 16):
+        raise ValueError("K10 takes NHWC-contiguous int8 (16-byte aligned where C % 16 == 0)")
+    out = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = _lib().qpool3_launch(x.data_ptr(), out.data_ptr(), b, h, w, c, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K10 launch failed: cudaError {err}")
+    qmaxpool3x3s2.launches += 1
+    return out
+
+
 qmaxpool2x2.launches = 0
+qmaxpool3x3s2.launches = 0

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_object_detection_tpu_torch.nn.resnet import space_to_depth
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool3x3s2_plain
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8
 
 SOURCE = "qstem.cu"
@@ -44,18 +45,6 @@ def _lib() -> ctypes.CDLL:
     lib.qstem_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.qstem_launch.restype = ctypes.c_int
     return lib
-
-
-def maxpool3x3s2_i8(x: torch.Tensor) -> torch.Tensor:
-    """int8 3x3/2 max pool, padding 1 (pad value -128), NHWC."""
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=-128)
-    ho, wo = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
-    out = None
-    for ky in range(3):
-        for kx in range(3):
-            win = xp[:, ky:ky + 2 * ho - 1:2, kx:kx + 2 * wo - 1:2]
-            out = win if out is None else torch.maximum(out, win)
-    return out.contiguous()
 
 
 def to_rgbx(images: torch.Tensor) -> torch.Tensor:
@@ -79,7 +68,7 @@ def qstem_plain(st: Dict, xs_u8: torch.Tensor) -> torch.Tensor:
     w = st["w"].reshape(4, 4, c, -1).permute(3, 0, 1, 2)  # (ky, kx, c16) x O -> O, ky, kx, c16
     acc = conv_i8(xp, w.contiguous(), pad=0)
     x_q = clip8(torch.clamp(acc * st["A"] + st["B"], min=0.0))
-    return maxpool3x3s2_i8(x_q)
+    return qmaxpool3x3s2_plain(x_q)
 
 
 def qstem_conv(images: torch.Tensor, st: Dict, *, plain: bool = False) -> torch.Tensor:

@@ -57,13 +57,17 @@ def requantize(acc_f32: torch.Tensor, inv_out_scale_mul, shift, relu: bool = Tru
 
 def int_mm(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact int32 ``m [M, K] @ w [N, K]^T`` of int8 operands (``torch._int_mm``,
-    which takes more than 16 rows and, on the card, a multiple of 8 columns:
-    the operands are padded with zeros and the result cut back)."""
+    which takes more than 16 rows and, on the card, a multiple of 8 columns
+    and a depth that is a multiple of 8: the operands are padded with zeros
+    and the result cut back)."""
     rows, cols = m.shape[0], w.shape[0]
     if rows <= 16:
         m = torch.nn.functional.pad(m, (0, 0, 0, 17 - rows))
     if cols % 8:
         w = torch.nn.functional.pad(w, (0, 0, 0, 8 - cols % 8))
+    if m.shape[1] % 8:  # the direct 7x7 stem: 7 * 7 * 4 = 196 taps
+        depth = 8 - m.shape[1] % 8
+        m, w = torch.nn.functional.pad(m, (0, depth)), torch.nn.functional.pad(w, (0, depth))
     return torch._int_mm(m.contiguous(), w.t())[:rows, :cols]
 
 

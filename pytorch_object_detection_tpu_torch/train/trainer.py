@@ -10,9 +10,10 @@ GroupNorms on kernel B), or the int8 HisFPN, whose levels go dequantized
 to the float HISHead (``int8_head=False``) or stay int8 into the int8
 HISHead (``int8_head=True``, the JAX default serving path).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``fused_head=True`` (K15) and the other model families.  The per-conv
-backend raises in ``nn/resnet_int8.py``.
+Every int8 backbone backend of the JAX function is ported
+(``nn/resnet_int8.resnet50_int8_forward``).  Not ported yet, each raising
+``NotImplementedError`` with its ROADMAP item: ``fused_head=True`` (K15)
+and the other model families.
 """
 from __future__ import annotations
 
@@ -102,6 +103,7 @@ def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_image
 def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
                            backend: str = "pallas_block", fused_head: bool = False, fuse_strided: bool = True,
                            int8_fpn: bool = False, int8_head: bool = False, u8_input: bool = False,
+                           direct_stem: bool = False, chain_segments: bool = False,
                            plain: bool = False) -> Callable[[Dict, torch.Tensor], Levels]:
     """Inference forward with an int8-PTQ backbone: ``fwd(qtree, images) ->
     per-level f32 NHWC (cls, cnt, reg)``; ``images`` normalized NHWC
@@ -120,8 +122,12 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     ``int8_fpn=True, int8_head=True``: ``qtree`` also has ``"head"``
     (:func:`quantize_head`); the int8 levels go straight into the int8
     head (``backend="xla"``: its per-op oracle; otherwise K7 and K9), which
-    returns f32 maps, with no float seam.  ``plain=True`` runs every
-    kernel's plain version, for the comparison only.
+    returns f32 maps, with no float seam.
+
+    ``backend``, ``fuse_strided``, ``direct_stem`` (the JAX package's
+    ``PODT_STEM_XLA7=1``) and ``chain_segments`` (``PODT_QCHAIN=1``) go to
+    ``resnet50_int8_forward``, which says what each selects.  ``plain=True``
+    runs every kernel's plain version, for the comparison only.
     """
     _require_hisfcos(model)
     if fused_head:
@@ -134,7 +140,8 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
 
     @torch.inference_mode()
     def fwd(qtree: Dict, images: torch.Tensor) -> Levels:
-        bb_kw = dict(backend=backend, fuse_strided=fuse_strided, u8_stem=u8_input, plain=plain)
+        bb_kw = dict(backend=backend, fuse_strided=fuse_strided, u8_stem=u8_input, direct_stem=direct_stem,
+                     chain_segments=chain_segments, plain=plain)
         if int8_head:
             feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
             levels_q, _ = hisfpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend=sub, dequant=False)

@@ -279,7 +279,13 @@ def test_ladder_bit_exact_vs_jax_oracle(backbones):
 
 def test_int8_stems_agree_and_unported_options_raise(backbones):
     """The two stems (float pool then quantize; quantize then int8 pool) are
-    bit-identical: max commutes with the monotone quantize."""
+    bit-identical: max commutes with the monotone quantize.  The options
+    that raised before they were ported run (held against the JAX package in
+    test_torch_port_int8_backends): the bf16 stem tail's stem (K17's plain
+    version, ``x * (1 / s)`` where the float stem divides) is within one
+    int8 step of the float stem, and the ladder behind it is the oracle; the
+    per-conv form is the oracle's function on identity blocks and within
+    one step of it on projection blocks, whose shortcut it requantizes."""
     qtree = resnet_int8.quantize_resnet50(backbones["model"].backbone, backbones["ttaps"])
     images = torch.from_numpy(backbones["images"])
     xla, s_xla = _backbone_int8_feats(qtree, images)
@@ -287,14 +293,32 @@ def test_int8_stems_agree_and_unported_options_raise(backbones):
     for a, b in zip(xla, blk):
         assert a.dtype == torch.int8 and torch.equal(a, b)
     assert all(torch.equal(a, b) for a, b in zip(s_xla, s_blk))
-    with pytest.raises(NotImplementedError, match="K4"):
-        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas")
-    with pytest.raises(NotImplementedError, match="fuse_strided"):
-        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_block", fuse_strided=False)
-    with pytest.raises(NotImplementedError, match="K17"):
-        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_stem_tail")
+
+    stem = resnet_int8.resnet50_int8_stem(qtree, images, torch.float32, "xla")
+    tail = resnet_int8.resnet50_int8_stem(qtree, images, torch.float32, "pallas_stem_tail")
+    assert tail.shape == stem.shape and int((tail.int() - stem.int()).abs().max()) <= 1
+    want = resnet_int8.resnet50_int8_ladder(qtree, tail)
+    got, _ = _backbone_int8_feats(qtree, images, backend="pallas_stem_tail")
+    assert all(torch.equal(g, w) for g, (w, _) in zip(got, want[-3:]))
+
+    x = stem
+    for scope, stage, b in resnet_int8.block_scopes():
+        stride = 2 if (b == 0 and stage > 0) else 1
+        oracle = resnet_int8.bottleneck_int8(qtree[scope], x, stride)
+        per_conv = resnet_int8.bottleneck_int8(qtree[scope], x, stride, "pallas")
+        step = int((per_conv.int() - oracle.int()).abs().max())
+        assert per_conv.shape == oracle.shape and step <= (1 if "wd" in qtree[scope] else 0), (scope, step)
+        x = oracle
+    for kw in (dict(backend="pallas"), dict(backend="pallas_block", fuse_strided=False)):
+        feats, scales = _backbone_int8_feats(qtree, images, **kw)
+        assert [f.shape for f in feats] == [f.shape for f in xla] and all(torch.equal(a, b)
+                                                                         for a, b in zip(scales, s_xla))
     with pytest.raises(KeyError, match="stem_s2d"):  # quantized without mean/std: no uint8 stem
         resnet_int8.resnet50_int8_forward(qtree, images, u8_stem=True)
+    with pytest.raises(ValueError, match="u8_stem"):
+        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_block", direct_stem=True)
+    with pytest.raises(ValueError, match="fuse_strided"):
+        resnet_int8.resnet50_int8_forward(qtree, images, backend="pallas_block", chain_segments=True)
 
 
 # ---------------------------------------------------------------- the folded HisFPN
@@ -423,12 +447,20 @@ def test_int8_pipeline_options(slice_runs):
     for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
         with pytest.raises(NotImplementedError, match=what):
             make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
-    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True, fused_head=True), "K15"),
-                     (dict(backend="pallas"), "K11"), (dict(fuse_strided=False), "fuse_strided"),
-                     (dict(backend="pallas_stem_tail"), "K17")):
+    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True, fused_head=True), "K15")):
         with pytest.raises(NotImplementedError, match=what):
             fwd = make_eval_forward_int8(model, torch.float32, **kw)
             fwd(quantize_backbone(model, norm[:1, :64, :64], torch.float32), norm[:1, :64, :64])
+    # the options ported since run through the entry point and stay close to the per-op oracles (they differ
+    # from them by the one-step effects test_int8_stems_agree_and_unported_options_raise bounds)
+    qtree = quantize_backbone(model, norm[:1], torch.float32)
+    want = make_eval_forward_int8(model, torch.float32, backend="xla")(qtree, norm[:1])
+    for kw in (dict(backend="pallas"), dict(fuse_strided=False), dict(backend="pallas_stem_tail")):
+        got = make_eval_forward_int8(model, torch.float32, **kw)(qtree, norm[:1])
+        for g_b, w_b in zip(got, want):
+            for g, w in zip(g_b, w_b):
+                cos = float((g * w).sum() / (g.norm() * w.norm()))
+                assert bool(torch.isfinite(g).all()) and cos >= LEVEL_COS, (kw, cos)
     four = make_eval_pipeline_int8(*args[:2], STRIDES[:4], (CANVAS, CANVAS), int8_fpn=False,
                                    compute_dtype=torch.float32)
     assert four.decode(slice_runs["levels"]).scores.shape[1] == min(1000, sum((CANVAS // s) ** 2 for s in STRIDES[:4]))

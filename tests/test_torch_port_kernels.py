@@ -1,6 +1,8 @@
 """The port's kernels against their plain versions: A (NMS), B (GroupNorm),
 C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K5 (int8 HisBlock),
-K6 (int8 2x2 pool) and K7/K9 (one int8 HISHead level).
+K6 (int8 2x2 pool), K7/K9 (one int8 HISHead level), K10 (int8 3x3/2 pool),
+K11 (int8 3x3 conv), K13 (a chain of int8 bottlenecks) and K17 (the bf16
+stem tail).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -20,10 +22,12 @@ from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_n
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
-from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qmatmul
+from pytorch_object_detection_tpu_torch.ops.qchain import qchain, qchain_plain
+from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qconv3x3, qconv3x3_plain, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
-from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2, qmaxpool3x3s2, qmaxpool3x3s2_plain
 from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
+from pytorch_object_detection_tpu_torch.ops.stem import stem_bn_pool_quant, stem_bn_pool_quant_plain
 from torch_port_fixtures import (
     ADVERSARIAL_KEEP,
     nms_case,
@@ -448,3 +452,165 @@ def test_int8_fpn_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         qhisblock(blk, x, combine="add")
     with pytest.raises(ValueError, match="w must be"):
         qmatmul(x.reshape(-1, 32), lat["w"], lat["A"], lat["B"])
+
+
+# (B, H, W, Cin, Cout): conv2 of the four ResNet-50 stages at the 512x512
+# canvas, B=2; odd sizes; an output width that is not a multiple of 64
+QCONV3_SHAPES = [(2, 128, 128, 64, 64), (2, 64, 64, 128, 128), (2, 32, 32, 256, 256), (2, 16, 16, 512, 512),
+                 (2, 13, 11, 32, 48), (1, 5, 7, 16, 80)]
+
+
+def _qconv3_case(b, h, w, cin, cout, device):
+    g = torch.Generator().manual_seed(h * w + cout)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=g, dtype=torch.int8)
+    wt = torch.randint(-16, 16, (cout, 3, 3, cin), generator=g, dtype=torch.int8)
+    a = torch.rand(cout, generator=g) * 0.12 / (9 * cin) ** 0.5 + 1e-4  # acc * a: about 40 int8 steps
+    bias = torch.randn(cout, generator=g) * 5
+    return [t.to(device) for t in (x, wt, a, bias)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QCONV3_SHAPES, ids=["s1_128", "s2_64", "s3_32", "s4_16", "odd", "cout80"])
+def test_qconv3x3_kernel_matches_plain_exactly(cuda, shape):
+    """K11: 0 differing int8 elements against ``conv_i8`` + the epilogue on
+    the card and on the CPU, whatever the band height; one launch each."""
+    x, wt, a, b = _qconv3_case(*shape, cuda)
+    want = qconv3x3(x, wt, a, b, plain=True)
+    assert torch.equal(want.cpu(), qconv3x3(*(t.cpu() for t in (x, wt, a, b))))
+    for rows in (None, 1, 3):
+        before = qconv3x3.launches
+        got = qconv3x3(x, wt, a, b, rows=rows)
+        torch.cuda.synchronize()
+        assert qconv3x3.launches == before + 1
+        assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got, want), f"rows={rows}: {int((got != want).sum())} of {want.numel()} differ"
+    assert 0.05 < (want > 0).float().mean() and (want == 127).float().mean() < 0.05  # not degenerate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 256, 64), (2, 15, 21, 64), (2, 9, 6, 24), (2, 1, 1, 16)],
+                         ids=["stem", "odd", "c24", "1x1"])
+def test_qmaxpool3x3s2_kernel_matches_plain_exactly(cuda, shape):
+    """K10 at the stem's shape (B=2), odd sizes, a channel count that is not
+    a multiple of 16 and a 1x1 map: 0 differing elements."""
+    x = torch.randint(-128, 128, shape, generator=torch.Generator().manual_seed(shape[1]), dtype=torch.int8)
+    before = qmaxpool3x3s2.launches
+    got = qmaxpool3x3s2(x.to(cuda))
+    torch.cuda.synchronize()
+    assert qmaxpool3x3s2.launches == before + 1
+    assert got.shape == (shape[0], (shape[1] - 1) // 2 + 1, (shape[2] - 1) // 2 + 1, shape[3])
+    assert torch.equal(got.cpu(), qmaxpool3x3s2_plain(x))
+
+
+def _stem_tail_case(shape, device, seed=0):
+    g = torch.Generator().manual_seed(seed + shape[1])
+    x = (torch.randn(shape, generator=g) * 3).to(torch.bfloat16)
+    c = shape[-1]
+    mult, shift = torch.rand(c, generator=g) + 0.3, torch.randn(c, generator=g) * 0.5
+    scale = torch.tensor(float(x.float().abs().max()) / 127.0 * 0.8)  # a few values clip
+    return [t.to(device) for t in (x, mult, shift, scale)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 256, 64), (2, 15, 21, 64), (1, 2, 2, 8)], ids=["stem", "odd", "2x2"])
+def test_stem_tail_kernel_matches_plain_exactly(cuda, shape):
+    """K17 against its plain version on the card (the same bf16 ops in the
+    same order, each rounded to bf16): 0 differing int8 elements."""
+    x, mult, shift, scale = _stem_tail_case(shape, cuda)
+    before = stem_bn_pool_quant.launches
+    got = stem_bn_pool_quant(x, mult, shift, scale)
+    torch.cuda.synchronize()
+    assert stem_bn_pool_quant.launches == before + 1
+    want = stem_bn_pool_quant(x, mult, shift, scale, plain=True)
+    assert got.dtype == torch.int8 and got.shape == want.shape == (shape[0], (shape[1] - 1) // 2 + 1,
+                                                                   (shape[2] - 1) // 2 + 1, shape[3])
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+    assert (want > 0).float().mean() > 0.05
+
+
+def _chain(specs, seed, device):
+    """[(blk, stride)] of random bottlenecks for (Cin, Cw, Cout, stride) specs."""
+    rng = np.random.default_rng(seed)
+    return [(port_block(rand_qblock(rng, cin, cw, cout, cin != cout or s == 2), device), s)
+            for cin, cw, cout, s in specs]
+
+
+# the three backbone segments of ResNet-50 at the 512x512 canvas (input H, W), and a short odd-sized chain
+SEGMENT_SPECS = {
+    "c3": ((128, 128), [(64, 64, 256, 1), (256, 64, 256, 1), (256, 64, 256, 1), (256, 128, 512, 2),
+                        (512, 128, 512, 1), (512, 128, 512, 1), (512, 128, 512, 1)]),
+    "c4": ((64, 64), [(512, 256, 1024, 2)] + [(1024, 256, 1024, 1)] * 5),
+    "c5": ((32, 32), [(1024, 512, 2048, 2)] + [(2048, 512, 2048, 1)] * 2),
+    "odd": ((13, 11), [(32, 16, 64, 1), (64, 16, 64, 1), (64, 32, 96, 2), (96, 32, 96, 1)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", list(SEGMENT_SPECS))
+def test_qchain_kernel_matches_kernel_c_exactly(cuda, seg):
+    """K13 (one cooperative launch per chain) against kernel C block after
+    block and against the plain chain, B=2: 0 differing int8 elements."""
+    (h, w), specs = SEGMENT_SPECS[seg]
+    blocks = _chain(specs, len(seg) + h, cuda)
+    x = torch.randint(-127, 128, (2, h, w, specs[0][0]), generator=torch.Generator().manual_seed(h),
+                      dtype=torch.int8).to(cuda)
+    want = x
+    for blk, stride in blocks:
+        want = run_port_block(blk, want, stride)
+    before = (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches)
+    got = qchain(x, blocks)
+    torch.cuda.synchronize()
+    assert (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches) == (before[0] + 1, *before[1:])
+    assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want), f"{seg}: {int((got != want).sum())} of {want.numel()} differ from kernel C"
+    assert torch.equal(qchain(x, blocks, plain=True), want)
+    assert 0 < (want > 0).float().mean()
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_other_layouts(cuda):
+    x, wt, a, b = _qconv3_case(2, 8, 8, 32, 32, cuda)
+    with pytest.raises(ValueError):  # NHWC-shaped but not contiguous
+        qconv3x3(x.transpose(1, 2), wt, a, b)
+    with pytest.raises(ValueError):  # channels not a multiple of 16
+        qconv3x3(x[..., :24].contiguous(), wt[..., :24].contiguous(), a, b)
+    with pytest.raises(ValueError):  # a weight on another device
+        qconv3x3(x, wt.cpu(), a, b)
+    with pytest.raises(ValueError):
+        qmaxpool3x3s2(x.transpose(1, 2))
+    xs, mult, shift, scale = _stem_tail_case((1, 8, 8, 16), cuda)
+    with pytest.raises(ValueError):  # K17 takes bf16 on the card
+        stem_bn_pool_quant(xs.float(), mult, shift, scale)
+    with pytest.raises(ValueError):
+        stem_bn_pool_quant(xs.transpose(1, 2), mult, shift, scale)
+    blocks = _chain([(32, 16, 32, 1)], 0, cuda)
+    with pytest.raises(ValueError):  # x NHWC-shaped but not contiguous
+        qchain(x.transpose(1, 2), blocks)
+    with pytest.raises(ValueError):  # a weight on another device
+        qchain(x, [(dict(blocks[0][0], w2=blocks[0][0]["w2"].cpu()), 1)])
+
+
+def test_new_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    counters = (qconv3x3, qmaxpool3x3s2, stem_bn_pool_quant, qchain)
+    before = [c.launches for c in counters]
+    x, wt, a, b = _qconv3_case(2, 6, 5, 16, 32, "cpu")
+    assert torch.equal(qconv3x3(x, wt, a, b), qconv3x3_plain(x, wt, a, b))
+    assert torch.equal(qmaxpool3x3s2(x), qmaxpool3x3s2_plain(x))
+    xs, mult, shift, scale = _stem_tail_case((1, 7, 6, 16), "cpu")
+    got = stem_bn_pool_quant(xs, mult, shift, scale)
+    assert got.shape == (1, 4, 3, 16)
+    assert torch.equal(got, stem_bn_pool_quant_plain(xs, mult.bfloat16(), shift.bfloat16(), 1.0 / scale))
+    blocks = _chain([(16, 16, 32, 1), (32, 16, 32, 2)], 1, "cpu")
+    assert torch.equal(qchain(x, blocks), qchain_plain(x, blocks))
+    assert qchain(x, blocks).shape == (2, 3, 3, 32)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="w must be"):
+        qconv3x3(x, wt[:, :, :, :8], a, b)
+    with pytest.raises(ValueError, match="int8"):
+        qmaxpool3x3s2(x.float())
+    with pytest.raises(ValueError, match="mult"):
+        stem_bn_pool_quant(xs, mult[:8], shift, scale)
+    with pytest.raises(ValueError, match="w1"):  # the second block's input has 32 channels, not 16
+        qchain(x, blocks[1:])
+    with pytest.raises(ValueError, match="1 to"):
+        qchain(x, [])

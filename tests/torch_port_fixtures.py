@@ -261,6 +261,23 @@ def jax_head_form(q):
     return out
 
 
+def jax_fpn_form(q):
+    """A port HisFPN qtree as the JAX ``quantize_hisfpn`` tree of numpy
+    arrays (HWIO kernels, the depthwise ``[3, 3, 1, half]``): the inverse of
+    ``train/checkpoints.load_fpn_qtree``."""
+    out = {}
+    for scope, blk in q.items():
+        out[scope] = {}
+        for k, t in blk.items():
+            a = t.detach().cpu().numpy()
+            if k == "wdw":
+                a = a[:, :, None, :]
+            elif a.dtype == np.int8:
+                a = a.T.reshape(1, 1, a.shape[1], a.shape[0]) if a.ndim == 2 else a.transpose(1, 2, 3, 0)
+            out[scope][k] = a
+    return out
+
+
 def port_hisfpn_qtree(features: int, seed: int = 0):
     """An int8 HisFPN qtree of a random HisFPN of ``features`` channels,
     made by the port alone (``nn/fpn_int8``), calibrated on random C3..C5
