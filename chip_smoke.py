@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
 Phases (each prints its results on its own lines):
   1. device: nvidia-smi name and power limit; exit 1 without a CUDA device;
   2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu), C (csrc/qblock.cu), K1
-     (csrc/qstem.cu), K4 (csrc/qconv.cu), K5 (csrc/qhis.cu), K6 and K10
-     (csrc/qpool.cu), K7/K9 (csrc/qhead.cu), K11 (csrc/qconv3.cu), K13
-     (csrc/qchain.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
+     (csrc/qstem.cu), K4 (csrc/qconv.cu), K4' (csrc/qmm_variants.cu), K5
+     (csrc/qhis.cu), K6 and K10 (csrc/qpool.cu), K7/K9 (csrc/qhead.cu), K11
+     (csrc/qconv3.cu), K13 (csrc/qchain.cu), K15 (csrc/head.cu), K16
+     (csrc/fused.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
      source, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
@@ -68,17 +69,35 @@ Phases (each prints its results on its own lines):
   5i. K11 at the four stage shapes, K10, K17 and K13 (three segments) vs
      their plain versions on the paths' own inputs and on random ones: 0
      differing elements;
+  5j. the fused ResNet-50 (nn/fused_resnet.resnet50_fused_forward) on the
+     same model and frames, bf16, B=8, counted (32 K16 launches); its C3..C5
+     against the module forward (within LEVEL_TOL of the range, cosine >=
+     0.999); K16 against its plain version at the 32 GEMMs of that call and
+     at odd M, N and K (within one bf16 step);
+  5k. the fused-head serving pipeline: make_eval_pipeline_int8(int8_fpn=False,
+     fused_head=True) in bf16 on the 8 frames, counted (13 K2, 3 K3, 5 K15,
+     0 kernel B, 1 A); finite detections; maps against its plain run; K15
+     against its plain version at the five levels of that call and on random
+     inputs (K15_MAX_ERR of each output's range, cosine >= K15_MIN_COS);
+     K15's maps against the bf16 float head on the same levels;
+  5l. K4': the three epilogues of the timing harness at [1048576, 64] x
+     [64, 256] against their plain versions (exact), counted (3);
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
      shape), K1, K4, K5, K6, K7 (beside the bf16 float head at the same
      levels), K10, K11, K13 (beside kernel C's 16 launches on the same
-     input, in turns, at B=8 and B=64) and K17, K9 against K7 at the COCO
-     P3 shape, the library call where one PyTorch call computes the same
-     function, each wrapper's host time, and each pipeline's images/s at
-     B=8 and B=64 (paths 3 and 4 of 5h at B=64 only, path 2 not timed);
-  6b-6f. torch.profiler breakdowns of one B=64 call of the float, the
-     int8-backbone, the int8-FPN, the default and the per-conv pipeline (a
-     profile that raises fails the run; one whose profiler sees no device
-     events prints "not measured").
+     input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
+     K16 (beside torch.matmul of the same GEMMs, epilogue not included) and
+     K17, K4''s three epilogues, K9 against K7 at the COCO P3 shape, the
+     library call where one PyTorch call computes the same function, each
+     wrapper's host time, the fused backbone against the module forward
+     (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
+     (paths 3 and 4 of 5h at B=64 only, path 2 not timed);
+  6b-6g. torch.profiler breakdowns of one B=64 call of the float, the
+     int8-backbone, the int8-FPN, the default, the per-conv and the
+     fused-head pipeline (a profile that raises fails the run; one whose
+     profiler sees no device events prints "not measured"); 6g also splits
+     the fused head's device time at B=64 into the NCHW -> NHWC copies of
+     the levels, K15 and the output casts, beside the float head's.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -119,7 +138,8 @@ K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 # launches in one call of the int8-FPN pipeline, by wrapper
 FPN_PIPELINE_LAUNCHES = {"qstem_conv": 1, "qbottleneck": 13, "qbottleneck_s2": 3, "qmatmul": 3, "qhisblock": 7,
                          "qmaxpool2x2": 6, "groupnorm_act": 20, "cuda_nms_keep_mask": 1, "qhishead_level": 0,
-                         "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0}
+                         "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0,
+                         "matmul_bn_act": 0, "hishead_level_fused": 0, "qmm_variant": 0}
 # launches in one call of the default pipeline (int8 FPN and head) at 512x512
 DEFAULT_PIPELINE_LAUNCHES = dict(FPN_PIPELINE_LAUNCHES, groupnorm_act=0, qhishead_level=5)
 # ... and at the 896x1408 COCO canvas: K9 on P3 (112x176) and P4 (56x88), above 64x64 pixels
@@ -149,9 +169,24 @@ K5_MAX_STEP, K5_MAX_SHARE = 1, 0.05
 # 0.9999993): exact GroupNorm statistics against f32 sums and SiLU through
 # expf move an int8 intermediate by one step now and then
 QHEAD_MAX_ERR, QHEAD_MIN_COS = 0.05, 0.99999
+# K16 against its plain version: both round one f32 sum of the same exact
+# bf16 products to bf16, summed in another order, so an output may be one
+# bf16 step apart (at most 2**-7 of it); the atol (of the output's range)
+# covers the order of the sums near 0
+K16_RTOL, K16_ATOL = 2.0**-7, 2.0**-12
+# K15 against its plain version: the same bf16 steps; the GroupNorm partial
+# sums add in another order and expf is not torch's sigmoid, so a bf16
+# value moves by a step now and then and the move passes through the later
+# stages: max |diff| over each output's range, and cosine, tightened to what
+# the card shows with margin (worst seen 0.0072 of the range and cosine
+# 0.9999977 at the five levels and on random inputs)
+K15_MAX_ERR, K15_MIN_COS = 2.0**-6, 0.99999
+# one call of the fused-head pipeline (int8_fpn=False, fused_head=True)
+FUSED_HEAD_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, qbottleneck=13, qbottleneck_s2=3,
+                           hishead_level_fused=5, cuda_nms_keep_mask=1)
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # device memory, int8 tensor-core operations, f32 on the CUDA cores
-HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1979e12, 67e12
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 1979e12, 67e12, 989e12
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -246,9 +281,11 @@ def main() -> int:
     from pytorch_object_detection_tpu_torch.models import head_int8
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
-    from pytorch_object_detection_tpu_torch.nn import fpn_int8, resnet_int8
+    from pytorch_object_detection_tpu_torch.nn import fpn_int8, fused_resnet, resnet_int8
     from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
-    from pytorch_object_detection_tpu_torch.ops import cuda_nms, gn, qblock, qchain, qconv, qhead, qhis, qpool, qstem, stem
+    from pytorch_object_detection_tpu_torch.ops import (
+        cuda_nms, fused, gn, head, qblock, qchain, qconv, qhead, qhis, qmm_variants, qpool, qstem, stem)
+    from pytorch_object_detection_tpu_torch.train import trainer
     from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
     smoke = Smoke()
@@ -271,7 +308,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib, qhead._lib,
-                qconv._lib3, qchain._lib, stem._lib)
+                qconv._lib3, qchain._lib, stem._lib, fused._lib, head._lib, qmm_variants._lib)
         with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
             for fut in [pool.submit(lib) for lib in libs]:
                 fut.result()  # a failed build raises here
@@ -479,7 +516,8 @@ def main() -> int:
                 "cuda_nms_keep_mask": cuda_nms.cuda_nms_keep_mask, "qhishead_level": qhead.qhishead_level,
                 "qhishead_level2": qhead.qhishead_level2, "qconv3x3": qconv.qconv3x3,
                 "qmaxpool3x3s2": qpool.qmaxpool3x3s2, "stem_bn_pool_quant": stem.stem_bn_pool_quant,
-                "qchain": qchain.qchain}
+                "qchain": qchain.qchain, "matmul_bn_act": fused.matmul_bn_act,
+                "hishead_level_fused": head.hishead_level_fused, "qmm_variant": qmm_variants.qmm_variant}
 
     def record_calls(module, names, run):
         """``run()`` with each of ``module``'s functions ``names`` wrapped to
@@ -854,6 +892,176 @@ def main() -> int:
                             f"K13 {what} {len(blocks)} blocks {tuple(inp.shape)}, grid {qchain.qchain.grid}")
         res["backend_err"] = err
 
+    def normalized(frames):
+        mean, std = torch.tensor(IMAGENET_MEAN, device=dev), torch.tensor(IMAGENET_STD, device=dev)
+        return (frames.float() / 255.0 - mean) / std
+
+    def k16_compare(got, want, what):
+        """K16 against its plain version: within one bf16 step (K16_RTOL) plus
+        K16_ATOL of the output's range; the worst step kept."""
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        scale = max(float(w.abs().max()), 1e-30)
+        close = torch.isclose(g, w, rtol=K16_RTOL, atol=K16_ATOL * scale)
+        err = float((g - w).abs().max())
+        res["k16_err"] = max(res.get("k16_err", 0.0), err)
+        smoke.check(got.shape == want.shape and got.dtype == want.dtype and bool(close.all()),
+                    f"{what}: {int((~close).sum())} of {w.numel()} beyond one bf16 step, max abs err {err:.4g} "
+                    f"(range {scale:.4g}), {float((g != w).float().mean()):.4%} differ")
+
+    def phase5j():
+        model, frames = res["model"], res["frames"]
+        norm = normalized(frames)
+        backbone = model.backbone
+        t0 = time.perf_counter()
+        folded = fused_resnet.fold_resnet50(backbone, torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"  BN folded once in {time.perf_counter() - t0:.2f} s")
+        # the main path, counted: counters to 0 just before, read just after
+        for counter in counters.values():
+            counter.launches = 0
+        with torch.inference_mode():
+            feats = fused_resnet.resnet50_fused_forward(backbone, norm, torch.bfloat16, folded)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        res["fused_bb_launches"] = launches
+        print(f"  launches in one fused backbone forward (B=8): {launches}")
+        smoke.check(launches == dict({k: 0 for k in counters}, matmul_bn_act=32),
+                    "K16 launched 32 times (conv1 and conv3 of 16 blocks), nothing else")
+        with torch.inference_mode():
+            module = res["pipe"].model.backbone(norm.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous())
+        torch.cuda.synchronize()
+        cosines = []
+        for i, (f, m) in enumerate(zip(feats, module)):
+            m = m.permute(0, 2, 3, 1)
+            scale = float(m.float().abs().max())
+            err = float((f.float() - m.float()).abs().max())
+            c = cosine(f, m)
+            cosines.append(c)
+            smoke.check(f.shape == m.shape and f.dtype == torch.bfloat16 and bool(torch.isfinite(f).all())
+                        and err <= LEVEL_TOL * scale and c >= 0.999,
+                        f"fused C{i + 3} {tuple(f.shape)} vs the bf16 module forward: max abs err {err:.4g} "
+                        f"(range {scale:.4g}, tol {LEVEL_TOL * scale:.4g}), cosine {c:.6f}")
+        res["fused_bb_cos"] = cosines
+        calls = record_calls(fused_resnet, ("conv1x1_bn_act",),
+                             lambda: fused_resnet.resnet50_fused_forward(backbone, norm, torch.bfloat16, folded))
+        res["k16_calls"], res["folded"], res["norm8"] = calls["conv1x1_bn_act"], folded, norm
+        print(f"  recorded K16 calls: {len(res['k16_calls'])}")
+        g = torch.Generator(device=dev).manual_seed(SEED + 10)
+        with torch.inference_mode():
+            for i, ((x, w, sc, sh), kw) in enumerate(res["k16_calls"]):
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                m, k, n = x.numel() // x.shape[-1], x.shape[-1], w.shape[0]
+                k16_compare(fused.conv1x1_bn_act(x, w, sc, sh, **kw), fused.conv1x1_bn_act(x, w, sc, sh, plain=True,
+                                                                                            **kw),
+                            f"K16 call {i} [{m}, {k}] x [{k}, {n}] residual {kw.get('residual') is not None}")
+            for m, k, n in ((1000, 77, 130), (37, 24, 5), (131073, 64, 257), (2049, 1031, 511)):
+                x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+                w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5).bfloat16()
+                sc, sh = torch.rand(n, generator=g, device=dev) + 0.5, torch.randn(n, generator=g, device=dev) * 0.1
+                r = torch.randn(m, n, generator=g, device=dev).bfloat16()
+                for act, rr in ((True, r), (False, None)):
+                    k16_compare(fused.matmul_bn_act(x, w, sc, sh, rr, act),
+                                fused.matmul_bn_act(x, w, sc, sh, rr, act, plain=True),
+                                f"K16 random [{m}, {k}] x [{k}, {n}] act {act} residual {rr is not None}")
+
+    def k15_compare(got, want, nc, what):
+        """K15 against its plain version, per output: max |diff| over the
+        output's range and cosine; the worst kept."""
+        torch.cuda.synchronize()
+        worst = res.setdefault("k15_err", [0.0, 0.0, 1.0])
+        for name, sl in (("cls", slice(0, nc)), ("cnt", slice(nc, nc + 1)), ("reg", slice(nc + 1, nc + 5))):
+            a, b = got[..., sl].float(), want[..., sl].float()
+            abs_err = float((a - b).abs().max())
+            err, c = abs_err / max(float(b.abs().max()), 1e-30), cosine(a, b)
+            worst[:] = [max(worst[0], abs_err), max(worst[1], err), min(worst[2], c)]
+            smoke.check(bool(torch.isfinite(a).all()) and got.shape == want.shape and err <= K15_MAX_ERR
+                        and c >= K15_MIN_COS, f"{what} {name} {tuple(a.shape)}: max err {err:.4g} of the range "
+                                              f"({abs_err:.4g}), cosine {c:.8f}")
+
+    def phase5k():
+        model, frames = res["model"], res["frames"]
+        norm = res.get("norm8", normalized(frames))
+        args = (model, norm, default_strides(), CANVAS)
+        t0 = time.perf_counter()
+        hpipe = make_eval_pipeline_int8(*args, int8_fpn=False, fused_head=True, compute_dtype=torch.bfloat16)
+        hplain = make_eval_pipeline_int8(*args, int8_fpn=False, fused_head=True, compute_dtype=torch.bfloat16,
+                                         plain=True)
+        if "ipipe" in res:  # the int8-backbone pipeline's qtree: the same backbone, one calibration for all
+            hpipe.qtree = res["ipipe"].qtree
+        hplain.qtree = hpipe.qtree
+        torch.cuda.synchronize()
+        print(f"  fused-head pipelines built in {time.perf_counter() - t0:.2f} s")
+        res.update(hpipe=hpipe, hplain=hplain)
+
+        dets, launches = count_launches(hpipe, frames)
+        res["fused_head_launches"] = launches
+        print(f"  launches in one fused-head pipeline call (B=8): {launches}")
+        smoke.check(launches == FUSED_HEAD_LAUNCHES, "K2 13, K3 3, K15 5, kernel B 0 and kernel A 1 launches per call")
+        n_valid = dets.valid.sum(dim=1).tolist()
+        smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
+                    and bool(torch.isfinite(dets.boxes).all()) and all(0 < n <= 1000 for n in n_valid),
+                    f"fused-head detections [8, 1000], finite, {n_valid} valid")
+        for name, got_b, want_b in zip(("cls", "cnt", "reg"), hpipe.forward_levels(frames),
+                                       hplain.forward_levels(frames)):
+            for i, (a, b) in enumerate(zip(got_b, want_b)):
+                c = cosine(a, b)
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                smoke.check(bool(torch.isfinite(a).all()) and c >= 0.999,
+                            f"fused-head {name} P{i + 3}: kernel vs plain pipeline cosine {c:.6f}, max abs err "
+                            f"{err:.4g} of the range")
+
+        nc = model.num_classes
+        calls = record_calls(trainer, ("hishead_level_fused",), lambda: hpipe.forward_levels(frames))
+        res["k15_calls"] = calls["hishead_level_fused"]
+        print(f"  recorded K15 calls: {[tuple(a[0].shape) for a, _ in res['k15_calls']]}")
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        float_head = copy.deepcopy(model.head).to(torch.bfloat16).eval()
+        levels_nchw = []
+        cosines = []
+        with torch.inference_mode():
+            for i, ((x, packed, nc_), kw) in enumerate(res["k15_calls"]):
+                rand = (torch.randn(x.shape, generator=g, device=dev) * float(x.float().std())).to(x.dtype)
+                for what, inp in (("pipeline", x), ("random", rand)):
+                    k15_compare(head.hishead_level_fused(inp, packed, nc_), head.hishead_level_fused(
+                        inp, packed, nc_, plain=True), nc_, f"K15 P{i + 3} {what}")
+                levels_nchw.append(x.permute(0, 3, 1, 2).contiguous())
+            float_out = float_head(levels_nchw)
+            for i, ((x, packed, nc_), _) in enumerate(res["k15_calls"]):
+                out = head.hishead_level_fused(x, packed, nc_)
+                scale_i = getattr(model.head, f"scale{i}").scale.float()
+                mine = (out[..., :nc], out[..., nc:nc + 1], torch.exp(out[..., nc + 1:].float() * scale_i))
+                for name, a, f in zip(("cls", "cnt", "reg"), mine, (o[i] for o in float_out)):
+                    c = cosine(a, f.permute(0, 2, 3, 1))
+                    cosines.append(c)
+                    smoke.check(c >= INT8_COS_MIN, f"{name} P{i + 3}: K15 vs the bf16 float head on the same levels, "
+                                                   f"cosine {c:.6f} (min {INT8_COS_MIN})")
+        res["k15_vs_float_head"] = min(cosines)
+        res["k15_float_head"] = (float_head, levels_nchw)
+
+    def phase5l():
+        inp = qmm_variants.make_inputs(device=dev, seed=SEED + 12)
+        for counter in counters.values():
+            counter.launches = 0
+        with torch.inference_mode():
+            got = qmm_variants.run_variants(inp)  # the harness's path: one launch of each epilogue
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        res["k4p_launches"] = launches
+        smoke.check(launches == dict({k: 0 for k in counters}, qmm_variant=3),
+                    f"K4' launched 3 times by the harness, nothing else: {launches['qmm_variant']}")
+        with torch.inference_mode():
+            want = qmm_variants.run_variants(inp, plain=True)
+        torch.cuda.synchronize()
+        res["k4p_err"] = 0
+        for v in qmm_variants.VARIANTS:
+            n_diff = int((got[v] != want[v]).sum())
+            res["k4p_err"] = max(res["k4p_err"], int((got[v].int() - want[v].int()).abs().max()))
+            smoke.check(n_diff == 0 and got[v].shape == want[v].shape,
+                        f"K4' {v} {tuple(inp['x'].shape)} x {tuple(inp['w'].shape)}: {n_diff} of {want[v].numel()} "
+                        f"int8 elements differ, {float((want[v] != 0).float().mean()):.3f} nonzero")
+        res["k4p_inputs"] = inp
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -922,6 +1130,12 @@ def main() -> int:
             time_head_kernels()
         if "backend_calls" in res:
             time_backend_kernels()
+        if "k16_calls" in res:
+            time_fused_backbone()
+        if "k15_calls" in res:
+            time_fused_head()
+        if "k4p_inputs" in res:
+            time_k4_prime()
 
         pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
         if "ipipe" in res:
@@ -930,6 +1144,8 @@ def main() -> int:
             pipes += [("int8-FPN u8 kernels", res["fpipe"]), ("int8-FPN u8 plain", res["fplain"])]
         if "dpipe" in res:
             pipes += [("default u8 int8 head kernels", res["dpipe"]), ("default u8 int8 head plain", res["dplain"])]
+        if "hpipe" in res:
+            pipes += [("int8 fused-head kernels", res["hpipe"]), ("int8 fused-head plain", res["hplain"])]
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
             for name, p in pipes:
@@ -1108,6 +1324,95 @@ def main() -> int:
             print(f"  {key} per forward (B=8): kernel {tk:.4f} ms, plain {tp:.4f} ms, library none, bound "
                   f"{b_ms:.5f} ms ({b_by}), wrapper host time {th:.4f} ms {card}")
 
+    def time_fused_backbone():
+        """K16 per B=8 forward of the fused backbone on the inputs phase 5j
+        recorded, against its plain version and torch.matmul of the same
+        bf16 GEMMs (the library column: the epilogue not included), with its
+        bound and the wrapper's host time; then the fused backbone against
+        the module forward at B=8 and B=64, in turns (fused, module, module,
+        fused)."""
+        tk = tp = tl = th = nbytes = ops = 0.0
+        with torch.inference_mode():
+            for (x, w, sc, sh), kw in res["k16_calls"]:
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                m, k, n = x.numel() // x.shape[-1], x.shape[-1], w.shape[0]
+                x2, w2 = x.reshape(m, k), w.reshape(n, k)
+                tk += cuda_ms(lambda: fused.conv1x1_bn_act(x, w, sc, sh, **kw))
+                th += host_ms(lambda: fused.conv1x1_bn_act(x, w, sc, sh, **kw))
+                tp += cuda_ms(lambda: fused.conv1x1_bn_act(x, w, sc, sh, plain=True, **kw), iters=5, reps=3)
+                tl += cuda_ms(lambda: torch.matmul(x2, w2.t()))
+                nbytes += 2 * (m * k + n * k + m * n * (2 if kw.get("residual") is not None else 1)) + 8 * n
+                ops += 2 * m * n * k
+        b_k16 = bound(nbytes, ops, BF16_OPS_S)
+        print(f"  matmul_bn_act per forward (B=8, 32 launches): kernel {tk:.4f} ms, plain {tp:.4f} ms, torch.matmul "
+              f"(bf16, no epilogue) {tl:.4f} ms, bound {b_k16[0]:.5f} ms ({b_k16[1]}; {nbytes / 1e9:.3f} GB, "
+              f"{ops / 2e9:.1f} G multiply-adds), {ops / tk / 1e9:.1f} TFLOP/s, wrapper host time {th:.4f} ms {card}")
+        res["k16"] = dict(ms=tk, plain_ms=tp, library_ms=tl, host_ms=th, bound=b_k16)
+
+        backbone, folded = res["model"].backbone, res["folded"]
+        bb16 = res["pipe"].model.backbone
+        for b, iters in ((8, 10), (64, 3)):
+            norm = res["norm8"].repeat(b // 8, 1, 1, 1)
+            fused_fn = lambda: fused_resnet.resnet50_fused_forward(backbone, norm, torch.bfloat16, folded)
+            module_fn = lambda: bb16(norm.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous())
+            with torch.inference_mode():
+                tf = [cuda_ms(fused_fn, iters=iters, reps=3)]
+                tm = [cuda_ms(module_fn, iters=iters, reps=3) for _ in range(2)]
+                tf.append(cuda_ms(fused_fn, iters=iters, reps=3))
+            print(f"  fused backbone B={b}: {tf[0]:.3f}/{tf[1]:.3f} ms, module forward (bf16) {tm[0]:.3f}/{tm[1]:.3f} "
+                  f"ms (fused/module {statistics.mean(tf) / statistics.mean(tm):.3f}) {card}")
+
+    def time_fused_head():
+        """K15 per B=8 forward on the five levels phase 5k recorded, against
+        its plain version and the bf16 float head on the same levels (convs
+        and kernel B: the head K15 replaces, not a library call), with its
+        bound and the wrapper's host time."""
+        tk = tp = th = nbytes = ops = 0.0
+        with torch.inference_mode():
+            for i, ((x, packed, nc), _) in enumerate(res["k15_calls"]):
+                k1 = cuda_ms(lambda: head.hishead_level_fused(x, packed, nc), iters=10)
+                th += host_ms(lambda: head.hishead_level_fused(x, packed, nc), iters=10)
+                p1 = cuda_ms(lambda: head.hishead_level_fused(x, packed, nc, plain=True), iters=3, reps=3)
+                b, h, w, f = x.shape
+                macs = b * h * w * (f * 2 * f + 9 * 2 * f + 2 * f * f + 2 * 9 * f * f + 9 * f * (nc + 5))
+                weights = sum(packed[k].numel() * packed[k].element_size() for k in (
+                    "k_pw1", "dw", "k_pw2", "k_tow", "k_cls", "k_cr", "gn", "bias"))
+                nbytes += 2 * x.numel() + 2 * b * h * w * (nc + 5) + weights
+                ops += 2 * macs
+                tk, tp = tk + k1, tp + p1
+                print(f"  K15 P{i + 3} {tuple(x.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+            float_head, levels_nchw = res["k15_float_head"]
+            tf = cuda_ms(lambda: float_head(levels_nchw), iters=10)
+        b_k15 = bound(nbytes, ops, BF16_OPS_S)
+        print(f"  hishead_level_fused per forward (B=8, 5 launches): kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+              f"{b_k15[0]:.5f} ms ({b_k15[1]}; {ops / 2e9:.1f} G multiply-adds), {ops / tk / 1e9:.1f} TFLOP/s, "
+              f"wrapper host time {th:.4f} ms; the bf16 float head at the same levels {tf:.4f} ms {card}")
+        res["k15"] = dict(ms=tk, plain_ms=tp, host_ms=th, bound=b_k15, float_head_ms=tf)
+
+    def time_k4_prime():
+        """K4''s three epilogues at the harness's shape against their plain
+        versions, each one's bound, and the epilogue's share of ``full``."""
+        inp = res["k4p_inputs"]
+        m, k = inp["x"].shape
+        n = inp["w"].shape[0]
+        t = {}
+        with torch.inference_mode():
+            for v in qmm_variants.VARIANTS:
+                r = inp["res"] if v == "full" else None
+                args = (v, inp["x"], inp["w"], inp["a"], inp["b"], r)
+                tk = cuda_ms(lambda: qmm_variants.qmm_variant(*args))
+                th = host_ms(lambda: qmm_variants.qmm_variant(*args))
+                tp = cuda_ms(lambda: qmm_variants.qmm_variant(*args, plain=True), iters=5, reps=3)
+                nbytes = m * k + n * k + m * n * (2 if v == "full" else 1) + 8 * n
+                t[v] = (tk, tp, th, bound(nbytes, 2 * m * n * k, INT8_OPS_S))
+                print(f"  K4' {v} [{m}, {k}] x [{k}, {n}]: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+                      f"{t[v][3][0]:.5f} ms ({t[v][3][1]}), {m * n * k / tk / 1e9:.2f} T multiply-adds/s, "
+                      f"wrapper host time {th:.4f} ms {card}")
+        share = (t["full"][0] - t["shift"][0]) / t["full"][0]
+        print(f"  K4' epilogue share of full: {share:.3f} (full - shift over full); nores - shift "
+              f"{t['nores'][0] - t['shift'][0]:.4f} ms {card}")
+        res["k4p"] = t
+
     def head_work(q, x):
         """(bytes, int8 operations) of one head level: input, weights and
         f32 outputs once each; the multiply-adds of pw1, dw, pw2, the two
@@ -1185,6 +1490,39 @@ def main() -> int:
         for e in ranked[:15] + mine:
             print(f"    {getattr(e, attr) / 1000.0:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
+    def phase6g():
+        """The fused-head profile, then the head's share of it at B=64 on the
+        five levels phase 5k recorded (repeated to 64 images), split as the
+        pipeline runs it (``make_eval_forward_int8``): the NCHW -> NHWC bf16
+        copies that feed K15, K15's five launches, and the casts and
+        ScaleExp after them; beside the bf16 float head with kernel B and
+        its NCHW -> NHWC f32 outputs, the head it replaces."""
+        phase6_profile(res["hpipe"], ("qblock_kernel", "fhead_", "nms_"))
+        model, nc = res["model"], res["model"].num_classes
+        float_head, levels8 = res["k15_float_head"]
+        levels = [lv.repeat(8, 1, 1, 1) for lv in levels8]
+        packed = res["k15_calls"][0][0][1]
+        scales = [getattr(model.head, f"scale{i}").scale.detach().float() for i in range(5)]
+        with torch.inference_mode():
+            nhwc = [lv.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous() for lv in levels]
+            outs = [head.hishead_level_fused(x, packed, nc) for x in nhwc]
+
+            def tail():
+                for out, scale in zip(outs, scales):
+                    out[..., :nc].float(), out[..., nc:nc + 1].float(), torch.exp(out[..., nc + 1:].float() * scale)
+
+            t_seam = cuda_ms(lambda: [lv.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous() for lv in levels],
+                             iters=10)
+            t_k15 = cuda_ms(lambda: [head.hishead_level_fused(x, packed, nc) for x in nhwc], iters=10)
+            t_tail = cuda_ms(tail, iters=10)
+            t_float = cuda_ms(lambda: float_head(levels), iters=10)
+            f_outs = float_head(levels)
+            t_ftail = cuda_ms(lambda: [[o.permute(0, 2, 3, 1).float() for o in b] for b in f_outs], iters=10)
+        fused, floated = t_seam + t_k15 + t_tail, t_float + t_ftail
+        print(f"  the head per B=64 call: fused {fused:.4f} ms = NCHW -> NHWC copies {t_seam:.4f} + K15 {t_k15:.4f} "
+              f"+ casts and ScaleExp {t_tail:.4f}; float head {floated:.4f} ms = convs and kernel B {t_float:.4f} "
+              f"+ NHWC f32 outputs {t_ftail:.4f}; fused - float {fused - floated:+.4f} ms {card}")
+
     smoke.phase("phase 1: device", phase1)
     smoke.phase("phase 2: build", phase2)
     smoke.phase("phase 3: kernel B (GroupNorm) vs plain", phase3)
@@ -1210,6 +1548,11 @@ def main() -> int:
     if "backend_calls" in res:
         smoke.phase("phase 5i: K11, K10, K17, K13 vs plain at the paths' shapes, B=8", phase5i)
     if "pipe" in res:
+        smoke.phase("phase 5j: the fused ResNet-50 (K16), HISFCOS(20, 256) bf16 512x512 B=8", phase5j)
+        smoke.phase("phase 5k: the fused-head serving pipeline (int8 backbone, K15), HISFCOS(20, 256) bf16 "
+                    "512x512 B=8", phase5k)
+    smoke.phase("phase 5l: K4' (the three qmatmul epilogues) vs plain at [1048576, 64] x [64, 256]", phase5l)
+    if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
     if "ipipe" in res:
@@ -1224,6 +1567,8 @@ def main() -> int:
     if "per-conv" in res.get("paths", {}):
         smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
                     ("qstem_kernel", "qconv3_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
+    if "hpipe" in res:
+        smoke.phase("phase 6g: profile, fused-head pipeline; the head's split", phase6g)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
@@ -1235,14 +1580,18 @@ def main() -> int:
     launches = dict(res["default_launches"], groupnorm_act=res["fpn_launches"]["groupnorm_act"],
                     qhishead_level2=res["coco_launches"]["qhishead_level2"],
                     qconv3x3=paths["per-conv"]["qconv3x3"], qmaxpool3x3s2=paths["direct stem"]["qmaxpool3x3s2"],
-                    stem_bn_pool_quant=paths["stem tail"]["stem_bn_pool_quant"], qchain=paths["chained"]["qchain"])
+                    stem_bn_pool_quant=paths["stem tail"]["stem_bn_pool_quant"], qchain=paths["chained"]["qchain"],
+                    matmul_bn_act=res["fused_bb_launches"]["matmul_bn_act"],
+                    hishead_level_fused=res["fused_head_launches"]["hishead_level_fused"],
+                    qmm_variant=res["k4p_launches"]["qmm_variant"])
     bk, bk_err = res["backend_ms"], res["backend_err"]
     fpn_ms, fpn_bound, fpn_err = res["fpn_ms"], res["fpn_bound"], res["fpn_err"]
     k7, k9, qhead_err = res["k7"], res["k9"], res["qhead_err"]
     pkg, tpu = "pytorch_object_detection_tpu_torch/csrc/", "pytorch_object_detection_tpu/ops/"
 
     def entry(name, source, replaces, counter, err, ms, plain_ms, bnd, library_ms=None):
-        return {"name": name, "route": "cuda", "source": pkg + source, "replaces": tpu + replaces,
+        replaces = replaces if replaces.startswith("scripts/") else tpu + replaces
+        return {"name": name, "route": "cuda", "source": pkg + source, "replaces": replaces,
                 "launches": launches[counter], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
@@ -1274,6 +1623,18 @@ def main() -> int:
                                        ("qmaxpool3x3s2", "qpool.cu", "pallas_pool.py:68"),
                                        ("stem_bn_pool_quant", "stem.cu", "pallas_stem.py:70"),
                                        ("qchain", "qchain.cu", "pallas_qchain.py:289"))]
+    # K16: the 32 launches of one B=8 fused backbone forward; K15: the five
+    # levels of one B=8 fused-head forward; K4': the harness's three launches
+    k16, k15, k4p = res["k16"], res["k15"], res["k4p"]
+    k4p_bound = (sum(t[3][0] for t in k4p.values()), "bytes")
+    kernels += [
+        entry("matmul_bn_act", "fused.cu", "pallas_fused.py:47", "matmul_bn_act", res["k16_err"], k16["ms"],
+              k16["plain_ms"], k16["bound"], k16["library_ms"]),
+        entry("hishead_level_fused", "head.cu", "pallas_head.py:243", "hishead_level_fused", res["k15_err"][0],
+              k15["ms"], k15["plain_ms"], k15["bound"]),
+        entry("qmm_variants", "qmm_variants.cu", "scripts/dev_qmm_variants.py:47", "qmm_variant", res["k4p_err"],
+              sum(t[0] for t in k4p.values()), sum(t[1] for t in k4p.values()), k4p_bound),
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

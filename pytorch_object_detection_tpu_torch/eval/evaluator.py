@@ -20,6 +20,7 @@ from torch import nn
 from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections
 from pytorch_object_detection_tpu_torch.train.trainer import (
+    fused_head_applies,
     make_eval_forward_int8,
     quantize_backbone,
     quantize_fpn,
@@ -163,6 +164,7 @@ def make_eval_pipeline_int8(
     fuse_strided: bool = True,
     direct_stem: bool = False,
     chain_segments: bool = False,
+    fused_head: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
 ) -> Int8EvalPipeline:
@@ -186,7 +188,11 @@ def make_eval_pipeline_int8(
     (``PODT_QCHAIN=1``: the backbone segments on K13) go to
     ``nn/resnet_int8.resnet50_int8_forward``; the JAX function takes the
     first from ``make_eval_forward_int8``'s default and the other two from
-    the environment.
+    the environment.  ``fused_head`` (the JAX serving bench's
+    ``PODT_FUSED_HEAD=1``, with ``int8_fpn=False``): the float HISHead as
+    K15, one launch per level (``make_eval_forward_int8``); where the JAX
+    switch would be ignored silently (``int8_fpn=True`` or
+    ``backend="xla"``) it raises ``ValueError``.
 
     ``calib_images``: a representative NORMALIZED NHWC float batch on the
     model's device; the backbone's activation scales are calibrated on it in
@@ -196,6 +202,10 @@ def make_eval_pipeline_int8(
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
+    if fused_head and not fused_head_applies(backend, int8_fpn):
+        raise ValueError(f"fused_head=True runs the float head on K15 behind the float HisFPN: it needs "
+                         f"int8_fpn=False and a backend other than 'xla' (got int8_fpn={int8_fpn}, "
+                         f"backend={backend!r})")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     if device_resize:
@@ -214,6 +224,6 @@ def make_eval_pipeline_int8(
             qtree["head"] = quantize_head(model, qtree["backbone"], qtree["fpn"], calib_images)
     fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, fuse_strided=fuse_strided, int8_fpn=int8_fpn,
                                  int8_head=int8_head, u8_input=u8_input, direct_stem=direct_stem,
-                                 chain_segments=chain_segments, plain=plain)
+                                 chain_segments=chain_segments, fused_head=fused_head, plain=plain)
     return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
                             nms_iou, max_detections, plain, mean, std, u8_input)

@@ -1,7 +1,8 @@
 """ResNet-50 backbone (PyTorch, NCHW).
 
-Counterpart of ``pytorch_object_detection_tpu/nn/resnet.py`` with the 7x7/2
-stem: 7x7/2 conv + BN + ReLU + 3x3/2 max pool, bottleneck stages [3,4,6,3]
+Counterpart of ``pytorch_object_detection_tpu/nn/resnet.py``: the 7x7/2
+stem conv (``stem_mode="conv7"``) or its space-to-depth form (``"s2d"``),
+then BN + ReLU + 3x3/2 max pool, bottleneck stages [3,4,6,3]
 of widths [64,128,256,512] (x4 expansion), projection on the first block of
 each stage.  Returns (C3, C4, C5) = (512 ch /8, 1024 ch /16, 2048 ch /32).
 Module names follow the flax scopes (``conv1``, ``bn1``, ``layer{s}_{b}``).
@@ -70,13 +71,16 @@ class ResNet50(nn.Module):
 
     def __init__(self, stem_mode: str = "conv7", generator: Optional[torch.Generator] = None):
         super().__init__()
+        if stem_mode not in ("conv7", "s2d"):
+            raise ValueError(f"stem_mode must be 'conv7' or 's2d'; got {stem_mode!r}")
+        self.stem_mode = stem_mode
         if stem_mode == "s2d":
-            raise NotImplementedError(
-                "stem_mode='s2d' (the float model with its own conv1_s2d parameter) is not ported yet: "
-                "ROADMAP.md queue 1, item 4; space_to_depth and s2d_stem_kernel are, for the int8 u8 stem")
-        if stem_mode != "conv7":
-            raise ValueError(f"stem_mode must be 'conv7'; got {stem_mode!r}")
-        self.conv1 = Conv(3, 64, 7, stride=2, bias=False, winit="resnet", generator=generator)
+            # the JAX model's own conv1_s2d parameter ([4, 4, 12, 64] HWIO, fan-out
+            # He normal): a 4x4/1 conv on the 2x2 space-to-depth input with
+            # asymmetric (2, 1) padding, applied in stem_conv
+            self.conv1_s2d = Conv(12, 64, 4, bias=False, winit="resnet", generator=generator)
+        else:
+            self.conv1 = Conv(3, 64, 7, stride=2, bias=False, winit="resnet", generator=generator)
         self.bn1 = BatchNorm(64)
         self.stages = []
         in_ch = 64
@@ -90,8 +94,16 @@ class ResNet50(nn.Module):
                 names.append(name)
             self.stages.append(names)
 
+    def stem_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem conv alone, NCHW in and out, in ``x``'s dtype: the 7x7/2
+        conv, or space-to-depth and the 4x4/1 conv over pad (2, 1)."""
+        if self.stem_mode == "conv7":
+            return F.conv2d(x, self.conv1.weight.to(x.dtype), None, 2, 3)
+        s2d = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return F.conv2d(F.pad(s2d, (2, 1, 2, 1)), self.conv1_s2d.weight.to(x.dtype))
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = relu(self.bn1(self.conv1(x)))
+        x = relu(self.bn1(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         outputs = []
         for names in self.stages:

@@ -11,9 +11,10 @@ to the float HISHead (``int8_head=False``) or stay int8 into the int8
 HISHead (``int8_head=True``, the JAX default serving path).
 
 Every int8 backbone backend of the JAX function is ported
-(``nn/resnet_int8.resnet50_int8_forward``).  Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP item: ``fused_head=True`` (K15)
-and the other model families.
+(``nn/resnet_int8.resnet50_int8_forward``), and ``fused_head=True``: the
+whole-level bf16 HISHead on K15 (``ops/head.py``) behind the float HisFPN.
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
+other model families.
 """
 from __future__ import annotations
 
@@ -33,8 +34,7 @@ from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     quantize_resnet50,
     resnet50_int8_forward,
 )
-
-FUSED_HEAD_ITEM = "ROADMAP.md queue 2 K15 (hishead_level_fused)"
+from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_params_pack
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 
@@ -100,10 +100,17 @@ def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_image
     return quantize_hishead(model.head, calibrate_hishead(model.head, levels), level_scales, model.num_classes)
 
 
+def fused_head_applies(backend: str, int8_fpn: bool) -> bool:
+    """Whether ``fused_head=True`` puts the head on K15: only behind the
+    float HisFPN and an int8 backbone backend other than the oracle, as the
+    JAX ``make_eval_forward_int8`` decides (its trainer.py:752)."""
+    return not int8_fpn and backend != "xla"
+
+
 def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
-                           backend: str = "pallas_block", fused_head: bool = False, fuse_strided: bool = True,
-                           int8_fpn: bool = False, int8_head: bool = False, u8_input: bool = False,
-                           direct_stem: bool = False, chain_segments: bool = False,
+                           backend: str = "pallas_block", use_pallas_gn: bool = False, fused_head: bool = False,
+                           fuse_strided: bool = True, int8_fpn: bool = False, int8_head: bool = False,
+                           u8_input: bool = False, direct_stem: bool = False, chain_segments: bool = False,
                            plain: bool = False) -> Callable[[Dict, torch.Tensor], Levels]:
     """Inference forward with an int8-PTQ backbone: ``fwd(qtree, images) ->
     per-level f32 NHWC (cls, cnt, reg)``; ``images`` normalized NHWC
@@ -124,18 +131,34 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     head (``backend="xla"``: its per-op oracle; otherwise K7 and K9), which
     returns f32 maps, with no float seam.
 
+    ``fused_head=True`` (the JAX serving bench's ``PODT_FUSED_HEAD=1``):
+    with ``int8_fpn=False`` and ``backend != "xla"`` each level goes to K15
+    (``ops/head.hishead_level_fused``) in bf16, whatever ``compute_dtype``
+    (the weights packed here, once, from the model's f32 weights), with
+    ScaleExp after it: ``exp(reg * scale_i)`` in f32, cls and cnt cast to
+    f32.  Elsewhere it is ignored, as in JAX.
+
+    ``use_pallas_gn`` is the JAX switch between XLA's GroupNorm and the
+    Pallas kernel in the float head.  It is accepted, so that callers
+    written for the JAX function keep working, and changes nothing: on the
+    card the float head's GroupNorms always run on kernel B, since a plain
+    version never stands on a path where a card is present.
+
     ``backend``, ``fuse_strided``, ``direct_stem`` (the JAX package's
     ``PODT_STEM_XLA7=1``) and ``chain_segments`` (``PODT_QCHAIN=1``) go to
     ``resnet50_int8_forward``, which says what each selects.  ``plain=True``
-    runs every kernel's plain version, for the comparison only.
+    runs every kernel's plain version, K15's included, for the comparison
+    only.
     """
+    del use_pallas_gn  # kernel B on the card either way (docstring)
     _require_hisfcos(model)
-    if fused_head:
-        raise NotImplementedError(f"fused_head=True is not ported yet: {FUSED_HEAD_ITEM}")
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
+    fused_head = fused_head and fused_head_applies(backend, int8_fpn)
     fpn = model.fpn
     folded = None if int8_fpn else fold_hisfpn(fpn, compute_dtype)
-    head = None if int8_head else copy.deepcopy(model.head).to(compute_dtype).eval()
+    head = None if int8_head or fused_head else copy.deepcopy(model.head).to(compute_dtype).eval()
+    packed = hishead_params_pack(model.head, model.num_classes) if fused_head else None
+    scales = [getattr(model.head, f"scale{i}").scale.detach().float() for i in range(5)] if fused_head else None
     sub = "xla" if backend == "xla" or plain else "pallas"  # the JAX mapping, trainer.py:640
 
     @torch.inference_mode()
@@ -154,6 +177,16 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
             feats = resnet50_int8_forward(qtree, images, compute_dtype, **bb_kw)
             feats = [f.permute(0, 3, 1, 2).contiguous() for f in feats]  # the dequant seam: NHWC -> NCHW
             levels = hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
+        if fused_head:
+            nc = model.num_classes
+            outs = ([], [], [])
+            for lv, scale in zip(levels, scales):
+                out = hishead_level_fused(lv.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(), packed, nc,
+                                          plain=plain)
+                outs[0].append(out[..., :nc].float())
+                outs[1].append(out[..., nc:nc + 1].float())
+                outs[2].append(torch.exp(out[..., nc + 1:].float() * scale))
+            return outs
         outs = head(levels, plain)
         return tuple([o.permute(0, 2, 3, 1).float() for o in branch] for branch in outs)
 

@@ -447,10 +447,19 @@ def test_int8_pipeline_options(slice_runs):
     for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
         with pytest.raises(NotImplementedError, match=what):
             make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
-    for kw, what in ((dict(fused_head=True), "K15"), (dict(int8_fpn=True, int8_head=True, fused_head=True), "K15")):
-        with pytest.raises(NotImplementedError, match=what):
-            fwd = make_eval_forward_int8(model, torch.float32, **kw)
-            fwd(quantize_backbone(model, norm[:1, :64, :64], torch.float32), norm[:1, :64, :64])
+    # fused_head=True (K15, its plain version here) runs behind the float HisFPN and follows the float head at bf16
+    # precision; behind the int8 FPN it is ignored, as in JAX
+    qtree_one = quantize_backbone(model, norm[:1], torch.float32)
+    fused = make_eval_forward_int8(model, torch.float32, fused_head=True)(qtree_one, norm[:1])
+    unfused = make_eval_forward_int8(model, torch.float32)(qtree_one, norm[:1])
+    for f_b, u_b in zip(fused, unfused):
+        for f, u in zip(f_b, u_b):
+            cos = float((f * u).sum() / (f.norm() * u.norm()))
+            assert f.shape == u.shape and f.dtype == torch.float32 and bool(torch.isfinite(f).all()) and cos >= LEVEL_COS
+    kw = dict(int8_fpn=True, int8_head=True, u8_input=True)
+    for a_b, b_b in zip(make_eval_forward_int8(model, torch.float32, fused_head=True, **kw)(default.qtree, frames),
+                        make_eval_forward_int8(model, torch.float32, **kw)(default.qtree, frames)):
+        assert all(torch.equal(a, b) for a, b in zip(a_b, b_b))
     # the options ported since run through the entry point and stay close to the per-op oracles (they differ
     # from them by the one-step effects test_int8_stems_agree_and_unported_options_raise bounds)
     qtree = quantize_backbone(model, norm[:1], torch.float32)

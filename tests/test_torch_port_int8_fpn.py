@@ -477,6 +477,8 @@ def test_entry_points_default_to_the_card(slice_setup):
     refused = (AssertionError, RuntimeError)  # CPU-only builds assert; others raise
     with pytest.raises(refused):
         build_model("HISFCOS", NUM_CLASSES, FEATURES)
+    with pytest.raises(refused):  # the space-to-depth stem's model too
+        build_model("HISFCOS", NUM_CLASSES, FEATURES, stem_mode="s2d")
     with pytest.raises(refused):
         load_backbone_qtree(slice_setup["jq_bb"])
     with pytest.raises(refused):

@@ -1,8 +1,9 @@
 """The port's kernels against their plain versions: A (NMS), B (GroupNorm),
-C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K5 (int8 HisBlock),
-K6 (int8 2x2 pool), K7/K9 (one int8 HISHead level), K10 (int8 3x3/2 pool),
-K11 (int8 3x3 conv), K13 (a chain of int8 bottlenecks) and K17 (the bf16
-stem tail).
+C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K4' (its three
+timing epilogues), K5 (int8 HisBlock), K6 (int8 2x2 pool), K7/K9 (one int8
+HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
+int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
+the BN/residual/ReLU epilogue) and K17 (the bf16 stem tail).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -18,13 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_object_detection_tpu_torch.models.heads import HISHead
 from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_nms, cuda_nms_keep_mask
+from pytorch_object_detection_tpu_torch.ops.fused import conv1x1_bn_act, matmul_bn_act, matmul_bn_act_plain
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
+from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_level_fused_plain, hishead_params_pack
 from pytorch_object_detection_tpu_torch.ops.qchain import qchain, qchain_plain
 from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qconv3x3, qconv3x3_plain, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
+from pytorch_object_detection_tpu_torch.ops.qmm_variants import VARIANTS, qmm_variant, qmm_variant_plain
 from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2, qmaxpool3x3s2, qmaxpool3x3s2_plain
 from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
 from pytorch_object_detection_tpu_torch.ops.stem import stem_bn_pool_quant, stem_bn_pool_quant_plain
@@ -614,3 +619,161 @@ def test_new_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         qchain(x, blocks[1:])
     with pytest.raises(ValueError, match="1 to"):
         qchain(x, [])
+
+
+# K16 (M, K, N): conv1 and conv3 of each ResNet-50 stage at the 512 canvas,
+# B=2, and odd M, N and K (K not a multiple of 8: the word-by-word loads)
+K16_SHAPES = [(32768, 64, 64), (32768, 256, 64), (32768, 64, 256), (8192, 512, 128), (8192, 128, 512),
+              (2048, 1024, 256), (2048, 256, 1024), (512, 2048, 512), (512, 512, 2048), (1000, 77, 130),
+              (37, 24, 5), (129, 8, 65)]
+# K16 against its plain version: both round an f32 sum of the same exact
+# products once to bf16, summed in another order, so an output may be one
+# bf16 step apart (at most 2**-7 of it) where the sums straddle a rounding
+# boundary; the atol covers the sums' order near 0
+K16_RTOL = 2.0**-7
+
+
+def _k16_case(m, k, n, device, seed=0):
+    g = torch.Generator().manual_seed(seed + m + k + n)
+    x = torch.randn(m, k, generator=g).bfloat16()
+    w = (torch.randn(n, k, generator=g) / k ** 0.5).bfloat16()
+    scale, shift = torch.rand(n, generator=g) + 0.5, torch.randn(n, generator=g) * 0.1
+    res = torch.randn(m, n, generator=g).bfloat16()
+    return [t.to(device) for t in (x, w, scale, shift, res)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K16_SHAPES, ids=[f"{m}x{k}x{n}" for m, k, n in K16_SHAPES])
+def test_k16_kernel_matches_plain(cuda, shape):
+    """K16 with and without the residual and the ReLU against its plain
+    version on the card: within one bf16 step; one launch a call."""
+    x, w, scale, shift, res = _k16_case(*shape, cuda)
+    for act in (True, False):
+        for r in (None, res):
+            before = matmul_bn_act.launches
+            got = matmul_bn_act(x, w, scale, shift, r, act)
+            torch.cuda.synchronize()
+            assert matmul_bn_act.launches == before + 1
+            want = matmul_bn_act_plain(x, w, scale, shift, r, act)
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            tol = 2.0**-12 * float(want.float().abs().max())
+            close = torch.isclose(got.float(), want.float(), rtol=K16_RTOL, atol=tol)
+            assert bool(close.all()), f"act={act} res={r is not None}: {int((~close).sum())} of {want.numel()} apart"
+    got = conv1x1_bn_act(x.reshape(1, shape[0], 1, shape[1]), w.reshape(shape[2], shape[1], 1, 1), scale, shift)
+    assert torch.equal(got.reshape(shape[0], shape[2]), matmul_bn_act(x, w, scale, shift))
+
+
+@pytest.mark.cuda
+def test_k16_rejects_other_dtypes_and_layouts(cuda):
+    x, w, scale, shift, res = _k16_case(64, 32, 48, cuda)
+    with pytest.raises(ValueError, match="float32"):  # f32 runs the plain version on the CPU only
+        matmul_bn_act(x.float(), w.float(), scale, shift)
+    with pytest.raises(ValueError):  # not contiguous
+        matmul_bn_act(x.t().contiguous().t(), w, scale, shift)
+    with pytest.raises(ValueError):  # a vector on another device
+        matmul_bn_act(x, w, scale.cpu(), shift)
+    with pytest.raises(ValueError):  # the residual of another shape
+        matmul_bn_act(x, w, scale, shift, res[:, :8])
+
+
+# K15 (features, classes, H, W, B): the 512 canvas's P3 and P7, a 1x1 level,
+# an odd level with 80 classes on a narrow f=64 head, and an odd batch
+K15_CASES = [(256, 20, 64, 64, 2), (256, 20, 4, 4, 2), (256, 80, 1, 1, 2), (64, 80, 7, 11, 2), (64, 20, 16, 16, 3)]
+# K15 against its plain version: the bf16 steps are the same, the GroupNorm
+# partial sums add in another order and expf is not torch's sigmoid, so a
+# bf16 value moves by a step now and then and the move passes through the
+# later stages: max |diff| within 2**-5 of each output's range, cosine
+K15_MAX_ERR, K15_MIN_COS = 2.0**-5, 0.9999
+
+
+def _k15_case(features, nc, h, w, b, device):
+    head = HISHead(nc, features, generator=torch.Generator().manual_seed(features + nc)).eval()
+    g = torch.Generator().manual_seed(h * w + b)
+    x = (torch.randn(b, h, w, features, generator=g) * 2.0).bfloat16()
+    return hishead_params_pack(head.to(device), nc), x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K15_CASES, ids=[f"f{c[0]}_{c[1]}cls_{c[2]}x{c[3]}_b{c[4]}" for c in K15_CASES])
+def test_k15_kernel_matches_plain(cuda, case):
+    """K15 (five CUDA kernels, one counted launch) against its plain version
+    on the card, per output (cls, cnt, raw reg)."""
+    features, nc, h, w, b = case
+    packed, x = _k15_case(features, nc, h, w, b, cuda)
+    before = hishead_level_fused.launches
+    got = hishead_level_fused(x, packed, nc)
+    torch.cuda.synchronize()
+    assert hishead_level_fused.launches == before + 1
+    want = hishead_level_fused_plain(x, packed, nc)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (b, h, w, nc + 5)
+    for name, sl in (("cls", slice(0, nc)), ("cnt", slice(nc, nc + 1)), ("reg", slice(nc + 1, nc + 5))):
+        g, r = got[..., sl].double(), want[..., sl].double()
+        err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        cos = float((g.flatten() @ r.flatten()) / (g.norm() * r.norm()))
+        assert bool(torch.isfinite(g).all()) and err <= K15_MAX_ERR and cos >= K15_MIN_COS, (name, err, cos)
+
+
+@pytest.mark.cuda
+def test_k15_rejects_other_dtypes_and_layouts(cuda):
+    packed, x = _k15_case(64, 20, 7, 11, 2, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        hishead_level_fused(x.float(), packed, 20)
+    with pytest.raises(ValueError):  # NHWC-shaped but not contiguous
+        hishead_level_fused(x.transpose(1, 2), packed, 20)
+    with pytest.raises(ValueError):  # a packed operand on another device
+        hishead_level_fused(x, dict(packed, k_tow=packed["k_tow"].cpu()), 20)
+    with pytest.raises(ValueError):  # more features than the kernel takes
+        wide, xw = _k15_case(512, 20, 2, 2, 1, cuda)
+        hishead_level_fused(xw, wide, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 64, 256), (1000, 48, 200)], ids=["script_k_n", "ragged"])
+def test_k4_prime_kernels_match_plain_exactly(cuda, shape):
+    """K4''s three epilogues on K4's tile: 0 differing elements against their
+    plain versions, the shift variant's wrap included; one launch each."""
+    m, k, n = shape
+    g = torch.Generator().manual_seed(m)
+    x = torch.randint(-127, 127, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    a, b = torch.rand(n, generator=g) * 1e-3, torch.randn(n, generator=g)
+    res = torch.randint(-127, 127, (m, n), generator=g, dtype=torch.int8)
+    dev = [t.to(cuda) for t in (x, w, a, b, res)]
+    for variant in VARIANTS:
+        r = dev[4] if variant == "full" else None
+        before = qmm_variant.launches
+        got = qmm_variant(variant, *dev[:4], r)
+        torch.cuda.synchronize()
+        assert qmm_variant.launches == before + 1
+        want = qmm_variant_plain(variant, *dev[:4], r)
+        assert got.dtype == torch.int8 and torch.equal(got, want), f"{variant}: {int((got != want).sum())} differ"
+    assert int((torch._int_mm(dev[0][:64], dev[1].t().contiguous()) >> 8).abs().max()) > 127  # the wrap occurs
+
+
+def test_fused_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    """K16, K15 and K4' on CPU tensors: the plain version, no launch
+    counted, and operands of the wrong shape refused."""
+    counters = (matmul_bn_act, hishead_level_fused, qmm_variant)
+    before = [c.launches for c in counters]
+    x, w, scale, shift, res = _k16_case(37, 24, 5, "cpu")
+    assert torch.equal(matmul_bn_act(x, w, scale, shift, res), matmul_bn_act_plain(x, w, scale, shift, res))
+    assert matmul_bn_act(x.float(), w.float(), scale, shift).dtype == torch.float32
+    packed, xh = _k15_case(64, 20, 3, 5, 1, "cpu")
+    assert torch.equal(hishead_level_fused(xh, packed, 20), hishead_level_fused_plain(xh, packed, 20))
+    xq = torch.randint(-127, 127, (40, 32), dtype=torch.int8)
+    wq = torch.randint(-127, 127, (24, 32), dtype=torch.int8)
+    a, b = torch.rand(24) * 1e-3, torch.randn(24)
+    assert torch.equal(qmm_variant("nores", xq, wq, a, b), qmm_variant_plain("nores", xq, wq, a, b))
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="w must be"):
+        matmul_bn_act(x, w[:, :8], scale, shift)
+    with pytest.raises(ValueError, match="scale"):
+        matmul_bn_act(x, w, scale[:2], shift)
+    with pytest.raises(ValueError, match="NHWC"):
+        hishead_level_fused(xh[..., :32], packed, 20)
+    with pytest.raises(ValueError, match="classes"):
+        hishead_level_fused(xh, packed, 80)
+    with pytest.raises(ValueError, match="res"):
+        qmm_variant("full", xq, wq, a, b)
+    with pytest.raises(ValueError, match="variant"):
+        qmm_variant("half", xq, wq, a, b)

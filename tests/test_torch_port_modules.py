@@ -135,8 +135,11 @@ def test_load_flax_variables_rejects_mismatched_tree(chain, fault):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNet50(stem_mode="s2d")
+    # the space-to-depth stem is ported (tests/test_torch_port_fused.py holds it to JAX); another mode is refused
+    s2d = ResNet50(stem_mode="s2d")
+    assert tuple(s2d.conv1_s2d.weight.shape) == (64, 12, 4, 4) and not hasattr(s2d, "conv1")
+    with pytest.raises(ValueError, match="stem_mode"):
+        ResNet50(stem_mode="s4d")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("FCOS", 20)
     with pytest.raises(KeyError):
