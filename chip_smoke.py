@@ -9,9 +9,9 @@ Phases (each prints its results on its own lines):
   2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu), C (csrc/qblock.cu), K1
      (csrc/qstem.cu), K4 (csrc/qconv.cu), K4' (csrc/qmm_variants.cu), K5
      (csrc/qhis.cu), K6 and K10 (csrc/qpool.cu), K7/K9 (csrc/qhead.cu), K11
-     (csrc/qconv3.cu), K13 (csrc/qchain.cu), K15 (csrc/head.cu), K16
-     (csrc/fused.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
-     source, all started together;
+     (csrc/qconv3.cu), K12 (csrc/qmnblock.cu), K13 (csrc/qchain.cu), K15
+     (csrc/head.cu), K16 (csrc/fused.cu) and K17 (csrc/stem.cu) from the
+     sources, one nvcc per source, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
   4. kernel A vs its plain version: random [8,1000] boxes, the adversarial
@@ -82,20 +82,41 @@ Phases (each prints its results on its own lines):
      K15's maps against the bf16 float head on the same levels;
   5l. K4': the three epilogues of the timing harness at [1048576, 64] x
      [64, 256] against their plain versions (exact), counted (3);
+  5m. the float MNFCOS pipeline: full-width MNFCOS(20, 256) from a seed
+     through make_eval_pipeline in bf16 on the 8 frames, counted (10 B, 1
+     A), finite detections, per-level maps against its plain run;
+  5n. MNFCOS int8: (i) make_eval_pipeline_int8(MNFCOS), which keeps the JAX
+     gate (no int8 FPN: a backbone-only qtree, normalized input), counted
+     (13 K2, 3 K3, 10 B, 1 A, 0 K12), maps against its plain run; (ii) the
+     full int8 ladder from raw uint8 frames, built as the JAX serving bench
+     builds it (quantize_backbone, quantize_fpn, quantize_head and
+     make_eval_forward_int8(int8_fpn=True, int8_head=True, u8_input=True)
+     in an Int8EvalPipeline), counted (1 K1, 13 K2, 3 K3, 15 K12, 0 B, 1
+     A), finite detections, its int8 levels against the plain ladder's on
+     the same C3..C5 (at most one step on under 1e-3 of the elements) and
+     against the f32 float LightweightFPN on the dequantized C3..C5
+     (cosine >= 0.99), its maps against the plain pipeline's (cosine >=
+     0.999); (iii) K12 against its plain version on the 15 calls' own
+     inputs and on random blocks at 28x44, 7x11 and 1x1, C = 64 and 128
+     (at most one step on under 1e-3 of the elements; the count printed);
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
      shape), K1, K4, K5, K6, K7 (beside the bf16 float head at the same
      levels), K10, K11, K13 (beside kernel C's 16 launches on the same
      input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
-     K16 (beside torch.matmul of the same GEMMs, epilogue not included) and
-     K17, K4''s three epilogues, K9 against K7 at the COCO P3 shape, the
+     K16 (beside torch.matmul of the same GEMMs, epilogue not included),
+     K17, K12 (its 15 calls of one B=8 MNFCOS forward), K4''s three
+     epilogues (K4 and K4' beside torch._int_mm of the same int8 GEMMs,
+     epilogue not included), K9 against K7 at the COCO P3 shape, the
      library call where one PyTorch call computes the same function, each
      wrapper's host time, the fused backbone against the module forward
      (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
-     (paths 3 and 4 of 5h at B=64 only, path 2 not timed);
-  6b-6g. torch.profiler breakdowns of one B=64 call of the float, the
-     int8-backbone, the int8-FPN, the default, the per-conv and the
-     fused-head pipeline (a profile that raises fails the run; one whose
-     profiler sees no device events prints "not measured"); 6g also splits
+     (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
+     MNFCOS pipelines' among them;
+  6b-6h. torch.profiler breakdowns of one B=64 call of the float, the
+     int8-backbone, the int8-FPN, the default, the per-conv, the
+     fused-head and the MNFCOS int8-ladder pipeline (a profile that raises
+     fails the run; one whose profiler sees no device events prints "not
+     measured"); 6g also splits
      the fused head's device time at B=64 into the NCHW -> NHWC copies of
      the levels, K15 and the output casts, beside the float head's.
 
@@ -139,7 +160,7 @@ K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 FPN_PIPELINE_LAUNCHES = {"qstem_conv": 1, "qbottleneck": 13, "qbottleneck_s2": 3, "qmatmul": 3, "qhisblock": 7,
                          "qmaxpool2x2": 6, "groupnorm_act": 20, "cuda_nms_keep_mask": 1, "qhishead_level": 0,
                          "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0,
-                         "matmul_bn_act": 0, "hishead_level_fused": 0, "qmm_variant": 0}
+                         "matmul_bn_act": 0, "hishead_level_fused": 0, "qmm_variant": 0, "qmnblock": 0}
 # launches in one call of the default pipeline (int8 FPN and head) at 512x512
 DEFAULT_PIPELINE_LAUNCHES = dict(FPN_PIPELINE_LAUNCHES, groupnorm_act=0, qhishead_level=5)
 # ... and at the 896x1408 COCO canvas: K9 on P3 (112x176) and P4 (56x88), above 64x64 pixels
@@ -184,6 +205,16 @@ K15_MAX_ERR, K15_MIN_COS = 2.0**-6, 0.99999
 # one call of the fused-head pipeline (int8_fpn=False, fused_head=True)
 FUSED_HEAD_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, qbottleneck=13, qbottleneck_s2=3,
                            hishead_level_fused=5, cuda_nms_keep_mask=1)
+# MNFCOS(20, 256), phases 5m and 5n: launches in one call of the float pipeline (the MNHead's 10 GroupNorms),
+# of make_eval_pipeline_int8 (the JAX gate keeps the FPN and head float: kernel C and 10 B, no K12), and of the
+# full int8 ladder from uint8 frames (K1, kernel C and 15 K12: 5 in the pyramid, 2 per head level)
+MN_FLOAT_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, groupnorm_act=10, cuda_nms_keep_mask=1)
+MN_INT8_LAUNCHES = dict(MN_FLOAT_LAUNCHES, qbottleneck=13, qbottleneck_s2=3)
+MN_LADDER_LAUNCHES = dict(MN_INT8_LAUNCHES, groupnorm_act=0, qstem_conv=1, qmnblock=15)
+# K12 against its plain version: the JAX kernel's contract (tests/test_quant.py:1200-1254), at most one int8
+# step on under 1e-3 of the elements; the ladder's maps, kernel run vs plain run, at cosine >= 0.999 (a step
+# there would pass through the towers' GroupNorms)
+K12_MAX_STEP, K12_MAX_SHARE, MN_LADDER_COS = 1, 1e-3, 0.999
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # device memory, int8 tensor-core operations, f32 on the CUDA cores
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 1979e12, 67e12, 989e12
@@ -199,6 +230,7 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 class Smoke:
     def __init__(self):
         self.failures = []
+        self.t0 = time.perf_counter()
 
     def check(self, ok: bool, what: str) -> None:
         print(f"  {'ok  ' if ok else 'FAIL'} {what}", flush=True)
@@ -206,7 +238,7 @@ class Smoke:
             self.failures.append(what)
 
     def phase(self, name, fn, *args):
-        print(f"== {name}", flush=True)
+        print(f"== {name} (at {time.perf_counter() - self.t0:.1f} s)", flush=True)
         try:
             return fn(*args)
         except Exception:  # a phase that raises is a failed phase; go on to the next
@@ -277,14 +309,15 @@ def main() -> int:
     # the port itself: fails here when the script stands without the repo
     from pytorch_object_detection_tpu_torch import _build
     from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
-    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline, make_eval_pipeline_int8
-    from pytorch_object_detection_tpu_torch.models import head_int8
+    from pytorch_object_detection_tpu_torch.eval.evaluator import (
+        Int8EvalPipeline, make_eval_pipeline, make_eval_pipeline_int8)
+    from pytorch_object_detection_tpu_torch.models import head_int8, mnfcos_int8
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
     from pytorch_object_detection_tpu_torch.nn import fpn_int8, fused_resnet, resnet_int8
     from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
     from pytorch_object_detection_tpu_torch.ops import (
-        cuda_nms, fused, gn, head, qblock, qchain, qconv, qhead, qhis, qmm_variants, qpool, qstem, stem)
+        cuda_nms, fused, gn, head, qblock, qchain, qconv, qhead, qhis, qmm_variants, qmnblock, qpool, qstem, stem)
     from pytorch_object_detection_tpu_torch.train import trainer
     from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
@@ -308,7 +341,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib, qhead._lib,
-                qconv._lib3, qchain._lib, stem._lib, fused._lib, head._lib, qmm_variants._lib)
+                qconv._lib3, qchain._lib, stem._lib, fused._lib, head._lib, qmm_variants._lib, qmnblock._lib)
         with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
             for fut in [pool.submit(lib) for lib in libs]:
                 fut.result()  # a failed build raises here
@@ -517,7 +550,8 @@ def main() -> int:
                 "qhishead_level2": qhead.qhishead_level2, "qconv3x3": qconv.qconv3x3,
                 "qmaxpool3x3s2": qpool.qmaxpool3x3s2, "stem_bn_pool_quant": stem.stem_bn_pool_quant,
                 "qchain": qchain.qchain, "matmul_bn_act": fused.matmul_bn_act,
-                "hishead_level_fused": head.hishead_level_fused, "qmm_variant": qmm_variants.qmm_variant}
+                "hishead_level_fused": head.hishead_level_fused, "qmm_variant": qmm_variants.qmm_variant,
+                "qmnblock": qmnblock.qmnblock}
 
     def record_calls(module, names, run):
         """``run()`` with each of ``module``'s functions ``names`` wrapped to
@@ -1062,6 +1096,145 @@ def main() -> int:
                         f"int8 elements differ, {float((want[v] != 0).float().mean()):.3f} nonzero")
         res["k4p_inputs"] = inp
 
+    def check_dets(dets, what):
+        n_valid = dets.valid.sum(dim=1).tolist()
+        smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
+                    and bool(torch.isfinite(dets.boxes).all()) and all(0 < n <= 1000 for n in n_valid),
+                    f"{what} detections [8, 1000], finite, {n_valid} valid")
+
+    def phase5m():
+        frames = res["frames"]
+        t0 = time.perf_counter()
+        model = build_model("MNFCOS", NUM_CLASSES, FEATURES, device=dev, generator=torch.Generator().manual_seed(
+            SEED + 13))
+        mn_pipe = make_eval_pipeline(model, default_strides(), CANVAS, compute_dtype=torch.bfloat16)
+        mn_plain = make_eval_pipeline(model, default_strides(), CANVAS, compute_dtype=torch.bfloat16, plain=True)
+        torch.cuda.synchronize()
+        print(f"  MNFCOS({NUM_CLASSES}, {FEATURES}) and its pipelines built in {time.perf_counter() - t0:.2f} s; "
+              f"{sum(p.numel() for p in model.parameters())} parameters")
+        res.update(mn_model=model, mn_pipe=mn_pipe)
+        # the main path, counted: counters to 0 just before, read just after
+        dets, launches = count_launches(mn_pipe, frames)
+        res["mn_float_launches"] = launches
+        print(f"  launches in one MNFCOS float pipeline call (B=8): {launches}")
+        smoke.check(launches == MN_FLOAT_LAUNCHES, "kernel B 10 (the MNHead's GroupNorms) and kernel A 1 per call")
+        check_dets(dets, "MNFCOS float")
+        compare_levels(mn_pipe.forward_levels(frames), mn_plain.forward_levels(frames), "MNFCOS float pipeline")
+
+    def mn_forward(qfpn, qhead, feats_q, backend):
+        """The int8 LightweightFPN and MNHead on int8 C3..C5: (levels_q, scales, maps)."""
+        levels_q, scales = mnfcos_int8.lwfpn_int8_forward(qfpn, feats_q, dequant=False, backend=backend)
+        return levels_q, scales, mnfcos_int8.mnhead_int8_forward(qhead, levels_q, backend=backend)
+
+    def phase5n():
+        model, frames = res["mn_model"], res["frames"]
+        norm = res.get("norm8", normalized(frames))
+        args = (model, norm, default_strides(), CANVAS)
+        # (i) make_eval_pipeline_int8 keeps the JAX gate: the int8 backbone, then the float pyramid and head
+        t0 = time.perf_counter()
+        mn_pipe8 = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16)
+        mn_plain8 = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, plain=True)
+        mn_plain8.qtree = mn_pipe8.qtree  # one calibration for both, as in phase 5b
+        torch.cuda.synchronize()
+        print(f"  MNFCOS int8 pipelines built (calibration on the 8 frames, bf16) in {time.perf_counter() - t0:.2f} s")
+        smoke.check("fpn" not in mn_pipe8.qtree and "layer1_0" in mn_pipe8.qtree and not mn_pipe8.u8_input,
+                    "make_eval_pipeline_int8(MNFCOS): a backbone-only qtree and normalized input (the JAX gate)")
+        dets, launches = count_launches(mn_pipe8, frames)
+        res["mn_int8_launches"] = launches
+        print(f"  launches in one make_eval_pipeline_int8(MNFCOS) call (B=8): {launches}")
+        smoke.check(launches == MN_INT8_LAUNCHES, "K2 13, K3 3, kernel B 10, kernel A 1 and K12 0 per call")
+        check_dets(dets, "MNFCOS int8-backbone")
+        compare_levels(mn_pipe8.forward_levels(frames), mn_plain8.forward_levels(frames), "MNFCOS int8-backbone")
+
+        # (ii) the full int8 ladder from raw uint8 frames, as the JAX serving bench builds it
+        t0 = time.perf_counter()
+        qbb = mn_pipe8.qtree
+        qfpn = trainer.quantize_fpn(model, qbb, norm)
+        qhead = trainer.quantize_head(model, qbb, qfpn, norm)
+        qtree = {"backbone": qbb, "fpn": qfpn, "head": qhead}
+        kw = dict(int8_fpn=True, int8_head=True, u8_input=True)
+        place = (dev, default_strides(), CANVAS, 0.05, 0.6, 1000)
+        lpipe = Int8EvalPipeline(trainer.make_eval_forward_int8(model, torch.bfloat16, **kw), qtree, *place, False,
+                                 IMAGENET_MEAN, IMAGENET_STD, u8_input=True)
+        lplain = Int8EvalPipeline(trainer.make_eval_forward_int8(model, torch.bfloat16, plain=True, **kw), qtree,
+                                  *place, True, IMAGENET_MEAN, IMAGENET_STD, u8_input=True)
+        torch.cuda.synchronize()
+        print(f"  MNFCOS int8 ladder quantized (FPN and head, f32 on the oracles) in {time.perf_counter() - t0:.2f} s")
+        res.update(mn_pipe8=mn_pipe8, lpipe=lpipe)
+        dets, launches = count_launches(lpipe, frames)  # raw uint8 frames
+        res["mn_ladder_launches"] = launches
+        print(f"  launches in one MNFCOS int8-ladder call (B=8): {launches}")
+        smoke.check(launches == MN_LADDER_LAUNCHES, "K1 1, K2 13, K3 3, K12 15, kernel B 0 and kernel A 1 per call")
+        check_dets(dets, "MNFCOS int8-ladder")
+
+        with torch.inference_mode():
+            feats_q, feat_scales = resnet_int8.resnet50_int8_forward(qbb, frames, torch.bfloat16, backend="pallas_block",
+                                                                     fuse_strided=True, dequant=False, u8_stem=True)
+            lv_k, lv_s, _ = mn_forward(qfpn, qhead, feats_q, "pallas")
+            lv_p, _, _ = mn_forward(qfpn, qhead, feats_q, "xla")
+            ref = model.fpn([(q.float() * s).permute(0, 3, 1, 2).contiguous() for q, s in zip(feats_q, feat_scales)])
+        torch.cuda.synchronize()
+        cosines = []
+        for i, (k, p, s_, r) in enumerate(zip(lv_k, lv_p, lv_s, ref)):
+            d = (k.int() - p.int()).abs()
+            step, n_diff = int(d.max()), int((d > 0).sum())
+            smoke.check(k.shape == p.shape and step <= K12_MAX_STEP and n_diff / d.numel() < K12_MAX_SHARE,
+                        f"MNFCOS P{i + 3} int8 {tuple(k.shape)}: K12 ladder vs plain ladder, {n_diff} of {d.numel()} "
+                        f"differ, max {step} step")
+            c = cosine(k.float() * s_, r.permute(0, 2, 3, 1))
+            cosines.append(c)
+            smoke.check(c >= INT8_COS_MIN, f"MNFCOS P{i + 3}: cosine of the dequantized int8 level vs the float "
+                                           f"LightweightFPN (f32) on the same C3..C5 {c:.6f} (min {INT8_COS_MIN})")
+        res["mn_fpn_cos"] = cosines
+        for name, got_b, want_b in zip(("cls", "cnt", "reg"), lpipe.forward_levels(frames),
+                                       lplain.forward_levels(frames)):
+            for i, (a, b) in enumerate(zip(got_b, want_b)):
+                c = cosine(a, b)
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                smoke.check(bool(torch.isfinite(a).all()) and c >= MN_LADDER_COS,
+                            f"MNFCOS ladder {name} P{i + 3}: kernel vs plain pipeline cosine {c:.8f}, max abs err "
+                            f"{err:.4g} of the range")
+        res["mn_calls"] = record_calls(mnfcos_int8, ("qmnblock",), lambda: mn_forward(qfpn, qhead, feats_q, "pallas"))
+        print(f"  recorded K12 calls: {[tuple(a[2].shape) + a[3:] for a, _ in res['mn_calls']['qmnblock']]}")
+
+    def random_mnblock(b, h, w, c, k, g):
+        """A random int8 MNBlock on the card (tests/test_quant.py:1213-1226's draws), its scales and an input."""
+        i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        pos = lambda n: torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-5
+        nrm = lambda n: torch.randn(n, generator=g, device=dev) * 0.1
+        cm = 2 * c
+        blk = dict(wdw=i8(k, k, c), swdw=pos(c), bdw=nrm(c), w1=i8(cm, c), sw1=pos(cm), b1=nrm(cm), w2=i8(c, cm),
+                   sw2=pos(c), b2=nrm(c))
+        sc = {n: torch.tensor(v, device=dev) for n, v in dict(s_in=0.05, s_a1=0.03, s_a2=0.04, s_out=0.06).items()}
+        return blk, sc, i8(b, h, w, c)
+
+    def phase5n_k12():
+        g = torch.Generator(device=dev).manual_seed(SEED + 14)
+        total = [0, 0, 0]  # worst step, differing elements, elements
+
+        def compare(args, what):
+            got = qmnblock.qmnblock(*args)
+            want = qmnblock.qmnblock(*args, plain=True)
+            torch.cuda.synchronize()
+            d = (got.int() - want.int()).abs()
+            step, n_diff = int(d.max()), int((d > 0).sum())
+            total[:] = [max(total[0], step), total[1] + n_diff, total[2] + d.numel()]
+            _, _, x, k, dil = args
+            smoke.check(got.shape == want.shape and step <= K12_MAX_STEP and n_diff / d.numel() < K12_MAX_SHARE,
+                        f"K12 {what} {tuple(x.shape)} k{k} d{dil}: {n_diff} of {d.numel()} int8 elements differ, max "
+                        f"{step} step, {float((want != 0).float().mean()):.3f} nonzero")
+
+        with torch.inference_mode():
+            for i, (args, _) in enumerate(res["mn_calls"]["qmnblock"]):
+                compare(args, f"call {i + 1} of 15")
+            for h, w in ((28, 44), (7, 11), (1, 1)):
+                for c in (64, 128):
+                    for k, dil in ((5, 2), (7, 1)):
+                        blk, sc, x = random_mnblock(3, h, w, c, k, g)
+                        compare((blk, sc, x, k, dil), "random")
+        res["k12_err"] = total[0]
+        print(f"  K12 vs plain: {total[1]} of {total[2]} int8 elements differ, max {total[0]} step {card}")
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -1136,6 +1309,8 @@ def main() -> int:
             time_fused_head()
         if "k4p_inputs" in res:
             time_k4_prime()
+        if "mn_calls" in res:
+            time_k12()
 
         pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
         if "ipipe" in res:
@@ -1146,6 +1321,9 @@ def main() -> int:
             pipes += [("default u8 int8 head kernels", res["dpipe"]), ("default u8 int8 head plain", res["dplain"])]
         if "hpipe" in res:
             pipes += [("int8 fused-head kernels", res["hpipe"]), ("int8 fused-head plain", res["hplain"])]
+        pipes += [(name, res[key]) for name, key in (("MNFCOS float kernels", "mn_pipe"),
+                                                     ("MNFCOS int8-backbone kernels", "mn_pipe8"),
+                                                     ("MNFCOS int8 ladder u8 kernels", "lpipe")) if key in res]
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
             for name, p in pipes:
@@ -1185,15 +1363,19 @@ def main() -> int:
                              INT8_OPS_S)  # 7x7 taps over the 3 colour channels
             print(f"  K1 u8 stem B=8 {tuple(frames.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
 
-            tk = tp = th = nbytes = ops = 0.0
+            tk = tp = tl = th = nbytes = ops = 0.0
             for (x, wt, a, bb), _ in calls["qconv1x1"]:
                 k1 = cuda_ms(lambda: qconv.qconv1x1(x, wt, a, bb))
                 th += host_ms(lambda: qconv.qconv1x1(x, wt, a, bb))
                 p1 = cuda_ms(lambda: qconv.qconv1x1(x, wt, a, bb, plain=True))
                 m, k, n = x.numel() // x.shape[-1], x.shape[-1], wt.shape[0]
-                tk, tp, nbytes, ops = tk + k1, tp + p1, nbytes + m * k + n * k + m * n + 8 * n, ops + 2 * m * k * n
-                print(f"  K4 lateral [{m}, {k}] x [{k}, {n}]: kernel {k1:.4f} ms, plain {p1:.4f} ms")
-            t["qmatmul"], work["qmatmul"], host["qmatmul"] = (tk, tp, None), (nbytes, ops, INT8_OPS_S), th
+                x2 = x.reshape(m, k)
+                l1 = cuda_ms(lambda: torch._int_mm(x2, wt.t()))  # the library GEMM, epilogue not included
+                tk, tp, tl = tk + k1, tp + p1, tl + l1
+                nbytes, ops = nbytes + m * k + n * k + m * n + 8 * n, ops + 2 * m * k * n
+                print(f"  K4 lateral [{m}, {k}] x [{k}, {n}]: kernel {k1:.4f} ms, plain {p1:.4f} ms, torch._int_mm "
+                      f"{l1:.4f} ms")
+            t["qmatmul"], work["qmatmul"], host["qmatmul"] = (tk, tp, tl), (nbytes, ops, INT8_OPS_S), th
 
             tk = tp = th = nbytes = ops = 0.0
             for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
@@ -1408,10 +1590,38 @@ def main() -> int:
                 print(f"  K4' {v} [{m}, {k}] x [{k}, {n}]: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
                       f"{t[v][3][0]:.5f} ms ({t[v][3][1]}), {m * n * k / tk / 1e9:.2f} T multiply-adds/s, "
                       f"wrapper host time {th:.4f} ms {card}")
+        with torch.inference_mode():  # the library GEMM of each launch, epilogue not included
+            tl = cuda_ms(lambda: torch._int_mm(inp["x"], inp["w"].t()))
+        print(f"  K4' [{m}, {k}] x [{k}, {n}]: torch._int_mm (int32 out, no epilogue) {tl:.4f} ms {card}")
+        res["k4p_lib_ms"] = tl
         share = (t["full"][0] - t["shift"][0]) / t["full"][0]
         print(f"  K4' epilogue share of full: {share:.3f} (full - shift over full); nores - shift "
               f"{t['nores'][0] - t['shift'][0]:.4f} ms {card}")
         res["k4p"] = t
+
+    def time_k12():
+        """K12 per B=8 forward of the MNFCOS int8 ladder, on the 15 calls
+        phase 5n recorded, against its plain version, with its bound from
+        these inputs and the wrapper's host time; no one PyTorch call
+        computes the block."""
+        tk = tp = th = nbytes = ops = 0.0
+        with torch.inference_mode():
+            for i, (args, _) in enumerate(res["mn_calls"]["qmnblock"]):
+                blk, _, x, k, dil = args
+                k1 = cuda_ms(lambda: qmnblock.qmnblock(*args))
+                th += host_ms(lambda: qmnblock.qmnblock(*args))
+                p1 = cuda_ms(lambda: qmnblock.qmnblock(*args, plain=True), iters=3, reps=3)
+                b, h, w, c = x.shape
+                cm = blk["w1"].shape[0]
+                nbytes += 2 * x.numel() + sum(blk[n].numel() * blk[n].element_size() for n in blk) + 4 * 4
+                ops += 2 * b * h * w * (k * k * c + 2 * c * cm)
+                tk, tp = tk + k1, tp + p1
+                print(f"  K12 call {i + 1} {tuple(x.shape)} k{k} d{dil}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+        b12 = bound(nbytes, ops, INT8_OPS_S)
+        print(f"  qmnblock per forward (B=8, 15 launches): kernel {tk:.4f} ms, plain {tp:.4f} ms, library none, bound "
+              f"{b12[0]:.5f} ms ({b12[1]}; {nbytes / 1e6:.1f} MB, {ops / 2e9:.2f} G multiply-adds), "
+              f"{ops / 2 / tk / 1e9:.2f} T multiply-adds/s, wrapper host time {th:.4f} ms {card}")
+        res["k12"] = dict(ms=tk, plain_ms=tp, host_ms=th, bound=b12)
 
     def head_work(q, x):
         """(bytes, int8 operations) of one head level: input, weights and
@@ -1553,6 +1763,13 @@ def main() -> int:
                     "512x512 B=8", phase5k)
     smoke.phase("phase 5l: K4' (the three qmatmul epilogues) vs plain at [1048576, 64] x [64, 256]", phase5l)
     if "pipe" in res:
+        smoke.phase("phase 5m: the float MNFCOS pipeline, MNFCOS(20, 256) bf16 512x512 B=8", phase5m)
+    if "mn_model" in res:
+        smoke.phase("phase 5n: MNFCOS int8: make_eval_pipeline_int8 (the JAX gate) and the full ladder from uint8 "
+                    "frames (K12), bf16 512x512 B=8", phase5n)
+    if "mn_calls" in res:
+        smoke.phase("phase 5n (iii): K12 vs plain at the ladder's 15 calls and odd shapes", phase5n_k12)
+    if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
     if "ipipe" in res:
@@ -1569,6 +1786,10 @@ def main() -> int:
                     ("qstem_kernel", "qconv3_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
     if "hpipe" in res:
         smoke.phase("phase 6g: profile, fused-head pipeline; the head's split", phase6g)
+    if "lpipe" in res:
+        smoke.phase("phase 6h: profile, MNFCOS int8-ladder pipeline", phase6_profile, res["lpipe"],
+                    ("qstem_kernel", "qblock_kernel", "qmnblock_kernel", "nms_"))
+    print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
@@ -1583,7 +1804,8 @@ def main() -> int:
                     stem_bn_pool_quant=paths["stem tail"]["stem_bn_pool_quant"], qchain=paths["chained"]["qchain"],
                     matmul_bn_act=res["fused_bb_launches"]["matmul_bn_act"],
                     hishead_level_fused=res["fused_head_launches"]["hishead_level_fused"],
-                    qmm_variant=res["k4p_launches"]["qmm_variant"])
+                    qmm_variant=res["k4p_launches"]["qmm_variant"],
+                    qmnblock=res["mn_ladder_launches"]["qmnblock"])
     bk, bk_err = res["backend_ms"], res["backend_err"]
     fpn_ms, fpn_bound, fpn_err = res["fpn_ms"], res["fpn_bound"], res["fpn_err"]
     k7, k9, qhead_err = res["k7"], res["k9"], res["qhead_err"]
@@ -1609,7 +1831,7 @@ def main() -> int:
         entry("qstem_conv", "qstem.cu", "pallas_qstem.py:322", "qstem_conv", fpn_err["qstem"], *fpn_ms["qstem"][:2],
               fpn_bound["qstem"]),
         entry("qmatmul", "qconv.cu", "pallas_qconv.py:64", "qmatmul", fpn_err["qmatmul"], *fpn_ms["qmatmul"][:2],
-              fpn_bound["qmatmul"]),
+              fpn_bound["qmatmul"], fpn_ms["qmatmul"][2]),
         entry("qhisblock", "qhis.cu", "pallas_qhis.py:196", "qhisblock", fpn_err["qhisblock"],
               *fpn_ms["qhisblock"][:2], fpn_bound["qhisblock"]),
         entry("qmaxpool2x2", "qpool.cu", "pallas_pool.py:113", "qmaxpool2x2", fpn_err["qmaxpool2x2"],
@@ -1625,7 +1847,9 @@ def main() -> int:
                                        ("qchain", "qchain.cu", "pallas_qchain.py:289"))]
     # K16: the 32 launches of one B=8 fused backbone forward; K15: the five
     # levels of one B=8 fused-head forward; K4': the harness's three launches
-    k16, k15, k4p = res["k16"], res["k15"], res["k4p"]
+    # (library: one torch._int_mm of its GEMM per launch); K12: the 15 calls
+    # of one B=8 MNFCOS int8-ladder forward
+    k16, k15, k4p, k12 = res["k16"], res["k15"], res["k4p"], res["k12"]
     k4p_bound = (sum(t[3][0] for t in k4p.values()), "bytes")
     kernels += [
         entry("matmul_bn_act", "fused.cu", "pallas_fused.py:47", "matmul_bn_act", res["k16_err"], k16["ms"],
@@ -1633,7 +1857,10 @@ def main() -> int:
         entry("hishead_level_fused", "head.cu", "pallas_head.py:243", "hishead_level_fused", res["k15_err"][0],
               k15["ms"], k15["plain_ms"], k15["bound"]),
         entry("qmm_variants", "qmm_variants.cu", "scripts/dev_qmm_variants.py:47", "qmm_variant", res["k4p_err"],
-              sum(t[0] for t in k4p.values()), sum(t[1] for t in k4p.values()), k4p_bound),
+              sum(t[0] for t in k4p.values()), sum(t[1] for t in k4p.values()), k4p_bound,
+              len(k4p) * res["k4p_lib_ms"]),
+        entry("qmnblock", "qmnblock.cu", "pallas_qmnblock.py:130", "qmnblock", res["k12_err"], k12["ms"],
+              k12["plain_ms"], k12["bound"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

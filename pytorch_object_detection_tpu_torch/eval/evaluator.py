@@ -1,13 +1,15 @@
 """Serving pipelines: uint8 frames -> normalize -> forward -> decode -> NMS.
 
 Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
-``make_eval_pipeline`` (float path) and ``make_eval_pipeline_int8`` (by
-default from raw uint8 frames through the exact uint8 stem, the int8
-backbone, the int8 HisFPN and the int8 HISHead; or with the float head
-behind the int8 HisFPN, ``int8_head=False``; or the int8 backbone with the
-float HisFPN, ``int8_fpn=False``).  The JAX versions are one jitted
-program each; here the pipelines run eagerly on the model's device, with
-the kernels (``ops/``) wherever that device is CUDA.
+``make_eval_pipeline`` (float path, HISFCOS or MNFCOS) and
+``make_eval_pipeline_int8`` (for a HISFCOS by default from raw uint8 frames
+through the exact uint8 stem, the int8 backbone, the int8 HisFPN and the
+int8 HISHead; or with the float head behind the int8 HisFPN,
+``int8_head=False``; or the int8 backbone with the float HisFPN,
+``int8_fpn=False``, which is also what an MNFCOS always gets, as in JAX).
+The JAX versions are one jitted program each; here the pipelines run
+eagerly on the model's device, with the kernels (``ops/``) wherever that
+device is CUDA.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
@@ -191,8 +194,16 @@ def make_eval_pipeline_int8(
     the environment.  ``fused_head`` (the JAX serving bench's
     ``PODT_FUSED_HEAD=1``, with ``int8_fpn=False``): the float HISHead as
     K15, one launch per level (``make_eval_forward_int8``); where the JAX
-    switch would be ignored silently (``int8_fpn=True`` or
-    ``backend="xla"``) it raises ``ValueError``.
+    switch would be ignored silently (``int8_fpn=True``, ``backend="xla"``
+    or a model other than HISFCOS) it raises ``ValueError``.
+
+    An MNFCOS keeps the JAX gate (its evaluator.py:340): the int8 FPN and
+    head are for HISFCOS only, so an MNFCOS gets ``int8_fpn=False`` whatever
+    is asked: normalized frames, the int8 ResNet-50, then the float
+    LightweightFPN and MNHead in ``compute_dtype``.  Its full int8 ladder
+    from raw uint8 frames is ``quantize_backbone`` / ``quantize_fpn`` /
+    ``quantize_head`` with ``train/trainer.make_eval_forward_int8(int8_fpn=True,
+    int8_head=True, u8_input=True)``, as the JAX serving bench builds it.
 
     ``calib_images``: a representative NORMALIZED NHWC float batch on the
     model's device; the backbone's activation scales are calibrated on it in
@@ -201,11 +212,12 @@ def make_eval_pipeline_int8(
     (``quantize_fpn``, ``quantize_head``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
+    int8_fpn = int8_fpn and isinstance(model, HISFCOS)  # the JAX gate: FCOS is not ported, MNFCOS stays float
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
-    if fused_head and not fused_head_applies(backend, int8_fpn):
-        raise ValueError(f"fused_head=True runs the float head on K15 behind the float HisFPN: it needs "
-                         f"int8_fpn=False and a backend other than 'xla' (got int8_fpn={int8_fpn}, "
-                         f"backend={backend!r})")
+    if fused_head and not fused_head_applies(model, backend, int8_fpn):
+        raise ValueError(f"fused_head=True runs the float HISHead on K15 behind the float HisFPN: it needs a "
+                         f"HISFCOS, int8_fpn=False and a backend other than 'xla' (got {type(model).__name__}, "
+                         f"int8_fpn={int8_fpn}, backend={backend!r})")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     if device_resize:

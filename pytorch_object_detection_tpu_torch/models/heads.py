@@ -1,11 +1,17 @@
-"""HISHead: the detection head shared across pyramid levels (PyTorch, NCHW).
+"""HISHead and MNHead: the detection heads shared across pyramid levels (PyTorch, NCHW).
 
-Counterpart of ``pytorch_object_detection_tpu/models/heads.py:HISHead``:
-a shared inverted-bottleneck stem (PW-up 2f -> GN+ReLU -> DW3x3 -> GN+SiLU
--> PW-down f, residual), then one conv-GN-ReLU per tower, 3x3 predictions,
-and ``ScaleExp(1.2)`` on the regression branch.  Every parameter is shared
-across levels except ``scale{i}``.  Four GroupNorms per level, so 20 launches
-of kernel B per forward over five levels.
+Counterparts of ``pytorch_object_detection_tpu/models/heads.py``:
+
+  * ``HISHead``: a shared inverted-bottleneck stem (PW-up 2f -> GN+ReLU ->
+    DW3x3 -> GN+SiLU -> PW-down f, residual), then one conv-GN-ReLU per
+    tower, 3x3 predictions, and ``ScaleExp(1.2)`` on the regression branch.
+    Four GroupNorms per level, so 20 launches of kernel B per forward over
+    five levels.
+  * ``MNHead`` (MNFCOS): two shared MNBlocks (k3, dilation 2, alpha 2), then
+    one conv-GN-SiLU per tower, 1x1 predictions, and ``ScaleExp(1.0)``.  Two
+    GroupNorms per level, so 10 launches of kernel B per forward.
+
+Every parameter is shared across levels except ``scale{i}``.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from pytorch_object_detection_tpu_torch.nn.layers import (
     Conv,
     DepthwiseConv,
     GroupNorm32,
+    MNBlock,
     ScaleExp,
 )
 
@@ -58,6 +65,37 @@ class HISHead(nn.Module):
             y = self.stem_gn1(self.stem_pw1(x), plain)
             y = self.stem_gn2(self.stem_dw(y), plain)
             y = self.stem_pw2(y) + x  # inverted-bottleneck stem, residual
+            c = self.cls_gn0(self.cls_tower0(y), plain)
+            r = self.reg_gn0(self.reg_tower0(y), plain)
+            cls_out.append(self.cls_pred(c))
+            cnt_out.append(self.cnt_pred(r))
+            reg_out.append(getattr(self, f"scale{i}")(self.reg_pred(r)))
+        return cls_out, cnt_out, reg_out
+
+
+class MNHead(nn.Module):
+    def __init__(self, num_classes: int, features: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        f, g = features, generator
+        self.block1 = MNBlock(f, 3, 2, 2, generator=g)
+        self.block2 = MNBlock(f, 3, 2, 2, generator=g)
+        self.cls_tower0 = Conv(f, f, 3, bias=False, generator=g)
+        self.cls_gn0 = GroupNorm32(f, act="silu")
+        self.reg_tower0 = Conv(f, f, 3, bias=False, generator=g)
+        self.reg_gn0 = GroupNorm32(f, act="silu")
+        self.cls_pred = Conv(f, num_classes, 1, bias_const=prior_bias(), generator=g)
+        self.cnt_pred = Conv(f, 1, 1, generator=g)
+        self.reg_pred = Conv(f, 4, 1, generator=g)
+        for i in range(5):  # one ScaleExp per pyramid level
+            self.add_module(f"scale{i}", ScaleExp(1.0))
+
+    def forward(self, levels: Sequence[torch.Tensor], plain: bool = False) -> LevelOutputs:
+        """Per-level NCHW (cls, cnt, reg) lists.  ``plain=True`` runs the
+        GroupNorms' plain version, for comparing kernel B only."""
+        cls_out, cnt_out, reg_out = [], [], []
+        for i, x in enumerate(levels):
+            y = self.block2(self.block1(x))
             c = self.cls_gn0(self.cls_tower0(y), plain)
             r = self.reg_gn0(self.reg_tower0(y), plain)
             cls_out.append(self.cls_pred(c))

@@ -64,10 +64,11 @@ class Conv(nn.Conv2d):
 
 
 class DepthwiseConv(Conv):
-    """Per-channel 3x3 conv (groups == channels), no bias."""
+    """Per-channel ``kernel`` x ``kernel`` conv (groups == channels), dilation
+    ``dilation``, same padding, no bias; 3x3, dilation 1 by default (the HISHead's)."""
 
-    def __init__(self, ch: int, generator: Optional[torch.Generator] = None):
-        super().__init__(ch, ch, 3, groups=ch, bias=False, generator=generator)
+    def __init__(self, ch: int, kernel: int = 3, dilation: int = 1, generator: Optional[torch.Generator] = None):
+        super().__init__(ch, ch, kernel, dilation=dilation, groups=ch, bias=False, generator=generator)
 
 
 class BatchNorm(nn.Module):
@@ -132,12 +133,12 @@ class SEBlock(nn.Module):
 
 
 class ScaleExp(nn.Module):
-    """Learnable per-level regression scale: ``exp(x * s)``, s from 1.2
-    (the HISHead's init)."""
+    """Learnable per-level regression scale: ``exp(x * s)``, s from
+    ``init_value`` (the HISHead's 1.2 by default; the MNHead's is 1.0)."""
 
-    def __init__(self):
+    def __init__(self, init_value: float = 1.2):
         super().__init__()
-        self.scale = nn.Parameter(torch.tensor([1.2], dtype=torch.float32))
+        self.scale = nn.Parameter(torch.tensor([init_value], dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.exp(x * self.scale)
@@ -174,3 +175,21 @@ class HisBlock(nn.Module):
         m = relu(self.bn3(self.conv3(torch.cat([a, b], dim=1))))
         y = self.conv4(torch.cat([m, x2], dim=1))
         return silu(self.bn4(y))
+
+
+class MNBlock(nn.Module):
+    """Dilated depthwise ``kernel`` x ``kernel`` -> BN -> 1x1 up to ``alpha``
+    x C -> SiLU -> 1x1 down to ``features`` -> + residual (the MNFCOS block;
+    same padding, as the JAX package fixes the reference's k=5/7 blocks)."""
+
+    def __init__(self, features: int, kernel: int = 3, dilation: int = 1, alpha: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.ddw = DepthwiseConv(features, kernel, dilation, generator=g)
+        self.bn1 = BatchNorm(features)
+        self.pw1 = Conv(features, features * alpha, 1, generator=g)
+        self.pw2 = Conv(features * alpha, features, 1, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pw2(silu(self.pw1(self.bn1(self.ddw(x)))))

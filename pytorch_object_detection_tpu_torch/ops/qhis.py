@@ -71,13 +71,22 @@ def combine_plain(x_q, xb_q, combine, ca, cb) -> torch.Tensor:
     return clip8(xa.float() * ca + xb_q.float() * cb)
 
 
-def depthwise3x3_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-channel 3x3 int8 conv, zero padding 1, exact int32 sum as f32:
-    x ``[B, H, W, C]``, w ``[3, 3, C]``."""
+def depthwise_i8(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """Per-channel k x k int8 conv (k odd), dilation ``dilation``, zero
+    "same" padding ``dilation * (k - 1) // 2``, exact int32 sum as f32
+    (exact: at k = 7 the largest sum is 127 * 127 * 49 < 2**24):
+    x ``[B, H, W, C]``, w ``[k, k, C]``."""
+    k, d = w.shape[0], dilation
+    pad = d * (k - 1) // 2
     _, h, wd, _ = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).int()
-    acc = sum(xp[:, ky:ky + h, kx:kx + wd] * w[ky, kx].int() for ky in range(3) for kx in range(3))
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad)).int()
+    acc = sum(xp[:, ky * d:ky * d + h, kx * d:kx * d + wd] * w[ky, kx].int() for ky in range(k) for kx in range(k))
     return acc.float()
+
+
+def depthwise3x3_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`depthwise_i8` at 3x3, dilation 1: w ``[3, 3, C]``."""
+    return depthwise_i8(x, w)
 
 
 def qhisblock_plain(blk: Dict, x_q: torch.Tensor) -> torch.Tensor:

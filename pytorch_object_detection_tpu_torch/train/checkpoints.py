@@ -14,11 +14,13 @@ here imports JAX.  The mapping:
 
 A missing key, an unused key or a shape that does not match raises.
 
-``load_backbone_qtree``, ``load_fpn_qtree`` and ``load_head_qtree`` carry
-the JAX package's int8 backbone, HisFPN and HISHead qtrees
+``load_backbone_qtree``, ``load_fpn_qtree``, ``load_head_qtree``,
+``load_lwfpn_qtree`` and ``load_mnhead_qtree`` carry the JAX package's int8
+backbone, HisFPN, HISHead, LightweightFPN and MNHead qtrees
 (``nn/resnet_int8.quantize_resnet50``, ``nn/fpn_int8.quantize_hisfpn``,
-``models/head_int8.quantize_hishead``) across in the same way, to the card
-unless ``device`` says otherwise.
+``models/head_int8.quantize_hishead``, ``models/mnfcos_int8.quantize_lwfpn``
+and ``quantize_mnhead``) across in the same way, to the card unless
+``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -290,4 +292,111 @@ def load_head_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "c
         else:
             out[path[0]] = tensor(_port_kernel(arr) if arr.dtype == np.int8 else arr)
     out.update({name: tuple(out[name]) for name in _HEAD_GNS})
+    return out
+
+
+_MN_INT8 = ("wdw", "w1", "w2")
+_MN_SCALES = ("s_in", "s_a1", "s_a2", "s_out")
+
+
+def _mnblock_shapes(c: int, cmid: int, kernel: int) -> Dict[str, Tuple[int, ...]]:
+    """Leaf -> shape of one JAX MNBlock entry (``_quantize_mnblock``)."""
+    shapes = {"wdw": (kernel, kernel, 1, c), "w1": (1, 1, c, cmid), "w2": (1, 1, cmid, c)}
+    shapes.update({k: (c,) for k in ("swdw", "bdw", "sw2", "b2")})
+    shapes.update({k: (cmid,) for k in ("sw1", "b1")})
+    return shapes
+
+
+def _mn_width(qtree_np: Mapping[str, Any], block: str, what: str) -> Tuple[int, int]:
+    """(C, cmid) from ``block/w1`` [1, 1, C, cmid]."""
+    blk = qtree_np.get(block)
+    w1 = np.asarray(blk["w1"]) if isinstance(blk, Mapping) and "w1" in blk else None
+    if w1 is None or w1.ndim != 4:
+        raise KeyError(f"qtree does not match {what}: {block}/w1 [1, 1, C, cmid] is missing")
+    return w1.shape[2], w1.shape[3]
+
+
+def _mn_tensor(path: Tuple[Any, ...], arr: np.ndarray, device) -> torch.Tensor:
+    """A leaf of an MNFCOS qtree in the port's form: the depthwise ``[k, k,
+    1, C]`` becomes ``[k, k, C]``, other int8 HWIO kernels ``[O, I]`` (1x1)
+    or ``[O, 3, 3, I]``, the rest f32."""
+    if path[-1] == "wdw":
+        arr = arr[:, :, 0]
+    elif arr.dtype == np.int8:
+        arr = _port_kernel(arr)
+    return _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32, device)
+
+
+def _mn_tree(src: Dict[Tuple[Any, ...], np.ndarray], device) -> Dict:
+    """Nested dicts (lists where the key is an index) of :func:`_mn_tensor` leaves."""
+    out: Dict[Any, Any] = {}
+    for path, arr in src.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _mn_tensor(path, arr, device)
+    if "levels" in out:
+        out["levels"] = [out["levels"][i] for i in range(len(out["levels"]))]
+    return out
+
+
+def load_lwfpn_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_lwfpn`` qtree, as numpy, in the port's form
+    (``models/mnfcos_int8.py``): the laterals' ``w`` become ``[F, Cin]``, each
+    MNBlock's depthwise ``[k, k, 1, F]`` becomes ``[k, k, F]`` and its 1x1
+    kernels ``[O, I]``; the rest (``sc``'s scales, ``p5_to_m4``,
+    ``p4_to_m3``) becomes f32 tensors, 0-d for the scalars.  The widths come
+    from ``mnb5/w1``.  Raises ``KeyError`` on a missing or unused key and
+    ``ValueError`` on a shape or dtype that does not match, before anything
+    is converted.
+    """
+    from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import FPN_BLOCKS
+
+    f, cmid = _mn_width(qtree_np, "mnb5", "the LightweightFPN")
+    want = {("p5_to_m4",): (), ("p4_to_m3",): ()}
+    for name, cin in (("lateral5", 2048), ("lateral4", 1024), ("lateral3", 512)):
+        want.update({(name, "w"): (1, 1, cin, f), (name, "A"): (f,), (name, "B"): (f,)})
+    for name, kernel, _ in FPN_BLOCKS:
+        want.update({(name, k): v for k, v in _mnblock_shapes(f, cmid, kernel).items()})
+        want.update({("sc", name, k): () for k in _MN_SCALES})
+    src = {path: np.asarray(v) for path, v in _leaves(qtree_np)}
+    _check_tree(src, want, lambda p: p[-1] in ("w",) + _MN_INT8, "the LightweightFPN")
+    return _mn_tree(src, device)
+
+
+def load_mnhead_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_mnhead`` qtree, as numpy, in the port's form
+    (``models/mnfcos_int8.py``): the blocks as in :func:`load_lwfpn_qtree`,
+    the towers ``wc``/``wr`` ``[C, 3, 3, C]``, the predictions ``wpc [nc,
+    C]`` and ``wcr [5, C]``; the GroupNorm pairs stay (gamma, beta) tuples
+    and ``levels`` a list of dicts (each with its two blocks' scales), of
+    f32 tensors (0-d for the scalars); ``num_classes`` stays an int.  The
+    widths come from ``block1/w1``, the class count from ``num_classes``.
+    Raises ``KeyError`` on a missing or unused key and ``ValueError`` on a
+    shape or dtype that does not match, before anything is converted.
+    """
+    from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import HEAD_BLOCKS
+
+    if "num_classes" not in qtree_np or not isinstance(qtree_np.get("levels"), (list, tuple)):
+        raise KeyError("qtree does not match the MNHead: num_classes or the levels list is missing")
+    nc = np.asarray(qtree_np["num_classes"])
+    if nc.ndim or nc.dtype.kind not in "iu" or int(nc) < 1:
+        raise ValueError(f"num_classes: expected a positive int, got {nc!r}")
+    nc = int(nc)
+    c, cmid = _mn_width(qtree_np, "block1", "the MNHead")
+    n_levels = len(qtree_np["levels"])
+    want = {("wc",): (3, 3, c, c), ("wr",): (3, 3, c, c), ("wpc",): (1, 1, c, nc), ("wcr",): (1, 1, c, 5),
+            ("bpc",): (nc,), ("bcr",): (5,), ("scale_exp",): (n_levels,)}
+    for name in ("gnc", "gnr"):
+        want.update({(name, 0): (c,), (name, 1): (c,)})
+    for name, kernel, _ in HEAD_BLOCKS:
+        want.update({(name, k): v for k, v in _mnblock_shapes(c, cmid, kernel).items()})
+    lv = {"Ac": (c,), "Ar": (c,), "Apc": (nc,), "Acr": (5,), "inv_c": (), "inv_r": ()}
+    for i in range(n_levels):
+        want.update({("levels", i, k): v for k, v in lv.items()})
+        want.update({("levels", i, name, k): () for name, _, _ in HEAD_BLOCKS for k in _MN_SCALES})
+    src = {path: np.asarray(v) for path, v in _leaves({k: v for k, v in qtree_np.items() if k != "num_classes"})}
+    _check_tree(src, want, lambda p: p[-1] in ("wc", "wr", "wpc", "wcr") + _MN_INT8, "the MNHead")
+    out = _mn_tree(src, device)
+    out.update(num_classes=nc, gnc=(out["gnc"][0], out["gnc"][1]), gnr=(out["gnr"][0], out["gnr"][1]))
     return out

@@ -3,7 +3,8 @@ C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K4' (its three
 timing epilogues), K5 (int8 HisBlock), K6 (int8 2x2 pool), K7/K9 (one int8
 HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
 int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
-the BN/residual/ReLU epilogue) and K17 (the bf16 stem tail).
+the BN/residual/ReLU epilogue), K17 (the bf16 stem tail) and K12 (one
+whole int8 MNBlock).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -29,6 +30,7 @@ from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, his
 from pytorch_object_detection_tpu_torch.ops.qchain import qchain, qchain_plain
 from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qconv3x3, qconv3x3_plain, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
+from pytorch_object_detection_tpu_torch.ops.qmnblock import qmnblock, qmnblock_plain
 from pytorch_object_detection_tpu_torch.ops.qmm_variants import VARIANTS, qmm_variant, qmm_variant_plain
 from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2, qmaxpool3x3s2, qmaxpool3x3s2_plain
 from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
@@ -777,3 +779,99 @@ def test_fused_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         qmm_variant("full", xq, wq, a, b)
     with pytest.raises(ValueError, match="variant"):
         qmm_variant("half", xq, wq, a, b)
+
+
+# K12: the 15 MNBlock calls of an MNFCOS(20, 256) forward at 512x512 (the
+# pyramid's five blocks, then the head's block1 and block2 at each level),
+# B=2: (name, H=W, kernel, dilation)
+QMN_PATH = [("mnb5", 16, 5, 2), ("mnb4", 32, 3, 2), ("mnb3", 64, 3, 1), ("mnb6", 8, 5, 1), ("mnb7", 4, 7, 1)] + [
+    (f"P{i + 3}_{blk}", 64 >> i, 3, 2) for i in range(5) for blk in ("block1", "block2")]
+# odd maps (a COCO-canvas level, 7x11, 1x1) at the two other block forms and two widths: (H, W, C, kernel, dilation)
+QMN_ODD = [(h, w, c, k, d) for h, w in ((28, 44), (7, 11), (1, 1)) for c in (64, 256) for k, d in ((5, 2), (7, 1))]
+# K12 against its plain version: the JAX kernel's contract (tests/test_quant.py:1200-1254), at most one int8
+# step on under 1e-3 of the elements (the card's expf against the CPU's, were they to differ)
+QMN_MAX_STEP, QMN_MAX_SHARE = 1, 1e-3
+
+
+def _qmn_case(b, h, w, c, k, seed, device, alpha=2):
+    """A random int8 MNBlock in the port's layout, its scales and an input,
+    drawn as tests/test_quant.py:1213-1226 draws them."""
+    g = torch.Generator().manual_seed(seed)
+    cm = alpha * c
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    pos = lambda n: torch.rand(n, generator=g) * 1e-3 + 1e-5
+    nrm = lambda n: torch.randn(n, generator=g) * 0.1
+    blk = dict(wdw=i8(k, k, c), swdw=pos(c), bdw=nrm(c), w1=i8(cm, c), sw1=pos(cm), b1=nrm(cm), w2=i8(c, cm),
+               sw2=pos(c), b2=nrm(c))
+    sc = {n: torch.tensor(v) for n, v in dict(s_in=0.05, s_a1=0.03, s_a2=0.04, s_out=0.06).items()}
+    return _on(blk, device), _on(sc, device), i8(b, h, w, c).to(device)
+
+
+def _qmn_check(blk, sc, x, k, d):
+    before = qmnblock.launches
+    got = qmnblock(blk, sc, x, k, d)
+    torch.cuda.synchronize()
+    assert qmnblock.launches == before + 1
+    want = qmnblock_plain(blk, sc, x, k, d)
+    diff = (got.int() - want.int()).abs()
+    n_diff = int((diff > 0).sum())
+    print(f"K12 {tuple(x.shape)} k{k} d{d}: {n_diff} of {diff.numel()} differ, max {int(diff.max())} step")
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    assert int(diff.max()) <= QMN_MAX_STEP and n_diff / diff.numel() < QMN_MAX_SHARE
+    assert float((want != 0).float().mean()) > 0.5  # not degenerate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QMN_PATH, ids=[c[0] for c in QMN_PATH])
+def test_qmnblock_kernel_at_the_path_shapes(cuda, case):
+    _, hw, k, d = case
+    blk, sc, x = _qmn_case(2, hw, hw, 256, k, QMN_PATH.index(case), cuda)
+    _qmn_check(blk, sc, x, k, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QMN_ODD, ids=[f"{h}x{w}_c{c}_k{k}d{d}" for h, w, c, k, d in QMN_ODD])
+def test_qmnblock_kernel_at_odd_shapes(cuda, case):
+    h, w, c, k, d = case
+    blk, sc, x = _qmn_case(3, h, w, c, k, h * w + c + k, cuda)
+    _qmn_check(blk, sc, x, k, d)
+
+
+@pytest.mark.cuda
+def test_qmnblock_kernel_rejects_other_operands(cuda):
+    blk, sc, x = _qmn_case(2, 8, 8, 64, 3, 1, cuda)
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    before = qmnblock.launches
+    with pytest.raises(ValueError, match="int8"):
+        qmnblock(blk, sc, x.float(), 3, 1)
+    with pytest.raises(ValueError, match="wdw"):  # a kernel of another size than asked
+        qmnblock(blk, sc, x, 5, 1)
+    with pytest.raises(ValueError, match="dilation"):
+        qmnblock(blk, sc, x, 3, 3)
+    with pytest.raises(ValueError, match="contiguous"):  # NHWC-shaped but not contiguous
+        qmnblock(blk, sc, x.transpose(1, 2), 3, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        qmnblock(blk, sc, flat[1:1 + x.numel()].view(x.shape), 3, 1)
+    with pytest.raises(ValueError, match="on cuda"):  # a weight on another device
+        qmnblock(dict(blk, w1=blk["w1"].cpu()), sc, x, 3, 1)
+    blk24, sc24, x24 = _qmn_case(2, 8, 8, 24, 3, 2, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qmnblock(blk24, sc24, x24, 3, 1)
+    assert qmnblock.launches == before
+
+
+def test_qmnblock_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
+    before = qmnblock.launches
+    for k, d in ((3, 2), (7, 1)):
+        blk, sc, x = _qmn_case(2, 5, 3, 24, k, k, "cpu")  # C = 24: the plain version takes any width
+        got = qmnblock(blk, sc, x, k, d)
+        assert torch.equal(got, qmnblock_plain(blk, sc, x, k, d)) and got.shape == x.shape
+    assert qmnblock.launches == before
+    with pytest.raises(ValueError, match="int8"):
+        qmnblock(blk, sc, x.float(), 7, 1)
+    with pytest.raises(ValueError, match="w2"):
+        qmnblock(dict(blk, w2=blk["w2"][:8]), sc, x, 7, 1)
+    with pytest.raises(ValueError, match="odd"):
+        qmnblock(blk, sc, x, 4, 1)
+    with pytest.raises(ValueError, match="s_out"):
+        qmnblock(blk, dict(sc, s_out=0.06), x, 7, 1)

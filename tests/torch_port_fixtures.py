@@ -1,6 +1,6 @@
 """Shared set-up for the PyTorch port's CPU tests (tests/test_torch_port_*.py).
 
-One small JAX HISFCOS (20 classes, 64 features, 128x128 canvas) gets a
+One small JAX HISFCOS or MNFCOS (20 classes, 64 features, 128x128 canvas) gets a
 variable tree whose BN statistics and affines, GN affines and ScaleExp
 scales sit away from their init values, so that a graft that drops or
 misplaces one of them shows in the outputs.  Inputs come from numpy seeds
@@ -22,14 +22,15 @@ CANVAS = 128
 STRIDES = (8, 16, 32, 64, 128)
 
 
-def jax_model():
-    from pytorch_object_detection_tpu.models.fcos import HISFCOS as JaxHISFCOS
+def jax_model(name: str = "HISFCOS"):
+    """The small JAX detector ``name`` (HISFCOS or MNFCOS), 20 classes, 64 features."""
+    from pytorch_object_detection_tpu.models import fcos
 
-    return JaxHISFCOS(num_classes=NUM_CLASSES, features=FEATURES)
+    return getattr(fcos, name)(num_classes=NUM_CLASSES, features=FEATURES)
 
 
-def perturbed_variables(seed: int = 0):
-    """(params, batch_stats) for the small JAX HISFCOS as nested numpy dicts.
+def perturbed_variables(seed: int = 0, model: str = "HISFCOS"):
+    """(params, batch_stats) for the small JAX detector ``model`` as nested numpy dicts.
 
     The tree's structure comes from ``jax.eval_shape`` of the flax init (no
     compile); its values are numpy draws: He-normal conv kernels, small conv
@@ -39,7 +40,7 @@ def perturbed_variables(seed: int = 0):
     import jax
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(lambda key, x: jax_model().init(key, x, False),
+    shapes = jax.eval_shape(lambda key, x: jax_model(model).init(key, x, False),
                             jax.random.PRNGKey(seed), jnp.zeros((1, CANVAS, CANVAS, 3), jnp.float32))
     rng = np.random.default_rng(seed)
 
