@@ -67,8 +67,9 @@ Phases (each prints its results on its own lines):
      finite detections and per-level maps against each path's plain run
      (cosine >= 0.99);
   5i. K11 at the four stage shapes, K10, K17 and K13 (three segments) vs
-     their plain versions on the paths' own inputs and on random ones: 0
-     differing elements;
+     their plain versions on the paths' own inputs and on random ones, and
+     K4 at the per-conv path's 36 1x1 convs on its own inputs: 0 differing
+     elements;
   5j. the fused ResNet-50 (nn/fused_resnet.resnet50_fused_forward) on the
      same model and frames, bf16, B=8, counted (32 K16 launches); its C3..C5
      against the module forward (within LEVEL_TOL of the range, cosine >=
@@ -100,8 +101,12 @@ Phases (each prints its results on its own lines):
      inputs and on random blocks at 28x44, 7x11 and 1x1, C = 64 and 128
      (at most one step on under 1e-3 of the elements; the count printed);
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
-     shape), K1, K4, K5, K6, K7 (beside the bf16 float head at the same
-     levels), K10, K11, K13 (beside kernel C's 16 launches on the same
+     shape at B=8, and at B=64 the kernel alone: each with its bound, its
+     rate, its tile, cluster split and conv1 recompute), K1, K4 (the
+     laterals at B=8 and B=64; the per-conv path's 36 1x1 convs at B=8 and
+     B=64, held exact there, each beside torch._int_mm), K5, K6, K7
+     (beside the bf16 float head at the same levels), K10, K11, K13
+     (beside kernel C's 16 launches on the same
      input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
      K16 (beside torch.matmul of the same GEMMs, epilogue not included),
      K17, K12 (its 15 calls of one B=8 MNFCOS forward), K4''s three
@@ -878,7 +883,7 @@ def main() -> int:
 
         # the kernels' own inputs on these paths, for phases 5i and 6
         fwd = lambda **kw: resnet_int8.resnet50_int8_forward(qbb, frames, **bb, **kw)
-        calls = record_calls(resnet_int8, ("qconv3x3",), lambda: fwd(backend="pallas"))
+        calls = record_calls(resnet_int8, ("qconv3x3", "qconv1x1"), lambda: fwd(backend="pallas"))
         calls.update(record_calls(resnet_int8, ("qmaxpool3x3s2",), lambda: fwd(backend="pallas_block",
                                                                                  direct_stem=True)))
         calls.update(record_calls(resnet_int8, ("qchain",), lambda: fwd(backend="pallas_block", fuse_strided=True,
@@ -891,7 +896,7 @@ def main() -> int:
     def phase5i():
         calls = res["backend_calls"]
         g = torch.Generator(device=dev).manual_seed(SEED + 9)
-        err = {"qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0}
+        err = {"qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0, "qconv1x1": 0}
         rand_i8 = lambda shape: torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
 
         def compare(key, got, want, what, max_step=0):
@@ -911,6 +916,12 @@ def main() -> int:
                 for what, inp in inputs:
                     compare("qconv3x3", qconv.qconv3x3(inp, w, a, b), qconv.qconv3x3(inp, w, a, b, plain=True),
                             f"K11 {what} {tuple(inp.shape)} x {tuple(w.shape)}")
+            for (x, w, a, b), kw in calls["qconv1x1"]:  # K4 on the per-conv path's 36 1x1 convs
+                kw = {key: v for key, v in kw.items() if key != "plain"}
+                m, k, n = x.numel() // x.shape[-1], x.shape[-1], w.shape[0]
+                compare("qconv1x1", qconv.qconv1x1(x, w, a, b, **kw), qconv.qconv1x1(x, w, a, b, plain=True, **kw),
+                        f"K4 per-conv [{m}, {k}] x [{k}, {n}] res={kw.get('res') is not None} tile "
+                        f"{qconv.pick_qmm_tile(m, n, k, *qblock.card_limits(dev))}")
             for (x,), _ in calls["qmaxpool3x3s2"]:
                 for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
                     compare("qmaxpool3x3s2", qpool.qmaxpool3x3s2(inp), qpool.qmaxpool3x3s2(inp, plain=True),
@@ -1281,19 +1292,39 @@ def main() -> int:
         qp = {1: 0.0, 2: 0.0}
         qh = {1: 0.0, 2: 0.0}
         qwork = {1: [0.0, 0.0], 2: [0.0, 0.0]}  # bytes, operations
+        sm_count, smem_max = qblock.card_limits(dev)
+        c64 = b64 = 0.0
         with torch.inference_mode():
             for scope, stride, blk, x in res.get("qblock_cases", []):
-                tk = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block"))
-                qh[stride] += host_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block"))
-                tp = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block", plain=True))
-                qk[stride] += tk
-                qp[stride] += tp
-                nbytes, ops = block_work(blk, x, stride)
-                qwork[stride][0] += nbytes
-                qwork[stride][1] += ops
-                print(f"  kernel C {scope} s{stride} B=8 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+                for b in (8, 64):
+                    xb = x.repeat(b // x.shape[0], 1, 1, 1)
+                    tk = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, xb, stride, "pallas_block"),
+                                 iters=20 if b == 8 else 5)
+                    nbytes, ops = block_work(blk, xb, stride)
+                    bnd = bound(nbytes, ops, INT8_OPS_S)
+                    _, h, w, _ = xb.shape
+                    cw, cout = blk["w1"].shape[0], blk["w3"].shape[0]
+                    tw, split = qblock.pick_tile(b, h, w, cw, cout, stride, sm_count, smem_max)
+                    ho, wo = qblock.out_hw(h, w, stride)
+                    ty, tx = qblock.tile_grid(ho, wo, tw)
+                    line = (f"  kernel C {scope} s{stride} B={b} {tuple(xb.shape)}: kernel {tk:.4f} ms, bound "
+                            f"{bnd[0]:.5f} ms ({bnd[1]}), {ops / 2 / tk / 1e9:.1f} T multiply-adds/s, tile 8x{tw}, "
+                            f"split {split}, {b * ty * tx * split} blocks, conv1 recompute "
+                            f"{qblock.recompute_factor(h, w, stride, tw):.4f}")
+                    if b == 64:
+                        c64, b64 = c64 + tk, b64 + bnd[0]
+                        print(line)
+                        continue
+                    qh[stride] += host_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block"))
+                    tp = cuda_ms(lambda: resnet_int8.bottleneck_int8(blk, x, stride, "pallas_block", plain=True))
+                    qk[stride] += tk
+                    qp[stride] += tp
+                    qwork[stride][0] += nbytes
+                    qwork[stride][1] += ops
+                    print(f"{line}; plain {tp:.4f} ms")
         print(f"  kernel C per forward (B=8): K2 13 blocks kernel {qk[1]:.4f} ms, plain {qp[1]:.4f} ms, host "
               f"{qh[1]:.4f} ms; K3 3 blocks kernel {qk[2]:.4f} ms, plain {qp[2]:.4f} ms, host {qh[2]:.4f} ms {card}")
+        print(f"  kernel C per forward (B=64): the 16 blocks {c64:.4f} ms, bound {b64:.4f} ms {card}")
         res["qblock_ms"], res["qblock_plain_ms"] = qk, qp
         res["qblock_bound"] = {st: bound(nb, ops, INT8_OPS_S) for st, (nb, ops) in qwork.items()}
 
@@ -1373,9 +1404,24 @@ def main() -> int:
                 l1 = cuda_ms(lambda: torch._int_mm(x2, wt.t()))  # the library GEMM, epilogue not included
                 tk, tp, tl = tk + k1, tp + p1, tl + l1
                 nbytes, ops = nbytes + m * k + n * k + m * n + 8 * n, ops + 2 * m * k * n
+                bn, splits, _ = qconv.pick_qmm_tile(m, n, k, *qblock.card_limits(dev))
                 print(f"  K4 lateral [{m}, {k}] x [{k}, {n}]: kernel {k1:.4f} ms, plain {p1:.4f} ms, torch._int_mm "
-                      f"{l1:.4f} ms")
+                      f"{l1:.4f} ms, tile 128x{bn}, split {splits}, {m * n * k / k1 / 1e9:.1f} T multiply-adds/s")
             t["qmatmul"], work["qmatmul"], host["qmatmul"] = (tk, tp, tl), (nbytes, ops, INT8_OPS_S), th
+            print(f"  K4 laterals per forward (B=8): kernel {tk:.4f} ms, torch._int_mm {tl:.4f} ms "
+                  f"(K4 / _int_mm {tk / tl:.3f}) {card}")
+            t64 = l64 = 0.0
+            for (x, wt, a, bb), _ in calls["qconv1x1"]:
+                x8 = x.repeat(8, 1, 1, 1)
+                got, want = qconv.qconv1x1(x8, wt, a, bb), qconv.qconv1x1(x8, wt, a, bb, plain=True)
+                torch.cuda.synchronize()
+                smoke.check(torch.equal(got, want), f"K4 lateral B=64 {tuple(x8.shape)}: "
+                                                    f"{int((got != want).sum())} int8 differ")
+                x2 = x8.reshape(-1, x8.shape[-1])
+                t64 += cuda_ms(lambda: qconv.qconv1x1(x8, wt, a, bb), iters=5)
+                l64 += cuda_ms(lambda: torch._int_mm(x2, wt.t()), iters=5)
+            print(f"  K4 laterals per forward (B=64): kernel {t64:.4f} ms, torch._int_mm {l64:.4f} ms "
+                  f"(K4 / _int_mm {t64 / l64:.3f}) {card}")
 
             tk = tp = th = nbytes = ops = 0.0
             for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
@@ -1446,6 +1492,32 @@ def main() -> int:
                 ops += 2 * bsz * h * wd * 9 * cin * cout
                 print(f"  K11 {tuple(x.shape)} x {tuple(w.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
             t["qconv3x3"] = (tk, tp, th, (nbytes, ops, INT8_OPS_S))
+
+            # K4 at the per-conv path's 36 1x1 convs, B=8 and B=64, beside
+            # torch._int_mm of the same GEMMs (int32 out, epilogue not included)
+            for b in (8, 64):
+                tk = tl = 0.0
+                for (x, w, a, bb), kw in calls["qconv1x1"]:
+                    kw = {key: v for key, v in kw.items() if key != "plain"}
+                    rep = b // x.shape[0]
+                    xb = x.repeat(rep, 1, 1, 1)
+                    kwb = dict(kw, res=kw["res"].repeat(rep, 1, 1, 1)) if kw.get("res") is not None else kw
+                    m, k, n = xb.numel() // xb.shape[-1], xb.shape[-1], w.shape[0]
+                    if b == 64:  # B=8 is held in phase 5i
+                        got = qconv.qconv1x1(xb, w, a, bb, **kwb)
+                        want = qconv.qconv1x1(xb, w, a, bb, plain=True, **kwb)
+                        torch.cuda.synchronize()
+                        smoke.check(torch.equal(got, want), f"K4 per-conv B=64 [{m}, {k}] x [{k}, {n}]: "
+                                                            f"{int((got != want).sum())} int8 differ")
+                    k1 = cuda_ms(lambda: qconv.qconv1x1(xb, w, a, bb, **kwb), iters=20 if b == 8 else 5)
+                    x2 = xb.reshape(m, k)
+                    l1 = cuda_ms(lambda: torch._int_mm(x2, w.t()), iters=20 if b == 8 else 5)
+                    tk, tl = tk + k1, tl + l1
+                    bn, splits, _ = qconv.pick_qmm_tile(m, n, k, *qblock.card_limits(dev))
+                    print(f"  K4 per-conv B={b} [{m}, {k}] x [{k}, {n}]: kernel {k1:.4f} ms, torch._int_mm {l1:.4f} ms, "
+                          f"tile 128x{bn}, split {splits}, {m * n * k / k1 / 1e9:.1f} T multiply-adds/s")
+                print(f"  K4 per-conv (36 launches, B={b}): kernel {tk:.4f} ms, torch._int_mm {tl:.4f} ms "
+                      f"(K4 / _int_mm {tk / tl:.3f}) {card}")
 
             (x,), _ = calls["qmaxpool3x3s2"][0]
             tk, th = cuda_ms(lambda: qpool.qmaxpool3x3s2(x)), host_ms(lambda: qpool.qmaxpool3x3s2(x))
@@ -1777,13 +1849,13 @@ def main() -> int:
                     ("qblock_kernel", "gn_act_kernel", "nms_"))
     if "fpipe" in res:
         smoke.phase("phase 6d: profile, int8-FPN pipeline", phase6_profile, res["fpipe"],
-                    ("qstem_kernel", "qblock_kernel", "qmm_kernel", "his_", "qpool_", "gn_act_kernel", "nms_"))
+                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "gn_act_kernel", "nms_"))
     if "dpipe" in res:
         smoke.phase("phase 6e: profile, default pipeline", phase6_profile, res["dpipe"],
-                    ("qstem_kernel", "qblock_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
+                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
     if "per-conv" in res.get("paths", {}):
         smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
-                    ("qstem_kernel", "qconv3_kernel", "qmm_kernel", "his_", "qpool_", "head_", "nms_"))
+                    ("qstem_kernel", "qconv3_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
     if "hpipe" in res:
         smoke.phase("phase 6g: profile, fused-head pipeline; the head's split", phase6g)
     if "lpipe" in res:
@@ -1830,7 +1902,8 @@ def main() -> int:
               res["qblock_ms"][2], res["qblock_plain_ms"][2], res["qblock_bound"][2]),
         entry("qstem_conv", "qstem.cu", "pallas_qstem.py:322", "qstem_conv", fpn_err["qstem"], *fpn_ms["qstem"][:2],
               fpn_bound["qstem"]),
-        entry("qmatmul", "qconv.cu", "pallas_qconv.py:64", "qmatmul", fpn_err["qmatmul"], *fpn_ms["qmatmul"][:2],
+        entry("qmatmul", "qconv.cu", "pallas_qconv.py:64", "qmatmul", max(fpn_err["qmatmul"], bk_err["qconv1x1"]),
+              *fpn_ms["qmatmul"][:2],
               fpn_bound["qmatmul"], fpn_ms["qmatmul"][2]),
         entry("qhisblock", "qhis.cu", "pallas_qhis.py:196", "qhisblock", fpn_err["qhisblock"],
               *fpn_ms["qhisblock"][:2], fpn_bound["qhisblock"]),

@@ -1,8 +1,16 @@
-// Kernel C's band body, shared by kernel C (csrc/qblock.cu, one launch per
-// bottleneck) and K13 (csrc/qchain.cu, one launch per chain of bottlenecks):
-// one thread block computes one (image, band of output rows) of one int8
-// bottleneck.  csrc/qblock.cu's header note gives the data rule, the design
-// and the bit-exactness argument.
+// K13's band body (csrc/qchain.cu, one launch per chain of bottlenecks): one
+// thread block computes one (image, band of output rows) of one int8
+// bottleneck, the function of kernel C (csrc/qblock.cu, whose header note
+// gives the data rule and the bit-exactness argument), on the CUDA cores.
+//
+// conv1 is recomputed on the band's input rows plus the 3x3 halo ((rows-1)*s
+// + 3 input rows) into shared memory, with a zero column on each side and
+// zero rows outside the image: conv2 pads in the a1 domain, as the reference
+// does.  Then conv2 over the band into shared memory, then conv3 + shortcut
+// straight to global memory.  A thread computes 8 positions x 4 output
+// channels per step with __dp4a over 16-byte words (int32 accumulation,
+// exact), so channel counts must be multiples of 16.  Weights are
+// [Cout][taps][Cin] int8 and are read through L1/L2.
 #pragma once
 
 #include <cuda_runtime.h>

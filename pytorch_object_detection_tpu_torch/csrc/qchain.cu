@@ -13,16 +13,16 @@
 // other rows without a grid-wide barrier, so the chain is a cooperative
 // launch: a grid of exactly the thread blocks that can be resident at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs) walks the (image,
-// band) work items of each bottleneck in turn with kernel C's band body
-// (csrc/qblock_band.cuh), then meets at cooperative_groups::this_grid().sync()
+// band) work items of each bottleneck in turn with the band body of
+// csrc/qblock_band.cuh (one block per image and band of output rows, the
+// function of kernel C), then meets at cooperative_groups::this_grid().sync()
 // before the next bottleneck.  Intermediate activations go to two ping-pong
 // scratch buffers in device memory (the 50 MB L2 holds much of a B=8
-// segment's traffic).  Each bottleneck's band height is kernel C's own choice
-// (ops/qblock.pick_rows), and kernel C's result does not depend on it, so K13
-// gives kernel C's int8 values bit for bit.
+// segment's traffic).  Each bottleneck's band height comes from
+// ops/qchain.pick_rows; the result does not depend on it, and K13 gives
+// kernel C's int8 values bit for bit.
 //
-// Bound on the card: kernel C's, int8 multiply-adds on the CUDA cores
-// (dp4a).  The TPU's reason for the chain (no HBM round trip between blocks)
+// Bound on the card: int8 multiply-adds on the CUDA cores (dp4a).  The TPU's reason for the chain (no HBM round trip between blocks)
 // buys little here, where kernel C runs far below the memory bound; what it
 // saves is 15 launch gaps per forward, against a grid barrier per block.
 #include <cooperative_groups.h>

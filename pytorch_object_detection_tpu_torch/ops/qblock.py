@@ -4,7 +4,9 @@ Replaces ``pytorch_object_detection_tpu/ops/pallas_qblock.py``:
 ``qbottleneck`` (K2, the stride-1 blocks) and ``qbottleneck_s2`` (K3, the
 three stride-2 blocks).  One kernel serves both, with the stride as an
 argument.  The source note in ``csrc/qblock.cu`` says what bounds it on the
-card and how the design answers.
+card and how the design answers: clusters of thread blocks, each cluster
+one spatial tile of 8 x tw output positions, every conv on the int8 tensor
+cores.  :func:`pick_tile` chooses the tile width and the cluster size.
 
 Layouts: activations int8 NHWC ``[B, H, W, C]``, contiguous.  Weights int8
 with each output channel's K-vector contiguous (the JAX HWIO kernels
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,7 +46,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library(SOURCE, NVCC_FLAGS)
     fn = lib.qblock_launch
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -54,11 +56,63 @@ def out_hw(h: int, w: int, stride: int):
     return (h - 1) // stride + 1, (w - 1) // stride + 1
 
 
-def smem_bytes(rows: int, stride: int, w: int, cw: int) -> int:
-    """Kernel C's shared memory for a band of ``rows`` output rows: a1 with
-    its halo rows and two zero columns, then a2."""
-    wo = (w - 1) // stride + 1
-    return ((rows - 1) * stride + 3) * (w + 2) * cw + rows * wo * cw
+TILE_ROWS = 8  # kTH in csrc/qblock.cu
+TILE_WIDTHS = (16, 8)
+SPLITS = (1, 2, 4, 8)  # blocks per tile: a thread block cluster, at most the portable 8
+RING_BYTES = 48 * 1024  # kRingBytes in csrc/qblock.cu: the cp.async ring
+
+
+def smem_bytes(stride: int, tw: int, cw: int) -> int:
+    """Kernel C's shared memory per block for tiles of 8 x ``tw`` output
+    positions (``smem_bytes`` in ``csrc/qblock.cu``): a1 on the tile
+    and its 3x3 halo, a2 on the tile, and the cp.async ring."""
+    halo = ((TILE_ROWS - 1) * stride + 3) * ((tw - 1) * stride + 3)
+    return halo * cw + TILE_ROWS * tw * cw + RING_BYTES
+
+
+def tile_grid(ho: int, wo: int, tw: int):
+    """(tile rows, tile columns) of one image's ``ho x wo`` output map."""
+    return -(-ho // TILE_ROWS), -(-wo // tw)
+
+
+def recompute_factor(h: int, w: int, stride: int, tw: int) -> float:
+    """conv1's positions computed by kernel C on an ``h x w`` map (each
+    tile's halo, whole) over the ``h * w`` that the block's conv1 has."""
+    ty, tx = tile_grid(*out_hw(h, w, stride), tw)
+    halo = ((TILE_ROWS - 1) * stride + 3) * ((tw - 1) * stride + 3)
+    return ty * tx * halo / (h * w)
+
+
+@functools.lru_cache(maxsize=256)
+def pick_tile(batch: int, h: int, w: int, cw: int, cout: int, stride: int, sm_count: int, smem_max: int):
+    """``(tw, split)`` for kernel C: tiles of 8 x ``tw`` output positions,
+    ``split`` blocks (a cluster) per tile, each taking 1/split of every
+    conv's output channels.  Of (16, 1), (8, 1), (8, 2), (8, 4), (8, 8), the
+    ones that fit in shared memory: the first that gives at least one block
+    per SM with two blocks' shared memory on an SM (an SM holds ``smem_max``
+    + 1 KB, each block 1 KB more than it asks for: 228 KB and 227 KB on an
+    H100); else the first that gives one block per SM; else the one with
+    the most blocks."""
+    ho, wo = out_hw(h, w, stride)
+    options = [(tw, sp) for tw in TILE_WIDTHS for sp in SPLITS
+               if (tw == 8 or sp == 1) and cw % (16 * sp) == 0 and cout % (16 * sp) == 0
+               and smem_bytes(stride, tw, cw) <= smem_max]
+    if not options:
+        raise ValueError(f"kernel C: a tile of a block with {cw} channels at stride {stride} needs "
+                         f"{smem_bytes(stride, 8, cw)} bytes of shared memory (> {smem_max})")
+
+    def ctas(opt):
+        ty, tx = tile_grid(ho, wo, opt[0])
+        return batch * ty * tx * opt[1]
+
+    def two_per_sm(opt):
+        return 2 * (smem_bytes(stride, opt[0], cw) + 1024) <= smem_max + 1024
+
+    for ok in (lambda o: ctas(o) >= sm_count and two_per_sm(o), lambda o: ctas(o) >= sm_count):
+        for opt in options:
+            if ok(opt):
+                return opt
+    return max(options, key=ctas)
 
 
 def card_limits(device: torch.device):
@@ -70,21 +124,6 @@ def card_limits(device: torch.device):
 def _card_limits(index: int):
     props = torch.cuda.get_device_properties(index)
     return props.multi_processor_count, props.shared_memory_per_block_optin
-
-
-def pick_rows(batch: int, h: int, w: int, cw: int, stride: int, sm_count: int, smem_max: int) -> int:
-    """Output rows per thread block: the largest of 8, 4, 2, 1 that leaves two
-    blocks' shared memory per SM and at least two waves of blocks on the
-    card; else the smallest band (most blocks) that fits."""
-    ho = (h - 1) // stride + 1
-    fits = [r for r in (8, 4, 2, 1) if r <= max(ho, 1) and smem_bytes(r, stride, w, cw) <= smem_max]
-    if not fits:
-        raise ValueError(f"kernel C: one output row of a {h}x{w} map with {cw} channels needs "
-                         f"{smem_bytes(1, stride, w, cw)} bytes of shared memory (> {smem_max})")
-    for r in fits:
-        if smem_bytes(r, stride, w, cw) <= smem_max // 2 and batch * -(-ho // r) >= 2 * sm_count:
-            return r
-    return fits[-1]
 
 
 def qbottleneck_plain(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, stride: int = 1, short_mul=None,
@@ -123,7 +162,7 @@ def _check(x, w1, w2, w3, vecs, stride, wd, short_mul) -> None:
         raise ValueError(f"stride must be 1 or 2; got {stride}")
 
 
-def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows: Optional[int]) -> torch.Tensor:
+def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, tile: Optional[Tuple[int, int]]) -> torch.Tensor:
     """Kernel C on CUDA tensors (checked by ``_check`` first)."""
     tensors = [x, w1, w2, w3, *vecs.values()] + ([wd] if wd is not None else [short_mul])
     if any(t.device != x.device for t in tensors):
@@ -138,14 +177,18 @@ def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows: Optional[int]) -> 
         raise ValueError(f"kernel C needs channel counts divisible by 16; got {cin}, {cw}, {cout}")
     ho, wo = out_hw(h, w, stride)
     sm_count, smem_max = card_limits(x.device)
-    rows = pick_rows(b, h, w, cw, stride, sm_count, smem_max) if rows is None else rows
-    if not 1 <= rows or smem_bytes(rows, stride, w, cw) > smem_max:
-        raise ValueError(f"rows={rows}: kernel C's band does not fit in shared memory")
+    tw, split = pick_tile(b, h, w, cw, cout, stride, sm_count, smem_max) if tile is None else tile
+    if tw not in TILE_WIDTHS or split not in SPLITS or cw % (16 * split) or cout % (16 * split):
+        raise ValueError(f"tile={tile}: kernel C takes tiles of width 8 or 16 and 1, 2, 4 or 8 blocks per tile "
+                         f"that divide Cw={cw} and Cout={cout} into multiples of 16")
+    if smem_bytes(stride, tw, cw) > smem_max:
+        raise ValueError(f"tile={tile}: kernel C's tile does not fit in shared memory")
     out = torch.empty((b, ho, wo, cout), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
-    if b > 65535:
-        raise ValueError(f"kernel C takes at most 65535 images per call; got {b}")
+    ty, tx = tile_grid(ho, wo, tw)
+    if b * ty * tx * split > 2**31 - 1:
+        raise ValueError(f"kernel C: {b * ty * tx * split} blocks exceed one launch")
     ptr = lambda t: None if t is None else t.data_ptr()
     ad = vecs.get("ad", short_mul)
     lib = _lib()
@@ -153,13 +196,13 @@ def _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows: Optional[int]) -> 
         err = lib.qblock_launch(
             ptr(x), ptr(w1), ptr(w2), ptr(w3), ptr(wd), ptr(vecs["a1"]), ptr(vecs["b1"]), ptr(vecs["a2"]),
             ptr(vecs["b2"]), ptr(vecs["a3"]), ptr(vecs["b3"]), ptr(ad), ptr(vecs.get("bd")), ptr(out),
-            b, h, w, cin, cw, cout, stride, rows, torch.cuda.current_stream().cuda_stream)
+            b, h, w, cin, cw, cout, stride, tw, split, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"kernel C launch failed: cudaError {err}")
     return out
 
 
-def _run(x, w1, w2, w3, vecs, stride, wd, short_mul, rows, plain, counter) -> torch.Tensor:
+def _run(x, w1, w2, w3, vecs, stride, wd, short_mul, tile, plain, counter) -> torch.Tensor:
     """The plain version on a CPU tensor (or with ``plain=True``), else kernel
     C; ``counter`` is the wrapper whose ``launches`` a launch adds one to."""
     if short_mul is not None and not isinstance(short_mul, torch.Tensor):
@@ -169,38 +212,38 @@ def _run(x, w1, w2, w3, vecs, stride, wd, short_mul, rows, plain, counter) -> to
         return qbottleneck_plain(x, w1, w2, w3, **vecs, stride=stride, short_mul=short_mul, wd=wd)
     if x.device.type != "cuda":
         raise ValueError(f"kernel C runs on CUDA tensors; got {x.device}")
-    out = _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, rows)
+    out = _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, tile)
     if out.numel():
         counter.launches += 1
     return out
 
 
 def qbottleneck(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, short_mul=None, wd=None, ad=None, bd=None,
-                rows: Optional[int] = None, plain: bool = False) -> torch.Tensor:
+                tile: Optional[Tuple[int, int]] = None, plain: bool = False) -> torch.Tensor:
     """Fused stride-1 bottleneck (K2): x ``[B, H, W, Cin]`` int8 ->
     ``[B, H, W, Cout]`` int8.  Identity shortcut: ``short_mul`` (requires
     Cin == Cout); projection: ``wd``, ``ad``, ``bd``.
 
     On a CPU tensor this is :func:`qbottleneck_plain`; on a CUDA tensor it
     launches kernel C or raises.  ``plain=True`` runs the plain version on
-    any device, for the comparison only.  ``rows`` overrides the band height
-    (:func:`pick_rows`); the result does not depend on it.
+    any device, for the comparison only.  ``tile`` ``(tw, split)`` overrides
+    :func:`pick_tile`; the result does not depend on it.
     ``qbottleneck.launches`` counts kernel launches.
     """
     vecs = dict(a1=a1, b1=b1, a2=a2, b2=b2, a3=a3, b3=b3)
     if wd is not None:
         vecs.update(ad=ad, bd=bd)
-    return _run(x, w1, w2, w3, vecs, 1, wd, short_mul, rows, plain, qbottleneck)
+    return _run(x, w1, w2, w3, vecs, 1, wd, short_mul, tile, plain, qbottleneck)
 
 
-def qbottleneck_s2(x, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd, *, rows: Optional[int] = None,
-                   plain: bool = False) -> torch.Tensor:
+def qbottleneck_s2(x, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd, *,
+                   tile: Optional[Tuple[int, int]] = None, plain: bool = False) -> torch.Tensor:
     """Fused stride-2 bottleneck with its projection shortcut (K3):
     x ``[B, H, W, Cin]`` int8 -> ``[B, (H+1)//2, (W+1)//2, Cout]`` int8.
     Device rules as :func:`qbottleneck`; ``qbottleneck_s2.launches`` counts
     kernel launches."""
     vecs = dict(a1=a1, b1=b1, a2=a2, b2=b2, a3=a3, b3=b3, ad=ad, bd=bd)
-    return _run(x, w1, w2, w3, vecs, 2, wd, None, rows, plain, qbottleneck_s2)
+    return _run(x, w1, w2, w3, vecs, 2, wd, None, tile, plain, qbottleneck_s2)
 
 
 qbottleneck.launches = 0

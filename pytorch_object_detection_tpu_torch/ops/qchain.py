@@ -5,8 +5,8 @@ runs a backbone segment of bottlenecks ([layer1_0 .. layer2_3] -> C3,
 [layer3_*] -> C4, [layer4_*] -> C5) as one kernel with the intermediate
 activations in VMEM.  It computes exactly what kernel C (``ops/qblock.py``)
 computes block after block: a cooperative launch walks each bottleneck's
-(image, band) items with kernel C's band body and meets at a grid-wide
-barrier before the next; the intermediates go to two ping-pong scratch
+(image, band) items with the band body of ``csrc/qblock_band.cuh`` and meets
+at a grid-wide barrier before the next; the intermediates go to two ping-pong scratch
 buffers in device memory.  ``csrc/qchain.cu`` says why, and what bounds it.
 
 The JAX package's ``plan_chains`` splits a segment to fit a VMEM budget of
@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from pytorch_object_detection_tpu_torch.ops.qblock import _check, card_limits, out_hw, pick_rows, qbottleneck_plain
+from pytorch_object_detection_tpu_torch.ops.qblock import _check, card_limits, out_hw, qbottleneck_plain
 
 SOURCE = "qchain.cu"
 # no FMA contraction, as kernel C, whose band body this runs
@@ -49,6 +49,29 @@ def _lib() -> ctypes.CDLL:
                                   ctypes.c_void_p]
     lib.qchain_launch.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(rows: int, stride: int, w: int, cw: int) -> int:
+    """K13's shared memory for a band of ``rows`` output rows (the band body
+    of ``csrc/qblock_band.cuh``): a1 with its halo rows and two zero
+    columns, then a2."""
+    wo = (w - 1) // stride + 1
+    return ((rows - 1) * stride + 3) * (w + 2) * cw + rows * wo * cw
+
+
+def pick_rows(batch: int, h: int, w: int, cw: int, stride: int, sm_count: int, smem_max: int) -> int:
+    """Output rows per band of K13's band body: the largest of 8, 4, 2, 1
+    that leaves two blocks' shared memory per SM and at least two waves of
+    blocks on the card; else the smallest band (most blocks) that fits."""
+    ho = (h - 1) // stride + 1
+    fits = [r for r in (8, 4, 2, 1) if r <= max(ho, 1) and smem_bytes(r, stride, w, cw) <= smem_max]
+    if not fits:
+        raise ValueError(f"K13: one output row of a {h}x{w} map with {cw} channels needs "
+                         f"{smem_bytes(1, stride, w, cw)} bytes of shared memory (> {smem_max})")
+    for r in fits:
+        if smem_bytes(r, stride, w, cw) <= smem_max // 2 and batch * -(-ho // r) >= 2 * sm_count:
+            return r
+    return fits[-1]
 
 
 def chain_shapes(x_shape, blocks: Chain) -> List[Tuple[Tuple[int, int, int], Tuple[int, int, int]]]:

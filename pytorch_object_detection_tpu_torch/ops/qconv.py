@@ -13,7 +13,11 @@ Layouts: ``x [M, K]`` int8 (``qconv1x1``: NHWC ``[B, H, W, K]``), ``w
 [N, K]`` int8 (each output channel's K-vector contiguous, the port's 1x1
 layout), ``a``, ``b`` f32 ``[N]``, ``res [M, N]`` int8 and ``res_scale`` a
 0-d f32 tensor.  K must be a multiple of 16 on the card.  The plain version
-is ``torch._int_mm`` (exact int32) and the same epilogue.
+is ``torch._int_mm`` (exact int32) and the same epilogue.  K4 runs on the
+int8 tensor cores in tiles of 128 x 128 or 128 x 64 outputs;
+:func:`pick_qmm_tile` chooses the tile and, where M x N has too few tiles
+to fill the card, splits K across thread blocks (int32 partial sums, exact,
+added in a second pass).
 
 K11 (``csrc/qconv3.cu``), :func:`qconv3x3`, replaces ``pallas_qconv.py:
 qconv3x3``: the stride-1 SAME 3x3 conv with the ReLU epilogue, NHWC ``[B, H,
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE, NVCC_FLAGS)
-    lib.qmm_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.qmm_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.qmm_launch.restype = ctypes.c_int
     return lib
 
@@ -61,6 +65,39 @@ def _lib3() -> ctypes.CDLL:
     lib.qconv3_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.qconv3_launch.restype = ctypes.c_int
     return lib
+
+
+QMM_BM = 128  # kQmmBM in csrc/qmm_tile.cuh
+QMM_BNS = (128, 64)
+QMM_STEP = 64  # K bytes per pipeline step (kStepBytes)
+QMM_STAGES = 4  # kQmmStages
+
+
+def qmm_smem_bytes(bn: int) -> int:
+    """K4's shared memory per block for 128 x ``bn`` tiles
+    (``QmmShape<BN>::kSmem``): the cp.async ring of A and B strips, which
+    then holds the tile's int32 sums (rows padded by 8 words)."""
+    return max(QMM_STAGES * (QMM_BM + bn) * QMM_STEP, QMM_BM * (bn + 8) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def pick_qmm_tile(m: int, n: int, k: int, sm_count: int, smem_max: int) -> Tuple[int, int, int]:
+    """``(bn, splits, steps_per)`` for K4 on ``[M, K] x [N, K]^T``: tiles of
+    128 x ``bn``, the first of 128 and 64 whose tile count reaches one block
+    per SM; where neither does, 128 x 64 tiles with K split into ``splits``
+    slices of ``steps_per`` 64-byte steps (the last one the rest), enough
+    slices to reach one block per SM where K has that many steps."""
+    steps = -(-k // QMM_STEP)
+    fits = [bn for bn in QMM_BNS if qmm_smem_bytes(bn) <= smem_max]
+    if not fits:
+        raise ValueError(f"K4: a tile needs {qmm_smem_bytes(QMM_BNS[-1])} bytes of shared memory (> {smem_max})")
+    for bn in fits:
+        if -(-m // QMM_BM) * -(-n // bn) >= sm_count:
+            return bn, 1, steps
+    bn = fits[-1]
+    want = min(-(-sm_count // (-(-m // QMM_BM) * -(-n // bn))), steps)
+    per = max(1, steps // want)
+    return bn, -(-steps // per), per
 
 
 def qmatmul_plain(x, w, a, b, *, relu: bool = True, res=None, res_scale=None) -> torch.Tensor:
@@ -91,12 +128,15 @@ def _check(x, w, a, b, res, res_scale) -> None:
 
 
 def qmatmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, relu: bool = True,
-            res: Optional[torch.Tensor] = None, res_scale=None, plain: bool = False) -> torch.Tensor:
+            res: Optional[torch.Tensor] = None, res_scale=None, tile: Optional[Tuple[int, int]] = None,
+            plain: bool = False) -> torch.Tensor:
     """int8 ``x [M, K]`` x ``w [N, K]^T`` -> int8 ``[M, N]`` with the fused
     epilogue (module docstring).  On a CPU tensor this is
     :func:`qmatmul_plain`; on a CUDA tensor it launches K4 or raises.
     ``plain=True`` runs the plain version on any device, for the comparison
-    only.  ``qmatmul.launches`` counts kernel launches."""
+    only.  ``tile`` ``(bn, splits)`` overrides :func:`pick_qmm_tile`; the
+    result does not depend on it.  ``qmatmul.launches`` counts calls that
+    launch K4: one per call, also when split K adds its second pass."""
     if res is not None and not isinstance(res_scale, torch.Tensor):
         res_scale = torch.tensor(float(res_scale), dtype=torch.float32, device=x.device)
     _check(x, w, a, b, res, res_scale)
@@ -117,12 +157,23 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, 
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
-    if -(-n // 64) > 65535:
-        raise ValueError(f"K4 takes at most {65535 * 64} output channels; got {n}")
+    sm_count, smem_max = card_limits(x.device)
+    bn, splits, per = pick_qmm_tile(m, n, k, sm_count, smem_max)
+    if tile is not None:
+        bn, splits = tile
+        steps = -(-k // QMM_STEP)
+        if bn not in QMM_BNS or not 1 <= splits <= steps:
+            raise ValueError(f"tile={tile}: K4 takes tiles of 128 x 128 or 128 x 64 and 1 to {steps} K slices")
+        per = -(-steps // splits)
+        splits = -(-steps // per)
+    if -(-n // bn) > 65535:
+        raise ValueError(f"K4 takes at most {65535 * bn} output channels; got {n}")
+    ws = torch.empty(splits * m * n, dtype=torch.int32, device=x.device) if splits > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):  # the launch goes to the current device
         err = _lib().qmm_launch(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), ptr(res),
-                                ptr(res_scale if res is not None else None), out.data_ptr(), m, n, k, int(relu),
+                                ptr(res_scale if res is not None else None), out.data_ptr(),
+                                ptr(ws), m, n, k, int(relu), bn, splits, per,
                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")

@@ -1,0 +1,239 @@
+"""Time kernel C and K4 of the PyTorch port on one NVIDIA GPU, per shape.
+
+Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
+ResNet-50 bottlenecks of the 512x512 canvas, and K4 (``ops/qconv.qmatmul``)
+at the HisFPN's three laterals and the per-conv backend's 36 bottleneck 1x1
+convs, each at B=8 and B=64, on random int8 inputs and weights from a seed.
+Only the wrappers' public arguments are used, so the same script times the
+package of another checkout of the repository (``--root``), e.g. the parent
+commit unpacked with ``git archive``; run the two in turns (a, b, b, a) in
+one run on one card to compare them::
+
+    python3 scripts/port_kernel_times.py --root . --out times.json
+
+``--sweep`` (this tree's package only: it needs the ``tile=`` override of
+``qbottleneck``) times kernel C instead at every (tile width, blocks per
+tile) that fits, per block shape at B=8 and B=64, replayed from a CUDA
+graph, and marks ``ops/qblock.pick_tile``'s choice with ``*``.
+
+Each time is ms per call between CUDA events, median of 5 repetitions,
+taken two ways: calls issued back to back from Python (the wrapper's host
+time counts where the card waits for it), and the same calls replayed
+from a CUDA graph (the card's time alone).  Prints one line per shape and,
+last, a JSON object with every time and the card's name and power limit.
+Needs a CUDA device; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+
+def cuda_ms(fn, iters: int, reps: int = 5) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return statistics.median(per_call)
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """ms per call of ``iters`` calls captured in one CUDA graph and
+    replayed: device time, with no host launch cost between the calls;
+    NaN where the calls cannot be captured."""
+    import torch
+
+    try:
+        return _graph_ms(fn, iters, reps)
+    except RuntimeError as err:
+        print(f"  not measured: the calls could not be captured in a CUDA graph ({str(err).splitlines()[0]})")
+        torch.cuda.synchronize()
+        return float("nan")
+
+
+def _graph_ms(fn, iters: int, reps: int) -> float:
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(per_call)
+
+
+def block_shapes():
+    """(scope, H, W, Cin, Cw, Cout, stride) of the 16 bottlenecks at 512x512 (the stem divides by 4)."""
+    shapes, h, cin = [], 128, 64
+    for stage, (blocks, cw) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for b in range(blocks):
+            stride = 2 if (b == 0 and stage > 0) else 1
+            shapes.append((f"layer{stage + 1}_{b}", h, h, cin, cw, 4 * cw, stride))
+            h, cin = (h - 1) // stride + 1, 4 * cw
+    return shapes
+
+
+def sweep(qblock, block_operands, card) -> int:
+    """Kernel C at every tile width and cluster size that fits, per block
+    shape, B=8 and B=64, replayed from CUDA graphs; ``*`` marks the
+    chooser's pick.  Prints the sums of the fastest and of the picked."""
+    import torch
+
+    sm_count, smem_max = qblock.card_limits(torch.device("cuda"))
+    best, picked = {8: 0.0, 64: 0.0}, {8: 0.0, 64: 0.0}
+    with torch.inference_mode():
+        for (scope, h, w, cin, cw, cout, stride), x64, call in block_operands():
+            for b in (8, 64):
+                x = x64[:b].contiguous()
+                pick = qblock.pick_tile(b, h, w, cw, cout, stride, sm_count, smem_max)
+                times = {}
+                for tw in (16, 8):
+                    for split in (1, 2, 4, 8):
+                        if cw % (16 * split) or cout % (16 * split) or qblock.smem_bytes(stride, tw, cw) > smem_max:
+                            continue
+                        times[(tw, split)] = graph_ms(lambda: call(x, tile=(tw, split)), iters=10 if b == 8 else 3)
+                line = ", ".join(f"8x{tw}/{split} {v:.4f}{'*' if (tw, split) == pick else ''}"
+                                 for (tw, split), v in times.items())
+                print(f"kernel C {scope} B={b}: {line}", flush=True)
+                best[b] += min(times.values())
+                picked[b] += times[pick]
+    for b in (8, 64):
+        print(f"kernel C, the 16 blocks at B={b}: fastest tiles {best[b]:.4f} ms, picked {picked[b]:.4f} ms {card}")
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".", help="checkout whose pytorch_object_detection_tpu_torch is timed")
+    parser.add_argument("--out", default=None, help="also write the JSON object here")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from pytorch_object_detection_tpu_torch.ops import qblock, qconv
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    card = smi[0] if smi else "not measured"
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-16, 16, shape).astype(np.int8)).to(dev)
+
+    def vec(n, k):
+        a = torch.from_numpy((np.abs(rng.normal(size=n)) * 0.06 / np.sqrt(k) + 1e-4).astype(np.float32)).to(dev)
+        return a, torch.from_numpy(rng.normal(0.0, 5.0, n).astype(np.float32)).to(dev)
+
+    short_mul = torch.tensor(0.7, dtype=torch.float32, device=dev)
+
+    def block_operands():
+        """(shape, x [64, H, W, Cin], call(x, **kw)) of each bottleneck, weights from the seed."""
+        for shape in block_shapes():
+            scope, h, w, cin, cw, cout, stride = shape
+            w1, w2, w3 = i8(cw, cin), i8(cw, 3, 3, cw), i8(cout, cw)
+            (a1, b1), (a2, b2), (a3, b3) = vec(cw, cin), vec(cw, 9 * cw), vec(cout, cw)
+            proj = scope.endswith("_0")
+            wd = i8(cout, cin) if proj else None
+            ad, bd = vec(cout, cin)
+            x64 = torch.from_numpy(rng.integers(-127, 128, (64, h, w, cin)).astype(np.int8)).to(dev)
+            if stride == 2:
+                call = lambda x, wd=wd, **kw: qblock.qbottleneck_s2(x, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd,
+                                                                    **kw)
+            elif proj:
+                call = lambda x, wd=wd, **kw: qblock.qbottleneck(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, wd=wd, ad=ad,
+                                                                 bd=bd, **kw)
+            else:
+                call = lambda x, **kw: qblock.qbottleneck(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, short_mul=short_mul,
+                                                          **kw)
+            yield shape, x64, call
+
+    if args.sweep:
+        return sweep(qblock, block_operands, card)
+    result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}}
+    with torch.inference_mode():
+        for (scope, *_), x64, call in block_operands():
+            for b in (8, 64):
+                x = x64[:b].contiguous()
+                fn = lambda: call(x)
+                ms = cuda_ms(fn, iters=10 if b == 8 else 3)
+                dev_ms = graph_ms(fn, iters=10 if b == 8 else 3)
+                result["kernel_c"][f"{scope}/B{b}"] = ms
+                result["kernel_c"][f"{scope}/B{b}/graph"] = dev_ms
+                print(f"kernel C {scope} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {dev_ms:.4f} ms", flush=True)
+        for b in (8, 64):
+            tot = [sum(v for k, v in result["kernel_c"].items() if k.endswith(f"/B{b}{sfx}")) for sfx in ("", "/graph")]
+            print(f"kernel C, the 16 blocks at B={b}: {tot[0]:.4f} ms, graph {tot[1]:.4f} ms {card}")
+
+        gemms = [(f"tf{i + 1}", hw * hw, c, 256) for i, (hw, c) in enumerate(((16, 2048), (32, 1024), (64, 512)))]
+        for scope, h, w, cin, cw, cout, stride in block_shapes():
+            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+            gemms += [(f"{scope}.conv1", h * w, cin, cw), (f"{scope}.conv3", ho * wo, cw, cout)]
+            if scope.endswith("_0"):
+                gemms.append((f"{scope}.shortcut", ho * wo, cin, cout))
+        for b in (8, 64):
+            for name, m_img, k, n in gemms:
+                m = b * m_img
+                x, wt = i8(m, k), i8(n, k)
+                a, bb = vec(n, k)
+                it = 10 if b == 8 else 3
+                times = {"": cuda_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
+                         "/graph": graph_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
+                         "/int_mm": cuda_ms(lambda: torch._int_mm(x, wt.t()), iters=it),
+                         "/int_mm/graph": graph_ms(lambda: torch._int_mm(x, wt.t()), iters=it)}
+                for sfx, v in times.items():
+                    result["k4"][f"{name}/B{b}{sfx}"] = v
+                print(f"K4 {name} B={b} [{m}, {k}] x [{k}, {n}]: {times['']:.4f} ms (graph {times['/graph']:.4f}), "
+                      f"torch._int_mm {times['/int_mm']:.4f} ms (graph {times['/int_mm/graph']:.4f})", flush=True)
+            for sfx in ("", "/graph"):
+                lat = sum(result["k4"][f"tf{i}/B{b}{sfx}"] for i in (1, 2, 3))
+                lib = sum(result["k4"][f"tf{i}/B{b}/int_mm{sfx}"] for i in (1, 2, 3))
+                conv = sum(result["k4"][f"{g[0]}/B{b}{sfx}"] for g in gemms[3:])
+                conv_lib = sum(result["k4"][f"{g[0]}/B{b}/int_mm{sfx}"] for g in gemms[3:])
+                print(f"K4 at B={b}{' graph' if sfx else ''}: the 3 laterals {lat:.4f} ms (torch._int_mm {lib:.4f}), "
+                      f"the 36 per-conv 1x1s {conv:.4f} ms (torch._int_mm {conv_lib:.4f}) {card}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -169,36 +169,62 @@ def _qblock_case(cin, cw, cout, projection, b, h, w, seed, device):
 @pytest.mark.parametrize("case", QBLOCK_CASES, ids=[c[0] for c in QBLOCK_CASES])
 def test_qblock_kernel_matches_plain_exactly(cuda, case):
     """0 differing int8 elements against the plain version on the card and
-    on the CPU, whatever the band height (``rows`` 3 leaves a ragged last
-    band); each launch adds one to its own wrapper's count only."""
+    on the CPU, on an odd batch, whatever the tile (``tile`` overrides the
+    chooser: 8x8 or 8x16 tiles, one or two blocks per tile; the maps leave
+    ragged tiles); each launch adds one to its own wrapper's count only."""
     name, h, w, cin, cw, cout, stride, projection = case
-    blk, x = _qblock_case(cin, cw, cout, projection, 2, h, w, sum(map(ord, name)), cuda)
+    blk, x = _qblock_case(cin, cw, cout, projection, 3, h, w, sum(map(ord, name)), cuda)
     want = run_port_block(blk, x, stride, plain=True)
     cpu = run_port_block({k: v.cpu() for k, v in blk.items()}, x.cpu(), stride)
     assert torch.equal(want.cpu(), cpu)
     counter, other = (qbottleneck_s2, qbottleneck) if stride == 2 else (qbottleneck, qbottleneck_s2)
-    for rows in (None, 1, 3):
+    for tile in (None, (8, 1), (16, 1), (8, 2)):
+        if tile is not None and (cw % (16 * tile[1]) or cout % (16 * tile[1])):
+            continue
         before = (counter.launches, other.launches)
-        got = run_port_block(blk, x, stride, rows=rows)
+        got = run_port_block(blk, x, stride, tile=tile)
         torch.cuda.synchronize()
         assert (counter.launches, other.launches) == (before[0] + 1, before[1])
         assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
         n_diff = int((got != want).sum())
-        assert n_diff == 0, f"{name} rows={rows}: {n_diff} of {want.numel()} int8 elements differ"
+        assert n_diff == 0, f"{name} tile={tile}: {n_diff} of {want.numel()} int8 elements differ"
     assert 0 < (want > 0).float().mean() and (want == 127).float().mean() < 0.05  # not degenerate
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 8])
 @pytest.mark.parametrize("shape", resnet50_block_shapes(), ids=[s[0] for s in resnet50_block_shapes()])
-def test_qblock_kernel_at_resnet50_shapes(cuda, shape):
-    """The 16 bottlenecks of ResNet-50 at the 512x512 canvas, B=2: 0 differing elements."""
+def test_qblock_kernel_at_resnet50_shapes(cuda, shape, batch):
+    """The 16 bottlenecks of ResNet-50 at the 512x512 canvas, B=2 and B=8,
+    on the chooser's tile: 0 differing elements."""
     scope, h, w, cin, cw, cout, stride = shape
-    blk, x = _qblock_case(cin, cw, cout, scope.endswith("_0"), 2, h, w, len(scope) + h, cuda)
+    blk, x = _qblock_case(cin, cw, cout, scope.endswith("_0"), batch, h, w, len(scope) + h, cuda)
     got = run_port_block(blk, x, stride)
     want = run_port_block(blk, x, stride, plain=True)
     torch.cuda.synchronize()
-    assert got.shape == (2, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    assert got.shape == (batch, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
     assert torch.equal(got, want), f"{scope}: {int((got != want).sum())} int8 elements differ"
+
+
+# (scope, split): clusters of 2, 4 and 8 blocks per 8x8 tile on the blocks
+# of stages 2-4, stride 1 and 2, and a ragged 13x11 map
+CLUSTER_CASES = [(scope, split) for scope in ("layer2_0", "layer3_1", "layer4_0", "layer4_1") for split in (2, 4, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=[f"{c[0]}-s{c[1]}" for c in CLUSTER_CASES])
+def test_qblock_kernel_cluster_split(cuda, case):
+    """A cluster of 2, 4 or 8 blocks per tile, each computing 1/split of
+    every conv's channels and sharing a1 and a2 through distributed shared
+    memory: 0 differing elements, at the stage's map and at a ragged one."""
+    scope, split = case
+    _, h, w, cin, cw, cout, stride = next(s for s in resnet50_block_shapes() if s[0] == scope)
+    for hh, ww, batch in ((h, w, 2), (13, 11, 3)):
+        blk, x = _qblock_case(cin, cw, cout, scope.endswith("_0"), batch, hh, ww, split + hh, cuda)
+        got = run_port_block(blk, x, stride, tile=(8, split))
+        want = run_port_block(blk, x, stride, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{scope} {hh}x{ww} split={split}: {int((got != want).sum())} differ"
 
 
 @pytest.mark.cuda
@@ -268,36 +294,69 @@ def test_qstem_kernel_matches_plain_exactly(cuda, shape):
     assert (want > 0).float().mean() > 0.05
 
 
-# (M, K, N): the laterals tf1..tf3 at the 512 canvas, B=2, and a ragged case
-QMM_SHAPES = [(512, 2048, 256), (2048, 1024, 256), (8192, 512, 256), (37, 48, 24)]
+# (M, K, N): the laterals tf1..tf3 at the 512 canvas, B=2 (tf1 on split K),
+# and ragged M and N, one on split K
+QMM_SHAPES = [(512, 2048, 256), (2048, 1024, 256), (8192, 512, 256), (37, 48, 24), (1000, 2064, 136)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", QMM_SHAPES, ids=["tf1", "tf2", "tf3", "ragged"])
-def test_qmm_kernel_matches_plain_exactly(cuda, shape):
-    """K4 with and without the residual, with and without ReLU: 0 differing
-    elements against ``torch._int_mm`` + the oracle's epilogue."""
-    m, k, n = shape
+def _qmm_case(m, k, n, cuda):
     g = torch.Generator().manual_seed(m + n)
     x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
     w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
     a = torch.rand(n, generator=g) * 0.01 / k ** 0.5
     b = torch.randn(n, generator=g) * 5
     res = torch.randint(-127, 128, (m, n), generator=g, dtype=torch.int8)
-    dev = [t.to(cuda) for t in (x, w, a, b, res)]
+    return (x, w, a, b, res), [t.to(cuda) for t in (x, w, a, b, res)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=["tf1", "tf2", "tf3", "ragged", "ragged_split"])
+def test_qmm_kernel_matches_plain_exactly(cuda, shape):
+    """K4 with and without the residual, with and without ReLU, on the
+    chooser's tile and on forced ones (128x128, 128x64, K split in 3 where
+    it has 3 steps of 64 bytes):
+    0 differing elements against ``torch._int_mm`` + the oracle's epilogue."""
+    m, k, n = shape
+    (x, w, a, b, res), dev = _qmm_case(m, k, n, cuda)
     for relu in (True, False):
         for with_res in (False, True):
             kw = dict(relu=relu, res=dev[4] if with_res else None, res_scale=0.37)
-            before = qmatmul.launches
-            got = qmatmul(*dev[:4], **kw)
-            torch.cuda.synchronize()
-            assert qmatmul.launches == before + 1
             want = qmatmul(*dev[:4], plain=True, **kw)
-            assert got.dtype == torch.int8 and got.shape == (m, n)
-            assert torch.equal(got, want), f"relu={relu} res={with_res}: {int((got != want).sum())} differ"
             assert torch.equal(want.cpu(), qmatmul(x, w, a, b, **dict(kw, res=res if with_res else None)))
+            for tile in (None, (128, 1), (64, 1), (64, min(3, -(-k // 64)))):
+                before = qmatmul.launches
+                got = qmatmul(*dev[:4], tile=tile, **kw)
+                torch.cuda.synchronize()
+                assert qmatmul.launches == before + 1
+                assert got.dtype == torch.int8 and got.shape == (m, n)
+                assert torch.equal(got, want), \
+                    f"relu={relu} res={with_res} tile={tile}: {int((got != want).sum())} differ"
     got = qconv1x1(dev[0].reshape(1, m, 1, k), dev[1], dev[2], dev[3])
     assert torch.equal(got.reshape(m, n), qmatmul(*dev[:4], plain=True))
+
+
+def _per_conv_gemms():
+    """(name, M, K, N) of the per-conv backend's 36 bottleneck 1x1s at B=2."""
+    out = []
+    for scope, h, w, cin, cw, cout, stride in resnet50_block_shapes():
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        out += [(f"{scope}.conv1", 2 * h * w, cin, cw), (f"{scope}.conv3", 2 * ho * wo, cw, cout)]
+        if scope.endswith("_0"):
+            out.append((f"{scope}.shortcut", 2 * ho * wo, cin, cout))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gemm", _per_conv_gemms(), ids=[g[0] for g in _per_conv_gemms()])
+def test_qmm_kernel_at_per_conv_shapes(cuda, gemm):
+    """K4 at the 36 1x1 convs of the per-conv backend, B=2 (the small maps
+    on split K): 0 differing elements."""
+    _, m, k, n = gemm
+    _, dev = _qmm_case(m, k, n, cuda)
+    got = qmatmul(*dev[:4], res=dev[4], res_scale=0.5)
+    want = qmatmul(*dev[:4], res=dev[4], res_scale=0.5, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
 
 
 @pytest.mark.cuda
