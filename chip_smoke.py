@@ -52,7 +52,10 @@ Phases (each prints its results on its own lines):
      inputs and random ones); the default pipeline of an 80-class
      HISFCOS(80, 256) on two 896x1408 COCO-canvas frames (K9 on P3 112x176
      and P4 56x88, K7 on P5-P7: counted), and K9 vs its plain version at
-     the COCO P3 shape for B=8 and an odd B;
+     the COCO P3 shape for B=8 and an odd B; K9 bit for bit equal to K7 on
+     the pipeline's K9 calls and at the COCO P3 shape (B=8), and K7's
+     outputs independent of its tiling (ops/qhead.pick_head_tile's choice
+     against one image and all channels a block on every pass);
   5h. the int8 ResNet-50's other backends, each through
      make_eval_pipeline_int8 on the same model, qtree and 8 frames, counted:
      1. backend="pallas", the per-conv kernels (1 K1, 39 K4, 13 K11, 7 K5,
@@ -105,10 +108,12 @@ Phases (each prints its results on its own lines):
      rate, its tile, cluster split and conv1 recompute), K1, K4 (the
      laterals at B=8 and B=64; the per-conv path's 36 1x1 convs at B=8 and
      B=64, held exact there, each beside torch._int_mm), K5, K6, K7
-     (beside the bf16 float head at the same levels), K10, K11, K13
+     (per level, with its T multiply-adds/s, beside the bf16 float head at
+     the same levels), K10, K11, K13
      (beside kernel C's 16 launches on the same
      input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
-     K16 (beside torch.matmul of the same GEMMs, epilogue not included),
+     K16 (beside torch.matmul of the same GEMMs, epilogue not included,
+     each with its TFLOP/s),
      K17, K12 (its 15 calls of one B=8 MNFCOS forward), K4''s three
      epilogues (K4 and K4' beside torch._int_mm of the same int8 GEMMs,
      epilogue not included), K9 against K7 at the COCO P3 shape, the
@@ -121,9 +126,11 @@ Phases (each prints its results on its own lines):
      int8-backbone, the int8-FPN, the default, the per-conv, the
      fused-head and the MNFCOS int8-ladder pipeline (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
-     measured"); 6g also splits
-     the fused head's device time at B=64 into the NCHW -> NHWC copies of
-     the levels, K15 and the output casts, beside the float head's.
+     measured"); 6e also splits K7's device time by its CUDA kernels
+     (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
+     GroupNorm statistics); 6g splits the fused head's device time at B=64
+     into the NCHW -> NHWC copies of the levels, K15 and the output casts,
+     beside the float head's.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -133,6 +140,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -821,6 +829,16 @@ def main() -> int:
                              f"K9 COCO P3 80 classes B={b}{' (odd: runs K7)' if b % 2 else ''}")
                 if b == 8:
                     res["coco_p3"] = (qh80, qh80["levels"][0], x)
+                    calls["qhishead_level2"].append(((qh80, qh80["levels"][0], x), {}))
+            # K9 computes the same exact sums and f32 steps as K7 (pw1 recomputed
+            # on the halo, no z1 map), and neither depends on its tiling: equal bits
+            for (q, lv, x), kw in calls["qhishead_level2"]:
+                k9, k7 = qhead.qhishead_level2(q, lv, x, **kw), qhead.qhishead_level(q, lv, x, **kw)
+                one = qhead.qhishead_level(q, lv, x, tile={p: (1, 1) for p in qhead.HEAD_PASSES}, **kw)
+                torch.cuda.synchronize()
+                smoke.check(all(torch.equal(a, c) for a, c in zip(k9, k7)), f"K9 == K7 bit for bit {tuple(x.shape)}")
+                smoke.check(all(torch.equal(a, c) for a, c in zip(one, k7)),
+                            f"K7 with one image and all channels a block == the chooser's tiles {tuple(x.shape)}")
 
     def phase5h():
         model, frames, norm = res["model"], res["frames"], res["norm"]
@@ -1598,9 +1616,10 @@ def main() -> int:
                 nbytes += 2 * (m * k + n * k + m * n * (2 if kw.get("residual") is not None else 1)) + 8 * n
                 ops += 2 * m * n * k
         b_k16 = bound(nbytes, ops, BF16_OPS_S)
-        print(f"  matmul_bn_act per forward (B=8, 32 launches): kernel {tk:.4f} ms, plain {tp:.4f} ms, torch.matmul "
-              f"(bf16, no epilogue) {tl:.4f} ms, bound {b_k16[0]:.5f} ms ({b_k16[1]}; {nbytes / 1e9:.3f} GB, "
-              f"{ops / 2e9:.1f} G multiply-adds), {ops / tk / 1e9:.1f} TFLOP/s, wrapper host time {th:.4f} ms {card}")
+        print(f"  matmul_bn_act per forward (B=8, 32 launches): kernel {tk:.4f} ms ({ops / tk / 1e9:.1f} TFLOP/s), "
+              f"plain {tp:.4f} ms, torch.matmul (bf16, no epilogue) {tl:.4f} ms ({ops / tl / 1e9:.1f} TFLOP/s), bound "
+              f"{b_k16[0]:.5f} ms ({b_k16[1]}; {nbytes / 1e9:.3f} GB, {ops / 2e9:.1f} G multiply-adds), wrapper host "
+              f"time {th:.4f} ms {card}")
         res["k16"] = dict(ms=tk, plain_ms=tp, library_ms=tl, host_ms=th, bound=b_k16)
 
         backbone, folded = res["model"].backbone, res["folded"]
@@ -1719,7 +1738,9 @@ def main() -> int:
                 p1 = cuda_ms(lambda: qhead.qhishead_level(q, lv, x, plain=True, **kw), iters=3, reps=3)
                 nb, op = head_work(q, x)
                 tk, tp, nbytes, ops = tk + k1, tp + p1, nbytes + nb, ops + op
-                print(f"  K7 P{i + 3} {tuple(x.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+                tile = qhead.pick_head_tile(*x.shape, q["wpc"].shape[0], *qblock.card_limits(dev))
+                print(f"  K7 P{i + 3} {tuple(x.shape)}: kernel {k1:.4f} ms ({op / 2 / k1 / 1e9:.2f} T multiply-adds/s), "
+                      f"plain {p1:.4f} ms; tiles (images, slices) {tile}")
             deq, float_head = res["head_levels"]
             tf = cuda_ms(lambda: float_head(deq), iters=10)
         b_k7 = bound(nbytes, ops, INT8_OPS_S)
@@ -1744,8 +1765,10 @@ def main() -> int:
               f"{h9:.4f} ms {card}")
         res["k9"] = dict(ms=t9, k7_ms=t7, plain_ms=p9, host_ms=h9, bound=b_k9)
 
-    def phase6_profile(pipe, ours=("gn_act_kernel", "nms_")):
-        """Where the time goes in one B=64 pipeline call (torch.profiler)."""
+    def phase6_profile(pipe, ours=("gn_act_kernel", "nms_"), split=None):
+        """Where the time goes in one B=64 pipeline call (torch.profiler);
+        ``split``: a kernel name prefix whose kernels are also summed by name
+        (their template arguments dropped)."""
         from torch.profiler import ProfilerActivity, profile
 
         fr = res["frames"].repeat(8, 1, 1, 1)
@@ -1771,6 +1794,14 @@ def main() -> int:
         mine = [e for e in ranked[15:] if any(k in e.key for k in ours)]
         for e in ranked[:15] + mine:
             print(f"    {getattr(e, attr) / 1000.0:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+        if split:
+            parts = {}
+            for e in events:
+                m = re.search(split + r"\w*", e.key)
+                if m:
+                    parts[m.group(0)] = parts.get(m.group(0), 0.0) + getattr(e, attr) / 1000.0
+            print(f"  {split}* kernels, 3 calls: {sum(parts.values()):.3f} ms = "
+                  + " + ".join(f"{k} {v:.3f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
 
     def phase6g():
         """The fused-head profile, then the head's share of it at B=64 on the
@@ -1851,8 +1882,8 @@ def main() -> int:
         smoke.phase("phase 6d: profile, int8-FPN pipeline", phase6_profile, res["fpipe"],
                     ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "gn_act_kernel", "nms_"))
     if "dpipe" in res:
-        smoke.phase("phase 6e: profile, default pipeline", phase6_profile, res["dpipe"],
-                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
+        smoke.phase("phase 6e: profile, default pipeline; K7's split", phase6_profile, res["dpipe"],
+                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"), "head_")
     if "per-conv" in res.get("paths", {}):
         smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
                     ("qstem_kernel", "qconv3_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))

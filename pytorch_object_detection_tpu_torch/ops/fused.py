@@ -17,6 +17,10 @@ output channel's K-vector contiguous), ``residual [M, N]`` in ``x``'s dtype,
 be anything.  On the card the kernel takes bfloat16 only; the f32 tests run
 the plain version on the CPU.
 
+On the card the tile is 128 x 128 output elements, or 128 x 64 where N <=
+64 or where 128 x 128 tiles would leave SMs idle (:func:`pick_k16_tile`);
+K runs through a ring of cp.async stages into wgmma (``csrc/fused.cu``).
+
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.
 """
@@ -28,9 +32,37 @@ from typing import Optional
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+
 SOURCE = "fused.cu"
 # no FMA contraction: the epilogue's multiply and add stay two roundings, as in the reference
 NVCC_FLAGS = ("-fmad=false",)
+K16_BM = 128  # output rows of a tile
+K16_BNS = (128, 64)
+K16_STAGES = 3  # kRingStages in csrc/fused.cu
+K16_STEP = 128  # bytes of K per stage: 64 bf16
+
+
+def k16_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of one block with 128 x ``bn`` tiles
+    (``RingShape<BN>::kSmem``): the ring of x and w strips, reused for the
+    f32 sums (rows of bn + 8 words), and 1024 bytes to align the ring for
+    wgmma's 128-byte swizzle."""
+    return max(K16_STAGES * (K16_BM + bn) * K16_STEP, K16_BM * (bn + 8) * 4) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def pick_k16_tile(m: int, n: int, k: int, sm_count: int, smem_max: int) -> int:
+    """Width ``bn`` of K16's 128 x bn output tiles for ``[M, K] x [N,
+    K]^T``: 64 where N <= 64, else 128 where those tiles reach one block per
+    SM, else 64 (twice the blocks).  ``k`` does not change the choice: every
+    block walks the whole K."""
+    fits = [bn for bn in K16_BNS if k16_smem_bytes(bn) <= smem_max]
+    if not fits:
+        raise ValueError(f"K16: a tile needs {k16_smem_bytes(K16_BNS[-1])} bytes of shared memory (> {smem_max})")
+    if n > 64 and fits[0] == 128 and -(-m // K16_BM) * -(-n // 128) >= sm_count:
+        return 128
+    return fits[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,8 +71,14 @@ def _lib() -> ctypes.CDLL:
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE, NVCC_FLAGS)
-    lib.matmul_bn_act_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.matmul_bn_act_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.matmul_bn_act_launch.restype = ctypes.c_int
+    lib.matmul_bn_act_smem.argtypes = [ctypes.c_int]
+    lib.matmul_bn_act_smem.restype = ctypes.c_int
+    for bn in K16_BNS:  # the chooser's arithmetic is the kernel's
+        if lib.matmul_bn_act_smem(bn) != k16_smem_bytes(bn):
+            raise RuntimeError(f"K16: a 128 x {bn} tile takes {lib.matmul_bn_act_smem(bn)} bytes of shared memory, "
+                               f"the chooser {k16_smem_bytes(bn)}")
     return lib
 
 
@@ -96,10 +134,11 @@ def matmul_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: 
         return out
     if k == 0:
         raise ValueError("K16 needs K >= 1")
+    bn = pick_k16_tile(m, n, k, *card_limits(x.device))
     with torch.cuda.device(x.device):  # the launch goes to the current device
         err = _lib().matmul_bn_act_launch(x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                                           None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k,
-                                          int(act), torch.cuda.current_stream().cuda_stream)
+                                          int(act), bn, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K16 launch failed: cudaError {err}")
     matmul_bn_act.launches += 1

@@ -32,15 +32,22 @@ from the plain f32 one in its last bits, and SiLU goes through the card's
 ``expf``: an int8 intermediate can move by one step, which the later convs
 carry into the outputs (the JAX kernels' own contract, ``tests/
 test_quant.py:586-629``: max error under 0.05 of max|cls|, cosine over 0.999).
+
+On the card each pass's thread block owns one 8x8 tile (smaller at the
+map's edges) of ``ipb`` images and one slice of the pass's output channels;
+:func:`pick_head_tile` chooses them per level from the card's SM count and
+shared memory, and the GEMM-shaped passes run on the int8 tensor cores
+(``csrc/qhead.cu``).  The outputs do not depend on the choice.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.qhis import depthwise3x3_i8
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8
 
@@ -53,6 +60,119 @@ NUM_GROUPS = 32
 _SHARED = ("w1", "wdw", "w2", "wc", "wr", "wpc", "wcr", "bpc", "bcr", "gn1", "gn2", "gnc", "gnr")
 _LEVEL = ("A1", "inv_x1", "Adw", "inv_x2", "A2", "B2", "res_mul", "Ac", "inv_c", "Ar", "inv_r", "Apc", "Acr")
 
+# the passes of csrc/qhead.cu that take a tile choice, in qhead_launch's order
+HEAD_PASSES = ("pw1", "dw", "pw2", "towers", "pred")
+HEAD_TILE = 8  # kT: tiles of at most 8x8 positions
+HEAD_STAGES = 4  # kStages: the weights' cp.async ring
+HEAD_STEP = 64  # kStepBytes: K bytes per ring stage
+PRED_NC = 32  # kPredNC: classes per pred block
+HEAD_SPLITS = (1, 2, 4, 8)
+
+
+def head_tile_dims(h: int, w: int) -> Tuple[int, int, int]:
+    """(positions of a full tile, halo rows of one image, halo row width)."""
+    th, tw = min(HEAD_TILE, h), min(HEAD_TILE, w)
+    return th * tw, (th + 2) * (tw + 2), tw + 2
+
+
+def head_pass_width(pass_: str, c: int, nc: int) -> int:
+    """Output channels a pass splits across blocks (pred: its column blocks)."""
+    if pass_ == "pred":
+        return -(-nc // PRED_NC) + 1
+    return c if pass_ == "pw2" else 2 * c
+
+
+def head_slices(pass_: str, c: int, nc: int):
+    """The channel-slice counts a pass may take: whole 16-channel groups, at
+    least 64 channels a slice where split; pred's is fixed."""
+    n = head_pass_width(pass_, c, nc)
+    if pass_ == "pred":
+        return (n,)
+    return tuple(s for s in HEAD_SPLITS if n % (16 * s) == 0 and (s == 1 or n // s >= 64))
+
+
+def _align(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def head_smem_bytes(pass_: str, ipb: int, h: int, w: int, c: int, nc: int, split: int, pair: bool) -> int:
+    """Dynamic shared memory of one block of a pass (``smem_of`` in
+    csrc/qhead.cu): the GroupNorm table of a normalizing pass, the A operand
+    or halo, the rows' halo positions, and the weights' ring, reused for the
+    int32 sums (rows of NC + 8 words)."""
+    npos, halo, _ = head_tile_dims(h, w)
+    mc = 64 if ipb * npos <= 64 else 128
+    slice_ = PRED_NC if pass_ == "pred" else head_pass_width(pass_, c, nc) // split
+    ncol = 128 if slice_ % 128 == 0 else 64
+    ring = HEAD_STAGES * ncol * HEAD_STEP
+    ring_or_sums = max(ring, mc * (ncol + 8) * 4)
+    if pass_ == "pw1":
+        return _align(mc * c + 64) + ring_or_sums
+    if pass_ == "dw":  # GN1 table [ipb][slice] float4, x1q on the halo, its sums (K9: x on the halo, the ring)
+        if not pair:
+            return _align(ipb * slice_ * 16) + _align(ipb * halo * slice_) + 2 * ipb * slice_ * 8
+        return (_align(ipb * slice_ * 16) + _align(ipb * halo * c + 64) + _align(ipb * halo * slice_)
+                + _align(2 * ipb * slice_ * 8) + ring)
+    if pass_ == "pw2":  # GN2 table [ipb][2C], x2q rows
+        return _align(ipb * 2 * c * 16) + _align(mc * 2 * c + 64) + ring_or_sums
+    if pass_ == "towers":  # 256 channels a chunk where the slice allows, at 64 rows
+        if mc == 64 and slice_ % 256 == 0:
+            ring_or_sums = max(HEAD_STAGES * 256 * HEAD_STEP, mc * (256 + 8) * 4)
+        return _align(ipb * halo * c + 64) + _align(mc * 4) + ring_or_sums
+    return _align(ipb * c * 16) + _align(ipb * halo * c + 64) + _align(mc * 4) + HEAD_STAGES * PRED_NC * HEAD_STEP
+
+
+def head_blocks(batch: int, h: int, w: int, ipb: int, split: int) -> int:
+    """Thread blocks of one pass: tiles x image groups x slices."""
+    return -(-h // HEAD_TILE) * -(-w // HEAD_TILE) * -(-batch // ipb) * split
+
+
+def head_ipbs(batch: int, h: int, w: int, pair: bool):
+    """Images a block may take, largest first: M rows (ipb x a full tile's
+    positions) at most 64 (K7) or 128 (K9, whose blocks take image pairs)."""
+    npos = head_tile_dims(h, w)[0]
+    step = 2 if pair else 1
+    top = max(step, min(batch, (128 if pair else 64) // npos) // step * step)
+    out = []
+    while top >= step:
+        out.append(top)
+        top = top // 2 // step * step
+    return tuple(out)
+
+
+def pick_head_tile(batch: int, h: int, w: int, c: int, nc: int, sm_count: int, smem_max: int,
+                   pair: bool = False) -> Dict[str, Tuple[int, int]]:
+    """``{pass: (ipb, split)}`` for one level: per pass the largest image
+    group, then the fewest channel slices, whose blocks reach one per SM and
+    fit the shared memory; where none reaches, the most blocks.  ``pair``:
+    K9's tiles, even image groups."""
+    return dict(_pick_head_tile(batch, h, w, c, nc, sm_count, smem_max, bool(pair)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_head_tile(batch, h, w, c, nc, sm_count, smem_max, pair):
+    out = {}
+    for pass_ in HEAD_PASSES:
+        best = None
+        for ipb in head_ipbs(batch, h, w, pair):
+            for split in head_slices(pass_, c, nc):
+                if head_smem_bytes(pass_, ipb, h, w, c, nc, split, pair) > smem_max:
+                    continue
+                blocks = head_blocks(batch, h, w, ipb, split)
+                if blocks >= sm_count:
+                    best = (ipb, split)
+                    break
+                if best is None or blocks > head_blocks(batch, h, w, *best):
+                    best = (ipb, split)
+            else:
+                continue
+            break
+        if best is None:
+            raise ValueError(f"K{9 if pair else 7}: no {pass_} tile fits {smem_max} bytes of shared memory "
+                             f"at {h}x{w}, C={c}")
+        out[pass_] = best
+    return tuple(out.items())
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -62,8 +182,10 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE, NVCC_FLAGS)
     lib.qhead_scratch_bytes.argtypes = [ctypes.c_int] * 5
     lib.qhead_scratch_bytes.restype = ctypes.c_size_t
-    lib.qhead_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    lib.qhead_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
     lib.qhead_launch.restype = ctypes.c_int
+    lib.qhead_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.qhead_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -112,7 +234,19 @@ def _check(q: Dict, x_q: torch.Tensor, num_classes) -> int:
     return nc
 
 
-def _launch(q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _check_smem(pair: bool, h: int, w: int, c: int, nc: int, cfg: Tuple[int, ...]) -> None:
+    """The chooser's shared-memory arithmetic is the kernel's (once per level shape and choice)."""
+    for i, p in enumerate(HEAD_PASSES):
+        ipb, split = cfg[2 * i], cfg[2 * i + 1]
+        got = _lib().qhead_smem_bytes(i, int(pair), ipb, h, w, c, split)
+        if got != head_smem_bytes(p, ipb, h, w, c, nc, split, pair):
+            raise RuntimeError(f"K7/K9 {p}: the kernel takes {got} bytes of shared memory, the chooser "
+                               f"{head_smem_bytes(p, ipb, h, w, c, nc, split, pair)}")
+
+
+def _launch(q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool,
+            tile: Optional[Dict[str, Tuple[int, int]]]) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7 (``pair=False``) or K9 on CUDA tensors (checked by ``_check`` first)."""
     dev = x_q.device
     b, h, w, c = x_q.shape
@@ -134,24 +268,30 @@ def _launch(q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool) -> Tuple[
     cr = torch.empty((b, h, w, 5), dtype=torch.float32, device=dev)
     if cls.numel() == 0:
         return cls, cr
-    if -(-w // 8) * -(-h // 8) > 65535 or b > 65535:
-        raise ValueError(f"K7/K9 take at most 65535 8x8 tiles and 65535 images; got {tuple(x_q.shape)}")
+    if tile is None:
+        tile = pick_head_tile(b, h, w, c, nc, *card_limits(dev), pair=pair)
+    if any(-(-b // tile[p][0]) > 65535 for p in HEAD_PASSES):
+        raise ValueError(f"K7/K9 take at most 65535 image groups; got {tuple(x_q.shape)} and {tile}")
     lib = _lib()
+    cfg = tuple(v for p in HEAD_PASSES for v in tile[p])
+    _check_smem(pair, h, w, c, nc, cfg)
     scratch = torch.empty(lib.qhead_scratch_bytes(b, h, w, c, int(pair)), dtype=torch.uint8, device=dev)
     ptrs = [x_q, *shared, *level, cls, cr]
     table = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    cfg = (ctypes.c_int * 10)(*cfg)
     with torch.cuda.device(dev):  # the launches go to the current device
-        err = lib.qhead_launch(table, b, h, w, c, nc, int(pair), scratch.data_ptr(),
+        err = lib.qhead_launch(table, b, h, w, c, nc, int(pair), cfg, scratch.data_ptr(),
                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K{9 if pair else 7} launch failed: cudaError {err}")
     return cls, cr
 
 
-def qhishead_level(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
-                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def qhishead_level(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None, plain: bool = False,
+                   tile: Optional[Dict[str, Tuple[int, int]]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pyramid level through the int8 head (the JAX signature, less
-    ``row_chunk`` and ``interpret``).
+    ``row_chunk`` and ``interpret``).  ``tile`` forces
+    :func:`pick_head_tile`'s choice (the outputs do not depend on it).
 
     On a CPU tensor this is :func:`qhishead_level_plain`; on a CUDA tensor
     it launches K7 (eight CUDA kernels, counted as one launch) or raises.
@@ -161,14 +301,14 @@ def qhishead_level(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
     nc = _check(q, x_q, num_classes)
     if plain or x_q.device.type == "cpu":
         return qhishead_level_plain(q, lv, x_q)
-    out = _launch(q, lv, x_q, nc, pair=False)
+    out = _launch(q, lv, x_q, nc, False, tile)
     if out[0].numel():
         qhishead_level.launches += 1
     return out
 
 
-def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
-                    plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None, plain: bool = False,
+                    tile: Optional[Dict[str, Tuple[int, int]]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9: :func:`qhishead_level` on image pairs, with the pw1 pre-norm map
     recomputed where the depthwise conv needs it instead of stored.  Same
     outputs and plain version.  An odd batch runs K7, as the JAX function
@@ -179,7 +319,7 @@ def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None,
         return qhishead_level_plain(q, lv, x_q)
     if x_q.shape[0] % 2:
         return qhishead_level(q, lv, x_q, num_classes=num_classes)
-    out = _launch(q, lv, x_q, nc, pair=True)
+    out = _launch(q, lv, x_q, nc, True, tile)
     if out[0].numel():
         qhishead_level2.launches += 1
     return out

@@ -1,15 +1,26 @@
-"""Time kernel C and K4 of the PyTorch port on one NVIDIA GPU, per shape.
+"""Time kernel C, K4, K16, K7 and K9 of the PyTorch port on one NVIDIA GPU, per shape.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
-ResNet-50 bottlenecks of the 512x512 canvas, and K4 (``ops/qconv.qmatmul``)
+ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
 at the HisFPN's three laterals and the per-conv backend's 36 bottleneck 1x1
-convs, each at B=8 and B=64, on random int8 inputs and weights from a seed.
+convs, K16 (``ops/fused.matmul_bn_act``) at the fused backbone's 32 conv1
+and conv3 GEMMs beside ``torch.matmul`` on the same bf16 operands, and K7
+(``ops/qhead.qhishead_level``) at the default pipeline's five head levels
+(C=256, 20 classes), each at B=8 and B=64; then K9 (``qhishead_level2``)
+against K7 at the COCO canvas's P3 (112x176, 80 classes), B=2 and B=8.  The
+inputs and weights are random, from a seed; the head's qtree comes from a
+random ``models/heads.HISHead`` through ``models/head_int8``'s calibration
+and quantization.  For K7 and K9 the script prints a SHA-256 digest of the
+cls and cr bytes, so that two checkouts' outputs can be compared.
 Only the wrappers' public arguments are used, so the same script times the
 package of another checkout of the repository (``--root``), e.g. the parent
 commit unpacked with ``git archive``; run the two in turns (a, b, b, a) in
 one run on one card to compare them::
 
     python3 scripts/port_kernel_times.py --root . --out times.json
+
+``--only k16,head`` times only the named sections (``c``, ``k4``, ``k16``,
+``head``).
 
 ``--sweep`` (this tree's package only: it needs the ``tile=`` override of
 ``qbottleneck``) times kernel C instead at every (tile width, blocks per
@@ -26,6 +37,7 @@ Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -139,7 +151,9 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the JSON object here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
+    parser.add_argument("--only", default="c,k4,k16,head", help="comma-separated sections: c, k4, k16, head")
     args = parser.parse_args()
+    only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
     import torch
@@ -187,52 +201,192 @@ def main() -> int:
 
     if args.sweep:
         return sweep(qblock, block_operands, card)
-    result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}}
+    result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}, "k16": {}, "k7": {},
+              "k9": {}, "digest": {}}
     with torch.inference_mode():
-        for (scope, *_), x64, call in block_operands():
-            for b in (8, 64):
-                x = x64[:b].contiguous()
-                fn = lambda: call(x)
-                ms = cuda_ms(fn, iters=10 if b == 8 else 3)
-                dev_ms = graph_ms(fn, iters=10 if b == 8 else 3)
-                result["kernel_c"][f"{scope}/B{b}"] = ms
-                result["kernel_c"][f"{scope}/B{b}/graph"] = dev_ms
-                print(f"kernel C {scope} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {dev_ms:.4f} ms", flush=True)
-        for b in (8, 64):
-            tot = [sum(v for k, v in result["kernel_c"].items() if k.endswith(f"/B{b}{sfx}")) for sfx in ("", "/graph")]
-            print(f"kernel C, the 16 blocks at B={b}: {tot[0]:.4f} ms, graph {tot[1]:.4f} ms {card}")
-
-        gemms = [(f"tf{i + 1}", hw * hw, c, 256) for i, (hw, c) in enumerate(((16, 2048), (32, 1024), (64, 512)))]
-        for scope, h, w, cin, cw, cout, stride in block_shapes():
-            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-            gemms += [(f"{scope}.conv1", h * w, cin, cw), (f"{scope}.conv3", ho * wo, cw, cout)]
-            if scope.endswith("_0"):
-                gemms.append((f"{scope}.shortcut", ho * wo, cin, cout))
-        for b in (8, 64):
-            for name, m_img, k, n in gemms:
-                m = b * m_img
-                x, wt = i8(m, k), i8(n, k)
-                a, bb = vec(n, k)
-                it = 10 if b == 8 else 3
-                times = {"": cuda_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
-                         "/graph": graph_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
-                         "/int_mm": cuda_ms(lambda: torch._int_mm(x, wt.t()), iters=it),
-                         "/int_mm/graph": graph_ms(lambda: torch._int_mm(x, wt.t()), iters=it)}
-                for sfx, v in times.items():
-                    result["k4"][f"{name}/B{b}{sfx}"] = v
-                print(f"K4 {name} B={b} [{m}, {k}] x [{k}, {n}]: {times['']:.4f} ms (graph {times['/graph']:.4f}), "
-                      f"torch._int_mm {times['/int_mm']:.4f} ms (graph {times['/int_mm/graph']:.4f})", flush=True)
-            for sfx in ("", "/graph"):
-                lat = sum(result["k4"][f"tf{i}/B{b}{sfx}"] for i in (1, 2, 3))
-                lib = sum(result["k4"][f"tf{i}/B{b}/int_mm{sfx}"] for i in (1, 2, 3))
-                conv = sum(result["k4"][f"{g[0]}/B{b}{sfx}"] for g in gemms[3:])
-                conv_lib = sum(result["k4"][f"{g[0]}/B{b}/int_mm{sfx}"] for g in gemms[3:])
-                print(f"K4 at B={b}{' graph' if sfx else ''}: the 3 laterals {lat:.4f} ms (torch._int_mm {lib:.4f}), "
-                      f"the 36 per-conv 1x1s {conv:.4f} ms (torch._int_mm {conv_lib:.4f}) {card}")
+        if "c" in only:
+            time_kernel_c(result, block_operands, card)
+        if "k4" in only:
+            time_k4(result, qconv, i8, vec, card)
+        if "k16" in only:
+            time_k16(result, dev, args.seed, card)
+        if "head" in only:
+            time_head(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
+
+
+def time_kernel_c(result, block_operands, card) -> None:
+    for (scope, *_), x64, call in block_operands():
+        for b in (8, 64):
+            x = x64[:b].contiguous()
+            fn = lambda: call(x)
+            ms = cuda_ms(fn, iters=10 if b == 8 else 3)
+            dev_ms = graph_ms(fn, iters=10 if b == 8 else 3)
+            result["kernel_c"][f"{scope}/B{b}"] = ms
+            result["kernel_c"][f"{scope}/B{b}/graph"] = dev_ms
+            print(f"kernel C {scope} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {dev_ms:.4f} ms", flush=True)
+    for b in (8, 64):
+        tot = [sum(v for k, v in result["kernel_c"].items() if k.endswith(f"/B{b}{sfx}")) for sfx in ("", "/graph")]
+        print(f"kernel C, the 16 blocks at B={b}: {tot[0]:.4f} ms, graph {tot[1]:.4f} ms {card}")
+
+
+def time_k4(result, qconv, i8, vec, card) -> None:
+    import torch
+
+    gemms = [(f"tf{i + 1}", hw * hw, c, 256) for i, (hw, c) in enumerate(((16, 2048), (32, 1024), (64, 512)))]
+    for scope, h, w, cin, cw, cout, stride in block_shapes():
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        gemms += [(f"{scope}.conv1", h * w, cin, cw), (f"{scope}.conv3", ho * wo, cw, cout)]
+        if scope.endswith("_0"):
+            gemms.append((f"{scope}.shortcut", ho * wo, cin, cout))
+    for b in (8, 64):
+        for name, m_img, k, n in gemms:
+            m = b * m_img
+            x, wt = i8(m, k), i8(n, k)
+            a, bb = vec(n, k)
+            it = 10 if b == 8 else 3
+            times = {"": cuda_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
+                     "/graph": graph_ms(lambda: qconv.qmatmul(x, wt, a, bb), iters=it),
+                     "/int_mm": cuda_ms(lambda: torch._int_mm(x, wt.t()), iters=it),
+                     "/int_mm/graph": graph_ms(lambda: torch._int_mm(x, wt.t()), iters=it)}
+            for sfx, v in times.items():
+                result["k4"][f"{name}/B{b}{sfx}"] = v
+            print(f"K4 {name} B={b} [{m}, {k}] x [{k}, {n}]: {times['']:.4f} ms (graph {times['/graph']:.4f}), "
+                  f"torch._int_mm {times['/int_mm']:.4f} ms (graph {times['/int_mm/graph']:.4f})", flush=True)
+        for sfx in ("", "/graph"):
+            lat = sum(result["k4"][f"tf{i}/B{b}{sfx}"] for i in (1, 2, 3))
+            lib = sum(result["k4"][f"tf{i}/B{b}/int_mm{sfx}"] for i in (1, 2, 3))
+            conv = sum(result["k4"][f"{g[0]}/B{b}{sfx}"] for g in gemms[3:])
+            conv_lib = sum(result["k4"][f"{g[0]}/B{b}/int_mm{sfx}"] for g in gemms[3:])
+            print(f"K4 at B={b}{' graph' if sfx else ''}: the 3 laterals {lat:.4f} ms (torch._int_mm {lib:.4f}), "
+                  f"the 36 per-conv 1x1s {conv:.4f} ms (torch._int_mm {conv_lib:.4f}) {card}")
+
+
+def k16_gemms():
+    """(name, M per image, K, N, residual) of the fused ResNet-50's 32 1x1
+    GEMMs at 512x512: each block's conv1 on its input grid, conv3 (with the
+    shortcut as the residual) on its output grid."""
+    out = []
+    for scope, h, w, cin, cw, cout, stride in block_shapes():
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        out += [(f"{scope}.conv1", h * w, cin, cw, False), (f"{scope}.conv3", ho * wo, cw, cout, True)]
+    return out
+
+
+def time_k16(result, dev, seed, card) -> None:
+    """K16 at the 32 GEMMs, B=8 and B=64, beside torch.matmul on the same
+    bf16 operands (no epilogue); sums per forward, with the TFLOP/s."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import fused
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b in (8, 64):
+        flops = 0.0
+        for name, m_img, k, n, res in k16_gemms():
+            m = b * m_img
+            x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+            w = (torch.randn(n, k, device=dev, generator=g) / k ** 0.5).bfloat16()
+            scale = torch.rand(n, device=dev, generator=g) + 0.5
+            shift = torch.randn(n, device=dev, generator=g) * 0.1
+            r = torch.randn(m, n, device=dev, generator=g).bfloat16() if res else None
+            it = 10 if b == 8 else 3
+            call = lambda: fused.matmul_bn_act(x, w, scale, shift, r, True)
+            lib = lambda: torch.matmul(x, w.t())
+            times = {"": cuda_ms(call, iters=it), "/graph": graph_ms(call, iters=it),
+                     "/matmul": cuda_ms(lib, iters=it), "/matmul/graph": graph_ms(lib, iters=it)}
+            for sfx, v in times.items():
+                result["k16"][f"{name}/B{b}{sfx}"] = v
+            flops += 2.0 * m * k * n
+            print(f"K16 {name} B={b} [{m}, {k}] x [{k}, {n}]: {times['']:.4f} ms (graph {times['/graph']:.4f}), "
+                  f"torch.matmul {times['/matmul']:.4f} ms (graph {times['/matmul/graph']:.4f})", flush=True)
+        for sfx in ("", "/graph"):
+            tot = sum(v for key, v in result["k16"].items() if key.endswith(f"/B{b}{sfx}"))
+            lib = sum(v for key, v in result["k16"].items() if key.endswith(f"/B{b}/matmul{sfx}"))
+            print(f"K16, the 32 GEMMs at B={b}{' graph' if sfx else ''}: {tot:.4f} ms ({flops / tot / 1e9:.1f} TFLOP/s), "
+                  f"torch.matmul {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s) {card}")
+
+
+def head_qtree(nc: int, seed: int, dev):
+    """A random HISHead's int8 qtree (calibrated on small random levels), on ``dev``."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.models.head_int8 import calibrate_hishead, quantize_hishead
+    from pytorch_object_detection_tpu_torch.models.heads import HISHead
+
+    g = torch.Generator().manual_seed(seed)
+    head = HISHead(nc, 256, generator=g).eval()
+    levels = [torch.randn(1, s, s, 256, generator=g) for s in (16, 8, 4, 2, 1)]
+    q = quantize_hishead(head, calibrate_hishead(head, levels), [lv.abs().max() / 127.0 for lv in levels], nc)
+
+    def on(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dev)
+        if isinstance(t, dict):
+            return {k: on(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(on(v) for v in t)
+        return t
+
+    return on(q)
+
+
+def head_input(b, h, w, seed, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + b * 7 + h)
+    return torch.clamp(torch.round(torch.randn(b, h, w, 256, generator=g) * 40), -127, 127).to(torch.int8).to(dev)
+
+
+def digest(outs) -> str:
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_head(result, dev, seed, card) -> None:
+    """K7 at the five levels of the default pipeline, B=8 and B=64; K9
+    against K7 at the COCO P3 shape, B=2 and B=8; digests of every output."""
+    from pytorch_object_detection_tpu_torch.ops import qhead
+
+    q20 = head_qtree(20, seed, dev)
+    result["digest"]["qtree20"] = digest([v for k, v in sorted(q20.items()) if hasattr(v, "numpy")])
+    for b in (8, 64):
+        for i, s in enumerate((64, 32, 16, 8, 4)):
+            x = head_input(b, s, s, seed, dev)
+            lv = q20["levels"][i]
+            result["digest"][f"k7/P{i + 3}/B{b}"] = digest(qhead.qhishead_level(q20, lv, x))
+            it = 10 if b == 8 else 3
+            ms = cuda_ms(lambda: qhead.qhishead_level(q20, lv, x), iters=it)
+            gms = graph_ms(lambda: qhead.qhishead_level(q20, lv, x), iters=it)
+            result["k7"][f"P{i + 3}/B{b}"], result["k7"][f"P{i + 3}/B{b}/graph"] = ms, gms
+            print(f"K7 P{i + 3} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {gms:.4f} ms, "
+                  f"digest {result['digest'][f'k7/P{i + 3}/B{b}']}", flush=True)
+        for sfx in ("", "/graph"):
+            tot = sum(result["k7"][f"P{i + 3}/B{b}{sfx}"] for i in range(5))
+            print(f"K7, the five levels at B={b}{' graph' if sfx else ''}: {tot:.4f} ms {card}")
+    q80 = head_qtree(80, seed + 1, dev)
+    lv = q80["levels"][0]
+    for b in (2, 8):
+        x = head_input(b, 112, 176, seed, dev)
+        result["digest"][f"k7/coco/B{b}"] = digest(qhead.qhishead_level(q80, lv, x))
+        result["digest"][f"k9/coco/B{b}"] = digest(qhead.qhishead_level2(q80, lv, x))
+        t = {}
+        for name, fn in (("k9", qhead.qhishead_level2), ("k7", qhead.qhishead_level), ("k7b", qhead.qhishead_level),
+                         ("k9b", qhead.qhishead_level2)):
+            t[name] = (cuda_ms(lambda: fn(q80, lv, x), iters=5), graph_ms(lambda: fn(q80, lv, x), iters=5))
+        for name in ("k9", "k7"):
+            ms = min(t[name][0], t[name + "b"][0])
+            gms = min(t[name][1], t[name + "b"][1])
+            result[name][f"coco/B{b}"], result[name][f"coco/B{b}/graph"] = ms, gms
+        print(f"COCO P3 B={b} 112x176, 80 classes: K9 {t['k9'][0]:.4f}/{t['k9b'][0]:.4f} ms (graph "
+              f"{t['k9'][1]:.4f}/{t['k9b'][1]:.4f}), K7 {t['k7'][0]:.4f}/{t['k7b'][0]:.4f} ms (graph "
+              f"{t['k7'][1]:.4f}/{t['k7b'][1]:.4f}); digests K7 {result['digest'][f'k7/coco/B{b}']} "
+              f"K9 {result['digest'][f'k9/coco/B{b}']} {card}", flush=True)
 
 
 if __name__ == "__main__":

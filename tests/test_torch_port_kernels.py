@@ -451,6 +451,63 @@ def test_qhead_kernels_match_plain(cuda, case, k9):
         assert bool(torch.isfinite(g).all()) and err <= QHEAD_MAX_ERR and cos >= QHEAD_MIN_COS, (what, err, cos)
 
 
+# (features, classes, H, W, batch) that reach each branch of
+# ops/qhead.pick_head_tile on an H100: channel slices on the 16x16 and 8x8
+# levels at B=8, several images a block at 4x4 and 1x1 (B=64), image pairs
+# on a 2x2 level, the narrow head and 80 classes on an odd-sized level
+QHEAD_TILE_CASES = [(256, 20, 16, 16, 8), (256, 20, 8, 8, 8), (256, 20, 4, 4, 64), (256, 80, 1, 1, 64),
+                    (64, 20, 2, 2, 16), (64, 80, 28, 44, 2), (256, 80, 14, 22, 4)]
+
+
+def _qhead_check(got, want, b, h, w, nc):
+    for what, g, r in zip(("cls", "cr"), got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape == (b, h, w, nc if what == "cls" else 5)
+        err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        gd, rd = g.double().flatten(), r.double().flatten()
+        cos = float(gd @ rd / (gd.norm() * rd.norm()))
+        assert bool(torch.isfinite(g).all()) and err <= QHEAD_MAX_ERR and cos >= QHEAD_MIN_COS, (what, err, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QHEAD_TILE_CASES, ids=[f"{c[0]}_{c[1]}cls_{c[2]}x{c[3]}_b{c[4]}" for c in QHEAD_TILE_CASES])
+def test_qhead_kernels_at_the_choosers_branches(cuda, case):
+    """K7 and K9 against their plain version where the tile chooser splits
+    channels and packs images; the outputs equal those of one image and all
+    channels a block on every pass, bit for bit."""
+    from pytorch_object_detection_tpu_torch.ops.qhead import HEAD_PASSES, qhishead_level, qhishead_level2
+
+    features, nc, h, w, b = case
+    q, _, x = _qhead_case(features, nc, h, w, b, cuda)
+    lv = q["levels"][0]
+    got = qhishead_level(q, lv, x)
+    _qhead_check(got, qhishead_level(q, lv, x, plain=True), b, h, w, nc)
+    one = qhishead_level(q, lv, x, tile={p: (1, 1) for p in HEAD_PASSES})
+    assert all(torch.equal(a, c) for a, c in zip(one, got))
+    k9 = qhishead_level2(q, lv, x)
+    assert all(torch.equal(a, c) for a, c in zip(k9, got))
+
+
+K9_EVEN_CASES = [c for c in QHEAD_CASES + QHEAD_TILE_CASES if c[4] % 2 == 0] + [(256, 80, 112, 176, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K9_EVEN_CASES, ids=[f"{c[0]}_{c[1]}cls_{c[2]}x{c[3]}_b{c[4]}" for c in K9_EVEN_CASES])
+def test_k9_equals_k7_bit_for_bit(cuda, case):
+    """K9 recomputes pw1 on the halo where K7 stores z1, and takes image
+    pairs: the same exact int32 sums, f32 steps and GroupNorm statistics, so
+    the same bits on an even batch."""
+    from pytorch_object_detection_tpu_torch.ops.qhead import qhishead_level, qhishead_level2
+
+    features, nc, h, w, b = case
+    q, _, x = _qhead_case(features, nc, h, w, b, cuda)
+    lv = q["levels"][0]
+    before = qhishead_level2.launches
+    k9 = qhishead_level2(q, lv, x)
+    assert qhishead_level2.launches == before + 1
+    k7 = qhishead_level(q, lv, x)
+    assert all(torch.equal(a, c) for a, c in zip(k9, k7))
+
+
 @pytest.mark.cuda
 def test_qhead_kernels_reject_other_layouts(cuda):
     from pytorch_object_detection_tpu_torch.ops.qhead import qhishead_level, qhishead_level2
@@ -722,6 +779,33 @@ def test_k16_kernel_matches_plain(cuda, shape):
             assert bool(close.all()), f"act={act} res={r is not None}: {int((~close).sum())} of {want.numel()} apart"
     got = conv1x1_bn_act(x.reshape(1, shape[0], 1, shape[1]), w.reshape(shape[2], shape[1], 1, 1), scale, shift)
     assert torch.equal(got.reshape(shape[0], shape[2]), matmul_bn_act(x, w, scale, shift))
+
+
+# K16 (M, K, N) on each side of the tile and ring edges: M not a multiple
+# of 128, K of one step (32), a step and a quarter (40) and two steps and a
+# quarter (72), N of 8, 64 (128 x 64 tiles) and 65, 200 (a ragged 128 x 128)
+K16_EDGE_SHAPES = [(129, 32, 64), (1000, 40, 200), (4097, 72, 65), (300, 64, 8), (255, 96, 128), (131, 2048, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K16_EDGE_SHAPES, ids=[f"{m}x{k}x{n}" for m, k, n in K16_EDGE_SHAPES])
+@pytest.mark.parametrize("layout", ["aligned", "x_unaligned", "res_unaligned"])
+def test_k16_kernel_at_tile_and_ring_edges(cuda, shape, layout):
+    """K16 within one bf16 step of its plain version at the edges of its
+    tiles and ring, with and without the residual; an x that is not 16-byte
+    aligned takes the word-by-word tile, a residual that is not takes the
+    element-wise epilogue."""
+    m, k, n = shape
+    x, w, scale, shift, res = _k16_case(m, k, n, cuda, seed=3)
+    if layout == "x_unaligned":
+        x = torch.empty(m * k + 1, dtype=x.dtype, device=cuda)[1:].view(m, k).copy_(x)
+    if layout == "res_unaligned":
+        res = torch.empty(m * n + 1, dtype=res.dtype, device=cuda)[1:].view(m, n).copy_(res)
+    for r in (None, res):
+        got = matmul_bn_act(x, w, scale, shift, r, True)
+        want = matmul_bn_act_plain(x, w, scale, shift, r, True)
+        close = torch.isclose(got.float(), want.float(), rtol=K16_RTOL, atol=2.0**-12 * float(want.float().abs().max()))
+        assert bool(close.all()), f"res={r is not None}: {int((~close).sum())} of {want.numel()} apart"
 
 
 @pytest.mark.cuda

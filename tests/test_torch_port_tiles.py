@@ -1,10 +1,15 @@
-"""The tile choosers of kernel C (``ops/qblock.pick_tile``) and K4
-(``ops/qconv.pick_qmm_tile``), in plain Python with an H100's limits: 132
+"""The tile choosers of kernel C (``ops/qblock.pick_tile``), K4
+(``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``) and K7/K9
+(``ops/qhead.pick_head_tile``), in plain Python with an H100's limits: 132
 SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
 and 64; K4 at the HisFPN's three laterals and the per-conv backend's 36
-bottleneck 1x1 convs, B = 2, 8 and 64.  No card and no JAX needed.
+bottleneck 1x1 convs, B = 2, 8 and 64; K16 at the fused ResNet-50's 32
+conv1/conv3 GEMMs, B = 2, 8 and 64, and odd shapes; K7 at the five head
+levels of the 512x512 canvas and K7/K9 at those of the 896x1408 COCO
+canvas, with narrow heads, 80 classes and 1x1 levels.  No card and no JAX
+needed.
 """
 from __future__ import annotations
 
@@ -13,7 +18,11 @@ import pytest
 
 from pytorch_object_detection_tpu_torch.ops.qblock import (
     TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
+from pytorch_object_detection_tpu_torch.ops.fused import K16_BM, k16_smem_bytes, pick_k16_tile
 from pytorch_object_detection_tpu_torch.ops.qconv import QMM_BM, QMM_STEP, pick_qmm_tile, qmm_smem_bytes
+from pytorch_object_detection_tpu_torch.ops.qhead import (
+    HEAD_PASSES, HEAD_TILE, PRED_NC, head_blocks, head_ipbs, head_pass_width, head_slices, head_smem_bytes,
+    head_tile_dims, pick_head_tile)
 from torch_port_fixtures import resnet50_block_shapes
 
 SM_COUNT, SMEM_MAX = 132, 232448  # NVIDIA H100 SXM: SMs, shared memory per block (opt-in)
@@ -157,3 +166,142 @@ def test_k4_fills_the_card_with_k_slices_of_64_bytes(case):
         assert bn == 64 and tiles < SM_COUNT
         for _, _, k0, k1 in qmm_blocks(m, n, k, bn, splits, per):
             assert k0 % 64 == 0 and (k1 % 64 == 0 or k1 >= k)
+
+
+def _k16_gemms(batch):
+    """(name, M, K, N) of the fused ResNet-50's 32 1x1 GEMMs: each block's
+    conv1 on its input grid, conv3 on its output grid."""
+    out = []
+    for scope, h, w, cin, cw, cout, stride in resnet50_block_shapes():
+        ho, wo = out_hw(h, w, stride)
+        out += [(f"{scope}.conv1", batch * h * w, cin, cw), (f"{scope}.conv3", batch * ho * wo, cw, cout)]
+    return out
+
+
+K16_CASES = [(g, b) for b in (2, 8, 64) for g in _k16_gemms(b)] + [
+    ((f"odd{i}", m, k, n), 1) for i, (m, k, n) in enumerate(((1000, 77, 130), (37, 24, 5), (129, 8, 65), (1, 32, 64),
+                                                             (300, 72, 48), (4096, 64, 16384)))]
+K16_IDS = [f"{g[0]}-B{b}" for g, b in K16_CASES]
+
+
+def test_k16_cases_are_the_paths_shapes():
+    assert len(_k16_gemms(8)) == 32
+
+
+@pytest.mark.parametrize("case", K16_CASES, ids=K16_IDS)
+def test_k16_tiles_cover_each_output_once_within_the_limits(case):
+    """The 128 x bn tiles partition [M, N]; the grid and the block's shared
+    memory stay within the card's limits."""
+    (name, m, k, n), _ = case
+    bn = pick_k16_tile(m, n, k, SM_COUNT, SMEM_MAX)
+    assert bn in (128, 64) and k16_smem_bytes(bn) <= SMEM_MAX
+    gx, gy = -(-m // K16_BM), -(-n // bn)
+    assert gx <= 2**31 - 1 and gy <= 65535
+    rows = np.concatenate([np.arange(x * K16_BM, min(m, (x + 1) * K16_BM)) for x in range(gx)])
+    cols = np.concatenate([np.arange(y * bn, min(n, (y + 1) * bn)) for y in range(gy)])
+    assert np.array_equal(rows, np.arange(m)) and np.array_equal(cols, np.arange(n))
+
+
+@pytest.mark.parametrize("case", K16_CASES, ids=K16_IDS)
+def test_k16_fills_the_card(case):
+    """128 x 64 tiles where N <= 64 or where 128 x 128 tiles leave SMs
+    idle; at least one block per SM wherever 128 x 64 tiles reach it."""
+    (name, m, k, n), _ = case
+    bn = pick_k16_tile(m, n, k, SM_COUNT, SMEM_MAX)
+    if n <= 64:
+        assert bn == 64
+    if -(-m // K16_BM) * -(-n // 64) >= SM_COUNT:
+        assert -(-m // K16_BM) * -(-n // bn) >= SM_COUNT, f"{name}: {bn}"
+    if bn == 64 and n > 64:
+        assert -(-m // K16_BM) * -(-n // 128) < SM_COUNT
+
+
+def _head_levels(canvas):
+    return [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in (8, 16, 32, 64, 128)]
+
+
+# (batch, H, W, C, classes, pair): the default pipeline's five levels at
+# 512x512, the COCO canvas's for K7 and K9, the narrow head, 1x1 and 2x2 levels
+HEAD_CASES = (
+    [(b, h, w, 256, 20, False) for b in (1, 2, 8, 64) for h, w in _head_levels((512, 512))]
+    + [(b, h, w, 256, 80, pair) for b in (2, 8) for h, w in _head_levels((896, 1408)) for pair in (False, True)]
+    + [(b, h, w, 64, 20, pair) for b in (2, 8, 64) for h, w in ((64, 64), (8, 8), (4, 4)) for pair in (False, True)]
+    + [(b, 1, 1, 256, 80, pair) for b in (2, 8, 64) for pair in (False, True)]
+    + [(64, 2, 2, 256, 20, False), (4, 7, 11, 32, 20, True), (3, 5, 3, 32, 20, False)]
+)
+HEAD_IDS = [f"B{b}-{h}x{w}-C{c}-{nc}cls-{'k9' if pair else 'k7'}" for b, h, w, c, nc, pair in HEAD_CASES]
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=HEAD_IDS)
+def test_head_tiles_fit_the_card(case):
+    """Every pass's block fits the shared memory, its M rows the tile (64,
+    or 128 for K9's image pairs), its slice whole 16-channel groups, and the
+    grid's image groups grid.y."""
+    b, h, w, c, nc, pair = case
+    tile = pick_head_tile(b, h, w, c, nc, SM_COUNT, SMEM_MAX, pair=pair)
+    assert tuple(tile) == HEAD_PASSES
+    npos = head_tile_dims(h, w)[0]
+    for pass_, (ipb, split) in tile.items():
+        assert head_smem_bytes(pass_, ipb, h, w, c, nc, split, pair) <= SMEM_MAX, pass_
+        assert ipb * npos <= (128 if pair else 64) and -(-b // ipb) <= 65535, pass_
+        assert ipb in head_ipbs(b, h, w, pair) and split in head_slices(pass_, c, nc)
+        if pair:
+            assert ipb % 2 == 0
+        if pass_ != "pred":
+            assert head_pass_width(pass_, c, nc) % (16 * split) == 0
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=HEAD_IDS)
+def test_head_blocks_cover_each_output_once(case):
+    """The blocks of each pass (tile x image group x slice, as
+    csrc/qhead.cu's blk_of derives them from blockIdx) cover every (image,
+    position, output channel) once: the tiles partition the map, the image
+    groups the batch and the slices the channels, so each (image, tile,
+    channel)'s GroupNorm sums have one writer."""
+    b, h, w, c, nc, pair = case
+    tile = pick_head_tile(b, h, w, c, nc, SM_COUNT, SMEM_MAX, pair=pair)
+    tiles_x, tiles_y = -(-w // HEAD_TILE), -(-h // HEAD_TILE)
+    seen = np.zeros((h, w), np.int32)
+    for t in range(tiles_x * tiles_y):
+        r0, c0 = (t // tiles_x) * HEAD_TILE, (t % tiles_x) * HEAD_TILE
+        seen[r0:r0 + HEAD_TILE, c0:c0 + HEAD_TILE] += 1
+    assert (seen == 1).all()
+    for pass_, (ipb, split) in tile.items():
+        images = sorted(i for grp in range(-(-b // ipb)) for i in range(grp * ipb, min(b, grp * ipb + ipb)))
+        assert images == list(range(b)), pass_
+        if pass_ == "pred":  # 32 classes a block, then one block of cnt|reg
+            chans = [k for z in range(split - 1) for k in range(z * PRED_NC, min(nc, z * PRED_NC + PRED_NC))]
+            assert split == -(-nc // PRED_NC) + 1 and chans == list(range(nc))
+        else:
+            n = head_pass_width(pass_, c, nc)
+            chans = sorted(k for z in range(split) for k in range(z * (n // split), (z + 1) * (n // split)))
+            assert chans == list(range(n)), pass_
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=HEAD_IDS)
+def test_head_fills_the_card(case):
+    """Each pass reaches one block per SM wherever some choice that fits
+    does, else takes the most blocks; where its largest image group already
+    reaches it, it neither shrinks the group nor splits the channels."""
+    b, h, w, c, nc, pair = case
+    tile = pick_head_tile(b, h, w, c, nc, SM_COUNT, SMEM_MAX, pair=pair)
+    for pass_, (ipb, split) in tile.items():
+        options = [(i, s) for i in head_ipbs(b, h, w, pair) for s in head_slices(pass_, c, nc)
+                   if head_smem_bytes(pass_, i, h, w, c, nc, s, pair) <= SMEM_MAX]
+        most = max(head_blocks(b, h, w, i, s) for i, s in options)
+        got = head_blocks(b, h, w, ipb, split)
+        assert got >= min(SM_COUNT, most), f"{pass_}: {got} blocks of a possible {most}"
+        top = head_ipbs(b, h, w, pair)[0]
+        first = head_slices(pass_, c, nc)[0]
+        if head_blocks(b, h, w, top, first) >= SM_COUNT and (top, first) in options:
+            assert (ipb, split) == (top, first), pass_
+
+
+def test_head_small_levels_pack_images_and_split_channels():
+    """At B=64 the 4x4 and 1x1 levels put several images in a block; at B=8
+    the 8x8 and 16x16 levels split the towers' channels across blocks."""
+    for h in (4, 1):
+        assert pick_head_tile(64, h, h, 256, 20, SM_COUNT, SMEM_MAX)["towers"][0] > 1
+    for h in (16, 8):
+        assert pick_head_tile(8, h, h, 256, 20, SM_COUNT, SMEM_MAX)["towers"][1] > 1
+    assert pick_head_tile(8, 64, 64, 256, 20, SM_COUNT, SMEM_MAX)["towers"] == (1, 1)
