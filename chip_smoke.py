@@ -14,9 +14,10 @@ Phases (each prints its results on its own lines):
      sources, one nvcc per source, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
-  4. kernel A vs its plain version: random [8,1000] boxes, the adversarial
-     case of tests/test_pallas_nms.py, and (after phase 5) the pipeline's own
-     decoded boxes; exact equality;
+  4. kernel A vs its plain version: random [8,1000] and [64,1000] boxes, a
+     [1,1000] chain in which each box suppresses the next (every other box
+     kept), the adversarial case of tests/test_pallas_nms.py, and (after
+     phase 5) the pipeline's own decoded boxes; exact equality;
   5. the float serving pipeline: full-width HISFCOS(20, 256) from a seed, 8
      seeded uint8 512x512 frames through make_eval_pipeline in bf16; shapes,
      finiteness, launch counters (20 GN launches per forward, 1 NMS launch per
@@ -40,7 +41,9 @@ Phases (each prints its results on its own lines):
   5e. K1, K4, K5 and K6 vs their plain versions at the shapes of that call,
      on its own inputs and on random ones: 0 differing elements for K1, K4
      (and its residual variant) and K6, at most one step and under 5 %
-     differing for K5;
+     differing for K5; K5 at its seven shapes bit for bit the same under
+     forced tiles (one image and all channels a block; the most slices) as
+     under ops/qhis.pick_his_tile's;
   5f. the JAX default serving pipeline, the main path: the same model
      through make_eval_pipeline_int8(...) with its defaults (int8 FPN and
      int8 head) in bf16 on the 8 frames; launch counters (1 K1, 13 K2, 3 K3,
@@ -107,7 +110,8 @@ Phases (each prints its results on its own lines):
      shape at B=8, and at B=64 the kernel alone: each with its bound, its
      rate, its tile, cluster split and conv1 recompute), K1, K4 (the
      laterals at B=8 and B=64; the per-conv path's 36 1x1 convs at B=8 and
-     B=64, held exact there, each beside torch._int_mm), K5, K6, K7
+     B=64, held exact there, each beside torch._int_mm), K5 (per HisBlock
+     at B=8 and B=64, with its tile and T multiply-adds/s), K6, K7
      (per level, with its T multiply-adds/s, beside the bf16 float head at
      the same levels), K10, K11, K13
      (beside kernel C's 16 launches on the same
@@ -128,7 +132,7 @@ Phases (each prints its results on its own lines):
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
-     GroupNorm statistics); 6g splits the fused head's device time at B=64
+     GroupNorm statistics) and K5's (his_produce, his_mid, his_out); 6g splits the fused head's device time at B=64
      into the NCHW -> NHWC copies of the levels, K15 and the output casts,
      beside the float head's.
 
@@ -410,6 +414,19 @@ def main() -> int:
         classes = torch.randint(1, NUM_CLASSES + 1, (8, 1000), generator=g, device=dev, dtype=torch.int32)
         valid = torch.rand(8, 1000, generator=g, device=dev) > 0.1
         nms_compare(torch.cat([xy, xy + wh], -1), classes, valid, "random")
+        xy = torch.rand(64, 1000, 2, generator=g, device=dev) * 400
+        wh = torch.rand(64, 1000, 2, generator=g, device=dev) * 100 + 4
+        classes = torch.randint(1, NUM_CLASSES + 1, (64, 1000), generator=g, device=dev, dtype=torch.int32)
+        nms_compare(torch.cat([xy, xy + wh], -1), classes, torch.rand(64, 1000, generator=g, device=dev) > 0.1,
+                    "random")
+        # each box overlaps the next at IoU 2/3 and the one after at 3/7: the
+        # longest chain of suppressions a 64-row tile can resolve
+        x = torch.arange(1000, dtype=torch.float32, device=dev)[None, :, None] * 2.0
+        chain = torch.cat([x, torch.zeros_like(x), x + 10.0, torch.full_like(x, 10.0)], -1)
+        ones = torch.ones(1, 1000, dtype=torch.int32, device=dev)
+        nms_compare(chain, ones, ones.bool(), "chain")
+        got = cuda_nms.cuda_batched_class_nms(chain, ones.float(), ones, ones.bool(), 0.6)
+        smoke.check(torch.equal(got[0].cpu(), torch.arange(1000) % 2 == 0), "NMS chain keeps every other box")
         adv = torch.tensor([[0, 0, 10, 10], [0, 0, 10, 10], [0, 0, 10, 10], [5, 5, 5, 5], [5, 5, 5, 5],
                             [20, 0, 24, 3], [20, 0, 22, 3], [20, 0, 23, 3], [50, 50, 60, 60]],
                            dtype=torch.float32, device=dev)[None]
@@ -711,6 +728,17 @@ def main() -> int:
                                 f"K5 his{i + 1} {kw.get('combine')} {what} {tuple(x_in.shape)} -> "
                                 f"{tuple(got.shape)}: max {step} step, {share:.4%} of {want.numel()} differ, "
                                 f"{float((want != 0).float().mean()):.3f} nonzero")
+            sm_count, smem_max = qblock.card_limits(dev)
+            for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                b, h, w, cin = (kw["xb_q"] if kw.get("xb_q") is not None else xa).shape
+                got = qhis.qhisblock(blk, xa, **kw)
+                sliced = {k: (64 if k == "produce" else 1, qhis.his_slices(k, cin)[-1]) for k in qhis.HIS_KERNELS}
+                for tile in ({"produce": (64, 1), "mid": (1, 1), "out": (1, 1)}, sliced):
+                    forced = qhis.qhisblock(blk, xa, tile=tile, **kw)
+                    torch.cuda.synchronize()
+                    smoke.check(torch.equal(forced, got), f"K5 his{i + 1} {tuple(got.shape)}: tile {tile} equals the "
+                                f"chooser's {qhis.pick_his_tile(b, h, w, cin, sm_count, smem_max)}")
         res["fpn_err"] = err
 
     def phase5f():
@@ -1441,7 +1469,8 @@ def main() -> int:
             print(f"  K4 laterals per forward (B=64): kernel {t64:.4f} ms, torch._int_mm {l64:.4f} ms "
                   f"(K4 / _int_mm {t64 / l64:.3f}) {card}")
 
-            tk = tp = th = nbytes = ops = 0.0
+            tk = tp = th = nbytes = ops = t64 = 0.0
+            sm_count, smem_max = qblock.card_limits(dev)
             for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
                 kw = {k: v for k, v in kw.items() if k != "plain"}
                 k1 = cuda_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=10)
@@ -1454,7 +1483,17 @@ def main() -> int:
                 weights = sum(blk[k].numel() for k in ("w1", "w2", "wdw", "w3", "w4"))
                 nbytes += xa.numel() + (xb.numel() if xb is not None else 0) + b * h * w * cin + weights
                 tk, tp, ops = tk + k1, tp + p1, ops + 2 * macs
-                print(f"  K5 his{i + 1} {kw.get('combine')} B=8 {h}x{w}x{cin}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
+                # the same block at B=64, the kernel alone
+                kw64 = dict(kw, xb_q=xb.repeat(8, 1, 1, 1)) if xb is not None else kw
+                xa64 = xa.repeat(8, 1, 1, 1)
+                k64 = cuda_ms(lambda: qhis.qhisblock(blk, xa64, **kw64), iters=5)
+                t64 += k64
+                tiles = [qhis.pick_his_tile(n, h, w, cin, sm_count, smem_max) for n in (b, 8 * b)]
+                print(f"  K5 his{i + 1} {kw.get('combine')} {h}x{w}x{cin}: B=8 kernel {k1:.4f} ms, plain {p1:.4f} ms, "
+                      f"{macs / k1 / 1e9:.1f} T multiply-adds/s, tile {tiles[0]}; B=64 kernel {k64:.4f} ms, "
+                      f"{8 * macs / k64 / 1e9:.1f} T multiply-adds/s, tile {tiles[1]}")
+            print(f"  K5 per forward, the kernel alone: B=8 {tk:.4f} ms ({ops / 2 / tk / 1e9:.1f} T multiply-adds/s), "
+                  f"B=64 {t64:.4f} ms ({4 * ops / t64 / 1e9:.1f} T multiply-adds/s) {card}")
             t["qhisblock"], work["qhisblock"], host["qhisblock"] = (tk, tp, None), (nbytes, ops, INT8_OPS_S), th
 
             tk = tp = tl = th = nbytes = ops = 0.0
@@ -1765,10 +1804,10 @@ def main() -> int:
               f"{h9:.4f} ms {card}")
         res["k9"] = dict(ms=t9, k7_ms=t7, plain_ms=p9, host_ms=h9, bound=b_k9)
 
-    def phase6_profile(pipe, ours=("gn_act_kernel", "nms_"), split=None):
+    def phase6_profile(pipe, ours=("gn_act_kernel", "nms_"), split=()):
         """Where the time goes in one B=64 pipeline call (torch.profiler);
-        ``split``: a kernel name prefix whose kernels are also summed by name
-        (their template arguments dropped)."""
+        ``split``: kernel name prefixes whose kernels are also summed by name
+        (their template arguments dropped), one line a prefix."""
         from torch.profiler import ProfilerActivity, profile
 
         fr = res["frames"].repeat(8, 1, 1, 1)
@@ -1794,13 +1833,13 @@ def main() -> int:
         mine = [e for e in ranked[15:] if any(k in e.key for k in ours)]
         for e in ranked[:15] + mine:
             print(f"    {getattr(e, attr) / 1000.0:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-        if split:
+        for prefix in split:
             parts = {}
             for e in events:
-                m = re.search(split + r"\w*", e.key)
+                m = re.search(prefix + r"\w*", e.key)
                 if m:
                     parts[m.group(0)] = parts.get(m.group(0), 0.0) + getattr(e, attr) / 1000.0
-            print(f"  {split}* kernels, 3 calls: {sum(parts.values()):.3f} ms = "
+            print(f"  {prefix}* kernels, 3 calls: {sum(parts.values()):.3f} ms = "
                   + " + ".join(f"{k} {v:.3f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
 
     def phase6g():
@@ -1882,8 +1921,8 @@ def main() -> int:
         smoke.phase("phase 6d: profile, int8-FPN pipeline", phase6_profile, res["fpipe"],
                     ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "gn_act_kernel", "nms_"))
     if "dpipe" in res:
-        smoke.phase("phase 6e: profile, default pipeline; K7's split", phase6_profile, res["dpipe"],
-                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"), "head_")
+        smoke.phase("phase 6e: profile, default pipeline; K7's and K5's split", phase6_profile, res["dpipe"],
+                    ("qstem_kernel", "qblock_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"), ("head_", "his_"))
     if "per-conv" in res.get("paths", {}):
         smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
                     ("qstem_kernel", "qconv3_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))

@@ -13,7 +13,7 @@
 //   produce  x    = combine: xa | clip8(xa*ca + xb*cb) | clip8(up2(xa)*ca + xb*cb)
 //            x1q  = clip8(silu(conv1(x) * A1 + B1) * inv_x1)     (1x1, cin -> half)
 //            x2q  = clip8(conv2(x) * A2 + B2)                    (1x1, cin -> half)
-//            sum[b][c] += x1q  (int32: exact in any order; block sums, then atomics)
+//            sum[b][c] += x1q  (int32: exact in any order; per-image runs, then atomics)
 //   mid      g    = sigmoid(silu(mean @ se_w1 + se_b1) @ se_w2 + se_b2), f32, per
 //                   image in every block's prologue, mean = float(sum) / (H*W) * premul
 //            aq   = clip8(relu(dw3x3(x1q) * Adw + Bdw))
@@ -21,20 +21,36 @@
 //            mq   = clip8(relu(conv3x3([aq, bq]) * A3 + B3))      (cin -> half)
 //   out      out  = clip8(silu(conv3x3_dil2([mq, x2q]) * A4 + B4) * inv_out)  (cin -> cin)
 //
-// Convs pad with zeros in the int8 domain, as the reference does.  The
-// producer owns 64 positions of one image; each consumer owns an 8 x 8 tile
-// of one image and recomputes its halo from device memory: mid reads x1q
-// with a 2-row/column halo and builds [aq, bq] with a 1-halo in shared
-// memory; out reads [mq, x2q] with the dilation's 2-halo.  Shifts past the
-// edge of a tiny level (4x4 and below) read the zero fill.  Convs use the
-// __dp4a tile of int8_common.cuh (8 positions x 4 channels per thread,
-// weights [out][taps][in] through L1/L2); channel counts must be multiples
-// of 16 (half) and 32 (cin).
+// Convs pad with zeros in the int8 domain, as the reference does.
 //
-// Bound on the card: int8 multiply-adds (about 951 k per position, 6.4 G
-// per 512^2 image, 95 % in conv3 and conv4), run here on the CUDA cores
-// with dp4a, not the tensor cores; device memory moves a few bytes per
-// multiply-add thousand.  Tensor cores (mma.sync / wgmma) are the next step.
+// Design.  Every conv is a GEMM on the int8 tensor cores through
+// csrc/qmma_tile.cuh's MmaTile (mma.sync m16n8k32 s8, ldmatrix fragments),
+// its A operand in XOR-swizzled shared-memory rows (swz), the weights' K
+// slices streamed through a ring of 4 cp.async stages.  The producer's
+// block owns 64 or 128 consecutive positions of the batch (M) and one slice
+// of the 2*half outputs of conv1|conv2 (N, w1's rows then w2's), K = cin;
+// it builds its x rows once, with the combine glue applied as they are
+// loaded.  Each consumer's block owns one 8x8 tile (smaller at the map's
+// edges and on maps under 8 a side) of `ipb` images (M: at most 64 rows)
+// and one slice of its output channels: mid recomputes [aq, bq] on the
+// tile and a 1-position halo from x1q (2-halo) and the SE gate, then runs
+// conv3 as an implicit GEMM over the 9 taps of that halo (K = 9 cin, N =
+// half) through a table of each row's halo position; out loads [mq, x2q]
+// on the 2-halo by cp.async and runs conv4 the same way with the taps 2
+// rows and 2 columns apart (K = 9 cin, N = cin).  A block that packs
+// images keeps each one's halo, gate and zero padding apart.  The int32
+// sums go through shared memory, so the epilogues write 16-byte words.
+// ops/qhis.pick_his_tile chooses each kernel's rows or images a block and
+// its channel slices, so the small levels (8x8, 4x4) at B=8 run on many
+// blocks.  The depthwise 3x3 (0.1 % of the multiply-adds) stays on the
+// CUDA cores, as byte-masked __dp4a.  mid is not fused into out: the dilation's 2-halo would make
+// each 8x8 tile recompute conv3 on 12x12 positions, 2.25x its work.
+//
+// Bound on the card: int8 multiply-adds, about 951 k per position at cin =
+// 256 (6.4 G per 512^2 image, 95 % in conv3 and conv4).  |acc| <= 127^2 *
+// 2304 < 2^31, so the int32 sums are exact in any order and the outputs do
+// not depend on the tiling: every tile the chooser can pick gives the same
+// bits.
 //
 // Against the plain version (nn/fpn_int8's per-op oracle): the int8 convs are
 // exact and the epilogues use separate __fmul_rn / __fadd_rn under
@@ -43,13 +59,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_common.cuh"
+#include "int8_epilogue.cuh"
+#include "qmma_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTP = 64;            // producer: positions per block
-constexpr int kTR = 8, kTC = 8;    // consumers: output tile
+constexpr int kT = 8;       // consumers: tiles of at most kT x kT positions of one image
+constexpr int kMC = 64;     // consumers: M rows a block (ipb x a tile's positions)
+constexpr int kStages = 4;  // the weights' cp.async ring
+enum { kProduce, kMid, kOut, kKernels };
 
 struct Args {
   const int8_t* xa;  // [B, Ha, Wa, cin]
@@ -67,8 +85,55 @@ struct Args {
   int8_t *x1q, *x2q, *mq;  // [B, H, W, half]
   int* se_sum;             // [B, half]
   int8_t* out;             // [B, H, W, cin]
-  int h, w, cin, half, r, combine;  // combine: 0 none, 1 add, 2 up_add
+  int batch, h, w, cin, half, r, combine;  // combine: 0 none, 1 add, 2 up_add
+  int tiles_x, th, tw;                     // consumers: tiles a row; a full tile's rows, columns
 };
+
+// one kernel's launch: rows a block (produce) or images a block, and output channels a block
+struct Pass {
+  int ipb, slice;
+};
+
+// one consumer block's tile, images and channel slice
+struct Blk {
+  int r0, c0, th, tw, npos, b0, nimg, rows, nb;
+};
+
+__device__ __forceinline__ Blk blk_of(const Args& g, const Pass& p) {
+  Blk t;
+  const int ty = blockIdx.x / g.tiles_x;
+  t.r0 = ty * kT;
+  t.c0 = (blockIdx.x - ty * g.tiles_x) * kT;
+  t.th = min(kT, g.h - t.r0);
+  t.tw = min(kT, g.w - t.c0);
+  t.npos = t.th * t.tw;
+  t.b0 = blockIdx.y * p.ipb;
+  t.nimg = min(p.ipb, g.batch - t.b0);
+  t.rows = t.nimg * t.npos;
+  t.nb = blockIdx.z * p.slice;
+  return t;
+}
+
+__device__ __forceinline__ int64_t pixel(const Args& g, int b, int y, int x) {
+  return (static_cast<int64_t>(b) * g.h + y) * g.w + x;
+}
+
+// pixel of block row r (image r / npos, position r % npos of the tile)
+__device__ __forceinline__ int64_t row_pixel(const Args& g, const Blk& t, int r) {
+  const int i = r / t.npos, p = r - i * t.npos;
+  return pixel(g, t.b0 + i, t.r0 + p / t.tw, t.c0 + p % t.tw);
+}
+
+// row hr of a halo of `pad` positions around the tile (image hr / its rows,
+// rows of g.tw + 2 pad positions): its image and map position; false outside the map
+__device__ __forceinline__ bool halo_at(const Args& g, const Blk& t, int pad, int hr, int& b, int& y, int& x) {
+  const int wide = g.tw + 2 * pad, rows = (g.th + 2 * pad) * wide;
+  const int i = hr / rows, hp = hr - i * rows;
+  b = t.b0 + i;
+  y = t.r0 - pad + hp / wide;
+  x = t.c0 - pad + hp % wide;
+  return y >= 0 && y < g.h && x >= 0 && x < g.w;
+}
 
 __device__ __forceinline__ float silu(float z) {
   return __fmul_rn(z, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z))));
@@ -92,30 +157,107 @@ __device__ __forceinline__ int combine4(int a, int b, float ca, float cb) {
   return pack4(q[0], q[1], q[2], q[3]);
 }
 
-// grid (ceil(H*W / kTP), B); dynamic smem: x [kTP][cin] int8, then half int32 sums
-__global__ void __launch_bounds__(kThreads) his_produce(const Args g) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* xs = smem;
-  int* sums = reinterpret_cast<int*>(smem + kTP * g.cin);
-  const int b = blockIdx.y, hw = g.h * g.w, p0 = blockIdx.x * kTP;
-  const int npos = min(kTP, hw - p0);
-  const int tid = threadIdx.x, c16 = g.cin / 16;
-  const float ca = g.sc[3], cb = g.sc[4];
+__host__ __device__ __forceinline__ int align128(int n) { return (n + 127) / 128 * 128; }
+__host__ __device__ __forceinline__ int ring_bytes(int nc) { return kStages * nc * kStepBytes; }
+// the ring, reused after each chunk for its int32 sums (rows of nc + 8 words)
+__host__ __device__ __forceinline__ int ring_or_sums(int mc, int nc) {
+  return ring_bytes(nc) > mc * (nc + 8) * 4 ? ring_bytes(nc) : mc * (nc + 8) * 4;
+}
 
-  for (int c = tid; c < g.half; c += kThreads) sums[c] = 0;
-  for (int i = tid; i < kTP * c16; i += kThreads) {
-    const int pos = i / c16, c = (i % c16) * 16;
+// output channels a GEMM chunk takes for a kernel's slice: 256 (out), 128, 64 or 32
+__host__ __device__ __forceinline__ int chunk_of(int kernel, int slice) {
+  if (kernel == kOut && slice % 256 == 0) return 256;
+  return slice % 128 == 0 ? 128 : slice % 64 == 0 ? 64 : 32;
+}
+
+// the accumulators into int32 rows of NC + 8 words (sum_at), then a sync
+template <class T>
+__device__ __forceinline__ void stage_acc(const T& mm, int* sums) {
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<int2*>(sums + sum_at(T::row(mt, 2 * hf), T::col(nt, 0), T::NC + 8)) =
+            make_int2(mm.acc[mt][nt][2 * hf], mm.acc[mt][nt][2 * hf + 1]);
+  __syncthreads();
+}
+
+// 16 staged sums of row r from column c
+template <int NC>
+__device__ __forceinline__ void read16(int (&v)[16], const int* sums, int r, int c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int4 q = *reinterpret_cast<const int4*>(sums + sum_at(r, c + 4 * j, NC + 8));
+    v[4 * j] = q.x, v[4 * j + 1] = q.y, v[4 * j + 2] = q.z, v[4 * j + 3] = q.w;
+  }
+}
+
+// halo position of each block row at tap (0, 0), for the implicit GEMMs
+// (halo of `pad`); rows past the block's repeat its last one (their sums
+// are not used)
+__device__ __forceinline__ void fill_rowpos(int* rowpos, const Args& g, const Blk& t, int pad) {
+  const int wide = g.tw + 2 * pad, rows = (g.th + 2 * pad) * wide;
+  for (int r = threadIdx.x; r < kMC; r += kMmaThreads) {
+    const int rr = min(r, t.rows - 1), i = rr / t.npos, p = rr - i * t.npos;
+    rowpos[r] = i * rows + (p / t.tw) * wide + p % t.tw;
+  }
+}
+
+// mm = the block's rows x output channels [o0, o0 + NC) of a 3x3 conv over
+// the halo at shared address `a` (swz rows of cin bytes), weights wt
+// [N][9][cin] (output channel o0 + n live where n < live); tap `tap` reads
+// halo row rowpos[r] + toff(tap).  Ends with the ring drained and synced.
+template <class T, class TOff>
+__device__ __forceinline__ void conv3x3(T& mm, const Args& g, uint32_t a, const int* rowpos, uint32_t rb,
+                                        const int8_t* wt, int o0, int live, const TOff& toff, int rows) {
+  const int cin = g.cin, cpr = cin / 16, per_tap = (cin + kStepBytes - 1) / kStepBytes;
+  mm.zero();
+  pipeline<kStages>(
+      9 * per_tap,
+      [&](int s, int slot) {
+        const int tap = s / per_tap, k0 = (s - tap * per_tap) * kStepBytes;
+        stage_rows<T::NC>(
+            rb + slot * T::NC * kStepBytes,
+            [&](int r) { return wt + static_cast<int64_t>(o0 + r) * 9 * cin + tap * cin + k0; },
+            [&](int r) { return r < live; }, [&](int c) { return k0 + 16 * c < cin; }, wt);
+      },
+      [&](int s, int slot) {
+        const int tap = s / per_tap, k16 = (s - tap * per_tap) * 4, to = toff(tap);
+        const uint32_t sb = rb + slot * T::NC * kStepBytes;
+        mm.step([&](int r, int ch) { return a + swz(rowpos[r] + to, k16 + ch, cpr); },
+                [&](int r, int ch) { return sb + swz64(r, ch); }, rows);
+      });
+}
+
+// grid (ceil(B*H*W / MC), slices of 2 half); smem: x rows [MC][cin], the ring / sums
+template <int MC, int NC>
+__global__ void __launch_bounds__(kMmaThreads, 2) his_produce(const Args g, const Pass p) {
+  using T = MmaTile<MC, NC, NC == 32 ? 4 : 2>;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int cin = g.cin, cpr = cin / 16, half = g.half, hw = g.h * g.w;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * MC;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(MC), static_cast<int64_t>(g.batch) * hw - p0));
+  const int nb = blockIdx.y * p.slice;
+  const float ca = g.sc[3], cb = g.sc[4], inv_x1 = g.sc[0];
+  int8_t* xs = smem;
+  int8_t* ring = smem + align128(MC * cin + 64);
+
+  // the block's x rows (positions p0 + r of the batch), the glue applied as they load
+  for (int j = threadIdx.x; j < MC * cpr; j += kMmaThreads) {
+    const int r = j / cpr, c = j - r * cpr;
     int4 v = make_int4(0, 0, 0, 0);
-    if (pos < npos) {
-      const int p = p0 + pos;
-      const int64_t at = (static_cast<int64_t>(b) * hw + p) * g.cin + c;
+    if (r < rows) {
+      const int64_t at = (p0 + r) * cin + 16 * c;
       if (g.combine == 0) {
         v = __ldg(reinterpret_cast<const int4*>(g.xa + at));
       } else {
         int64_t at_a = at;
         if (g.combine == 2) {  // the coarser level, 2x nearest upsample
-          const int y = p / g.w, x = p % g.w;
-          at_a = ((static_cast<int64_t>(b) * (g.h / 2) + y / 2) * (g.w / 2) + x / 2) * g.cin + c;
+          const int64_t b = (p0 + r) / hw;
+          const int q = static_cast<int>(p0 + r - b * hw), y = q / g.w, x = q % g.w;
+          at_a = ((b * (g.h / 2) + y / 2) * (g.w / 2) + x / 2) * cin + 16 * c;
         }
         const int4 a = __ldg(reinterpret_cast<const int4*>(g.xa + at_a));
         const int4 bb = __ldg(reinterpret_cast<const int4*>(g.xb + at));
@@ -123,226 +265,311 @@ __global__ void __launch_bounds__(kThreads) his_produce(const Args g) {
                       combine4(a.w, bb.w, ca, cb));
       }
     }
-    *reinterpret_cast<int4*>(xs + pos * g.cin + c) = v;
+    *reinterpret_cast<int4*>(xs + swz(r, c, cpr)) = v;
   }
   __syncthreads();
 
-  // conv1 | conv2: outputs [0, half) from w1, [half, 2 half) from w2
-  const float inv_x1 = g.sc[0];
-  const int groups = 2 * g.half / kQ;
-  const int items = (npos + kP - 1) / kP * groups;
-  for (int it = tid; it < items; it += kThreads) {
-    const int o = (it % groups) * kQ, pg = (it / groups) * kP;
-    const bool first = o < g.half;
-    const int oc = first ? o : o - g.half;
-    const int8_t* act[kP];
+  const uint32_t a = smem_u32(xs), rb = smem_u32(ring);
+  for (int n0 = 0; n0 < p.slice; n0 += NC) {
+    const int o0 = nb + n0;  // output column of the chunk's first: [0, half) conv1, [half, 2 half) conv2
+    const auto wrow = [&](int r) {
+      const int o = o0 + r;
+      return o < half ? g.w1 + static_cast<int64_t>(o) * cin : g.w2 + static_cast<int64_t>(o - half) * cin;
+    };
+    T mm;
+    mm.zero();
+    pipeline<kStages>(
+        (cin + kStepBytes - 1) / kStepBytes,
+        [&](int s, int slot) {
+          stage_rows<NC>(
+              rb + slot * NC * kStepBytes, [&](int r) { return wrow(r) + s * kStepBytes; },
+              [&](int r) { return n0 + r < p.slice; }, [&](int c) { return s * kStepBytes + 16 * c < cin; }, g.w1);
+        },
+        [&](int s, int slot) {
+          const uint32_t sb = rb + slot * NC * kStepBytes;
+          mm.step([&](int r, int ch) { return a + swz(r, s * 4 + ch, cpr); },
+                  [&](int r, int ch) { return sb + swz64(r, ch); }, rows);
+        });
+    int* sums = reinterpret_cast<int*>(ring);
+    stage_acc(mm, sums);
+    const int cols = min(NC, p.slice - n0);
+    // x1q | x2q, 16 channels of a position a thread; x1q's values go back
+    // into the thread's own staged sums for the SE sums below
+    constexpr int kGroups = NC / 16;
+    for (int gi = threadIdx.x; gi < rows * kGroups; gi += kMmaThreads) {
+      const int r = gi / kGroups, cc = (gi - r * kGroups) * 16;
+      if (cc >= cols) continue;
+      const int o = o0 + cc;
+      int v[16];
+      read16<NC>(v, sums, r, cc);
+      int8_t q[16];
+      if (o < half) {
 #pragma unroll
-    for (int p = 0; p < kP; ++p) act[p] = xs + min(pg + p, npos - 1) * g.cin;
-    int acc[kP][kQ];
-    zero(acc);
-    dot_tile(acc, act, (first ? g.w1 : g.w2) + static_cast<int64_t>(oc) * g.cin, g.cin, g.cin);
-    int part[kQ] = {0, 0, 0, 0};
+        for (int k = 0; k < 16; ++k) q[k] = clip8(__fmul_rn(silu(epilogue(v[k], g.a1[o + k], g.b1[o + k])), inv_x1));
+        *reinterpret_cast<int4*>(g.x1q + (p0 + r) * half + o) = pack16(q);
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      if (pg + p >= npos) break;
-      int8_t q[kQ];
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<int4*>(sums + sum_at(r, cc + 4 * j, NC + 8)) =
+              make_int4(q[4 * j], q[4 * j + 1], q[4 * j + 2], q[4 * j + 3]);
+      } else {
 #pragma unroll
-      for (int k = 0; k < kQ; ++k) {
-        if (first) {
-          q[k] = clip8(__fmul_rn(silu(epilogue(acc[p][k], g.a1[oc + k], g.b1[oc + k])), inv_x1));
-          part[k] += q[k];
-        } else {
-          q[k] = clip8(epilogue(acc[p][k], g.a2[oc + k], g.b2[oc + k]));
+        for (int k = 0; k < 16; ++k) q[k] = clip8(epilogue(v[k], g.a2[o - half + k], g.b2[o - half + k]));
+        *reinterpret_cast<int4*>(g.x2q + (p0 + r) * half + o - half) = pack16(q);
+      }
+    }
+    __syncthreads();
+    // the SE sums of the chunk's x1q channels: two threads a channel, each
+    // half the rows, one atomic per run of rows of one image
+    const int hr = (rows + 1) / 2;
+    for (int it = threadIdx.x; it < 2 * cols; it += kMmaThreads) {
+      const int c = it >> 1, o = o0 + c;
+      if (o >= half) continue;
+      const int r1 = min(rows, (it & 1) * hr + hr);
+      int r = (it & 1) * hr;
+      while (r < r1) {
+        const int64_t b = (p0 + r) / hw;
+        const int end = static_cast<int>(min(static_cast<int64_t>(r1), (b + 1) * hw - p0));
+        int s = 0;
+        for (; r < end; ++r) s += sums[sum_at(r, c, NC + 8)];
+        if (s != 0) atomicAdd(&g.se_sum[b * half + o], s);
+      }
+    }
+    __syncthreads();  // the ring is free for the next chunk's copies
+  }
+}
+
+// grid (ntiles, image groups, slices of half); smem: mean, gate, hid
+// [ipb][half] f32, x1q on the 2-halo [ipb * halo2][half], [aq, bq] on the
+// 1-halo [ipb * halo1][cin] (swz rows), the rows' halo positions [64], the ring / sums
+template <int NC>
+__global__ void __launch_bounds__(kMmaThreads, 2) his_mid(const Args g, const Pass p) {
+  using T = MmaTile<kMC, NC, NC == 32 ? 4 : 2>;
+  extern __shared__ __align__(128) int8_t smem[];
+  const Blk t = blk_of(g, p);
+  const int half = g.half, cin = g.cin, cpr = cin / 16, hcpr = half / 16, r = g.r;
+  const int w1h = g.tw + 2, h1 = (g.th + 2) * w1h, w2h = g.tw + 4, h2 = (g.th + 4) * w2h;
+  float* mean = reinterpret_cast<float*>(smem);
+  float* gate = mean + p.ipb * half;
+  float* hid = gate + p.ipb * half;
+  int8_t* x1 = smem + align128(p.ipb * 3 * half * 4);
+  int8_t* cat = x1 + align128(p.ipb * h2 * half);
+  int* rowpos = reinterpret_cast<int*>(cat + align128(p.ipb * h1 * cin + 64));
+  int8_t* ring = reinterpret_cast<int8_t*>(rowpos) + align128(kMC * 4);
+
+  // x1q on the 2-halo, in flight while the gate is computed
+  const uint32_t x1a = smem_u32(x1);
+  for (int j = threadIdx.x; j < t.nimg * h2 * hcpr; j += kMmaThreads) {
+    const int hr = j / hcpr, c = j - hr * hcpr;
+    int b, y, x;
+    const bool in = halo_at(g, t, 2, hr, b, y, x);
+    cp_async16(x1a + hr * half + 16 * c, in ? static_cast<const void*>(g.x1q + pixel(g, b, y, x) * half + 16 * c)
+                                            : static_cast<const void*>(g.x1q), in);
+  }
+  cp_async_commit();
+  fill_rowpos(rowpos, g, t, 1);
+
+  // the SE gate of each image
+  const float premul = g.sc[2], hw = static_cast<float>(g.h * g.w);
+  for (int j = threadIdx.x; j < t.nimg * half; j += kMmaThreads) {
+    const int i = j / half, c = j - i * half;
+    mean[j] = __fmul_rn(__fdiv_rn(static_cast<float>(g.se_sum[(t.b0 + i) * half + c]), hw), premul);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < t.nimg * r; j += kMmaThreads) {
+    const int i = j / r, k = j - i * r;
+    const float* m = mean + i * half;
+    float s = 0.0f;
+    for (int c = 0; c < half; ++c) s = __fadd_rn(s, __fmul_rn(m[c], g.se_w1[c * r + k]));
+    hid[i * half + k] = silu(__fadd_rn(s, g.se_b1[k]));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < t.nimg * half; j += kMmaThreads) {
+    const int i = j / half, c = j - i * half;
+    const float* hd = hid + i * half;
+    float s = 0.0f;
+    for (int k = 0; k < r; ++k) s = __fadd_rn(s, __fmul_rn(hd[k], g.se_w2[k * half + c]));
+    gate[j] = sigmoid(__fadd_rn(s, g.se_b2[c]));
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // [aq, bq] on the 1-halo; 0 outside the map.  The depthwise taps run as
+  // byte-masked __dp4a: __dp4a(v, w & (0xff << 8k), acc) = acc + v_k * w_k,
+  // exact; a thread's 4 channels change rarely, so their masked weights are
+  // kept while they stay
+  const int groups = half / 4;
+  int wc = -1, wm[9][4];
+  for (int it = threadIdx.x; it < t.nimg * h1 * groups; it += kMmaThreads) {
+    const int hr = it / groups, c = (it - hr * groups) * 4;
+    int b, y, x, a_word = 0, b_word = 0;
+    if (halo_at(g, t, 1, hr, b, y, x)) {
+      const int i = hr / h1, pos = hr - i * h1, pi = pos / w1h, pj = pos - pi * w1h;
+      const int8_t* xi = x1 + i * h2 * half;
+      if (c != wc) {
+        wc = c;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int wv = __ldg(reinterpret_cast<const int*>(g.wdw + tap * half + c));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wm[tap][k] = wv & (0xff << (8 * k));
         }
       }
-      const int64_t at = (static_cast<int64_t>(b) * hw + p0 + pg + p) * g.half + oc;
-      *reinterpret_cast<int*>((first ? g.x1q : g.x2q) + at) = pack4(q[0], q[1], q[2], q[3]);
-    }
-    if (first)
-#pragma unroll
-      for (int k = 0; k < kQ; ++k) atomicAdd(&sums[oc + k], part[k]);
-  }
-  __syncthreads();
-  for (int c = tid; c < g.half; c += kThreads)
-    if (sums[c] != 0) atomicAdd(&g.se_sum[b * g.half + c], sums[c]);
-}
-
-// load rows [y0, y0 + rows) x cols [x0, x0 + cols) of an [H, W, ch] int8 map
-// of image b into dst[rows][cols][dst_ch] at channel offset dst_c; zero outside
-__device__ __forceinline__ void load_region(int8_t* dst, int dst_ch, int dst_c, const int8_t* src, int ch, int b,
-                                            int h, int w, int y0, int x0, int rows, int cols) {
-  const int c16 = ch / 16;
-  for (int i = threadIdx.x; i < rows * cols * c16; i += kThreads) {
-    const int pos = i / c16, c = (i % c16) * 16;
-    const int y = y0 + pos / cols, x = x0 + pos % cols;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (y >= 0 && y < h && x >= 0 && x < w)
-      v = __ldg(reinterpret_cast<const int4*>(src + ((static_cast<int64_t>(b) * h + y) * w + x) * ch + c));
-    *reinterpret_cast<int4*>(dst + pos * dst_ch + dst_c + c) = v;
-  }
-}
-
-// grid (ceil(W / kTC), ceil(H / kTR), B); dynamic smem: mean, g [half] f32,
-// hid [r] f32, then x1 [(kTR+4)(kTC+4)][half] and cat [(kTR+2)(kTC+2)][cin] int8
-__global__ void __launch_bounds__(kThreads) his_mid(const Args g) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int half = g.half, cin = g.cin, tid = threadIdx.x;
-  float* mean = reinterpret_cast<float*>(smem);
-  float* gate = mean + half;
-  float* hid = gate + half;
-  const int fbytes = ((2 * half + g.r) * 4 + 15) / 16 * 16;
-  int8_t* x1 = smem + fbytes;                           // [(kTR+4) * (kTC+4)][half]
-  int8_t* cat = x1 + (kTR + 4) * (kTC + 4) * half;      // [(kTR+2) * (kTC+2)][cin]
-  const int b = blockIdx.z, r0 = blockIdx.y * kTR, c0 = blockIdx.x * kTC;
-
-  // the SE gate of image b
-  const float premul = g.sc[2], hw = static_cast<float>(g.h * g.w);
-  for (int c = tid; c < half; c += kThreads)
-    mean[c] = __fmul_rn(__fdiv_rn(static_cast<float>(g.se_sum[b * half + c]), hw), premul);
-  load_region(x1, half, 0, g.x1q, half, b, g.h, g.w, r0 - 2, c0 - 2, kTR + 4, kTC + 4);
-  __syncthreads();
-  for (int j = tid; j < g.r; j += kThreads) {
-    float s = 0.0f;
-    for (int c = 0; c < half; ++c) s = __fadd_rn(s, __fmul_rn(mean[c], g.se_w1[c * g.r + j]));
-    hid[j] = silu(__fadd_rn(s, g.se_b1[j]));
-  }
-  __syncthreads();
-  for (int c = tid; c < half; c += kThreads) {
-    float s = 0.0f;
-    for (int j = 0; j < g.r; ++j) s = __fadd_rn(s, __fmul_rn(hid[j], g.se_w2[j * half + c]));
-    gate[c] = sigmoid(__fadd_rn(s, g.se_b2[c]));
-  }
-  __syncthreads();
-
-  // [aq, bq] on rows [r0-1, r0+kTR+1) x cols [c0-1, c0+kTC+1); 0 outside the map
-  constexpr int kCR = kTR + 2, kCC = kTC + 2, kXC = kTC + 4;
-  const int groups = half / 4;
-  for (int it = tid; it < kCR * kCC * groups; it += kThreads) {
-    const int pos = it / groups, c = (it % groups) * 4;
-    const int i = pos / kCC, j = pos % kCC;
-    const int y = r0 - 1 + i, x = c0 - 1 + j;
-    int a_word = 0, b_word = 0;
-    if (y >= 0 && y < g.h && x >= 0 && x < g.w) {
       int acc[4] = {0, 0, 0, 0};
-      for (int t = 0; t < 9; ++t) {
-        const int v = *reinterpret_cast<const int*>(x1 + ((i + t / 3) * kXC + j + t % 3) * half + c);
-        const int wv = __ldg(reinterpret_cast<const int*>(g.wdw + t * half + c));
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] += byte_of(v, k) * byte_of(wv, k);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int v = *reinterpret_cast<const int*>(xi + ((pi + tap / 3) * w2h + pj + tap % 3) * half + c);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = __dp4a(v, wm[tap][k], acc[k]);
       }
-      const int center = *reinterpret_cast<const int*>(x1 + ((i + 1) * kXC + j + 1) * half + c);
+      const int center = *reinterpret_cast<const int*>(xi + ((pi + 1) * w2h + pj + 1) * half + c);
+      const float* gi = gate + i * half + c;
       int8_t qa[4], qb[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         qa[k] = requant_relu(epilogue(acc[k], g.adw[c + k], g.bdw[c + k]));
-        qb[k] = clip8(__fmul_rn(static_cast<float>(byte_of(center, k)), gate[c + k]));
+        qb[k] = clip8(__fmul_rn(static_cast<float>(byte_of(center, k)), gi[k]));
       }
       a_word = pack4(qa[0], qa[1], qa[2], qa[3]);
       b_word = pack4(qb[0], qb[1], qb[2], qb[3]);
     }
-    *reinterpret_cast<int*>(cat + pos * cin + c) = a_word;
-    *reinterpret_cast<int*>(cat + pos * cin + half + c) = b_word;
+    *reinterpret_cast<int*>(cat + swz(hr, c >> 4, cpr) + (c & 15)) = a_word;
+    *reinterpret_cast<int*>(cat + swz(hr, (half + c) >> 4, cpr) + ((half + c) & 15)) = b_word;
   }
   __syncthreads();
 
   // conv3 3x3 pad 1 over [aq, bq] -> mq on the tile
-  const int th = min(kTR, g.h - r0), tw = min(kTC, g.w - c0), npos = th * tw;
-  const int ogroups = half / kQ;
-  for (int it = tid; it < (npos + kP - 1) / kP * ogroups; it += kThreads) {
-    const int o = (it % ogroups) * kQ, pg = (it / ogroups) * kP;
-    const int8_t* base[kP];
+  const uint32_t a = smem_u32(cat), rb = smem_u32(ring);
+  for (int n0 = 0; n0 < p.slice; n0 += NC) {
+    T mm;
+    conv3x3(mm, g, a, rowpos, rb, g.w3, t.nb + n0, p.slice - n0,
+            [&](int tap) { return (tap / 3) * w1h + tap % 3; }, t.rows);
+    int* sums = reinterpret_cast<int*>(ring);
+    stage_acc(mm, sums);
+    const int cols = min(NC, p.slice - n0);
+    constexpr int kGroups = NC / 16;
+    for (int gi = threadIdx.x; gi < t.rows * kGroups; gi += kMmaThreads) {
+      const int rr = gi / kGroups, cc = (gi - rr * kGroups) * 16;
+      if (cc >= cols) continue;
+      const int o = t.nb + n0 + cc;
+      int v[16];
+      read16<NC>(v, sums, rr, cc);
+      int8_t q[16];
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = min(pg + p, npos - 1);
-      base[p] = cat + ((pos / tw) * kCC + pos % tw) * cin;
+      for (int k = 0; k < 16; ++k) q[k] = requant_relu(epilogue(v[k], g.a3[o + k], g.b3[o + k]));
+      *reinterpret_cast<int4*>(g.mq + row_pixel(g, t, rr) * half + o) = pack16(q);
     }
-    int acc[kP][kQ];
-    zero(acc);
-    for (int t = 0; t < 9; ++t) {
-      const int off = ((t / 3) * kCC + t % 3) * cin;
-      const int8_t* act[kP];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) act[p] = base[p] + off;
-      dot_tile(acc, act, g.w3 + static_cast<int64_t>(o) * 9 * cin + t * cin, 9 * cin, cin);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = pg + p;
-      if (pos >= npos) break;
-      const int y = r0 + pos / tw, x = c0 + pos % tw;
-      *reinterpret_cast<int*>(g.mq + ((static_cast<int64_t>(b) * g.h + y) * g.w + x) * half + o) =
-          pack4(requant_relu(epilogue(acc[p][0], g.a3[o + 0], g.b3[o + 0])),
-                requant_relu(epilogue(acc[p][1], g.a3[o + 1], g.b3[o + 1])),
-                requant_relu(epilogue(acc[p][2], g.a3[o + 2], g.b3[o + 2])),
-                requant_relu(epilogue(acc[p][3], g.a3[o + 3], g.b3[o + 3])));
-    }
+    __syncthreads();  // the ring is free for the next chunk's copies
   }
 }
 
-// grid (ceil(W / kTC), ceil(H / kTR), B); dynamic smem: [(kTR+4)(kTC+4)][cin]
-// int8 holding [mq, x2q]
-__global__ void __launch_bounds__(kThreads) his_out(const Args g) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int half = g.half, cin = g.cin, tid = threadIdx.x;
-  const int b = blockIdx.z, r0 = blockIdx.y * kTR, c0 = blockIdx.x * kTC;
-  constexpr int kRC = kTC + 4;
-  load_region(smem, cin, 0, g.mq, half, b, g.h, g.w, r0 - 2, c0 - 2, kTR + 4, kTC + 4);
-  load_region(smem, cin, half, g.x2q, half, b, g.h, g.w, r0 - 2, c0 - 2, kTR + 4, kTC + 4);
+// grid (ntiles, image groups, slices of cin); smem: [mq, x2q] on the 2-halo
+// [ipb * halo2][cin] (swz rows), the rows' halo positions [64], the ring / sums
+template <int NC>
+__global__ void __launch_bounds__(kMmaThreads, 2) his_out(const Args g, const Pass p) {
+  using T = MmaTile<kMC, NC, NC == 32 ? 4 : 2>;
+  extern __shared__ __align__(128) int8_t smem[];
+  const Blk t = blk_of(g, p);
+  const int half = g.half, cin = g.cin, cpr = cin / 16, hcpr = half / 16;
+  const int w2h = g.tw + 4, h2 = (g.th + 4) * w2h;
+  int8_t* hs = smem;
+  int* rowpos = reinterpret_cast<int*>(smem + align128(p.ipb * h2 * cin + 64));
+  int8_t* ring = reinterpret_cast<int8_t*>(rowpos) + align128(kMC * 4);
+  fill_rowpos(rowpos, g, t, 2);
+  const uint32_t a = smem_u32(hs), rb = smem_u32(ring);
+  for (int j = threadIdx.x; j < t.nimg * h2 * cpr; j += kMmaThreads) {
+    const int hr = j / cpr, c = j - hr * cpr;
+    int b, y, x;
+    const bool in = halo_at(g, t, 2, hr, b, y, x);
+    const void* src = g.mq;
+    if (in) {
+      const int64_t px = pixel(g, b, y, x) * half;
+      src = c < hcpr ? g.mq + px + 16 * c : g.x2q + px + 16 * (c - hcpr);
+    }
+    cp_async16(a + swz(hr, c, cpr), src, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   const float inv_out = g.sc[1];
-  const int th = min(kTR, g.h - r0), tw = min(kTC, g.w - c0), npos = th * tw;
-  const int ogroups = cin / kQ;
-  for (int it = tid; it < (npos + kP - 1) / kP * ogroups; it += kThreads) {
-    const int o = (it % ogroups) * kQ, pg = (it / ogroups) * kP;
-    const int8_t* base[kP];
+  for (int n0 = 0; n0 < p.slice; n0 += NC) {
+    T mm;
+    conv3x3(mm, g, a, rowpos, rb, g.w4, t.nb + n0, p.slice - n0,
+            [&](int tap) { return 2 * (tap / 3) * w2h + 2 * (tap % 3); }, t.rows);  // dilation 2
+    int* sums = reinterpret_cast<int*>(ring);
+    stage_acc(mm, sums);
+    const int cols = min(NC, p.slice - n0);
+    constexpr int kGroups = NC / 16;
+    for (int gi = threadIdx.x; gi < t.rows * kGroups; gi += kMmaThreads) {
+      const int rr = gi / kGroups, cc = (gi - rr * kGroups) * 16;
+      if (cc >= cols) continue;
+      const int o = t.nb + n0 + cc;
+      int v[16];
+      read16<NC>(v, sums, rr, cc);
+      int8_t q[16];
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = min(pg + p, npos - 1);
-      base[p] = smem + ((pos / tw) * kRC + pos % tw) * cin;
+      for (int k = 0; k < 16; ++k) q[k] = clip8(__fmul_rn(silu(epilogue(v[k], g.a4[o + k], g.b4[o + k])), inv_out));
+      *reinterpret_cast<int4*>(g.out + row_pixel(g, t, rr) * cin + o) = pack16(q);
     }
-    int acc[kP][kQ];
-    zero(acc);
-    for (int t = 0; t < 9; ++t) {
-      const int off = (2 * (t / 3) * kRC + 2 * (t % 3)) * cin;  // dilation 2
-      const int8_t* act[kP];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) act[p] = base[p] + off;
-      dot_tile(acc, act, g.w4 + static_cast<int64_t>(o) * 9 * cin + t * cin, 9 * cin, cin);
-    }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = pg + p;
-      if (pos >= npos) break;
-      const int y = r0 + pos / tw, x = c0 + pos % tw;
-      int8_t q[kQ];
-#pragma unroll
-      for (int k = 0; k < kQ; ++k)
-        q[k] = clip8(__fmul_rn(silu(epilogue(acc[p][k], g.a4[o + k], g.b4[o + k])), inv_out));
-      *reinterpret_cast<int*>(g.out + ((static_cast<int64_t>(b) * g.h + y) * g.w + x) * cin + o) =
-          pack4(q[0], q[1], q[2], q[3]);
-    }
+    __syncthreads();  // the ring is free for the next chunk's copies
   }
 }
 
-cudaError_t launch(const void* fn, dim3 grid, size_t smem, void** args, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// shared memory of one block of `kernel` (ops/qhis.his_smem_bytes): ipb is
+// the producer's rows a block, else images a block; th, tw a full tile's size
+int smem_of(int kernel, int ipb, int th, int tw, int cin, int slice) {
+  const int half = cin / 2, nc = chunk_of(kernel, slice);
+  switch (kernel) {
+    case kProduce:
+      return align128(ipb * cin + 64) + ring_or_sums(ipb, nc);
+    case kMid:
+      return align128(ipb * 3 * half * 4) + align128(ipb * (th + 4) * (tw + 4) * half) +
+             align128(ipb * (th + 2) * (tw + 2) * cin + 64) + align128(kMC * 4) + ring_or_sums(kMC, nc);
+    default:
+      return align128(ipb * (th + 4) * (tw + 4) * cin + 64) + align128(kMC * 4) + ring_or_sums(kMC, nc);
   }
-  return cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, stream);
 }
+
+const void* kernel_of(int kernel, int rows, int slice) {
+  const int nc = chunk_of(kernel, slice);
+  switch (kernel) {
+    case kProduce:
+      if (rows == 128)
+        return nc == 128 ? (const void*)his_produce<128, 128>
+                         : nc == 64 ? (const void*)his_produce<128, 64> : (const void*)his_produce<128, 32>;
+      return nc == 128 ? (const void*)his_produce<64, 128>
+                       : nc == 64 ? (const void*)his_produce<64, 64> : (const void*)his_produce<64, 32>;
+    case kMid:
+      return nc == 128 ? (const void*)his_mid<128> : nc == 64 ? (const void*)his_mid<64> : (const void*)his_mid<32>;
+    default:
+      return nc == 256   ? (const void*)his_out<256>
+             : nc == 128 ? (const void*)his_out<128>
+             : nc == 64  ? (const void*)his_out<64>
+                         : (const void*)his_out<32>;
+  }
+}
+
+// output channels of a kernel: conv1|conv2, conv3, conv4
+int width_of(int kernel, int cin) { return kernel == kMid ? cin / 2 : cin; }
 
 }  // namespace
+
+// Shared memory of one block of kernel `kernel` (0 produce, 1 mid, 2 out)
+// with ipb rows (produce) or images a block and `split` channel slices, for
+// the level's h, w and cin (the chooser's arithmetic, held against this).
+extern "C" int qhis_smem_bytes(int kernel, int ipb, int h, int w, int cin, int split) {
+  return smem_of(kernel, ipb, min(kT, h), min(kT, w), cin, width_of(kernel, cin) / split);
+}
 
 // Pointers in the order of Args (see ops/qhis.py); the int8 maps NHWC
 // contiguous and 16-byte aligned, weights [out][taps][in]; x1q, x2q, mq
 // [B, H, W, half] int8 and se_sum [B, half] int32 are scratch (se_sum is
-// zeroed here).  half % 16 == 0, cin == 2 * half.  Runs the three kernels
-// on `stream`.  Returns a cudaError_t (0 = launched).
+// zeroed here).  half % 16 == 0, cin == 2 * half, r <= half.  cfg: (rows a
+// block, channel slices) of produce, (images a block, channel slices) of
+// mid and out (ops/qhis.pick_his_tile).  Runs the three kernels on
+// `stream`.  Returns a cudaError_t (0 = launched).
 extern "C" int qhis_launch(void* const* ptrs, int batch, int h, int w, int cin, int half, int r, int combine,
-                           void* stream) {
+                           const int* cfg, void* stream) {
   Args g;
   g.xa = static_cast<const int8_t*>(ptrs[0]);
   g.xb = static_cast<const int8_t*>(ptrs[1]);
@@ -371,27 +598,54 @@ extern "C" int qhis_launch(void* const* ptrs, int batch, int h, int w, int cin, 
   g.mq = static_cast<int8_t*>(ptrs[24]);
   g.se_sum = static_cast<int*>(ptrs[25]);
   g.out = static_cast<int8_t*>(ptrs[26]);
+  g.batch = batch;
   g.h = h;
   g.w = w;
   g.cin = cin;
   g.half = half;
   g.r = r;
   g.combine = combine;
+  g.tiles_x = (w + kT - 1) / kT;
+  g.th = min(kT, h);
+  g.tw = min(kT, w);
+  if (half % 16 || cin != 2 * half || r > half || r < 1) return static_cast<int>(cudaErrorInvalidValue);
+
+  static int optin = -1;  // every kernel may take all the shared memory a block can opt in to
+  if (optin < 0) {
+    int dev = 0, bytes = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    for (int k = 0; k < kKernels; ++k)
+      for (int rows = 64; rows <= 128; rows += 64)
+        for (int slice = 32; slice <= 256; slice *= 2)
+          if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kernel_of(k, rows, slice), cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin = bytes;
+  }
+  const int64_t npix = static_cast<int64_t>(batch) * h * w;
+  const int ntiles = g.tiles_x * ((h + kT - 1) / kT);
+  Pass pass[kKernels];
+  dim3 grid[kKernels];
+  for (int k = 0; k < kKernels; ++k) {
+    const int ipb = cfg[2 * k], split = cfg[2 * k + 1], n = width_of(k, cin);
+    if (split < 1 || n % split || (n / split) % 16) return static_cast<int>(cudaErrorInvalidValue);
+    if (k == kProduce ? (ipb != 64 && ipb != 128) || (npix + ipb - 1) / ipb > 0x7fffffff
+                      : ipb < 1 || ipb * g.th * g.tw > kMC || (batch + ipb - 1) / ipb > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (smem_of(k, ipb, g.th, g.tw, cin, n / split) > optin) return static_cast<int>(cudaErrorInvalidConfiguration);
+    pass[k].ipb = ipb;
+    pass[k].slice = n / split;
+    grid[k] = k == kProduce ? dim3(static_cast<unsigned>((npix + ipb - 1) / ipb), split)
+                            : dim3(ntiles, (batch + ipb - 1) / ipb, split);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(g.se_sum, 0, sizeof(int) * batch * half, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&g};
-
-  const dim3 pgrid((h * w + kTP - 1) / kTP, batch);
-  err = launch(reinterpret_cast<const void*>(his_produce), pgrid, kTP * cin + 4 * half, args, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 tgrid((w + kTC - 1) / kTC, (h + kTR - 1) / kTR, batch);
-  const size_t fbytes = ((2 * half + r) * 4 + 15) / 16 * 16;
-  const size_t mid = fbytes + (kTR + 4) * (kTC + 4) * half + (kTR + 2) * (kTC + 2) * cin;
-  err = launch(reinterpret_cast<const void*>(his_mid), tgrid, mid, args, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = launch(reinterpret_cast<const void*>(his_out), tgrid, (kTR + 4) * (kTC + 4) * cin, args, s);
+  void* args[2] = {&g, nullptr};
+  for (int k = 0; k < kKernels && err == cudaSuccess; ++k) {
+    args[1] = &pass[k];
+    err = cudaLaunchKernel(kernel_of(k, pass[k].ipb, pass[k].slice), grid[k], dim3(kMmaThreads), args,
+                           smem_of(k, pass[k].ipb, g.th, g.tw, cin, pass[k].slice), s);
+  }
   return static_cast<int>(err);
 }

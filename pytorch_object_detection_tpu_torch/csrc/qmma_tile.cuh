@@ -1,7 +1,7 @@
 // The int8 tensor-core tile shared by K4 (csrc/qmm_tile.cuh, csrc/qconv.cu,
-// csrc/qmm_variants.cu), kernel C (csrc/qblock.cu) and K7/K9
-// (csrc/qhead.cu); K16 (csrc/fused.cu) takes its cp.async helpers and
-// sum_at() for its bf16 wgmma ring.
+// csrc/qmm_variants.cu), kernel C (csrc/qblock.cu), K7/K9 (csrc/qhead.cu)
+// and K5 (csrc/qhis.cu); K16 (csrc/fused.cu) takes its cp.async helpers
+// and sum_at() for its bf16 wgmma ring.
 //
 // A thread block of 8 warps computes an MC x NC block of exact int32 sums
 // C[m, n] = sum_k A[m, k] * B[n, k], both operands K-contiguous int8 (NHWC

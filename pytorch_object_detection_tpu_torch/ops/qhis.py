@@ -12,7 +12,7 @@ width): ``w1``, ``w2 [half, cin]``, ``wdw [3, 3, half]``, ``w3 [half, 3, 3,
 cin]``, ``w4 [cin, 3, 3, cin]`` int8; ``A*``, ``B*`` f32 per channel;
 ``se_w1 [half, r]``, ``se_b1 [r]``, ``se_w2 [r, half]``, ``se_b2 [half]``
 f32; ``inv_x1``, ``inv_out``, ``se_premul`` 0-d f32.  On the card ``half``
-must be a multiple of 16.
+must be a multiple of 16 and ``r`` at most ``half``.
 
 The plain version is the JAX oracle ``nn/fpn_int8._hisblock_i8_xla``
 (``:303-328``) after the glue of ``:64-67``, operation for operation: exact
@@ -20,16 +20,23 @@ int32 convolutions, the f32 epilogues in the oracle's order, the SE mean as
 ``float(sum) / (H * W) * se_premul``.  The kernel agrees with it within one
 int8 step on a few elements: SiLU and sigmoid go through the card's
 ``expf`` and the SE dots sum in another order.
+
+On the card the three kernels' convolutions run on the int8 tensor cores
+(``csrc/qhis.cu``); :func:`pick_his_tile` chooses each kernel's rows or
+images a block and its channel slices from the card's SM count and shared
+memory.  The int32 sums are exact in any order, so the outputs do not
+depend on the choice.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
 
 SOURCE = "qhis.cu"
@@ -40,6 +47,111 @@ COMBINES = (None, "add", "up_add")
 _PARAMS = ("w1", "w2", "A1", "B1", "A2", "B2", "wdw", "Adw", "Bdw", "se_w1", "se_b1", "se_w2", "se_b2",
            "w3", "A3", "B3", "w4", "A4", "B4")
 
+# the kernels of csrc/qhis.cu that take a tile choice, in qhis_launch's order
+HIS_KERNELS = ("produce", "mid", "out")
+HIS_TILE = 8  # kT: consumer tiles of at most 8x8 positions
+HIS_ROWS = 64  # kMC: a consumer block's M rows at most
+HIS_PRODUCE_ROWS = (128, 64)  # the producer's M rows a block
+HIS_STAGES = 4  # kStages: the weights' cp.async ring
+HIS_STEP = 64  # kStepBytes: K bytes per ring stage
+HIS_SPLITS = (1, 2, 4, 8)
+
+
+def his_width(kernel: str, cin: int) -> int:
+    """Output channels a kernel splits across blocks: conv1|conv2, conv3, conv4."""
+    return cin // 2 if kernel == "mid" else cin
+
+
+def his_slices(kernel: str, cin: int) -> Tuple[int, ...]:
+    """The channel-slice counts a kernel may take: whole 16-channel groups,
+    at least 32 channels a slice where split."""
+    n = his_width(kernel, cin)
+    return tuple(s for s in HIS_SPLITS if n % (16 * s) == 0 and (s == 1 or n // s >= 32))
+
+
+def his_chunk(kernel: str, slice_: int) -> int:
+    """Output channels of one GEMM chunk (``chunk_of``): 256 (out), 128, 64 or 32."""
+    if kernel == "out" and slice_ % 256 == 0:
+        return 256
+    return 128 if slice_ % 128 == 0 else 64 if slice_ % 64 == 0 else 32
+
+
+def _align(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def his_smem_bytes(kernel: str, ipb: int, h: int, w: int, cin: int, split: int) -> int:
+    """Dynamic shared memory of one block (``smem_of`` in csrc/qhis.cu):
+    ``ipb`` the producer's rows a block, else images a block.  The
+    producer's x rows; mid's SE vectors, x1q on the 2-halo and [aq, bq] on
+    the 1-halo; out's [mq, x2q] on the 2-halo; the consumers' rows' halo
+    positions; and the weights' ring, reused for the int32 sums (rows of
+    NC + 8 words)."""
+    th, tw, half = min(HIS_TILE, h), min(HIS_TILE, w), cin // 2
+    nc = his_chunk(kernel, his_width(kernel, cin) // split)
+    mc = ipb if kernel == "produce" else HIS_ROWS
+    ring_or_sums = max(HIS_STAGES * nc * HIS_STEP, mc * (nc + 8) * 4)
+    if kernel == "produce":
+        return _align(ipb * cin + 64) + ring_or_sums
+    if kernel == "mid":
+        return (_align(ipb * 3 * half * 4) + _align(ipb * (th + 4) * (tw + 4) * half)
+                + _align(ipb * (th + 2) * (tw + 2) * cin + 64) + _align(HIS_ROWS * 4) + ring_or_sums)
+    return _align(ipb * (th + 4) * (tw + 4) * cin + 64) + _align(HIS_ROWS * 4) + ring_or_sums
+
+
+def his_blocks(kernel: str, batch: int, h: int, w: int, ipb: int, split: int) -> int:
+    """Thread blocks of one kernel: the producer's row blocks x slices, a
+    consumer's tiles x image groups x slices."""
+    if kernel == "produce":
+        return -(-batch * h * w // ipb) * split
+    return -(-h // HIS_TILE) * -(-w // HIS_TILE) * -(-batch // ipb) * split
+
+
+def his_ipbs(kernel: str, batch: int, h: int, w: int) -> Tuple[int, ...]:
+    """The producer's rows a block, or the images a consumer block may
+    take, largest first (a consumer's M rows, ipb x a full tile's
+    positions, at most 64)."""
+    if kernel == "produce":
+        return HIS_PRODUCE_ROWS
+    top = max(1, min(batch, HIS_ROWS // (min(HIS_TILE, h) * min(HIS_TILE, w))))
+    out = []
+    while top >= 1:
+        out.append(top)
+        top //= 2
+    return tuple(out)
+
+
+def pick_his_tile(batch: int, h: int, w: int, cin: int, sm_count: int, smem_max: int) -> Dict[str, Tuple[int, int]]:
+    """``{kernel: (ipb, split)}`` for one HisBlock call at the output size
+    ``h`` x ``w``: per kernel the most rows (produce) or images a block,
+    then the fewest channel slices, whose blocks reach one per SM and fit
+    the shared memory; where none reaches, the most blocks."""
+    return dict(_pick_his_tile(batch, h, w, cin, sm_count, smem_max))
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_his_tile(batch, h, w, cin, sm_count, smem_max):
+    out = {}
+    for kernel in HIS_KERNELS:
+        best = None
+        for ipb in his_ipbs(kernel, batch, h, w):
+            for split in his_slices(kernel, cin):
+                if his_smem_bytes(kernel, ipb, h, w, cin, split) > smem_max:
+                    continue
+                blocks = his_blocks(kernel, batch, h, w, ipb, split)
+                if blocks >= sm_count:
+                    best = (ipb, split)
+                    break
+                if best is None or blocks > his_blocks(kernel, batch, h, w, *best):
+                    best = (ipb, split)
+            else:
+                continue
+            break
+        if best is None:
+            raise ValueError(f"K5: no {kernel} tile fits {smem_max} bytes of shared memory at {h}x{w}, cin={cin}")
+        out[kernel] = best
+    return tuple(out.items())
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -47,9 +159,21 @@ def _lib() -> ctypes.CDLL:
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE, NVCC_FLAGS)
-    lib.qhis_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.qhis_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     lib.qhis_launch.restype = ctypes.c_int
+    lib.qhis_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.qhis_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_smem(h: int, w: int, cin: int, cfg: Tuple[int, ...]) -> None:
+    """The chooser's shared-memory arithmetic is the kernel's (once per level shape and choice)."""
+    for i, k in enumerate(HIS_KERNELS):
+        got = _lib().qhis_smem_bytes(i, cfg[2 * i], h, w, cin, cfg[2 * i + 1])
+        if got != his_smem_bytes(k, cfg[2 * i], h, w, cin, cfg[2 * i + 1]):
+            raise RuntimeError(f"K5 {k}: the kernel takes {got} bytes of shared memory, the chooser "
+                               f"{his_smem_bytes(k, cfg[2 * i], h, w, cin, cfg[2 * i + 1])}")
 
 
 def _silu(z: torch.Tensor) -> torch.Tensor:
@@ -129,7 +253,7 @@ def _scalar(v, device) -> torch.Tensor:
         torch.tensor(float(v), dtype=torch.float32, device=device)
 
 
-def _launch(blk, x_q, xb_q, combine, ca, cb) -> torch.Tensor:
+def _launch(blk, x_q, xb_q, combine, ca, cb, tile) -> torch.Tensor:
     """K5 on CUDA tensors (checked by ``_check`` first)."""
     dev = x_q.device
     params = [blk[k] for k in _PARAMS]
@@ -142,14 +266,18 @@ def _launch(blk, x_q, xb_q, combine, ca, cb) -> torch.Tensor:
         raise ValueError("K5 reads the maps in 16-byte words: they must start 16-byte aligned")
     half, cin = blk["w1"].shape
     r = blk["se_w1"].shape[1]
-    if half % 16:
-        raise ValueError(f"K5 needs a half width divisible by 16; got {half}")
+    if half % 16 or r > half:
+        raise ValueError(f"K5 needs a half width divisible by 16 and an SE width at most half; got {half}, {r}")
     b, h, w, _ = (xb_q if combine is not None else x_q).shape
     out = torch.empty((b, h, w, cin), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    if b > 65535 or -(-h // 8) > 65535:
-        raise ValueError(f"K5 takes at most 65535 images and {65535 * 8} rows; got {tuple(out.shape)}")
+    if tile is None:
+        tile = pick_his_tile(b, h, w, cin, *card_limits(dev))
+    cfg = tuple(int(v) for k in HIS_KERNELS for v in tile[k])
+    if any(-(-b // tile[k][0]) > 65535 for k in HIS_KERNELS[1:]):
+        raise ValueError(f"K5 takes at most 65535 image groups; got {tuple(out.shape)} and {tile}")
+    _check_smem(h, w, cin, cfg)
     scratch = torch.empty((3, b, h, w, half), dtype=torch.int8, device=dev)  # x1q, x2q, mq
     se_sum = torch.empty((b, half), dtype=torch.int32, device=dev)
     if combine is None:  # the kernel reads no rescale: fill its slots from the device, with no host copy
@@ -159,7 +287,7 @@ def _launch(blk, x_q, xb_q, combine, ca, cb) -> torch.Tensor:
     ptrs = [x_q, xb_q, *params, sc, scratch[0], scratch[1], scratch[2], se_sum, out]
     table = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     with torch.cuda.device(dev):  # the launches go to the current device
-        err = _lib().qhis_launch(table, b, h, w, cin, half, r, COMBINES.index(combine),
+        err = _lib().qhis_launch(table, b, h, w, cin, half, r, COMBINES.index(combine), (ctypes.c_int * 6)(*cfg),
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {err}")
@@ -167,10 +295,11 @@ def _launch(blk, x_q, xb_q, combine, ca, cb) -> torch.Tensor:
 
 
 def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = None, combine: Optional[str] = None,
-              ca=1.0, cb=0.0, plain: bool = False) -> torch.Tensor:
+              ca=1.0, cb=0.0, plain: bool = False, tile: Optional[Dict[str, Tuple[int, int]]] = None) -> torch.Tensor:
     """Fused HisBlock (the JAX signature): int8 NHWC in, ``[B, H, W, cin]``
     int8 out, at the size of ``xb_q`` where there is one.  ``ca``, ``cb``:
-    the glue's f32 rescales (floats or 0-d tensors).
+    the glue's f32 rescales (floats or 0-d tensors).  ``tile`` forces
+    :func:`pick_his_tile`'s choice (the outputs do not depend on it).
 
     On a CPU tensor this is :func:`qhisblock_plain` after
     :func:`combine_plain`; on a CUDA tensor it launches K5 (three CUDA
@@ -183,7 +312,7 @@ def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = No
         return qhisblock_plain(blk, combine_plain(x_q, xb_q, combine, ca, cb))
     if x_q.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA tensors; got {x_q.device}")
-    out = _launch(blk, x_q, xb_q, combine, ca, cb)
+    out = _launch(blk, x_q, xb_q, combine, ca, cb, tile)
     if out.numel():
         qhisblock.launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Time kernel C, K4, K16, K7 and K9 of the PyTorch port on one NVIDIA GPU, per shape.
+"""Time kernel C, K4, K16, K7, K9, K5 and kernel A of the PyTorch port on one NVIDIA GPU, per shape.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
 ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
@@ -7,11 +7,18 @@ convs, K16 (``ops/fused.matmul_bn_act``) at the fused backbone's 32 conv1
 and conv3 GEMMs beside ``torch.matmul`` on the same bf16 operands, and K7
 (``ops/qhead.qhishead_level``) at the default pipeline's five head levels
 (C=256, 20 classes), each at B=8 and B=64; then K9 (``qhishead_level2``)
-against K7 at the COCO canvas's P3 (112x176, 80 classes), B=2 and B=8.  The
-inputs and weights are random, from a seed; the head's qtree comes from a
-random ``models/heads.HISHead`` through ``models/head_int8``'s calibration
-and quantization.  For K7 and K9 the script prints a SHA-256 digest of the
-cls and cr bytes, so that two checkouts' outputs can be compared.
+against K7 at the COCO canvas's P3 (112x176, 80 classes), B=2 and B=8; K5
+(``ops/qhis.qhisblock``) at the default pipeline's seven HisBlocks (his1
+16x16, his2 32x32 and his3 64x64 with ``up_add``, his4 32x32 to his7 4x4
+with ``add``; 256 channels), B=8 and B=64, with its T multiply-adds/s;
+and kernel A (``ops/cuda_nms.cuda_nms_keep_mask``) on score-sorted,
+class-shifted boxes at K=1000, B=8 and B=64.  The inputs and weights are
+random, from a seed; the head's qtree comes from a random
+``models/heads.HISHead`` through ``models/head_int8``'s calibration and
+quantization, the HisBlocks' from a random ``nn/fpn.HisFPN`` through
+``nn/fpn_int8``'s.  For K7, K9 and K5 the script prints a SHA-256 digest
+of the output bytes, for kernel A of the keep mask, so that two
+checkouts' outputs can be compared.
 Only the wrappers' public arguments are used, so the same script times the
 package of another checkout of the repository (``--root``), e.g. the parent
 commit unpacked with ``git archive``; run the two in turns (a, b, b, a) in
@@ -19,8 +26,8 @@ one run on one card to compare them::
 
     python3 scripts/port_kernel_times.py --root . --out times.json
 
-``--only k16,head`` times only the named sections (``c``, ``k4``, ``k16``,
-``head``).
+``--only his,nms`` times only the named sections (``c``, ``k4``, ``k16``,
+``head``, ``his``, ``nms``).
 
 ``--sweep`` (this tree's package only: it needs the ``tile=`` override of
 ``qbottleneck``) times kernel C instead at every (tile width, blocks per
@@ -151,7 +158,8 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the JSON object here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
-    parser.add_argument("--only", default="c,k4,k16,head", help="comma-separated sections: c, k4, k16, head")
+    parser.add_argument("--only", default="c,k4,k16,head,his,nms",
+                        help="comma-separated sections: c, k4, k16, head, his, nms")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -202,7 +210,7 @@ def main() -> int:
     if args.sweep:
         return sweep(qblock, block_operands, card)
     result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}, "k16": {}, "k7": {},
-              "k9": {}, "digest": {}}
+              "k9": {}, "k5": {}, "nms": {}, "digest": {}}
     with torch.inference_mode():
         if "c" in only:
             time_kernel_c(result, block_operands, card)
@@ -212,6 +220,10 @@ def main() -> int:
             time_k16(result, dev, args.seed, card)
         if "head" in only:
             time_head(result, dev, args.seed, card)
+        if "his" in only:
+            time_his(result, dev, args.seed, card)
+        if "nms" in only:
+            time_nms(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -387,6 +399,85 @@ def time_head(result, dev, seed, card) -> None:
               f"{t['k9'][1]:.4f}/{t['k9b'][1]:.4f}), K7 {t['k7'][0]:.4f}/{t['k7b'][0]:.4f} ms (graph "
               f"{t['k7'][1]:.4f}/{t['k7b'][1]:.4f}); digests K7 {result['digest'][f'k7/coco/B{b}']} "
               f"K9 {result['digest'][f'k9/coco/B{b}']} {card}", flush=True)
+
+
+# (block, combine, H, W) of the default pipeline's seven HisBlocks at 512x512
+HIS_BLOCKS = [("his1", None, 16, 16), ("his2", "up_add", 32, 32), ("his3", "up_add", 64, 64), ("his4", "add", 32, 32),
+              ("his5", "add", 16, 16), ("his6", "add", 8, 8), ("his7", "add", 4, 4)]
+
+
+def time_his(result, dev, seed, card) -> None:
+    """K5 at the seven HisBlocks, B=8 and B=64, on a random HisFPN's int8
+    qtree (256 channels) and random int8 inputs; digests of every output."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN
+    from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, quantize_hisfpn
+    from pytorch_object_detection_tpu_torch.ops import qhis
+
+    g = torch.Generator().manual_seed(seed)
+    fpn = HisFPN((512, 1024, 2048), 256, generator=g).eval()
+    feats = [torch.randn(2, s, s, c, generator=g).abs() for s, c in ((16, 512), (8, 1024), (4, 2048))]
+    q = quantize_hisfpn(fpn, calibrate_hisfpn(fpn, feats), [f.abs().max() / 127.0 for f in feats])
+    ca, cb = torch.tensor(0.6, device=dev), torch.tensor(0.7, device=dev)
+
+    def draw(*shape):
+        return torch.clamp(torch.round(torch.randn(*shape, generator=g) * 40), -127, 127).to(torch.int8).to(dev)
+
+    for b in (8, 64):
+        macs_all = 0.0
+        for name, combine, h, w in HIS_BLOCKS:
+            blk = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in q[name].items()}
+            half, cin, r = blk["w1"].shape[0], blk["w1"].shape[1], blk["se_w1"].shape[1]
+            xa = draw(b, h // 2, w // 2, cin) if combine == "up_add" else draw(b, h, w, cin)
+            kw = dict(xb_q=draw(b, h, w, cin), combine=combine, ca=ca, cb=cb) if combine else {}
+            key = f"{name}/B{b}"
+            result["digest"][f"k5/{key}"] = digest([qhis.qhisblock(blk, xa, **kw)])
+            it = 10 if b == 8 else 3
+            ms = cuda_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=it)
+            gms = graph_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=it)
+            result["k5"][key], result["k5"][f"{key}/graph"] = ms, gms
+            macs = b * h * w * (2 * cin * half + 9 * half + 9 * cin * half + 9 * cin * cin) + b * 2 * half * r
+            macs_all += macs
+            print(f"K5 {name} {combine} B={b} {h}x{w}x{cin}: {ms:.4f} ms, graph {gms:.4f} ms, "
+                  f"{macs / gms / 1e9:.1f} T multiply-adds/s (graph), digest {result['digest'][f'k5/{key}']}",
+                  flush=True)
+        for sfx in ("", "/graph"):
+            tot = sum(result["k5"][f"{n}/B{b}{sfx}"] for n, *_ in HIS_BLOCKS)
+            print(f"K5, the seven HisBlocks at B={b}{' graph' if sfx else ''}: {tot:.4f} ms, "
+                  f"{macs_all / tot / 1e9:.1f} T multiply-adds/s {card}")
+
+
+def time_nms(result, dev, seed, card) -> None:
+    """Kernel A at K=1000 (the decode's top-k), B=8 and B=64, on boxes
+    clustered around 30 objects an image (20 classes), sorted by a random
+    score, 10 % invalid, class-shifted as ops/nms.batched_class_nms shifts
+    them; digests of the keep masks."""
+    import numpy as np
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import cuda_nms
+    from pytorch_object_detection_tpu_torch.ops.nms import class_offset_boxes
+
+    rng = np.random.default_rng(seed + 17)
+    for b in (8, 64):
+        k = 1000
+        obj = rng.integers(0, 30, (b, k))
+        centre, size = rng.uniform(40, 470, (b, 30, 2)), rng.uniform(16, 160, (b, 30, 2))
+        pick = lambda a: np.take_along_axis(a, obj[..., None].repeat(2, -1), 1)
+        c = pick(centre) + rng.normal(0, 6, (b, k, 2))
+        half_wh = pick(size) / 2 * rng.uniform(0.8, 1.25, (b, k, 2))
+        boxes = torch.from_numpy(np.concatenate([c - half_wh, c + half_wh], -1).astype(np.float32)).to(dev)
+        classes = torch.from_numpy(np.take_along_axis(rng.integers(1, 21, (b, 30)), obj, 1).astype(np.int32)).to(dev)
+        valid = torch.from_numpy(rng.uniform(size=(b, k)) > 0.1).to(dev)
+        shifted = class_offset_boxes(boxes, classes, valid).contiguous()
+        keep = cuda_nms.cuda_nms_keep_mask(shifted, valid, 0.6)
+        result["digest"][f"nms/B{b}"] = digest([keep])
+        ms = cuda_ms(lambda: cuda_nms.cuda_nms_keep_mask(shifted, valid, 0.6), iters=20)
+        gms = graph_ms(lambda: cuda_nms.cuda_nms_keep_mask(shifted, valid, 0.6), iters=20)
+        result["nms"][f"B{b}"], result["nms"][f"B{b}/graph"] = ms, gms
+        print(f"kernel A B={b} K={k}: {ms:.4f} ms, graph {gms:.4f} ms, {int(keep.sum())} kept of {int(valid.sum())} "
+              f"valid, digest {result['digest'][f'nms/B{b}']} {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions: A (NMS), B (GroupNorm),
 C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K4' (its three
-timing epilogues), K5 (int8 HisBlock), K6 (int8 2x2 pool), K7/K9 (one int8
+timing epilogues), K5 (int8 HisBlock, under every tile of its chooser), K6 (int8 2x2 pool), K7/K9 (one int8
 HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
 int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
 the BN/residual/ReLU epilogue), K17 (the bf16 stem tail) and K12 (one
@@ -132,6 +132,56 @@ def test_nms_kernel_matches_plain_at_serving_shape(cuda):
     got = cuda_batched_class_nms(boxes, scores, classes, valid, 0.6)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def _nms_tile_case(name, b, k):
+    """(boxes [B, K, 4] f32, valid [B, K] bool) for kernel A's tile scan:
+    random boxes, all invalid, a chain in which each box suppresses the
+    next (IoU 2/3 with it, 3/7 with the one after), and 8 clusters whose
+    members sit 8 rows apart, so suppression crosses every tile edge."""
+    rng = np.random.default_rng(b * 10007 + k)
+    if name == "chain":
+        x = np.arange(k, dtype=np.float32)[None, :, None] * 2.0
+        boxes = np.concatenate([x, np.zeros_like(x), x + 10.0, np.full_like(x, 10.0)], -1).repeat(b, 0)
+        return torch.from_numpy(boxes), torch.ones(b, k, dtype=torch.bool)
+    if name == "edges":
+        centre = rng.uniform(20, 400, (b, 8, 2))[:, np.arange(k) % 8]
+        xy = centre + rng.uniform(-6, 6, (b, k, 2))
+        wh = rng.uniform(20, 30, (b, k, 2))
+    else:
+        xy = rng.uniform(0, 300, (b, k, 2))
+        wh = rng.uniform(10, 80, (b, k, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(b, k)) > (1.1 if name == "invalid" else 0.15))
+    return boxes, valid
+
+
+# (case, B, K): K at, below and above one 64-row tile and at the decode's
+# top-k, B = 1 and 64, no valid box, the suppression chain, clusters across tile edges
+NMS_TILE_CASES = [("random", 1, 1), ("random", 3, 63), ("random", 3, 64), ("random", 3, 65), ("random", 1, 1000),
+                  ("random", 64, 1000), ("invalid", 4, 200), ("chain", 2, 1000), ("chain", 1, 65),
+                  ("edges", 8, 256), ("edges", 64, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NMS_TILE_CASES, ids=[f"{c[0]}_b{c[1]}_k{c[2]}" for c in NMS_TILE_CASES])
+def test_nms_kernel_tile_scan_matches_plain_exactly(cuda, case):
+    """Kernel A's 64-row tile scan against the plain fixpoint, bit for bit,
+    one counted launch."""
+    from pytorch_object_detection_tpu_torch.ops.nms import nms_keep_mask
+
+    name, b, k = case
+    boxes, valid = _nms_tile_case(name, b, k)
+    want = nms_keep_mask(boxes, valid, 0.6)
+    before = cuda_nms_keep_mask.launches
+    got = cuda_nms_keep_mask(boxes.to(cuda), valid.to(cuda), 0.6)
+    torch.cuda.synchronize()
+    assert cuda_nms_keep_mask.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    if name == "chain":  # every other box kept
+        assert torch.equal(want, (torch.arange(k) % 2 == 0).expand(b, k))
+    if name == "invalid":
+        assert not bool(want.any())
 
 
 def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
@@ -381,28 +431,81 @@ QHIS_CASES = [(256, "his3", "up_add", 64, 64), (256, "his1", None, 16, 16), (256
               (64, "his4", "add", 13, 11), (64, "his6", "add", 1, 1)]
 
 
+def _qhis_case(features, name, combine, h, w, b, device):
+    blk = _on(port_hisfpn_qtree(features, 1)[name], device)
+    g = torch.Generator().manual_seed(h * w + b)
+    draw = lambda *s: torch.clamp(torch.round(torch.randn(*s, generator=g) * 40), -127, 127).to(torch.int8)
+    xb = draw(b, h, w, features).to(device) if combine else None
+    xa = draw(b, h // 2, w // 2, features) if combine == "up_add" else draw(b, h, w, features)
+    return blk, xa.to(device), dict(xb_q=xb, combine=combine, ca=0.6, cb=0.7)
+
+
+def _qhis_check(got, want, b, h, w, features):
+    """K5 against its plain version: at most one int8 step, under 5 % of
+    elements differing (SiLU/sigmoid through the card's expf, the SE dots
+    in another order)."""
+    assert got.dtype == torch.int8 and got.shape == want.shape == (b, h, w, features)
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05, (int(d.max()), float((d > 0).float().mean()))
+    assert (want != 0).float().mean() > 0.05
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", QHIS_CASES, ids=[f"{c[0]}_{c[1]}_{c[3]}x{c[4]}" for c in QHIS_CASES])
 def test_qhis_kernel_within_one_step_of_plain(cuda, case):
     """K5 (three CUDA kernels, one counted launch) against its plain version
-    on the card: at most one int8 step, under 5 % of elements differing
-    (SiLU/sigmoid through the card's expf, the SE dots in another order)."""
+    on the card."""
     features, name, combine, h, w = case
-    blk = _on(port_hisfpn_qtree(features, 1)[name], cuda)
-    g = torch.Generator().manual_seed(h * w)
-    draw = lambda *s: torch.clamp(torch.round(torch.randn(*s, generator=g) * 40), -127, 127).to(torch.int8)
-    xb = draw(2, h, w, features).to(cuda) if combine else None
-    xa = draw(2, h // 2, w // 2, features) if combine == "up_add" else draw(2, h, w, features)
-    kw = dict(xb_q=xb, combine=combine, ca=0.6, cb=0.7)
+    blk, xa, kw = _qhis_case(features, name, combine, h, w, 2, cuda)
     before = qhisblock.launches
-    got = qhisblock(blk, xa.to(cuda), **kw)
+    got = qhisblock(blk, xa, **kw)
     torch.cuda.synchronize()
     assert qhisblock.launches == before + 1
-    want = qhisblock(blk, xa.to(cuda), plain=True, **kw)
-    assert got.dtype == torch.int8 and got.shape == want.shape == (2, h, w, features)
-    d = (got.int() - want.int()).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05, (int(d.max()), float((d > 0).float().mean()))
-    assert (want != 0).float().mean() > 0.05
+    _qhis_check(got, qhisblock(blk, xa, plain=True, **kw), 2, h, w, features)
+
+
+# (features, block, combine, H, W, batch) that reach each branch of
+# ops/qhis.pick_his_tile on an H100: channel slices on the 16x16, 4x4 and
+# 1x1 levels, two images an out block at 4x4 and 1x1 (B=64), 64- and
+# 128-row producer blocks, each combine, the narrow block at odd sizes
+QHIS_TILE_CASES = [(256, "his7", "add", 4, 4, 64), (256, "his6", "add", 1, 1, 64), (256, "his5", "add", 16, 16, 8),
+                   (256, "his2", "up_add", 32, 32, 8), (256, "his1", None, 16, 16, 8), (64, "his4", "add", 13, 11, 8),
+                   (64, "his1", None, 9, 7, 4), (64, "his3", "up_add", 10, 6, 3)]
+
+
+def _his_forced_tiles(b, h, w, cin, smem_max):
+    """Tiles to force on every kernel: one image (64 rows) and all channels a
+    block; the most images (128 rows) a block that fit; the most slices."""
+    from pytorch_object_detection_tpu_torch.ops.qhis import HIS_KERNELS, his_ipbs, his_slices, his_smem_bytes
+
+    single = {"produce": (64, 1), "mid": (1, 1), "out": (1, 1)}
+    packed = {k: next(i for i in his_ipbs(k, b, h, w) if his_smem_bytes(k, i, h, w, cin, 1) <= smem_max)
+              for k in HIS_KERNELS}
+    packed = {k: (i, 1) for k, i in packed.items()}
+    sliced = {k: (64 if k == "produce" else 1, his_slices(k, cin)[-1]) for k in HIS_KERNELS}
+    return [single, packed, sliced]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QHIS_TILE_CASES, ids=[f"{c[0]}_{c[1]}_{c[3]}x{c[4]}_b{c[5]}" for c in QHIS_TILE_CASES])
+def test_qhis_kernel_at_the_choosers_branches(cuda, case):
+    """K5 against its plain version where the tile chooser splits channels
+    and packs images; its output equals, bit for bit, that of every forced
+    tile: one image and all channels a block, the most images a block, the
+    most slices."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+    from pytorch_object_detection_tpu_torch.ops.qhis import pick_his_tile
+
+    features, name, combine, h, w, b = case
+    blk, xa, kw = _qhis_case(features, name, combine, h, w, b, cuda)
+    got = qhisblock(blk, xa, **kw)
+    _qhis_check(got, qhisblock(blk, xa, plain=True, **kw), b, h, w, features)
+    sm_count, smem_max = card_limits(cuda)
+    picked = pick_his_tile(b, h, w, features, sm_count, smem_max)
+    for tile in _his_forced_tiles(b, h, w, features, smem_max):
+        forced = qhisblock(blk, xa, tile=tile, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(forced, got), (picked, tile)
 
 
 # (features, classes, H, W, batch): the full width at the 512x512 canvas's

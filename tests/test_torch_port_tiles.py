@@ -1,15 +1,17 @@
 """The tile choosers of kernel C (``ops/qblock.pick_tile``), K4
-(``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``) and K7/K9
-(``ops/qhead.pick_head_tile``), in plain Python with an H100's limits: 132
-SMs and 232,448 bytes of shared memory a block may opt in to.
+(``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``), K7/K9
+(``ops/qhead.pick_head_tile``) and K5 (``ops/qhis.pick_his_tile``), in
+plain Python with an H100's limits: 132 SMs and 232,448 bytes of shared
+memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
 and 64; K4 at the HisFPN's three laterals and the per-conv backend's 36
 bottleneck 1x1 convs, B = 2, 8 and 64; K16 at the fused ResNet-50's 32
 conv1/conv3 GEMMs, B = 2, 8 and 64, and odd shapes; K7 at the five head
 levels of the 512x512 canvas and K7/K9 at those of the 896x1408 COCO
-canvas, with narrow heads, 80 classes and 1x1 levels.  No card and no JAX
-needed.
+canvas, with narrow heads, 80 classes and 1x1 levels; K5 at the seven
+HisBlocks of the 512x512 canvas, B = 1, 2, 8 and 64, narrow blocks, odd
+sizes and 1x1 maps.  No card and no JAX needed.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ from pytorch_object_detection_tpu_torch.ops.qconv import QMM_BM, QMM_STEP, pick_
 from pytorch_object_detection_tpu_torch.ops.qhead import (
     HEAD_PASSES, HEAD_TILE, PRED_NC, head_blocks, head_ipbs, head_pass_width, head_slices, head_smem_bytes,
     head_tile_dims, pick_head_tile)
+from pytorch_object_detection_tpu_torch.ops.qhis import (
+    HIS_KERNELS, HIS_ROWS, HIS_TILE, his_blocks, his_chunk, his_ipbs, his_slices, his_smem_bytes, his_width,
+    pick_his_tile)
 from torch_port_fixtures import resnet50_block_shapes
 
 SM_COUNT, SMEM_MAX = 132, 232448  # NVIDIA H100 SXM: SMs, shared memory per block (opt-in)
@@ -305,3 +310,99 @@ def test_head_small_levels_pack_images_and_split_channels():
     for h in (16, 8):
         assert pick_head_tile(8, h, h, 256, 20, SM_COUNT, SMEM_MAX)["towers"][1] > 1
     assert pick_head_tile(8, 64, 64, 256, 20, SM_COUNT, SMEM_MAX)["towers"] == (1, 1)
+
+
+# (batch, H, W, cin): the seven HisBlocks of the 512x512 canvas (his1 16x16,
+# his2 32x32, his3 64x64, his4 32x32, his5 16x16, his6 8x8, his7 4x4), the
+# narrow block, odd sizes, 1x1 and 2x2 maps, the narrowest width (half = 16)
+HIS_SHAPES = [(16, 16), (32, 32), (64, 64), (8, 8), (4, 4)]
+HIS_CASES = (
+    [(b, h, w, 256) for b in (1, 2, 8, 64) for h, w in HIS_SHAPES]
+    + [(b, h, w, 64) for b in (2, 8, 64) for h, w in ((64, 64), (13, 11), (4, 4), (1, 1))]
+    + [(b, 1, 1, 256) for b in (2, 8, 64)] + [(64, 2, 2, 256), (3, 5, 3, 32), (4, 7, 11, 96), (5, 9, 7, 256)]
+)
+HIS_IDS = [f"B{b}-{h}x{w}-C{c}" for b, h, w, c in HIS_CASES]
+
+
+@pytest.mark.parametrize("case", HIS_CASES, ids=HIS_IDS)
+def test_his_tiles_fit_the_card(case):
+    """Every kernel's block fits the shared memory; a consumer's M rows (ipb
+    x a full tile's positions) stay within 64, the producer's are 64 or
+    128; slices are whole 16-channel groups, walked in GEMM chunks of 32 to
+    256 channels (256 only on out); image groups fit grid.y."""
+    b, h, w, c = case
+    tile = pick_his_tile(b, h, w, c, SM_COUNT, SMEM_MAX)
+    assert tuple(tile) == HIS_KERNELS
+    npos = min(HIS_TILE, h) * min(HIS_TILE, w)
+    for kernel, (ipb, split) in tile.items():
+        assert his_smem_bytes(kernel, ipb, h, w, c, split) <= SMEM_MAX, kernel
+        assert ipb in his_ipbs(kernel, b, h, w) and split in his_slices(kernel, c)
+        if kernel == "produce":
+            assert ipb in (64, 128)
+        else:
+            assert ipb * npos <= HIS_ROWS and -(-b // ipb) <= 65535, kernel
+        slice_ = his_width(kernel, c) // split
+        assert slice_ % 16 == 0 and split * slice_ == his_width(kernel, c)
+        chunk = his_chunk(kernel, slice_)
+        assert chunk in (32, 64, 128, 256) and (chunk < 256 or kernel == "out") and (slice_ % chunk == 0 or chunk == 32)
+
+
+@pytest.mark.parametrize("case", HIS_CASES, ids=HIS_IDS)
+def test_his_blocks_cover_each_output_once(case):
+    """The blocks of each kernel cover every (image, position, output
+    channel) once: the producer's row blocks partition the batch's
+    positions and its slices conv1|conv2's outputs; a consumer's tiles
+    partition the map (as csrc/qhis.cu's blk_of derives them), its image
+    groups the batch and its slices the channels."""
+    b, h, w, c = case
+    tile = pick_his_tile(b, h, w, c, SM_COUNT, SMEM_MAX)
+    tiles_x, tiles_y = -(-w // HIS_TILE), -(-h // HIS_TILE)
+    seen = np.zeros((h, w), np.int32)
+    for t in range(tiles_x * tiles_y):
+        r0, c0 = (t // tiles_x) * HIS_TILE, (t % tiles_x) * HIS_TILE
+        seen[r0:r0 + HIS_TILE, c0:c0 + HIS_TILE] += 1
+    assert (seen == 1).all()
+    for kernel, (ipb, split) in tile.items():
+        n = his_width(kernel, c)
+        chans = sorted(k for z in range(split) for k in range(z * (n // split), (z + 1) * (n // split)))
+        assert chans == list(range(n)), kernel
+        if kernel == "produce":
+            rows = [min(ipb, b * h * w - x * ipb) for x in range(-(-b * h * w // ipb))]
+            assert sum(rows) == b * h * w and min(rows) > 0
+            assert his_blocks(kernel, b, h, w, ipb, split) == len(rows) * split
+        else:
+            images = sorted(i for grp in range(-(-b // ipb)) for i in range(grp * ipb, min(b, grp * ipb + ipb)))
+            assert images == list(range(b)), kernel
+            assert his_blocks(kernel, b, h, w, ipb, split) == tiles_x * tiles_y * -(-b // ipb) * split
+
+
+@pytest.mark.parametrize("case", HIS_CASES, ids=HIS_IDS)
+def test_his_fills_the_card(case):
+    """Each kernel reaches one block per SM wherever some choice that fits
+    does, else takes the most blocks; where its largest rows or image
+    group already reaches it, it neither shrinks them nor splits the
+    channels."""
+    b, h, w, c = case
+    tile = pick_his_tile(b, h, w, c, SM_COUNT, SMEM_MAX)
+    for kernel, (ipb, split) in tile.items():
+        options = [(i, s) for i in his_ipbs(kernel, b, h, w) for s in his_slices(kernel, c)
+                   if his_smem_bytes(kernel, i, h, w, c, s) <= SMEM_MAX]
+        most = max(his_blocks(kernel, b, h, w, i, s) for i, s in options)
+        got = his_blocks(kernel, b, h, w, ipb, split)
+        assert got >= min(SM_COUNT, most), f"{kernel}: {got} blocks of a possible {most}"
+        top, first = his_ipbs(kernel, b, h, w)[0], his_slices(kernel, c)[0]
+        if his_blocks(kernel, b, h, w, top, first) >= SM_COUNT and (top, first) in options:
+            assert (ipb, split) == (top, first), kernel
+
+
+def test_his_small_levels_at_b8_split_channels():
+    """At B=8 his5 (16x16) reaches one out block per SM by channel slices,
+    his6 and his7 (8x8, 4x4) take the most blocks their shapes allow; his3
+    (64x64) needs no slices; at B=64 the producer takes 128-row blocks on
+    the large levels."""
+    for h in (16, 8, 4):
+        tile = pick_his_tile(8, h, h, 256, SM_COUNT, SMEM_MAX)
+        assert all(split > 1 for _, split in tile.values()), (h, tile)
+    assert his_blocks("out", 8, 16, 16, *pick_his_tile(8, 16, 16, 256, SM_COUNT, SMEM_MAX)["out"]) >= SM_COUNT
+    assert pick_his_tile(8, 64, 64, 256, SM_COUNT, SMEM_MAX) == {"produce": (128, 1), "mid": (1, 1), "out": (1, 1)}
+    assert pick_his_tile(64, 32, 32, 256, SM_COUNT, SMEM_MAX)["produce"] == (128, 1)
