@@ -33,7 +33,9 @@ Phases (each prints its results on its own lines):
      calibrated weights; 0 differing elements;
   5d. the int8-FPN serving pipeline from raw uint8 frames: the same model
      through make_eval_pipeline_int8(int8_fpn=True, int8_head=False) in bf16;
-     launch counters (1 K1, 13 K2, 3 K3, 3 K4, 7 K5, 6 K6, 20 GN, 1 NMS per call), finite
+     launch counters (1 K1, 13 K2, 3 K3, 3 K4, 7 K5 of which 4 with the level
+     pool in their load, 1 K6 seeds launch for the two seeds and 0 of the
+     standalone K6, 20 GN, 1 NMS per call), finite
      detections, per-level maps against the plain pipeline, the uint8 stem
      within one int8 step of the float stem (f32, TF32 off), cosine of each
      dequantized int8 level against the BN-folded float HisFPN on the same
@@ -43,11 +45,16 @@ Phases (each prints its results on its own lines):
      (and its residual variant) and K6, at most one step and under 5 %
      differing for K5; K5 at its seven shapes bit for bit the same under
      forced tiles (one image and all channels a block; the most slices) as
-     under ops/qhis.pick_his_tile's;
+     under ops/qhis.pick_his_tile's; K1 also on random frames at 512x512
+     (B=8, B=64), the COCO canvas (B=2) and an odd size (98x130, 3 and 4
+     channels), under its chooser's tile and forced ones; K6's seeds kernel
+     and K6 alone on the four level pools' inputs; K5 with the pool in its
+     load (his4..his7) bit for bit equal to K6 then K5 "add", under the
+     chooser's and forced tiles;
   5f. the JAX default serving pipeline, the main path: the same model
      through make_eval_pipeline_int8(...) with its defaults (int8 FPN and
      int8 head) in bf16 on the 8 frames; launch counters (1 K1, 13 K2, 3 K3,
-     3 K4, 7 K5, 6 K6, 5 K7, 0 K9, 0 GN, 1 NMS per call), finite
+     3 K4, 7 K5 (4 pool_add), 1 K6, 5 K7, 0 K9, 0 GN, 1 NMS per call), finite
      detections, per-level maps against the plain pipeline, the int8 head
      against the bf16 float head on the same dequantized levels (cosine >=
      0.99);
@@ -61,8 +68,8 @@ Phases (each prints its results on its own lines):
      against one image and all channels a block on every pass);
   5h. the int8 ResNet-50's other backends, each through
      make_eval_pipeline_int8 on the same model, qtree and 8 frames, counted:
-     1. backend="pallas", the per-conv kernels (1 K1, 39 K4, 13 K11, 7 K5,
-        6 K6, 5 K7, 1 A); its C3..C5 equal to its plain run, and against
+     1. backend="pallas", the per-conv kernels (1 K1, 39 K4, 13 K11, 7 K5
+        (4 pool_add), 1 K6, 5 K7, 1 A); its C3..C5 equal to its plain run, and against
         kernel C's the share of differing C5 values and the dequantized
         cosine (>= 0.99);
      2. fuse_strided=False (13 K2, 0 K3, 12 K4, 0 K11);
@@ -108,10 +115,13 @@ Phases (each prints its results on its own lines):
      (at most one step on under 1e-3 of the elements; the count printed);
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
      shape at B=8, and at B=64 the kernel alone: each with its bound, its
-     rate, its tile, cluster split and conv1 recompute), K1, K4 (the
+     rate, its tile, cluster split and conv1 recompute), K1 (B=8, and the
+     kernel alone at B=64 and the COCO canvas), K4 (the
      laterals at B=8 and B=64; the per-conv path's 36 1x1 convs at B=8 and
      B=64, held exact there, each beside torch._int_mm), K5 (per HisBlock
-     at B=8 and B=64, with its tile and T multiply-adds/s), K6, K7
+     at B=8 and B=64, with its tile and T multiply-adds/s), K6 (its seeds
+     launch, the level pools' cost inside K5: pool_add against add on the
+     pooled map, and the standalone K6 on those four inputs), K7
      (per level, with its T multiply-adds/s, beside the bf16 float head at
      the same levels), K10, K11, K13
      (beside kernel C's 16 launches on the same
@@ -174,10 +184,14 @@ LEVEL_TOL = 2**-5
 INT8_COS_MIN = 0.99
 K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 # launches in one call of the int8-FPN pipeline, by wrapper
+# (K6: one launch of its seeds kernel for the two seeds, none of the standalone 2x2 pool; the four level
+# pools run inside K5's load, "qhisblock_pool_add")
 FPN_PIPELINE_LAUNCHES = {"qstem_conv": 1, "qbottleneck": 13, "qbottleneck_s2": 3, "qmatmul": 3, "qhisblock": 7,
-                         "qmaxpool2x2": 6, "groupnorm_act": 20, "cuda_nms_keep_mask": 1, "qhishead_level": 0,
-                         "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0, "stem_bn_pool_quant": 0, "qchain": 0,
-                         "matmul_bn_act": 0, "hishead_level_fused": 0, "qmm_variant": 0, "qmnblock": 0}
+                         "qhisblock_pool_add": 4, "qmaxpool2x2": 0, "qmaxpool2x2_seeds": 1, "groupnorm_act": 20,
+                         "cuda_nms_keep_mask": 1,
+                         "qhishead_level": 0, "qhishead_level2": 0, "qconv3x3": 0, "qmaxpool3x3s2": 0,
+                         "stem_bn_pool_quant": 0, "qchain": 0, "matmul_bn_act": 0, "hishead_level_fused": 0,
+                         "qmm_variant": 0, "qmnblock": 0}
 # launches in one call of the default pipeline (int8 FPN and head) at 512x512
 DEFAULT_PIPELINE_LAUNCHES = dict(FPN_PIPELINE_LAUNCHES, groupnorm_act=0, qhishead_level=5)
 # ... and at the 896x1408 COCO canvas: K9 on P3 (112x176) and P4 (56x88), above 64x64 pixels
@@ -573,9 +587,16 @@ def main() -> int:
         res["qblock_cases"], res["qblock_err"] = cases, float(worst)
 
 
+    class PoolAddCount:
+        """K5's count of its calls with the level pool in its load, as a counter."""
+        launches = property(lambda self: qhis.qhisblock.pool_add_launches,
+                            lambda self, n: setattr(qhis.qhisblock, "pool_add_launches", n))
+
     counters = {"qstem_conv": qstem.qstem_conv, "qbottleneck": qblock.qbottleneck,
                 "qbottleneck_s2": qblock.qbottleneck_s2, "qmatmul": qconv.qmatmul, "qhisblock": qhis.qhisblock,
-                "qmaxpool2x2": qpool.qmaxpool2x2, "groupnorm_act": gn.groupnorm_act,
+                "qhisblock_pool_add": PoolAddCount(),
+                "qmaxpool2x2": qpool.qmaxpool2x2, "qmaxpool2x2_seeds": qpool.qmaxpool2x2_seeds,
+                "groupnorm_act": gn.groupnorm_act,
                 "cuda_nms_keep_mask": cuda_nms.cuda_nms_keep_mask, "qhishead_level": qhead.qhishead_level,
                 "qhishead_level2": qhead.qhishead_level2, "qconv3x3": qconv.qconv3x3,
                 "qmaxpool3x3s2": qpool.qmaxpool3x3s2, "stem_bn_pool_quant": stem.stem_bn_pool_quant,
@@ -607,8 +628,8 @@ def main() -> int:
 
     def record_fpn_calls(qtree_fpn, feats_q):
         """One int8 HisFPN forward on the kernels, keeping the arguments of
-        each K4 (qconv1x1), K5 and K6 call."""
-        return record_calls(fpn_int8, ("qconv1x1", "qhisblock", "qmaxpool2x2"),
+        each K4 (qconv1x1), K5 and K6 (the seeds) call."""
+        return record_calls(fpn_int8, ("qconv1x1", "qhisblock", "qmaxpool2x2_seeds"),
                             lambda: fpn_int8.hisfpn_int8_forward(qtree_fpn, feats_q, backend="pallas", dequant=False))
 
     def count_launches(pipe, frames):
@@ -638,7 +659,8 @@ def main() -> int:
         dets, res["fpn_launches"] = count_launches(fpipe, frames)  # raw uint8 frames: no normalize pass
         print(f"  launches in one int8-FPN pipeline call (B=8): {res['fpn_launches']}")
         smoke.check(res["fpn_launches"] == FPN_PIPELINE_LAUNCHES,
-                    "K1 1, K2 13, K3 3, K4 3, K5 7, K6 6, kernel B 20 and kernel A 1 launches per call")
+                    "K1 1, K2 13, K3 3, K4 3, K5 7 (4 pool_add), K6 1, kernel B 20 and kernel A 1 launches "
+                    "per call")
         smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
                     and bool(torch.isfinite(dets.boxes).all()), "int8-FPN detections [8, 1000] and finite")
         n_valid = dets.valid.sum(dim=1).tolist()
@@ -685,7 +707,7 @@ def main() -> int:
         frames, st = res["frames"], res["fpipe"].qtree["backbone"]["stem_s2d"]
         calls = res["fpn_calls"]
         g = torch.Generator(device=dev).manual_seed(SEED + 5)
-        err = {"qstem": 0, "qmatmul": 0, "qhisblock": 0, "qmaxpool2x2": 0}
+        err = {"qstem": 0, "qmatmul": 0, "qhisblock": 0, "qmaxpool2x2": 0, "qmaxpool2x2_seeds": 0}
 
         def exact(key, got, want, what):
             torch.cuda.synchronize()
@@ -699,6 +721,21 @@ def main() -> int:
             for what, fr in (("seeded frames", frames), ("random frames", rand)):
                 exact("qstem", qstem.qstem_conv(fr, st), qstem.qstem_conv(fr, st, plain=True),
                       f"K1 {what} {tuple(fr.shape)}")
+            # K1 at the throughput batch, the COCO canvas and an odd size (pooled 25x33), 3 and 4 channels,
+            # under the chooser's tile and forced ones (the output does not depend on it)
+            sm_count, smem_max = qblock.card_limits(dev)
+            for shape in ((64, *CANVAS, 3), (2, *COCO_CANVAS, 3), (3, 98, 130, 3), (3, 98, 130, 4)):
+                fr = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+                want = qstem.qstem_conv(fr, st, plain=True)
+                pick = qstem.pick_stem_tile(shape[0], shape[1], shape[2], sm_count, smem_max)
+                for tile in (None, (2, 3)) if shape[0] == 64 else (None, (2, 3), (8, 32), (32, 8)):
+                    exact("qstem", qstem.qstem_conv(fr, st, tile=tile), want,
+                          f"K1 random frames {shape}, tile {tile or pick}")
+            t5 = calls["qmaxpool2x2_seeds"][0][0][0]
+            for x in (t5, torch.randint(-128, 128, (3, 7, 11, 48), generator=g, device=dev, dtype=torch.int8)):
+                got, want = qpool.qmaxpool2x2_seeds(x), qpool.qmaxpool2x2_seeds(x, plain=True)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    exact("qmaxpool2x2_seeds", a, b, f"K6 seeds: seed{6 + i} of {tuple(x.shape)}")
             for (x, w, a, b), kw in calls["qconv1x1"]:
                 exact("qmatmul", qconv.qconv1x1(x, w, a, b), qconv.qconv1x1(x, w, a, b, plain=True),
                       f"K4 lateral {tuple(x.shape)} x {tuple(w.shape)}")
@@ -708,7 +745,8 @@ def main() -> int:
                 kw = dict(relu=relu, res=r, res_scale=torch.tensor(0.37, device=dev))
                 exact("qmatmul", qconv.qconv1x1(x, w, a, b, **kw), qconv.qconv1x1(x, w, a, b, plain=True, **kw),
                       f"K4 residual variant relu={relu} {tuple(x.shape)}")
-            for (x,), _ in calls["qmaxpool2x2"]:
+            pooled = [(blk, xa, kw) for (blk, xa), kw in calls["qhisblock"] if kw.get("combine") == "pool_add"]
+            for _, x, _ in pooled:  # the four level pools' inputs, through K6 alone
                 exact("qmaxpool2x2", qpool.qmaxpool2x2(x), qpool.qmaxpool2x2(x, plain=True), f"K6 {tuple(x.shape)}")
             for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
                 kw = {k: v for k, v in kw.items() if k != "plain"}
@@ -739,6 +777,19 @@ def main() -> int:
                     torch.cuda.synchronize()
                     smoke.check(torch.equal(forced, got), f"K5 his{i + 1} {tuple(got.shape)}: tile {tile} equals the "
                                 f"chooser's {qhis.pick_his_tile(b, h, w, cin, sm_count, smem_max)}")
+            # the level pool in K5's load against K6, then K5 with "add", on his4..his7's own inputs
+            smoke.check(len(pooled) == 4, f"{len(pooled)} K5 calls with pool_add recorded (his4..his7)")
+            for i, (blk, xa, kw) in enumerate(pooled):
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                want = qhis.qhisblock(blk, qpool.qmaxpool2x2(xa), **dict(kw, combine="add"))
+                b, h, w, cin = kw["xb_q"].shape
+                sliced = {k: (64 if k == "produce" else 1, qhis.his_slices(k, cin)[-1]) for k in qhis.HIS_KERNELS}
+                for tile in (None, {"produce": (64, 1), "mid": (1, 1), "out": (1, 1)}, sliced):
+                    got = qhis.qhisblock(blk, xa, tile=tile, **kw)
+                    torch.cuda.synchronize()
+                    smoke.check(torch.equal(got, want), f"K5 his{i + 4} pool_add {tuple(xa.shape)} -> "
+                                f"{tuple(got.shape)}, tile {tile or 'chooser'}: equal to K6 then K5 add "
+                                f"({int((got != want).sum())} differ)")
         res["fpn_err"] = err
 
     def phase5f():
@@ -758,7 +809,8 @@ def main() -> int:
         res["default_launches"] = launches
         print(f"  launches in one default pipeline call (B=8): {launches}")
         smoke.check(launches == DEFAULT_PIPELINE_LAUNCHES,
-                    "K1 1, K2 13, K3 3, K4 3, K5 7, K6 6, K7 5, K9 0, kernel B 0 and kernel A 1 launches per call")
+                    "K1 1, K2 13, K3 3, K4 3, K5 7 (4 pool_add), K6 1, K7 5, K9 0, kernel B 0 and kernel A 1 "
+                    "launches per call")
         smoke.check(tuple(dets.boxes.shape) == (8, 1000, 4) and bool(torch.isfinite(dets.scores).all())
                     and bool(torch.isfinite(dets.boxes).all()), "default-pipeline detections [8, 1000] and finite")
         n_valid = dets.valid.sum(dim=1).tolist()
@@ -1432,13 +1484,29 @@ def main() -> int:
             tk = cuda_ms(lambda: qstem.qstem_conv(frames, st))
             host["qstem"] = host_ms(lambda: qstem.qstem_conv(frames, st))
             tp = cuda_ms(lambda: qstem.qstem_conv(frames, st, plain=True))
-            b, h, w, _ = frames.shape
-            hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-            out = b * ((hc - 1) // 2 + 1) * ((wc - 1) // 2 + 1) * 64
+
+            def stem_work(fr):  # frames in, pooled map out, the weights; the function's 7x7 taps over 3 channels
+                b, h, w, _ = fr.shape
+                hc, wc, hp, wp = qstem.stem_sizes(h, w)
+                return fr.numel() + b * hp * wp * 64 + st["wt"].numel() + 8 * 64, 2 * b * hc * wc * 64 * 147
+
             t["qstem"] = (tk, tp, None)
-            work["qstem"] = (frames.numel() + out + st["w7"].numel() + 8 * 64, 2 * b * hc * wc * 64 * 147,
-                             INT8_OPS_S)  # 7x7 taps over the 3 colour channels
-            print(f"  K1 u8 stem B=8 {tuple(frames.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+            work["qstem"] = (*stem_work(frames), INT8_OPS_S)
+            sm_count, smem_max = qblock.card_limits(dev)
+            print(f"  K1 u8 stem B=8 {tuple(frames.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms, tile "
+                  f"{qstem.pick_stem_tile(*frames.shape[:3], sm_count, smem_max)}")
+            g = torch.Generator(device=dev).manual_seed(SEED + 11)
+            for shape in ((64, *CANVAS, 3), (2, *COCO_CANVAS, 3)):  # the kernel alone
+                fr = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+                k1 = cuda_ms(lambda: qstem.qstem_conv(fr, st), iters=10)
+                bnd = bound(*stem_work(fr), INT8_OPS_S)
+                tile = qstem.pick_stem_tile(*shape[:3], sm_count, smem_max)
+                macs = stem_work(fr)[1] / 2
+                print(f"  K1 u8 stem {shape}: kernel {k1:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                      f"{macs / k1 / 1e9:.1f} T multiply-adds/s (the 147 taps; on the s2d GEMM's 256, "
+                      f"{macs * 256 / 147 / k1 / 1e9:.1f}), tile {tile}, "
+                      f"{qstem.stem_blocks(*shape[:3], *tile)} blocks, recompute "
+                      f"{qstem.stem_recompute(*shape[1:3], *tile):.4f} {card}")
 
             tk = tp = tl = th = nbytes = ops = 0.0
             for (x, wt, a, bb), _ in calls["qconv1x1"]:
@@ -1496,22 +1564,49 @@ def main() -> int:
                   f"B=64 {t64:.4f} ms ({4 * ops / t64 / 1e9:.1f} T multiply-adds/s) {card}")
             t["qhisblock"], work["qhisblock"], host["qhisblock"] = (tk, tp, None), (nbytes, ops, INT8_OPS_S), th
 
-            tk = tp = tl = th = nbytes = ops = 0.0
-            for (x,), _ in calls["qmaxpool2x2"]:
-                k1 = cuda_ms(lambda: qpool.qmaxpool2x2(x))
-                th += host_ms(lambda: qpool.qmaxpool2x2(x))
-                p1 = cuda_ms(lambda: qpool.qmaxpool2x2(x, plain=True))
-                try:  # the library call, where PyTorch takes int8 on the card
-                    l1 = cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2))
-                except (RuntimeError, NotImplementedError) as e:
-                    print(f"  F.max_pool2d refuses int8 on the card: {str(e).splitlines()[0]}")
-                    l1 = None
-                out = x.numel() // 4
-                tk, tp, nbytes, ops = tk + k1, tp + p1, nbytes + x.numel() + out, ops + 3 * out
-                tl = None if l1 is None or tl is None else tl + l1
-                print(f"  K6 {tuple(x.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms, F.max_pool2d "
-                      f"{'none' if l1 is None else f'{l1:.4f} ms'}")
-            t["qmaxpool2x2"], work["qmaxpool2x2"], host["qmaxpool2x2"] = (tk, tp, tl), (nbytes, ops, F32_OPS_S), th
+            # K6: its one launch a forward, the two seeds from t5
+            (x,), _ = calls["qmaxpool2x2_seeds"][0]
+            tk = cuda_ms(lambda: qpool.qmaxpool2x2_seeds(x))
+            th = host_ms(lambda: qpool.qmaxpool2x2_seeds(x))
+            tp = cuda_ms(lambda: qpool.qmaxpool2x2_seeds(x, plain=True))
+            try:  # the library call, where PyTorch takes int8 on the card
+                xc = x.permute(0, 3, 1, 2)
+                tl = cuda_ms(lambda: F.max_pool2d(F.max_pool2d(xc, 2, 2), 2, 2))
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"  F.max_pool2d refuses int8 on the card: {str(e).splitlines()[0]}")
+                tl = None
+            s6, s7 = qpool.qmaxpool2x2_seeds(x)
+            t["qmaxpool2x2_seeds"] = (tk, tp, tl)
+            work["qmaxpool2x2_seeds"] = (x.numel() + s6.numel() + s7.numel(), 3 * (s6.numel() + s7.numel()),
+                                         F32_OPS_S)
+            host["qmaxpool2x2_seeds"] = th
+            print(f"  K6 seeds {tuple(x.shape)} -> {tuple(s6.shape)}, {tuple(s7.shape)}: kernel {tk:.4f} ms, plain "
+                  f"{tp:.4f} ms, F.max_pool2d twice {'none' if tl is None else f'{tl:.4f} ms'}")
+            # the four level pools inside K5's load: K5 with pool_add against K5 with add on the pooled map;
+            # and the standalone K6 (no launch on the main path) on those four inputs, as the parent ran them
+            prologue = t6 = p6 = th6 = nbytes = ops = 0.0
+            l6 = 0.0 if tl is not None else None
+            for i, ((blk, xa), kw) in enumerate(calls["qhisblock"]):
+                if kw.get("combine") != "pool_add":
+                    continue
+                kw = {k: v for k, v in kw.items() if k != "plain"}
+                xp = qpool.qmaxpool2x2(xa)
+                t_pool = cuda_ms(lambda: qhis.qhisblock(blk, xa, **kw), iters=10)
+                t_add = cuda_ms(lambda: qhis.qhisblock(blk, xp, **dict(kw, combine="add")), iters=10)
+                k6 = cuda_ms(lambda: qpool.qmaxpool2x2(xa))
+                t6, p6 = t6 + k6, p6 + cuda_ms(lambda: qpool.qmaxpool2x2(xa, plain=True))
+                th6 += host_ms(lambda: qpool.qmaxpool2x2(xa))
+                if l6 is not None:
+                    xc = xa.permute(0, 3, 1, 2)
+                    l6 += cuda_ms(lambda: F.max_pool2d(xc, 2, 2))
+                nbytes, ops = nbytes + xa.numel() + xp.numel(), ops + 3 * xp.numel()
+                prologue += t_pool - t_add
+                print(f"  K5 his{i + 1} pool_add {tuple(xa.shape)}: {t_pool:.4f} ms, add on the pooled map "
+                      f"{t_add:.4f} ms (the pool in the load {t_pool - t_add:+.4f} ms), K6 alone {k6:.4f} ms")
+            t["qmaxpool2x2"], work["qmaxpool2x2"], host["qmaxpool2x2"] = (t6, p6, l6), (nbytes, ops, F32_OPS_S), th6
+            print(f"  K6 per forward (B=8): the seeds launch {tk:.4f} ms + the level pools in K5's load "
+                  f"{prologue:+.4f} ms = {tk + prologue:.4f} ms; the standalone K6 on the four level pools "
+                  f"{t6:.4f} ms {card}")
         for key, (tk, tp, tl) in t.items():
             b_ms, b_by = bound(*work[key])
             print(f"  {key} per forward (B=8): kernel {tk:.4f} ms, plain {tp:.4f} ms, library "
@@ -1888,7 +1983,8 @@ def main() -> int:
         smoke.phase("phase 5d: int8-FPN serving pipeline from uint8 frames, HISFCOS(20, 256) bf16 512x512 B=8",
                     phase5d)
     if "fpn_calls" in res:
-        smoke.phase("phase 5e: K1, K4, K5, K6 vs plain at the pipeline's shapes, B=8", phase5e)
+        smoke.phase("phase 5e: K1, K4, K5, K6 vs plain at the pipeline's shapes, B=8; K1 at 512x512 B=64, "
+                    "the COCO canvas and odd sizes; K5 pool_add vs K6 + K5 add", phase5e)
     if "pipe" in res:
         smoke.phase("phase 5f: the default serving pipeline (int8 FPN and head) from uint8 frames, "
                     "HISFCOS(20, 256) bf16 512x512 B=8", phase5f)
@@ -1979,6 +2075,9 @@ def main() -> int:
               *fpn_ms["qhisblock"][:2], fpn_bound["qhisblock"]),
         entry("qmaxpool2x2", "qpool.cu", "pallas_pool.py:113", "qmaxpool2x2", fpn_err["qmaxpool2x2"],
               *fpn_ms["qmaxpool2x2"][:2], fpn_bound["qmaxpool2x2"], fpn_ms["qmaxpool2x2"][2]),
+        entry("qmaxpool2x2_seeds", "qpool.cu", "pallas_pool.py:113", "qmaxpool2x2_seeds",
+              fpn_err["qmaxpool2x2_seeds"], *fpn_ms["qmaxpool2x2_seeds"][:2], fpn_bound["qmaxpool2x2_seeds"],
+              fpn_ms["qmaxpool2x2_seeds"][2]),
         entry("qhishead_level", "qhead.cu", "pallas_qhead.py:259", "qhishead_level",
               qhead_err["qhishead_level"][0], k7["ms"], k7["plain_ms"], k7["bound"]),
         entry("qhishead_level2", "qhead.cu", "pallas_qhead.py:646", "qhishead_level2",

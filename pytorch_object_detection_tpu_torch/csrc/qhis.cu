@@ -11,6 +11,7 @@
 // (x1q, x2q, mq: mostly L2-resident at B=8):
 //
 //   produce  x    = combine: xa | clip8(xa*ca + xb*cb) | clip8(up2(xa)*ca + xb*cb)
+//                              | clip8(pool2(xa)*ca + xb*cb)
 //            x1q  = clip8(silu(conv1(x) * A1 + B1) * inv_x1)     (1x1, cin -> half)
 //            x2q  = clip8(conv2(x) * A2 + B2)                    (1x1, cin -> half)
 //            sum[b][c] += x1q  (int32: exact in any order; per-image runs, then atomics)
@@ -30,7 +31,9 @@
 // block owns 64 or 128 consecutive positions of the batch (M) and one slice
 // of the 2*half outputs of conv1|conv2 (N, w1's rows then w2's), K = cin;
 // it builds its x rows once, with the combine glue applied as they are
-// loaded.  Each consumer's block owns one 8x8 tile (smaller at the map's
+// loaded: the coarser level's 2x upsample, or the finer level's 2x2 VALID
+// max pool (four 16-byte loads and __vmaxs4, exact: the HisFPN's level
+// pools need no launch of their own).  Each consumer's block owns one 8x8 tile (smaller at the map's
 // edges and on maps under 8 a side) of `ipb` images (M: at most 64 rows)
 // and one slice of its output channels: mid recomputes [aq, bq] on the
 // tile and a 1-position halo from x1q (2-halo) and the SE gate, then runs
@@ -70,7 +73,7 @@ constexpr int kStages = 4;  // the weights' cp.async ring
 enum { kProduce, kMid, kOut, kKernels };
 
 struct Args {
-  const int8_t* xa;  // [B, Ha, Wa, cin]
+  const int8_t* xa;  // [B, ha, wa, cin]
   const int8_t* xb;  // [B, H, W, cin] or null (combine none)
   const int8_t *w1, *w2;  // [half][cin]
   const float *a1, *b1, *a2, *b2;
@@ -85,7 +88,8 @@ struct Args {
   int8_t *x1q, *x2q, *mq;  // [B, H, W, half]
   int* se_sum;             // [B, half]
   int8_t* out;             // [B, H, W, cin]
-  int batch, h, w, cin, half, r, combine;  // combine: 0 none, 1 add, 2 up_add
+  int batch, h, w, cin, half, r, combine;  // combine: 0 none, 1 add, 2 up_add, 3 pool_add
+  int ha, wa;                              // xa's map: h x w, h / 2 x w / 2 (up_add), >= 2h x 2w (pool_add)
   int tiles_x, th, tw;                     // consumers: tiles a row; a full tile's rows, columns
 };
 
@@ -146,6 +150,14 @@ __device__ __forceinline__ int pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
 }
 
 __device__ __forceinline__ int8_t byte_of(int v, int i) { return static_cast<int8_t>((v >> (8 * i)) & 0xff); }
+
+// per-byte signed max of two 16-byte words
+__device__ __forceinline__ int4 vmax16(const int4& a, const int4& b) {
+  const auto m = [](int x, int y) {
+    return static_cast<int>(__vmaxs4(static_cast<unsigned>(x), static_cast<unsigned>(y)));
+  };
+  return make_int4(m(a.x, b.x), m(a.y, b.y), m(a.z, b.z), m(a.w, b.w));
+}
 
 // clip8(a * ca + b * cb) on four bytes
 __device__ __forceinline__ int combine4(int a, int b, float ca, float cb) {
@@ -253,13 +265,20 @@ __global__ void __launch_bounds__(kMmaThreads, 2) his_produce(const Args g, cons
       if (g.combine == 0) {
         v = __ldg(reinterpret_cast<const int4*>(g.xa + at));
       } else {
-        int64_t at_a = at;
-        if (g.combine == 2) {  // the coarser level, 2x nearest upsample
+        int4 a;
+        if (g.combine == 1) {
+          a = __ldg(reinterpret_cast<const int4*>(g.xa + at));
+        } else {
           const int64_t b = (p0 + r) / hw;
           const int q = static_cast<int>(p0 + r - b * hw), y = q / g.w, x = q % g.w;
-          at_a = ((b * (g.h / 2) + y / 2) * (g.w / 2) + x / 2) * cin + 16 * c;
+          if (g.combine == 2) {  // the coarser level, 2x nearest upsample
+            a = __ldg(reinterpret_cast<const int4*>(g.xa + ((b * g.ha + y / 2) * g.wa + x / 2) * cin + 16 * c));
+          } else {  // the finer level, 2x2 VALID max pool
+            const int4* r0 = reinterpret_cast<const int4*>(g.xa + ((b * g.ha + 2 * y) * g.wa + 2 * x) * cin + 16 * c);
+            const int4* r1 = r0 + static_cast<int64_t>(g.wa) * cpr;
+            a = vmax16(vmax16(__ldg(r0), __ldg(r0 + cpr)), vmax16(__ldg(r1), __ldg(r1 + cpr)));
+          }
         }
-        const int4 a = __ldg(reinterpret_cast<const int4*>(g.xa + at_a));
         const int4 bb = __ldg(reinterpret_cast<const int4*>(g.xb + at));
         v = make_int4(combine4(a.x, bb.x, ca, cb), combine4(a.y, bb.y, ca, cb), combine4(a.z, bb.z, ca, cb),
                       combine4(a.w, bb.w, ca, cb));
@@ -562,14 +581,16 @@ extern "C" int qhis_smem_bytes(int kernel, int ipb, int h, int w, int cin, int s
 }
 
 // Pointers in the order of Args (see ops/qhis.py); the int8 maps NHWC
-// contiguous and 16-byte aligned, weights [out][taps][in]; x1q, x2q, mq
+// contiguous and 16-byte aligned, xa [B, ha, wa, cin] (combine 2: ha = h /
+// 2, wa = w / 2; 3: ha / 2 = h, wa / 2 = w; else h, w), weights
+// [out][taps][in]; x1q, x2q, mq
 // [B, H, W, half] int8 and se_sum [B, half] int32 are scratch (se_sum is
 // zeroed here).  half % 16 == 0, cin == 2 * half, r <= half.  cfg: (rows a
 // block, channel slices) of produce, (images a block, channel slices) of
 // mid and out (ops/qhis.pick_his_tile).  Runs the three kernels on
 // `stream`.  Returns a cudaError_t (0 = launched).
 extern "C" int qhis_launch(void* const* ptrs, int batch, int h, int w, int cin, int half, int r, int combine,
-                           const int* cfg, void* stream) {
+                           int ha, int wa, const int* cfg, void* stream) {
   Args g;
   g.xa = static_cast<const int8_t*>(ptrs[0]);
   g.xb = static_cast<const int8_t*>(ptrs[1]);
@@ -605,10 +626,14 @@ extern "C" int qhis_launch(void* const* ptrs, int batch, int h, int w, int cin, 
   g.half = half;
   g.r = r;
   g.combine = combine;
+  g.ha = ha;
+  g.wa = wa;
   g.tiles_x = (w + kT - 1) / kT;
   g.th = min(kT, h);
   g.tw = min(kT, w);
-  if (half % 16 || cin != 2 * half || r > half || r < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (half % 16 || cin != 2 * half || r > half || r < 1 || combine < 0 || combine > 3 ||
+      (combine == 2 ? ha * 2 != h || wa * 2 != w : combine == 3 ? ha / 2 != h || wa / 2 != w : ha != h || wa != w))
+    return static_cast<int>(cudaErrorInvalidValue);
 
   static int optin = -1;  // every kernel may take all the shared memory a block can opt in to
   if (optin < 0) {

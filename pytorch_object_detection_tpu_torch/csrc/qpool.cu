@@ -13,6 +13,12 @@
 // output byte written once (1.25 bytes moved per input byte); there is no
 // arithmetic to speak of.  At the pyramid's sizes (<= 4 MB per call at B=8)
 // a call is as short as a launch, so launch cost, not bandwidth, dominates.
+// So the HisFPN launches it once: its two seeds, seed6 = pool(t5) and
+// seed7 = pool(seed6), come from one read of t5 (qpool_seeds: one thread
+// makes a 2x2 block of seed6 words from a 4x4 window and, where the block is
+// whole, their max, the seed7 word: floor(floor(h / 2) / 2) = floor(h / 4));
+// the four level pools run inside K5's producer load (csrc/qhis.cu,
+// combine pool_add).
 //
 // K10 replaces pytorch_object_detection_tpu/ops/pallas_pool.py:qmaxpool3x3s2,
 // the pool after the direct 7x7/2 uint8 stem conv (the PODT_STEM_XLA7 path).
@@ -54,6 +60,44 @@ __global__ void __launch_bounds__(kThreads)
     const int4 a = __ldg(r0), bb = __ldg(r0 + c16), cc = __ldg(r1), d = __ldg(r1 + c16);
     out[i] = make_int4(vmax(vmax(a.x, bb.x), vmax(cc.x, d.x)), vmax(vmax(a.y, bb.y), vmax(cc.y, d.y)),
                        vmax(vmax(a.z, bb.z), vmax(cc.z, d.z)), vmax(vmax(a.w, bb.w), vmax(cc.w, d.w)));
+  }
+}
+
+// the seeds: grid-stride over [B, ceil(Ho / 2), ceil(Wo / 2), C / 16]
+// words, Ho = H / 2 (seed6's size), H7 = Ho / 2 (seed7's): item (b, qy, qx,
+// c) writes seed6 at rows 2 qy .. 2 qy + 1, columns 2 qx .. 2 qx + 1 (those
+// inside it) and, where all four are, seed7 at (qy, qx).  C % 16 == 0 (t5
+// has 2 x K5's half channels, a multiple of 16).
+__device__ __forceinline__ int4 max2(const int4& a, const int4& b) {
+  return make_int4(vmax(a.x, b.x), vmax(a.y, b.y), vmax(a.z, b.z), vmax(a.w, b.w));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    qpool_seeds(const int4* __restrict__ x, int4* __restrict__ s6, int4* __restrict__ s7, int h, int w, int cw,
+                int ho, int wo, int64_t total) {
+  const int qh = (ho + 1) / 2, qw = (wo + 1) / 2, h7 = ho / 2, w7 = wo / 2;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int c = static_cast<int>(i % cw);
+    int64_t p = i / cw;
+    const int qx = static_cast<int>(p % qw);
+    p /= qw;
+    const int qy = static_cast<int>(p % qh);
+    const int64_t b = p / qh;
+    int4 m6[2][2];
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const int oy = 2 * qy + dy, ox = 2 * qx + dx;
+        if (oy >= ho || ox >= wo) continue;
+        const int4* r0 = x + ((b * h + 2 * oy) * w + 2 * ox) * cw + c;
+        const int4* r1 = r0 + static_cast<int64_t>(w) * cw;
+        m6[dy][dx] = max2(max2(__ldg(r0), __ldg(r0 + cw)), max2(__ldg(r1), __ldg(r1 + cw)));
+        s6[((b * ho + oy) * wo + ox) * cw + c] = m6[dy][dx];
+      }
+    if (qy < h7 && qx < w7)
+      s7[((b * h7 + qy) * w7 + qx) * cw + c] = max2(max2(m6[0][0], m6[0][1]), max2(m6[1][0], m6[1][1]));
   }
 }
 
@@ -145,6 +189,19 @@ extern "C" int qpool_launch(const void* x, void* out, int batch, int h, int w, i
     qpool_byte<<<blocks, kThreads, 0, s>>>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out), h, w, c, ho,
                                           wo, total);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6, the HisFPN's seeds: x [B, H, W, C] int8 NHWC contiguous, 16-byte
+// aligned, C % 16 == 0; s6 [B, H / 2, W / 2, C], s7 [B, H / 2 / 2, W / 2 /
+// 2, C], each its own allocation.  Returns a cudaError_t (0 = launched).
+extern "C" int qpool_seeds_launch(const void* x, void* s6, void* s7, int batch, int h, int w, int c, void* stream) {
+  if (c % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int ho = h / 2, wo = w / 2, cw = c / 16;
+  const int64_t total = static_cast<int64_t>(batch) * ((ho + 1) / 2) * ((wo + 1) / 2) * cw;
+  if (total == 0 || ho == 0 || wo == 0) return 0;
+  qpool_seeds<<<grid_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(x), static_cast<int4*>(s6), static_cast<int4*>(s7), h, w, cw, ho, wo, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,9 +17,11 @@ replication keep the scale, a cross-scale add requantizes to the
 calibrated scale of the sum.
 
 Everything runs NHWC, the JAX package's layout and the kernels'.
-``backend="pallas"``: the laterals on K4 (``ops/qconv``), the pools on K6
-(``ops/qpool``), each HisBlock with its glue on K5 (``ops/qhis``); each
-kernel runs its plain version on a CPU tensor.  ``backend="xla"``: the
+``backend="pallas"``: the laterals on K4 (``ops/qconv``), the two seeds of
+the extra levels in one K6 launch (``ops/qpool.qmaxpool2x2_seeds``), each
+HisBlock with its glue on K5 (``ops/qhis``), the four level pools inside
+K5's load (``combine="pool_add"``); each kernel runs its plain version on a
+CPU tensor.  ``backend="xla"``: the
 per-op oracle of the JAX function, which is those plain versions (``nn/fpn_int8.py:44-94``, ``:303-328`` of the JAX package,
 operation for operation).
 
@@ -38,7 +40,7 @@ from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import _port_layout
 from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
-from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2_seeds
 from pytorch_object_detection_tpu_torch.ops.quant import act_scale, weight_qparams
 
 BLOCKS = ("his1", "his2", "his3", "his4", "his5", "his6", "his7")
@@ -129,7 +131,8 @@ def hisfpn_int8_forward(qtree: Dict, feats_q: Sequence[torch.Tensor], compute_dt
 
     The backbone's scales are already folded into the lateral epilogues.
     ``backend="pallas"``: K4, K5 and K6 (their plain versions on a CPU
-    tensor); ``"xla"``: the per-op oracle.
+    tensor; the level pools inside K5); ``"xla"``: the per-op oracle, the
+    same calls on the plain versions (a pool, then the add).
     ``dequant=True`` returns ``compute_dtype`` levels; ``False`` returns
     ``(levels_q int8, scales)``.
     """
@@ -138,36 +141,33 @@ def hisfpn_int8_forward(qtree: Dict, feats_q: Sequence[torch.Tensor], compute_dt
     plain = backend == "xla"  # the per-op oracle is each kernel's plain version
     c3q, c4q, c5q = feats_q
 
-    def pool(x):
-        return qmaxpool2x2(x, plain=plain)
-
     def lateral(c_q, lat):
         return qconv1x1(c_q, lat["w"], lat["A"], lat["B"], plain=plain)
 
-    def block(name, xa, sa, xb=None, sb=None, up=False):
-        """Block ``name`` on ``clip8(xa * sa / s_in + xb * sb / s_in)``
-        (``xb`` None: ``xa`` is already at ``s_in``); K5 fuses the glue."""
+    def block(name, xa, sa, xb=None, sb=None, combine=None):
+        """Block ``name`` on ``clip8(glue(xa) * sa / s_in + xb * sb / s_in)``,
+        ``glue`` the 2x upsample (``"up_add"``) or the 2x2 pool
+        (``"pool_add"``) (``xb`` None: ``xa`` is already at ``s_in``); K5
+        fuses the glue."""
         blk = qtree[name]
         if xb is None:
             return qhisblock(blk, xa, plain=plain)
-        return qhisblock(blk, xa, xb_q=xb, combine="up_add" if up else "add", ca=sa / blk["s_in"],
-                         cb=sb / blk["s_in"], plain=plain)
+        return qhisblock(blk, xa, xb_q=xb, combine=combine, ca=sa / blk["s_in"], cb=sb / blk["s_in"], plain=plain)
 
     t5 = lateral(c5q, qtree["tf1"])
-    seed6 = pool(t5)
-    seed7 = pool(seed6)
+    seed6, seed7 = qmaxpool2x2_seeds(t5, plain=plain)
     s_t5, s_d5, s_d4 = qtree["tf1"]["s"], qtree["his1"]["s_out"], qtree["his2"]["s_out"]
 
     d5 = block("his1", t5, s_t5)
     t4 = lateral(c4q, qtree["tf2"])
-    d4 = block("his2", d5, s_d5, t4, qtree["tf2"]["s"], up=True)
+    d4 = block("his2", d5, s_d5, t4, qtree["tf2"]["s"], "up_add")
     t3 = lateral(c3q, qtree["tf3"])
-    p3 = block("his3", d4, s_d4, t3, qtree["tf3"]["s"], up=True)
+    p3 = block("his3", d4, s_d4, t3, qtree["tf3"]["s"], "up_add")
 
-    p4 = block("his4", pool(p3), qtree["his3"]["s_out"], d4, s_d4)
-    p5 = block("his5", pool(p4), qtree["his4"]["s_out"], d5, s_d5)
-    p6 = block("his6", pool(p5), qtree["his5"]["s_out"], seed6, s_t5)
-    p7 = block("his7", pool(p6), qtree["his6"]["s_out"], seed7, s_t5)
+    p4 = block("his4", p3, qtree["his3"]["s_out"], d4, s_d4, "pool_add")
+    p5 = block("his5", p4, qtree["his4"]["s_out"], d5, s_d5, "pool_add")
+    p6 = block("his6", p5, qtree["his5"]["s_out"], seed6, s_t5, "pool_add")
+    p7 = block("his7", p6, qtree["his6"]["s_out"], seed7, s_t5, "pool_add")
 
     levels_q = (p3, p4, p5, p6, p7)
     scales = tuple(qtree[b]["s_out"] for b in ("his3", "his4", "his5", "his6", "his7"))

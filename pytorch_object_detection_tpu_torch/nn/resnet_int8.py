@@ -124,7 +124,9 @@ def quantize_stem_s2d(backbone: ResNet50, mean, std, stem_absmax) -> Dict:
     channel; the requant scale folds into the epilogue.  The input channels
     are padded 3 -> 4 (a fourth channel of zero weights) before the
     space-to-depth rewrite.  Returns ``w [256, 64]`` int8 (the s2d taps,
-    (ky, kx, c16) order), ``w7 [64, 7, 7, 4]`` int8 (the same taps in the
+    (ky, kx, c16) order), ``wt [64, 256]`` (``w`` transposed, each output
+    channel's taps contiguous: K1's layout, ``ops/qstem.py``), ``w7 [64, 7,
+    7, 4]`` int8 (the same taps in the
     direct 7x7 form: the rewrite only rearranges them and adds zero taps, so
     the per-channel scales and rounded values are the same), ``A``, ``B``
     f32 ``[64]``, ``pad [16]`` and ``pad4 [4]`` int8 (the border fill in the
@@ -149,8 +151,10 @@ def quantize_stem_s2d(backbone: ResNet50, mean, std, stem_absmax) -> Dict:
     inv = 1.0 / s_out
     pad3 = torch.clamp(torch.round(255.0 * mean - 128.0), -128, 127).to(torch.int8)
     pad4 = F.pad(pad3, (0, 1))
+    w_s2d = wq.reshape(16 * 16, 64)
     return {
-        "w": wq.reshape(16 * 16, 64),
+        "w": w_s2d,
+        "wt": w_s2d.t().contiguous(),
         "w7": wq7.permute(3, 0, 1, 2).contiguous(),
         "A": sw * inv,
         "B": bias * inv,

@@ -2,9 +2,12 @@
 
 Replaces ``pytorch_object_detection_tpu/ops/pallas_qhis.py:qhisblock``.
 The block input is ``x_q`` (``combine=None``), ``clip8(x_q * ca + xb_q *
-cb)`` (``"add"``, two maps of one size) or the same with ``x_q`` the coarser
-level, 2x nearest-upsampled (``"up_add"``): the HisFPN's pool-add and
-upsample-add, each rescaling two int8 maps to the block's input scale.
+cb)`` (``"add"``, two maps of one size), the same with ``x_q`` the coarser
+level, 2x nearest-upsampled (``"up_add"``), or with ``x_q`` the finer level,
+2x2 VALID max-pooled (``"pool_add"``: ``x_q [B, H', W', C]`` with ``H' // 2
+== H``, ``W' // 2 == W``; the pool runs on the producer's loads, exact):
+the HisFPN's pool-add and upsample-add, each rescaling two int8 maps to the
+block's input scale.
 
 Layouts: int8 NHWC maps, contiguous; one block's parameters as
 ``nn/fpn_int8.quantize_hisfpn`` makes them (``cin = 2 * half``, ``r`` the SE
@@ -37,12 +40,13 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2_plain
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
 
 SOURCE = "qhis.cu"
 # no FMA contraction: a fused multiply-add moves values across a requant boundary
 NVCC_FLAGS = ("-fmad=false",)
-COMBINES = (None, "add", "up_add")
+COMBINES = (None, "add", "up_add", "pool_add")
 # the pointer table of qhis_launch, in csrc/qhis.cu's order
 _PARAMS = ("w1", "w2", "A1", "B1", "A2", "B2", "wdw", "Adw", "Bdw", "se_w1", "se_b1", "se_w2", "se_b2",
            "w3", "A3", "B3", "w4", "A4", "B4")
@@ -159,7 +163,7 @@ def _lib() -> ctypes.CDLL:
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE, NVCC_FLAGS)
-    lib.qhis_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    lib.qhis_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     lib.qhis_launch.restype = ctypes.c_int
     lib.qhis_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.qhis_smem_bytes.restype = ctypes.c_int
@@ -188,10 +192,11 @@ def upsample2x_i8(x: torch.Tensor) -> torch.Tensor:
 
 def combine_plain(x_q, xb_q, combine, ca, cb) -> torch.Tensor:
     """The block's int8 input: ``x_q``, or ``clip8(xa * ca + xb * cb)`` with
-    ``xa`` 2x-upsampled for ``"up_add"`` (the JAX ``_add_requant``)."""
+    ``xa`` 2x-upsampled for ``"up_add"``, 2x2-max-pooled for ``"pool_add"``
+    (the JAX ``_upsample2x_i8`` / ``_maxpool2x2_i8``, then ``_add_requant``)."""
     if combine is None:
         return x_q
-    xa = upsample2x_i8(x_q) if combine == "up_add" else x_q
+    xa = upsample2x_i8(x_q) if combine == "up_add" else qmaxpool2x2_plain(x_q) if combine == "pool_add" else x_q
     return clip8(xa.float() * ca + xb_q.float() * cb)
 
 
@@ -246,6 +251,11 @@ def _check(blk, x_q, xb_q, combine) -> None:
         if h % 2 or w % 2 or tuple(x_q.shape) != (b, h // 2, w // 2, c):
             raise ValueError(f"combine='up_add' takes x_q at half the size of xb_q (even); "
                              f"got {tuple(x_q.shape)}, {tuple(xb_q.shape)}")
+    if combine == "pool_add":
+        b, h, w, c = xb_q.shape
+        if x_q.shape[0] != b or x_q.shape[1] // 2 != h or x_q.shape[2] // 2 != w or x_q.shape[3] != c:
+            raise ValueError(f"combine='pool_add' takes x_q whose 2x2 VALID pool has the size of xb_q; "
+                             f"got {tuple(x_q.shape)}, {tuple(xb_q.shape)}")
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -287,8 +297,8 @@ def _launch(blk, x_q, xb_q, combine, ca, cb, tile) -> torch.Tensor:
     ptrs = [x_q, xb_q, *params, sc, scratch[0], scratch[1], scratch[2], se_sum, out]
     table = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     with torch.cuda.device(dev):  # the launches go to the current device
-        err = _lib().qhis_launch(table, b, h, w, cin, half, r, COMBINES.index(combine), (ctypes.c_int * 6)(*cfg),
-                                 torch.cuda.current_stream().cuda_stream)
+        err = _lib().qhis_launch(table, b, h, w, cin, half, r, COMBINES.index(combine), *x_q.shape[1:3],
+                                 (ctypes.c_int * 6)(*cfg), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {err}")
     return out
@@ -305,7 +315,8 @@ def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = No
     :func:`combine_plain`; on a CUDA tensor it launches K5 (three CUDA
     kernels, counted as one launch) or raises.  ``plain=True`` runs the
     plain version on any device, for the comparison only.
-    ``qhisblock.launches`` counts kernel launches.
+    ``qhisblock.launches`` counts kernel launches, ``pool_add_launches``
+    those with ``combine="pool_add"`` among them.
     """
     _check(blk, x_q, xb_q, combine)
     if plain or x_q.device.type == "cpu":
@@ -315,7 +326,9 @@ def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = No
     out = _launch(blk, x_q, xb_q, combine, ca, cb, tile)
     if out.numel():
         qhisblock.launches += 1
+        qhisblock.pool_add_launches += combine == "pool_add"
     return out
 
 
 qhisblock.launches = 0
+qhisblock.pool_add_launches = 0

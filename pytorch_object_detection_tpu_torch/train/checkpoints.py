@@ -161,9 +161,9 @@ def load_backbone_qtree(qtree_np: Mapping[str, Any], device: torch.device | str 
     (``w1/w3/wd [O, I]``, ``w2 [O, 3, 3, I]``); epilogue vectors and scales
     become f32 tensors; the float stem kernel becomes OIHW and its BN pair
     a dict of ``scale/bias/mean/var``.  The uint8 stem's ``stem_s2d`` entry,
-    where the tree has one, keeps ``w [256, 64]`` and its border fills and
-    turns ``w7`` from HWIO ``[7, 7, 4, 64]`` into ``[64, 7, 7, 4]``
-    (``ops/qstem.py``).  Raises ``KeyError`` on a missing or unused key and
+    where the tree has one, keeps ``w [256, 64]`` and its border fills,
+    adds ``wt``, ``w`` transposed to ``[64, 256]``, and turns ``w7`` from
+    HWIO ``[7, 7, 4, 64]`` into ``[64, 7, 7, 4]`` (``ops/qstem.py``).  Raises ``KeyError`` on a missing or unused key and
     ``ValueError`` on a shape or dtype that does not match, before anything
     is converted.
     """
@@ -182,7 +182,8 @@ def load_backbone_qtree(qtree_np: Mapping[str, Any], device: torch.device | str 
     if with_s2d:
         st = {k: src[("stem_s2d", k)] for k in _STEM_S2D}
         st["w7"] = st["w7"].transpose(3, 0, 1, 2)
-        out["stem_s2d"] = {k: tensor(v, torch.int8 if k in _STEM_S2D_INT8 else torch.float32)
+        st["wt"] = np.ascontiguousarray(st["w"].T)
+        out["stem_s2d"] = {k: tensor(v, torch.int8 if k in _STEM_S2D_INT8 | {"wt"} else torch.float32)
                            for k, v in st.items()}
     for (scope, *rest), arr in src.items():
         if not scope.startswith("layer"):

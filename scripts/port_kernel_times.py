@@ -1,4 +1,4 @@
-"""Time kernel C, K4, K16, K7, K9, K5 and kernel A of the PyTorch port on one NVIDIA GPU, per shape.
+"""Time kernel C, K4, K16, K7, K9, K5, kernel A and K1 of the PyTorch port on one NVIDIA GPU, per shape.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
 ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
@@ -12,13 +12,17 @@ against K7 at the COCO canvas's P3 (112x176, 80 classes), B=2 and B=8; K5
 16x16, his2 32x32 and his3 64x64 with ``up_add``, his4 32x32 to his7 4x4
 with ``add``; 256 channels), B=8 and B=64, with its T multiply-adds/s;
 and kernel A (``ops/cuda_nms.cuda_nms_keep_mask``) on score-sorted,
-class-shifted boxes at K=1000, B=8 and B=64.  The inputs and weights are
+class-shifted boxes at K=1000, B=8 and B=64; and K1
+(``ops/qstem.qstem_conv``, the uint8 stem with its pool) on raw 3-channel
+frames at 512x512, B=8 and B=64, and at the 896x1408 COCO canvas, B=2.
+The inputs and weights are
 random, from a seed; the head's qtree comes from a random
 ``models/heads.HISHead`` through ``models/head_int8``'s calibration and
 quantization, the HisBlocks' from a random ``nn/fpn.HisFPN`` through
-``nn/fpn_int8``'s.  For K7, K9 and K5 the script prints a SHA-256 digest
-of the output bytes, for kernel A of the keep mask, so that two
-checkouts' outputs can be compared.
+``nn/fpn_int8``'s, the stem's from a random ``nn/resnet.ResNet50`` through
+``nn/resnet_int8``'s calibration and ``quantize_stem_s2d``.  For K7, K9, K5
+and K1 the script prints a SHA-256 digest of the output bytes, for kernel A
+of the keep mask, so that two checkouts' outputs can be compared.
 Only the wrappers' public arguments are used, so the same script times the
 package of another checkout of the repository (``--root``), e.g. the parent
 commit unpacked with ``git archive``; run the two in turns (a, b, b, a) in
@@ -27,7 +31,10 @@ one run on one card to compare them::
     python3 scripts/port_kernel_times.py --root . --out times.json
 
 ``--only his,nms`` times only the named sections (``c``, ``k4``, ``k16``,
-``head``, ``his``, ``nms``).
+``head``, ``his``, ``nms``, ``stem``; and ``stemtile``, this tree's package
+only, since it needs ``qstem_conv``'s ``tile=``: K1 at 512x512, B=1, 2 and
+8, and at the COCO canvas, B=1 and 2, under ``ops/qstem.pick_stem_tile``'s
+tile and forced smaller ones, its outputs held equal to the chooser's).
 
 ``--sweep`` (this tree's package only: it needs the ``tile=`` override of
 ``qbottleneck``) times kernel C instead at every (tile width, blocks per
@@ -158,8 +165,8 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the JSON object here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
-    parser.add_argument("--only", default="c,k4,k16,head,his,nms",
-                        help="comma-separated sections: c, k4, k16, head, his, nms")
+    parser.add_argument("--only", default="c,k4,k16,head,his,nms,stem",
+                        help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -210,7 +217,7 @@ def main() -> int:
     if args.sweep:
         return sweep(qblock, block_operands, card)
     result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}, "k16": {}, "k7": {},
-              "k9": {}, "k5": {}, "nms": {}, "digest": {}}
+              "k9": {}, "k5": {}, "nms": {}, "k1": {}, "digest": {}}
     with torch.inference_mode():
         if "c" in only:
             time_kernel_c(result, block_operands, card)
@@ -224,6 +231,10 @@ def main() -> int:
             time_his(result, dev, args.seed, card)
         if "nms" in only:
             time_nms(result, dev, args.seed, card)
+        if "stem" in only:
+            time_stem(result, dev, args.seed, card)
+        if "stemtile" in only:
+            time_stem_tiles(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -478,6 +489,77 @@ def time_nms(result, dev, seed, card) -> None:
         result["nms"][f"B{b}"], result["nms"][f"B{b}/graph"] = ms, gms
         print(f"kernel A B={b} K={k}: {ms:.4f} ms, graph {gms:.4f} ms, {int(keep.sum())} kept of {int(valid.sum())} "
               f"valid, digest {result['digest'][f'nms/B{b}']} {card}", flush=True)
+
+
+def stem_entry(dev, seed):
+    """The stem entry of a random ResNet-50, its scale calibrated on two random 64x64 frames."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
+    from pytorch_object_detection_tpu_torch.nn.resnet_int8 import calibrate_resnet50, quantize_stem_s2d
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    g = torch.Generator().manual_seed(seed)
+    backbone = ResNet50(generator=g).eval()
+    calib = torch.randint(0, 256, (2, 64, 64, 3), generator=g).float()
+    norm = (calib / 255.0 - torch.tensor(mean)) / torch.tensor(std)
+    absmax = calibrate_resnet50(backbone, norm, torch.float32)["stem_out"]
+    return {k: v.to(dev) for k, v in quantize_stem_s2d(backbone, mean, std, absmax).items()}
+
+
+def time_stem(result, dev, seed, card) -> None:
+    """K1 on random uint8 frames: 512x512 at B=8 and B=64, the COCO canvas
+    896x1408 at B=2; the stem entry of a random ResNet-50, its scale
+    calibrated on two random 64x64 frames; digests of every output."""
+    import numpy as np
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import qstem
+
+    st = stem_entry(dev, seed)
+    rng = np.random.default_rng(seed + 29)
+    for b, h, w in ((8, 512, 512), (64, 512, 512), (2, 896, 1408)):
+        u8 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+        key = f"B{b}/{h}x{w}"
+        result["digest"][f"k1/{key}"] = digest([qstem.qstem_conv(u8, st)])
+        it = 20 if b < 64 else 5
+        ms = cuda_ms(lambda: qstem.qstem_conv(u8, st), iters=it)
+        gms = graph_ms(lambda: qstem.qstem_conv(u8, st), iters=it)
+        result["k1"][key], result["k1"][f"{key}/graph"] = ms, gms
+        print(f"K1 B={b} {h}x{w}x3: {ms:.4f} ms, graph {gms:.4f} ms, digest {result['digest'][f'k1/{key}']} {card}",
+              flush=True)
+
+
+def time_stem_tiles(result, dev, seed, card) -> None:
+    """K1 at the small batches, where a tile of the least recompute may
+    leave SMs idle: each tile's time beside its blocks and recompute, the
+    chooser's marked with ``*``; every tile's output equal to the chooser's."""
+    import numpy as np
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import qblock, qstem
+
+    st = stem_entry(dev, seed)
+    sm_count, smem_max = qblock.card_limits(dev)
+    rng = np.random.default_rng(seed + 31)
+    result["k1_tiles"] = {}
+    for b, h, w in ((1, 512, 512), (2, 512, 512), (8, 512, 512), (1, 896, 1408), (2, 896, 1408)):
+        u8 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+        pick = qstem.pick_stem_tile(b, h, w, sm_count, smem_max)
+        want = qstem.qstem_conv(u8, st)
+        cells = []
+        for tile in dict.fromkeys([pick, (16, 16), (16, 8), (8, 16), (8, 8), (8, 4), (4, 8), (4, 4)]):
+            got = qstem.qstem_conv(u8, st, tile=tile)
+            if not torch.equal(got, want):
+                raise SystemExit(f"K1 B={b} {h}x{w}: tile {tile} differs from the chooser's {pick} in "
+                                 f"{int((got != want).sum())} elements")
+            ms = cuda_ms(lambda: qstem.qstem_conv(u8, st, tile=tile), iters=20)
+            gms = graph_ms(lambda: qstem.qstem_conv(u8, st, tile=tile), iters=20)
+            result["k1_tiles"][f"B{b}/{h}x{w}/{tile[0]}x{tile[1]}"] = (ms, gms)
+            cells.append(f"{'*' if tile == pick else ''}{tile[0]}x{tile[1]} {gms:.4f} ms (back to back {ms:.4f}, "
+                         f"{qstem.stem_blocks(b, h, w, *tile)} blocks, recompute "
+                         f"{qstem.stem_recompute(h, w, *tile):.4f})")
+        print(f"K1 tiles B={b} {h}x{w}x3, graph: " + "; ".join(cells) + f" {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ version, so this holds the plain versions against the JAX XLA oracles:
 
   (a) ``space_to_depth`` / ``s2d_stem_kernel`` and the uint8 stem's
       quantization;
-  (b) the plain K1, K4, K6 bit-exact, the plain K5 within one int8 step;
+  (b) the plain K1, K4, K6 (and its seeds) bit-exact, the plain K5 within
+      one int8 step (also with the level pool in its glue, ``pool_add``);
   (c) the HisFPN's calibration, quantization and int8 forward;
   (d) the whole slice from uint8 frames;
   (e) the loaders and the entry points' default device (the card).
@@ -36,7 +37,7 @@ from pytorch_object_detection_tpu_torch.nn.resnet import s2d_stem_kernel, space_
 from pytorch_object_detection_tpu_torch.ops.boxes import pairwise_iou
 from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
-from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2
+from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2, qmaxpool2x2_seeds
 from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
 from pytorch_object_detection_tpu_torch.train.checkpoints import (
     load_backbone_qtree,
@@ -249,6 +250,23 @@ def test_plain_k6_bit_exact_vs_jax_oracle(shape):
     np.testing.assert_array_equal(_np(got), want)
 
 
+@pytest.mark.parametrize("hw", [(16, 16), (7, 11), (3, 5), (1, 1)], ids=["16x16", "7x11", "3x5", "1x1"])
+def test_plain_k6_seeds_bit_exact_vs_jax_oracle(hw):
+    """The plain seeds (``qmaxpool2x2_seeds``: seed6 = pool(t5), seed7 =
+    pool(seed6), the HisFPN's extra levels) against two ``_maxpool2x2_i8``
+    calls: 0 differing elements, empty maps where VALID floors a side to 0."""
+    from pytorch_object_detection_tpu.nn.fpn_int8 import _maxpool2x2_i8
+
+    x = np.random.default_rng(hw[0] * 31 + hw[1]).integers(-128, 128, (2, *hw, 32), dtype=np.int8)
+    want6 = np.asarray(_maxpool2x2_i8(x))
+    want7 = np.asarray(_maxpool2x2_i8(want6))
+    got6, got7 = qmaxpool2x2_seeds(torch.from_numpy(x))
+    for got, want in ((got6, want6), (got7, want7)):
+        assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(_np(got), want)
+    assert want7.shape[1:3] == (hw[0] // 4, hw[1] // 4)
+
+
 # (name, block, combine, H, W, scale of xa, scale of xb): his1 takes its
 # input as it is, his2/his3 upsample-add, his4..his7 pool-add, each with
 # the scales of the maps the forward feeds it; the last case is a 1x1
@@ -293,6 +311,42 @@ def test_plain_k5_vs_jax_oracle(slice_setup, case):
     assert got.dtype == torch.int8 and tuple(got.shape) == want.shape == (2, h, w, c)
     worst, share = _lsb(got, want)
     print(f"K5 {case[0]}: max {worst} step(s), {share:.4%} of {want.size} elements differ")
+    assert worst <= 1 and share < 0.05
+    assert 0.05 < (np.abs(want) > 0).mean()
+
+
+# (block, finer H', W', xa's scale, xb's scale): his4 and his6's pool-add
+# on an even and an odd finer level (VALID drops the odd row and column)
+K5_POOL_CASES = [("his4", 16, 22, ("his3", "s_out"), ("his2", "s_out")),
+                 ("his6", 15, 23, ("his5", "s_out"), ("tf1", "s"))]
+
+
+@pytest.mark.parametrize("case", K5_POOL_CASES, ids=["16x22", "15x23"])
+def test_plain_k5_pool_add_vs_jax_oracle(slice_setup, case):
+    """K5 with the level pool in its glue (``combine="pool_add"``, its plain
+    version) against the JAX ``_maxpool2x2_i8``, ``_add_requant`` and
+    ``_hisblock_i8_xla``: at most one int8 step, under 5 % of elements
+    differing (the contract of the other K5 cases).  Observed here: 0."""
+    import jax.numpy as jnp
+    from pytorch_object_detection_tpu.nn import fpn_int8 as jf
+
+    name, hf, wf, sa_key, sb_key = case
+    jq = slice_setup["jq_fpn"]
+    blk_j = {k: jnp.asarray(v) for k, v in jq[name].items()}
+    blk = load_fpn_qtree(jq, "cpu")[name]
+    c = 2 * blk["w1"].shape[0]
+    rng = np.random.default_rng(hf * 100 + wf)
+    draw = lambda *shape: np.clip(np.round(rng.normal(0, 40, shape)), -127, 127).astype(np.int8)
+    xa, xb = draw(2, hf, wf, c), draw(2, hf // 2, wf // 2, c)
+    sa, sb = jq[sa_key[0]][sa_key[1]], jq[sb_key[0]][sb_key[1]]
+    want = np.asarray(jf._hisblock_i8_xla(blk_j, jf._add_requant(jf._maxpool2x2_i8(jnp.asarray(xa)), sa,
+                                                                  jnp.asarray(xb), sb, blk_j["s_in"])))
+    s_in = blk["s_in"]
+    got = qhisblock(blk, torch.from_numpy(xa), xb_q=torch.from_numpy(xb), combine="pool_add",
+                    ca=torch.tensor(sa) / s_in, cb=torch.tensor(sb) / s_in, plain=True)
+    assert got.dtype == torch.int8 and tuple(got.shape) == want.shape == (2, hf // 2, wf // 2, c)
+    worst, share = _lsb(got, want)
+    print(f"K5 pool_add {hf}x{wf}: max {worst} step(s), {share:.4%} of {want.size} elements differ")
     assert worst <= 1 and share < 0.05
     assert 0.05 < (np.abs(want) > 0).mean()
 

@@ -1,6 +1,8 @@
 """The port's kernels against their plain versions: A (NMS), B (GroupNorm),
-C (int8 bottleneck), K1 (uint8 stem), K4 (int8 GEMM), K4' (its three
-timing epilogues), K5 (int8 HisBlock, under every tile of its chooser), K6 (int8 2x2 pool), K7/K9 (one int8
+C (int8 bottleneck), K1 (uint8 stem, under the chooser's tiles and forced
+ones), K4 (int8 GEMM), K4' (its three timing epilogues), K5 (int8
+HisBlock, under every tile of its chooser, and with the level pool in its
+load), K6 (int8 2x2 pool, and the HisFPN's two seeds in one launch), K7/K9 (one int8
 HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
 int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
 the BN/residual/ReLU epilogue), K17 (the bf16 stem tail) and K12 (one
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from pytorch_object_detection_tpu_torch.models.heads import HISHead
+from pytorch_object_detection_tpu_torch.nn.resnet import space_to_depth
 from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_nms, cuda_nms_keep_mask
 from pytorch_object_detection_tpu_torch.ops.fused import conv1x1_bn_act, matmul_bn_act, matmul_bn_act_plain
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
@@ -32,8 +35,9 @@ from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qconv3x3, qco
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
 from pytorch_object_detection_tpu_torch.ops.qmnblock import qmnblock, qmnblock_plain
 from pytorch_object_detection_tpu_torch.ops.qmm_variants import VARIANTS, qmm_variant, qmm_variant_plain
-from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2, qmaxpool3x3s2, qmaxpool3x3s2_plain
-from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv
+from pytorch_object_detection_tpu_torch.ops.qpool import (
+    qmaxpool2x2, qmaxpool2x2_seeds, qmaxpool2x2_seeds_plain, qmaxpool3x3s2, qmaxpool3x3s2_plain)
+from pytorch_object_detection_tpu_torch.ops.qstem import qstem_conv, qstem_plain, to_rgbx
 from pytorch_object_detection_tpu_torch.ops.stem import stem_bn_pool_quant, stem_bn_pool_quant_plain
 from torch_port_fixtures import (
     ADVERSARIAL_KEEP,
@@ -344,6 +348,63 @@ def test_qstem_kernel_matches_plain_exactly(cuda, shape):
     assert (want > 0).float().mean() > 0.05
 
 
+# (B, H, W): the serving canvas at B=8, the COCO canvas, a 64x96 frame and a
+# 6x10 frame (3-channel rows of 30 bytes: not 16-byte aligned), odd batches
+QSTEM_CASES = [(b, h, w, cin) for b, h, w in ((8, 512, 512), (1, 896, 1408), (3, 64, 96), (3, 6, 10), (1, 512, 512))
+               for cin in (3, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QSTEM_CASES, ids=[f"B{c[0]}-{c[1]}x{c[2]}x{c[3]}" for c in QSTEM_CASES])
+def test_qstem_kernel_exact_under_its_tiles(cuda, case):
+    """K1 (the implicit GEMM on the int8 tensor cores) against
+    :func:`qstem_plain` on the card: 0 differing elements under the
+    chooser's tile and under forced ones (a small tile, 1x1 pooled
+    positions, the widest and the tallest that fit)."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+    from pytorch_object_detection_tpu_torch.ops.qstem import pick_stem_tile
+
+    b, h, w, cin = case
+    st = _on(port_stem_s2d(0), cuda)
+    u8 = _frames((b, h, w, cin), h + w + cin).to(cuda)
+    want = qstem_plain(st, space_to_depth(to_rgbx(u8), 2))
+    before = qstem_conv.launches
+    got = qstem_conv(u8, st)
+    torch.cuda.synchronize()
+    assert qstem_conv.launches == before + 1
+    assert torch.equal(got, want), f"{pick_stem_tile(b, h, w, *card_limits(cuda))}: {int((got != want).sum())} differ"
+    for tile in ((2, 3), (1, 1), (8, 32), (32, 8)):
+        forced = qstem_conv(u8, st, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(forced, want), f"{tile}: {int((forced != want).sum())} differ"
+
+
+@pytest.mark.cuda
+def test_qstem_kernel_takes_a_stem_entry_made_in_inference_mode(cuda):
+    """K1 on a stem entry whose tensors were made under
+    ``torch.inference_mode``, and again after its weights (``w`` and K1's
+    ``wt``) are replaced: exact against its plain version each time; an
+    entry without ``wt`` is refused."""
+    u8 = _frames((2, 64, 96, 3), 5).to(cuda)
+    with torch.inference_mode():
+        st = _on(port_stem_s2d(0), cuda)
+        for _ in range(2):
+            got = qstem_conv(u8, st)
+            assert torch.equal(got, qstem_conv(u8, st, plain=True))
+            w = st["w"].flip(0).contiguous()
+            st = dict(st, w=w, wt=w.t().contiguous())
+        with pytest.raises(KeyError, match="wt"):
+            qstem_conv(u8, {k: v for k, v in st.items() if k != "wt"})
+
+
+def test_stem_entry_carries_k1_layout():
+    """``quantize_stem_s2d`` stores K1's weights beside the s2d taps: ``wt``
+    is ``w`` transposed to [64, 256], contiguous int8."""
+    st = port_stem_s2d(0)
+    assert st["wt"].dtype == torch.int8 and st["wt"].shape == (64, 256) and st["wt"].is_contiguous()
+    assert torch.equal(st["wt"], st["w"].t())
+
+
 # (M, K, N): the laterals tf1..tf3 at the 512 canvas, B=2 (tf1 on split K),
 # and ragged M and N, one on split K
 QMM_SHAPES = [(512, 2048, 256), (2048, 1024, 256), (8192, 512, 256), (37, 48, 24), (1000, 2064, 136)]
@@ -422,6 +483,62 @@ def test_qpool_kernel_matches_plain_exactly(cuda, shape):
     assert qmaxpool2x2.launches == before + (1 if got.numel() else 0)
     assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
     assert torch.equal(got.cpu(), qmaxpool2x2(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 16, 256), (3, 7, 11, 48), (2, 9, 6, 24), (1, 5, 3, 16), (2, 1, 1, 16)],
+                         ids=["16x16", "7x11", "c24", "5x3", "1x1"])
+def test_qpool_seeds_kernel_matches_plain_exactly(cuda, shape):
+    """K6's seeds kernel (seed6 = pool(x), seed7 = pool(seed6), one launch)
+    at the HisFPN's t5 shape, odd sizes and maps VALID floors to nothing: 0
+    differing elements; a channel count that is not a multiple of 16 is
+    refused, and launches nothing."""
+    x = torch.randint(-128, 128, shape, generator=torch.Generator().manual_seed(shape[2]), dtype=torch.int8)
+    before = (qmaxpool2x2_seeds.launches, qmaxpool2x2.launches)
+    if shape[3] % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            qmaxpool2x2_seeds(x.to(cuda))
+        assert (qmaxpool2x2_seeds.launches, qmaxpool2x2.launches) == before
+        return
+    s6, s7 = qmaxpool2x2_seeds(x.to(cuda))
+    torch.cuda.synchronize()
+    assert (qmaxpool2x2_seeds.launches, qmaxpool2x2.launches) == (before[0] + (1 if s6.numel() else 0), before[1])
+    w6, w7 = qmaxpool2x2_seeds_plain(x)
+    assert s6.shape == w6.shape and s7.shape == w7.shape == (shape[0], shape[1] // 4, shape[2] // 4, shape[3])
+    assert torch.equal(s6.cpu(), w6) and torch.equal(s7.cpu(), w7)
+
+
+# (block, H, W) of the default pipeline's seven HisBlocks at 512x512 (their
+# output sizes); K5 takes each with the pool-add glue of a finer level
+HIS_SEVEN = [("his1", 16, 16), ("his2", 32, 32), ("his3", 64, 64), ("his4", 32, 32), ("his5", 16, 16),
+             ("his6", 8, 8), ("his7", 4, 4)]
+QHIS_POOL_CASES = [(name, h, w, b, odd) for name, h, w in HIS_SEVEN for b, odd in ((8, 0), (3, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QHIS_POOL_CASES, ids=[f"{c[0]}_{c[1]}x{c[2]}_b{c[3]}" for c in QHIS_POOL_CASES])
+def test_qhis_pool_add_equals_k6_then_add(cuda, case):
+    """K5 with the level pool in its load (``combine="pool_add"``, a finer
+    level of 2H x 2W, or 2H+1 x 2W+1 on the odd batch) equals, bit for
+    bit, K6 then K5 with ``"add"``, under the chooser's tile and every
+    forced one; one K5 launch, counted as a pool_add one."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+
+    name, h, w, b, odd = case
+    blk, _, kw = _qhis_case(256, name, "add", h, w, b, cuda)
+    g = torch.Generator().manual_seed(h * b + odd)
+    fine = torch.clamp(torch.round(torch.randn(b, 2 * h + odd, 2 * w + odd, 256, generator=g) * 40), -127, 127)
+    fine = fine.to(torch.int8).to(cuda)
+    want = qhisblock(blk, qmaxpool2x2(fine), **kw)
+    before = (qhisblock.launches, qhisblock.pool_add_launches)
+    got = qhisblock(blk, fine, **dict(kw, combine="pool_add"))
+    torch.cuda.synchronize()
+    assert (qhisblock.launches, qhisblock.pool_add_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want), int((got != want).sum())
+    for tile in _his_forced_tiles(b, h, w, 256, card_limits(cuda)[1]):
+        forced = qhisblock(blk, fine, tile=tile, **dict(kw, combine="pool_add"))
+        torch.cuda.synchronize()
+        assert torch.equal(forced, want), tile
 
 
 # (features, block, combine, H, W): the full width at 64x64 (his3) down to
@@ -647,6 +764,28 @@ def test_qhead_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         qhishead_level(q, lv, x.float())
     with pytest.raises(ValueError, match="channels"):
         qhishead_level2(q, lv, x[..., :16])
+
+
+def test_k6_seeds_and_k5_pool_add_take_plain_version_on_cpu():
+    """On the CPU the seeds and K5's pool-add glue run their plain
+    versions (two 2x2 pools; the pool, then the add), count no launch and
+    refuse a map whose pool is not xb's size."""
+    from pytorch_object_detection_tpu_torch.ops.qhis import combine_plain, qhisblock_plain
+    from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2_plain
+
+    before = (qmaxpool2x2_seeds.launches, qhisblock.launches, qhisblock.pool_add_launches)
+    x = torch.randint(-127, 128, (2, 9, 7, 32), dtype=torch.int8)
+    s6, s7 = qmaxpool2x2_seeds(x)
+    assert torch.equal(s6, qmaxpool2x2_plain(x)) and torch.equal(s7, qmaxpool2x2_plain(qmaxpool2x2_plain(x)))
+    blk = port_hisfpn_qtree(32, 2)["his5"]
+    xb = torch.randint(-127, 128, (2, 4, 3, 32), dtype=torch.int8)
+    got = qhisblock(blk, x, xb_q=xb, combine="pool_add", ca=0.5, cb=0.25)
+    assert torch.equal(got, qhisblock_plain(blk, combine_plain(qmaxpool2x2_plain(x), xb, "add", 0.5, 0.25)))
+    assert (qmaxpool2x2_seeds.launches, qhisblock.launches, qhisblock.pool_add_launches) == before
+    with pytest.raises(ValueError, match="pool_add"):
+        qhisblock(blk, x[:, :7], xb_q=xb, combine="pool_add")
+    with pytest.raises(ValueError, match="int8"):
+        qmaxpool2x2_seeds(x.float())
 
 
 def test_int8_fpn_wrappers_take_plain_version_on_cpu_and_count_no_launch():

@@ -1,8 +1,8 @@
 """The tile choosers of kernel C (``ops/qblock.pick_tile``), K4
 (``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``), K7/K9
-(``ops/qhead.pick_head_tile``) and K5 (``ops/qhis.pick_his_tile``), in
-plain Python with an H100's limits: 132 SMs and 232,448 bytes of shared
-memory a block may opt in to.
+(``ops/qhead.pick_head_tile``), K5 (``ops/qhis.pick_his_tile``) and K1
+(``ops/qstem.pick_stem_tile``), in plain Python with an H100's limits: 132
+SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
 and 64; K4 at the HisFPN's three laterals and the per-conv backend's 36
@@ -11,12 +11,16 @@ conv1/conv3 GEMMs, B = 2, 8 and 64, and odd shapes; K7 at the five head
 levels of the 512x512 canvas and K7/K9 at those of the 896x1408 COCO
 canvas, with narrow heads, 80 classes and 1x1 levels; K5 at the seven
 HisBlocks of the 512x512 canvas, B = 1, 2, 8 and 64, narrow blocks, odd
-sizes and 1x1 maps.  No card and no JAX needed.
+sizes and 1x1 maps; K1 on the 512x512 and 896x1408 canvases and odd pooled
+sizes, B = 1, 2, 8 and 64, and a plain-Python model of one K1 block's
+implicit GEMM (its staged frame rows, s2d patch and K steps) against the
+int32 conv.  No card and no JAX needed.
 """
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from pytorch_object_detection_tpu_torch.ops.qblock import (
     TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
@@ -28,6 +32,10 @@ from pytorch_object_detection_tpu_torch.ops.qhead import (
 from pytorch_object_detection_tpu_torch.ops.qhis import (
     HIS_KERNELS, HIS_ROWS, HIS_TILE, his_blocks, his_chunk, his_ipbs, his_slices, his_smem_bytes, his_width,
     pick_his_tile)
+from pytorch_object_detection_tpu_torch.ops.qstem import (
+    STEM_MC, STEM_TILES, pick_stem_tile, stem_blocks, stem_load, stem_recompute, stem_sizes, stem_smem_bytes,
+    stem_tiles)
+from pytorch_object_detection_tpu_torch.ops.quant import conv_i8
 from torch_port_fixtures import resnet50_block_shapes
 
 SM_COUNT, SMEM_MAX = 132, 232448  # NVIDIA H100 SXM: SMs, shared memory per block (opt-in)
@@ -406,3 +414,235 @@ def test_his_small_levels_at_b8_split_channels():
     assert his_blocks("out", 8, 16, 16, *pick_his_tile(8, 16, 16, 256, SM_COUNT, SMEM_MAX)["out"]) >= SM_COUNT
     assert pick_his_tile(8, 64, 64, 256, SM_COUNT, SMEM_MAX) == {"produce": (128, 1), "mid": (1, 1), "out": (1, 1)}
     assert pick_his_tile(64, 32, 32, 256, SM_COUNT, SMEM_MAX)["produce"] == (128, 1)
+
+
+# (batch, H, W) frames of K1: the 512x512 and 896x1408 canvases, and frames
+# whose conv or pooled maps are odd or smaller than one tile
+STEM_FRAMES = [(512, 512), (896, 1408), (514, 770), (98, 130), (64, 96), (6, 10), (2, 6)]
+STEM_CASES = [(b, h, w) for b in (1, 2, 8, 64) for h, w in STEM_FRAMES]
+STEM_IDS = [f"B{b}-{h}x{w}" for b, h, w in STEM_CASES]
+
+
+def _stem_live(n, pr):
+    """Per tile along one axis of ``n`` conv rows (or columns) and tiles of
+    ``pr`` pooled rows: the conv rows [first, last) it computes, inside the
+    map (csrc/qstem.cu's ly0, ly1 from the tile origin 2 pr t - 1)."""
+    hp = (n - 1) // 2 + 1
+    return [(max(0, 2 * pr * t - 1), min(2 * pr * t - 1 + 2 * pr + 1, n)) for t in range(-(-hp // pr))]
+
+
+@pytest.mark.parametrize("case", STEM_CASES, ids=STEM_IDS)
+def test_stem_tiles_cover_each_pooled_output_once(case):
+    """The chooser's tiles partition the pooled map; each pooled position's
+    3x3/2 window (inside the conv map) lies in its tile's computed conv
+    rows and columns; :func:`stem_recompute` is the count of positions the
+    blocks compute over the conv map's."""
+    b, h, w = case
+    pr, pc = pick_stem_tile(b, h, w, SM_COUNT, SMEM_MAX)
+    hc, wc, hp, wp = stem_sizes(h, w)
+    ty, tx = stem_tiles(h, w, pr, pc)
+    assert stem_blocks(b, h, w, pr, pc) == b * ty * tx
+    seen = np.zeros((hp, wp), np.int32)
+    for t in range(ty):
+        for u in range(tx):
+            seen[t * pr:(t + 1) * pr, u * pc:(u + 1) * pc] += 1
+    assert (seen == 1).all()
+    for n, p, live in ((hc, pr, _stem_live(hc, pr)), (wc, pc, _stem_live(wc, pc))):
+        for t, (lo, hi) in enumerate(live):
+            for q in range(t * p, min((t + 1) * p, (n - 1) // 2 + 1)):
+                assert lo <= max(2 * q - 1, 0) and min(2 * q + 2, n) <= hi
+    rows = sum(hi - lo for lo, hi in _stem_live(hc, pr))
+    cols = sum(hi - lo for lo, hi in _stem_live(wc, pc))
+    assert stem_recompute(h, w, pr, pc) == pytest.approx(rows * cols / (hc * wc) - 1.0, abs=1e-12)
+
+
+@pytest.mark.parametrize("case", STEM_CASES, ids=STEM_IDS)
+def test_stem_tile_fits_the_card(case):
+    """Two blocks' shared memory on an SM (3- and 4-channel frames), the
+    GEMM rows' table packing (conv tile and patch positions under 2^16),
+    and the grid within CUDA's limits (tiles in grid.x, frames in grid.y)."""
+    b, h, w = case
+    pr, pc = pick_stem_tile(b, h, w, SM_COUNT, SMEM_MAX)
+    assert (pr, pc) in STEM_TILES
+    assert stem_smem_bytes(pr, pc, 3) <= stem_smem_bytes(pr, pc, 4)
+    assert 2 * (stem_smem_bytes(pr, pc, 4) + 1024) <= SMEM_MAX + 1024
+    assert (2 * pr + 4) * (2 * pc + 4) < 2 ** 16 and -(-(2 * pr + 1) * (2 * pc + 1) // STEM_MC) * STEM_MC < 2 ** 16
+    ty, tx = stem_tiles(h, w, pr, pc)
+    assert ty * tx <= 2 ** 31 - 1 and b <= 65535
+
+
+@pytest.mark.parametrize("case", STEM_CASES, ids=STEM_IDS)
+def test_stem_tile_least_load(case):
+    """Of the tiles that fit two blocks an SM, the chooser's busiest SM
+    computes the fewest conv positions (:func:`stem_load`: ceil(blocks /
+    SMs) blocks of the mean size), and no tile of that load recomputes
+    less; the load is at least the map's share of one SM."""
+    b, h, w = case
+    pr, pc = pick_stem_tile(b, h, w, SM_COUNT, SMEM_MAX)
+    fits = [t for t in STEM_TILES if 2 * (stem_smem_bytes(*t) + 1024) <= SMEM_MAX + 1024]
+    loads = {t: stem_load(b, h, w, *t, SM_COUNT) for t in fits}
+    assert loads[(pr, pc)] <= min(loads.values()) * (1 + 1e-9)
+    ties = [t for t in fits if loads[t] <= loads[(pr, pc)] * (1 + 1e-9)]
+    assert min(stem_recompute(h, w, *t) for t in ties) >= stem_recompute(h, w, pr, pc) - 1e-12
+    hc, wc, _, _ = stem_sizes(h, w)
+    assert loads[(pr, pc)] >= b * hc * wc / SM_COUNT * (1 - 1e-9)
+
+
+# the serving and COCO canvases at the batches that fill the card
+STEM_FULL = [(b, h, w) for b in (2, 8, 64) for h, w in ((512, 512), (896, 1408))]
+
+
+@pytest.mark.parametrize("case", STEM_FULL, ids=[f"B{b}-{h}x{w}" for b, h, w in STEM_FULL])
+def test_stem_recompute_at_most_7_percent(case):
+    """On the serving and COCO canvases from B=2 up, the chooser takes the
+    tile that recomputes the least of all that fit (16 x 16): at most 7 %
+    of the conv map (the 8x8 tiles of the direct-form kernel recomputed
+    13 %)."""
+    b, h, w = case
+    pr, pc = pick_stem_tile(b, h, w, SM_COUNT, SMEM_MAX)
+    got = stem_recompute(h, w, pr, pc)
+    assert got <= 0.07
+    fits = [t for t in STEM_TILES if 2 * (stem_smem_bytes(*t) + 1024) <= SMEM_MAX + 1024]
+    assert min(stem_recompute(h, w, *t) for t in fits) >= got - 1e-12
+
+
+@pytest.mark.parametrize("frame", [(512, 512), (896, 1408)], ids=["512", "coco"])
+def test_stem_spreads_one_frame(frame):
+    """At B=1 the least-recompute 16 x 16 tile leaves SMs idle or a third
+    wave nearly empty (64 blocks at 512x512, 308 at the COCO canvas); the
+    chooser takes twice the blocks, at 16 x 8 pooled positions, for a
+    lighter busiest SM."""
+    h, w = frame
+    pr, pc = pick_stem_tile(1, h, w, SM_COUNT, SMEM_MAX)
+    assert (pr, pc) == (16, 8) and stem_blocks(1, h, w, pr, pc) == 2 * stem_blocks(1, h, w, 16, 16)
+    assert stem_load(1, h, w, pr, pc, SM_COUNT) < 0.9 * stem_load(1, h, w, 16, 16, SM_COUNT)
+    assert stem_recompute(h, w, pr, pc) < 0.1
+
+
+def test_stem_fills_the_card_at_b8():
+    """At 512x512, B=8, the blocks fill every SM twice over (one wave of two
+    blocks an SM), and 16x16 pooled tiles recompute 5.5 % of the conv map;
+    at the COCO canvas, 6.0 %."""
+    pr, pc = pick_stem_tile(8, 512, 512, SM_COUNT, SMEM_MAX)
+    assert (pr, pc) == (16, 16) and stem_blocks(8, 512, 512, pr, pc) >= 2 * SM_COUNT
+    assert round(stem_recompute(512, 512, pr, pc), 3) == 0.055
+    assert round(stem_recompute(896, 1408, *pick_stem_tile(2, 896, 1408, SM_COUNT, SMEM_MAX)), 3) == 0.060
+
+
+def _k1_block_sums(u, wt, pad, b, pr, pc, ty, tx):
+    """One K1 block's int32 sums, built as csrc/qstem.cu builds them:
+    ``{(cy, cx): [64] int32}`` over its live conv positions.
+
+    u uint8 ``[B, H, W, cin]`` (its bytes from a 16-byte-aligned start),
+    wt int8 ``[64, 256]`` (output channel, (ky, kx, c16)), pad int8 [16].
+    Step 1 stages each frame row's bytes as the 16-byte chunks that cover
+    them, loading only words inside the row's 4-byte-aligned cover; step 2
+    builds the s2d patch from the staged bytes (v = u ^ 0x80, the fourth
+    channel of a 3-channel frame 0, the border fill outside the frame);
+    step 4 walks K as the kernel does: 4 steps of 64 bytes (ky), two k32
+    slices a step (a kx pair), two 16-byte halves a slice (one s2d pixel
+    each), every A row read from the patch at its position's table entry."""
+    nb, h, w, cin = u.shape
+    flat = u.reshape(-1)
+    hc, wc, _, _ = stem_sizes(h, w)
+    cr, cc = 2 * pr + 1, 2 * pc + 1
+    prs, pcs = cr + 3, cc + 3
+    pitch = 16 * ((2 * pcs * cin + 15) // 16 + 1)
+    cy0, cx0 = 2 * ty * pr - 1, 2 * tx * pc - 1
+    sy0, sx0 = cy0 - 2, cx0 - 2
+    img = b * h * w * cin
+    stage = np.full((2 * prs, pitch), 0x5A, np.uint8)  # bytes never loaded stay 0x5A
+    y_lo, y_hi = max(2 * sy0, 0), min(2 * (sy0 + prs), h)
+    x_lo, x_hi = max(2 * sx0, 0), min(2 * (sx0 + pcs), w)
+    for y in range(y_lo, y_hi):
+        s = img + (y * w + x_lo) * cin
+        e = s + (x_hi - x_lo) * cin
+        w_lo, w_hi = s & ~3, (e + 3) & ~3
+        assert 0 <= w_lo and w_hi <= flat.size  # the loads stay inside the frames' bytes
+        for k in range(pitch // 16):
+            ca = (s & ~15) + 16 * k
+            for j in range(4):
+                if w_lo <= ca + 4 * j < w_hi:
+                    stage[y - 2 * sy0, 16 * k + 4 * j:16 * k + 4 * j + 4] = flat[ca + 4 * j:ca + 4 * j + 4]
+    patch = np.empty((prs * pcs, 16), np.int8)
+    for si in range(prs):
+        for sj in range(pcs):
+            ys, xs = sy0 + si, sx0 + sj
+            if not (0 <= ys < h // 2 and 0 <= xs < w // 2):
+                patch[si * pcs + sj] = pad
+                continue
+            px = []
+            for k in range(4):  # k = 2 dy + dx
+                y, x = 2 * ys + k // 2, 2 * xs + k % 2
+                off = ((img + (y * w + x_lo) * cin) & 15) + (x - x_lo) * cin
+                px += list(stage[y - 2 * sy0, off:off + cin]) + [128] * (4 - cin)
+            patch[si * pcs + sj] = (np.array(px, np.uint8) ^ 0x80).view(np.int8)
+    ly0, ly1 = max(0, -cy0), min(cr, hc - cy0)
+    lx0, lx1 = max(0, -cx0), min(cc, wc - cx0)
+    live = [(ci, cj) for ci in range(ly0, ly1) for cj in range(lx0, lx1)]
+    rows = np.array([ci * pcs + cj for ci, cj in live])  # the table's patch pixels
+    acc = np.zeros((len(live), 64), np.int64)
+    for ky in range(4):
+        for kk in range(2):
+            for half in range(2):
+                c = 2 * kk + half
+                a = patch[rows + ky * pcs + c].astype(np.int64)
+                acc += a @ wt[:, ky * 64 + 16 * c:ky * 64 + 16 * c + 16].astype(np.int64).T
+    return {(cy0 + ci, cx0 + cj): acc[i] for i, (ci, cj) in enumerate(live)}
+
+
+# (B, H, W, cin, pr, pc): one tile over a whole 6x10 frame; tiles whose
+# edges cut the map and reach past it; 3-channel rows that start 2 bytes
+# past a 4-byte boundary (W = 30, 90 bytes a row); 1x1 pooled tiles
+K1_MODEL_CASES = [(2, 6, 10, 3, 2, 4), (2, 22, 30, 3, 2, 3), (1, 22, 30, 4, 4, 2), (1, 18, 26, 3, 1, 1),
+                  (1, 34, 42, 4, 8, 8)]
+
+
+@pytest.mark.parametrize("case", K1_MODEL_CASES, ids=[f"{c[1]}x{c[2]}x{c[3]}-{c[4]}x{c[5]}" for c in K1_MODEL_CASES])
+def test_k1_implicit_gemm_model_equals_the_int32_conv(case):
+    """Every block's sums from the model of K1's addressing equal the int32
+    conv of the padded s2d input (ops/qstem.qstem_plain's), frame edges and
+    border fill included; the blocks' live positions cover the conv map."""
+    nb, h, w, cin, pr, pc = case
+    rng = np.random.default_rng(h * w + cin)
+    u = rng.integers(0, 256, (nb, h, w, cin), dtype=np.uint8)
+    wq = rng.integers(-127, 128, (256, 64), dtype=np.int8)
+    pad = rng.integers(-128, 128, 16, dtype=np.int8)
+    frames = torch.from_numpy(u if cin == 4 else np.concatenate([u, np.full((nb, h, w, 1), 128, np.uint8)], -1))
+    xs = (frames.reshape(nb, h // 2, 2, w // 2, 2, 4).permute(0, 1, 3, 2, 4, 5).reshape(nb, h // 2, w // 2, 16)
+          .to(torch.int16) - 128).to(torch.int8)
+    xp = torch.from_numpy(np.pad(xs.numpy(), ((0, 0), (2, 1), (2, 1), (0, 0))))
+    xp[:, :2], xp[:, -1:], xp[:, :, :2], xp[:, :, -1:] = (torch.from_numpy(pad),) * 4
+    want = conv_i8(xp, torch.from_numpy(wq).reshape(4, 4, 16, 64).permute(3, 0, 1, 2).contiguous(), pad=0).numpy()
+    hc, wc, hp, wp = stem_sizes(h, w)
+    assert want.shape == (nb, hc, wc, 64)
+    for b in range(nb):
+        seen = np.zeros((hc, wc), np.int32)
+        for ty in range(-(-hp // pr)):
+            for tx in range(-(-wp // pc)):
+                for (cy, cx), acc in _k1_block_sums(u, wq.T.copy(), pad, b, pr, pc, ty, tx).items():
+                    np.testing.assert_array_equal(acc, want[b, cy, cx].astype(np.int64), err_msg=f"{(b, cy, cx)}")
+                    seen[cy, cx] += 1
+        assert (seen >= 1).all()
+
+
+def test_k1_requant_without_conversions_is_exact():
+    """csrc/qstem.cu's requant_relu_exact, modelled in f32 with numpy (each
+    operation rounds half to even, as __fadd_rn / __fmul_rn do), equals the
+    f32 epilogue and requant of ops/qstem.qstem_plain for every int32 sum a
+    K1 position can have (|acc| <= 256 * 128 * 127 < 2^22) and for ties:
+    float(acc) through acc + 1.5 * 2^23, rounding through + 1.5 * 2^23."""
+    magic = np.float32(12582912.0)
+    acc = np.arange(-256 * 128 * 127, 256 * 128 * 127 + 1, dtype=np.int32)
+    x = (acc + np.int32(0x4B400000)).view(np.float32) - magic
+    np.testing.assert_array_equal(x, acc.astype(np.float32))
+    rng = np.random.default_rng(7)
+    for a, b in [(3.7e-5, -3.2), (1e-4, 0.5), (2.9e-5, 12.3), (6e-5, 0.0)] + [tuple(rng.uniform(1e-5, 1e-4, 2))]:
+        y = x * np.float32(a) + np.float32(b)
+        want = np.minimum(np.rint(np.maximum(y, np.float32(0))), np.float32(127)).astype(np.int32)
+        got = (np.minimum(np.maximum(y, np.float32(0)), np.float32(127)) + magic).view(np.int32) & 0xFF
+        np.testing.assert_array_equal(got, want)
+    y = np.concatenate([np.arange(-2, 130, 0.5, dtype=np.float32), np.float32([np.nan, np.inf, -np.inf])])
+    want = np.nan_to_num(np.minimum(np.rint(np.fmax(y, np.float32(0))), np.float32(127))).astype(np.int32)
+    got = (np.fmin(np.fmax(y, np.float32(0)), np.float32(127)) + magic).view(np.int32) & 0xFF
+    np.testing.assert_array_equal(got, want)
