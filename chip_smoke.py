@@ -9,9 +9,10 @@ Phases (each prints its results on its own lines):
   2. build: kernels A (csrc/nms.cu), B (csrc/gn.cu), C (csrc/qblock.cu), K1
      (csrc/qstem.cu), K4 (csrc/qconv.cu), K4' (csrc/qmm_variants.cu), K5
      (csrc/qhis.cu), K6 and K10 (csrc/qpool.cu), K7/K9 (csrc/qhead.cu), K11
-     (csrc/qconv3.cu), K12 (csrc/qmnblock.cu), K13 (csrc/qchain.cu), K15
-     (csrc/head.cu), K16 (csrc/fused.cu) and K17 (csrc/stem.cu) from the
-     sources, one nvcc per source, all started together;
+     (csrc/qconv3.cu), K12 (csrc/qmnblock.cu), K13 (csrc/qchain.cu, built
+     twice: for two blocks an SM and for one), K15 (csrc/head.cu), K16
+     (csrc/fused.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
+     library, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
      H=W=64..4, relu/silu/none), bf16 and f32;
   4. kernel A vs its plain version: random [8,1000] and [64,1000] boxes, a
@@ -81,8 +82,11 @@ Phases (each prints its results on its own lines):
      (cosine >= 0.99);
   5i. K11 at the four stage shapes, K10, K17 and K13 (three segments) vs
      their plain versions on the paths' own inputs and on random ones, and
-     K4 at the per-conv path's 36 1x1 convs on its own inputs: 0 differing
-     elements;
+     K4 at the per-conv path's 36 1x1 convs on its own inputs; K11 at the
+     four stage shapes, B=8 and B=64, under every tile it takes; K13 on the
+     three segments, B=8 and B=64, against kernel C block after block,
+     under its chooser's tiles, each (tw, split) every block takes and each
+     block's largest cluster: 0 differing elements;
   5j. the fused ResNet-50 (nn/fused_resnet.resnet50_fused_forward) on the
      same model and frames, bf16, B=8, counted (32 K16 launches); its C3..C5
      against the module forward (within LEVEL_TOL of the range, cosine >=
@@ -136,9 +140,9 @@ Phases (each prints its results on its own lines):
      (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
      (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
      MNFCOS pipelines' among them;
-  6b-6h. torch.profiler breakdowns of one B=64 call of the float, the
+  6b-6i. torch.profiler breakdowns of one B=64 call of the float, the
      int8-backbone, the int8-FPN, the default, the per-conv, the
-     fused-head and the MNFCOS int8-ladder pipeline (a profile that raises
+     fused-head, the MNFCOS int8-ladder and the chained pipeline (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
@@ -372,8 +376,9 @@ def main() -> int:
 
         t0 = time.perf_counter()
         libs = (gn._lib, cuda_nms._lib, qblock._lib, qstem._lib, qconv._lib, qpool._lib, qhis._lib, qhead._lib,
-                qconv._lib3, qchain._lib, stem._lib, fused._lib, head._lib, qmm_variants._lib, qmnblock._lib)
-        with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+                qconv._lib3, qchain._lib, lambda: qchain._lib(1), stem._lib, fused._lib, head._lib, qmm_variants._lib,
+                qmnblock._lib)
+        with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per library (K13: two), all at once
             for fut in [pool.submit(lib) for lib in libs]:
                 fut.result()  # a failed build raises here
         print(f"  build wall {time.perf_counter() - t0:.2f} s")
@@ -1033,7 +1038,55 @@ def main() -> int:
                 for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
                     compare("qchain", qchain.qchain(inp, blocks), qchain.qchain(inp, blocks, plain=True),
                             f"K13 {what} {len(blocks)} blocks {tuple(inp.shape)}, grid {qchain.qchain.grid}")
+            # K11 at the four stage shapes, B=8 and B=64, under every tile it takes
+            for x, w, a, b in {tuple(x.shape): (x, w, a, b) for (x, w, a, b), _ in calls["qconv3x3"]}.values():
+                for bsz in (8, 64):
+                    inp = rand_i8((bsz, *x.shape[1:]))
+                    want = qconv.qconv3x3(inp, w, a, b, plain=True)
+                    for tile in k11_tiles(inp, w):
+                        compare("qconv3x3", qconv.qconv3x3(inp, w, a, b, tile=tile), want,
+                                f"K11 B={bsz} {tuple(inp.shape)} x {tuple(w.shape)} tile "
+                                f"{tile or qconv.pick_conv3_tile(*inp.shape, w.shape[0], *qblock.card_limits(dev))}")
+            # K13 on each segment, B=8 and B=64, against kernel C block after
+            # block and the plain chain, under the chooser's tiles and forced ones
+            for (x, blocks), _ in calls["qchain"]:
+                for bsz in (8, 64):
+                    inp = rand_i8((bsz, *x.shape[1:]))
+                    want = kernel_c_chain(inp, blocks)
+                    compare("qchain", qchain.qchain(inp, blocks, plain=True), want,
+                            f"K13's plain chain B={bsz} {len(blocks)} blocks vs kernel C")
+                    for tile in chain_tiles(inp, blocks):
+                        got = qchain.qchain(inp, blocks, tile=tile)
+                        compare("qchain", got, want, f"K13 B={bsz} {len(blocks)} blocks {tuple(inp.shape)} vs kernel "
+                                                     f"C, tile {tile or 'chosen'}, grid {qchain.qchain.grid}")
         res["backend_err"] = err
+
+    def kernel_c_chain(xq, blocks):  # a chain's blocks, one kernel C launch each
+        for blk, s in blocks:
+            xq = resnet_int8.bottleneck_int8(blk, xq, s, "pallas_block")
+        return xq
+
+    def k11_tiles(x, w):
+        """None (the chooser's tile) and every (tw, split) K11 takes on x, w."""
+        smem_max = qblock.card_limits(dev)[1]
+        return [None] + [(tw, sp) for tw in qconv.CONV3_TILE_WIDTHS for sp in qconv.CONV3_SPLITS
+                         if w.shape[0] % (16 * sp) == 0 and qconv.conv3_smem_bytes(tw, x.shape[-1]) <= smem_max]
+
+    def chain_convs(x, blocks):
+        """Per block of the chain on x: (H, W, Cw, Cout, stride)."""
+        return tuple((h, w, blk["w1"].shape[0], cout, s) for (blk, s), ((h, w, _), (_, _, cout))
+                     in zip(blocks, qchain.chain_shapes(x.shape[1:], blocks)))
+
+    def chain_tiles(x, blocks):
+        """None (the chooser's tiles), each (tw, split) every block takes, and
+        per block its largest cluster."""
+        convs = chain_convs(x, blocks)
+        smem_max = qblock.card_limits(dev)[1]
+        takes = lambda t, c: c[2] % (16 * t[1]) == 0 and c[3] % (16 * t[1]) == 0
+        uniform = [(tw, sp) for tw in qblock.TILE_WIDTHS for sp in qblock.SPLITS if (tw == 8 or sp == 1)
+                   and all(takes((tw, sp), c) for c in convs)
+                   and qchain.chain_smem_bytes(convs, [(tw, sp)] * len(convs)) <= smem_max]
+        return [None] + uniform + [[(8, max(sp for sp in qblock.SPLITS if takes((8, sp), c))) for c in convs]]
 
     def normalized(frames):
         mean, std = torch.tensor(IMAGENET_MEAN, device=dev), torch.tensor(IMAGENET_STD, device=dev)
@@ -1644,6 +1697,23 @@ def main() -> int:
                 ops += 2 * bsz * h * wd * 9 * cin * cout
                 print(f"  K11 {tuple(x.shape)} x {tuple(w.shape)}: kernel {k1:.4f} ms, plain {p1:.4f} ms")
             t["qconv3x3"] = (tk, tp, th, (nbytes, ops, INT8_OPS_S))
+            # K11 per stage shape at B=8 and B=64 beside its plain version; the
+            # per-conv forward's sum weighs each shape by its calls (3, 3, 5, 2)
+            stage = {}
+            for (x, w, a, b), _ in calls["qconv3x3"]:
+                stage.setdefault(tuple(x.shape), [x, w, a, b, 0])[4] += 1
+            for bsz in (8, 64):
+                fk = fp = 0.0
+                for x, w, a, b, n in stage.values():
+                    xb = x.repeat(bsz // x.shape[0], 1, 1, 1)
+                    k1 = cuda_ms(lambda: qconv.qconv3x3(xb, w, a, b), iters=20 if bsz == 8 else 5)
+                    p1 = cuda_ms(lambda: qconv.qconv3x3(xb, w, a, b, plain=True), iters=5 if bsz == 8 else 2)
+                    fk, fp = fk + n * k1, fp + n * p1
+                    macs = xb.numel() * 9 * w.shape[0]
+                    tile = qconv.pick_conv3_tile(*xb.shape, w.shape[0], *qblock.card_limits(dev))
+                    print(f"  K11 stage shape B={bsz} {tuple(xb.shape)} x {tuple(w.shape)} ({n} calls): kernel "
+                          f"{k1:.4f} ms, plain {p1:.4f} ms, tile {tile}, {macs / k1 / 1e9:.1f} T multiply-adds/s")
+                print(f"  K11 per per-conv forward (B={bsz}, 13 launches): kernel {fk:.4f} ms, plain {fp:.4f} ms {card}")
 
             # K4 at the per-conv path's 36 1x1 convs, B=8 and B=64, beside
             # torch._int_mm of the same GEMMs (int32 out, epilogue not included)
@@ -1688,11 +1758,6 @@ def main() -> int:
                                                     3 * x.numel() + 12 * out, F32_OPS_S))
             print(f"  K17 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
 
-            def kernel_c_chain(xq, blocks):  # the chain's blocks, one kernel C launch each
-                for blk, s in blocks:
-                    xq = resnet_int8.bottleneck_int8(blk, xq, s, "pallas_block")
-                return xq
-
             def k13_vs_c(x, blocks, iters, reps):
                 """K13 and kernel C on one segment in turns (K13, C, C, K13): their mean ms."""
                 k13 = [cuda_ms(lambda: qchain.qchain(x, blocks), iters=iters, reps=reps)]
@@ -1700,7 +1765,8 @@ def main() -> int:
                 k13.append(cuda_ms(lambda: qchain.qchain(x, blocks), iters=iters, reps=reps))
                 print(f"  K13 B={x.shape[0]} {len(blocks)} blocks {tuple(x.shape)}: kernel {k13[0]:.4f}/"
                       f"{k13[1]:.4f} ms, kernel C ({len(blocks)} launches) {kc[0]:.4f}/{kc[1]:.4f} ms, grid "
-                      f"{qchain.qchain.grid} blocks")
+                      f"{qchain.qchain.grid} blocks, tiles and cluster "
+                      f"{qchain.pick_chain_tile(x.shape[0], chain_convs(x, blocks), *qblock.card_limits(dev))}")
                 return statistics.mean(k13), statistics.mean(kc)
 
             tk = tp = th = tc = nbytes = ops = 0.0
@@ -1720,7 +1786,7 @@ def main() -> int:
             t["qchain"] = (tk, tp, th, (nbytes, ops, INT8_OPS_S))
             print(f"  K13 per forward (B=8, 3 launches) {tk:.4f} ms against kernel C's 16 launches on the same "
                   f"inputs {tc:.4f} ms (K13/C {tk / tc:.3f}) {card}")
-            # the same at B=64, the throughput point: the band heights, and so the grid, depend on the batch
+            # the same at B=64, the throughput point: the tiles, and so the grid, depend on the batch
             t64 = [k13_vs_c(x.repeat(8, 1, 1, 1), blocks, 3, 3) for (x, blocks), _ in calls["qchain"]]
             k64, c64 = sum(k for k, _ in t64), sum(c for _, c in t64)
             print(f"  K13 per forward (B=64) {k64:.4f} ms against kernel C's {c64:.4f} ms (K13/C {k64 / c64:.3f}) "
@@ -1994,7 +2060,8 @@ def main() -> int:
         smoke.phase("phase 5h: the int8 ResNet-50's other backends through make_eval_pipeline_int8, "
                     "HISFCOS(20, 256) bf16 512x512 B=8", phase5h)
     if "backend_calls" in res:
-        smoke.phase("phase 5i: K11, K10, K17, K13 vs plain at the paths' shapes, B=8", phase5i)
+        smoke.phase("phase 5i: K11, K10, K17, K13 vs plain at the paths' shapes, B=8; K11 and K13 under forced "
+                    "tiles at B=8 and B=64, K13 vs kernel C", phase5i)
     if "pipe" in res:
         smoke.phase("phase 5j: the fused ResNet-50 (K16), HISFCOS(20, 256) bf16 512x512 B=8", phase5j)
         smoke.phase("phase 5k: the fused-head serving pipeline (int8 backbone, K15), HISFCOS(20, 256) bf16 "
@@ -2027,6 +2094,9 @@ def main() -> int:
     if "lpipe" in res:
         smoke.phase("phase 6h: profile, MNFCOS int8-ladder pipeline", phase6_profile, res["lpipe"],
                     ("qstem_kernel", "qblock_kernel", "qmnblock_kernel", "nms_"))
+    if "chained" in res.get("paths", {}):
+        smoke.phase("phase 6i: profile, chained pipeline", phase6_profile, res["paths"]["chained"][0],
+                    ("qstem_kernel", "qchain_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
     print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)

@@ -39,12 +39,13 @@ BASE_FLAGS = (
     "-v",
 )
 
-# one lock per source: different sources build in parallel threads, one
-# source builds once
+# one lock per library (a source and its -D flags): different libraries
+# build in parallel threads, each builds once
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
-# source name -> (seconds spent in nvcc, nvcc's stderr incl. ptxas -v); empty
-# seconds when the library was found already built
+# library name (the source and its -D flags) -> (seconds spent in nvcc,
+# nvcc's stderr incl. ptxas -v); empty seconds when the library was found
+# already built
 build_log: Dict[str, Tuple[float, str]] = {}
 
 
@@ -71,15 +72,18 @@ def _digest(source: Path, flags: Sequence[str]) -> str:
 
 
 def load_library(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per content) and return the loaded library."""
+    """Compile ``csrc/<source>`` with ``extra_flags`` (once per content and
+    flags) and return the loaded library.  ``build_log`` keys it by the
+    source, followed by any ``-D`` flags."""
+    src = CSRC_DIR / source
+    flags = [*BASE_FLAGS, *extra_flags]
+    out = BUILD_DIR / f"{src.stem}-{_digest(src, flags)}.so"
+    name = " ".join([source, *(f for f in extra_flags if f.startswith("-D"))])
     with _locks_guard:
-        lock = _locks.setdefault(source, threading.Lock())
+        lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        src = CSRC_DIR / source
-        flags = [*BASE_FLAGS, *extra_flags]
-        out = BUILD_DIR / f"{src.stem}-{_digest(src, flags)}.so"
         if out.exists():
-            build_log[source] = (0.0, "")
+            build_log[name] = (0.0, "")
         else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -91,5 +95,5 @@ def load_library(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
                     f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)  # atomic: a concurrent process sees all of it or none
-            build_log[source] = (time.perf_counter() - t0, proc.stderr)
+            build_log[name] = (time.perf_counter() - t0, proc.stderr)
         return ctypes.CDLL(str(out))

@@ -9,132 +9,149 @@
 //   y   = acc * A[n] + B[n]            (acc: exact int32 sum over 9 * Cin)
 //   out = clip(rint(max(y, 0)), -127, 127)
 //
-// but an SM has 227 KB of shared memory, not a whole image's worth, so the
-// form is an implicit GEMM over bands: one thread block owns one (image,
-// band of `rows` output rows, 64 output channels).  It stages the band's
-// input rows plus a one-row halo above and below in shared memory, with a
-// zero column on each side and zero rows outside the map (SAME padding in
-// the int8 domain), then each thread computes 8 positions x 4 output
-// channels per step with __dp4a over 16-byte words (int8_common.cuh's
-// dot_tile), nine taps in turn.  Channel counts must be multiples of 16;
-// H and W are free.  Weights are [Cout][3][3][Cin] (each output channel's
-// taps contiguous) and are read through L1/L2.
+// It is kernel C's conv2 phase (csrc/qblock_tile.cuh) with its input read
+// from device memory instead of computed by conv1.  A thread block owns one
+// tile of 8 x tw output positions (tw 8 or 16) of one image and one of
+// `split` slices of the output channels:
+//   1. the input halo, (8 + 2) x (tw + 2) positions x Cin, comes by cp.async
+//      16-byte copies into swz rows of shared memory, zeros outside the map
+//      (SAME padding in the int8 domain), under the first weight copies;
+//   2. conv2's implicit GEMM over the 9 taps on the int8 tensor cores
+//      (MmaTile, mma.sync m16n8k32), weight K-slices [Cout][3][3][Cin]
+//      through the cp.async ring;
+//   3. the epilogue into the drained ring as int8, then the output in
+//      16-byte words.
+// ops/qconv.pick_conv3_tile chooses (tw, split): the fewest blocks that
+// fill the card with two an SM, channel slices first on the small maps.
+// Channel counts must be multiples of 16; H and W are free.
 //
-// Bound on the card: int8 multiply-adds on the CUDA cores (dp4a, not the
-// tensor cores); device memory sees the input once per 64 output channels
-// (plus the halo rows) and the output once.  A tensor-core version with the
-// weights staged in shared memory is the next step.
+// Bound on the card: int8 multiply-adds at every stage shape (9 * Cin of
+// them per output byte); device memory sees the input once per channel
+// slice (plus the halo, from L2) and the output once, the weights once per
+// tile from L2.
 //
 // Bit-exactness with the plain version (torch._int_mm over an im2col, then
-// the same epilogue): |acc| reaches 127^2 * 9 * 512 > 2^24, so the int32 ->
-// f32 conversion rounds (__int2float_rn, as the reference's astype does);
-// the multiply and add are separate __fmul_rn / __fadd_rn under -fmad=false;
-// rintf rounds half to even.
+// the same epilogue): int32 sums are exact in any order; |acc| reaches
+// 127^2 * 9 * 512 > 2^24, so the int32 -> f32 conversion rounds
+// (__int2float_rn, as the reference's astype does); the multiply and add are
+// separate __fmul_rn / __fadd_rn under -fmad=false; rintf rounds half to
+// even.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_common.cuh"
+#include "qblock_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileN = 64;
-
-struct Args {
-  const int8_t* x;
-  const int8_t* w;
-  const float* a;
-  const float* b;
-  int8_t* out;
-  int h, w_, cin, cout, rows;
-};
-
-// grid (bands, ceil(Cout / 64), batch), block kThreads, dynamic smem
-// (rows + 2) * (W + 2) * Cin
-__global__ void __launch_bounds__(kThreads) qconv3_kernel(const Args g) {
-  extern __shared__ __align__(16) int8_t xs[];
-  const int W = g.w_, cin = g.cin, wp = W + 2;
-  const int r0 = blockIdx.x * g.rows;  // first output row of the band
-  const int r_eff = min(g.rows, g.h - r0);
-  const int n0 = blockIdx.y * kTileN;
-  const int tile_n = min(kTileN, g.cout - n0);
-  const int8_t* x_img = g.x + static_cast<int64_t>(blockIdx.z) * g.h * W * cin;
-
-  // input rows r0 - 1 .. r0 + r_eff, columns -1 .. W; zero outside the map
-  const int chunks = cin / 16;
-  const int words = (r_eff + 2) * wp * chunks;
-  for (int i = threadIdx.x; i < words; i += kThreads) {
-    const int c = i % chunks, pc = i / chunks;
-    const int col = pc % wp, row = pc / wp;
-    const int ir = r0 - 1 + row, ic = col - 1;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (ir >= 0 && ir < g.h && ic >= 0 && ic < W)
-      v = __ldg(reinterpret_cast<const int4*>(x_img + (static_cast<int64_t>(ir) * W + ic) * cin) + c);
-    *reinterpret_cast<int4*>(xs + (row * wp + col) * cin + c * 16) = v;
+// the tile's input halo from (oy0 - 1, ox0 - 1) into a1, zeros outside the
+// map; one cp.async group, which the GEMM's first wait covers
+__device__ __forceinline__ void stage_halo(const Args& g, const Tile& t) {
+  const uint32_t a1 = smem_u32(t.a1);
+  for (int i = threadIdx.x; i < t.mh * t.cpr; i += kMmaThreads) {
+    const int pos = i / t.cpr, c = i - pos * t.cpr;
+    const int iy = t.iy0 + pos / t.hw, ix = t.ix0 + pos % t.hw;
+    const bool ok = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+    const int8_t* src = t.x_img + (static_cast<int64_t>(iy) * g.w + ix) * g.cin + 16 * c;
+    cp_async16(a1 + swz(pos, c, t.cpr), ok ? static_cast<const void*>(src) : g.x, ok);
   }
-  __syncthreads();
+  cp_async_commit();
+}
 
-  const int npos = r_eff * W, groups = tile_n / kQ;
-  const int items = (npos + kP - 1) / kP * groups;
-  int8_t* out_img = g.out + (static_cast<int64_t>(blockIdx.z) * g.h + r0) * W * g.cout;
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int o = n0 + (it % groups) * kQ, p0 = (it / groups) * kP;
-    const int8_t* base[kP];
+// conv2's GEMM on the halo, this block's cout / s channels: requant into the
+// drained ring (swz rows of NC / 16 chunks), then 16-byte words out
+template <class T>
+__device__ __forceinline__ void conv3x3_out(const Args& g, const Tile& t) {
+  conv3x3_gemm<T>(g, t, g.cout, [&](const T& mm, int n0, int c, int nb) {
+    constexpr int kChunks = T::NC / 16;
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = min(p0 + p, npos - 1);
-      base[p] = xs + ((pos / W) * wp + pos % W) * cin;  // tap (0, 0) of the window
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = T::row(mt, 2 * hf);
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          const int n = T::col(nt, 0);
+          if (n0 + n >= c) continue;
+          const int ch = nb + n0 + n;
+          char2 v;
+          v.x = requant_relu(epilogue(mm.acc[mt][nt][2 * hf], __ldg(g.a2 + ch), __ldg(g.b2 + ch)));
+          v.y = requant_relu(epilogue(mm.acc[mt][nt][2 * hf + 1], __ldg(g.a2 + ch + 1), __ldg(g.b2 + ch + 1)));
+          *reinterpret_cast<char2*>(t.ring_ptr + swz(r, n >> 4, kChunks) + (n & 15)) = v;
+        }
+      }
+    __syncthreads();
+    const int twm = t.tw - 1;
+    for (int gi = threadIdx.x; gi < T::MC * kChunks; gi += kMmaThreads) {
+      const int r = gi / kChunks, k = gi % kChunks;
+      const int oy = t.oy0 + (r >> g.tw_log2), ox = t.ox0 + (r & twm);
+      if (oy >= g.ho || ox >= g.wo || n0 + 16 * k >= c) continue;
+      *reinterpret_cast<int4*>(g.out + ((static_cast<int64_t>(t.img) * g.ho + oy) * g.wo + ox) * g.cout + nb + n0 +
+                               16 * k) = *reinterpret_cast<const int4*>(t.ring_ptr + swz(r, k, kChunks));
     }
-    int acc[kP][kQ];
-    zero(acc);
-    for (int t = 0; t < 9; ++t) {
-      const int off = ((t / 3) * wp + t % 3) * cin;
-      const int8_t* act[kP];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) act[p] = base[p] + off;
-      dot_tile(acc, act, g.w + static_cast<int64_t>(o) * 9 * cin + t * cin, 9 * cin, cin);
+    __syncthreads();  // the ring is free for the next chunk's copies
+  });
+}
+
+// grid (tiles * split), block kMmaThreads, dynamic smem conv3_smem_bytes(tw, cin)
+__global__ void __launch_bounds__(kMmaThreads, 2) qconv3_kernel(const Args g) {
+  extern __shared__ __align__(128) int8_t smem[];
+  Tile t = tile_at(g, blockIdx.x / g.split, blockIdx.x % g.split, g.split, smem);
+  t.a2 = nullptr;  // no a2: the ring follows the halo
+  t.ring_ptr = smem + t.mh * g.cw;
+  t.ring = smem_u32(t.ring_ptr);
+  stage_halo(g, t);
+  const int c = g.cout / t.s;
+  if (t.p == 128) {
+    if (c % 128 == 0) {
+      conv3x3_out<T128x128>(g, t);
+    } else {
+      conv3x3_out<T128x64>(g, t);
     }
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int pos = p0 + p;
-      if (pos >= npos) break;
-      char4 v;
-      v.x = requant_relu(epilogue(acc[p][0], g.a[o + 0], g.b[o + 0]));
-      v.y = requant_relu(epilogue(acc[p][1], g.a[o + 1], g.b[o + 1]));
-      v.z = requant_relu(epilogue(acc[p][2], g.a[o + 2], g.b[o + 2]));
-      v.w = requant_relu(epilogue(acc[p][3], g.a[o + 3], g.b[o + 3]));
-      *reinterpret_cast<char4*>(out_img + static_cast<int64_t>(pos) * g.cout + o) = v;
+  } else {
+    if (c % 128 == 0) {
+      conv3x3_out<T64x128>(g, t);
+    } else {
+      conv3x3_out<T64x64>(g, t);
     }
   }
 }
+
+// the halo, then the ring (ops/qconv.conv3_smem_bytes)
+size_t conv3_smem_bytes(int tw, int cin) { return static_cast<size_t>(kTH + 2) * (tw + 2) * cin + kRingBytes; }
 
 }  // namespace
 
 // x [B, H, W, Cin], out [B, H, W, Cout] int8 NHWC contiguous, 16-byte
 // aligned; w [Cout][3][3][Cin] int8; a, b f32 [Cout]; Cin and Cout multiples
-// of 16.  Dynamic shared memory (rows + 2) * (W + 2) * Cin bytes.  Returns a
+// of 16 (of 16 * split for Cout); tiles of 8 x tw (8 or 16) output
+// positions, split (1, 2, 4 or 8) channel slices each.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int qconv3_launch(const void* x, const void* w, const void* a, const void* b, void* out, int batch,
-                             int h, int w_, int cin, int cout, int rows, void* stream) {
-  Args g;
+                             int h, int w_, int cin, int cout, int tw, int split, void* stream) {
+  Args g = {};
   g.x = static_cast<const int8_t*>(x);
-  g.w = static_cast<const int8_t*>(w);
-  g.a = static_cast<const float*>(a);
-  g.b = static_cast<const float*>(b);
+  g.w2 = static_cast<const int8_t*>(w);
+  g.a2 = static_cast<const float*>(a);
+  g.b2 = static_cast<const float*>(b);
   g.out = static_cast<int8_t*>(out);
   g.h = h;
-  g.w_ = w_;
+  g.w = w_;
   g.cin = cin;
+  g.cw = cin;  // conv2's K: the input's channels
   g.cout = cout;
-  g.rows = rows;
-  const size_t smem = static_cast<size_t>(rows + 2) * (w_ + 2) * cin;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(qconv3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  g.stride = 1;
+  if (!set_tiles(g, batch, tw, split)) return static_cast<int>(cudaErrorInvalidValue);
+  static int optin = -1;
+  if (optin < 0) {
+    const cudaError_t err = opt_in_smem(qconv3_kernel, &optin);
+    if (err != cudaSuccess) {
+      optin = -1;
+      return static_cast<int>(err);
+    }
   }
-  const dim3 grid((h + rows - 1) / rows, (cout + kTileN - 1) / kTileN, batch);
-  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  qconv3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(g);
+  const size_t smem = conv3_smem_bytes(tw, cin);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned blocks = static_cast<unsigned>(batch * g.tiles_x * g.tiles_y * split);
+  qconv3_kernel<<<blocks, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // The int8 tensor-core tile shared by K4 (csrc/qmm_tile.cuh, csrc/qconv.cu,
-// csrc/qmm_variants.cu), kernel C (csrc/qblock.cu), K7/K9 (csrc/qhead.cu)
-// and K5 (csrc/qhis.cu); K16 (csrc/fused.cu) takes its cp.async helpers
-// and sum_at() for its bf16 wgmma ring.
+// csrc/qmm_variants.cu), kernel C, K13 and K11 (csrc/qblock_tile.cuh, under
+// csrc/qblock.cu, csrc/qchain.cu and csrc/qconv3.cu), K7/K9 (csrc/qhead.cu),
+// K5 (csrc/qhis.cu) and K1 (csrc/qstem.cu); K16 (csrc/fused.cu) takes its
+// cp.async helpers and sum_at() for its bf16 wgmma ring.
 //
 // A thread block of 8 warps computes an MC x NC block of exact int32 sums
 // C[m, n] = sum_k A[m, k] * B[n, k], both operands K-contiguous int8 (NHWC
@@ -20,7 +21,7 @@
 // their four 16-byte chunks XOR-swizzled (swz64), so the eight rows of an
 // ldmatrix matrix hit 32 distinct banks (a dense 64-byte pitch gives a
 // 4-way conflict).  Operands that live in shared memory already (kernel C's
-// a1 and a2) use swz() on their own row length.
+// a1 and a2, K11's input halo) use swz() on their own row length.
 //
 // The accumulator fragment's layout gives the epilogue its (m, n): lane l
 // holds rows l/4 and l/4 + 8, columns 2*(l%4) + {0, 1} of each m16n8 tile.

@@ -44,7 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_common.cuh"
+#include "int8_epilogue.cuh"
 
 namespace {
 

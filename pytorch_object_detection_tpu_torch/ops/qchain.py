@@ -4,10 +4,12 @@ Replaces ``pytorch_object_detection_tpu/ops/pallas_qchain.py:qchain``, which
 runs a backbone segment of bottlenecks ([layer1_0 .. layer2_3] -> C3,
 [layer3_*] -> C4, [layer4_*] -> C5) as one kernel with the intermediate
 activations in VMEM.  It computes exactly what kernel C (``ops/qblock.py``)
-computes block after block: a cooperative launch walks each bottleneck's
-(image, band) items with the band body of ``csrc/qblock_band.cuh`` and meets
-at a grid-wide barrier before the next; the intermediates go to two ping-pong scratch
-buffers in device memory.  ``csrc/qchain.cu`` says why, and what bounds it.
+computes block after block, with kernel C's phases
+(``csrc/qblock_tile.cuh``): a cooperative launch of clusters walks each
+bottleneck's kernel C tiles and meets at a grid-wide barrier before the
+next; the intermediates go to two ping-pong scratch buffers in device
+memory.  ``csrc/qchain.cu`` says why, and what bounds it.
+:func:`pick_chain_tile` chooses each bottleneck's tile.
 
 The JAX package's ``plan_chains`` splits a segment to fit a VMEM budget of
 the TPU; nothing here has such a budget (scratch lives in device memory), so
@@ -25,53 +27,38 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from pytorch_object_detection_tpu_torch.ops.qblock import _check, card_limits, out_hw, qbottleneck_plain
+from pytorch_object_detection_tpu_torch.ops.qblock import (
+    SPLITS, TILE_WIDTHS, _check, card_limits, out_hw, qbottleneck_plain, smem_bytes, tile_grid)
 
 SOURCE = "qchain.cu"
-# no FMA contraction, as kernel C, whose band body this runs
+# no FMA contraction, as kernel C, whose phases this runs
 NVCC_FLAGS = ("-fmad=false",)
-MAX_CHAIN = 16  # kMaxChain in csrc/qchain.cu
+MAX_CHAIN = 8  # kMaxChain in csrc/qchain.cu
+# a block's tensors in the order of qchain_launch's pointer table (after x),
+# and the keys of the identity shortcut's and the projection's extras
+_VEC_KEYS = ("A1", "B1", "A2", "B2", "A3", "B3")
+_KEYS = ("w1", "w2", "w3", "wd", *_VEC_KEYS, "Ad", "Bd", "short_mul")
 
 Chain = Sequence[Tuple[Dict, int]]
+Tile = Tuple[int, int]
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Build (at first use) and load K13; its C signature is declared here."""
+def _lib(min_blocks: int = 2) -> ctypes.CDLL:
+    """Build (at first use) and load K13 for ``min_blocks`` resident blocks
+    an SM (2: registers capped at 128; 1: up to 255); its C signature is
+    declared here."""
     from pytorch_object_detection_tpu_torch._build import load_library
 
-    lib = load_library(SOURCE, NVCC_FLAGS)
-    lib.qchain_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p]
+    lib = load_library(SOURCE, (*NVCC_FLAGS, f"-DQCHAIN_MIN_BLOCKS={min_blocks}"))
+    lib.qchain_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p]
     lib.qchain_launch.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(rows: int, stride: int, w: int, cw: int) -> int:
-    """K13's shared memory for a band of ``rows`` output rows (the band body
-    of ``csrc/qblock_band.cuh``): a1 with its halo rows and two zero
-    columns, then a2."""
-    wo = (w - 1) // stride + 1
-    return ((rows - 1) * stride + 3) * (w + 2) * cw + rows * wo * cw
-
-
-def pick_rows(batch: int, h: int, w: int, cw: int, stride: int, sm_count: int, smem_max: int) -> int:
-    """Output rows per band of K13's band body: the largest of 8, 4, 2, 1
-    that leaves two blocks' shared memory per SM and at least two waves of
-    blocks on the card; else the smallest band (most blocks) that fits."""
-    ho = (h - 1) // stride + 1
-    fits = [r for r in (8, 4, 2, 1) if r <= max(ho, 1) and smem_bytes(r, stride, w, cw) <= smem_max]
-    if not fits:
-        raise ValueError(f"K13: one output row of a {h}x{w} map with {cw} channels needs "
-                         f"{smem_bytes(1, stride, w, cw)} bytes of shared memory (> {smem_max})")
-    for r in fits:
-        if smem_bytes(r, stride, w, cw) <= smem_max // 2 and batch * -(-ho // r) >= 2 * sm_count:
-            return r
-    return fits[-1]
 
 
 def chain_shapes(x_shape, blocks: Chain) -> List[Tuple[Tuple[int, int, int], Tuple[int, int, int]]]:
@@ -86,9 +73,55 @@ def chain_shapes(x_shape, blocks: Chain) -> List[Tuple[Tuple[int, int, int], Tup
     return shapes
 
 
+def chain_smem_bytes(convs, tiles: Sequence[Tile]) -> int:
+    """K13's dynamic shared memory: the largest of its bottlenecks' kernel C
+    tiles (``convs``: per block ``(H, W, Cw, Cout, stride)``)."""
+    return max(smem_bytes(stride, tw, cw) for (_, _, cw, _, stride), (tw, _) in zip(convs, tiles))
+
+
+def tile_blocks(ho: int, wo: int, tw: int) -> int:
+    """Tiles of 8 x ``tw`` over one image's ``ho x wo`` output map."""
+    ty, tx = tile_grid(ho, wo, tw)
+    return ty * tx
+
+
+def two_per_sm(nbytes: int, smem_max: int) -> bool:
+    """Whether two blocks of ``nbytes`` dynamic shared memory fit on one SM
+    (an SM holds ``smem_max`` + 1 KB, each block 1 KB more than it asks for)."""
+    return 2 * (nbytes + 1024) <= smem_max + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def pick_chain_tile(batch: int, convs: Tuple[Tuple[int, int, int, int, int], ...], sm_count: int,
+                    smem_max: int) -> Tuple[Tuple[Tile, ...], int]:
+    """``(tiles, cluster)`` for K13 on the bottlenecks ``convs`` (per block
+    ``(H, W, Cw, Cout, stride)``).  The launch has one shared-memory size,
+    its largest tile's (:func:`chain_smem_bytes`), so one residency: two
+    blocks an SM where every block has a kernel C tile that leaves room for
+    two, else one.  Each block then takes kernel C's rule
+    (:func:`ops.qblock.pick_tile`) under that residency: of (16, 1), (8, 1),
+    (8, 2), (8, 4), (8, 8), the first that fits and gives at least one block
+    per SM, else the one with the most blocks.  The launch's cluster size is
+    the largest split, which every other split divides."""
+    opts = [[(tw, sp) for tw in TILE_WIDTHS for sp in SPLITS
+             if (tw == 8 or sp == 1) and cw % (16 * sp) == 0 and cout % (16 * sp) == 0
+             and smem_bytes(stride, tw, cw) <= smem_max] for _, _, cw, cout, stride in convs]
+    if not all(opts):
+        raise ValueError(f"K13: a bottleneck of the chain has no kernel C tile that fits in {smem_max} bytes")
+    two = all(any(two_per_sm(smem_bytes(c[4], tw, c[2]), smem_max) for tw, _ in o) for c, o in zip(convs, opts))
+    tiles = []
+    for (h, w, cw, _, stride), o in zip(convs, opts):
+        if two:
+            o = [t for t in o if two_per_sm(smem_bytes(stride, t[0], cw), smem_max)]
+        ho, wo = out_hw(h, w, stride)
+        ctas = lambda t: batch * tile_blocks(ho, wo, t[0]) * t[1]
+        tiles.append(next((t for t in o if ctas(t) >= sm_count), None) or max(o, key=ctas))
+    return tuple(tiles), max(split for _, split in tiles)
+
+
 def _operands(blk: Dict, device: torch.device):
     """(epilogue vectors by kernel C's names, wd or None, short_mul or None)."""
-    vecs = {k.lower(): blk[k] for k in ("A1", "B1", "A2", "B2", "A3", "B3")}
+    vecs = {k.lower(): blk[k] for k in _VEC_KEYS}
     if "wd" in blk:
         vecs.update(ad=blk["Ad"], bd=blk["Bd"])
         return vecs, blk["wd"], None
@@ -106,68 +139,143 @@ def qchain_plain(x: torch.Tensor, blocks: Chain) -> torch.Tensor:
     return x
 
 
-def qchain(x: torch.Tensor, blocks: Chain, *, plain: bool = False) -> torch.Tensor:
+class _Plan:
+    """A chain checked against one input shape and device: its shapes, each
+    block's ``(H, W, Cw, Cout, stride)`` and, made at the first launch, the
+    pointer table of its weights and epilogue vectors (the per-call x and
+    outputs left 0).  It holds the blocks' tensors, so their ids stay
+    theirs while it lives."""
+
+    def __init__(self, x: torch.Tensor, blocks: Chain):
+        self.held = [tuple(blk.get(k) for k in _KEYS) for blk, _ in blocks]
+        self.shapes = chain_shapes(x.shape[1:], blocks)
+        self.args = []
+        for (blk, stride), ((h, w, cin), _) in zip(blocks, self.shapes):
+            vecs, wd, short_mul = _operands(blk, x.device)
+            _check(x.new_empty((0, h, w, cin)), blk["w1"], blk["w2"], blk["w3"], vecs, stride, wd, short_mul)
+            self.args.append((blk, vecs, wd, short_mul))
+        self.convs = tuple((h, w, blk["w1"].shape[0], cout, stride)
+                           for (blk, stride), ((h, w, _), (_, _, cout)) in zip(blocks, self.shapes))
+        self.ptrs = None
+
+    def holds(self, blocks: Chain) -> bool:
+        """Whether ``blocks`` still hold the tensors this plan checked."""
+        return all(all(blk.get(k) is t for k, t in zip(_KEYS, held)) for (blk, _), held in zip(blocks, self.held))
+
+    def table(self, x: torch.Tensor):
+        """The kernel's pointer table, after the checks a launch needs (once)."""
+        if self.ptrs is not None:
+            return self.ptrs
+        tensors = [t for blk, vecs, wd, sm in self.args
+                   for t in (blk["w1"], blk["w2"], blk["w3"], *vecs.values(), wd if wd is not None else sm)]
+        if any(t.device != x.device for t in tensors):
+            raise ValueError(f"K13: every operand must be on {x.device}")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("K13 takes contiguous operands (x NHWC-contiguous)")
+        if any(t.data_ptr() % 16 for blk, _, wd, _ in self.args for t in (blk["w1"], blk["w2"], blk["w3"], wd)
+               if t is not None):
+            raise ValueError("K13 reads x and the weights in 16-byte words: they must start 16-byte aligned")
+        if any(c % 16 for _, _, cw, cout, _ in self.convs for c in (cw, cout)) or x.shape[-1] % 16:
+            raise ValueError("K13 needs channel counts divisible by 16")
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        table = []
+        for blk, vecs, wd, short_mul in self.args:  # short_mul held here: the table points at it
+            table += [0, ptr(blk["w1"]), ptr(blk["w2"]), ptr(blk["w3"]), ptr(wd),
+                      *(ptr(vecs[k.lower()]) for k in _VEC_KEYS), ptr(vecs.get("ad", short_mul)),
+                      ptr(vecs.get("bd")), 0]
+        self.ptrs = (ctypes.c_void_p * len(table))(*table)
+        return self.ptrs
+
+
+_plans: Dict[tuple, _Plan] = {}
+_MAX_PLANS = 16
+
+
+def _plan(x: torch.Tensor, blocks: Chain) -> _Plan:
+    """The chain's checked plan for ``x``'s shape and device, made once per
+    list of block dicts (the dicts by identity, their tensors held and
+    compared by identity on every call)."""
+    key = (tuple(x.shape[1:]), x.device, tuple((id(blk), stride) for blk, stride in blocks))
+    plan = _plans.get(key)
+    if plan is None or not plan.holds(blocks):
+        plan = _Plan(x, blocks)
+        if len(_plans) >= _MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        _plans[key] = plan
+    return plan
+
+
+def _tiles(tile, plan: _Plan, batch: int, sm_count: int, smem_max: int):
+    """(tiles, cluster): the chooser's, or ``tile`` (one ``(tw, split)`` for
+    every block, or one per block) checked against every block."""
+    if tile is None:
+        return pick_chain_tile(batch, plan.convs, sm_count, smem_max)
+    tiles = [tuple(tile)] * len(plan.convs) if isinstance(tile[0], int) else [tuple(t) for t in tile]
+    if len(tiles) != len(plan.convs):
+        raise ValueError(f"tile={tile}: one (tw, split) for the chain or one per block ({len(plan.convs)})")
+    for (tw, split), (_, _, cw, cout, _) in zip(tiles, plan.convs):
+        if tw not in TILE_WIDTHS or split not in SPLITS or cw % (16 * split) or cout % (16 * split):
+            raise ValueError(f"tile={tile}: K13 takes kernel C's tiles: width 8 or 16, 1, 2, 4 or 8 blocks per "
+                             f"tile that divide Cw={cw} and Cout={cout} into multiples of 16")
+    if chain_smem_bytes(plan.convs, tiles) > smem_max:
+        raise ValueError(f"tile={tile}: a tile of the chain does not fit in shared memory")
+    return tuple(tiles), max(split for _, split in tiles)
+
+
+def qchain(x: torch.Tensor, blocks: Chain, *, tile: Optional[Union[Tile, Sequence[Tile]]] = None,
+           plain: bool = False) -> torch.Tensor:
     """int8 NHWC ``x [B, H, W, C]`` through the chain's bottlenecks -> the last
     block's int8 output.
 
     On a CPU tensor this is :func:`qchain_plain`; on a CUDA tensor it
     launches K13 once or raises.  ``plain=True`` runs the plain version on
-    any device, for the comparison only.  ``qchain.launches`` counts kernel
-    launches.
+    any device, for the comparison only.  ``tile`` ``(tw, split)`` for every
+    block, or one per block, overrides :func:`pick_chain_tile`; the result
+    does not depend on it.  ``qchain.launches`` counts kernel launches,
+    ``qchain.grid`` holds the last launch's thread blocks.  It raises on a
+    stream that a CUDA graph is capturing.
     """
     if x.dtype != torch.int8 or x.dim() != 4:
         raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
     if not 1 <= len(blocks) <= MAX_CHAIN:
         raise ValueError(f"a chain has 1 to {MAX_CHAIN} bottlenecks; got {len(blocks)}")
-    shapes = chain_shapes(x.shape[1:], blocks)
-    args = []
-    for (blk, stride), ((h, w, cin), _) in zip(blocks, shapes):
-        vecs, wd, short_mul = _operands(blk, x.device)
-        _check(x.new_empty((0, h, w, cin)), blk["w1"], blk["w2"], blk["w3"], vecs, stride, wd, short_mul)
-        args.append((blk, stride, vecs, wd, short_mul))
+    plan = _plan(x, blocks)
     if plain or x.device.type == "cpu":
         return qchain_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"K13 runs on CUDA tensors; got {x.device}")
-    tensors = [x] + [t for blk, _, vecs, wd, sm in args
-                     for t in (blk["w1"], blk["w2"], blk["w3"], *vecs.values(), wd if wd is not None else sm)]
-    if any(t.device != x.device for t in tensors):
-        raise ValueError(f"K13: every operand must be on {x.device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not x.is_contiguous():
         raise ValueError("K13 takes contiguous operands (x NHWC-contiguous)")
-    if any(t.data_ptr() % 16 for blk, _, _, wd, _ in args for t in (blk["w1"], blk["w2"], blk["w3"], wd)
-           if t is not None) or x.data_ptr() % 16:
+    if x.data_ptr() % 16:
         raise ValueError("K13 reads x and the weights in 16-byte words: they must start 16-byte aligned")
-    if any(c % 16 for (_, _, cin), (_, _, cout) in shapes for c in (cin, cout)) or \
-            any(blk["w1"].shape[0] % 16 for blk, _ in blocks):
-        raise ValueError("K13 needs channel counts divisible by 16")
 
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("K13 cannot be captured in a CUDA graph: it copies its chain's arguments from host "
+                           "memory before each launch")
     b = x.shape[0]
     sm_count, smem_max = card_limits(x.device)
+    tiles, cluster = _tiles(tile, plan, b, sm_count, smem_max)
+    shapes = plan.shapes
     # block i writes scratch[i % 2] (the last block: out); block i + 1 reads it
     inter = [b * ho * wo * c for _, (ho, wo, c) in shapes[:-1]]
     scratch = [torch.empty(max(inter[i::2], default=0), dtype=torch.int8, device=x.device) for i in range(2)]
     out = torch.empty((b, *shapes[-1][1]), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
-    ptrs, dims = [], []
+    n = len(shapes)
+    table = plan.table(x)
+    ptrs = type(table).from_buffer_copy(table)
+    dims = (ctypes.c_int * (8 * n))()
     src = x
-    for i, ((blk, stride, vecs, wd, short_mul), ((h, w, cin), _)) in enumerate(zip(args, shapes)):
-        dst = out if i == len(args) - 1 else scratch[i % 2]
-        cw, cout = blk["w1"].shape[0], blk["w3"].shape[0]
-        rows = pick_rows(b, h, w, cw, stride, sm_count, smem_max)
-        ptr = lambda t: 0 if t is None else t.data_ptr()
-        ptrs += [src.data_ptr(), ptr(blk["w1"]), ptr(blk["w2"]), ptr(blk["w3"]), ptr(wd), ptr(vecs["a1"]),
-                 ptr(vecs["b1"]), ptr(vecs["a2"]), ptr(vecs["b2"]), ptr(vecs["a3"]), ptr(vecs["b3"]),
-                 ptr(vecs.get("ad", short_mul)), ptr(vecs.get("bd")), dst.data_ptr()]
-        dims += [h, w, cin, cw, cout, stride, rows]
+    for i, ((h, w, cw, cout, stride), (tw, split)) in enumerate(zip(plan.convs, tiles)):
+        dst = out if i == n - 1 else scratch[i % 2]
+        ptrs[14 * i], ptrs[14 * i + 13] = src.data_ptr(), dst.data_ptr()
+        dims[8 * i:8 * i + 8] = (h, w, shapes[i][0][2], cw, cout, stride, tw, split)
         src = dst
-    ptr_table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    dim_table = (ctypes.c_int * len(dims))(*dims)
     grid = ctypes.c_int(0)
+    lib = _lib(2 if two_per_sm(chain_smem_bytes(plan.convs, tiles), smem_max) else 1)
     with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = _lib().qchain_launch(ptr_table, dim_table, len(args), b, ctypes.byref(grid),
-                                   torch.cuda.current_stream().cuda_stream)
+        err = lib.qchain_launch(ptrs, dims, n, b, cluster, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K13 launch failed: cudaError {err}")
     qchain.launches += 1

@@ -22,8 +22,11 @@ added in a second pass).
 K11 (``csrc/qconv3.cu``), :func:`qconv3x3`, replaces ``pallas_qconv.py:
 qconv3x3``: the stride-1 SAME 3x3 conv with the ReLU epilogue, NHWC ``[B, H,
 W, Cin]`` int8 with weights ``[Cout, 3, 3, Cin]`` (the port's 3x3 layout);
-channel counts multiples of 16 on the card, any H and W.  Its plain version
-is ``ops/quant.conv_i8`` and ``requantize``.
+channel counts multiples of 16 on the card, any H and W.  It is kernel C's
+conv2 phase on the int8 tensor cores, its input halo staged from device
+memory, in tiles of 8 x 16 or 8 x 8 output positions with channel slices
+from :func:`pick_conv3_tile`.  Its plain version is ``ops/quant.conv_i8``
+and ``requantize``.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch their kernel or raise.
@@ -62,7 +65,7 @@ def _lib3() -> ctypes.CDLL:
     from pytorch_object_detection_tpu_torch._build import load_library
 
     lib = load_library(SOURCE_3X3, NVCC_FLAGS)
-    lib.qconv3_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.qconv3_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.qconv3_launch.restype = ctypes.c_int
     return lib
 
@@ -197,29 +200,58 @@ def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.T
     return requantize(conv_i8(x, w), a, b)
 
 
-def pick_rows_3x3(batch: int, h: int, w: int, cin: int, cout: int, sm_count: int, smem_max: int) -> int:
-    """Output rows per K11 thread block: the largest of 8, 4, 2, 1 whose band
-    leaves two blocks' shared memory per SM and gives at least two waves of
-    blocks on the card; else the smallest band that fits."""
-    fits = [r for r in (8, 4, 2, 1) if r <= max(h, 1) and (r + 2) * (w + 2) * cin <= smem_max]
-    if not fits:
-        raise ValueError(f"K11: one output row of a {h}x{w} map with {cin} channels needs "
-                         f"{3 * (w + 2) * cin} bytes of shared memory (> {smem_max})")
-    for r in fits:
-        if (r + 2) * (w + 2) * cin <= smem_max // 2 and batch * -(-h // r) * -(-cout // 64) >= 2 * sm_count:
-            return r
-    return fits[-1]
+CONV3_TILE_ROWS = 8  # kTH in csrc/qblock_tile.cuh
+CONV3_TILE_WIDTHS = (16, 8)
+CONV3_SPLITS = (1, 2, 4, 8)  # output-channel slices a tile
+RING_BYTES = 48 * 1024  # kRingBytes in csrc/qblock_tile.cuh
 
 
-def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, rows: Optional[int] = None,
-             plain: bool = False) -> torch.Tensor:
+def conv3_smem_bytes(tw: int, cin: int) -> int:
+    """K11's shared memory per block for tiles of 8 x ``tw`` output
+    positions (``conv3_smem_bytes`` in ``csrc/qconv3.cu``): the input halo,
+    (8 + 2) x (tw + 2) positions, then the cp.async ring."""
+    return (CONV3_TILE_ROWS + 2) * (tw + 2) * cin + RING_BYTES
+
+
+def conv3_blocks(batch: int, h: int, w: int, tw: int, split: int) -> int:
+    """K11's thread blocks: tiles of 8 x ``tw`` over the map, ``split`` each."""
+    return batch * -(-h // CONV3_TILE_ROWS) * -(-w // tw) * split
+
+
+@functools.lru_cache(maxsize=256)
+def pick_conv3_tile(batch: int, h: int, w: int, cin: int, cout: int, sm_count: int, smem_max: int
+                    ) -> Tuple[int, int]:
+    """``(tw, split)`` for K11: tiles of 8 x ``tw`` output positions, each
+    in ``split`` blocks of ``cout / split`` output channels.  Of the options
+    that fit in shared memory, the fewest blocks that give every SM one with
+    two blocks' shared memory on an SM (an SM holds ``smem_max`` + 1 KB, each
+    block 1 KB more than it asks for); else the fewest that give every SM
+    one; else the most blocks.  Ties go to the wider tile, whose staged
+    weights serve more positions; on the small maps channel slices are
+    what fills the card."""
+    options = [(tw, sp) for tw in CONV3_TILE_WIDTHS for sp in CONV3_SPLITS
+               if cout % (16 * sp) == 0 and conv3_smem_bytes(tw, cin) <= smem_max]
+    if not options:
+        raise ValueError(f"K11: a tile of a map with {cin} channels needs {conv3_smem_bytes(8, cin)} bytes of "
+                         f"shared memory (> {smem_max})")
+    blocks = lambda o: conv3_blocks(batch, h, w, *o)
+    two_per_sm = lambda o: 2 * (conv3_smem_bytes(o[0], cin) + 1024) <= smem_max + 1024
+    for ok in (lambda o: blocks(o) >= sm_count and two_per_sm(o), lambda o: blocks(o) >= sm_count):
+        fill = [o for o in options if ok(o)]
+        if fill:
+            return min(fill, key=lambda o: (blocks(o), -o[0]))
+    return max(options, key=lambda o: (blocks(o), o[0]))
+
+
+def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+             tile: Optional[Tuple[int, int]] = None, plain: bool = False) -> torch.Tensor:
     """Stride-1 SAME 3x3 conv, int8 NHWC ``[B, H, W, Cin]`` x ``w [Cout, 3, 3,
     Cin]`` -> int8 ``[B, H, W, Cout]``, epilogue ``clip8(relu(acc * a + b))``.
 
     On a CPU tensor this is :func:`qconv3x3_plain`; on a CUDA tensor it
     launches K11 or raises.  ``plain=True`` runs the plain version on any
-    device, for the comparison only.  ``rows`` overrides the band height
-    (:func:`pick_rows_3x3`); the result does not depend on it.
+    device, for the comparison only.  ``tile`` ``(tw, split)`` overrides
+    :func:`pick_conv3_tile`; the result does not depend on it.
     ``qconv3x3.launches`` counts kernel launches.
     """
     if x.dtype != torch.int8 or x.dim() != 4:
@@ -247,14 +279,17 @@ def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if out.numel() == 0:
         return out
     sm_count, smem_max = card_limits(x.device)
-    rows = pick_rows_3x3(bsz, h, wd, cin, cout, sm_count, smem_max) if rows is None else rows
-    if not 1 <= rows or (rows + 2) * (wd + 2) * cin > smem_max:
-        raise ValueError(f"rows={rows}: K11's band does not fit in shared memory")
-    if bsz > 65535:
-        raise ValueError(f"K11 takes at most 65535 images per call; got {bsz}")
+    tw, split = pick_conv3_tile(bsz, h, wd, cin, cout, sm_count, smem_max) if tile is None else tile
+    if tw not in CONV3_TILE_WIDTHS or split not in CONV3_SPLITS or cout % (16 * split):
+        raise ValueError(f"tile={tile}: K11 takes tiles of width 8 or 16 and 1, 2, 4 or 8 channel slices of "
+                         f"Cout={cout} that are multiples of 16")
+    if conv3_smem_bytes(tw, cin) > smem_max:
+        raise ValueError(f"tile={tile}: K11's tile does not fit in shared memory")
+    if conv3_blocks(bsz, h, wd, tw, split) > 2**31 - 1:
+        raise ValueError(f"K11: {conv3_blocks(bsz, h, wd, tw, split)} blocks exceed one launch")
     with torch.cuda.device(x.device):  # the launch goes to the current device
         err = _lib3().qconv3_launch(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
-                                    wd, cin, cout, rows, torch.cuda.current_stream().cuda_stream)
+                                    wd, cin, cout, tw, split, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K11 launch failed: cudaError {err}")
     qconv3x3.launches += 1

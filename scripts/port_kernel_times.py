@@ -1,4 +1,4 @@
-"""Time kernel C, K4, K16, K7, K9, K5, kernel A and K1 of the PyTorch port on one NVIDIA GPU, per shape.
+"""Time kernel C, K4, K16, K7, K9, K5, kernel A, K1, K11 and K13 of the PyTorch port on one NVIDIA GPU, per shape.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
 ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
@@ -20,8 +20,9 @@ random, from a seed; the head's qtree comes from a random
 ``models/heads.HISHead`` through ``models/head_int8``'s calibration and
 quantization, the HisBlocks' from a random ``nn/fpn.HisFPN`` through
 ``nn/fpn_int8``'s, the stem's from a random ``nn/resnet.ResNet50`` through
-``nn/resnet_int8``'s calibration and ``quantize_stem_s2d``.  For K7, K9, K5
-and K1 the script prints a SHA-256 digest of the output bytes, for kernel A
+``nn/resnet_int8``'s calibration and ``quantize_stem_s2d``.  For kernel C,
+K7, K9, K5, K1, K11 and K13 the script prints a SHA-256 digest of the
+output bytes, for kernel A
 of the keep mask, so that two checkouts' outputs can be compared.
 Only the wrappers' public arguments are used, so the same script times the
 package of another checkout of the repository (``--root``), e.g. the parent
@@ -31,7 +32,14 @@ one run on one card to compare them::
     python3 scripts/port_kernel_times.py --root . --out times.json
 
 ``--only his,nms`` times only the named sections (``c``, ``k4``, ``k16``,
-``head``, ``his``, ``nms``, ``stem``; and ``stemtile``, this tree's package
+``head``, ``his``, ``nms``, ``stem``; ``k11``: K11 (``ops/qconv.qconv3x3``)
+at the per-conv backend's four conv2 stage shapes beside its plain version,
+B=8 and B=64; ``k13``: K13 (``ops/qchain.qchain``) on the three backbone
+segments beside kernel C's launches on the same input, in turns, B=8 and
+B=64; each with digests of the outputs, kernel C's in section ``c`` too;
+``k13blocks``, this tree's package only (it forces ``tile=``): K13 on
+one bottleneck at a time against kernel C on the same tile, at the 16
+block shapes, B=8 and B=64; and ``stemtile``, this tree's package
 only, since it needs ``qstem_conv``'s ``tile=``: K1 at 512x512, B=1, 2 and
 8, and at the COCO canvas, B=1 and 2, under ``ops/qstem.pick_stem_tile``'s
 tile and forced smaller ones, its outputs held equal to the chooser's).
@@ -166,7 +174,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
     parser.add_argument("--only", default="c,k4,k16,head,his,nms,stem",
-                        help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile")
+                        help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile, k11, k13, "
+                             "k13blocks")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -217,7 +226,7 @@ def main() -> int:
     if args.sweep:
         return sweep(qblock, block_operands, card)
     result = {"root": str(Path(args.root).resolve()), "card": card, "kernel_c": {}, "k4": {}, "k16": {}, "k7": {},
-              "k9": {}, "k5": {}, "nms": {}, "k1": {}, "digest": {}}
+              "k9": {}, "k5": {}, "nms": {}, "k1": {}, "k11": {}, "k13": {}, "digest": {}}
     with torch.inference_mode():
         if "c" in only:
             time_kernel_c(result, block_operands, card)
@@ -235,6 +244,12 @@ def main() -> int:
             time_stem(result, dev, args.seed, card)
         if "stemtile" in only:
             time_stem_tiles(result, dev, args.seed, card)
+        if "k11" in only:
+            time_k11(result, qconv, i8, vec, card)
+        if "k13" in only:
+            time_k13(result, qblock, i8, vec, card)
+        if "k13blocks" in only:
+            time_k13_blocks(result, qblock, i8, vec, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -246,11 +261,13 @@ def time_kernel_c(result, block_operands, card) -> None:
         for b in (8, 64):
             x = x64[:b].contiguous()
             fn = lambda: call(x)
+            result["digest"][f"c/{scope}/B{b}"] = digest([fn()])
             ms = cuda_ms(fn, iters=10 if b == 8 else 3)
             dev_ms = graph_ms(fn, iters=10 if b == 8 else 3)
             result["kernel_c"][f"{scope}/B{b}"] = ms
             result["kernel_c"][f"{scope}/B{b}/graph"] = dev_ms
-            print(f"kernel C {scope} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {dev_ms:.4f} ms", flush=True)
+            print(f"kernel C {scope} B={b} {tuple(x.shape)}: {ms:.4f} ms, graph {dev_ms:.4f} ms, digest "
+                  f"{result['digest'][f'c/{scope}/B{b}']}", flush=True)
     for b in (8, 64):
         tot = [sum(v for k, v in result["kernel_c"].items() if k.endswith(f"/B{b}{sfx}")) for sfx in ("", "/graph")]
         print(f"kernel C, the 16 blocks at B={b}: {tot[0]:.4f} ms, graph {tot[1]:.4f} ms {card}")
@@ -286,6 +303,145 @@ def time_k4(result, qconv, i8, vec, card) -> None:
             conv_lib = sum(result["k4"][f"{g[0]}/B{b}/int_mm{sfx}"] for g in gemms[3:])
             print(f"K4 at B={b}{' graph' if sfx else ''}: the 3 laterals {lat:.4f} ms (torch._int_mm {lib:.4f}), "
                   f"the 36 per-conv 1x1s {conv:.4f} ms (torch._int_mm {conv_lib:.4f}) {card}")
+
+
+def full_i8(shape, seed):
+    """int8 activations over the whole range, from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).cuda()
+
+
+def time_k11(result, qconv, i8, vec, card) -> None:
+    """K11 at the per-conv backend's 13 conv2 shapes (four stage shapes, run
+    3, 3, 5 and 2 times a forward) beside its plain version, B=8 and B=64."""
+    import torch
+
+    for b in (8, 64):
+        tot = {"": 0.0, "/graph": 0.0, "/plain": 0.0}
+        for hw, c, n in ((128, 64, 3), (64, 128, 3), (32, 256, 5), (16, 512, 2)):
+            x, wt = full_i8((b, hw, hw, c), hw), i8(c, 3, 3, c)
+            a, bb = vec(c, 9 * c)
+            fn = lambda: qconv.qconv3x3(x, wt, a, bb)
+            key = f"{hw}x{hw}x{c}/B{b}"
+            result["digest"][f"k11/{key}"] = digest([fn()])
+            it = 10 if b == 8 else 3
+            times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it),
+                     "/plain": cuda_ms(lambda: qconv.qconv3x3(x, wt, a, bb, plain=True), iters=2, reps=3)}
+            for sfx, v in times.items():
+                result["k11"][f"{key}{sfx}"] = v
+                tot[sfx] += n * v
+            macs = b * hw * hw * 9 * c * c
+            print(f"K11 {key} ({n} a forward): {times['']:.4f} ms (graph {times['/graph']:.4f}, "
+                  f"{macs / times['/graph'] / 1e9:.1f} T multiply-adds/s), plain {times['/plain']:.4f} ms, digest "
+                  f"{result['digest'][f'k11/{key}']}, {float((fn() > 0).float().mean()):.3f} positive", flush=True)
+        print(f"K11 per per-conv forward (13 launches) B={b}: {tot['']:.4f} ms, graph {tot['/graph']:.4f}, plain "
+              f"{tot['/plain']:.4f} {card}")
+
+
+def qtree_block(shape, i8, vec):
+    """(blk, stride): a random bottleneck of ``block_shapes()``'s ``shape``
+    in the backbone qtree's layout (the chain's input format)."""
+    import torch
+
+    scope, h, w, cin, cw, cout, stride = shape
+    blk = dict(w1=i8(cw, cin), w2=i8(cw, 3, 3, cw), w3=i8(cout, cw))
+    for k, (n, depth) in (("1", (cw, cin)), ("2", (cw, 9 * cw)), ("3", (cout, cw))):
+        blk[f"A{k}"], blk[f"B{k}"] = vec(n, depth)
+    if scope.endswith("_0"):
+        blk["wd"] = i8(cout, cin)
+        blk["Ad"], blk["Bd"] = vec(cout, cin)
+    else:
+        blk["short_mul"] = torch.tensor(0.7, dtype=torch.float32, device="cuda")
+    return blk, stride
+
+
+def kernel_c_chain(qblock, x, blocks, tiles=None):
+    """The chain's bottlenecks as kernel C launches, one a block (``tiles``:
+    each block's forced ``(tw, split)``)."""
+    for i, (blk, stride) in enumerate(blocks):
+        v = dict(a1=blk["A1"], b1=blk["B1"], a2=blk["A2"], b2=blk["B2"], a3=blk["A3"], b3=blk["B3"])
+        if tiles is not None:
+            v["tile"] = tiles[i]
+        if stride == 2:
+            x = qblock.qbottleneck_s2(x, blk["w1"], blk["w2"], blk["w3"], blk["wd"], ad=blk["Ad"], bd=blk["Bd"], **v)
+        elif "wd" in blk:
+            x = qblock.qbottleneck(x, blk["w1"], blk["w2"], blk["w3"], wd=blk["wd"], ad=blk["Ad"], bd=blk["Bd"], **v)
+        else:
+            x = qblock.qbottleneck(x, blk["w1"], blk["w2"], blk["w3"], short_mul=blk["short_mul"], **v)
+    return x
+
+
+def time_k13_blocks(result, qblock, i8, vec, card) -> None:
+    """K13 on one bottleneck at a time against kernel C on the same tile
+    (kernel C's chooser's, forced on both with ``tile=``), at the 16 block
+    shapes, B=8 and B=64: the chain's cost a tile, apart from its
+    residency and grid barriers; this tree's package only."""
+    import torch
+    from pytorch_object_detection_tpu_torch.ops import qchain
+
+    sm_count, smem_max = qblock.card_limits(torch.device("cuda"))
+    for shape in block_shapes():
+        scope, h, w, cin, cw, cout, stride = shape
+        blocks = [qtree_block(shape, i8, vec)]
+        x64 = full_i8((64, h, w, cin), h)
+        for b in (8, 64):
+            x = x64[:b].contiguous()
+            tile = qblock.pick_tile(b, h, w, cw, cout, stride, sm_count, smem_max)
+            want = kernel_c_chain(qblock, x, blocks, [tile])
+            got = qchain.qchain(x, blocks, tile=tile)
+            it = 10 if b == 8 else 3
+            kc = cuda_ms(lambda: kernel_c_chain(qblock, x, blocks, [tile]), iters=it)
+            k13 = cuda_ms(lambda: qchain.qchain(x, blocks, tile=tile), iters=it)
+            result["k13"][f"{scope}/B{b}/one"] = k13
+            result["k13"][f"{scope}/B{b}/one/kernel_c"] = kc
+            print(f"K13 one block {scope} B={b} tile {tile}: {k13:.4f} ms, kernel C {kc:.4f} ms (K13/C {k13 / kc:.3f}), "
+                  f"grid {qchain.qchain.grid}, {'equal' if torch.equal(got, want) else 'DIFFERENT'} {card}",
+                  flush=True)
+
+
+def time_k13(result, qblock, i8, vec, card) -> None:
+    """K13 on the three backbone segments beside kernel C's launches on the
+    same input and weights, in turns (K13, C, C, K13), B=8 and B=64."""
+    import torch
+    from pytorch_object_detection_tpu_torch.ops import qchain
+
+    shapes = block_shapes()
+    segments = [("c3", shapes[:7]), ("c4", shapes[7:13]), ("c5", shapes[13:])]
+    for name, seg in segments:
+        blocks = [qtree_block(shape, i8, vec) for shape in seg]
+        kernel_c = lambda x: kernel_c_chain(qblock, x, blocks)
+
+        _, h, w, cin, *_ = seg[0]
+        x64 = full_i8((64, h, w, cin), h)
+        for b in (8, 64):
+            x = x64[:b].contiguous()
+            key = f"{name}/B{b}"
+            got, want = qchain.qchain(x, blocks), kernel_c(x)
+            result["digest"][f"k13/{key}"] = digest([got])
+            result["digest"][f"k13/{key}/kernel_c"] = digest([want])
+            it = 10 if b == 8 else 3
+            k13 = lambda: qchain.qchain(x, blocks)
+            kc = lambda: kernel_c(x)
+            times = {"": [cuda_ms(k13, iters=it)], "/kernel_c": [cuda_ms(kc, iters=it), cuda_ms(kc, iters=it)]}
+            times[""].append(cuda_ms(k13, iters=it))
+            times["/graph"] = [graph_ms(k13, iters=it)]
+            times["/kernel_c/graph"] = [graph_ms(kc, iters=it)]
+            for sfx, v in times.items():
+                result["k13"][f"{key}{sfx}"] = statistics.mean(v)
+            print(f"K13 {key} ({len(blocks)} blocks) {tuple(x.shape)}: {times[''][0]:.4f}/{times[''][1]:.4f} ms "
+                  f"(graph {times['/graph'][0]:.4f}), kernel C {times['/kernel_c'][0]:.4f}/"
+                  f"{times['/kernel_c'][1]:.4f} ms (graph {times['/kernel_c/graph'][0]:.4f}); grid "
+                  f"{qchain.qchain.grid}; digests {result['digest'][f'k13/{key}']} / kernel C "
+                  f"{result['digest'][f'k13/{key}/kernel_c']}, {float((got > 0).float().mean()):.3f} positive",
+                  flush=True)
+    for b in (8, 64):
+        for sfx in ("", "/graph"):
+            k = sum(result["k13"][f"{n}/B{b}{sfx}"] for n, _ in segments)
+            c = sum(result["k13"][f"{n}/B{b}/kernel_c{sfx}"] for n, _ in segments)
+            print(f"K13 per forward (3 launches) B={b}{' graph' if sfx else ''}: {k:.4f} ms, kernel C's 16 launches "
+                  f"{c:.4f} ms (K13/C {k / c:.3f}) {card}")
 
 
 def k16_gemms():

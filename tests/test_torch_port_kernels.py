@@ -834,21 +834,32 @@ def _qconv3_case(b, h, w, cin, cout, device):
     return [t.to(device) for t in (x, wt, a, bias)]
 
 
+def _qconv3_tiles(h, w, cin, cout, device):
+    """Every (tw, split) K11 takes on this shape (fits, whole 16-channel
+    slices), and None: the chooser's."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+    from pytorch_object_detection_tpu_torch.ops.qconv import CONV3_SPLITS, CONV3_TILE_WIDTHS, conv3_smem_bytes
+
+    smem_max = card_limits(torch.device(device))[1]
+    return [None] + [(tw, sp) for tw in CONV3_TILE_WIDTHS for sp in CONV3_SPLITS
+                     if cout % (16 * sp) == 0 and conv3_smem_bytes(tw, cin) <= smem_max]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", QCONV3_SHAPES, ids=["s1_128", "s2_64", "s3_32", "s4_16", "odd", "cout80"])
 def test_qconv3x3_kernel_matches_plain_exactly(cuda, shape):
     """K11: 0 differing int8 elements against ``conv_i8`` + the epilogue on
-    the card and on the CPU, whatever the band height; one launch each."""
+    the card and on the CPU, under every tile it takes; one launch each."""
     x, wt, a, b = _qconv3_case(*shape, cuda)
     want = qconv3x3(x, wt, a, b, plain=True)
     assert torch.equal(want.cpu(), qconv3x3(*(t.cpu() for t in (x, wt, a, b))))
-    for rows in (None, 1, 3):
+    for tile in _qconv3_tiles(*shape[1:], cuda):
         before = qconv3x3.launches
-        got = qconv3x3(x, wt, a, b, rows=rows)
+        got = qconv3x3(x, wt, a, b, tile=tile)
         torch.cuda.synchronize()
         assert qconv3x3.launches == before + 1
         assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
-        assert torch.equal(got, want), f"rows={rows}: {int((got != want).sum())} of {want.numel()} differ"
+        assert torch.equal(got, want), f"tile={tile}: {int((got != want).sum())} of {want.numel()} differ"
     assert 0.05 < (want > 0).float().mean() and (want == 127).float().mean() < 0.05  # not degenerate
 
 
@@ -910,24 +921,45 @@ SEGMENT_SPECS = {
 }
 
 
+def _chain_tiles(blocks, h, w, cin, device):
+    """None (the chooser's), each (tw, split) that every block of the chain
+    takes, and per block the largest split it takes (mixed cluster sizes)."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import SPLITS, TILE_WIDTHS, card_limits
+    from pytorch_object_detection_tpu_torch.ops.qchain import chain_shapes, chain_smem_bytes
+
+    convs = [(hi, wi, blk["w1"].shape[0], cout, s)
+             for (blk, s), ((hi, wi, _), (_, _, cout)) in zip(blocks, chain_shapes((h, w, cin), blocks))]
+    smem_max = card_limits(torch.device(device))[1]
+    takes = lambda t, c: c[2] % (16 * t[1]) == 0 and c[3] % (16 * t[1]) == 0
+    uniform = [(tw, sp) for tw in TILE_WIDTHS for sp in SPLITS if (tw == 8 or sp == 1)
+               and all(takes((tw, sp), c) for c in convs) and chain_smem_bytes(convs, [(tw, sp)] * len(convs)) <= smem_max]
+    widest = [(8, max(sp for sp in SPLITS if takes((8, sp), c))) for c in convs]
+    return [None] + uniform + [widest]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 8])
 @pytest.mark.parametrize("seg", list(SEGMENT_SPECS))
-def test_qchain_kernel_matches_kernel_c_exactly(cuda, seg):
+def test_qchain_kernel_matches_kernel_c_exactly(cuda, seg, batch):
     """K13 (one cooperative launch per chain) against kernel C block after
-    block and against the plain chain, B=2: 0 differing int8 elements."""
+    block and against the plain chain: 0 differing int8 elements under the
+    chooser's tiles and forced ones (every tile each block takes, and each
+    block's largest cluster)."""
     (h, w), specs = SEGMENT_SPECS[seg]
     blocks = _chain(specs, len(seg) + h, cuda)
-    x = torch.randint(-127, 128, (2, h, w, specs[0][0]), generator=torch.Generator().manual_seed(h),
+    x = torch.randint(-127, 128, (batch, h, w, specs[0][0]), generator=torch.Generator().manual_seed(h),
                       dtype=torch.int8).to(cuda)
     want = x
     for blk, stride in blocks:
         want = run_port_block(blk, want, stride)
-    before = (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches)
-    got = qchain(x, blocks)
-    torch.cuda.synchronize()
-    assert (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches) == (before[0] + 1, *before[1:])
-    assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
-    assert torch.equal(got, want), f"{seg}: {int((got != want).sum())} of {want.numel()} differ from kernel C"
+    for tile in _chain_tiles(blocks, h, w, specs[0][0], cuda):
+        before = (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches)
+        got = qchain(x, blocks, tile=tile)
+        torch.cuda.synchronize()
+        assert (qchain.launches, qbottleneck.launches, qbottleneck_s2.launches) == (before[0] + 1, *before[1:])
+        assert got.dtype == torch.int8 and got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got, want), (f"{seg} B={batch} tile={tile}: {int((got != want).sum())} of "
+                                        f"{want.numel()} differ from kernel C")
     assert torch.equal(qchain(x, blocks, plain=True), want)
     assert 0 < (want > 0).float().mean()
 

@@ -1,7 +1,8 @@
 """The tile choosers of kernel C (``ops/qblock.pick_tile``), K4
 (``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``), K7/K9
-(``ops/qhead.pick_head_tile``), K5 (``ops/qhis.pick_his_tile``) and K1
-(``ops/qstem.pick_stem_tile``), in plain Python with an H100's limits: 132
+(``ops/qhead.pick_head_tile``), K5 (``ops/qhis.pick_his_tile``), K1
+(``ops/qstem.pick_stem_tile``), K11 (``ops/qconv.pick_conv3_tile``) and
+K13 (``ops/qchain.pick_chain_tile``), in plain Python with an H100's limits: 132
 SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
@@ -14,7 +15,9 @@ HisBlocks of the 512x512 canvas, B = 1, 2, 8 and 64, narrow blocks, odd
 sizes and 1x1 maps; K1 on the 512x512 and 896x1408 canvases and odd pooled
 sizes, B = 1, 2, 8 and 64, and a plain-Python model of one K1 block's
 implicit GEMM (its staged frame rows, s2d patch and K steps) against the
-int32 conv.  No card and no JAX needed.
+int32 conv; K11 at the four stages' conv2 shapes and odd ones, and K13 on
+the three backbone segments and an odd chain, B = 1, 2, 8 and 64, with a
+Python run of K13's persistent loop.  No card and no JAX needed.
 """
 from __future__ import annotations
 
@@ -23,9 +26,12 @@ import pytest
 import torch
 
 from pytorch_object_detection_tpu_torch.ops.qblock import (
-    TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
+    SPLITS, TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
 from pytorch_object_detection_tpu_torch.ops.fused import K16_BM, k16_smem_bytes, pick_k16_tile
-from pytorch_object_detection_tpu_torch.ops.qconv import QMM_BM, QMM_STEP, pick_qmm_tile, qmm_smem_bytes
+from pytorch_object_detection_tpu_torch.ops.qchain import chain_smem_bytes, pick_chain_tile, tile_blocks, two_per_sm
+from pytorch_object_detection_tpu_torch.ops.qconv import (
+    CONV3_SPLITS, CONV3_TILE_ROWS, CONV3_TILE_WIDTHS, QMM_BM, QMM_STEP, conv3_blocks, conv3_smem_bytes,
+    pick_conv3_tile, pick_qmm_tile, qmm_smem_bytes)
 from pytorch_object_detection_tpu_torch.ops.qhead import (
     HEAD_PASSES, HEAD_TILE, PRED_NC, head_blocks, head_ipbs, head_pass_width, head_slices, head_smem_bytes,
     head_tile_dims, pick_head_tile)
@@ -646,3 +652,137 @@ def test_k1_requant_without_conversions_is_exact():
     want = np.nan_to_num(np.minimum(np.rint(np.fmax(y, np.float32(0))), np.float32(127))).astype(np.int32)
     got = (np.fmin(np.fmax(y, np.float32(0)), np.float32(127)) + magic).view(np.int32) & 0xFF
     np.testing.assert_array_equal(got, want)
+
+
+# K11 (batch, H, W, Cin, Cout): conv2 of the four ResNet-50 stages at the
+# 512x512 canvas, odd sizes and a Cout that is not a multiple of 32
+K11_SHAPES = [(128, 128, 64, 64), (64, 64, 128, 128), (32, 32, 256, 256), (16, 16, 512, 512), (13, 11, 32, 48),
+              (5, 7, 16, 80)]
+K11_CASES = [(b, *s) for b in (1, 2, 8, 64) for s in K11_SHAPES]
+K11_IDS = [f"B{b}-{h}x{w}-{cin}to{cout}" for b, h, w, cin, cout in K11_CASES]
+
+
+@pytest.mark.parametrize("case", K11_CASES, ids=K11_IDS)
+def test_k11_blocks_cover_each_output_once(case):
+    """Every (image, output position, output channel) belongs to exactly one
+    thread block, as csrc/qconv3.cu's qconv3_kernel derives its tile
+    (blockIdx / split, image-major) and channel slice (blockIdx % split)."""
+    b, h, w, cin, cout = case
+    tw, split = pick_conv3_tile(b, h, w, cin, cout, SM_COUNT, SMEM_MAX)
+    ty, tx = -(-h // CONV3_TILE_ROWS), -(-w // tw)
+    seen = np.zeros((b, ty * CONV3_TILE_ROWS, tx * tw, cout), np.int32)
+    nc = cout // split
+    for blk in range(conv3_blocks(b, h, w, tw, split)):
+        tile, q = divmod(blk, split)
+        img, rem = divmod(tile, ty * tx)
+        y0, x0 = (rem // tx) * CONV3_TILE_ROWS, (rem % tx) * tw
+        seen[img, y0:y0 + CONV3_TILE_ROWS, x0:x0 + tw, q * nc:(q + 1) * nc] += 1
+    assert (seen[:, :h, :w] == 1).all()
+    assert nc % 16 == 0 and tw in CONV3_TILE_WIDTHS
+
+
+@pytest.mark.parametrize("case", K11_CASES, ids=K11_IDS)
+def test_k11_tile_fits_shared_memory_two_an_sm_where_it_fills(case):
+    """The block fits; where some tile gives every SM a block with two
+    blocks' shared memory on an SM, the chooser's does."""
+    b, h, w, cin, cout = case
+    tw, split = pick_conv3_tile(b, h, w, cin, cout, SM_COUNT, SMEM_MAX)
+    assert conv3_smem_bytes(tw, cin) <= SMEM_MAX
+    two = lambda t: 2 * (conv3_smem_bytes(t[0], cin) + 1024) <= SMEM_MAX + 1024
+    options = [(t, s) for t in CONV3_TILE_WIDTHS for s in CONV3_SPLITS if cout % (16 * s) == 0]
+    if any(conv3_blocks(b, h, w, *o) >= SM_COUNT and two(o) for o in options):
+        assert conv3_blocks(b, h, w, tw, split) >= SM_COUNT and two((tw, split))
+
+
+@pytest.mark.parametrize("shape", K11_SHAPES[:4], ids=["128", "64", "32", "16"])
+def test_k11_fills_the_card_at_b8(shape):
+    """At B=8 every stage shape gives each SM a block, two an SM where its
+    shared memory allows: on the 32x32 and 16x16 maps by channel slices."""
+    h, w, cin, cout = shape
+    tw, split = pick_conv3_tile(8, h, w, cin, cout, SM_COUNT, SMEM_MAX)
+    assert conv3_blocks(8, h, w, tw, split) >= SM_COUNT
+    assert 2 * (conv3_smem_bytes(tw, cin) + 1024) <= SMEM_MAX + 1024
+    assert (split > 1) == (h <= 32), (h, tw, split)
+
+
+def _segments():
+    """(name, input (H, W, Cin), convs) of the three backbone chains at the
+    512x512 canvas (C3: layer1_0 .. layer2_3, C4: layer3_*, C5: layer4_*)
+    and an odd-sized one with mixed splits; convs per block (H, W, Cw,
+    Cout, stride)."""
+    shapes = resnet50_block_shapes()
+    segs = [("c3", shapes[:7]), ("c4", shapes[7:13]), ("c5", shapes[13:])]
+    out = [(name, seg[0][1:4], tuple((h, w, cw, cout, s) for _, h, w, _, cw, cout, s in seg)) for name, seg in segs]
+    odd = ((13, 11, 16, 64, 1), (13, 11, 16, 64, 1), (13, 11, 32, 96, 2), (7, 6, 32, 96, 1))
+    return out + [("odd", (13, 11, 32), odd)]
+
+
+K13_CASES = [(b, seg) for b in (1, 2, 8, 64) for seg in _segments()]
+K13_IDS = [f"B{b}-{seg[0]}" for b, seg in K13_CASES]
+
+
+def chain_residency(convs, tiles, cluster):
+    """Clusters of K13 that can be resident at once, as counted by the SMs'
+    shared memory (at most two blocks an SM, the registers' cap): an upper
+    bound on what cudaOccupancyMaxActiveClusters gives csrc/qchain.cu."""
+    per_sm = 2 if two_per_sm(chain_smem_bytes(convs, tiles), SMEM_MAX) else 1
+    return per_sm * SM_COUNT // cluster
+
+
+@pytest.mark.parametrize("case", K13_CASES, ids=K13_IDS)
+def test_k13_work_items_cover_each_output_once(case):
+    """csrc/qchain.cu's persistent loop, run in Python: each resident
+    cluster walks its rounds of tiles, rank r of a cluster of S taking tile
+    base + r // s and channel slice r % s of a block whose split is s;
+    every (image, output position, slice) of every block is taken once, and
+    the grid is no larger than what can be resident."""
+    b, (_, _, convs) = case
+    tiles, cluster = pick_chain_tile(b, convs, SM_COUNT, SMEM_MAX)
+    assert all(cluster % split == 0 for _, split in tiles) and cluster in SPLITS
+    rounds = [-(-b * tile_blocks(*out_hw(h, w, s), tw) // (cluster // sp))
+              for (h, w, _, _, s), (tw, sp) in zip(convs, tiles)]
+    clusters = min(max(rounds), chain_residency(convs, tiles, cluster))
+    assert 1 <= clusters * cluster <= 2 * SM_COUNT
+    for (h, w, cw, cout, s), (tw, sp) in zip(convs, tiles):
+        ho, wo = out_hw(h, w, s)
+        n, per = b * tile_blocks(ho, wo, tw), cluster // sp
+        seen = np.zeros((n, sp), np.int32)
+        for cid in range(clusters):
+            for base in range(cid * per, n, clusters * per):
+                for rank in range(cluster):
+                    if base + rank // sp < n:
+                        seen[base + rank // sp, rank % sp] += 1
+        assert (seen == 1).all()
+        assert cw % (16 * sp) == 0 and cout % (16 * sp) == 0
+        covered = np.zeros((b, ho, wo), np.int32)  # the tiles partition each image's map
+        ty, tx = tile_grid(ho, wo, tw)
+        for t in range(n):
+            img, rem = divmod(t, ty * tx)
+            covered[img, (rem // tx) * TILE_ROWS:(rem // tx + 1) * TILE_ROWS, (rem % tx) * tw:(rem % tx + 1) * tw] += 1
+        assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("case", K13_CASES, ids=K13_IDS)
+def test_k13_tiles_fit_one_launch(case):
+    """The launch's shared memory (its largest tile) fits a block; where
+    every block has a kernel C tile that leaves room for two blocks an SM,
+    the chooser's do; otherwise each block's tile is kernel C's rule under
+    one block an SM."""
+    b, (_, _, convs) = case
+    tiles, _ = pick_chain_tile(b, convs, SM_COUNT, SMEM_MAX)
+    nbytes = chain_smem_bytes(convs, tiles)
+    assert nbytes <= SMEM_MAX
+    fits_two = all(two_per_sm(smem_bytes(s, 8, cw), SMEM_MAX) for _, _, cw, _, s in convs)
+    assert two_per_sm(nbytes, SMEM_MAX) == fits_two
+    if fits_two:
+        assert tiles == tuple(pick_tile(b, h, w, cw, cout, s, SM_COUNT, SMEM_MAX) for h, w, cw, cout, s in convs)
+
+
+@pytest.mark.parametrize("seg", _segments()[:3], ids=["c3", "c4", "c5"])
+def test_k13_fills_the_card_at_b8(seg):
+    """At B=8 every bottleneck of the three segments gives each SM at
+    least one work item (tiles x cluster blocks)."""
+    _, _, convs = seg
+    tiles, _ = pick_chain_tile(8, convs, SM_COUNT, SMEM_MAX)
+    for (h, w, _, _, s), (tw, sp) in zip(convs, tiles):
+        assert 8 * tile_blocks(*out_hw(h, w, s), tw) * sp >= SM_COUNT, (h, s, tw, sp)
