@@ -97,7 +97,10 @@ Phases (each prints its results on its own lines):
      0 kernel B, 1 A); finite detections; maps against its plain run; K15
      against its plain version at the five levels of that call and on random
      inputs (K15_MAX_ERR of each output's range, cosine >= K15_MIN_COS);
-     K15's maps against the bf16 float head on the same levels;
+     K15's maps against the bf16 float head on the same levels; K15 at
+     those levels, B=8 and repeated to B=64, under every block its chooser
+     weighs for each pass (ops/head.fhead_options): within the same
+     contract, and equal to its output under the chooser's tiles;
   5l. K4': the three epilogues of the timing harness at [1048576, 64] x
      [64, 256] against their plain versions (exact), counted (3);
   5m. the float MNFCOS pipeline: full-width MNFCOS(20, 256) from a seed
@@ -117,6 +120,9 @@ Phases (each prints its results on its own lines):
      0.999); (iii) K12 against its plain version on the 15 calls' own
      inputs and on random blocks at 28x44, 7x11 and 1x1, C = 64 and 128
      (at most one step on under 1e-3 of the elements; the count printed);
+     K12 on the 15 calls' inputs, B=8 and repeated to B=64, under every
+     tile it takes (ops/qmnblock.mn_options), equal to its output under
+     the chooser's tile bit for bit;
   6. timing with CUDA events: kernel vs plain for A, B, C (per block
      shape at B=8, and at B=64 the kernel alone: each with its bound, its
      rate, its tile, cluster split and conv1 recompute), K1 (B=8, and the
@@ -148,7 +154,9 @@ Phases (each prints its results on its own lines):
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
      GroupNorm statistics) and K5's (his_produce, his_mid, his_out); 6g splits the fused head's device time at B=64
      into the NCHW -> NHWC copies of the levels, K15 and the output casts,
-     beside the float head's.
+     beside the float head's, and K15's device time at each level by its
+     CUDA kernels (fhead_pw1, fhead_dw, fhead_pw2, fhead_towers[_wg],
+     fhead_pred); 6h times K12's 15 calls at B=64 one by one.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -1161,6 +1169,19 @@ def main() -> int:
                                 fused.matmul_bn_act(x, w, sc, sh, rr, act, plain=True),
                                 f"K16 random [{m}, {k}] x [{k}, {n}] act {act} residual {rr is not None}")
 
+    def k15_errors(got, want, nc):
+        """K15's worst max |diff| over the output's range and least cosine
+        against its plain version, over the three outputs."""
+        torch.cuda.synchronize()
+        err, cos = 0.0, 1.0
+        for sl in (slice(0, nc), slice(nc, nc + 1), slice(nc + 1, nc + 5)):
+            a, b = got[..., sl].float(), want[..., sl].float()
+            if not bool(torch.isfinite(a).all()):
+                return float("inf"), 0.0
+            err = max(err, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            cos = min(cos, cosine(a, b))
+        return err, cos
+
     def k15_compare(got, want, nc, what):
         """K15 against its plain version, per output: max |diff| over the
         output's range and cosine; the worst kept."""
@@ -1234,6 +1255,29 @@ def main() -> int:
                                                    f"cosine {c:.6f} (min {INT8_COS_MIN})")
         res["k15_vs_float_head"] = min(cosines)
         res["k15_float_head"] = (float_head, levels_nchw)
+
+        # K15 under every tile its chooser weighs: each pass's options one at a
+        # time (the chooser's for the others), at the five levels of that call,
+        # B=8 and the levels repeated to B=64; within the contract against the
+        # plain version, and equal to the output under the chooser's tiles
+        smem_max = qblock.card_limits(dev)[1]
+        with torch.inference_mode():
+            for i, ((x, packed, nc_), _) in enumerate(res["k15_calls"]):
+                for xb in (x, x.repeat(8, 1, 1, 1)):
+                    b, h, w, f = xb.shape
+                    base = head.hishead_level_fused(xb, packed, nc_)
+                    want = head.hishead_level_fused(xb, packed, nc_, plain=True)
+                    n = same = 0
+                    worst = [0.0, 1.0]
+                    for pass_ in head.FHEAD_PASSES:
+                        for opt in head.fhead_options(pass_, b, h, w, f, nc_, smem_max):
+                            got = head.hishead_level_fused(xb, packed, nc_, tile={pass_: opt})
+                            err, c = k15_errors(got, want, nc_)
+                            worst[:] = [max(worst[0], err), min(worst[1], c)]
+                            n, same = n + 1, same + bool(torch.equal(got, base))
+                    smoke.check(worst[0] <= K15_MAX_ERR and worst[1] >= K15_MIN_COS and same == n,
+                                f"K15 P{i + 3} B={b} under {n} forced tiles: max err {worst[0]:.4g} of the range, "
+                                f"cosine {worst[1]:.8f}, {same} of {n} equal to the chooser's tile's output")
 
     def phase5l():
         inp = qmm_variants.make_inputs(device=dev, seed=SEED + 12)
@@ -1396,6 +1440,21 @@ def main() -> int:
                         compare((blk, sc, x, k, dil), "random")
         res["k12_err"] = total[0]
         print(f"  K12 vs plain: {total[1]} of {total[2]} int8 elements differ, max {total[0]} step {card}")
+
+        # K12 under every tile it takes, at the 15 calls (B=8) and their inputs
+        # repeated to B=64: equal to its output under the chooser's tile, bit for bit
+        smem_max = qblock.card_limits(dev)[1]
+        with torch.inference_mode():
+            for i, ((blk, sc, x, k, dil), _) in enumerate(res["mn_calls"]["qmnblock"]):
+                for xb in (x, x.repeat(8, 1, 1, 1)):
+                    b, h, w, c = xb.shape
+                    base = qmnblock.qmnblock(blk, sc, xb, k, dil)
+                    opts = qmnblock.mn_options(b, h, w, c, blk["w1"].shape[0], k, dil, smem_max)
+                    differ = [o for o in opts if not torch.equal(qmnblock.qmnblock(blk, sc, xb, k, dil, tile=o), base)]
+                    pick = qmnblock.pick_mn_tile(b, h, w, c, blk["w1"].shape[0], k, dil, *qblock.card_limits(dev))
+                    smoke.check(not differ, f"K12 call {i + 1} B={b} {h}x{w} k{k} d{dil}: under {len(opts)} forced "
+                                            f"tiles (tw, ipb, split) equal to the chooser's {pick}"
+                                            + (f"; differ under {differ}" if differ else ""))
 
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
@@ -2010,7 +2069,7 @@ def main() -> int:
         copies that feed K15, K15's five launches, and the casts and
         ScaleExp after them; beside the bf16 float head with kernel B and
         its NCHW -> NHWC f32 outputs, the head it replaces."""
-        phase6_profile(res["hpipe"], ("qblock_kernel", "fhead_", "nms_"))
+        phase6_profile(res["hpipe"], ("qblock_kernel", "fhead_", "nms_"), ("fhead_",))
         model, nc = res["model"], res["model"].num_classes
         float_head, levels8 = res["k15_float_head"]
         levels = [lv.repeat(8, 1, 1, 1) for lv in levels8]
@@ -2031,10 +2090,54 @@ def main() -> int:
             t_float = cuda_ms(lambda: float_head(levels), iters=10)
             f_outs = float_head(levels)
             t_ftail = cuda_ms(lambda: [[o.permute(0, 2, 3, 1).float() for o in b] for b in f_outs], iters=10)
+            splits = [kernel_split(lambda: head.hishead_level_fused(x, packed, nc), "fhead_", 3) for x in nhwc]
         fused, floated = t_seam + t_k15 + t_tail, t_float + t_ftail
         print(f"  the head per B=64 call: fused {fused:.4f} ms = NCHW -> NHWC copies {t_seam:.4f} + K15 {t_k15:.4f} "
               f"+ casts and ScaleExp {t_tail:.4f}; float head {floated:.4f} ms = convs and kernel B {t_float:.4f} "
               f"+ NHWC f32 outputs {t_ftail:.4f}; fused - float {fused - floated:+.4f} ms {card}")
+        for i, (x, split) in enumerate(zip(nhwc, splits)):
+            print(f"  K15 P{i + 3} {tuple(x.shape)} by CUDA kernel, device ms a call: "
+                  + (", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items())) or "not measured"))
+
+    def phase6h():
+        """The MNFCOS int8-ladder profile, then K12's time by call at B=64 (one
+        CUDA kernel a call: CUDA events over back-to-back launches), on the
+        15 calls phase 5n recorded (inputs repeated to 64 images), each under
+        its chooser's tile."""
+        phase6_profile(res["lpipe"], ("qstem_kernel", "qblock_kernel", "qmnblock_kernel", "nms_"),
+                       ("qmnblock_kernel",))
+        sm_count, smem_max = qblock.card_limits(dev)
+        total = 0.0
+        with torch.inference_mode():
+            for i, ((blk, sc, x, k, dil), _) in enumerate(res["mn_calls"]["qmnblock"]):
+                xb = x.repeat(8, 1, 1, 1)
+                b, h, w, c = xb.shape
+                ms = cuda_ms(lambda: qmnblock.qmnblock(blk, sc, xb, k, dil), iters=10, reps=3)
+                total += ms
+                tile = qmnblock.pick_mn_tile(b, h, w, c, blk["w1"].shape[0], k, dil, sm_count, smem_max)
+                print(f"  K12 call {i + 1} {tuple(xb.shape)} k{k} d{dil} tile {tile}: {ms:.4f} ms")
+        print(f"  K12, the 15 calls at B=64: {total:.4f} ms {card}")
+
+    def kernel_split(fn, prefix, iters):
+        """Device ms per call of each CUDA kernel whose name starts with
+        ``prefix`` (template arguments dropped), over ``iters`` calls under
+        torch.profiler; {} where the profiler sees no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            m = re.search(r"\b" + prefix + r"\w*", e.key)
+            if m and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                t = getattr(e, "self_device_time_total", None)
+                t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+                parts[m.group(0)] = parts.get(m.group(0), 0.0) + t / 1000.0 / iters
+        return parts
 
     smoke.phase("phase 1: device", phase1)
     smoke.phase("phase 2: build", phase2)
@@ -2090,10 +2193,9 @@ def main() -> int:
         smoke.phase("phase 6f: profile, per-conv pipeline", phase6_profile, res["paths"]["per-conv"][0],
                     ("qstem_kernel", "qconv3_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
     if "hpipe" in res:
-        smoke.phase("phase 6g: profile, fused-head pipeline; the head's split", phase6g)
+        smoke.phase("phase 6g: profile, fused-head pipeline; the head's split, K15 by CUDA kernel", phase6g)
     if "lpipe" in res:
-        smoke.phase("phase 6h: profile, MNFCOS int8-ladder pipeline", phase6_profile, res["lpipe"],
-                    ("qstem_kernel", "qblock_kernel", "qmnblock_kernel", "nms_"))
+        smoke.phase("phase 6h: profile, MNFCOS int8-ladder pipeline; K12 by call", phase6h)
     if "chained" in res.get("paths", {}):
         smoke.phase("phase 6i: profile, chained pipeline", phase6_profile, res["paths"]["chained"][0],
                     ("qstem_kernel", "qchain_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))

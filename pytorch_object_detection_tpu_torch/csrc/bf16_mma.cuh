@@ -1,5 +1,5 @@
-// The bf16 tensor-core GEMM tile shared by K16 (csrc/fused.cu) and the four
-// GEMM stages of K15 (csrc/head.cu).
+// The bf16 tensor-core GEMM tile of K16's unaligned path (csrc/fused.cu:
+// operands whose K or pointers do not allow 16-byte copies).
 //
 // A thread block of 8 warps owns a BM x BN tile of C = A[M, K] x B[N, K]^T
 // (B is K-contiguous per output column: the port's OIHW weight as it is).
@@ -13,10 +13,7 @@
 //
 // A and B come through loader functors: ``uint4 operator()(int row, int k)``
 // returns the 8 bf16 at tile row ``row`` and absolute depth k..k+7, zeros
-// outside the matrix.  The loaders do what the producer of the operand
-// would otherwise write to device memory: K15's GroupNorm + activation of
-// the previous stage's map and its 3x3 im2col happen here, on the way into
-// shared memory.
+// outside the matrix.
 //
 // bf16 values move as raw 16-bit words (uint16_t); bf2f widens exactly and
 // f2bf rounds to nearest even, as the reference's astype(bfloat16) does.
@@ -35,10 +32,6 @@ constexpr int kPitch = kBK + 8;
 __device__ __forceinline__ float bf2f(uint16_t h) { return __uint_as_float(static_cast<uint32_t>(h) << 16); }
 
 __device__ __forceinline__ uint16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
-
-// one bf16 operation: computed in f32, rounded once (exact for a product of
-// two bf16 values, which f32 holds exactly)
-__device__ __forceinline__ float bf16r(float v) { return bf2f(f2bf(v)); }
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
@@ -183,58 +176,6 @@ struct Tile {
       }
       if (step + 1 < steps) stage(sm, s ^ 1, ra, rb);
       __syncthreads();  // stage s^1 written; stage s free for the next fetch
-    }
-  }
-
-  // per-column sum and sum of squares of acc over tile rows < rows, written
-  // to psum[n0 + c], psq[n0 + c] for columns n0 + c < n (one block's partial
-  // statistics); red: 2 * WARPS_M * BN floats of shared memory
-  static __device__ __forceinline__ void column_stats(const Acc& acc, int rows, float* red, float* psum, float* psq,
-                                                      int n0, int n) {
-    float s[NT][2], q[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float sj = 0.0f, qj = 0.0f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (row(mt, 2 * h) < rows) {
-              const float v = acc[mt][nt][2 * h + j];
-              sj += v;
-              qj += v * v;
-            }
-          }
-        // the 8 lanes that share this column (same t, g = 0..7)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          sj += __shfl_xor_sync(0xffffffffu, sj, o);
-          qj += __shfl_xor_sync(0xffffffffu, qj, o);
-        }
-        s[nt][j] = sj;
-        q[nt][j] = qj;
-      }
-    if (lane_g() == 0) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          red[wm() * BN + col(nt, j)] = s[nt][j];
-          red[(WARPS_M + wm()) * BN + col(nt, j)] = q[nt][j];
-        }
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < BN; c += kThreads) {
-      if (n0 + c >= n) continue;
-      float sc = 0.0f, qc = 0.0f;
-      for (int w = 0; w < WARPS_M; ++w) {
-        sc += red[w * BN + c];
-        qc += red[(WARPS_M + w) * BN + c];
-      }
-      psum[n0 + c] = sc;
-      psq[n0 + c] = qc;
     }
   }
 };

@@ -1,8 +1,9 @@
 // The int8 tensor-core tile shared by K4 (csrc/qmm_tile.cuh, csrc/qconv.cu,
 // csrc/qmm_variants.cu), kernel C, K13 and K11 (csrc/qblock_tile.cuh, under
 // csrc/qblock.cu, csrc/qchain.cu and csrc/qconv3.cu), K7/K9 (csrc/qhead.cu),
-// K5 (csrc/qhis.cu) and K1 (csrc/qstem.cu); K16 (csrc/fused.cu) takes its
-// cp.async helpers and sum_at() for its bf16 wgmma ring.
+// K5 (csrc/qhis.cu), K1 (csrc/qstem.cu) and K12 (csrc/qmnblock.cu), and in
+// bf16 by K15's 64-row blocks (csrc/head.cu); K16 (csrc/fused.cu) and K15's
+// wgmma kernels take its cp.async helpers and sum_at().
 //
 // A thread block of 8 warps computes an MC x NC block of exact int32 sums
 // C[m, n] = sum_k A[m, k] * B[n, k], both operands K-contiguous int8 (NHWC
@@ -12,16 +13,24 @@
 // on it, its fragments loaded from shared memory by ldmatrix (.x4: one m16
 // A fragment of 32 bytes, or two n8 B fragments).  No .satfinite: |acc|
 // stays at or below 127^2 * 4608 < 2^31 on every shape the port runs, so
-// the int32 sums are exact in any order.
+// the int32 sums are exact in any order.  MmaTile<..., float> runs the same
+// tile on bf16 operands, mma.sync m16n8k16 with f32 sums: an m16 x k16 bf16
+// fragment covers the bytes of an m16 x k32 int8 one, so the staging and
+// the ldmatrix addressing are the same.
 //
-// K is walked in steps of 64 bytes (two mma k32 slices).  Operands that
-// come from device memory are staged by cp.async.cg 16-byte copies into a
-// ring of stages (pipeline() below): while the tensor cores work on one
-// step, the next steps' copies are in flight.  Staged rows are 64 bytes with
-// their four 16-byte chunks XOR-swizzled (swz64), so the eight rows of an
-// ldmatrix matrix hit 32 distinct banks (a dense 64-byte pitch gives a
-// 4-way conflict).  Operands that live in shared memory already (kernel C's
-// a1 and a2, K11's input halo) use swz() on their own row length.
+// K is walked in steps of 64 bytes (two mma k32 slices, or two k16 in
+// bf16).  Operands that come from device memory are staged by cp.async.cg
+// 16-byte copies into a ring of stages (pipeline() below): while the tensor
+// cores work on one step, the next steps' copies are in flight.  Staged
+// rows are 64 bytes with their four 16-byte chunks XOR-swizzled (swz64), so
+// the eight rows of an ldmatrix matrix hit 32 distinct banks (a dense
+// 64-byte pitch gives a 4-way conflict).  Operands that live in shared
+// memory already (kernel C's a1 and a2, K11's input halo) use swz() on
+// their own row length.  step() issues each mma right after the ldmatrix
+// it needs (asm volatile keeps that order); step_mt(), which K12 and K15
+// use, loads every fragment of the step first, so the loads' latency
+// overlaps, and takes the A address by m16 tile, so a caller can keep its
+// lane's rows in registers.
 //
 // The accumulator fragment's layout gives the epilogue its (m, n): lane l
 // holds rows l/4 and l/4 + 8, columns 2*(l%4) + {0, 1} of each m16n8 tile.
@@ -64,6 +73,25 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same fragments as bf16: an m16 x k16 A fragment and an n8 x k16 B
+// fragment cover the bytes of an m16 x k32 / n8 x k32 int8 one, in the same
+// registers, so ldmatrix loads both alike; f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the tile's mma by its sums' type: int8 operands for int sums, bf16 for f32
+__device__ __forceinline__ void mma_op(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_s8(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_op(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_bf16(d, a, b0, b1);
 }
 
 // byte offset of 16-byte chunk c of row r in a staged strip of 64-byte rows:
@@ -110,15 +138,17 @@ __device__ __forceinline__ void pipeline(int steps, const Issue& issue, const Co
   __syncthreads();
 }
 
-// An MC x NC block of int32 sums over 8 warps (WARPS_M x 8 / WARPS_M).
-template <int MC_, int NC_, int WARPS_M_>
+// An MC x NC block of sums over 8 warps (WARPS_M x 8 / WARPS_M): int32 of
+// int8 operands (Acc = int), or f32 of bf16 operands (Acc = float: a 64-byte
+// step is then 32 bf16 of K, two k16 slices).
+template <int MC_, int NC_, int WARPS_M_, class Acc = int>
 struct MmaTile {
   static constexpr int MC = MC_, NC = NC_, WARPS_M = WARPS_M_, WARPS_N = 8 / WARPS_M_;
   static constexpr int WM = MC / WARPS_M, WN = NC / WARPS_N;  // one warp's part
   static constexpr int MT = WM / 16, NT = WN / 8;             // its m16 and n8 tiles
   static_assert(WARPS_M * WARPS_N == 8 && MT * 16 == WM && NT * 8 == WN && NT % 2 == 0, "whole fragments");
 
-  int acc[MT][NT][4];
+  Acc acc[MT][NT][4];
 
   static __device__ __forceinline__ int lane() { return threadIdx.x & 31; }
   static __device__ __forceinline__ int wm() { return (threadIdx.x >> 5) / WARPS_N; }
@@ -137,7 +167,7 @@ struct MmaTile {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = Acc(0);
   }
 
   // acc += A[rows, step] x B[cols, step]^T over one 64-byte step.
@@ -160,11 +190,41 @@ struct MmaTile {
         ldsm_x4(af, a_addr(mt_row0(mt) + (l & 15), 2 * kk + (l >> 4)));
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
-          mma_s8(acc[mt][2 * np], af, bf[np][0], bf[np][1]);
-          mma_s8(acc[mt][2 * np + 1], af, bf[np][2], bf[np][3]);
+          mma_op(acc[mt][2 * np], af, bf[np][0], bf[np][1]);
+          mma_op(acc[mt][2 * np + 1], af, bf[np][2], bf[np][3]);
         }
       }
     }
+  }
+
+  // step() with every fragment of the step loaded before its first mma (the
+  // loads' latency overlaps), and a_addr(mt, c): the address of chunk c of
+  // this lane's A row of m16 tile mt (row mt_row0(mt) + lane % 16), so a
+  // caller can keep the lane's rows in registers across the steps.
+  template <class AAddr, class BAddr>
+  __device__ __forceinline__ void step_mt(const AAddr& a_addr, const BAddr& b_addr, int live_rows) {
+    const int l = lane();
+    uint32_t bf[2][NT / 2][4], af[2][MT][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {  // two k32 (int8) or k16 (bf16) slices: chunks 2kk, 2kk + 1
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldsm_x4(bf[kk][np], b_addr(wn() * WN + np * 16 + (l & 7) + ((l >> 4) << 3), 2 * kk + ((l >> 3) & 1)));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        if (mt_row0(mt) < live_rows) ldsm_x4(af[kk][mt], a_addr(mt, 2 * kk + (l >> 4)));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt_row0(mt) >= live_rows) continue;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          mma_op(acc[mt][2 * np], af[kk][mt], bf[kk][np][0], bf[kk][np][1]);
+          mma_op(acc[mt][2 * np + 1], af[kk][mt], bf[kk][np][2], bf[kk][np][3]);
+        }
+      }
   }
 };
 

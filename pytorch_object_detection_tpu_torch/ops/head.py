@@ -23,17 +23,173 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
 SOURCE = "head.cu"
 # no FMA contraction: each bf16 step is an f32 operation rounded once, as in the reference
 NVCC_FLAGS = ("-fmad=false",)
 GROUPS = 32
 EPS = 1e-5
-MAX_FEATURES = 256  # the kernel keeps 2f folded GroupNorm vectors in shared memory
+MAX_FEATURES = 256  # a producer folds 2f GroupNorm channels in its shared memory
+
+
+# the passes of csrc/head.cu, in hishead_launch's order
+FHEAD_PASSES = ("pw1", "dw", "pw2", "towers", "pred")
+FHEAD_TILE = 8  # kT: tiles of at most 8x8 positions
+FHEAD_ROWS = 64  # kMC: GEMM rows a block (images x a tile's positions)
+FHEAD_STAGES, FHEAD_STEP = 4, 64  # the weights' cp.async ring: 4 stages of a 64-byte K step, or 3 of two
+FHEAD_PRED_NC = 32  # kPredNC: classes per pred block
+FHEAD_POS = 8  # kPos: positions a depthwise item walks
+FHEAD_SPLITS = (1, 2, 4, 8)
+
+
+def fhead_tile_dims(h: int, w: int, tw: int = FHEAD_TILE) -> Tuple[int, int]:
+    """(positions of a full tile of 8 x ``tw``, halo rows of one image)."""
+    th, twc = min(FHEAD_TILE, h), min(tw, w)
+    return th * twc, (th + 2) * (twc + 2)
+
+
+_WIDE = ("pw1", "towers", "pred")  # the passes with a wgmma kernel on 128-row blocks
+
+
+def fhead_widths(pass_: str, w: int) -> Tuple[int, ...]:
+    """Tile widths a pass may take: 8, and 16 for pw1, the towers and pred
+    on maps wider than 8 (their wgmma kernels: 128 GEMM rows, each weight
+    byte staged serving twice the rows)."""
+    return (16, FHEAD_TILE) if pass_ in _WIDE and w > FHEAD_TILE else (FHEAD_TILE,)
+
+
+def fhead_rows(pass_: str, tw: int) -> int:
+    """GEMM rows a block of a pass may hold: 128 for pred, and for pw1 and
+    the towers on 8x16 tiles (two warpgroups of wgmma), else 64."""
+    return 2 * FHEAD_ROWS if pass_ == "pred" or (pass_ in _WIDE and tw == 16) else FHEAD_ROWS
+
+
+def fhead_pass_width(pass_: str, f: int, nc: int) -> int:
+    """Output channels a pass splits across blocks (pred: its column blocks)."""
+    if pass_ == "pred":
+        return -(-nc // FHEAD_PRED_NC) + 1
+    return f if pass_ == "pw2" else 2 * f
+
+
+def fhead_slices(pass_: str, f: int, nc: int) -> Tuple[int, ...]:
+    """The channel-slice counts a pass may take: whole 16-channel groups, at
+    least 64 channels a slice where split; pred's is fixed."""
+    n = fhead_pass_width(pass_, f, nc)
+    if pass_ == "pred":
+        return (n,)
+    return tuple(s for s in FHEAD_SPLITS if n % (16 * s) == 0 and (s == 1 or n // s >= 64))
+
+
+def _align(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _fold_bytes(f2: int) -> int:
+    """A producer's scratch for its GroupNorm fold: 512 bytes of flags, the
+    per-channel sums and the group statistics."""
+    return 512 + _align((2 * f2 + 256) * 4)
+
+
+def fhead_smem_bytes(pass_: str, ipb: int, h: int, w: int, f: int, nc: int, split: int,
+                     tw: int = FHEAD_TILE) -> int:
+    """Dynamic shared memory of one block of a pass on tiles of 8 x ``tw``
+    (``smem_of`` in csrc/head.cu): a GroupNorm table of a normalizing pass,
+    the A operand or halo, the rows' halo positions, and the weights' ring,
+    reused for the f32 sums (rows of NC + 8 words) and a producer's fold."""
+    npos, halo = fhead_tile_dims(h, w, tw)
+    mc = FHEAD_ROWS if ipb * npos <= FHEAD_ROWS else 2 * FHEAD_ROWS
+    f2 = 2 * f
+    slice_ = FHEAD_PRED_NC if pass_ == "pred" else fhead_pass_width(pass_, f, nc) // split
+    ncol = 128 if slice_ % 128 == 0 else 64
+    # the ring: 4 stages of one 64-byte K step (pw2), or 3 of two (the others)
+    ring = (FHEAD_STAGES if pass_ == "pw2" else 3 * 2) * (FHEAD_PRED_NC if pass_ == "pred" else ncol) * FHEAD_STEP
+    ring_or_sums = max(ring, mc * (ncol + 8) * 4, _fold_bytes(f2))
+    # a wgmma kernel's region (128 rows): its ring 1024-aligned, reused for the sums and the fold
+    wg = max(max(3 * 128 * 128, 128 * 136 * 4) + 1024, _fold_bytes(f2))
+    if pass_ == "pw1":
+        return _align(mc * 2 * f) + (wg if mc > FHEAD_ROWS else ring_or_sums)
+    if pass_ == "dw":  # GN1 table [ipb][slice] float2, u on the halo (or the fold), each item's sums
+        u = max(_align(ipb * halo * slice_ * 2), _fold_bytes(f2))
+        npg = -(-FHEAD_TILE * FHEAD_TILE // FHEAD_POS)
+        return _align(ipb * slice_ * 8) + u + 2 * npg * ipb * slice_ * 4
+    if pass_ == "pw2":  # GN2 table [ipb][2f], SiLU(GN2(t2)) rows
+        return _align(ipb * f2 * 8) + _align(FHEAD_ROWS * 2 * f2) + ring_or_sums
+    if pass_ == "towers":
+        return _align(ipb * halo * 2 * f) + _align(mc * 4) + (wg if mc > FHEAD_ROWS else ring_or_sums)
+    # pred: the tower's GN table, its halo, 128 rows' positions, a ring of 3 stages of 32 rows of 128 bytes
+    return (_align(ipb * f * 8) + _align(ipb * halo * 2 * f) + _align(2 * FHEAD_ROWS * 4)
+            + 3 * FHEAD_PRED_NC * 128 + 1024)
+
+
+def fhead_blocks(batch: int, h: int, w: int, ipb: int, split: int, tw: int = FHEAD_TILE) -> int:
+    """Thread blocks of one pass: tiles x image groups x slices."""
+    return -(-h // FHEAD_TILE) * -(-w // tw) * -(-batch // ipb) * split
+
+
+def fhead_ipbs(batch: int, h: int, w: int, tw: int = FHEAD_TILE, rows: int = FHEAD_ROWS) -> Tuple[int, ...]:
+    """Images a block may take, largest first: ipb x a full tile's positions
+    at most ``rows`` (:func:`fhead_rows`)."""
+    top = max(1, min(batch, rows // fhead_tile_dims(h, w, tw)[0]))
+    out = []
+    while top >= 1:
+        out.append(top)
+        top //= 2
+    return tuple(out)
+
+
+def pick_fhead_tile(batch: int, h: int, w: int, f: int, nc: int, sm_count: int,
+                    smem_max: int) -> Dict[str, Tuple[int, int, int]]:
+    """``{pass: (ipb, split, tw)}`` for one level: per pass, of the options
+    that fit ``smem_max`` bytes of shared memory (the wider tiles first, then
+    the largest image groups, then the fewest channel slices), the first
+    whose blocks reach one per SM with two blocks' shared memory on an SM (an
+    SM holds ``smem_max`` + 1 KB, each block 1 KB more than it asks for);
+    else the first that reaches one per SM; else the one with the most
+    blocks.  pw1 and the towers, on maps wider than 8, take their wgmma
+    kernels' tiles (8 x 16, slices of 128 channels) where there are any:
+    the fewest slices whose blocks reach nine tenths of the SMs, else the
+    most blocks (the towers' measured faster on half the SMs than the
+    mma.sync tiles on all of them).  Raises where no option of a pass
+    fits."""
+    return dict(_pick_fhead_tile(batch, h, w, f, nc, sm_count, smem_max))
+
+
+def fhead_options(pass_: str, batch: int, h: int, w: int, f: int, nc: int,
+                  smem_max: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Every (ipb, split, tw) of a pass that fits ``smem_max`` bytes of shared
+    memory, in the chooser's order of preference; blocks of more than 64
+    rows (wgmma) take slices of 128 channels."""
+    return tuple((ipb, split, tw) for tw in fhead_widths(pass_, w)
+                 for ipb in fhead_ipbs(batch, h, w, tw, fhead_rows(pass_, tw))
+                 for split in fhead_slices(pass_, f, nc)
+                 if fhead_smem_bytes(pass_, ipb, h, w, f, nc, split, tw) <= smem_max
+                 and (pass_ == "pred" or ipb * fhead_tile_dims(h, w, tw)[0] <= FHEAD_ROWS
+                      or (fhead_pass_width(pass_, f, nc) // split) % 128 == 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_fhead_tile(batch, h, w, f, nc, sm_count, smem_max):
+    out = []
+    for pass_ in FHEAD_PASSES:
+        opts = fhead_options(pass_, batch, h, w, f, nc, smem_max)
+        if not opts:
+            raise ValueError(f"K15: no {pass_} block fits {smem_max} bytes of shared memory at {h}x{w}, f={f}")
+        blocks = lambda o: fhead_blocks(batch, h, w, *o)
+        wgmma = [o for o in opts if pass_ in ("pw1", "towers") and o[2] == 16]
+        if wgmma:  # the wgmma kernels: the fewest slices that near one block an SM
+            pick = next((o for o in wgmma if 10 * blocks(o) >= 9 * sm_count), max(wgmma, key=blocks))
+        else:
+            two = lambda o: 2 * (fhead_smem_bytes(pass_, o[0], h, w, f, nc, o[1], o[2]) + 1024) <= smem_max + 1024
+            pick = next((o for o in opts if blocks(o) >= sm_count and two(o)),
+                        next((o for o in opts if blocks(o) >= sm_count), max(opts, key=blocks)))
+        out.append((pass_, pick))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,10 +199,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library(SOURCE, NVCC_FLAGS)
     lib.hishead_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     lib.hishead_launch.restype = ctypes.c_int
     lib.hishead_scratch_sizes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.hishead_scratch_sizes.restype = None
+    lib.hishead_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.hishead_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -171,13 +329,34 @@ def hishead_level_fused_plain(x: torch.Tensor, packed: Dict, num_classes: int) -
     return torch.cat([cls, cr], dim=-1).to(bf).reshape(b, h, w, nc + 5)
 
 
-def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: bool = False) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _plan(b, h, w, f, nc, sm_count, smem_max, forced):
+    """The launch table of hishead_launch's cfg for one call shape: the
+    chooser's blocks with the ``forced`` (pass, (ipb, split, tw)) pairs over
+    them, each checked against what the kernels take."""
+    cfg = pick_fhead_tile(b, h, w, f, nc, sm_count, smem_max)
+    cfg.update(dict(forced))
+    for pass_, (ipb, split, tw) in cfg.items():
+        smem = fhead_smem_bytes(pass_, ipb, h, w, f, nc, split, tw)
+        if (pass_ not in FHEAD_PASSES or tw not in fhead_widths(pass_, w) + (FHEAD_TILE,)
+                or ipb not in range(1, fhead_ipbs(b, h, w, tw, fhead_rows(pass_, tw))[0] + 1) or -(-b // ipb) > 65535
+                or (pass_ != "pred" and split not in fhead_slices(pass_, f, nc)) or smem > smem_max):
+            raise ValueError(f"K15 does not take {pass_} blocks (ipb, split, tw) = {(ipb, split, tw)} at "
+                             f"{b}x{h}x{w}, f={f} ({smem} bytes of shared memory of {smem_max})")
+    return (ctypes.c_int * 15)(*[v for pass_ in FHEAD_PASSES for v in cfg[pass_]])
+
+
+def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: bool = False,
+                        tile: Optional[Dict[str, Tuple[int, int, int]]] = None) -> torch.Tensor:
     """One pyramid level through the fused head: NHWC ``x [B, H, W, f]`` ->
     bf16 ``[B, H, W, nc + 5]`` (cls | cnt | raw reg).  On a CPU tensor
     this is :func:`hishead_level_fused_plain`; on a CUDA tensor it launches
     K15 or raises.  ``plain=True`` runs the plain version on any device, for
-    the comparison only.  ``hishead_level_fused.launches`` counts calls that
-    launched the kernel chain (one per call)."""
+    the comparison only.  ``tile={pass: (ipb, split, tw)}`` forces K15's
+    blocks for the passes it names (:func:`pick_fhead_tile` chooses the
+    others; pred's split is fixed); the output does not depend on them.
+    ``hishead_level_fused.launches`` counts calls that launched the kernel
+    chain (one per call)."""
     if x.dim() != 4 or x.shape[-1] != packed["f"]:
         raise ValueError(f"x must be NHWC [B, H, W, {packed['f']}]; got {tuple(x.shape)}")
     nc = num_classes
@@ -201,6 +380,8 @@ def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: 
     out = torch.empty((b, h, w, nc + 5), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    forced = tuple(sorted((k, tuple(v)) for k, v in (tile or {}).items()))
+    cfg = _plan(b, h, w, f, nc, *card_limits(x.device), forced)
     lib = _lib()
     sizes = (ctypes.c_longlong * 2)()
     lib.hishead_scratch_sizes(b, h, w, f, sizes)
@@ -208,7 +389,7 @@ def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: 
     scratch_f32 = torch.empty(sizes[1], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):  # the launches go to the current device
         err = lib.hishead_launch(*(t.data_ptr() for t in operands), packed["bias"].shape[1], out.data_ptr(),
-                                 scratch_bf16.data_ptr(), scratch_f32.data_ptr(), b, h, w, f, nc,
+                                 scratch_bf16.data_ptr(), scratch_f32.data_ptr(), b, h, w, f, nc, cfg,
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K15 launch failed: cudaError {err}")

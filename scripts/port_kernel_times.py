@@ -1,4 +1,4 @@
-"""Time kernel C, K4, K16, K7, K9, K5, kernel A, K1, K11 and K13 of the PyTorch port on one NVIDIA GPU, per shape.
+"""Time kernel C, K4, K16, K7, K9, K5, kernel A, K1, K11, K13, K15 and K12 of the PyTorch port on one NVIDIA GPU.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
 ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
@@ -39,7 +39,15 @@ segments beside kernel C's launches on the same input, in turns, B=8 and
 B=64; each with digests of the outputs, kernel C's in section ``c`` too;
 ``k13blocks``, this tree's package only (it forces ``tile=``): K13 on
 one bottleneck at a time against kernel C on the same tile, at the 16
-block shapes, B=8 and B=64; and ``stemtile``, this tree's package
+block shapes, B=8 and B=64; ``k15``: K15 (``ops/head.hishead_level_fused``)
+at the fused-head pipeline's five levels (256 features, 20 classes), B=8
+and B=64, beside the bf16 float head at the same levels, with its device
+time by CUDA kernel (``torch.profiler``), its error against the plain
+version and, with ``--ref DIR``, the share of its values that moved from
+the first run's (saved there); ``k12``: K12 (``ops/qmnblock.qmnblock``)
+at the MNFCOS int8 ladder's 15 calls, B=8 and B=64, with digests; both
+print their bound, rate and ptxas' registers and spills where this process
+built the kernel; and ``stemtile``, this tree's package
 only, since it needs ``qstem_conv``'s ``tile=``: K1 at 512x512, B=1, 2 and
 8, and at the COCO canvas, B=1 and 2, under ``ops/qstem.pick_stem_tile``'s
 tile and forced smaller ones, its outputs held equal to the chooser's).
@@ -172,10 +180,13 @@ def main() -> int:
     parser.add_argument("--root", default=".", help="checkout whose pytorch_object_detection_tpu_torch is timed")
     parser.add_argument("--out", default=None, help="also write the JSON object here")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ref", default=None,
+                        help="section k15: a directory for the reference outputs (saved by the first run that "
+                             "finds none, compared by the later ones)")
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
     parser.add_argument("--only", default="c,k4,k16,head,his,nms,stem",
                         help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile, k11, k13, "
-                             "k13blocks")
+                             "k13blocks, k15, k12")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -250,6 +261,10 @@ def main() -> int:
             time_k13(result, qblock, i8, vec, card)
         if "k13blocks" in only:
             time_k13_blocks(result, qblock, i8, vec, card)
+        if "k15" in only:
+            time_k15(result, dev, args.seed, card, args.ref)
+        if "k12" in only:
+            time_k12(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -521,9 +536,12 @@ def head_input(b, h, w, seed, dev):
 
 
 def digest(outs) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in outs:
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        t = t.contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -716,6 +734,216 @@ def time_stem_tiles(result, dev, seed, card) -> None:
                          f"{qstem.stem_blocks(b, h, w, *tile)} blocks, recompute "
                          f"{qstem.stem_recompute(h, w, *tile):.4f})")
         print(f"K1 tiles B={b} {h}x{w}x3, graph: " + "; ".join(cells) + f" {card}", flush=True)
+
+
+def kernel_split(fn, prefix: str, iters: int):
+    """Device ms per call of each CUDA kernel whose name starts with
+    ``prefix`` (its template arguments dropped), over ``iters`` calls under
+    ``torch.profiler``; {} where the profiler sees no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        m = re.search(r"\b" + prefix + r"\w*", e.key)
+        if m:
+            t = getattr(e, "self_device_time_total", None)
+            t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+            parts[m.group(0)] = parts.get(m.group(0), 0.0) + t / 1000.0 / iters
+    return parts
+
+
+def ptxas_lines(build_log, source: str):
+    """ptxas' registers and spills for ``source``'s build, one string."""
+    out = []
+    for name, (_, log) in build_log.items():
+        if name.startswith(source):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    out.append(line.strip())
+    return " | ".join(out) if out else "not in this process's build log (built earlier)"
+
+
+def _ref_compare(ref_dir, name: str, outs, card) -> None:
+    """Saves ``outs`` under ``ref_dir`` as the reference where none is
+    there yet, else prints the share of their values that differ from it
+    (the first run in a parent/this/this/parent call is the parent's)."""
+    import torch
+
+    if ref_dir is None:
+        return
+    path = Path(ref_dir) / f"{name}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in outs.items()}, path)
+        print(f"{name}: outputs saved as the reference, {path}")
+        return
+    ref = torch.load(path)
+    cells = []
+    for k, v in outs.items():
+        r = ref[k].to(v.device)
+        cells.append(f"{k} {float((v != r).float().mean()):.5f}")
+    print(f"{name}: share of values that differ from the reference run: " + ", ".join(cells) + f" {card}")
+
+
+def k15_operands(seed: int, dev):
+    """A random HISHead(20, 256) packed for K15 (bf16) and its bf16 float
+    module, from ``seed``."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.models.heads import HISHead
+    from pytorch_object_detection_tpu_torch.ops import head
+
+    g = torch.Generator().manual_seed(seed + 41)
+    module = HISHead(20, 256, generator=g).eval()
+    with torch.no_grad():  # GroupNorm affine parameters off their defaults
+        for name in ("stem_gn1", "stem_gn2", "cls_gn0", "reg_gn0"):
+            gn = getattr(module, name)
+            gn.weight.copy_(1.0 + 0.2 * torch.randn(gn.weight.shape, generator=g))
+            gn.bias.copy_(0.2 * torch.randn(gn.bias.shape, generator=g))
+    module = module.to(dev)
+    packed = head.hishead_params_pack(module, 20)
+    return packed, module.to(torch.bfloat16)
+
+
+def time_k15(result, dev, seed, card, ref_dir=None) -> None:
+    """K15 at the fused-head pipeline's five levels (256 features, 20
+    classes), B=8 and B=64: ms back to back and from a graph, the device ms
+    of each of its CUDA kernels (``fhead_*``), its error against the plain
+    version, its bound and T FLOP/s; the bf16 float head at the same levels
+    beside it; registers and spills from the build."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch import _build
+    from pytorch_object_detection_tpu_torch.ops import head
+
+    packed, float_head = k15_operands(seed, dev)
+    nc, f = 20, 256
+    g = torch.Generator().manual_seed(seed + 43)
+    result["k15"] = {}
+    outs = {}
+    for b in (8, 64):
+        xs = [(torch.randn(b, s, s, f, generator=g) * 0.5).to(torch.bfloat16).to(dev) for s in (64, 32, 16, 8, 4)]
+        tot = {"": 0.0, "/graph": 0.0, "/plain": 0.0}
+        ops_all = bytes_all = 0.0
+        for i, x in enumerate(xs):
+            fn = lambda: head.hishead_level_fused(x, packed, nc)
+            got = fn()
+            want = head.hishead_level_fused(x, packed, nc, plain=True)
+            errs = []
+            for name, sl in (("cls", slice(0, nc)), ("cnt", slice(nc, nc + 1)), ("reg", slice(nc + 1, nc + 5))):
+                a, w = got[..., sl].float(), want[..., sl].float()
+                cos = float(torch.nn.functional.cosine_similarity(a.flatten(), w.flatten(), dim=0))
+                errs.append(f"{name} {float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30):.4g} "
+                            f"cos {cos:.6f}")
+            key = f"P{i + 3}/B{b}"
+            outs[key] = got
+            result["digest"][f"k15/{key}"] = digest([got])
+            it = 10 if b == 8 else 3
+            times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it)}
+            if b == 8:
+                times["/plain"] = cuda_ms(lambda: head.hishead_level_fused(x, packed, nc, plain=True), iters=2, reps=3)
+            split = kernel_split(fn, "fhead_", it)
+            for sfx, v in times.items():
+                result["k15"][f"{key}{sfx}"] = v
+                tot[sfx] += v
+            result["k15"][f"{key}/split"] = split
+            s = x.shape[1]
+            macs = b * s * s * (f * 2 * f + 9 * 2 * f + 2 * f * f + 2 * 9 * f * f + 9 * f * (nc + 5))
+            weights = sum(packed[k].numel() * packed[k].element_size() for k in (
+                "k_pw1", "dw", "k_pw2", "k_tow", "k_cls", "k_cr", "gn", "bias"))
+            nbytes = 2 * x.numel() + 2 * b * s * s * (nc + 5) + weights
+            ops_all, bytes_all = ops_all + 2 * macs, bytes_all + nbytes
+            bnd = max(nbytes / 3.35e12, 2 * macs / 989e12) * 1e3
+            print(f"K15 {key} {tuple(x.shape)}: {times[''] :.4f} ms, graph {times['/graph']:.4f} ms, "
+                  + (f"plain {times['/plain']:.4f} ms, " if b == 8 else "")
+                  + f"bound {bnd:.5f} ms, {2 * macs / times['/graph'] / 1e9:.1f} TFLOP/s (graph); split "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+                  + f"; vs plain: {'; '.join(errs)}; digest {result['digest'][f'k15/{key}']}", flush=True)
+        levels = [x.permute(0, 3, 1, 2).contiguous() for x in xs]
+        tf = cuda_ms(lambda: float_head(levels), iters=10 if b == 8 else 3)
+        result["k15"][f"float_head/B{b}"] = tf
+        bnd = max(bytes_all / 3.35e12, ops_all / 989e12) * 1e3
+        print(f"K15, the five levels at B={b}: {tot['']:.4f} ms, graph {tot['/graph']:.4f} ms"
+              + (f", plain {tot['/plain']:.4f} ms" if b == 8 else "")
+              + f", bound {bnd:.5f} ms (operations), {ops_all / tot['/graph'] / 1e9:.1f} TFLOP/s (graph); the bf16 "
+              f"float head at the same levels {tf:.4f} ms {card}", flush=True)
+    print(f"K15 build: {ptxas_lines(_build.build_log, 'head')}")
+    _ref_compare(ref_dir, "k15", outs, card)
+
+
+# K12: the 15 MNBlock calls of an MNFCOS(20, 256) forward at 512x512, in the
+# order the ladder runs them: (name, H=W, kernel, dilation)
+QMN_CALLS = [("mnb5", 16, 5, 2), ("mnb4", 32, 3, 2), ("mnb3", 64, 3, 1), ("mnb6", 8, 5, 1), ("mnb7", 4, 7, 1)] + [
+    (f"P{i + 3}_{blk}", 64 >> i, 3, 2) for i in range(5) for blk in ("block1", "block2")]
+
+
+def k12_operands(name: str, hw: int, k: int, b: int, seed: int, dev):
+    """A random int8 MNBlock (256 -> 512 -> 256 channels), its scales and an
+    int8 input [b, hw, hw, 256], from ``seed`` and the call's name."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + sum(map(ord, name)) + b)
+    c, cm = 256, 512
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+    pos = lambda n: (torch.rand(n, generator=g) * 1e-3 + 1e-5).to(dev)
+    nrm = lambda n: (torch.randn(n, generator=g) * 0.1).to(dev)
+    blk = dict(wdw=i8(k, k, c), swdw=pos(c), bdw=nrm(c), w1=i8(cm, c), sw1=pos(cm), b1=nrm(cm), w2=i8(c, cm),
+               sw2=pos(c), b2=nrm(c))
+    sc = {n: torch.tensor(v, device=dev) for n, v in dict(s_in=0.05, s_a1=0.03, s_a2=0.04, s_out=0.06).items()}
+    return blk, sc, i8(b, hw, hw, c)
+
+
+def time_k12(result, dev, seed, card) -> None:
+    """K12 at the MNFCOS int8 ladder's 15 calls, B=8 and B=64: ms back to
+    back and from a graph, its plain version (B=8), bound and T
+    multiply-adds/s, digests of every output; registers and spills."""
+    from pytorch_object_detection_tpu_torch import _build
+    from pytorch_object_detection_tpu_torch.ops import qmnblock
+
+    result["k12"] = {}
+    for b in (8, 64):
+        tot = {"": 0.0, "/graph": 0.0, "/plain": 0.0}
+        macs_all = 0.0
+        for name, hw, k, d in QMN_CALLS:
+            blk, sc, x = k12_operands(name, hw, k, b, seed, dev)
+            fn = lambda: qmnblock.qmnblock(blk, sc, x, k, d)
+            key = f"{name}/B{b}"
+            out = fn()
+            result["digest"][f"k12/{key}"] = digest([out])
+            it = 10 if b == 8 else 3
+            times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it)}
+            if b == 8:
+                want = qmnblock.qmnblock(blk, sc, x, k, d, plain=True)
+                times["/plain"] = cuda_ms(lambda: qmnblock.qmnblock(blk, sc, x, k, d, plain=True), iters=2, reps=3)
+            for sfx, v in times.items():
+                result["k12"][f"{key}{sfx}"] = v
+                tot[sfx] += v
+            macs = b * hw * hw * (k * k * 256 + 2 * 256 * 512)
+            macs_all += macs
+            print(f"K12 {key} {tuple(x.shape)} k{k} d{d}: {times['']:.4f} ms, graph {times['/graph']:.4f} ms, "
+                  f"{macs / times['/graph'] / 1e9:.1f} T multiply-adds/s (graph)"
+                  + (f", plain {times['/plain']:.4f} ms, {int((out != want).sum())} elements differ from it"
+                     if b == 8 else "")
+                  + f", digest {result['digest'][f'k12/{key}']}", flush=True)
+        nbytes = sum(2 * b * hw * hw * 256 + k * k * 256 + 2 * 256 * 512 + 4 * (4 * 256 + 2 * 512) + 16
+                     for _, hw, k, _ in QMN_CALLS)
+        bnd = max(nbytes / 3.35e12, 2 * macs_all / 1979e12) * 1e3
+        print(f"K12, the 15 calls at B={b}: {tot['']:.4f} ms, graph {tot['/graph']:.4f} ms"
+              + (f", plain {tot['/plain']:.4f} ms" if b == 8 else "")
+              + f", bound {bnd:.5f} ms, {macs_all / tot['/graph'] / 1e9:.1f} T multiply-adds/s (graph) {card}",
+              flush=True)
+    print(f"K12 build: {ptxas_lines(_build.build_log, 'qmnblock')}")
 
 
 if __name__ == "__main__":

@@ -28,12 +28,13 @@ from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_n
 from pytorch_object_detection_tpu_torch.ops.fused import conv1x1_bn_act, matmul_bn_act, matmul_bn_act_plain
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_plain
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
-from pytorch_object_detection_tpu_torch.ops.qblock import qbottleneck, qbottleneck_s2
-from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_level_fused_plain, hishead_params_pack
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits, qbottleneck, qbottleneck_s2
+from pytorch_object_detection_tpu_torch.ops.head import (
+    FHEAD_PASSES, fhead_options, hishead_level_fused, hishead_level_fused_plain, hishead_params_pack)
 from pytorch_object_detection_tpu_torch.ops.qchain import qchain, qchain_plain
 from pytorch_object_detection_tpu_torch.ops.qconv import qconv1x1, qconv3x3, qconv3x3_plain, qmatmul
 from pytorch_object_detection_tpu_torch.ops.qhis import qhisblock
-from pytorch_object_detection_tpu_torch.ops.qmnblock import qmnblock, qmnblock_plain
+from pytorch_object_detection_tpu_torch.ops.qmnblock import mn_options, qmnblock, qmnblock_plain
 from pytorch_object_detection_tpu_torch.ops.qmm_variants import VARIANTS, qmm_variant, qmm_variant_plain
 from pytorch_object_detection_tpu_torch.ops.qpool import (
     qmaxpool2x2, qmaxpool2x2_seeds, qmaxpool2x2_seeds_plain, qmaxpool3x3s2, qmaxpool3x3s2_plain)
@@ -1125,11 +1126,36 @@ def test_k15_kernel_matches_plain(cuda, case):
     assert hishead_level_fused.launches == before + 1
     want = hishead_level_fused_plain(x, packed, nc)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape == (b, h, w, nc + 5)
+    _k15_within_contract(got, want, nc)
+
+
+def _k15_within_contract(got, want, nc):
     for name, sl in (("cls", slice(0, nc)), ("cnt", slice(nc, nc + 1)), ("reg", slice(nc + 1, nc + 5))):
         g, r = got[..., sl].double(), want[..., sl].double()
         err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
         cos = float((g.flatten() @ r.flatten()) / (g.norm() * r.norm()))
         assert bool(torch.isfinite(g).all()) and err <= K15_MAX_ERR and cos >= K15_MIN_COS, (name, err, cos)
+
+
+# K15 at the fused-head pipeline's five levels (256 features, 20 classes), B=8 and B=64
+K15_PATH = [(b, s) for b in (8, 64) for s in (64, 32, 16, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K15_PATH, ids=[f"B{b}_{s}x{s}" for b, s in K15_PATH])
+def test_k15_kernel_at_the_path_shapes_under_every_tile(cuda, case):
+    """K15 within its contract at the path's shapes, and the same output
+    under every block its chooser weighs for each pass (the others the
+    chooser's): the tiles stay 8x8 or 8x16, no GEMM's K is cut, and each
+    GroupNorm is folded from per-tile sums in tile order."""
+    b, s = case
+    packed, x = _k15_case(256, 20, s, s, b, cuda)
+    base = hishead_level_fused(x, packed, 20)
+    _k15_within_contract(base, hishead_level_fused_plain(x, packed, 20), 20)
+    smem_max = card_limits(cuda)[1]
+    for pass_ in FHEAD_PASSES:
+        for opt in fhead_options(pass_, b, s, s, 256, 20, smem_max):
+            assert torch.equal(hishead_level_fused(x, packed, 20, tile={pass_: opt}), base), (pass_, opt)
 
 
 @pytest.mark.cuda
@@ -1236,6 +1262,7 @@ def _qmn_check(blk, sc, x, k, d):
     assert got.dtype == torch.int8 and got.shape == x.shape
     assert int(diff.max()) <= QMN_MAX_STEP and n_diff / diff.numel() < QMN_MAX_SHARE
     assert float((want != 0).float().mean()) > 0.5  # not degenerate
+    return got
 
 
 @pytest.mark.cuda
@@ -1244,6 +1271,23 @@ def test_qmnblock_kernel_at_the_path_shapes(cuda, case):
     _, hw, k, d = case
     blk, sc, x = _qmn_case(2, hw, hw, 256, k, QMN_PATH.index(case), cuda)
     _qmn_check(blk, sc, x, k, d)
+
+
+QMN_PATH_B = [(b,) + case for b in (8, 64) for case in QMN_PATH]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QMN_PATH_B, ids=[f"B{c[0]}_{c[1]}" for c in QMN_PATH_B])
+def test_qmnblock_kernel_at_the_path_shapes_under_every_tile(cuda, case):
+    """K12 at the ladder's 15 call shapes, B=8 and B=64, against its plain
+    version, and bit for bit the same under every tile it takes (int32
+    sums are exact in any order; the epilogue's steps do not depend on the
+    tile)."""
+    b, _, hw, k, d = case
+    blk, sc, x = _qmn_case(b, hw, hw, 256, k, QMN_PATH.index(case[1:]), cuda)
+    base = _qmn_check(blk, sc, x, k, d)
+    for opt in mn_options(b, hw, hw, 256, 512, k, d, card_limits(cuda)[1]):
+        assert torch.equal(qmnblock(blk, sc, x, k, d, tile=opt), base), opt
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 (``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``), K7/K9
 (``ops/qhead.pick_head_tile``), K5 (``ops/qhis.pick_his_tile``), K1
 (``ops/qstem.pick_stem_tile``), K11 (``ops/qconv.pick_conv3_tile``) and
-K13 (``ops/qchain.pick_chain_tile``), in plain Python with an H100's limits: 132
+K13 (``ops/qchain.pick_chain_tile``), K15 (``ops/head.pick_fhead_tile``) and
+K12 (``ops/qmnblock.pick_mn_tile``), in plain Python with an H100's limits: 132
 SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
@@ -17,7 +18,9 @@ sizes, B = 1, 2, 8 and 64, and a plain-Python model of one K1 block's
 implicit GEMM (its staged frame rows, s2d patch and K steps) against the
 int32 conv; K11 at the four stages' conv2 shapes and odd ones, and K13 on
 the three backbone segments and an odd chain, B = 1, 2, 8 and 64, with a
-Python run of K13's persistent loop.  No card and no JAX needed.
+Python run of K13's persistent loop; K15 at the fused-head pipeline's five
+levels and K12 at the MNFCOS ladder's ten call shapes, B = 1, 2, 8 and 64,
+on 132 and 114 SMs, and odd maps.  No card and no JAX needed.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ import torch
 from pytorch_object_detection_tpu_torch.ops.qblock import (
     SPLITS, TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
 from pytorch_object_detection_tpu_torch.ops.fused import K16_BM, k16_smem_bytes, pick_k16_tile
+from pytorch_object_detection_tpu_torch.ops.head import (
+    FHEAD_PASSES, FHEAD_PRED_NC, FHEAD_ROWS, FHEAD_TILE, fhead_blocks, fhead_options, fhead_pass_width,
+    fhead_rows, fhead_smem_bytes, fhead_tile_dims, fhead_widths, pick_fhead_tile)
 from pytorch_object_detection_tpu_torch.ops.qchain import chain_smem_bytes, pick_chain_tile, tile_blocks, two_per_sm
 from pytorch_object_detection_tpu_torch.ops.qconv import (
     CONV3_SPLITS, CONV3_TILE_ROWS, CONV3_TILE_WIDTHS, QMM_BM, QMM_STEP, conv3_blocks, conv3_smem_bytes,
@@ -38,6 +44,11 @@ from pytorch_object_detection_tpu_torch.ops.qhead import (
 from pytorch_object_detection_tpu_torch.ops.qhis import (
     HIS_KERNELS, HIS_ROWS, HIS_TILE, his_blocks, his_chunk, his_ipbs, his_slices, his_smem_bytes, his_width,
     pick_his_tile)
+from pytorch_object_detection_tpu_torch.ops.qmnblock import SPLITS as MN_SPLITS
+from pytorch_object_detection_tpu_torch.ops.qmnblock import TILE_ROWS as MN_TILE_ROWS
+from pytorch_object_detection_tpu_torch.ops.qmnblock import TILE_WIDTHS as MN_TILE_WIDTHS
+from pytorch_object_detection_tpu_torch.ops.qmnblock import (
+    mn_blocks, mn_cost, mn_ipbs, mn_options, mn_per_sm, mn_rows, mn_smem_bytes, mn_tiles, pick_mn_tile)
 from pytorch_object_detection_tpu_torch.ops.qstem import (
     STEM_MC, STEM_TILES, pick_stem_tile, stem_blocks, stem_load, stem_recompute, stem_sizes, stem_smem_bytes,
     stem_tiles)
@@ -786,3 +797,208 @@ def test_k13_fills_the_card_at_b8(seg):
     tiles, _ = pick_chain_tile(8, convs, SM_COUNT, SMEM_MAX)
     for (h, w, _, _, s), (tw, sp) in zip(convs, tiles):
         assert 8 * tile_blocks(*out_hw(h, w, s), tw) * sp >= SM_COUNT, (h, s, tw, sp)
+
+
+# K15 (ops/head.pick_fhead_tile): (batch, H, W, f, classes) at the fused-head
+# pipeline's five levels of the 512x512 canvas, B = 1, 2, 8 and 64, and odd
+# levels (the narrow head, 80 classes, 7x11 and 1x1 maps); on an H100 SXM
+# (132 SMs) and an H100 PCIe (114)
+FHEAD_CASES = (
+    [(b, s, s, 256, 20, sm) for b in (1, 2, 8, 64) for s in (64, 32, 16, 8, 4) for sm in (132, 114)]
+    + [(b, h, w, f, nc, 132) for b in (2, 64) for h, w, f, nc in ((7, 11, 64, 80), (1, 1, 256, 80), (16, 16, 64, 20))]
+)
+FHEAD_IDS = [f"B{b}-{h}x{w}-f{f}-{nc}cls-{sm}sm" for b, h, w, f, nc, sm in FHEAD_CASES]
+
+
+@pytest.mark.parametrize("case", FHEAD_CASES, ids=FHEAD_IDS)
+def test_fhead_tiles_fit_the_card(case):
+    """Every K15 pass's block fits the shared memory, its M rows (images x
+    a tile's positions) the GEMM tile (64 rows; pred's and the towers' on
+    tiles of 8 x 16 128), its slice whole 16-channel groups, and its image
+    groups grid.y."""
+    b, h, w, f, nc, sm = case
+    tile = pick_fhead_tile(b, h, w, f, nc, sm, SMEM_MAX)
+    assert tuple(tile) == FHEAD_PASSES
+    for pass_, (ipb, split, tw) in tile.items():
+        assert (ipb, split, tw) in fhead_options(pass_, b, h, w, f, nc, SMEM_MAX), pass_
+        assert fhead_smem_bytes(pass_, ipb, h, w, f, nc, split, tw) <= SMEM_MAX, pass_
+        npos = fhead_tile_dims(h, w, tw)[0]
+        assert ipb * npos <= fhead_rows(pass_, tw) <= 2 * FHEAD_ROWS, pass_
+        assert -(-b // ipb) <= 65535 and tw in fhead_widths(pass_, w), pass_
+        if pass_ != "pred":
+            assert fhead_pass_width(pass_, f, nc) % (16 * split) == 0
+
+
+@pytest.mark.parametrize("case", FHEAD_CASES, ids=FHEAD_IDS)
+def test_fhead_blocks_cover_each_output_once_and_keep_gn_partials_apart(case):
+    """The blocks of each pass (tile x image group x slice, as
+    csrc/head.cu's blk_of derives them from blockIdx) cover every (image,
+    position, output channel) once; every block row's GroupNorm sums land
+    in its own image's partial row of its tile, so an (image, tile,
+    channel) has one writer however many images a block holds, and each
+    image's counter reaches tiles x slices, the fold's target, exactly."""
+    b, h, w, f, nc, sm = case
+    tile = pick_fhead_tile(b, h, w, f, nc, sm, SMEM_MAX)
+    for pass_, (ipb, split, tw) in tile.items():
+        tiles_x, tiles_y = -(-w // tw), -(-h // FHEAD_TILE)
+        seen = np.zeros((b, h, w), np.int32)
+        writers = np.zeros((b, tiles_x * tiles_y), np.int32)
+        for t in range(tiles_x * tiles_y):
+            r0, c0 = (t // tiles_x) * FHEAD_TILE, (t % tiles_x) * tw
+            th, twc = min(FHEAD_TILE, h - r0), min(tw, w - c0)
+            for grp in range(-(-b // ipb)):
+                b0, nimg = grp * ipb, min(ipb, b - grp * ipb)
+                for r in range(nimg * th * twc):  # row_pixel(): image r / npos, position r % npos
+                    i, p = divmod(r, th * twc)
+                    seen[b0 + i, r0 + p // twc, c0 + p % twc] += 1
+                writers[b0:b0 + nimg, t] += 1
+        assert (seen == 1).all(), pass_
+        assert (writers == 1).all(), pass_  # per slice: one partial row per (image, tile)
+        assert tiles_x * tiles_y <= -(-h // FHEAD_TILE) * -(-w // FHEAD_TILE)  # within the partials' rows
+        assert (writers.sum(axis=1) * split == tiles_x * tiles_y * split).all()  # the fold's target
+        if pass_ == "pred":  # 32 classes a block, then one block of cnt|reg
+            chans = [k for z in range(split - 1) for k in range(z * FHEAD_PRED_NC, min(nc, z * FHEAD_PRED_NC + 32))]
+            assert split == -(-nc // FHEAD_PRED_NC) + 1 and chans == list(range(nc))
+        else:
+            n = fhead_pass_width(pass_, f, nc)
+            chans = sorted(k for z in range(split) for k in range(z * (n // split), (z + 1) * (n // split)))
+            assert chans == list(range(n)), pass_
+
+
+@pytest.mark.parametrize("case", FHEAD_CASES, ids=FHEAD_IDS)
+def test_fhead_fills_the_card(case):
+    """Each pass reaches one block per SM wherever some choice that fits
+    does, else takes the most blocks; where its first option (the widest
+    tile, the largest image group, whole channels) already reaches it at
+    two blocks an SM, it keeps it.  pw1 and the towers on maps wider than 8
+    take their wgmma kernels' 8x16 tiles: nine tenths of the SMs, or the
+    most blocks those give."""
+    b, h, w, f, nc, sm = case
+    tile = pick_fhead_tile(b, h, w, f, nc, sm, SMEM_MAX)
+    for pass_, opt in tile.items():
+        options = fhead_options(pass_, b, h, w, f, nc, SMEM_MAX)
+        wgmma = [o for o in options if pass_ in ("pw1", "towers") and o[2] == 16]
+        if wgmma:  # the wgmma kernels' 8x16 tiles: nine tenths of the SMs, or the most blocks they give
+            most = max(fhead_blocks(b, h, w, *o) for o in wgmma)
+            assert opt in wgmma and 10 * fhead_blocks(b, h, w, *opt) >= min(9 * sm, 10 * most), pass_
+            continue
+        most = max(fhead_blocks(b, h, w, i, s, t) for i, s, t in options)
+        got = fhead_blocks(b, h, w, *opt)
+        assert got >= min(sm, most), f"{pass_}: {got} blocks of a possible {most}"
+        first = options[0]
+        if fhead_blocks(b, h, w, *first) >= sm and 2 * fhead_smem_bytes(pass_, first[0], h, w, f, nc, *first[1:]) \
+                + 1024 <= SMEM_MAX:
+            assert opt == first, pass_
+
+
+def test_fhead_small_levels_split_channels_and_pack_images():
+    """At B=8 the 4x4 to 16x16 levels split the towers' channels; at B=64
+    the 4x4 level puts several images in a block; P3 at B=8 keeps whole
+    channels."""
+    for s in (16, 8, 4):
+        assert pick_fhead_tile(8, s, s, 256, 20, SM_COUNT, SMEM_MAX)["towers"][1] > 1
+    assert pick_fhead_tile(64, 4, 4, 256, 20, SM_COUNT, SMEM_MAX)["towers"][0] > 1
+    assert pick_fhead_tile(8, 64, 64, 256, 20, SM_COUNT, SMEM_MAX)["towers"][1] == 1
+
+
+@pytest.mark.parametrize("smem_max", [4096, 20000], ids=["4k", "20k"])
+def test_fhead_chooser_raises_where_nothing_fits(smem_max):
+    with pytest.raises(ValueError, match="K15"):
+        pick_fhead_tile(8, 64, 64, 256, 20, SM_COUNT, smem_max)
+
+
+# K12 (ops/qmnblock.pick_mn_tile): the MNFCOS int8 ladder's ten call shapes
+# ((H=W, kernel, dilation): the pyramid's five blocks, the head's block1 and
+# block2 at the five levels) at 256 -> 512 channels, B = 1, 2, 8 and 64, on
+# 132 and 114 SMs, and odd maps (28x44, 7x11, 1x1) at 64 and 256 channels
+MN_CALLS = [(16, 5, 2), (32, 3, 2), (64, 3, 1), (8, 5, 1), (4, 7, 1), (64, 3, 2), (32, 3, 2), (16, 3, 2), (8, 3, 2),
+            (4, 3, 2)]
+MN_CASES = (
+    [(b, s, s, 256, k, d, sm) for b in (1, 2, 8, 64) for s, k, d in dict.fromkeys(MN_CALLS) for sm in (132, 114)]
+    + [(3, h, w, c, k, d, 132) for h, w in ((28, 44), (7, 11), (1, 1)) for c in (64, 256) for k, d in ((5, 2), (7, 1))]
+)
+MN_IDS = [f"B{b}-{h}x{w}-C{c}-k{k}d{d}-{sm}sm" for b, h, w, c, k, d, sm in MN_CASES]
+
+
+@pytest.mark.parametrize("case", MN_CASES, ids=MN_IDS)
+def test_mn_tile_fits_the_card(case):
+    """K12's tile fits the shared memory, its block at most 128 GEMM rows,
+    its cluster split whole 16-channel groups of C and cmid, its image
+    groups grid.y."""
+    b, h, w, c, k, d, sm = case
+    tw, ipb, split = pick_mn_tile(b, h, w, c, 2 * c, k, d, sm, SMEM_MAX)
+    assert tw in MN_TILE_WIDTHS and split in MN_SPLITS and ipb in mn_ipbs(b, h, w, tw)
+    assert (tw, ipb, split) in mn_options(b, h, w, c, 2 * c, k, d, SMEM_MAX)
+    assert mn_smem_bytes(h, w, c, 2 * c, k, d, tw, ipb, split) <= SMEM_MAX
+    assert mn_rows(h, w, tw, ipb) <= 128 and -(-b // ipb) <= 65535
+    assert c % (16 * split) == 0 and (2 * c) % (16 * split) == 0
+
+
+@pytest.mark.parametrize("case", MN_CASES, ids=MN_IDS)
+def test_mn_blocks_cover_each_output_once(case):
+    """K12's clusters (tile x image group, as csrc/qmnblock.cu's blk_of
+    derives them from blockIdx) cover every (image, position) once, each
+    block's staged window holds its rows' k x k taps inside the map, and the
+    cluster's ranks cut pw1's and pw2's output channels into disjoint
+    slices that cover them."""
+    b, h, w, c, k, d, sm = case
+    tw, ipb, split = pick_mn_tile(b, h, w, c, 2 * c, k, d, sm, SMEM_MAX)
+    hd = d * (k - 1) // 2
+    ry, rx = min(h, min(MN_TILE_ROWS, h) + 2 * hd), min(w, min(tw, w) + 2 * hd)
+    ty, tx = mn_tiles(h, w, tw)
+    seen = np.zeros((b, h, w), np.int32)
+    for tile in range(ty * tx):
+        r0, c0 = (tile // tx) * MN_TILE_ROWS, (tile % tx) * tw
+        th, twc = min(MN_TILE_ROWS, h - r0), min(tw, w - c0)
+        y0, x0 = max(0, r0 - hd), max(0, c0 - hd)
+        ny, nx = min(h, r0 + th + hd) - y0, min(w, c0 + twc + hd) - x0
+        assert ny <= ry and nx <= rx  # the window fits the staged region
+        for oy in range(r0, r0 + th):
+            for ox in range(c0, c0 + twc):
+                taps_y = [oy - hd + j * d for j in range(k) if 0 <= oy - hd + j * d < h]
+                taps_x = [ox - hd + j * d for j in range(k) if 0 <= ox - hd + j * d < w]
+                assert all(y0 <= y < y0 + ny for y in taps_y) and all(x0 <= x < x0 + nx for x in taps_x)
+        for grp in range(-(-b // ipb)):
+            b0, nimg = grp * ipb, min(ipb, b - grp * ipb)
+            for r in range(nimg * th * twc):
+                i, p = divmod(r, th * twc)
+                seen[b0 + i, r0 + p // twc, c0 + p % twc] += 1
+    assert (seen == 1).all()
+    for n in (2 * c, c):
+        assert sorted(ch for q in range(split) for ch in range(q * n // split, (q + 1) * n // split)) == list(range(n))
+
+
+@pytest.mark.parametrize("case", [m for m in MN_CASES if m[1] <= 16 and m[0] <= 8], ids=lambda m: MN_IDS[
+    MN_CASES.index(m)])
+def test_mn_fills_the_card_on_small_maps(case):
+    """On the 4x4 to 16x16 maps at B <= 8 K12 takes at least three quarters
+    of the most blocks any tile gives in one wave (at most one a SM, and
+    clusters within the room the model gives them: three quarters of the
+    SMs at two blocks an SM, nine tenths at one; clusters of up to 8 blocks
+    a tile, images a tile from one), and its modelled time is the least of
+    the tiles that fit."""
+    b, h, w, c, k, d, sm = case
+    tw, ipb, split = pick_mn_tile(b, h, w, c, 2 * c, k, d, sm, SMEM_MAX)
+    opts = mn_options(b, h, w, c, 2 * c, k, d, SMEM_MAX)
+    room = lambda o: sm if o[2] == 1 else sm * (0.75 if mn_per_sm(h, w, c, 2 * c, k, d, *o, SMEM_MAX) == 2 else 0.9)
+    one_wave = max(mn_blocks(b, h, w, *o) for o in opts if mn_blocks(b, h, w, *o) <= room(o))
+    assert 4 * mn_blocks(b, h, w, tw, ipb, split) >= 3 * one_wave
+    cost = lambda o: mn_cost(b, h, w, c, 2 * c, k, *o, sm, mn_per_sm(h, w, c, 2 * c, k, d, *o, SMEM_MAX))
+    assert cost((tw, ipb, split)) == min(cost(o) for o in opts)
+
+
+def test_mn_small_maps_use_clusters_and_the_largest_halo_fits():
+    """At B=8 the 4x4 to 16x16 maps split each tile across a cluster; k=7 on
+    a 4x4 map (the largest halo of the ladder) fits with 8 images a tile,
+    and the 4x4 and 8x8 maps may pack images."""
+    for s, k, d in ((16, 3, 2), (8, 3, 2), (4, 3, 2), (4, 7, 1), (8, 5, 1)):
+        assert pick_mn_tile(8, s, s, 256, 512, k, d, SM_COUNT, SMEM_MAX)[2] > 1
+    assert mn_smem_bytes(4, 4, 256, 512, 7, 1, 8, 8, 1) <= SMEM_MAX
+    assert (8, 8, 1) in mn_options(64, 4, 4, 256, 512, 7, 1, SMEM_MAX)
+    assert (8, 2, 1) in mn_options(64, 8, 8, 256, 512, 3, 2, SMEM_MAX)
+
+
+@pytest.mark.parametrize("smem_max", [8192, 40000], ids=["8k", "40k"])
+def test_mn_chooser_raises_where_nothing_fits(smem_max):
+    with pytest.raises(ValueError, match="K12"):
+        pick_mn_tile(8, 64, 64, 256, 512, 7, 2, SM_COUNT, smem_max)
