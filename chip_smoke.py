@@ -14,7 +14,11 @@ Phases (each prints its results on its own lines):
      (csrc/fused.cu) and K17 (csrc/stem.cu) from the sources, one nvcc per
      library, all started together;
   3. kernel B vs its plain version at the head's shapes (B=8, C=512/256,
-     H=W=64..4, relu/silu/none), bf16 and f32;
+     H=W=64..4, relu/silu/none), bf16 and f32 maps, bf16 and f32 scale and
+     bias, at the COCO canvas's P3 slab (C=512, 112x176, B=2: a cluster of
+     8) and at odd H*W (7x11); each under every tile ops/gn.gn_options
+     gives (the streaming path's among them), with the same bits as under
+     ops/gn.pick_gn_tile's;
   4. kernel A vs its plain version: random [8,1000] and [64,1000] boxes, a
      [1,1000] chain in which each box suppresses the next (every other box
      kept), the adversarial case of tests/test_pallas_nms.py, and (after
@@ -86,7 +90,9 @@ Phases (each prints its results on its own lines):
      four stage shapes, B=8 and B=64, under every tile it takes; K13 on the
      three segments, B=8 and B=64, against kernel C block after block,
      under its chooser's tiles, each (tw, split) every block takes and each
-     block's largest cluster: 0 differing elements;
+     block's largest cluster; K17 at B=8, B=64 and an odd frame size
+     (129x97) under ops/stem.pick_stem_tail_tile's band and forced ones, and
+     with f32 mult and shift: 0 differing elements;
   5j. the fused ResNet-50 (nn/fused_resnet.resnet50_fused_forward) on the
      same model and frames, bf16, B=8, counted (32 K16 launches); its C3..C5
      against the module forward (within LEVEL_TOL of the range, cosine >=
@@ -123,7 +129,9 @@ Phases (each prints its results on its own lines):
      K12 on the 15 calls' inputs, B=8 and repeated to B=64, under every
      tile it takes (ops/qmnblock.mn_options), equal to its output under
      the chooser's tile bit for bit;
-  6. timing with CUDA events: kernel vs plain for A, B, C (per block
+  6. timing with CUDA events: kernel vs plain for A, B (on the float
+     pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
+     repeated to B=64, beside F.group_norm then the activation), C (per block
      shape at B=8, and at B=64 the kernel alone: each with its bound, its
      rate, its tile, cluster split and conv1 recompute), K1 (B=8, and the
      kernel alone at B=64 and the COCO canvas), K4 (the
@@ -138,7 +146,8 @@ Phases (each prints its results on its own lines):
      input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
      K16 (beside torch.matmul of the same GEMMs, epilogue not included,
      each with its TFLOP/s),
-     K17, K12 (its 15 calls of one B=8 MNFCOS forward), K4''s three
+     K17 (B=8, and the kernel alone at B=64), K12 (its 15 calls of one B=8
+     MNFCOS forward), K4''s three
      epilogues (K4 and K4' beside torch._int_mm of the same int8 GEMMs,
      epilogue not included), K9 against K7 at the COCO P3 shape, the
      library call where one PyTorch call computes the same function, each
@@ -146,9 +155,10 @@ Phases (each prints its results on its own lines):
      (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
      (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
      MNFCOS pipelines' among them;
-  6b-6i. torch.profiler breakdowns of one B=64 call of the float, the
+  6b-6j. torch.profiler breakdowns of one B=64 call of the float, the
      int8-backbone, the int8-FPN, the default, the per-conv, the
-     fused-head, the MNFCOS int8-ladder and the chained pipeline (a profile that raises
+     fused-head, the MNFCOS int8-ladder, the chained and the stem-tail
+     pipeline (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
@@ -156,7 +166,8 @@ Phases (each prints its results on its own lines):
      into the NCHW -> NHWC copies of the levels, K15 and the output casts,
      beside the float head's, and K15's device time at each level by its
      CUDA kernels (fhead_pw1, fhead_dw, fhead_pw2, fhead_towers[_wg],
-     fhead_pred); 6h times K12's 15 calls at B=64 one by one.
+     fhead_pred); 6h times K12's 15 calls at B=64 one by one; 6j sums kernel
+     B's, K17's and the copy kernels' device time.
 
 Any failed check makes the script exit 1.  On success the last two lines
 are the kernels JSON line and ``{"ok": true, "device": {...}}``, preceded by
@@ -357,7 +368,7 @@ def main() -> int:
     from pytorch_object_detection_tpu_torch.models import head_int8, mnfcos_int8
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
-    from pytorch_object_detection_tpu_torch.nn import fpn_int8, fused_resnet, resnet_int8
+    from pytorch_object_detection_tpu_torch.nn import fpn_int8, fused_resnet, layers, resnet_int8
     from pytorch_object_detection_tpu_torch.nn.fused_fpn import hisfpn_folded_forward
     from pytorch_object_detection_tpu_torch.ops import (
         cuda_nms, fused, gn, head, qblock, qchain, qconv, qhead, qhis, qmm_variants, qmnblock, qpool, qstem, stem)
@@ -398,30 +409,52 @@ def main() -> int:
 
     def phase3():
         g = torch.Generator(device=dev).manual_seed(SEED)
+        smem_max = qblock.card_limits(dev)[1]
         worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        n_tiles = {"resident": 0, "stream": 0}
+
+        def gn_case(b, c, h, w, dtype, pdtype, acts, what):
+            """Kernel B within its contract against the plain version, and the
+            same bits under every tile of gn_options (the chooser's weighs)."""
+            x = (torch.randn(b, c, h, w, generator=g, device=dev) * 2.0 + torch.randn(
+                1, c, 1, 1, generator=g, device=dev)).to(dtype)
+            scale = (torch.rand(c, generator=g, device=dev) + 0.5).to(pdtype)
+            bias = (torch.randn(c, generator=g, device=dev) * 0.3).to(pdtype)
+            tiles = gn.gn_options(b, c, h * w, 32, x.element_size(), smem_max)
+            for act in acts:
+                with torch.inference_mode():
+                    got = gn.groupnorm_act(x, scale, bias, act=act)
+                    want = gn.groupnorm_act(x, scale, bias, act=act, plain=True)
+                    differ = [t for t in tiles if not torch.equal(gn.groupnorm_act(x, scale, bias, act=act, tile=t),
+                                                                  got)]
+                torch.cuda.synchronize()
+                for t in tiles:
+                    n_tiles[t[0]] += 1
+                err = float((got.float() - want.float()).abs().max())
+                worst[dtype] = max(worst[dtype], err)
+                if dtype == torch.float32:
+                    ok = err <= GN_TOL_F32
+                else:
+                    ok = bool(torch.isclose(got.float(), want.float(), **GN_TOL_BF16).all())
+                if not ok or differ or act == "relu":
+                    smoke.check(ok and not differ and got.dtype == dtype,
+                                f"GN {what} {str(dtype)[6:]} x, {str(pdtype)[6:]} scale B={b} C={c} {h}x{w} {act}: "
+                                f"max abs err {err:.3g}; {len(tiles)} tiles, {len(differ)} differ from the chooser's "
+                                f"{gn.pick_gn_tile(b, c, h * w, 32, x.element_size(), *qblock.card_limits(dev))}"
+                                + (f" {differ}" if differ else ""))
+
         for dtype in (torch.bfloat16, torch.float32):
-            for c, h in HEAD_SHAPES:
-                x = torch.randn(8, c, h, h, generator=g, device=dev) * 2.0 + torch.randn(
-                    1, c, 1, 1, generator=g, device=dev)
-                x = x.to(dtype)
-                scale = torch.rand(c, generator=g, device=dev) + 0.5
-                bias = torch.randn(c, generator=g, device=dev) * 0.3
-                for act in GN_ACTS:
-                    with torch.inference_mode():
-                        got = gn.groupnorm_act(x, scale, bias, act=act)
-                        want = gn.groupnorm_act(x, scale, bias, act=act, plain=True)
-                    torch.cuda.synchronize()
-                    err = float((got.float() - want.float()).abs().max())
-                    worst[dtype] = max(worst[dtype], err)
-                    if dtype == torch.float32:
-                        ok = err <= GN_TOL_F32
-                    else:
-                        ok = bool(torch.isclose(got.float(), want.float(), **GN_TOL_BF16).all())
-                    if not ok or act == "relu":
-                        smoke.check(ok and got.dtype == dtype,
-                                    f"GN {str(dtype)[6:]} C={c} {h}x{h} {act}: max abs err {err:.3g}")
+            for pdtype in (torch.bfloat16, torch.float32):
+                for c, h in HEAD_SHAPES:
+                    gn_case(8, c, h, h, dtype, pdtype, GN_ACTS, "head")
+            # the COCO canvas's P3 slab (a cluster of 8 holds it), odd H*W (slabs off the 16-byte grid)
+            gn_case(2, 512, 112, 176, dtype, torch.bfloat16, ("relu", "silu"), "COCO P3")
+            gn_case(3, 256, 7, 11, dtype, torch.bfloat16, GN_ACTS, "odd")
+            gn_case(2, 64, 7, 11, dtype, torch.float32, GN_ACTS, "odd")
         print(f"  GN max abs err: bf16 {worst[torch.bfloat16]:.6g} (tol rtol 2^-7 + atol 1e-3), "
-              f"f32 {worst[torch.float32]:.6g} (tol {GN_TOL_F32})")
+              f"f32 {worst[torch.float32]:.6g} (tol {GN_TOL_F32}); outputs under forced tiles held equal to the "
+              f"chooser's: {n_tiles['resident']} resident, {n_tiles['stream']} streaming")
+        smoke.check(n_tiles["stream"] > 0, "GN: the streaming path forced by tile= at every shape")
         res["gn_err"] = worst[torch.bfloat16]
 
     def nms_compare(boxes, classes, valid, what):
@@ -485,6 +518,8 @@ def main() -> int:
         print(f"  launches in one pipeline call (B=8): {res['launches']}")
         smoke.check(res["launches"]["gn"] == 20, "kernel B launched 20 times per forward")
         smoke.check(res["launches"]["nms"] == 1, "kernel A launched once per batch")
+        # kernel B's own operands on this path (bf16 maps, the bf16 model's scale and bias), for phase 6
+        res["gn_calls"] = record_calls(layers, ("groupnorm_act",), lambda: pipe(frames))["groupnorm_act"]
 
         k = 1000
         smoke.check(tuple(dets.scores.shape) == (8, k) and tuple(dets.boxes.shape) == (8, k, 4)
@@ -1042,6 +1077,16 @@ def main() -> int:
                 for what, inp in (("pipeline", x), ("random", rand)):
                     compare("stem_bn_pool_quant", stem.stem_bn_pool_quant(inp, mult, shift, scale),
                             stem.stem_bn_pool_quant(inp, mult, shift, scale, plain=True), f"K17 {what} {tuple(inp.shape)}")
+                # K17 at B=8, B=64 and an odd frame size under its chooser's band and forced ones, with the
+                # cached bf16 mult and shift and with f32 ones
+                for inp in (x, x.repeat(8, 1, 1, 1), x[:, :129, :97].contiguous()):
+                    want = stem.stem_bn_pool_quant(inp, mult, shift, scale, plain=True)
+                    for tile in (None, (1, 8), (4, 32), (16, 8), (2, 64)):
+                        band = tile or stem.pick_stem_tail_tile(*inp.shape[:3], *qblock.card_limits(dev))
+                        compare("stem_bn_pool_quant", stem.stem_bn_pool_quant(inp, mult, shift, scale, tile=tile),
+                                want, f"K17 band {band} {tuple(inp.shape)}")
+                    compare("stem_bn_pool_quant", stem.stem_bn_pool_quant(inp, mult.float(), shift.float(), scale),
+                            want, f"K17 f32 mult and shift {tuple(inp.shape)}")
             for (x, blocks), _ in calls["qchain"]:
                 for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
                     compare("qchain", qchain.qchain(inp, blocks), qchain.qchain(inp, blocks, plain=True),
@@ -1459,27 +1504,35 @@ def main() -> int:
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
-        g = torch.Generator(device=dev).manual_seed(SEED + 3)
-        gn_k = gn_p = gn_l = gn_h = gn_bytes = gn_ops = 0.0
-        for c, h in HEAD_SHAPES:
-            x = torch.randn(8, c, h, h, generator=g, device=dev).to(torch.bfloat16)
-            scale, bias = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-            with torch.inference_mode():
-                tk = cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu"))
-                th = host_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu"))
-                tp = cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu", plain=True))
-                tl = cuda_ms(lambda: F.group_norm(x, 32, scale.to(x.dtype), bias.to(x.dtype), 1e-5))
-            gn_k += 2 * tk  # two GNs of this width per level
-            gn_h += 2 * th
-            gn_p += 2 * tp
-            gn_l += 2 * tl
-            gn_bytes += 2 * (2 * x.numel() * 2 + 2 * c * 4)  # bf16 in and out, f32 scale and bias
-            gn_ops += 2 * 8 * x.numel()  # sum, sum of squares, normalize, affine, act: ~8 f32 ops each
-            print(f"  GN bf16 B=8 C={c} {h}x{h}: kernel {tk:.4f} ms, plain {tp:.4f} ms, F.group_norm {tl:.4f} ms")
-        print(f"  GN per forward (20 launches, B=8): kernel {gn_k:.4f} ms, plain {gn_p:.4f} ms, "
-              f"F.group_norm (act none) {gn_l:.4f} ms, wrapper host time {gn_h:.4f} ms {card}")
-        res["gn_ms"], res["gn_plain_ms"], res["gn_lib_ms"] = gn_k, gn_p, gn_l
-        res["gn_bound"] = bound(gn_bytes, gn_ops, F32_OPS_S)
+        # kernel B on the float pipeline's 20 recorded calls, B=8 and repeated to B=64, beside its plain
+        # version (B=8) and F.group_norm then the activation
+        acts = {"none": lambda t: t, "relu": F.relu, "silu": F.silu}
+        for b in (8, 64):
+            gn_k = gn_p = gn_l = gn_h = gn_bytes = gn_ops = 0.0
+            for (x, scale, bias), kw in res["gn_calls"]:
+                x = x.repeat(b // x.shape[0], 1, 1, 1)
+                act, it = kw["act"], 20 if b == 8 else 5
+                with torch.inference_mode():
+                    tk = cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act=act), iters=it)
+                    th = host_ms(lambda: gn.groupnorm_act(x, scale, bias, act=act))
+                    tl = cuda_ms(lambda: acts[act](F.group_norm(x, 32, scale, bias, 1e-5)), iters=it)
+                    tp = 0.0 if b == 64 else cuda_ms(lambda: gn.groupnorm_act(x, scale, bias, act=act, plain=True),
+                                                     iters=5)
+                gn_k, gn_h, gn_p, gn_l = gn_k + tk, gn_h + th, gn_p + tp, gn_l + tl
+                # the map in and out once, scale and bias; sum, sum of squares, normalize, affine, act: ~8 f32 ops
+                gn_bytes += 2 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+                gn_ops += 8 * x.numel()
+                _, c, h, w = x.shape
+                tile = gn.pick_gn_tile(b, c, h * w, 32, x.element_size(), *qblock.card_limits(dev))
+                print(f"  GN {str(x.dtype)[6:]} B={b} C={c} {h}x{w} {act}: kernel {tk:.4f} ms, "
+                      + (f"plain {tp:.4f} ms, " if b == 8 else "") + f"F.group_norm + {act} {tl:.4f} ms, host "
+                      f"{th:.4f} ms, tile {tile}")
+            bnd = bound(gn_bytes, gn_ops, F32_OPS_S)
+            print(f"  GN per forward (20 launches, B={b}, the pipeline's operands): kernel {gn_k:.4f} ms, "
+                  + (f"plain {gn_p:.4f} ms, " if b == 8 else "") + f"F.group_norm + act {gn_l:.4f} ms, wrapper host "
+                  f"time {gn_h:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}, {bnd[0] / gn_k:.1%} of it) {card}")
+            if b == 8:
+                res["gn_ms"], res["gn_plain_ms"], res["gn_lib_ms"], res["gn_bound"] = gn_k, gn_p, gn_l, bnd
 
         boxes, classes, valid = res["nms_boxes"]
         scores = torch.linspace(1.0, 0.0, boxes.shape[1], device=dev).expand(boxes.shape[0], -1)
@@ -1815,7 +1868,14 @@ def main() -> int:
             # bf16 in, int8 out; BN, ReLU per input, 8 compares and the quantize's 4 ops per output
             t["stem_bn_pool_quant"] = (tk, tp, th, (2 * x.numel() + out + 4 * (2 * x.shape[3] + 1),
                                                     3 * x.numel() + 12 * out, F32_OPS_S))
-            print(f"  K17 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+            print(f"  K17 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms, host {th:.4f} ms, band "
+                  f"{stem.pick_stem_tail_tile(*x.shape[:3], *qblock.card_limits(dev))}")
+            x64 = x.repeat(8, 1, 1, 1)
+            t64 = cuda_ms(lambda: stem.stem_bn_pool_quant(x64, mult, shift, scale), iters=5)
+            b64 = bound(2 * x64.numel() + 8 * out + 4 * (2 * x.shape[3] + 1), 3 * x64.numel() + 96 * out, F32_OPS_S)
+            band = stem.pick_stem_tail_tile(*x64.shape[:3], *qblock.card_limits(dev))
+            print(f"  K17 B=64 {tuple(x64.shape)}: kernel {t64:.4f} ms, bound {b64[0]:.5f} ms ({b64[1]}, "
+                  f"{b64[0] / t64:.1%} of it), band {band} {card}")
 
             def k13_vs_c(x, blocks, iters, reps):
                 """K13 and kernel C on one segment in turns (K13, C, C, K13): their mean ms."""
@@ -2199,6 +2259,10 @@ def main() -> int:
     if "chained" in res.get("paths", {}):
         smoke.phase("phase 6i: profile, chained pipeline", phase6_profile, res["paths"]["chained"][0],
                     ("qstem_kernel", "qchain_kernel", "qmm_", "his_", "qpool_", "head_", "nms_"))
+    if "stem tail" in res.get("paths", {}):
+        smoke.phase("phase 6j: profile, stem-tail pipeline; kernel B, K17 and the copy kernels", phase6_profile,
+                    res["paths"]["stem tail"][0], ("stem_tail_kernel", "gn_act_kernel", "nms_"),
+                    ("gn_act_kernel", "stem_tail_kernel", "copy"))
     print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)

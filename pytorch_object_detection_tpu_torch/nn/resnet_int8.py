@@ -303,18 +303,37 @@ def resnet50_int8_stem(qtree: Dict, images: torch.Tensor, compute_dtype: torch.d
     return qmaxpool3x3s2_plain(quantize_act(x, qtree["stem_scale"]).permute(0, 2, 3, 1))
 
 
+def stem_tail_params(stem: Dict, compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(conv kernel, mult, shift) of the stem tail: the kernel in
+    ``compute_dtype`` and channels-last (the frames' layout, so the conv
+    copies nothing), the folded BN rounded to bf16 as the JAX kernel rounds
+    it.  Made at a qtree's first stem-tail call, whether the port quantized
+    it or it came across from the JAX package, and kept beside the BN in
+    ``stem["tail"]``; later calls launch the conv and K17 only."""
+    tail = stem.get("tail")
+    if tail is None:
+        mult, shift = fold_bn_params(**stem["bn"])
+        tail = stem["tail"] = {"mult": mult.to(torch.bfloat16), "shift": shift.to(torch.bfloat16), "kernel": {}}
+    kernel = tail["kernel"].get(compute_dtype)
+    if kernel is None:
+        kernel = tail["kernel"][compute_dtype] = stem["kernel"].to(compute_dtype).contiguous(
+            memory_format=torch.channels_last)
+    return kernel, tail["mult"], tail["shift"]
+
+
 def stem_tail_int8(qtree: Dict, images: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16,
                    plain: bool = False) -> torch.Tensor:
     """The float stem with its tail on K17 (``resnet_int8.py:404-412``):
     the 7x7/2 conv in ``compute_dtype``, then BN + ReLU, the 3x3/2 pool and
-    the int8 quantize in one pass (``ops/stem.stem_bn_pool_quant``).  The
-    NHWC frames' ``permute(0, 3, 1, 2)`` is channels-last, so the conv's
-    output is too, and its NHWC view reaches K17 with no layout copy."""
-    stem = qtree["stem"]
-    mult, shift = fold_bn_params(**stem["bn"])
+    the int8 quantize in one pass (``ops/stem.stem_bn_pool_quant``), on the
+    operands :func:`stem_tail_params` keeps.  The NHWC frames'
+    ``permute(0, 3, 1, 2)`` is channels-last, so the conv's output is too,
+    and its NHWC view reaches K17 with no layout copy."""
+    kernel, mult_b, shift_b = stem_tail_params(qtree["stem"], compute_dtype)
     x = images.permute(0, 3, 1, 2).to(compute_dtype).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x, stem["kernel"].to(compute_dtype), None, 2, 3)
-    return stem_bn_pool_quant(y.permute(0, 2, 3, 1).contiguous(), mult, shift, qtree["stem_scale"], plain=plain)
+    y = F.conv2d(x, kernel, None, 2, 3)
+    return stem_bn_pool_quant(y.permute(0, 2, 3, 1).contiguous(), mult_b, shift_b, qtree["stem_scale"],
+                              plain=plain)
 
 
 def stem_direct_i8(st: Dict, u4: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Time kernel C, K4, K16, K7, K9, K5, kernel A, K1, K11, K13, K15 and K12 of the PyTorch port on one NVIDIA GPU.
+"""Time the port's kernels C, K4, K16, K7, K9, K5, A, K1, K11, K13, K15, K12, B and K17 on one NVIDIA GPU.
 
 Kernel C (``ops/qblock.qbottleneck`` / ``qbottleneck_s2``) at the 16
 ResNet-50 bottlenecks of the 512x512 canvas, K4 (``ops/qconv.qmatmul``)
@@ -47,7 +47,18 @@ version and, with ``--ref DIR``, the share of its values that moved from
 the first run's (saved there); ``k12``: K12 (``ops/qmnblock.qmnblock``)
 at the MNFCOS int8 ladder's 15 calls, B=8 and B=64, with digests; both
 print their bound, rate and ptxas' registers and spills where this process
-built the kernel; and ``stemtile``, this tree's package
+built the kernel; ``gn``: kernel B (``ops/gn.groupnorm_act``) at the
+HISHead's 20 GroupNorm calls of a forward (bf16 maps, scale and bias),
+B=8 and B=64, with its host time, bound and share of it, ``F.group_norm``
+then the activation beside it, digests and (``--ref``) the share of values
+moved; ``k17``: K17 (``ops/stem.stem_bn_pool_quant``) at [B, 256, 256, 64],
+B=8 and B=64, and an odd map, and the stem-tail path's whole stem, with
+digests; ``pipes``: img/s at B=8 and B=64 of the six pipelines that run B
+or K17 and a B=64 profile of the stem-tail pipeline split into B, K17, the
+copy kernels and the rest; ``gntile`` and ``k17tile``, this tree's package
+only (they force ``tile=``): B at the head's shapes and the COCO canvas's
+P3 under every tile of ``ops/gn.gn_options``, K17 under every band that
+fits, the choosers' picks marked; and ``stemtile``, this tree's package
 only, since it needs ``qstem_conv``'s ``tile=``: K1 at 512x512, B=1, 2 and
 8, and at the COCO canvas, B=1 and 2, under ``ops/qstem.pick_stem_tile``'s
 tile and forced smaller ones, its outputs held equal to the chooser's).
@@ -181,12 +192,12 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the JSON object here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ref", default=None,
-                        help="section k15: a directory for the reference outputs (saved by the first run that "
-                             "finds none, compared by the later ones)")
+                        help="sections k15 and gn: a directory for the reference outputs (saved by the first run "
+                             "that finds none, compared by the later ones)")
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
     parser.add_argument("--only", default="c,k4,k16,head,his,nms,stem",
                         help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile, k11, k13, "
-                             "k13blocks, k15, k12")
+                             "k13blocks, k15, k12, gn, k17, pipes, gntile, k17tile")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -265,6 +276,16 @@ def main() -> int:
             time_k15(result, dev, args.seed, card, args.ref)
         if "k12" in only:
             time_k12(result, dev, args.seed, card)
+        if "gn" in only:
+            time_gn(result, dev, args.seed, card, args.ref)
+        if "k17" in only:
+            time_k17(result, dev, args.seed, card)
+        if "pipes" in only:
+            time_pipes(result, dev, args.seed, card)
+        if "gntile" in only:
+            time_gn_tiles(result, dev, args.seed, card)
+        if "k17tile" in only:
+            time_k17_tiles(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -944,6 +965,299 @@ def time_k12(result, dev, seed, card) -> None:
               + f", bound {bnd:.5f} ms, {macs_all / tot['/graph'] / 1e9:.1f} T multiply-adds/s (graph) {card}",
               flush=True)
     print(f"K12 build: {ptxas_lines(_build.build_log, 'qmnblock')}")
+
+
+
+def host_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Milliseconds of host time per call of ``fn()``: ``iters`` calls back
+    to back on the host clock, no wait for the card inside, median of
+    ``reps``; where it exceeds the card's time per call, the host bounds
+    back-to-back calls."""
+    import time
+
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t0) * 1000.0 / iters)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+# kernel B: the HISHead's 20 GroupNorm calls of one forward at 512x512, in
+# the head's order: per level stem_gn1 (2f, relu), stem_gn2 (2f, silu),
+# cls_gn0 and reg_gn0 (f, relu); (C, H=W, act)
+GN_CALLS = [(c, s, act) for s in (64, 32, 16, 8, 4) for c, act in ((512, "relu"), (512, "silu"), (256, "relu"),
+                                                                     (256, "relu"))]
+
+
+def gn_operands(c: int, s: int, b: int, seed: int, dev):
+    """A bf16 map [b, c, s, s] with a per-channel offset, and bf16 scale and
+    bias off their defaults, as the pipeline's bf16 model carries them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + c + s + b)
+    x = torch.randn(b, c, s, s, generator=g) * 2.0 + torch.randn(1, c, 1, 1, generator=g)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=g)
+    bias = 0.2 * torch.randn(c, generator=g)
+    return [t.to(dev, torch.bfloat16) for t in (x, scale, bias)]
+
+
+def time_gn(result, dev, seed, card, ref_dir=None) -> None:
+    """Kernel B at the HISHead's 20 calls of one forward (bf16 maps, bf16
+    scale and bias), B=8 and B=64: ms a call back to back and from a graph,
+    the wrapper's host ms, the bound (bytes: the map read once and written
+    once) and the share of it reached, ``F.group_norm`` then the activation
+    beside it; per forward the sums; digests of the outputs and, with
+    ``--ref``, the share of values that moved from the first run's (the
+    first 8 images of each call); registers and spills from the build."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_object_detection_tpu_torch import _build
+    from pytorch_object_detection_tpu_torch.ops import gn
+
+    acts = {"relu": F.relu, "silu": F.silu}
+    result["gn"] = {}
+    outs = {}
+    for b in (8, 64):
+        tot = dict.fromkeys(("", "/graph", "/host", "/library", "/bound"), 0.0)
+        for i, (c, s, act) in enumerate(GN_CALLS):
+            x, scale, bias = gn_operands(c, s, b, seed, dev)
+            fn = lambda: gn.groupnorm_act(x, scale, bias, act=act)
+            key = f"P{i // 4 + 3}/{i % 4}/C{c}/{act}/B{b}"
+            out = fn()
+            result["digest"][f"gn/{key}"] = digest([out])
+            outs[key] = out[:8]
+            it = 20 if b == 8 else 5
+            times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it), "/host": host_ms(fn),
+                     "/library": cuda_ms(lambda: acts[act](F.group_norm(x, 32, scale, bias, 1e-5)), iters=it),
+                     "/bound": (2 * x.numel() * 2 + 2 * c * 2) / 3.35e12 * 1e3}
+            for sfx, v in times.items():
+                result["gn"][f"{key}{sfx}"] = v
+                tot[sfx] += v
+            print(f"B {key} {tuple(x.shape)}: {times['']:.4f} ms, graph {times['/graph']:.4f} ms, host "
+                  f"{times['/host']:.4f} ms, bound {times['/bound']:.5f} ms (bytes, "
+                  f"{times['/bound'] / times['/graph']:.1%} of it from the graph), F.group_norm + {act} "
+                  f"{times['/library']:.4f} ms, digest {result['digest'][f'gn/{key}']}", flush=True)
+        for sfx, v in tot.items():
+            result["gn"][f"forward/B{b}{sfx}"] = v
+        print(f"B, the 20 calls of a forward at B={b}: {tot['']:.4f} ms, graph {tot['/graph']:.4f} ms, host "
+              f"{tot['/host']:.4f} ms, bound {tot['/bound']:.5f} ms (bytes), {tot['/bound'] / tot['/graph']:.1%} "
+              f"of it (graph), {tot['/bound'] / tot['']:.1%} (back to back); F.group_norm + act "
+              f"{tot['/library']:.4f} ms {card}", flush=True)
+    print(f"B build: {ptxas_lines(_build.build_log, 'gn')}")
+    _ref_compare(ref_dir, "gn", outs, card)
+
+
+# K17: the stem conv's output at 512x512 frames, B=8 and B=64, and an odd frame size
+K17_SHAPES = ((8, 256, 256), (64, 256, 256), (8, 129, 97))
+PIPE_CANVAS = (512, 512)
+
+
+def k17_operands(b: int, h: int, w: int, seed: int, dev):
+    """A bf16 stem-conv output [b, h, w, 64] (NHWC), the folded BN's f32
+    mult and shift, and the stem's scale (a few values clip)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + 17 + b + h)
+    x = (torch.randn(b, h, w, 64, generator=g) * 3.0).to(torch.bfloat16)
+    mult, shift = torch.rand(64, generator=g) + 0.3, torch.randn(64, generator=g) * 0.5
+    scale = torch.tensor(float(x[:1].float().abs().max()) / 127.0 * 0.8)
+    return [t.to(dev) for t in (x, mult, shift, scale)]
+
+
+def stem_qtree(seed: int, dev):
+    """The float stem's part of a qtree: a random 7x7 conv and BN, and a scale."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 171)
+    bn = {"scale": torch.rand(64, generator=g) + 0.5, "bias": torch.randn(64, generator=g) * 0.2,
+          "mean": torch.randn(64, generator=g) * 0.1, "var": torch.rand(64, generator=g) + 0.5}
+    stem = {"kernel": torch.randn(64, 3, 7, 7, generator=g) * 0.1, "bn": bn}
+    return {"stem": {"kernel": stem["kernel"].to(dev), "bn": {k: v.to(dev) for k, v in bn.items()}},
+            "stem_scale": torch.tensor(0.05, device=dev)}
+
+
+def time_k17(result, dev, seed, card) -> None:
+    """K17 at the stem tail's shape [B, 256, 256, 64] (512x512 frames), B=8
+    and B=64, and at an odd frame size (B=8, 129x97): ms a call back to back
+    and from a graph, host ms, the bound (bytes) and the share of it reached,
+    a digest of each output; then the stem-tail path's whole stem
+    (``resnet50_int8_stem(..., "pallas_stem_tail")``: the bf16 conv, the
+    BN fold and K17) back to back with its host ms; registers and spills."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch import _build
+    from pytorch_object_detection_tpu_torch.nn import resnet_int8
+    from pytorch_object_detection_tpu_torch.ops import stem
+
+    result["k17"] = {}
+    for b, h, w in K17_SHAPES:
+        x, mult, shift, scale = k17_operands(b, h, w, seed, dev)
+        fn = lambda: stem.stem_bn_pool_quant(x, mult, shift, scale)
+        key = f"B{b}/{h}x{w}"
+        out = fn()
+        result["digest"][f"k17/{key}"] = digest([out])
+        it = 20 if b == 8 else 5
+        times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it), "/host": host_ms(fn),
+                 "/bound": (x.numel() * 2 + out.numel() + 64 * 8 + 4) / 3.35e12 * 1e3}
+        for sfx, v in times.items():
+            result["k17"][f"{key}{sfx}"] = v
+        print(f"K17 {key} {tuple(x.shape)}: {times['']:.4f} ms, graph {times['/graph']:.4f} ms, host "
+              f"{times['/host']:.4f} ms, bound {times['/bound']:.5f} ms (bytes, "
+              f"{times['/bound'] / times['/graph']:.1%} of it from the graph), digest "
+              f"{result['digest'][f'k17/{key}']} {card}", flush=True)
+    qtree = stem_qtree(seed, dev)
+    for b in (8, 64):
+        g = torch.Generator().manual_seed(seed + 173 + b)
+        images = torch.randn(b, *PIPE_CANVAS, 3, generator=g).to(dev, torch.bfloat16)
+        fn = lambda: resnet_int8.resnet50_int8_stem(qtree, images, torch.bfloat16, "pallas_stem_tail")
+        out = fn()
+        result["digest"][f"k17/stem/B{b}"] = digest([out])
+        times = {"": cuda_ms(fn, iters=10 if b == 8 else 3), "/host": host_ms(fn, iters=10)}
+        for sfx, v in times.items():
+            result["k17"][f"stem/B{b}{sfx}"] = v
+        print(f"K17's path, the bf16 stem with its tail, B={b} 512x512: {times['']:.4f} ms, host "
+              f"{times['/host']:.4f} ms, digest {result['digest'][f'k17/stem/B{b}']} {card}", flush=True)
+    print(f"K17 build: {ptxas_lines(_build.build_log, 'stem.cu')}")
+
+
+def time_pipes(result, dev, seed, card) -> None:
+    """The six pipelines that run kernel B or K17, HISFCOS(20, 256) and
+    MNFCOS(20, 256) from a seed, bf16 512x512, calibrated on 8 seeded
+    frames: img/s at B=8 and B=64 (float, int8-backbone, int8-FPN, stem
+    tail, MNFCOS float, MNFCOS int8-backbone); then one B=64 call of the
+    stem-tail pipeline under ``torch.profiler``: wall, device time, idle
+    share, and the device ms of kernel B, K17, the dtype casts and copies,
+    and the rest."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline, make_eval_pipeline_int8
+    from pytorch_object_detection_tpu_torch.models.fcos import default_strides
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+
+    canvas = PIPE_CANVAS
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    frames = torch.randint(0, 256, (8, *canvas, 3), generator=g, device=dev, dtype=torch.uint8)
+    norm = (frames.float() / 255.0 - torch.tensor(IMAGENET_MEAN, device=dev)) / torch.tensor(IMAGENET_STD, device=dev)
+    his = build_model("HISFCOS", 20, 256, device=dev, generator=torch.Generator().manual_seed(seed))
+    mn = build_model("MNFCOS", 20, 256, device=dev, generator=torch.Generator().manual_seed(seed + 13))
+    bf = dict(compute_dtype=torch.bfloat16)
+    pipes = {
+        "float": make_eval_pipeline(his, default_strides(), canvas, **bf),
+        "int8-backbone": make_eval_pipeline_int8(his, norm, default_strides(), canvas, int8_fpn=False, **bf),
+        "int8-FPN": make_eval_pipeline_int8(his, norm, default_strides(), canvas, int8_head=False, **bf),
+        "stem tail": make_eval_pipeline_int8(his, norm, default_strides(), canvas, int8_fpn=False,
+                                             backend="pallas_stem_tail", **bf),
+        "MNFCOS float": make_eval_pipeline(mn, default_strides(), canvas, **bf),
+        "MNFCOS int8-backbone": make_eval_pipeline_int8(mn, norm, default_strides(), canvas, **bf),
+    }
+    result["pipes"] = {}
+    for b, iters in ((8, 10), (64, 3)):
+        fr = frames.repeat(b // 8, 1, 1, 1)
+        for name, p in pipes.items():
+            ms = cuda_ms(lambda: p(fr), iters=iters, reps=3)
+            result["pipes"][f"{name}/B{b}"] = b * 1000.0 / ms
+            print(f"pipeline {name} B={b}: {ms:.3f} ms a batch, {b * 1000.0 / ms:.1f} img/s {card}", flush=True)
+    fr, pipe = frames.repeat(8, 1, 1, 1), pipes["stem tail"]
+    for _ in range(2):
+        pipe(fr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pipe(fr)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / 3
+    events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not events:
+        print("stem-tail profile: the profiler saw no device events: not measured")
+        return
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    parts = {"B (gn_act*)": 0.0, "K17 (stem_tail*)": 0.0, "casts and copies": 0.0, "the rest": 0.0}
+    counts = dict.fromkeys(parts, 0)
+    for e in events:
+        name = ("B (gn_act*)" if "gn_act" in e.key else "K17 (stem_tail*)" if "stem_tail" in e.key
+                else "casts and copies" if "copy" in e.key.lower() else "the rest")
+        parts[name] += getattr(e, attr) / 1000.0 / 3
+        counts[name] += e.count
+    device = sum(parts.values())
+    result["pipes"]["stem tail profile"] = dict(parts, wall=wall, device=device)
+    print(f"stem-tail pipeline, one B=64 call under torch.profiler: wall {wall:.3f} ms, device {device:.3f} ms, "
+          f"idle share {max(0.0, 1.0 - device / wall):.3f}; " + ", ".join(
+              f"{k} {v:.4f} ms ({counts[k] // 3} launches)" for k, v in parts.items()) + f" {card}", flush=True)
+    ranked = sorted(events, key=lambda e: -getattr(e, attr))
+    for e in ranked[:12]:
+        print(f"    {getattr(e, attr) / 1000.0 / 3:9.4f} ms  {e.count // 3:5d}x  {e.key[:100]}")
+
+
+
+def time_gn_tiles(result, dev, seed, card) -> None:
+    """Kernel B at the HISHead's ten shapes (relu) and the COCO canvas's P3
+    (C=512, 112x176, B=2), B=8 and B=64, from a graph, under every tile of
+    ``ops/gn.gn_options``, the chooser's marked with ``*``; every tile's
+    output held equal to the chooser's."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import gn, qblock
+
+    sm_count, smem_max = qblock.card_limits(dev)
+    result["gn_tiles"] = {}
+    shapes = [(b, c, s, s) for b in (8, 64) for s in (64, 32, 16, 8, 4) for c in (512, 256)] + [(2, 512, 112, 176)]
+    for b, c, h, w in shapes:
+        x, scale, bias = gn_operands(c, h, b, seed, dev)
+        if (h, w) != (h, h):
+            x = torch.randn(b, c, h, w, generator=torch.Generator().manual_seed(seed)).to(dev, torch.bfloat16)
+        pick = gn.pick_gn_tile(b, c, h * w, 32, 2, sm_count, smem_max)
+        want = gn.groupnorm_act(x, scale, bias, act="relu")
+        cells = []
+        for tile in gn.gn_options(b, c, h * w, 32, 2, smem_max):
+            got = gn.groupnorm_act(x, scale, bias, act="relu", tile=tile)
+            if not torch.equal(got, want):
+                raise SystemExit(f"B {(b, c, h, w)}: tile {tile} differs from the chooser's {pick} in "
+                                 f"{int((got != want).sum())} elements")
+            ms = graph_ms(lambda: gn.groupnorm_act(x, scale, bias, act="relu", tile=tile), iters=20)
+            result["gn_tiles"][f"B{b}/C{c}/{h}x{w}/{tile}"] = ms
+            cells.append(f"{'*' if tile == pick else ''}{tile[0][0]}{tile[1]}x{tile[2]} {ms:.4f}")
+        print(f"B tiles B={b} C={c} {h}x{w} bf16, graph ms: " + "; ".join(cells) + f" {card}", flush=True)
+
+
+def time_k17_tiles(result, dev, seed, card) -> None:
+    """K17 at B=1, 8 and 64 on the 512x512 stem map and at B=8 on an odd one,
+    from a graph, under every band that fits two blocks an SM, the
+    chooser's marked with ``*``; every band's output held equal to the
+    chooser's."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import qblock, stem
+
+    sm_count, smem_max = qblock.card_limits(dev)
+    result["k17_tiles"] = {}
+    for b, h, w in ((1, 256, 256), (8, 256, 256), (64, 256, 256), (8, 129, 97)):
+        x, mult, shift, scale = k17_operands(b, h, w, seed, dev)
+        pick = stem.pick_stem_tail_tile(b, h, w, sm_count, smem_max)
+        want = stem.stem_bn_pool_quant(x, mult, shift, scale)
+        cells = []
+        for tile in [(r, c) for r in stem.STEM_TAIL_ROWS for c in stem.STEM_TAIL_COLS
+                     if 2 * (stem.stem_tail_smem_bytes(64, r, c) + 1024) <= smem_max + 1024]:
+            got = stem.stem_bn_pool_quant(x, mult, shift, scale, tile=tile)
+            if not torch.equal(got, want):
+                raise SystemExit(f"K17 B={b} {h}x{w}: band {tile} differs from the chooser's {pick}")
+            ms = graph_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale, tile=tile), iters=20 if b < 64 else 5)
+            result["k17_tiles"][f"B{b}/{h}x{w}/{tile}"] = ms
+            cells.append(f"{'*' if tile == pick else ''}{tile[0]}x{tile[1]} {ms:.4f}")
+        print(f"K17 bands B={b} {h}x{w}, graph ms: " + "; ".join(cells) + f" {card}", flush=True)
 
 
 if __name__ == "__main__":

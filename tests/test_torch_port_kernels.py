@@ -6,7 +6,8 @@ load), K6 (int8 2x2 pool, and the HisFPN's two seeds in one launch), K7/K9 (one 
 HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
 int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
 the BN/residual/ReLU epilogue), K17 (the bf16 stem tail) and K12 (one
-whole int8 MNBlock).
+whole int8 MNBlock); kernel B and K17 also under every tile their choosers
+weigh, with one CUDA kernel a call.
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -93,6 +94,68 @@ def test_gn_kernel_matches_plain(cuda, dtype, act):
             torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
         else:
             torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-3)
+
+
+# (B, C, H, W): a head shape of each size class, the COCO canvas's P3 slab (a cluster of 8), odd H*W (slabs off
+# the 16-byte grid at C=64) and a 1x1 map
+GN_TILE_SHAPES = [(8, 512, 64, 64), (8, 256, 16, 16), (8, 512, 4, 4), (2, 512, 112, 176), (3, 256, 7, 11),
+                  (2, 64, 7, 11), (2, 32, 1, 1)]
+
+
+def _cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16], ids=["f32-params", "bf16-params"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GN_TILE_SHAPES, ids=[f"B{b}-C{c}-{h}x{w}" for b, c, h, w in GN_TILE_SHAPES])
+def test_gn_kernel_same_bits_under_every_tile(cuda, shape, dtype, pdtype):
+    """Kernel B under every tile ops/gn.gn_options gives (the streaming
+    path's among them): within its contract against the plain version (f32
+    1e-5, bf16 one rounding step), and the same bits as under the
+    chooser's tile (the sums are taken in fixed 4 KB chunks, folded in
+    order)."""
+    from pytorch_object_detection_tpu_torch.ops.gn import gn_options
+
+    b, c, h, w = shape
+    g = torch.Generator().manual_seed(c + h + w)
+    x = (torch.randn(b, c, h, w, generator=g) * 2.0 + torch.randn(1, c, 1, 1, generator=g)).to(cuda, dtype)
+    scale = (torch.rand(c, generator=g) + 0.5).to(cuda, pdtype)
+    bias = (torch.randn(c, generator=g) * 0.3).to(cuda, pdtype)
+    tiles = gn_options(b, c, h * w, 32, x.element_size(), card_limits(cuda)[1])
+    assert any(t[0] == "stream" for t in tiles)
+    for act in ("relu", "silu"):
+        with torch.no_grad():
+            want = groupnorm_act_plain(x, scale, bias, act=act)
+            chosen = groupnorm_act(x, scale, bias, act=act)
+            for tile in tiles:
+                got = groupnorm_act(x, scale, bias, act=act, tile=tile)
+                assert torch.equal(got, chosen), f"{tile}: {int((got != chosen).sum())} differ from the chooser's"
+        if dtype == torch.float32:
+            torch.testing.assert_close(chosen, want, rtol=0.0, atol=1e-5)
+        else:
+            torch.testing.assert_close(chosen.float(), want.float(), rtol=2**-7, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gn_wrapper_launches_one_kernel_on_bf16_params(cuda):
+    """The pipeline's bf16 GroupNorm32 (bf16 map, scale and bias): one call of
+    kernel B's wrapper is one CUDA kernel, no cast of the parameters."""
+    x, scale, bias = _gn_inputs(512, 16, torch.bfloat16, cuda, 0)
+    scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    with torch.no_grad():
+        names = _cuda_kernel_names(lambda: groupnorm_act(x, scale, bias, act="silu"))
+    assert len(names) == 1 and "gn_act_kernel" in names[0], names
 
 
 @pytest.mark.cuda
@@ -903,6 +966,47 @@ def test_stem_tail_kernel_matches_plain_exactly(cuda, shape):
                                                                    (shape[2] - 1) // 2 + 1, shape[3])
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
     assert (want > 0).float().mean() > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 256, 64), (64, 256, 256, 64), (3, 129, 97, 64)],
+                         ids=["B8", "B64", "odd"])
+def test_stem_tail_kernel_exact_under_forced_bands(cuda, shape):
+    """K17 at B=8, B=64 and an odd frame size under its chooser's band and
+    forced ones, with f32 and with bf16 mult and shift: 0 differing int8
+    elements from the plain version."""
+    from pytorch_object_detection_tpu_torch.ops.stem import pick_stem_tail_tile
+
+    x, mult, shift, scale = _stem_tail_case(shape, cuda)
+    want = stem_bn_pool_quant(x, mult, shift, scale, plain=True)
+    print(f"chooser's band {pick_stem_tail_tile(*shape[:3], *card_limits(cuda))}")
+    for tile in (None, (1, 8), (4, 32), (16, 8), (2, 64), (32, 8)):
+        for m, s in ((mult, shift), (mult.bfloat16(), shift.bfloat16())):
+            got = stem_bn_pool_quant(x, m, s, scale, tile=tile)
+            assert torch.equal(got, want), f"band {tile}: {int((got != want).sum())} of {want.numel()} differ"
+
+
+@pytest.mark.cuda
+def test_stem_tail_call_launches_conv_and_k17_only(cuda):
+    """After a qtree's first stem-tail call has kept the folded BN and the
+    bf16 kernel (nn/resnet_int8.stem_tail_params), a call launches the
+    conv's (cuDNN's) kernels and one K17: none of PyTorch's elementwise
+    kernels (the BN fold, a cast or a copy)."""
+    from pytorch_object_detection_tpu_torch.nn.resnet_int8 import stem_tail_int8
+
+    g = torch.Generator().manual_seed(3)
+    bn = {"scale": torch.rand(64, generator=g) + 0.5, "bias": torch.randn(64, generator=g) * 0.2,
+          "mean": torch.randn(64, generator=g) * 0.1, "var": torch.rand(64, generator=g) + 0.5}
+    qtree = {"stem": {"kernel": (torch.randn(64, 3, 7, 7, generator=g) * 0.1).to(cuda),
+                      "bn": {k: v.to(cuda) for k, v in bn.items()}},
+             "stem_scale": torch.tensor(0.05, device=cuda)}
+    images = torch.randn(2, 64, 64, 3, generator=g).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        first = stem_tail_int8(qtree, images)
+        names = _cuda_kernel_names(lambda: stem_tail_int8(qtree, images))
+        assert torch.equal(stem_tail_int8(qtree, images), first)
+    assert sum("stem_tail_kernel" in n for n in names) == 1, names
+    assert not [n for n in names if "at::native" in n], names  # PyTorch's fold, cast and copy kernels
 
 
 def _chain(specs, seed, device):

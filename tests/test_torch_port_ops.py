@@ -71,6 +71,25 @@ def test_groupnorm_plain_matches_jax(act, ch):
     np.testing.assert_array_equal(nhwc(wrapped), got)
 
 
+@pytest.mark.parametrize("act", ["none", "relu", "silu"])
+def test_groupnorm_plain_with_bf16_params_matches_f32_run_and_jax(act):
+    """The pipeline's bf16 model hands kernel B bf16 scale and bias, which
+    it reads exactly in f32: the plain version on bf16 scale and bias equals
+    its run on the same values in f32 bit for bit, and the Pallas kernel in
+    interpret mode on those values within 1e-5 (f32 maps, O(1) outputs)."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(2, 8, 6, 64)) * 2.0 + rng.normal(size=64)).astype(np.float32)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 64).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0.0, 0.3, 64).astype(np.float32)).to(torch.bfloat16)
+    got = groupnorm_act(nchw(x), scale, bias, act=act)
+    want = groupnorm_act_plain(nchw(x), scale.float(), bias.float(), act=act)
+    assert torch.equal(got, want)
+    via_pallas = np.asarray(jax_groupnorm_act(jnp.asarray(x), jnp.asarray(scale.float().numpy()),
+                                              jnp.asarray(bias.float().numpy()), groups=32, eps=1e-5, act=act,
+                                              interpret=True))
+    assert np.max(np.abs(nhwc(got) - via_pallas)) <= 1e-5
+
+
 def test_groupnorm_keeps_dtype_and_rejects_bad_input():
     x = torch.randn(2, 64, 4, 4, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     y = groupnorm_act(x, torch.ones(64), torch.zeros(64), act="silu")

@@ -2,9 +2,10 @@
 (``ops/qconv.pick_qmm_tile``), K16 (``ops/fused.pick_k16_tile``), K7/K9
 (``ops/qhead.pick_head_tile``), K5 (``ops/qhis.pick_his_tile``), K1
 (``ops/qstem.pick_stem_tile``), K11 (``ops/qconv.pick_conv3_tile``) and
-K13 (``ops/qchain.pick_chain_tile``), K15 (``ops/head.pick_fhead_tile``) and
-K12 (``ops/qmnblock.pick_mn_tile``), in plain Python with an H100's limits: 132
-SMs and 232,448 bytes of shared memory a block may opt in to.
+K13 (``ops/qchain.pick_chain_tile``), K15 (``ops/head.pick_fhead_tile``),
+K12 (``ops/qmnblock.pick_mn_tile``), kernel B (``ops/gn.pick_gn_tile``) and
+K17 (``ops/stem.pick_stem_tail_tile``), in plain Python with an H100's
+limits: 132 SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
 and 64; K4 at the HisFPN's three laterals and the per-conv backend's 36
@@ -20,7 +21,11 @@ int32 conv; K11 at the four stages' conv2 shapes and odd ones, and K13 on
 the three backbone segments and an odd chain, B = 1, 2, 8 and 64, with a
 Python run of K13's persistent loop; K15 at the fused-head pipeline's five
 levels and K12 at the MNFCOS ladder's ten call shapes, B = 1, 2, 8 and 64,
-on 132 and 114 SMs, and odd maps.  No card and no JAX needed.
+on 132 and 114 SMs, and odd maps; kernel B at the HISHead's ten
+GroupNorm shapes, B = 1, 2, 8 and 64, the COCO canvas's P3 slab and odd
+maps, bf16 and f32, with a plain-Python model of which slab units each
+block of a launch stages; K17 on the 512x512 and COCO stem maps and odd
+ones, B = 1, 2, 8 and 64.  No card and no JAX needed.
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ import torch
 from pytorch_object_detection_tpu_torch.ops.qblock import (
     SPLITS, TILE_ROWS, out_hw, pick_tile, recompute_factor, smem_bytes, tile_grid)
 from pytorch_object_detection_tpu_torch.ops.fused import K16_BM, k16_smem_bytes, pick_k16_tile
+from pytorch_object_detection_tpu_torch.ops.gn import (
+    GN_BLOCK_CHUNKS, GN_CHUNK_UNITS, GN_MAX_WARPS, gn_blocks, gn_chunks, gn_geometry, gn_options, gn_smem_bytes,
+    pick_gn_tile)
 from pytorch_object_detection_tpu_torch.ops.head import (
     FHEAD_PASSES, FHEAD_PRED_NC, FHEAD_ROWS, FHEAD_TILE, fhead_blocks, fhead_options, fhead_pass_width,
     fhead_rows, fhead_smem_bytes, fhead_tile_dims, fhead_widths, pick_fhead_tile)
@@ -53,6 +61,9 @@ from pytorch_object_detection_tpu_torch.ops.qstem import (
     STEM_MC, STEM_TILES, pick_stem_tile, stem_blocks, stem_load, stem_recompute, stem_sizes, stem_smem_bytes,
     stem_tiles)
 from pytorch_object_detection_tpu_torch.ops.quant import conv_i8
+from pytorch_object_detection_tpu_torch.ops.stem import (
+    STEM_TAIL_COLS, STEM_TAIL_PER_SM, STEM_TAIL_ROWS, pick_stem_tail_tile, stem_tail_blocks, stem_tail_smem_bytes,
+    stem_tail_staged)
 from torch_port_fixtures import resnet50_block_shapes
 
 SM_COUNT, SMEM_MAX = 132, 232448  # NVIDIA H100 SXM: SMs, shared memory per block (opt-in)
@@ -1002,3 +1013,129 @@ def test_mn_small_maps_use_clusters_and_the_largest_halo_fits():
 def test_mn_chooser_raises_where_nothing_fits(smem_max):
     with pytest.raises(ValueError, match="K12"):
         pick_mn_tile(8, 64, 64, 256, 512, 7, 2, SM_COUNT, smem_max)
+
+
+# ---------------------------------------------------------------- kernel B (GroupNorm + act)
+
+# (B, C, H, W): the HISHead's ten GroupNorm shapes at 512x512, the COCO
+# canvas's P3 slab (a cluster of 8 holds it in bf16 and f32), odd maps whose
+# slabs start off the 16-byte grid (C = 64: 2 channels a group), a 1x1 map
+GN_SHAPES = ([(b, c, s, s) for b in (1, 2, 8, 64) for s in (64, 32, 16, 8, 4) for c in (512, 256)]
+             + [(b, 512, 112, 176) for b in (1, 2, 8)]
+             + [(3, 256, 7, 11), (2, 64, 7, 11), (2, 64, 3, 5), (1, 32, 1, 1)])
+GN_CASES = [(shape, itemsize) for shape in GN_SHAPES for itemsize in (2, 4)]
+GN_IDS = [f"B{b}-C{c}-{h}x{w}-{'bf16' if i == 2 else 'f32'}" for (b, c, h, w), i in GN_CASES]
+
+
+def gn_staged_units(tile, batch, channels, hw, groups, itemsize):
+    """{slab: [(first unit, end unit, units, chunks) of each block that
+    stages part of it]}, as csrc/gn.cu's gn_act_kernel derives a team's
+    slab and its rank's chunk range from blockIdx and threadIdx: slab s's
+    unit 0 starts (s * n) % (16 / itemsize) elements before it (x 16-byte
+    aligned)."""
+    unit, n = 16 // itemsize, channels // groups * hw
+    _, cpr = gn_geometry(tile, gn_chunks(channels, hw, groups, itemsize))
+    _, split, per_block = tile
+    out = {}
+    for blk in range(gn_blocks(tile, batch, groups)):
+        rank = blk % split
+        for j in range(per_block):
+            s = blk // split * per_block + j
+            if s >= batch * groups:
+                continue
+            nu = -(-((s * n) % unit + n) // unit)
+            nc = -(-nu // GN_CHUNK_UNITS)
+            k0 = rank * cpr
+            out.setdefault(s, []).append((min(nu, k0 * GN_CHUNK_UNITS), min(nu, min(nc, k0 + cpr) * GN_CHUNK_UNITS),
+                                          nu, nc))
+    return out
+
+
+@pytest.mark.parametrize("shape,itemsize", GN_CASES, ids=GN_IDS)
+def test_gn_tile_covers_each_slab_once_and_fits(shape, itemsize):
+    """Under the chooser's tile and every tile it weighs: each (image,
+    group) slab's 16-byte units are staged by exactly one block, in whole
+    4 KB chunks that no slab exceeds the chooser's count of; shared memory
+    fits, a block has 8 warps, a cluster is at most 8 blocks, every rank
+    holds a chunk; the chooser's pick is resident wherever a cluster holds
+    the slab, stages at most 64 KB a block where a cluster allows, and
+    fills the card at B=8."""
+    b, c, h, w = shape
+    nc = gn_chunks(c, h * w, 32, itemsize)
+    options = gn_options(b, c, h * w, 32, itemsize, SMEM_MAX)
+    pick = pick_gn_tile(b, c, h * w, 32, itemsize, SM_COUNT, SMEM_MAX)
+    assert pick in options and any(t[0] == "stream" for t in options)
+    if b == 8:
+        assert gn_blocks(pick, b, 32) >= SM_COUNT
+    if any(t[0] == "resident" for t in options):
+        assert pick[0] == "resident"
+        if nc <= 8 * GN_BLOCK_CHUNKS:
+            assert gn_geometry(pick, nc)[1] <= GN_BLOCK_CHUNKS
+    for tile in options:
+        path, split, per_block = tile
+        warps, cpr = gn_geometry(tile, nc)
+        assert split in (1, 2, 4, 8) and (split == 1 or per_block == 1)
+        assert per_block * warps == GN_MAX_WARPS and gn_smem_bytes(tile, nc, c // 32) <= SMEM_MAX
+        assert cpr * split >= nc and (split == 1 or cpr * (split - 1) < nc)
+        staged = gn_staged_units(tile, b, c, h * w, 32, itemsize)
+        assert sorted(staged) == list(range(b * 32))
+        for parts in staged.values():
+            nu, nc_s = parts[0][2], parts[0][3]
+            assert nc_s <= nc
+            spans = sorted((lo, hi) for lo, hi, _, _ in parts if hi > lo)
+            assert spans[0][0] == 0 and spans[-1][1] == nu
+            assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+            assert all(lo % GN_CHUNK_UNITS == 0 for lo, _ in spans)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_gn_tile_picks_clusters_on_the_large_slabs_and_raises_where_nothing_fits(itemsize):
+    """The 64x64 level's 128-256 KB C=512 slabs split across a cluster; the
+    4x4 level packs slabs into blocks at B=64 but not at B=8, where one a
+    block fills the card; the chooser raises where not even a group's
+    (mul, add) table fits, and takes the streaming path where no cluster
+    holds a slab."""
+    assert pick_gn_tile(64, 512, 4096, 32, itemsize, SM_COUNT, SMEM_MAX)[1] > 1
+    assert pick_gn_tile(64, 256, 16, 32, itemsize, SM_COUNT, SMEM_MAX)[2] > 1
+    assert pick_gn_tile(8, 256, 16, 32, itemsize, SM_COUNT, SMEM_MAX)[2] == 1
+    assert pick_gn_tile(2, 512, 1 << 20, 32, itemsize, SM_COUNT, SMEM_MAX)[0] == "stream"
+    with pytest.raises(ValueError):
+        pick_gn_tile(1, 32 * 30000, 1, 32, itemsize, SM_COUNT, SMEM_MAX)
+
+# ---------------------------------------------------------------- K17 (the bf16 stem tail)
+
+
+# (B, H, W) of the stem conv's output: the 512x512 and 896x1408 canvases, odd maps, a 2x2 one
+K17_CASES = [(b, h, w) for b in (1, 2, 8, 64) for h, w in ((256, 256), (448, 704), (129, 97), (15, 21), (2, 2))]
+
+
+@pytest.mark.parametrize("b,h,w", K17_CASES, ids=[f"B{b}-{h}x{w}" for b, h, w in K17_CASES])
+def test_stem_tail_tile_covers_each_pooled_position_once_and_fits(b, h, w):
+    """The chooser's band: five blocks share an SM; the bands and spans
+    cover each pooled row and column once; each block's staged input rows
+    and columns hold every window of its outputs; the card is filled where
+    the map allows; the staged pixels as the chooser counts them; 8 x 8
+    on the 512x512 canvas from B=2 up."""
+    rows, cols = pick_stem_tail_tile(b, h, w, SM_COUNT, SMEM_MAX)
+    assert rows in STEM_TAIL_ROWS and cols in STEM_TAIL_COLS
+    assert STEM_TAIL_PER_SM * (stem_tail_smem_bytes(64, rows, cols) + 1024) <= SMEM_MAX + 1024
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    for n, step in ((ho, rows), (wo, cols)):
+        first = list(range(0, n, step))
+        covered = [o for f in first for o in range(f, min(n, f + step))]
+        assert covered == list(range(n))
+        for f in first:  # staged input rows (or columns) 2 f - 1 .. 2 (last) + 1: every window's
+            last = min(n, f + step) - 1
+            assert all(2 * f - 1 <= 2 * o + d <= 2 * last + 1 for o in range(f, last + 1) for d in (-1, 0, 1))
+    blocks = stem_tail_blocks(b, h, w, rows, cols)
+    assert blocks == b * -(-ho // rows) * -(-wo // cols)
+    most = max(stem_tail_blocks(b, h, w, r, c) for r in STEM_TAIL_ROWS for c in STEM_TAIL_COLS
+               if STEM_TAIL_PER_SM * (stem_tail_smem_bytes(64, r, c) + 1024) <= SMEM_MAX + 1024)
+    assert blocks >= min(2 * SM_COUNT, most)
+    staged = sum((2 * (min(ho, y + rows) - y) + 1) * (2 * (min(wo, x + cols) - x) + 1)
+                 for y in range(0, ho, rows) for x in range(0, wo, cols))
+    assert stem_tail_staged(h, w, rows, cols) == staged
+    if (h, w) == (256, 256) and b >= 2:
+        assert (rows, cols) == (8, 8)
+    with pytest.raises(ValueError):
+        pick_stem_tail_tile(b, h, w, SM_COUNT, 20000)
