@@ -92,7 +92,10 @@ Phases (each prints its results on its own lines):
      under its chooser's tiles, each (tw, split) every block takes and each
      block's largest cluster; K17 at B=8, B=64 and an odd frame size
      (129x97) under ops/stem.pick_stem_tail_tile's band and forced ones, and
-     with f32 mult and shift: 0 differing elements;
+     with f32 mult and shift; K10 also at B=64, the COCO canvas's stem map
+     (2x448x704x64) and an odd one with C % 16 != 0 (3x129x97x24) under
+     ops/qpool.pick_pool3_tile's band, and at B=8 under forced ones: 0
+     differing elements;
   5j. the fused ResNet-50 (nn/fused_resnet.resnet50_fused_forward) on the
      same model and frames, bf16, B=8, counted (32 K16 launches); its C3..C5
      against the module forward (within LEVEL_TOL of the range, cosine >=
@@ -129,6 +132,19 @@ Phases (each prints its results on its own lines):
      K12 on the 15 calls' inputs, B=8 and repeated to B=64, under every
      tile it takes (ops/qmnblock.mn_options), equal to its output under
      the chooser's tile bit for bit;
+  5o. VOC evaluation from the dataset: 64 seeded frames of 300-500 px a
+     side in raw 512x512 tiles with seeded GT boxes of every class, an
+     in-memory dataset of Samples (the card machine has no PIL or cv2 to
+     write a JPEG tree): the device resize on the card against the same
+     call on the CPU (scales and sizes equal, at most one step on
+     RESIZE_SHARE of the values); evaluate_voc with a pipeline that
+     returns each frame's GT at the device resize's scales (mAP 1: the
+     loader, the scales, _collect and the native AP on the card); and
+     evaluate_voc through DetectionLoader with the default int8 pipeline
+     and device_resize=True (calibrated on the device-resized canvases of
+     8 frames, as the CLI does) at B=16 and B=64, each counted (every
+     kernel of the default pipeline, K1, C, K4, K5, K6, K7 and A, launched
+     its per-call count once a batch), with its images_per_sec;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -141,7 +157,8 @@ Phases (each prints its results on its own lines):
      launch, the level pools' cost inside K5: pool_add against add on the
      pooled map, and the standalone K6 on those four inputs), K7
      (per level, with its T multiply-adds/s, beside the bf16 float head at
-     the same levels), K10, K11, K13
+     the same levels), K10 (B=8 back to back and from a CUDA graph, B=64
+     both ways, each with its bound), K11, K13
      (beside kernel C's 16 launches on the same
      input, in turns, at B=8 and B=64), K15 (beside the bf16 float head),
      K16 (beside torch.matmul of the same GEMMs, epilogue not included,
@@ -206,6 +223,11 @@ LEVEL_TOL = 2**-5
 # abs-max int8 keeps about two decimal digits of each activation
 INT8_COS_MIN = 0.99
 K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
+# phase 5o: frames of the in-memory VOC-like dataset; the device resize on
+# the card against the CPU: at most one uint8 step on at most this share of
+# the values (tests/test_torch_port_eval.py's tolerance against the JAX
+# function: the f32 sums run in another order)
+EVAL_FRAMES, RESIZE_SHARE = 64, 2e-3
 # launches in one call of the int8-FPN pipeline, by wrapper
 # (K6: one launch of its seeds kernel for the two seeds, none of the standalone 2x2 pool; the four level
 # pools run inside K5's load, "qhisblock_pool_add")
@@ -350,6 +372,37 @@ def host_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 3) -> float:
             fn()
         per_call.append((time.perf_counter() - t0) * 1000.0 / iters)
         torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn()``: ``iters`` calls captured in one
+    CUDA graph and replayed between two CUDA events, median over ``reps``
+    replays: the card's time with no host launch cost between the calls."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(per_call)
 
 
@@ -1072,6 +1125,17 @@ def main() -> int:
                 for what, inp in (("pipeline", x), ("random", rand_i8(x.shape))):
                     compare("qmaxpool3x3s2", qpool.qmaxpool3x3s2(inp), qpool.qmaxpool3x3s2(inp, plain=True),
                             f"K10 {what} {tuple(inp.shape)}")
+                # K10 at B=64, the COCO canvas's stem map and an odd one with C % 16 != 0 (the one-byte form),
+                # under its chooser's band; at B=8 under forced ones
+                for inp in (x.repeat(8, 1, 1, 1), rand_i8((2, 448, 704, 64)), rand_i8((3, 129, 97, 24))):
+                    band = (qpool.pick_pool3_tile(*inp.shape[:3], *qblock.card_limits(dev), c=inp.shape[3])
+                            if inp.shape[3] % 16 == 0 else "one-byte form")
+                    compare("qmaxpool3x3s2", qpool.qmaxpool3x3s2(inp), qpool.qmaxpool3x3s2(inp, plain=True),
+                            f"K10 random {tuple(inp.shape)} band {band}")
+                want = qpool.qmaxpool3x3s2(x, plain=True)
+                for tile in ((1, 8), (2, 64), (8, 16), (4, 128), (32, 8)):
+                    compare("qmaxpool3x3s2", qpool.qmaxpool3x3s2(x, tile=tile), want,
+                            f"K10 pipeline {tuple(x.shape)} band {tile}")
             for (x, mult, shift, scale), _ in calls["stem_bn_pool_quant"]:
                 rand = (torch.randn(x.shape, generator=g, device=dev) * float(x.float().std())).to(x.dtype)
                 for what, inp in (("pipeline", x), ("random", rand)):
@@ -1501,6 +1565,142 @@ def main() -> int:
                                             f"tiles (tw, ipb, split) equal to the chooser's {pick}"
                                             + (f"; differ under {differ}" if differ else ""))
 
+    def phase5o():
+        """VOC evaluation from the dataset on the card: an in-memory VOC-like
+        dataset of seeded frames (sides 300-500 px) in raw 512x512 tiles with
+        seeded GT boxes of every class; (1) the device resize against the
+        same call on the CPU; (2) evaluate_voc with a pipeline that returns
+        each frame's GT at the device resize's scales: mAP 1; (3) evaluate_voc
+        through DetectionLoader with the default int8 pipeline and
+        device_resize=True, calibrated as the CLI does on the device-resized
+        canvases of the first 8 frames, at B=16 and B=64, counted."""
+        import hashlib
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.data.pipeline import (
+            DetectionLoader, decode_to_tile, make_device_resize)
+        from pytorch_object_detection_tpu_torch.data.voc import VOC_CLASSES, Sample
+        from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_voc
+        from pytorch_object_detection_tpu_torch.ops.postprocess import Detections
+
+        class FrameSet:
+            """Seeded frames and GT boxes (original coordinates) as raw-tile Samples."""
+            raw_tiles, class_names, canvas_hw, tile_hw = True, VOC_CLASSES, CANVAS, CANVAS
+
+            def __init__(self, n, seed):
+                rng = np.random.default_rng(seed)
+                self.frames, self.gt = [], []
+                for i in range(n):
+                    h, w = (int(v) for v in rng.integers(300, 501, 2))
+                    self.frames.append(rng.integers(0, 256, (h, w, 3), np.uint8))
+                    k = int(rng.integers(1, 4))
+                    x1, y1 = rng.uniform(0, w - 80, k), rng.uniform(0, h - 80, k)
+                    x2, y2 = x1 + rng.uniform(40, w - x1), y1 + rng.uniform(40, h - y1)
+                    labels = (3 * i + np.arange(k)) % len(VOC_CLASSES) + 1  # every class has GT
+                    self.gt.append((np.stack([x1, y1, np.minimum(x2, w - 1), np.minimum(y2, h - 1)], 1)
+                                    .astype(np.float32), labels.astype(np.int32)))
+
+            def __len__(self):
+                return len(self.frames)
+
+            def __getitem__(self, i):
+                tile, (h, w) = decode_to_tile(self.frames[i], self.tile_hw)
+                scale = min(self.canvas_hw[0] / h, self.canvas_hw[1] / w)
+                return Sample(tile, self.gt[i][0] * scale, self.gt[i][1], scale, f"{i:06d}", (h, w))
+
+        ds = FrameSet(EVAL_FRAMES, SEED + 15)
+        resize = make_device_resize(CANVAS)
+        # (1) the device resize on the card against the same call on the CPU
+        first = next(iter(DetectionLoader(ds, 16, shuffle=False, drop_last=False, num_workers=4)))
+        tiles = torch.from_numpy(first.images)
+        src_hw = torch.from_numpy(np.stack([first.content_h, first.content_w], 1).astype(np.int32))
+        with torch.inference_mode():
+            got = [t.cpu() for t in resize(tiles.to(dev), src_hw.to(dev))]
+            want = resize(tiles, src_hw)
+        d = (got[0].int() - want[0].int()).abs()
+        share = float((d > 0).float().mean())
+        smoke.check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]) and int(d.max()) <= 1
+                    and share <= RESIZE_SHARE,
+                    f"device resize B=16 {tuple(tiles.shape)} -> {tuple(got[0].shape)} on the card vs the CPU: "
+                    f"scales and sizes equal, max {int(d.max())} step on {share:.3g} of the values "
+                    f"(at most 1 on {RESIZE_SHARE})")
+
+        # (2) a pipeline that returns each frame's GT at the device resize's scales: mAP 1
+        gt_of = {hashlib.sha1(ds[i].image.tobytes()).hexdigest(): ds.gt[i] for i in range(len(ds))}
+
+        def gt_pipeline(tiles_u8, src):
+            scale = resize(tiles_u8.to(dev), src.to(dev))[1].cpu().numpy()
+            boxes, classes = torch.zeros(len(tiles_u8), 4, 4), torch.ones(len(tiles_u8), 4, dtype=torch.int32)
+            valid = torch.zeros(len(tiles_u8), 4, dtype=torch.bool)
+            for i, t in enumerate(tiles_u8.numpy()):
+                b, lab = gt_of[hashlib.sha1(t.tobytes()).hexdigest()]
+                boxes[i, :len(b)] = torch.from_numpy(b * scale[i])
+                classes[i, :len(b)] = torch.from_numpy(lab)
+                valid[i, :len(b)] = True
+            return Detections(*(t.to(dev) for t in (torch.full((len(tiles_u8), 4), 0.9), classes, boxes, valid)))
+
+        with torch.inference_mode():
+            gt_res = evaluate_voc(None, ds, batch_size=16, pipeline=gt_pipeline, verbose=False)
+        smoke.check(abs(gt_res["mAP"] - 1.0) < 1e-9 and gt_res["num_images"] == EVAL_FRAMES,
+                    f"evaluate_voc with the GT pipeline, device resize on the card: mAP {gt_res['mAP']!r} over "
+                    f"{gt_res['num_images']} frames")
+
+        # (3) the default int8 pipeline with the device resize, calibrated as the CLI does
+        model = res["model"]
+        calib_u8 = resize(tiles[:8].to(dev), src_hw[:8].to(dev))[0]
+        calib = normalized(calib_u8)
+        t0 = time.perf_counter()
+        epipe = make_eval_pipeline_int8(model, calib, default_strides(), CANVAS, device_resize=True,
+                                        compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"  default int8 pipeline with the device resize built (calibration on the device-resized canvases "
+              f"of 8 frames) in {time.perf_counter() - t0:.2f} s")
+        with torch.inference_mode():
+            evaluate_voc(model, ds, batch_size=16, pipeline=epipe, verbose=False)  # warm-up
+        for bsz in (16, 64):
+            for counter in counters.values():  # the counted run: every counter to 0 just before, read just after
+                counter.launches = 0
+            with torch.inference_mode():
+                r = evaluate_voc(model, ds, batch_size=bsz, pipeline=epipe, verbose=False)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            calls = -(-EVAL_FRAMES // bsz)
+            smoke.check(launches == {k: calls * n for k, n in DEFAULT_PIPELINE_LAUNCHES.items()},
+                        f"evaluate_voc B={bsz}: {calls} calls of the default pipeline, each kernel of it launched "
+                        f"{calls} times its per-call count (K1, C, K4, K5, K6, K7, A): {launches}")
+            rates = [r["images_per_sec"]]
+            with torch.inference_mode():
+                for _ in range(4):
+                    rates.append(evaluate_voc(model, ds, batch_size=bsz, pipeline=epipe, verbose=False)
+                                 ["images_per_sec"])
+            smoke.check(r["num_images"] == EVAL_FRAMES and np.isfinite(r["mAP"]),
+                        f"evaluate_voc B={bsz}: {r['num_images']} frames, mAP {r['mAP']:.4f} (random weights)")
+            print(f"  evaluate_voc, default int8 pipeline, device resize, B={bsz}: images_per_sec "
+                  f"{', '.join(f'{v:.1f}' for v in rates)} (median {statistics.median(rates):.1f}; loader, "
+                  f"resize, pipeline and fetch) {card}")
+            # where the time goes: the loader alone (host), and the pipeline alone on tiles already on the card
+            loader_rates, pipe_rates = [], []
+            tiles_dev = torch.from_numpy(first.images).repeat(bsz // 16, 1, 1, 1).to(dev)
+            hw_dev = src_hw.repeat(bsz // 16, 1).to(dev)
+            for _ in range(3):
+                t0 = time.perf_counter()
+                n = sum(len(b.image_ids) for b in DetectionLoader(ds, bsz, shuffle=False, drop_last=False,
+                                                                  pad_last=True))
+                loader_rates.append(n / (time.perf_counter() - t0))
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(max(1, EVAL_FRAMES // bsz)):
+                        epipe(tiles_dev, hw_dev)
+                    torch.cuda.synchronize()
+                    pipe_rates.append(max(1, EVAL_FRAMES // bsz) * bsz / (time.perf_counter() - t0))
+            with torch.inference_mode():
+                rs = cuda_ms(lambda: resize(tiles_dev, hw_dev), iters=5, reps=3)
+            print(f"  B={bsz}: DetectionLoader alone {', '.join(f'{v:.1f}' for v in loader_rates)} img/s; the "
+                  f"pipeline alone on tiles on the card {', '.join(f'{v:.1f}' for v in pipe_rates)} img/s; the "
+                  f"device resize {rs:.4f} ms a batch {card}")
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -1858,7 +2058,18 @@ def main() -> int:
             tp = cuda_ms(lambda: qpool.qmaxpool3x3s2(x, plain=True))
             out = x.shape[0] * ((x.shape[1] - 1) // 2 + 1) * ((x.shape[2] - 1) // 2 + 1) * x.shape[3]
             t["qmaxpool3x3s2"] = (tk, tp, th, (x.numel() + out, 8 * out, F32_OPS_S))  # 8 compares per output
-            print(f"  K10 {tuple(x.shape)}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+            tg = graph_ms(lambda: qpool.qmaxpool3x3s2(x))
+            b8 = bound(x.numel() + out, 8 * out, F32_OPS_S)
+            print(f"  K10 {tuple(x.shape)}: kernel {tk:.4f} ms back to back, {tg:.4f} ms from a graph, host {th:.4f} "
+                  f"ms, plain {tp:.4f} ms, bound {b8[0]:.5f} ms ({b8[1]}, {b8[0] / tg:.1%} of it from the graph), "
+                  f"band {qpool.pick_pool3_tile(*x.shape[:3], *qblock.card_limits(dev), c=x.shape[3])} {card}")
+            x64 = x.repeat(8, 1, 1, 1)
+            t64, g64 = cuda_ms(lambda: qpool.qmaxpool3x3s2(x64), iters=10), graph_ms(lambda: qpool.qmaxpool3x3s2(x64),
+                                                                                     iters=10)
+            b64 = bound(x64.numel() + 8 * out, 64 * out, F32_OPS_S)
+            print(f"  K10 B=64 {tuple(x64.shape)}: kernel {t64:.4f} ms back to back, {g64:.4f} ms from a graph, "
+                  f"bound {b64[0]:.5f} ms ({b64[1]}, {b64[0] / g64:.1%} of it from the graph), band "
+                  f"{qpool.pick_pool3_tile(*x64.shape[:3], *qblock.card_limits(dev), c=x.shape[3])} {card}")
 
             (x, mult, shift, scale), _ = calls["stem_bn_pool_quant"][0]
             tk = cuda_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale))
@@ -2237,6 +2448,9 @@ def main() -> int:
                     "frames (K12), bf16 512x512 B=8", phase5n)
     if "mn_calls" in res:
         smoke.phase("phase 5n (iii): K12 vs plain at the ladder's 15 calls and odd shapes", phase5n_k12)
+    if "pipe" in res:
+        smoke.phase(f"phase 5o: VOC evaluation from the dataset: {EVAL_FRAMES} seeded frames in raw tiles, the "
+                    "device resize, evaluate_voc through the loader at B=16 and B=64", phase5o)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

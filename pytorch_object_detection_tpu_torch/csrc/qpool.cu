@@ -25,13 +25,24 @@
 // That kernel takes one image's map in VMEM, merges column pairs into the
 // lanes and takes bf16 maxes; it falls back to reduce_window for odd sizes,
 // and can emit the row-pair lane-merged layout of the TPU's stage-1
-// kernels, which the port does not have.  Here one thread makes one 16-byte
-// word of one output position from its nine window words (rows 2y-1 .. 2y+1,
-// columns 2x-1 .. 2x+1; a position outside the map is the pad -128, which
-// never wins: every window holds row 2y, column 2x); any H and W, output
-// (H - 1) / 2 + 1.  Bound on the card: device memory, the input read about
-// once from DRAM (the overlapping windows re-read it from L1/L2) and the
-// quarter-size output written once.
+// kernels, which the port does not have.  Bound on the card: device memory,
+// the map read once and the quarter-size output written once.
+//
+// A block owns a band of `rows` output rows across a span of `cols` output
+// columns, all channels (ops/qpool.pick_pool3_tile picks them: 2 x 64 on the
+// 512x512 stem map).  It stages the band's 2 * rows + 1 input rows over
+// 2 * cols + 1 columns once in shared memory, every 16-byte word by one
+// cp.async with all of a thread's copies in flight together, so each input
+// byte leaves device memory once, plus the shared halo row and column of
+// 1 / (2 rows) and 1 / (2 cols).  The padding needs no value: a row or
+// column outside the map is staged as its clamped neighbour, which lies in
+// the same window (every window holds row 2y and column 2x), so the max is
+// unchanged.  Then each thread makes one 16-byte output word from the nine
+// staged words of its window (per-byte signed max, __vmaxs4); threads of
+// odd columns take the three columns of a tap row in a rotated order, so a
+// quarter warp's 16-byte reads cover all 32 banks at 64 channels.  Stores
+// are 16-byte and coalesced; indices are 32-bit within an image.  Any H and
+// W, output (H - 1) / 2 + 1; C % 16 != 0 takes the one-byte form.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,30 +132,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K10: grid-stride over [B, Ho, Wo, C / 16] 16-byte words
-__global__ void __launch_bounds__(kThreads)
-    qpool3_vec16(const int4* __restrict__ x, int4* __restrict__ out, int h, int w, int c16, int ho, int wo,
-                 int64_t total) {
-  const int neg = static_cast<int>(0x80808080u);  // -128 in every byte
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
-       i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int c = static_cast<int>(i % c16);
-    int64_t p = i / c16;
-    const int ox = static_cast<int>(p % wo);
-    p /= wo;
-    const int oy = static_cast<int>(p % ho);
-    const int64_t b = p / ho;
-    int4 m = make_int4(neg, neg, neg, neg);
-    for (int iy = max(2 * oy - 1, 0); iy <= min(2 * oy + 1, h - 1); ++iy) {
-      const int4* row = x + (b * h + iy) * w * c16 + c;
-      for (int ix = max(2 * ox - 1, 0); ix <= min(2 * ox + 1, w - 1); ++ix) {
-        const int4 v = __ldg(row + static_cast<int64_t>(ix) * c16);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+struct Pool3Args {
+  const int4* x;
+  int4* out;
+  int h, w, c16;   // input rows, columns, 16-byte words a pixel (C / 16)
+  int ho, wo;
+  int rows, cols;  // output rows and columns a block
+};
+
+// K10: grid (spans, bands, B); dynamic smem: the staged input
+// [2 * rows + 1][2 * cols + 1][c16] words
+__global__ void __launch_bounds__(kThreads) qpool3_band(const Pool3Args g) {
+  extern __shared__ __align__(16) int4 st[];
+  const int c16 = g.c16;
+  const int oy0 = blockIdx.y * g.rows, ox0 = blockIdx.x * g.cols;
+  const int nro = min(g.rows, g.ho - oy0), nco = min(g.cols, g.wo - ox0);
+  const int nri = 2 * nro + 1, seg = (2 * nco + 1) * c16;  // staged rows, words a staged row
+  const int iy0 = 2 * oy0 - 1, ix0 = 2 * ox0 - 1;
+  const int4* img = g.x + static_cast<size_t>(blockIdx.z) * g.h * g.w * c16;
+
+  // 1. the band's input rows, clamped into the map, into shared memory
+  for (int r = 0; r < nri; ++r) {
+    const int4* row = img + min(max(iy0 + r, 0), g.h - 1) * g.w * c16;
+    for (int j = threadIdx.x; j < seg; j += kThreads) {
+      const int col = j / c16;
+      cp_async16(st + r * seg + j, row + min(max(ix0 + col, 0), g.w - 1) * c16 + (j - col * c16));
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. the 3x3 max of one 16-byte word of one output position
+  const int nout = nro * nco * c16;
+  int4* out = g.out + static_cast<size_t>(blockIdx.z) * g.ho * g.wo * c16;
+  for (int o = threadIdx.x; o < nout; o += kThreads) {
+    const int p = o / c16, q = o - p * c16, oyl = p / nco, oxl = p - oyl * nco;
+    const int rot = oxl & 1;
+    const int4* win = st + (2 * oyl * (2 * nco + 1) + 2 * oxl) * c16 + q;
+    int4 m = win[rot * c16];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int dx = k + rot < 3 ? k + rot : k + rot - 3;
+        const int4 v = win[dy * seg + dx * c16];
         m = make_int4(vmax(m.x, v.x), vmax(m.y, v.y), vmax(m.z, v.z), vmax(m.w, v.w));
       }
     }
-    out[i] = m;
+    out[((oy0 + oyl) * g.wo + ox0 + oxl) * c16 + q] = m;
   }
 }
+
+int pool3_smem_bytes(int c, int rows, int cols) { return (2 * rows + 1) * (2 * cols + 1) * c; }
 
 // the same over single bytes, for C % 16 != 0
 __global__ void __launch_bounds__(kThreads)
@@ -205,21 +249,36 @@ extern "C" int qpool_seeds_launch(const void* x, void* s6, void* s7, int batch, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of a K10 block (ops/qpool.pool3_smem_bytes holds the same sum).
+extern "C" int qpool3_smem_bytes(int c, int rows, int cols) { return pool3_smem_bytes(c, rows, cols); }
+
 // K10: x [B, H, W, C] int8 NHWC contiguous (16-byte aligned when C % 16 ==
-// 0); out [B, (H - 1) / 2 + 1, (W - 1) / 2 + 1, C].  Returns a cudaError_t
-// (0 = launched).
-extern "C" int qpool3_launch(const void* x, void* out, int batch, int h, int w, int c, void* stream) {
+// 0); out [B, (H - 1) / 2 + 1, (W - 1) / 2 + 1, C], 16-byte aligned when C %
+// 16 == 0; rows x cols output positions a block (the one-byte form, C % 16
+// != 0, ignores them).  Returns a cudaError_t (0 = launched).
+extern "C" int qpool3_launch(const void* x, void* out, int batch, int h, int w, int c, int rows, int cols,
+                             void* stream) {
   const int ho = (h - 1) / 2 + 1, wo = (w - 1) / 2 + 1;
-  const bool vec = c % 16 == 0;
-  const int64_t total = static_cast<int64_t>(batch) * ho * wo * (vec ? c / 16 : c);
-  if (total == 0) return 0;
+  if (batch == 0 || h == 0 || w == 0 || c == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    qpool3_vec16<<<grid_for(total), kThreads, 0, s>>>(static_cast<const int4*>(x), static_cast<int4*>(out), h, w,
-                                                     c / 16, ho, wo, total);
-  } else {
+  if (c % 16) {
+    const int64_t total = static_cast<int64_t>(batch) * ho * wo * c;
     qpool3_byte<<<grid_for(total), kThreads, 0, s>>>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out), h,
                                                     w, c, ho, wo, total);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (rows < 1 || cols < 1 || batch > 65535 || (ho + rows - 1) / rows > 65535 ||
+      static_cast<int64_t>(h) * w * c >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Pool3Args g{static_cast<const int4*>(x), static_cast<int4*>(out), h, w, c / 16, ho, wo, rows, cols};
+  const int smem = pool3_smem_bytes(c, rows, cols);
+  static int opted = 48 * 1024;  // dynamic shared memory the kernel may take
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(qpool3_band, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  const dim3 grid((wo + cols - 1) / cols, (ho + rows - 1) / rows, batch);
+  qpool3_band<<<grid, kThreads, smem, s>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Serving pipelines: uint8 frames -> normalize -> forward -> decode -> NMS.
+"""Serving pipelines and VOC evaluation: loader -> [device resize ->] forward -> decode -> NMS -> AP.
 
 Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
 ``make_eval_pipeline`` (float path, HISFCOS or MNFCOS) and
@@ -9,19 +9,35 @@ int8 HISHead; or with the float head behind the int8 HisFPN,
 ``int8_fpn=False``, which is also what an MNFCOS always gets, as in JAX).
 The JAX versions are one jitted program each; here the pipelines run
 eagerly on the model's device, with the kernels (``ops/``) wherever that
-device is CUDA.
+device is CUDA.  With ``device_resize=True`` a pipeline takes raw decoded
+tiles and their sizes, ``pipeline(tiles_u8, src_hw)``, and resizes them onto
+the canvas on that device (``data/pipeline.make_device_resize``).
+
+``evaluate_voc`` (with ``collect_voc_predictions`` and ``_collect``) runs a
+pipeline over a dataset through the port's loaders and scores it with VOC
+AP@0.5 (``eval/voc_map.py``), printing the JAX function's lines.  The
+port's models carry their weights, so these functions take no ``params``
+or ``batch_stats``, and a pipeline is called on the frames alone.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, List, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+from pytorch_object_detection_tpu_torch.data.pipeline import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    DetectionLoader,
+    make_device_resize,
+)
+from pytorch_object_detection_tpu_torch.eval.voc_map import eval_voc_ap, mean_ap
 from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS
-from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections
+from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections, resolve_nms_impl
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
     make_eval_forward_int8,
@@ -34,17 +50,22 @@ Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 
 
 class _Pipeline:
-    """``pipeline(images_u8) -> Detections`` for ``[B, H, W, 3]`` uint8 frames.
+    """``pipeline(images_u8) -> Detections`` for ``[B, H, W, 3]`` uint8 frames
+    on the canvas, or ``pipeline(tiles_u8, src_hw)`` for raw tiles where the
+    pipeline was made with ``device_resize=True``.  Tensors or numpy arrays,
+    on any device: the pipeline moves them to its own.
 
     ``forward_levels`` normalizes (``_input``), runs the forward
     (``_forward``, given by the subclass) and returns the per-level f32 NHWC
-    maps; ``decode`` turns
-    them into detections; ``__call__`` does both.
+    maps; ``decode`` turns them into detections (NMS by ``nms_impl``, see
+    ``ops/postprocess.resolve_nms_impl``); ``__call__`` does both, after the
+    device resize where there is one.
     """
 
     def __init__(self, device: torch.device, strides: Sequence[int], canvas_hw: Tuple[int, int],
                  score_threshold: float, nms_iou: float, max_detections: int, plain: bool,
-                 mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD):
+                 mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD,
+                 device_resize: bool = False, nms_impl: str = "auto"):
         self.device = device
         self.strides = tuple(strides)
         self.canvas_hw = tuple(canvas_hw)
@@ -52,6 +73,8 @@ class _Pipeline:
         self.mean = torch.tensor(mean, dtype=torch.float32, device=device)
         self.std = torch.tensor(std, dtype=torch.float32, device=device)
         self.plain = plain
+        self.nms_plain = plain or resolve_nms_impl(nms_impl, device) == "fixpoint"
+        self.resize = make_device_resize(self.canvas_hw) if device_resize else None
 
     def _forward(self, x: torch.Tensor) -> Levels:
         """Per-level NHWC maps from what ``_input`` makes of the frames."""
@@ -81,10 +104,23 @@ class _Pipeline:
                 f"{k} strides for a {len(cls_l)}-level model: only the full set "
                 f"or the documented ref-compat (levels-1) truncation is allowed")
         return decode_detections(cls_l[:k], cnt_l[:k], reg_l[:k], self.strides, self.score_threshold,
-                                 self.nms_iou, self.max_detections, self.canvas_hw, plain=self.plain)
+                                 self.nms_iou, self.max_detections, self.canvas_hw, plain=self.nms_plain)
 
-    def __call__(self, images_u8: torch.Tensor) -> Detections:
-        return self.decode(self.forward_levels(images_u8))
+    @torch.inference_mode()
+    def canvas(self, images_u8, src_hw=None) -> torch.Tensor:
+        """The uint8 canvas frames on the pipeline's device: the frames as
+        given, or the device resize of raw tiles to the canvas."""
+        images_u8 = torch.as_tensor(images_u8).to(self.device)
+        if self.resize is None:
+            if src_hw is not None:
+                raise ValueError("src_hw is for a pipeline made with device_resize=True")
+            return images_u8
+        if src_hw is None:
+            raise ValueError("a device_resize pipeline takes (tiles_u8, src_hw)")
+        return self.resize(images_u8, torch.as_tensor(src_hw))[0]
+
+    def __call__(self, images_u8, src_hw=None) -> Detections:
+        return self.decode(self.forward_levels(self.canvas(images_u8, src_hw)))
 
 
 class EvalPipeline(_Pipeline):
@@ -92,9 +128,11 @@ class EvalPipeline(_Pipeline):
 
     def __init__(self, model: nn.Module, strides: Sequence[int], canvas_hw: Tuple[int, int],
                  score_threshold: float, nms_iou: float, max_detections: int,
-                 compute_dtype: torch.dtype, plain: bool):
+                 compute_dtype: torch.dtype, plain: bool, mean: Sequence[float] = IMAGENET_MEAN,
+                 std: Sequence[float] = IMAGENET_STD, device_resize: bool = False):
         param = next(model.parameters())
-        super().__init__(param.device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain)
+        super().__init__(param.device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain, mean,
+                         std, device_resize)
         # the JAX pipeline casts the f32 params to the compute dtype on each
         # call; here the cast copy is made once (the caller's model is not
         # modified, and later changes to it are not seen)
@@ -115,8 +153,9 @@ class Int8EvalPipeline(_Pipeline):
     def __init__(self, forward: Callable[[Dict, torch.Tensor], Levels], qtree: Dict, device: torch.device,
                  strides: Sequence[int], canvas_hw: Tuple[int, int], score_threshold: float, nms_iou: float,
                  max_detections: int, plain: bool, mean: Sequence[float], std: Sequence[float],
-                 u8_input: bool = False):
-        super().__init__(device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain, mean, std)
+                 u8_input: bool = False, device_resize: bool = False, nms_impl: str = "auto"):
+        super().__init__(device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain, mean, std,
+                         device_resize, nms_impl)
         self.forward, self.qtree, self.u8_input = forward, qtree, u8_input
 
     def _input(self, images_u8: torch.Tensor) -> torch.Tensor:
@@ -134,18 +173,25 @@ def make_eval_pipeline(
     nms_iou: float = 0.6,
     max_detections: int = 1000,
     compute_dtype: torch.dtype = torch.bfloat16,
+    mean: Sequence[float] = None,
+    std: Sequence[float] = None,
+    device_resize: bool = False,
     plain: bool = False,
 ) -> EvalPipeline:
     """Serving pipeline on the model's device: ``(u8/255 - mean) / std``
-    (ImageNet statistics) in f32, forward in ``compute_dtype`` (bf16 on the
-    card, f32 on the CPU), per-level outputs cast to f32, decode +
-    class-aware NMS.
+    (ImageNet statistics by default) in f32, forward in ``compute_dtype``
+    (bf16 on the card, f32 on the CPU), per-level outputs cast to f32,
+    decode + class-aware NMS (kernel A on CUDA, the plain NMS on the CPU).
 
+    ``device_resize=True``: the pipeline takes raw decoded tiles and their
+    sizes, ``(tiles_u8, src_hw)`` (a dataset built with ``raw_tiles=True``),
+    and resizes them onto the canvas on the model's device first.
     ``plain=True`` runs every kernel's plain PyTorch version even on CUDA;
     it exists only to compare the kernels with their plain versions.
     """
     return EvalPipeline(model, strides, canvas_hw, score_threshold, nms_iou, max_detections,
-                        compute_dtype, plain)
+                        compute_dtype, plain, IMAGENET_MEAN if mean is None else mean,
+                        IMAGENET_STD if std is None else std, device_resize)
 
 
 def make_eval_pipeline_int8(
@@ -205,11 +251,18 @@ def make_eval_pipeline_int8(
     ``quantize_head`` with ``train/trainer.make_eval_forward_int8(int8_fpn=True,
     int8_head=True, u8_input=True)``, as the JAX serving bench builds it.
 
-    ``calib_images``: a representative NORMALIZED NHWC float batch on the
-    model's device; the backbone's activation scales are calibrated on it in
-    ``compute_dtype`` (bf16 on the card, f32 in the CPU tests), the
-    HisFPN's and the head's in f32 on the oracles' features and levels
-    (``quantize_fpn``, ``quantize_head``).
+    ``calib_images``: a representative NORMALIZED NHWC float batch of
+    canvas images on the model's device; the backbone's activation scales
+    are calibrated on it in ``compute_dtype`` (bf16 on the card, f32 in the
+    CPU tests), the HisFPN's and the head's in f32 on the oracles' features
+    and levels (``quantize_fpn``, ``quantize_head``).
+    ``device_resize=True``: the pipeline takes raw decoded tiles and their
+    sizes, ``(tiles_u8, src_hw)``, and resizes them onto the canvas on the
+    model's device before the stem (``calib_images`` stay canvas images).
+    ``nms_impl``: ``"auto"`` (kernel A on CUDA, the plain NMS on the CPU),
+    ``"pallas"`` (kernel A; raises on the CPU) or ``"fixpoint"`` (the plain
+    NMS on any device); the JAX ``PODT_NMS`` override is not read
+    (``ops/postprocess.resolve_nms_impl``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
     int8_fpn = int8_fpn and isinstance(model, HISFCOS)  # the JAX gate: FCOS is not ported, MNFCOS stays float
@@ -220,11 +273,8 @@ def make_eval_pipeline_int8(
                          f"int8_fpn={int8_fpn}, backend={backend!r})")
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
-    if device_resize:
-        raise NotImplementedError("device_resize=True is not ported yet: ROADMAP.md queue 1 item 9")
-    if nms_impl != "auto":
-        raise ValueError(f"nms_impl must be 'auto' (kernel A on CUDA, its plain version on the CPU); "
-                         f"got {nms_impl!r}")
+    device = next(model.parameters()).device
+    resolve_nms_impl(nms_impl, device)  # raises on a value the port does not take, before the calibration
     mean = IMAGENET_MEAN if mean is None else mean
     std = IMAGENET_STD if std is None else std
     # u8 serving input: the normalize affine folds into the exact uint8 stem
@@ -237,5 +287,127 @@ def make_eval_pipeline_int8(
     fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, fuse_strided=fuse_strided, int8_fpn=int8_fpn,
                                  int8_head=int8_head, u8_input=u8_input, direct_stem=direct_stem,
                                  chain_segments=chain_segments, fused_head=fused_head, plain=plain)
-    return Int8EvalPipeline(fwd, qtree, next(model.parameters()).device, strides, canvas_hw, score_threshold,
-                            nms_iou, max_detections, plain, mean, std, u8_input)
+    return Int8EvalPipeline(fwd, qtree, device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain,
+                            mean, std, u8_input, device_resize, nms_impl)
+
+
+def _collect(det: Detections, scales, n_valid: int = -1):
+    """Fetch detections to the host, unscale them to the original images and
+    keep the valid entries: ``[(boxes, classes, scores)]`` per image.
+
+    All ``max_detections`` NMS survivors are kept (the reference carries up
+    to 1000 through NMS, test.py:172-174).  ``n_valid`` trims the loader's
+    padding rows.
+    """
+    scores, classes, boxes, valid = (t.cpu().numpy() for t in det)
+    n = scores.shape[0] if n_valid < 0 else n_valid
+    return [(boxes[i][valid[i]] / scales[i], classes[i][valid[i]], scores[i][valid[i]]) for i in range(n)]
+
+
+def collect_voc_predictions(
+    pipeline,
+    dataset,
+    batch_size: int = 16,
+    num_workers: int = 8,
+    mesh=None,
+    process_count: Optional[int] = None,
+    process_index: Optional[int] = None,
+    use_ring_loader: bool = False,
+):
+    """Run ``pipeline`` over this process's shard of ``dataset``.
+
+    Returns per-image lists ``(gt_boxes, gt_labels, pred_boxes, pred_labels,
+    pred_scores, image_ids)`` in original-image coordinates; the union over
+    processes covers every image once.  A raw-tile dataset
+    (``raw_tiles=True``) feeds ``pipeline(tiles, src_hw)``, which must
+    resize on the device.  ``use_ring_loader``: batches from
+    ``data/pipeline.RingTileLoader`` (one native batch decode per batch; a
+    raw-tile VOC dataset), else ``DetectionLoader``; the same batches.
+    ``mesh`` raises: data-parallel serving is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
+    if use_ring_loader:
+        from pytorch_object_detection_tpu_torch.data.pipeline import RingTileLoader
+
+        loader = RingTileLoader(dataset, batch_size, shuffle=False, drop_last=False, pad_last=True,
+                                decode_threads=num_workers, process_count=process_count,
+                                process_index=process_index)
+    else:
+        loader = DetectionLoader(dataset, batch_size, shuffle=False, drop_last=False, num_workers=num_workers,
+                                 pad_last=True, process_count=process_count, process_index=process_index)
+    raw_tiles = bool(getattr(dataset, "raw_tiles", False))
+    gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, ids = [], [], [], [], [], []
+    for batch in loader:
+        images = torch.from_numpy(batch.images)
+        if raw_tiles:
+            det = pipeline(images, torch.from_numpy(np.stack([batch.content_h, batch.content_w], 1).astype(np.int32)))
+        else:
+            det = pipeline(images)
+        for i, (b, c, s) in enumerate(_collect(det, batch.scales, batch.n_valid)):
+            gt_valid = batch.labels[i] > 0
+            gt_boxes.append(batch.boxes[i][gt_valid] / batch.scales[i])
+            gt_labels.append(batch.labels[i][gt_valid])
+            pred_boxes.append(b)
+            pred_labels.append(c)
+            pred_scores.append(s)
+            ids.append(batch.image_ids[i])
+    return gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, ids
+
+
+def evaluate_voc(
+    model,
+    dataset,
+    strides: Sequence[int] = (8, 16, 32, 64, 128),
+    batch_size: int = 16,
+    num_classes: int = 20,
+    iou_threshold: float = 0.5,
+    num_workers: int = 8,
+    verbose: bool = True,
+    mesh=None,
+    score_threshold: float = 0.05,
+    nms_iou: float = 0.6,
+    max_detections: int = 1000,
+    process_count: Optional[int] = None,
+    process_index: Optional[int] = None,
+    pipeline=None,
+    use_ring_loader: bool = False,
+    native: bool = True,
+) -> Dict:
+    """Full VOC eval: per-class AP@0.5, mAP, images/sec (reference test.py).
+
+    The JAX function's arguments less ``params`` and ``batch_stats`` (the
+    model carries its weights).  ``pipeline`` injects a pipeline (e.g.
+    :func:`make_eval_pipeline_int8`'s); by default the float pipeline of
+    ``model`` in bf16 (:func:`make_eval_pipeline`, with the device resize
+    where the dataset has ``raw_tiles``).  ``process_count``/``process_index``
+    override the loader's shard; ``use_ring_loader``: see
+    :func:`collect_voc_predictions`; ``native``: match in the native ops
+    library (True) or in numpy (``eval/voc_map.eval_voc_ap``).  ``mesh``
+    raises: data-parallel serving is not ported yet.  ``images_per_sec``
+    counts the loader, the pipeline and the fetch of its detections.
+    """
+    if pipeline is None:
+        pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
+                                      device_resize=bool(getattr(dataset, "raw_tiles", False)))
+    t0 = time.perf_counter()
+    gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, _ids = collect_voc_predictions(
+        pipeline, dataset, batch_size, num_workers, mesh=mesh, process_count=process_count,
+        process_index=process_index, use_ring_loader=use_ring_loader)
+    n_images = len(gt_boxes)
+    elapsed = time.perf_counter() - t0
+    aps = eval_voc_ap(gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, iou_threshold, num_classes,
+                      native=native)
+    result = {
+        "per_class_ap": aps,
+        "mAP": mean_ap(aps),
+        "images_per_sec": n_images / elapsed,
+        "num_images": n_images,
+    }
+    if verbose:
+        names = getattr(dataset, "class_names", None)
+        for cls, ap in sorted(aps.items()):
+            label = names[cls - 1] if names else str(cls)
+            print(f"ap for {label} is {ap}")
+        print(f"mAP=====>{result['mAP']:.3f}  ({result['images_per_sec']:.1f} img/s)")
+    return result

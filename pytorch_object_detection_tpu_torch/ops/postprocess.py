@@ -17,6 +17,25 @@ from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_n
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
 
+NMS_IMPLS = ("auto", "pallas", "fixpoint")
+
+
+def resolve_nms_impl(nms_impl: str, device: torch.device) -> str:
+    """The NMS that ``nms_impl`` names on ``device``: ``"pallas"`` (kernel A,
+    ``ops/cuda_nms.py``) or ``"fixpoint"`` (the plain greedy NMS,
+    ``ops/nms.py``).  ``"auto"`` is kernel A on CUDA and the plain NMS on the
+    CPU; ``"pallas"`` on the CPU raises ``ValueError``.  The argument is the
+    switch: the JAX function's environment override ``PODT_NMS`` is not
+    read, as the port reads no ``PODT_*`` switch."""
+    if nms_impl not in NMS_IMPLS:
+        raise ValueError(f"nms_impl must be one of {NMS_IMPLS}; got {nms_impl!r}")
+    if nms_impl == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "fixpoint"
+    if nms_impl == "pallas" and torch.device(device).type != "cuda":
+        raise ValueError(f"nms_impl='pallas' is kernel A, a CUDA kernel: it does not run on {device}")
+    return nms_impl
+
+
 class Detections(NamedTuple):
     """Fixed-size batched detections, sorted by descending score.
 

@@ -15,7 +15,8 @@ K10 replaces ``pallas_pool.py:qmaxpool3x3s2`` (the pool after the direct
 W, C]`` -> ``[B, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C]``; its plain version
 is ``reduce_window`` with init -128 as slices.  The TPU kernel's
 ``emit_merged`` (the row-pair lane-merged layout of its stage-1 kernels) has
-no counterpart.
+no counterpart.  A K10 block stages a band of input rows once in shared
+memory and pools from there; :func:`pick_pool3_tile` picks the band.
 
 Unlike the Pallas wrappers, the kernels take every shape and never fall back.
 """
@@ -23,11 +24,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+
 SOURCE = "qpool.cu"
+POOL3_ROWS = (1, 2, 4, 8, 16, 32)  # output rows a K10 block may take
+POOL3_COLS = (8, 16, 32, 64, 128)  # output columns a K10 block may take
+POOL3_PER_SM = 5  # K10 blocks an SM holds at least under the chooser's band
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,8 +47,10 @@ def _lib() -> ctypes.CDLL:
     lib.qpool_launch.restype = ctypes.c_int
     lib.qpool_seeds_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.qpool_seeds_launch.restype = ctypes.c_int
-    lib.qpool3_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.qpool3_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.qpool3_launch.restype = ctypes.c_int
+    lib.qpool3_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.qpool3_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -135,20 +144,77 @@ def qmaxpool3x3s2_plain(x: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
-def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+def pool3_smem_bytes(c: int, rows: int, cols: int) -> int:
+    """Shared memory of a K10 block (``qpool3_band``'s layout): the band's 2
+    rows + 1 input rows over 2 cols + 1 input columns, C bytes a pixel."""
+    return (2 * rows + 1) * (2 * cols + 1) * c
+
+
+def pool3_blocks(batch: int, h: int, w: int, rows: int, cols: int) -> int:
+    """K10's blocks: bands x spans x images."""
+    return batch * -(-((h - 1) // 2 + 1) // rows) * -(-((w - 1) // 2 + 1) // cols)
+
+
+def pick_pool3_tile(batch: int, h: int, w: int, sm_count: int, smem_max: int, c: int = 64) -> Tuple[int, int]:
+    """``(rows, cols)`` output rows and columns a K10 block takes on a ``[B,
+    h, w, c]`` int8 map: of the bands whose shared memory lets
+    ``POOL3_PER_SM`` blocks share an SM (an SM holds ``smem_max`` + 1 KB,
+    each block 1 KB more than it asks for), those with the most blocks up to
+    ``2 * sm_count`` (the card filled), then the widest span (the longest
+    contiguous staged rows), then the most rows: 2 x 64 on the 512x512 stem
+    map from B=3 up (1 x 64 at B=2), 2 x 64 on the COCO canvas's.  A sweep
+    of every band on the card (``scripts/port_kernel_times.py --only
+    k10tile``) put 2 x 64 first at B=64 and within 2 % of the best at B=8.
+    Raises ``ValueError`` where no band fits."""
+    return _pick_pool3_tile(batch, h, w, sm_count, smem_max, c)
+
+
+@functools.lru_cache(maxsize=256)
+def _pick_pool3_tile(batch, h, w, sm_count, smem_max, c):
+    fits = [(r, cl) for r in POOL3_ROWS for cl in POOL3_COLS
+            if POOL3_PER_SM * (pool3_smem_bytes(c, r, cl) + 1024) <= smem_max + 1024]
+    if not fits:
+        raise ValueError(f"K10: no band fits {POOL3_PER_SM} blocks in {smem_max + 1024} bytes of shared memory an "
+                         f"SM at C={c}")
+    return min(fits, key=lambda t: (-min(pool3_blocks(batch, h, w, *t), 2 * sm_count), -t[1], -t[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_pool3_smem(c: int, rows: int, cols: int) -> None:
+    """The chooser's shared-memory arithmetic is the kernel's (once per band and channel count)."""
+    got = _lib().qpool3_smem_bytes(c, rows, cols)
+    if got != pool3_smem_bytes(c, rows, cols):
+        raise RuntimeError(f"K10: the kernel takes {got} bytes of shared memory, the chooser "
+                           f"{pool3_smem_bytes(c, rows, cols)}")
+
+
+@functools.lru_cache(maxsize=256)
+def _pool3_launch_tile(b: int, h: int, w: int, c: int, index: int) -> Tuple[int, int]:
+    """The chooser's band for a launch on device ``index`` (the one-byte form takes none)."""
+    if c % 16:
+        return 0, 0
+    tile = pick_pool3_tile(b, h, w, *card_limits(torch.device("cuda", index)), c=c)
+    _check_pool3_smem(c, *tile)
+    return tile
+
+
+def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False, tile=None) -> torch.Tensor:
     """int8 ``[B, H, W, C]`` -> ``[B, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C]``,
     3x3 window, stride 2, padding 1 (-128).
 
     On a CPU tensor this is :func:`qmaxpool3x3s2_plain`; on a CUDA tensor it
-    launches K10 (NHWC-contiguous int8) or raises.  ``plain=True`` runs the
-    plain version on any device, for the comparison only.
-    ``qmaxpool3x3s2.launches`` counts kernel launches.
+    launches K10 (NHWC-contiguous int8) or raises.  ``tile=(rows, cols)``
+    forces the output rows and columns a block takes (C a multiple of 16)
+    instead of :func:`pick_pool3_tile`'s, for the checks; the output does
+    not depend on it.  ``plain=True`` runs the plain version on any device,
+    for the comparison only.  ``qmaxpool3x3s2.launches`` counts kernel
+    launches.
     """
-    if x.dtype != torch.int8 or x.dim() != 4:
+    if x.dtype is not torch.int8 or x.dim() != 4:
         raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
-    if plain or x.device.type == "cpu":
+    if plain or x.is_cpu:
         return qmaxpool3x3s2_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"K10 runs on CUDA tensors; got {x.device}")
     b, h, w, c = x.shape
     if not x.is_contiguous() or (c % 16 == 0 and x.data_ptr() % 16):
@@ -156,8 +222,21 @@ def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     out = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = _lib().qpool3_launch(x.data_ptr(), out.data_ptr(), b, h, w, c, torch.cuda.current_stream().cuda_stream)
+    index = x.get_device()
+    if tile is None:
+        tile = _pool3_launch_tile(b, h, w, c, index)
+    elif c % 16 or tuple(tile) not in [(r, cl) for r in POOL3_ROWS for cl in POOL3_COLS] or pool3_smem_bytes(
+            c, *tile) > card_limits(x.device)[1]:
+        raise ValueError(f"K10 does not take tile {tile}: rows in {POOL3_ROWS}, columns in {POOL3_COLS}, within the "
+                         f"card's shared memory, C a multiple of 16 (got {c})")
+    else:
+        _check_pool3_smem(c, *tile)
+    args = (x.data_ptr(), out.data_ptr(), b, h, w, c, *tile)
+    if index == torch._C._cuda_getDevice():
+        err = _lib().qpool3_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):  # the launch goes to the current device
+            err = _lib().qpool3_launch(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"K10 launch failed: cudaError {err}")
     qmaxpool3x3s2.launches += 1

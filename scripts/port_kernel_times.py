@@ -58,7 +58,13 @@ or K17 and a B=64 profile of the stem-tail pipeline split into B, K17, the
 copy kernels and the rest; ``gntile`` and ``k17tile``, this tree's package
 only (they force ``tile=``): B at the head's shapes and the COCO canvas's
 P3 under every tile of ``ops/gn.gn_options``, K17 under every band that
-fits, the choosers' picks marked; and ``stemtile``, this tree's package
+fits, the choosers' picks marked; ``k10``: K10 (``ops/qpool.qmaxpool3x3s2``)
+at the direct stem's map [B, 256, 256, 64], B=8 and B=64, the COCO
+canvas's [2, 448, 704, 64] and two odd maps (one with C = 24), back to back,
+from a graph and its host time, with its bound and digests; ``k10tile``,
+this tree's package only: K10 under every band that fits two blocks an SM,
+``ops/qpool.pick_pool3_tile``'s marked, each output held equal to the
+chooser's; and ``stemtile``, this tree's package
 only, since it needs ``qstem_conv``'s ``tile=``: K1 at 512x512, B=1, 2 and
 8, and at the COCO canvas, B=1 and 2, under ``ops/qstem.pick_stem_tile``'s
 tile and forced smaller ones, its outputs held equal to the chooser's).
@@ -197,7 +203,7 @@ def main() -> int:
     parser.add_argument("--sweep", action="store_true", help="kernel C at every tile and cluster size that fits")
     parser.add_argument("--only", default="c,k4,k16,head,his,nms,stem",
                         help="comma-separated sections: c, k4, k16, head, his, nms, stem, stemtile, k11, k13, "
-                             "k13blocks, k15, k12, gn, k17, pipes, gntile, k17tile")
+                             "k13blocks, k15, k12, gn, k17, pipes, gntile, k17tile, k10, k10tile")
     args = parser.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -286,6 +292,10 @@ def main() -> int:
             time_gn_tiles(result, dev, args.seed, card)
         if "k17tile" in only:
             time_k17_tiles(result, dev, args.seed, card)
+        if "k10" in only:
+            time_k10(result, dev, args.seed, card)
+        if "k10tile" in only:
+            time_k10_tiles(result, dev, args.seed, card)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
@@ -1258,6 +1268,72 @@ def time_k17_tiles(result, dev, seed, card) -> None:
             result["k17_tiles"][f"B{b}/{h}x{w}/{tile}"] = ms
             cells.append(f"{'*' if tile == pick else ''}{tile[0]}x{tile[1]} {ms:.4f}")
         print(f"K17 bands B={b} {h}x{w}, graph ms: " + "; ".join(cells) + f" {card}", flush=True)
+
+
+# K10: the direct stem's pooled map at 512x512 (B=8, B=64), the COCO canvas
+# (B=2), an odd map and an odd map with C % 16 != 0 (the one-byte form)
+K10_SHAPES = ((8, 256, 256, 64), (64, 256, 256, 64), (2, 448, 704, 64), (8, 129, 97, 64), (8, 129, 97, 24))
+
+
+def k10_input(b: int, h: int, w: int, c: int, seed: int, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + 10 + b + h + c)
+    return torch.randint(-128, 128, (b, h, w, c), generator=g, dtype=torch.int8).to(dev)
+
+
+def time_k10(result, dev, seed, card) -> None:
+    """K10 at ``K10_SHAPES``: ms a call back to back and from a graph, host
+    ms, the bound (bytes: the map read once, the output written once) and
+    the share of it reached from the graph, a digest of each output;
+    registers and spills where this process built the kernel."""
+    from pytorch_object_detection_tpu_torch import _build
+    from pytorch_object_detection_tpu_torch.ops import qpool
+
+    result["k10"] = {}
+    for b, h, w, c in K10_SHAPES:
+        x = k10_input(b, h, w, c, seed, dev)
+        fn = lambda: qpool.qmaxpool3x3s2(x)
+        key = f"B{b}/{h}x{w}x{c}"
+        out = fn()
+        result["digest"][f"k10/{key}"] = digest([out])
+        it = 20 if b < 64 else 10
+        times = {"": cuda_ms(fn, iters=it), "/graph": graph_ms(fn, iters=it), "/host": host_ms(fn),
+                 "/bound": (x.numel() + out.numel()) / 3.35e12 * 1e3}
+        for sfx, v in times.items():
+            result["k10"][f"{key}{sfx}"] = v
+        print(f"K10 {key}: {times['']:.4f} ms, graph {times['/graph']:.4f} ms, host {times['/host']:.4f} ms, "
+              f"bound {times['/bound']:.5f} ms (bytes, {times['/bound'] / times['/graph']:.1%} of it from the "
+              f"graph), digest {result['digest'][f'k10/{key}']} {card}", flush=True)
+    print(f"K10 build: {ptxas_lines(_build.build_log, 'qpool.cu')}")
+
+
+def time_k10_tiles(result, dev, seed, card) -> None:
+    """K10 at the 64-channel shapes of ``K10_SHAPES`` from a graph under
+    every band that fits two blocks an SM, the chooser's marked with ``*``;
+    every band's output held equal to the chooser's."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.ops import qblock, qpool
+
+    sm_count, smem_max = qblock.card_limits(dev)
+    result["k10_tiles"] = {}
+    for b, h, w, c in K10_SHAPES:
+        if c % 16:
+            continue
+        x = k10_input(b, h, w, c, seed, dev)
+        pick = qpool.pick_pool3_tile(b, h, w, sm_count, smem_max, c)
+        want = qpool.qmaxpool3x3s2(x)
+        cells = []
+        for tile in [(r, cl) for r in qpool.POOL3_ROWS for cl in qpool.POOL3_COLS
+                     if 2 * (qpool.pool3_smem_bytes(c, r, cl) + 1024) <= smem_max + 1024]:
+            got = qpool.qmaxpool3x3s2(x, tile=tile)
+            if not torch.equal(got, want):
+                raise SystemExit(f"K10 B={b} {h}x{w}: band {tile} differs from the chooser's {pick}")
+            ms = graph_ms(lambda: qpool.qmaxpool3x3s2(x, tile=tile), iters=20 if b < 64 else 10)
+            result["k10_tiles"][f"B{b}/{h}x{w}/{tile}"] = ms
+            cells.append(f"{'*' if tile == pick else ''}{tile[0]}x{tile[1]} {ms:.4f}")
+        print(f"K10 bands B={b} {h}x{w}x{c}, graph ms: " + "; ".join(cells) + f" {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -444,9 +444,17 @@ def test_int8_pipeline_options(slice_runs):
     assert sorted(default.qtree) == ["backbone", "fpn", "head"]
     for a_b, b_b in zip(default.forward_levels(frames), xla.forward_levels(frames)):
         assert all(torch.equal(a, b) and bool(torch.isfinite(a).all()) for a, b in zip(a_b, b_b))
-    for kw, what in ((dict(mesh=object()), "item 11"), (dict(device_resize=True), "item 9")):
-        with pytest.raises(NotImplementedError, match=what):
-            make_eval_pipeline_int8(*args, int8_fpn=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_eval_pipeline_int8(*args, int8_fpn=False, mesh=object())
+    # device_resize=True (ported since): tiles of the canvas's size pass the device resize unchanged, so the
+    # pipeline on (tiles, src_hw) gives the canvas pipeline's detections
+    resized = make_eval_pipeline_int8(*args, int8_fpn=False, compute_dtype=torch.float32, device_resize=True)
+    canvas = make_eval_pipeline_int8(*args, int8_fpn=False, compute_dtype=torch.float32)
+    canvas.qtree = resized.qtree
+    src_hw = torch.tensor([[CANVAS, CANVAS]], dtype=torch.int32)
+    assert all(torch.equal(a, b) for a, b in zip(resized(frames, src_hw), canvas(frames)))
+    with pytest.raises(ValueError, match="src_hw"):
+        resized(frames)
     # fused_head=True (K15, its plain version here) runs behind the float HisFPN and follows the float head at bf16
     # precision; behind the int8 FPN it is ignored, as in JAX
     qtree_one = quantize_backbone(model, norm[:1], torch.float32)

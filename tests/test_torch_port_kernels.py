@@ -927,19 +927,50 @@ def test_qconv3x3_kernel_matches_plain_exactly(cuda, shape):
     assert 0.05 < (want > 0).float().mean() and (want == 127).float().mean() < 0.05  # not degenerate
 
 
+K10_SHAPES = [(2, 256, 256, 64), (8, 256, 256, 64), (64, 256, 256, 64), (2, 448, 704, 64), (2, 15, 21, 64),
+              (3, 129, 97, 32), (2, 9, 6, 24), (2, 1, 1, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 256, 256, 64), (2, 15, 21, 64), (2, 9, 6, 24), (2, 1, 1, 16)],
-                         ids=["stem", "odd", "c24", "1x1"])
+@pytest.mark.parametrize("shape", K10_SHAPES, ids=["stem", "stem_b8", "stem_b64", "coco", "odd", "odd_c32", "c24",
+                                                   "1x1"])
 def test_qmaxpool3x3s2_kernel_matches_plain_exactly(cuda, shape):
-    """K10 at the stem's shape (B=2), odd sizes, a channel count that is not
-    a multiple of 16 and a 1x1 map: 0 differing elements."""
-    x = torch.randint(-128, 128, shape, generator=torch.Generator().manual_seed(shape[1]), dtype=torch.int8)
+    """K10 at the direct stem's map (B=2, 8 and 64), the COCO canvas's, odd
+    sizes, a channel count that is not a multiple of 16 (the one-byte form)
+    and a 1x1 map: 0 differing elements against the plain version on the
+    same card."""
+    x = torch.randint(-128, 128, shape, generator=torch.Generator(device=cuda).manual_seed(shape[1]), device=cuda,
+                      dtype=torch.int8)
     before = qmaxpool3x3s2.launches
-    got = qmaxpool3x3s2(x.to(cuda))
+    got = qmaxpool3x3s2(x)
     torch.cuda.synchronize()
     assert qmaxpool3x3s2.launches == before + 1
     assert got.shape == (shape[0], (shape[1] - 1) // 2 + 1, (shape[2] - 1) // 2 + 1, shape[3])
-    assert torch.equal(got.cpu(), qmaxpool3x3s2_plain(x))
+    assert torch.equal(got, qmaxpool3x3s2(x, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 256, 64), (3, 129, 97, 32), (2, 7, 300, 16)], ids=["stem_b8", "odd",
+                                                                                              "wide"])
+def test_qmaxpool3x3s2_same_under_every_band(cuda, shape):
+    """K10 under every band of ``POOL3_ROWS`` x ``POOL3_COLS`` that fits the
+    card: the same bits as under the chooser's; a forced band is refused
+    where C is not a multiple of 16."""
+    from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
+    from pytorch_object_detection_tpu_torch.ops.qpool import POOL3_COLS, POOL3_ROWS, pool3_smem_bytes
+
+    x = torch.randint(-128, 128, shape, generator=torch.Generator(device=cuda).manual_seed(7), device=cuda,
+                      dtype=torch.int8)
+    want = qmaxpool3x3s2(x)
+    smem_max = card_limits(cuda)[1]
+    bands = [(r, c) for r in POOL3_ROWS for c in POOL3_COLS if pool3_smem_bytes(shape[3], r, c) <= smem_max]
+    differ = [t for t in bands if not torch.equal(qmaxpool3x3s2(x, tile=t), want)]
+    torch.cuda.synchronize()
+    assert len(bands) > 20 and not differ, differ
+    with pytest.raises(ValueError, match="tile"):
+        qmaxpool3x3s2(x[..., :8].contiguous(), tile=(2, 64))
+    with pytest.raises(ValueError, match="tile"):
+        qmaxpool3x3s2(x, tile=(3, 64))
 
 
 def _stem_tail_case(shape, device, seed=0):

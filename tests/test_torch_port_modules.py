@@ -163,18 +163,24 @@ def test_seeded_init_is_reproducible_and_follows_jax_distributions():
 
 def test_port_imports_no_jax():
     """Importing the port, and everything chip_smoke.py imports, leaves jax
-    out of sys.modules."""
+    out of sys.modules, and PyYAML, cv2 and PIL too (the card has no cv2 or
+    PIL, and the serving path needs no PyYAML at import)."""
     code = (
         "import sys\n"
         "import pytorch_object_detection_tpu_torch\n"
         "from pytorch_object_detection_tpu_torch.models import registry, fcos, heads\n"
         "from pytorch_object_detection_tpu_torch.nn import layers, resnet, fpn\n"
         "from pytorch_object_detection_tpu_torch.ops import boxes, nms, cuda_nms, gn, postprocess\n"
-        "from pytorch_object_detection_tpu_torch.eval import evaluator\n"
+        "from pytorch_object_detection_tpu_torch.eval import evaluator, voc_map\n"
+        "from pytorch_object_detection_tpu_torch.core import config\n"
+        "from pytorch_object_detection_tpu_torch.native import lib\n"
+        "from pytorch_object_detection_tpu_torch.data import voc, decode, pipeline\n"
+        "from pytorch_object_detection_tpu_torch.cli import eval_voc\n"
         "from pytorch_object_detection_tpu_torch.train import checkpoints\n"
         "from pytorch_object_detection_tpu_torch import _build\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'pytorch_object_detection_tpu.')))\n"
+        "bad += [m for m in ('yaml', 'cv2', 'PIL') if m in sys.modules]  # none needed at import\n"
         "bad += [m for m in sys.modules if m == 'pytorch_object_detection_tpu']\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -4,7 +4,8 @@
 (``ops/qstem.pick_stem_tile``), K11 (``ops/qconv.pick_conv3_tile``) and
 K13 (``ops/qchain.pick_chain_tile``), K15 (``ops/head.pick_fhead_tile``),
 K12 (``ops/qmnblock.pick_mn_tile``), kernel B (``ops/gn.pick_gn_tile``) and
-K17 (``ops/stem.pick_stem_tail_tile``), in plain Python with an H100's
+K17 (``ops/stem.pick_stem_tail_tile``) and K10 (``ops/qpool.pick_pool3_tile``),
+in plain Python with an H100's
 limits: 132 SMs and 232,448 bytes of shared memory a block may opt in to.
 
 Kernel C at the 16 ResNet-50 bottlenecks of the 512x512 canvas, B = 1, 2, 8
@@ -25,7 +26,10 @@ on 132 and 114 SMs, and odd maps; kernel B at the HISHead's ten
 GroupNorm shapes, B = 1, 2, 8 and 64, the COCO canvas's P3 slab and odd
 maps, bf16 and f32, with a plain-Python model of which slab units each
 block of a launch stages; K17 on the 512x512 and COCO stem maps and odd
-ones, B = 1, 2, 8 and 64.  No card and no JAX needed.
+ones, B = 1, 2, 8 and 64; K10 (``ops/qpool.pick_pool3_tile``) on the same
+maps, with a plain-Python model of one K10 block: its clamped staging, its
+pool in the kernel's tap order against the plain pool, and its shared-memory
+reads a quarter warp at a time.  No card and no JAX needed.
 """
 from __future__ import annotations
 
@@ -60,6 +64,8 @@ from pytorch_object_detection_tpu_torch.ops.qmnblock import (
 from pytorch_object_detection_tpu_torch.ops.qstem import (
     STEM_MC, STEM_TILES, pick_stem_tile, stem_blocks, stem_load, stem_recompute, stem_sizes, stem_smem_bytes,
     stem_tiles)
+from pytorch_object_detection_tpu_torch.ops.qpool import (
+    POOL3_COLS, POOL3_PER_SM, POOL3_ROWS, pick_pool3_tile, pool3_blocks, pool3_smem_bytes, qmaxpool3x3s2_plain)
 from pytorch_object_detection_tpu_torch.ops.quant import conv_i8
 from pytorch_object_detection_tpu_torch.ops.stem import (
     STEM_TAIL_COLS, STEM_TAIL_PER_SM, STEM_TAIL_ROWS, pick_stem_tail_tile, stem_tail_blocks, stem_tail_smem_bytes,
@@ -1139,3 +1145,96 @@ def test_stem_tail_tile_covers_each_pooled_position_once_and_fits(b, h, w):
         assert (rows, cols) == (8, 8)
     with pytest.raises(ValueError):
         pick_stem_tail_tile(b, h, w, SM_COUNT, 20000)
+
+
+# ---------------------------------------------------------------- K10 (the int8 3x3/2 pool of the direct stem)
+K10_CASES = [(b, h, w, c) for b in (1, 2, 8, 64) for h, w in ((256, 256), (448, 704), (129, 97), (15, 21), (2, 2))
+             for c in (64, 32)]
+
+
+@pytest.mark.parametrize("b,h,w,c", K10_CASES, ids=[f"B{b}-{h}x{w}x{c}" for b, h, w, c in K10_CASES])
+def test_pool3_tile_covers_each_output_once_and_fits(b, h, w, c):
+    """The chooser's band: POOL3_PER_SM blocks share an SM; the bands and
+    spans cover each output row and column once; each block's staged input
+    rows and columns hold every window of its outputs; the card is filled
+    where the map allows, with the widest span, then the most rows, among
+    those; 2 x 64 on the 512x512 stem map from B=3 up."""
+    rows, cols = pick_pool3_tile(b, h, w, SM_COUNT, SMEM_MAX, c)
+    fits = [(r, cl) for r in POOL3_ROWS for cl in POOL3_COLS
+            if POOL3_PER_SM * (pool3_smem_bytes(c, r, cl) + 1024) <= SMEM_MAX + 1024]
+    assert (rows, cols) in fits
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    for n, step in ((ho, rows), (wo, cols)):
+        first = list(range(0, n, step))
+        covered = [o for f in first for o in range(f, min(n, f + step))]
+        assert covered == list(range(n))
+        for f in first:  # staged input rows (or columns) 2 f - 1 .. 2 (last) + 1: every window's
+            last = min(n, f + step) - 1
+            assert all(2 * f - 1 <= 2 * o + d <= 2 * last + 1 for o in range(f, last + 1) for d in (-1, 0, 1))
+    blocks = pool3_blocks(b, h, w, rows, cols)
+    assert blocks == b * -(-ho // rows) * -(-wo // cols)
+    filled = min(2 * SM_COUNT, max(pool3_blocks(b, h, w, *t) for t in fits))
+    assert min(blocks, 2 * SM_COUNT) == filled
+    assert cols == max(t[1] for t in fits if min(pool3_blocks(b, h, w, *t), 2 * SM_COUNT) == filled)
+    if (h, w, c) == (256, 256, 64) and b >= 3:
+        assert (rows, cols) == (2, 64)
+    with pytest.raises(ValueError):
+        pick_pool3_tile(b, h, w, SM_COUNT, 5000, c)
+
+
+def _k10_block_model(x: np.ndarray, rows: int, cols: int, c16: int) -> np.ndarray:
+    """One K10 launch in plain Python over x [H, W, C] int8: per block, the
+    staged rows and columns clamped into the map (``qpool3_band``'s step 1),
+    then each output word as the max of its nine staged words, its columns in
+    the rotated order of odd output columns (step 2)."""
+    h, w, c = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    out = np.full((ho, wo, c), 99, np.int8)
+    for oy0 in range(0, ho, rows):
+        for ox0 in range(0, wo, cols):
+            nro, nco = min(rows, ho - oy0), min(cols, wo - ox0)
+            iy = [min(max(2 * oy0 - 1 + r, 0), h - 1) for r in range(2 * nro + 1)]
+            ix = [min(max(2 * ox0 - 1 + col, 0), w - 1) for col in range(2 * nco + 1)]
+            st = x[iy][:, ix]  # [2 nro + 1, 2 nco + 1, C]: the staged words
+            for oyl in range(nro):
+                for oxl in range(nco):
+                    rot = oxl & 1
+                    m = st[2 * oyl, 2 * oxl + rot]
+                    for dy in range(3):
+                        for k in range(3):
+                            dx = k + rot if k + rot < 3 else k + rot - 3
+                            m = np.maximum(m, st[2 * oyl + dy, 2 * oxl + dx])
+                    out[oy0 + oyl, ox0 + oxl] = m
+    return out
+
+
+@pytest.mark.parametrize("shape,tile", [((9, 13, 32), (2, 8)), ((16, 16, 16), (1, 8)), ((7, 300, 16), (4, 64)),
+                                        ((33, 5, 48), (8, 128)), ((1, 1, 16), (2, 64)), ((20, 22, 64), (2, 64))])
+def test_k10_block_model_equals_the_plain_pool(shape, tile):
+    """The clamped staging needs no pad value: a row or column outside the
+    map is staged as its clamped neighbour, which lies in the same window,
+    so the model of the kernel's blocks equals the plain pool with -128
+    padding, bit for bit, on every band (odd and even sizes, 1x1)."""
+    x = np.random.default_rng(sum(shape)).integers(-128, 128, shape).astype(np.int8)
+    want = qmaxpool3x3s2_plain(torch.from_numpy(x)[None])[0].numpy()
+    np.testing.assert_array_equal(_k10_block_model(x, *tile, shape[2] // 16), want)
+
+
+@pytest.mark.parametrize("nco", [64, 16, 8])
+def test_k10_quarter_warp_reads_cover_all_banks(nco):
+    """At 64 channels (four 16-byte words a pixel) a quarter warp (8 threads)
+    reads two output positions' words of a tap row at a time; with the odd
+    column's rotated tap order its 16-byte reads fall on distinct 4-bank
+    groups, or on the same word (a broadcast), at every step."""
+    c16 = 4
+    for o0 in range(0, 2 * nco * c16, 8):  # the quarter warps of two band rows
+        for k in range(3):
+            words = {}
+            for o in range(o0, o0 + 8):
+                p, q = divmod(o, c16)
+                oxl = p % nco
+                rot = oxl & 1
+                dx = k + rot if k + rot < 3 else k + rot - 3
+                word = (2 * oxl + dx) * c16 + q
+                words.setdefault(word % 8, set()).add(word)
+            assert all(len(ws) == 1 for ws in words.values()), (o0, k, words)
