@@ -134,8 +134,8 @@ Phases (each prints its results on its own lines):
      the chooser's tile bit for bit;
   5o. VOC evaluation from the dataset: 64 seeded frames of 300-500 px a
      side in raw 512x512 tiles with seeded GT boxes of every class, an
-     in-memory dataset of Samples (the card machine has no PIL or cv2 to
-     write a JPEG tree): the device resize on the card against the same
+     in-memory dataset of Samples that serves them cycled as EVAL_IDS ids
+     (the card machine has no PIL or cv2 to write a JPEG tree): the device resize on the card against the same
      call on the CPU (scales and sizes equal, at most one step on
      RESIZE_SHARE of the values); evaluate_voc with a pipeline that
      returns each frame's GT at the device resize's scales (mAP 1: the
@@ -223,11 +223,13 @@ LEVEL_TOL = 2**-5
 # abs-max int8 keeps about two decimal digits of each activation
 INT8_COS_MIN = 0.99
 K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
-# phase 5o: frames of the in-memory VOC-like dataset; the device resize on
-# the card against the CPU: at most one uint8 step on at most this share of
-# the values (tests/test_torch_port_eval.py's tolerance against the JAX
-# function: the f32 sums run in another order)
-EVAL_FRAMES, RESIZE_SHARE = 64, 2e-3
+# phase 5o: distinct frames of the in-memory VOC-like dataset, and the ids
+# it serves (the frames cycled: 16 batches at B=64, so the timed window
+# holds a steady state of the loader and the pipeline overlapping); the
+# device resize on the card against the CPU: at most one uint8 step on at
+# most this share of the values (tests/test_torch_port_eval.py's tolerance
+# against the JAX function: the f32 sums run in another order)
+EVAL_FRAMES, EVAL_IDS, RESIZE_SHARE = 64, 1024, 2e-3
 # launches in one call of the int8-FPN pipeline, by wrapper
 # (K6: one launch of its seeds kernel for the two seeds, none of the standalone 2x2 pool; the four level
 # pools run inside K5's load, "qhisblock_pool_add")
@@ -327,6 +329,17 @@ def nvidia_smi() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "not measured"
+    except (OSError, subprocess.TimeoutExpired):
+        return "not measured"
+
+
+def smi_clocks() -> str:
+    """The card's SM and memory clocks, temperature and power draw now, as
+    nvidia-smi reads them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=60)
         return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "not measured"
     except (OSError, subprocess.TimeoutExpired):
         return "not measured"
@@ -1581,15 +1594,17 @@ def main() -> int:
         from pytorch_object_detection_tpu_torch.data.pipeline import (
             DetectionLoader, decode_to_tile, make_device_resize)
         from pytorch_object_detection_tpu_torch.data.voc import VOC_CLASSES, Sample
-        from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_voc
+        from pytorch_object_detection_tpu_torch.eval.evaluator import _collect, evaluate_voc
         from pytorch_object_detection_tpu_torch.ops.postprocess import Detections
 
         class FrameSet:
-            """Seeded frames and GT boxes (original coordinates) as raw-tile Samples."""
+            """Seeded frames and GT boxes (original coordinates) as raw-tile
+            Samples; id ``i`` serves frame ``i % n``."""
             raw_tiles, class_names, canvas_hw, tile_hw = True, VOC_CLASSES, CANVAS, CANVAS
 
-            def __init__(self, n, seed):
+            def __init__(self, n, ids, seed):
                 rng = np.random.default_rng(seed)
+                self.ids = ids
                 self.frames, self.gt = [], []
                 for i in range(n):
                     h, w = (int(v) for v in rng.integers(300, 501, 2))
@@ -1602,14 +1617,15 @@ def main() -> int:
                                     .astype(np.float32), labels.astype(np.int32)))
 
             def __len__(self):
-                return len(self.frames)
+                return self.ids
 
             def __getitem__(self, i):
-                tile, (h, w) = decode_to_tile(self.frames[i], self.tile_hw)
+                frame, (boxes, labels) = self.frames[i % len(self.frames)], self.gt[i % len(self.frames)]
+                tile, (h, w) = decode_to_tile(frame, self.tile_hw)
                 scale = min(self.canvas_hw[0] / h, self.canvas_hw[1] / w)
-                return Sample(tile, self.gt[i][0] * scale, self.gt[i][1], scale, f"{i:06d}", (h, w))
+                return Sample(tile, boxes * scale, labels, scale, f"{i:06d}", (h, w))
 
-        ds = FrameSet(EVAL_FRAMES, SEED + 15)
+        ds = FrameSet(EVAL_FRAMES, EVAL_IDS, SEED + 15)
         resize = make_device_resize(CANVAS)
         # (1) the device resize on the card against the same call on the CPU
         first = next(iter(DetectionLoader(ds, 16, shuffle=False, drop_last=False, num_workers=4)))
@@ -1627,7 +1643,7 @@ def main() -> int:
                     f"(at most 1 on {RESIZE_SHARE})")
 
         # (2) a pipeline that returns each frame's GT at the device resize's scales: mAP 1
-        gt_of = {hashlib.sha1(ds[i].image.tobytes()).hexdigest(): ds.gt[i] for i in range(len(ds))}
+        gt_of = {hashlib.sha1(ds[i].image.tobytes()).hexdigest(): ds.gt[i] for i in range(EVAL_FRAMES)}
 
         def gt_pipeline(tiles_u8, src):
             scale = resize(tiles_u8.to(dev), src.to(dev))[1].cpu().numpy()
@@ -1642,7 +1658,7 @@ def main() -> int:
 
         with torch.inference_mode():
             gt_res = evaluate_voc(None, ds, batch_size=16, pipeline=gt_pipeline, verbose=False)
-        smoke.check(abs(gt_res["mAP"] - 1.0) < 1e-9 and gt_res["num_images"] == EVAL_FRAMES,
+        smoke.check(abs(gt_res["mAP"] - 1.0) < 1e-9 and gt_res["num_images"] == EVAL_IDS,
                     f"evaluate_voc with the GT pipeline, device resize on the card: mAP {gt_res['mAP']!r} over "
                     f"{gt_res['num_images']} frames")
 
@@ -1665,7 +1681,7 @@ def main() -> int:
                 r = evaluate_voc(model, ds, batch_size=bsz, pipeline=epipe, verbose=False)
             torch.cuda.synchronize()
             launches = {k: c.launches for k, c in counters.items()}
-            calls = -(-EVAL_FRAMES // bsz)
+            calls = -(-EVAL_IDS // bsz)
             smoke.check(launches == {k: calls * n for k, n in DEFAULT_PIPELINE_LAUNCHES.items()},
                         f"evaluate_voc B={bsz}: {calls} calls of the default pipeline, each kernel of it launched "
                         f"{calls} times its per-call count (K1, C, K4, K5, K6, K7, A): {launches}")
@@ -1674,31 +1690,44 @@ def main() -> int:
                 for _ in range(4):
                     rates.append(evaluate_voc(model, ds, batch_size=bsz, pipeline=epipe, verbose=False)
                                  ["images_per_sec"])
-            smoke.check(r["num_images"] == EVAL_FRAMES and np.isfinite(r["mAP"]),
+            smoke.check(r["num_images"] == EVAL_IDS and np.isfinite(r["mAP"]),
                         f"evaluate_voc B={bsz}: {r['num_images']} frames, mAP {r['mAP']:.4f} (random weights)")
             print(f"  evaluate_voc, default int8 pipeline, device resize, B={bsz}: images_per_sec "
                   f"{', '.join(f'{v:.1f}' for v in rates)} (median {statistics.median(rates):.1f}; loader, "
                   f"resize, pipeline and fetch) {card}")
-            # where the time goes: the loader alone (host), and the pipeline alone on tiles already on the card
-            loader_rates, pipe_rates = [], []
-            tiles_dev = torch.from_numpy(first.images).repeat(bsz // 16, 1, 1, 1).to(dev)
-            hw_dev = src_hw.repeat(bsz // 16, 1).to(dev)
+            # where the time goes, each over the same window of EVAL_IDS frames: the loader alone (host
+            # threads), the pipeline alone on tiles already on the card, and the pipeline with its host copies
+            # (the pageable H2D copy of the tiles, the fetch and _collect), that is evaluate_voc less the loader
+            batches = EVAL_IDS // bsz
+            big = next(iter(DetectionLoader(ds, bsz, shuffle=False, drop_last=False, num_workers=8)))
+            tiles_host = torch.from_numpy(big.images)
+            hw_host = torch.from_numpy(np.stack([big.content_h, big.content_w], 1).astype(np.int32))
+            tiles_dev, hw_dev = tiles_host.to(dev), hw_host.to(dev)
+            loader_rates, pipe_rates, copy_rates = [], [], []
             for _ in range(3):
                 t0 = time.perf_counter()
                 n = sum(len(b.image_ids) for b in DetectionLoader(ds, bsz, shuffle=False, drop_last=False,
-                                                                  pad_last=True))
+                                                                  num_workers=8, pad_last=True))
                 loader_rates.append(n / (time.perf_counter() - t0))
                 with torch.inference_mode():
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    for _ in range(max(1, EVAL_FRAMES // bsz)):
+                    for _ in range(batches):
                         epipe(tiles_dev, hw_dev)
                     torch.cuda.synchronize()
-                    pipe_rates.append(max(1, EVAL_FRAMES // bsz) * bsz / (time.perf_counter() - t0))
+                    pipe_rates.append(batches * bsz / (time.perf_counter() - t0))
+                    t0 = time.perf_counter()
+                    for _ in range(batches):
+                        _collect(epipe(tiles_host, hw_host), big.scales, big.n_valid)
+                    copy_rates.append(batches * bsz / (time.perf_counter() - t0))
             with torch.inference_mode():
                 rs = cuda_ms(lambda: resize(tiles_dev, hw_dev), iters=5, reps=3)
-            print(f"  B={bsz}: DetectionLoader alone {', '.join(f'{v:.1f}' for v in loader_rates)} img/s; the "
-                  f"pipeline alone on tiles on the card {', '.join(f'{v:.1f}' for v in pipe_rates)} img/s; the "
+            lo, pc = statistics.median(loader_rates), statistics.median(copy_rates)
+            print(f"  B={bsz}, {batches} batches a window: DetectionLoader alone "
+                  f"{', '.join(f'{v:.1f}' for v in loader_rates)} img/s; the pipeline alone on tiles on the card "
+                  f"{', '.join(f'{v:.1f}' for v in pipe_rates)} img/s; the pipeline with the H2D copy, the fetch "
+                  f"and _collect {', '.join(f'{v:.1f}' for v in copy_rates)} img/s; the two stages one after the "
+                  f"other would give {1 / (1 / lo + 1 / pc):.1f} img/s, fully overlapped {min(lo, pc):.1f}; the "
                   f"device resize {rs:.4f} ms a batch {card}")
 
     def phase6():
@@ -2070,6 +2099,15 @@ def main() -> int:
             print(f"  K10 B=64 {tuple(x64.shape)}: kernel {t64:.4f} ms back to back, {g64:.4f} ms from a graph, "
                   f"bound {b64[0]:.5f} ms ({b64[1]}, {b64[0] / g64:.1%} of it from the graph), band "
                   f"{qpool.pick_pool3_tile(*x64.shape[:3], *qblock.card_limits(dev), c=x.shape[3])} {card}")
+            # the same shape on scripts/port_kernel_times.py's random input (uniform int8), in turn with the
+            # pipeline's map, the random one first, with the card's clocks and temperature read between the graphs
+            g = torch.Generator(device=dev).manual_seed(SEED + 10)
+            xr = torch.randint(-128, 128, x64.shape, generator=g, device=dev, dtype=torch.int8)
+            turns = []
+            for name, inp in 3 * (("random", xr), ("map", x64)):
+                turns.append(f"{name} {graph_ms(lambda: qpool.qmaxpool3x3s2(inp), iters=10):.4f} ({smi_clocks()})")
+            print(f"  K10 B=64 from a graph, the pipeline's map and a random one in turn: {'; '.join(turns)} "
+                  f"(SM MHz, memory MHz, deg C, W) {card}")
 
             (x, mult, shift, scale), _ = calls["stem_bn_pool_quant"][0]
             tk = cuda_ms(lambda: stem.stem_bn_pool_quant(x, mult, shift, scale))
@@ -2449,7 +2487,8 @@ def main() -> int:
     if "mn_calls" in res:
         smoke.phase("phase 5n (iii): K12 vs plain at the ladder's 15 calls and odd shapes", phase5n_k12)
     if "pipe" in res:
-        smoke.phase(f"phase 5o: VOC evaluation from the dataset: {EVAL_FRAMES} seeded frames in raw tiles, the "
+        smoke.phase(f"phase 5o: VOC evaluation from the dataset: {EVAL_FRAMES} seeded frames in raw tiles served as "
+                    f"{EVAL_IDS} ids, the "
                     "device resize, evaluate_voc through the loader at B=16 and B=64", phase5o)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)

@@ -372,7 +372,6 @@ def evaluate_voc(
     process_index: Optional[int] = None,
     pipeline=None,
     use_ring_loader: bool = False,
-    native: bool = True,
 ) -> Dict:
     """Full VOC eval: per-class AP@0.5, mAP, images/sec (reference test.py).
 
@@ -382,10 +381,10 @@ def evaluate_voc(
     ``model`` in bf16 (:func:`make_eval_pipeline`, with the device resize
     where the dataset has ``raw_tiles``).  ``process_count``/``process_index``
     override the loader's shard; ``use_ring_loader``: see
-    :func:`collect_voc_predictions`; ``native``: match in the native ops
-    library (True) or in numpy (``eval/voc_map.eval_voc_ap``).  ``mesh``
-    raises: data-parallel serving is not ported yet.  ``images_per_sec``
-    counts the loader, the pipeline and the fetch of its detections.
+    :func:`collect_voc_predictions`.  The AP matches in the native ops
+    library (``eval/voc_map.eval_voc_ap``).  ``mesh`` raises: data-parallel
+    serving is not ported yet.  ``images_per_sec`` counts the loader, the
+    pipeline and the fetch of its detections.
     """
     if pipeline is None:
         pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
@@ -396,8 +395,7 @@ def evaluate_voc(
         process_index=process_index, use_ring_loader=use_ring_loader)
     n_images = len(gt_boxes)
     elapsed = time.perf_counter() - t0
-    aps = eval_voc_ap(gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, iou_threshold, num_classes,
-                      native=native)
+    aps = eval_voc_ap(gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, iou_threshold, num_classes)
     result = {
         "per_class_ap": aps,
         "mAP": mean_ap(aps),
