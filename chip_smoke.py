@@ -135,7 +135,8 @@ Phases (each prints its results on its own lines):
   5o. VOC evaluation from the dataset: 64 seeded frames of 300-500 px a
      side in raw 512x512 tiles with seeded GT boxes of every class, an
      in-memory dataset of Samples that serves them cycled as EVAL_IDS ids
-     (the card machine has no PIL or cv2 to write a JPEG tree): the device resize on the card against the same
+     (a steady window the eight-image JPEG tree of 5p is too small to
+     give): the device resize on the card against the same
      call on the CPU (scales and sizes equal, at most one step on
      RESIZE_SHARE of the values); evaluate_voc with a pipeline that
      returns each frame's GT at the device resize's scales (mAP 1: the
@@ -145,6 +146,29 @@ Phases (each prints its results on its own lines):
      8 frames, as the CLI does) at B=16 and B=64, each counted (every
      kernel of the default pipeline, K1, C, K4, K5, K6, K7 and A, launched
      its per-call count once a batch), with its images_per_sec;
+  5p. COCO evaluation from JPEGs on disk, over the committed fixture tree
+     (tests/fixtures/port_eval: eight VOC images; six COCO frames, one
+     grayscale and one CMYK, one crowd row, COCO 2017's category ids; a
+     YCCK file): (a)
+     every file through the native full, tile and batch decodes on the card
+     machine's libjpeg, each equal to the manifest's SHA-256 of PIL's decode
+     on the CPU; (b) evaluate_voc over the VOC tree through DetectionLoader
+     and RingTileLoader: AP 1 on every class with GT from a GT pipeline, and
+     the default int8 pipeline with the device resize, B=4, each kernel
+     launched its per-call count once a batch; (c) the device resize at
+     896x1408 on the card against the CPU (as 5o at 512x512), and its ms a
+     B=4 batch from the tree's tiles and from 640x640 ones; (d) evaluate_coco
+     over the COCO tree with raw tiles at 896x1408: AP, AP50, AP75 = 1 from
+     a GT pipeline that also puts a top-scored detection on the crowd
+     region, then the default int8 pipeline of HISFCOS(80, 256) (phase 5g's
+     model) with the device resize, calibrated on device-resized canvases,
+     B=4, each batch launching COCO_PIPELINE_LAUNCHES (K9 on P3 and P4),
+     finite stats, results JSON records with the tree's image ids and
+     category ids mapped back; (e) img/s of that evaluate_coco over the six
+     frames served as COCO_EVAL_IDS ids, and the loader, the pipeline on
+     tiles on the card and the pipeline with its copies over the same
+     window; (f) the eval_coco CLI (--device-resize --int8) on the tree's
+     config;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -230,6 +254,9 @@ K2_PER_FORWARD, K3_PER_FORWARD = 13, 3
 # most this share of the values (tests/test_torch_port_eval.py's tolerance
 # against the JAX function: the f32 sums run in another order)
 EVAL_FRAMES, EVAL_IDS, RESIZE_SHARE = 64, 1024, 2e-3
+# phase 5p: the committed JPEG tree (scripts/make_port_fixtures.py), and the ids its six COCO frames are served
+# as for the timed window (48 batches at B=4)
+FIXTURE_TREE, COCO_EVAL_IDS = "tests/fixtures/port_eval", 192
 # launches in one call of the int8-FPN pipeline, by wrapper
 # (K6: one launch of its seeds kernel for the two seeds, none of the standalone 2x2 pool; the four level
 # pools run inside K5's load, "qhisblock_pool_add")
@@ -990,6 +1017,7 @@ def main() -> int:
         # the COCO canvas: an 80-class model's default pipeline, counted
         t0 = time.perf_counter()
         model80 = build_model("HISFCOS", 80, FEATURES, device=dev, generator=torch.Generator().manual_seed(SEED + 7))
+        res["model80"] = model80
         cframes = torch.randint(0, 256, (2, *COCO_CANVAS, 3), generator=torch.Generator(device=dev).manual_seed(
             SEED + 8), device=dev, dtype=torch.uint8)
         mean, std = torch.tensor(IMAGENET_MEAN, device=dev), torch.tensor(IMAGENET_STD, device=dev)
@@ -1729,6 +1757,246 @@ def main() -> int:
                   f"and _collect {', '.join(f'{v:.1f}' for v in copy_rates)} img/s; the two stages one after the "
                   f"other would give {1 / (1 / lo + 1 / pc):.1f} img/s, fully overlapped {min(lo, pc):.1f}; the "
                   f"device resize {rs:.4f} ms a batch {card}")
+
+    def phase5p():
+        """COCO evaluation from JPEGs on disk: the committed fixture tree
+        (tests/fixtures/port_eval, scripts/make_port_fixtures.py). (a) the
+        card machine's libjpeg through the native full, tile and batch
+        decodes of every file (RGB, gray, CMYK, YCCK) against the manifest's
+        PIL decodes; (b) evaluate_voc over the VOC tree through DetectionLoader
+        and RingTileLoader: AP 1 on every class with GT from a GT pipeline,
+        the default int8 pipeline counted once a batch; (c) the device resize
+        at 896x1408 on the card against the CPU; (d) evaluate_coco over the
+        COCO tree with raw tiles at 896x1408: AP, AP50, AP75 = 1 from a GT
+        pipeline with the crowd row present, and the default int8 pipeline
+        of HISFCOS(80, 256) with the device resize at B=4, counted once a
+        batch, finite stats, category ids mapped back; (e) img/s over the
+        tree cycled, split as in 5o; (f) the eval_coco CLI on the tree's
+        config."""
+        import hashlib
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli import eval_coco
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+        from pytorch_object_detection_tpu_torch.data import decode
+        from pytorch_object_detection_tpu_torch.data.coco import COCODataset
+        from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_resize
+        from pytorch_object_detection_tpu_torch.data.voc import VOCDataset
+        from pytorch_object_detection_tpu_torch.eval.evaluator import _collect, evaluate_coco, evaluate_voc
+        from pytorch_object_detection_tpu_torch.native import lib as native
+        from pytorch_object_detection_tpu_torch.ops.postprocess import Detections
+
+        sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        # (a) every fixture file through the three native decodes, against PIL's decode on the CPU
+        with open(os.path.join(FIXTURE_TREE, "manifest.json")) as f:
+            files = sorted(json.load(f)["files"].items())
+        print(f"  libjpeg: {native.jpeg_link()[1]}")
+        blobs = [open(os.path.join(FIXTURE_TREE, rel), "rb").read() for rel, _ in files]
+        tiles, hws, ok = native.jpeg_decode_batch_native(blobs, (800, 1280), 8)
+        for (rel, info), data, tile, (h, w), good in zip(files, blobs, tiles, hws, ok):
+            full = decode.decode_image(data)
+            one, (th, tw) = decode.decode_image_to_tile(data, (800, 1280))
+            same = [sha(full) == info["sha256"], sha(one[:th, :tw]) == info["sha256"],
+                    bool(good) and sha(tile[:h, :w]) == info["sha256"]]
+            smoke.check(all(same) and list(full.shape) == info["shape"],
+                        f"decode {rel} ({info['mode']}, {full.shape[0]}x{full.shape[1]}): full, tile, batch "
+                        f"equal to the manifest's PIL decode: {same}")
+        kinds = {"YCCK" if info.get("adobe_transform") == 2 else info["mode"] for _, info in files}
+        smoke.check(kinds == {"RGB", "L", "CMYK", "YCCK"}, f"the tree holds RGB, gray, CMYK and YCCK JPEGs: {kinds}")
+
+        # (b) evaluate_voc over the VOC tree, through both loaders
+        voc = VOCDataset(os.path.join(FIXTURE_TREE, "voc"), "test", CANVAS, raw_tiles=True)
+        resize = make_device_resize(CANVAS)
+        table = {}
+        for i in range(len(voc)):
+            s = voc[i]
+            table[sha(s.image)] = (s.boxes / s.scale, s.labels)
+
+        def voc_gt(tiles_u8, src):
+            scale = resize(tiles_u8.to(dev), src.to(dev))[1].cpu().numpy()
+            n, k = len(tiles_u8), 8
+            boxes, classes = torch.zeros(n, k, 4), torch.ones(n, k, dtype=torch.int32)
+            valid = torch.zeros(n, k, dtype=torch.bool)
+            for i, t in enumerate(tiles_u8.numpy()):
+                b, lab = table[sha(t)]
+                boxes[i, :len(b)], classes[i, :len(b)] = torch.from_numpy(b * scale[i]), torch.from_numpy(lab)
+                valid[i, :len(b)] = True
+            return Detections(*(t.to(dev) for t in (torch.full((n, k), 0.9), classes, boxes, valid)))
+
+        with_gt = sorted({int(c) for _, lab in table.values() for c in lab})
+        for ring in (False, True):
+            with torch.inference_mode():
+                r = evaluate_voc(None, voc, batch_size=4, pipeline=voc_gt, verbose=False, use_ring_loader=ring)
+            aps = r["per_class_ap"]
+            smoke.check(all(aps[c] == 1.0 for c in with_gt) and r["num_images"] == len(voc),
+                        f"evaluate_voc, VOC tree ({len(voc)} JPEGs), {'RingTileLoader' if ring else 'DetectionLoader'}"
+                        f", GT pipeline: AP 1 on the {len(with_gt)} classes with GT: "
+                        f"{[aps[c] for c in with_gt]}, mAP {r['mAP']:.4f} over 20")
+        vpipe = make_eval_pipeline_int8(res["model"], first_batch_calib(voc, 8, CANVAS, dev), default_strides(),
+                                        CANVAS, device_resize=True, compute_dtype=torch.bfloat16)
+        for ring in (False, True):
+            for counter in counters.values():  # the counted run: every counter to 0 just before, read just after
+                counter.launches = 0
+            with torch.inference_mode():
+                r = evaluate_voc(res["model"], voc, batch_size=4, pipeline=vpipe, verbose=False,
+                                 use_ring_loader=ring)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            calls = -(-len(voc) // 4)
+            smoke.check(launches == {k: calls * n for k, n in DEFAULT_PIPELINE_LAUNCHES.items()}
+                        and np.isfinite(r["mAP"]),
+                        f"evaluate_voc, VOC tree, {'RingTileLoader' if ring else 'DetectionLoader'}, default int8 "
+                        f"pipeline with the device resize, B=4: {calls} calls, each kernel launched {calls} times "
+                        f"its per-call count; mAP {r['mAP']:.4f} (random weights): {launches}")
+
+        # (c) the device resize at the COCO canvas, on the card against the CPU
+        coco_dir = os.path.join(FIXTURE_TREE, "coco")
+        coco = COCODataset(os.path.join(coco_dir, "val"), os.path.join(coco_dir, "instances_val.json"), COCO_CANVAS,
+                           filter_empty=False, raw_tiles=True)
+        big = next(iter(DetectionLoader(coco, len(coco), shuffle=False, drop_last=False, num_workers=4)))
+        ctiles = torch.from_numpy(big.images)
+        chw = torch.from_numpy(np.stack([big.content_h, big.content_w], 1).astype(np.int32))
+        cresize = make_device_resize(COCO_CANVAS)
+        with torch.inference_mode():
+            got = [t.cpu() for t in cresize(ctiles.to(dev), chw.to(dev))]
+            want = cresize(ctiles, chw)
+        d = (got[0].int() - want[0].int()).abs()
+        share = float((d > 0).float().mean())
+        smoke.check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]) and int(d.max()) <= 1
+                    and share <= RESIZE_SHARE,
+                    f"device resize B={len(coco)} {tuple(ctiles.shape)} -> {tuple(got[0].shape)} on the card vs the "
+                    f"CPU: scales {[round(float(v), 4) for v in got[1]]} and sizes equal, max {int(d.max())} step on "
+                    f"{share:.3g} of the values (at most 1 on {RESIZE_SHARE})")
+        with torch.inference_mode():
+            tiles_dev, hw_dev = ctiles[:4].to(dev), chw[:4].to(dev)
+            rs = cuda_ms(lambda: cresize(tiles_dev, hw_dev), iters=5, reps=3)
+            t640, hw640 = torch.zeros(4, 640, 640, 3, dtype=torch.uint8, device=dev), hw_dev.clamp(max=640)
+            rs640 = cuda_ms(lambda: cresize(t640, hw640), iters=5, reps=3)
+        print(f"  device resize to {COCO_CANVAS}, B=4: {rs:.4f} ms from {tuple(ctiles.shape[1:3])} tiles, "
+              f"{rs640:.4f} ms from 640x640 tiles (COCO val2017's largest side) {card}")
+
+        # (d) evaluate_coco over the COCO tree: a GT pipeline, then the default int8 pipeline of HISFCOS(80, 256)
+        ctable = {}
+        for i in range(len(coco)):
+            s = coco[i]
+            ctable[sha(s.image)] = (s.boxes / s.scale, s.labels, *coco.eval_crowds(s.image_id))
+
+        def coco_gt(tiles_u8, src):
+            """Each frame's GT at the device resize's scales (score 0.5), and a
+            detection on each crowd region scored above them, which the crowd
+            row must absorb."""
+            scale = cresize(tiles_u8.to(dev), src.to(dev))[1].cpu().numpy()
+            n, k = len(tiles_u8), 12
+            boxes, classes = torch.zeros(n, k, 4), torch.ones(n, k, dtype=torch.int32)
+            scores, valid = torch.zeros(n, k), torch.zeros(n, k, dtype=torch.bool)
+            for i, t in enumerate(tiles_u8.numpy()):
+                b, lab, cb, cl = ctable[sha(t)]
+                b, lab = np.concatenate([b, cb]), np.concatenate([lab, cl])
+                boxes[i, :len(b)], classes[i, :len(b)] = torch.from_numpy(b * scale[i]), torch.from_numpy(lab)
+                scores[i, :len(b)] = torch.where(torch.arange(len(b)) < len(b) - len(cl), 0.5, 0.9)
+                valid[i, :len(b)] = True
+            return Detections(*(t.to(dev) for t in (scores, classes, boxes, valid)))
+
+        n_crowds = sum(len(v[3]) for v in ctable.values())
+        with torch.inference_mode():
+            r = evaluate_coco(None, coco, batch_size=4, pipeline=coco_gt, verbose=False)
+        smoke.check(r["AP"] == r["AP50"] == r["AP75"] == 1.0 and n_crowds == 1 and r["num_images"] == len(coco),
+                    f"evaluate_coco, COCO tree ({len(coco)} JPEGs, {n_crowds} crowd row) at {COCO_CANVAS}, GT "
+                    f"pipeline with a top-scored detection on the crowd: AP {r['AP']!r}, AP50 {r['AP50']!r}, "
+                    f"AP75 {r['AP75']!r}")
+        t0 = time.perf_counter()
+        model80 = res["model80"]
+        cpipe = make_eval_pipeline_int8(model80, first_batch_calib(coco, 4, COCO_CANVAS, dev), default_strides(),
+                                        COCO_CANVAS, device_resize=True, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"  HISFCOS(80, {FEATURES}) default int8 pipeline with the device resize built (calibration on the "
+              f"device-resized canvases of 4 frames) in {time.perf_counter() - t0:.2f} s")
+        out = tempfile.mkdtemp()
+        for counter in counters.values():  # the counted run: every counter to 0 just before, read just after
+            counter.launches = 0
+        with torch.inference_mode():
+            r = evaluate_coco(model80, coco, batch_size=4, pipeline=cpipe, verbose=False,
+                              results_json=os.path.join(out, "results.json"))
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        calls = -(-len(coco) // 4)
+        smoke.check(launches == {k: calls * n for k, n in COCO_PIPELINE_LAUNCHES.items()},
+                    f"evaluate_coco B=4: {calls} calls of the default pipeline at {COCO_CANVAS}, each kernel launched "
+                    f"{calls} times its per-call count (K9 on P3 and P4 from frames on disk): {launches}")
+        with open(os.path.join(out, "results.json")) as f:
+            records = json.load(f)
+        ids = {im["id"] for im in coco.images}
+        cats = {rec["category_id"] for rec in records}
+        smoke.check(all(np.isfinite(v) for v in r.values()) and r["num_images"] == len(coco) and len(records) > 0
+                    and {rec["image_id"] for rec in records} <= ids and cats <= set(coco.contig_to_cat.values())
+                    and any(c != coco.cat_to_contig[c] for c in cats),
+                    f"evaluate_coco, default int8 pipeline: finite stats (AP {r['AP']:.4f}, random weights), "
+                    f"{len(records)} records, image ids of the tree, category ids mapped back "
+                    f"({len(cats)} ids, {sum(c != coco.cat_to_contig[c] for c in cats)} of them off the contiguous "
+                    f"labels)")
+
+        # (e) img/s over the tree cycled to a steady window, and its split
+        class Cycled:
+            """The tree's samples served as ``n`` ids (id i is sample i % len)."""
+
+            def __init__(self, ds, n):
+                self.ds, self.n = ds, n
+
+            def __len__(self):
+                return self.n
+
+            def __getitem__(self, i):
+                return self.ds[i % len(self.ds)]
+
+            def __getattr__(self, name):
+                return getattr(self.ds, name)
+
+        cyc = Cycled(coco, COCO_EVAL_IDS)
+        with torch.inference_mode():
+            evaluate_coco(model80, Cycled(coco, 16), batch_size=4, pipeline=cpipe, verbose=False)  # warm-up
+            rates = [evaluate_coco(model80, cyc, batch_size=4, pipeline=cpipe, verbose=False)["images_per_sec"]
+                     for _ in range(3)]
+        print(f"  evaluate_coco, HISFCOS(80, {FEATURES}) default int8 pipeline, device resize, {COCO_CANVAS}, B=4, "
+              f"{COCO_EVAL_IDS} ids: images_per_sec {', '.join(f'{v:.1f}' for v in rates)} (median "
+              f"{statistics.median(rates):.1f}) {card}")
+        batches = COCO_EVAL_IDS // 4
+        first4 = next(iter(DetectionLoader(coco, 4, shuffle=False, drop_last=False, num_workers=4)))
+        th, hh = torch.from_numpy(first4.images), torch.from_numpy(
+            np.stack([first4.content_h, first4.content_w], 1).astype(np.int32))
+        td, hd = th.to(dev), hh.to(dev)
+        loader_rates, pipe_rates, copy_rates = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(len(b.image_ids) for b in DetectionLoader(cyc, 4, shuffle=False, drop_last=False, num_workers=8,
+                                                              pad_last=True))
+            loader_rates.append(n / (time.perf_counter() - t0))
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(batches):
+                    cpipe(td, hd)
+                torch.cuda.synchronize()
+                pipe_rates.append(batches * 4 / (time.perf_counter() - t0))
+                t0 = time.perf_counter()
+                for _ in range(batches):
+                    _collect(cpipe(th, hh), first4.scales, first4.n_valid)
+                copy_rates.append(batches * 4 / (time.perf_counter() - t0))
+        lo, pc = statistics.median(loader_rates), statistics.median(copy_rates)
+        print(f"  B=4, {batches} batches a window: DetectionLoader alone {', '.join(f'{v:.1f}' for v in loader_rates)}"
+              f" img/s; the pipeline alone on tiles on the card {', '.join(f'{v:.1f}' for v in pipe_rates)} img/s; "
+              f"the pipeline with the H2D copy, the fetch and _collect {', '.join(f'{v:.1f}' for v in copy_rates)} "
+              f"img/s; one after the other {1 / (1 / lo + 1 / pc):.1f}, fully overlapped {min(lo, pc):.1f} {card}")
+
+        # (f) the CLI on the tree's config (PyYAML is on the card machine)
+        t0 = time.perf_counter()
+        rc = eval_coco.main(["--config", os.path.join(FIXTURE_TREE, "coco.yaml"), "--device-resize", "--int8",
+                             "--batch-size", "4", "--results-json", os.path.join(out, "cli.json")])
+        smoke.check(rc == 0 and os.path.getsize(os.path.join(out, "cli.json")) > 2,
+                    f"podt-torch-eval-coco --config {FIXTURE_TREE}/coco.yaml --device-resize --int8: exit {rc} in "
+                    f"{time.perf_counter() - t0:.1f} s")
 
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
@@ -2490,6 +2758,9 @@ def main() -> int:
         smoke.phase(f"phase 5o: VOC evaluation from the dataset: {EVAL_FRAMES} seeded frames in raw tiles served as "
                     f"{EVAL_IDS} ids, the "
                     "device resize, evaluate_voc through the loader at B=16 and B=64", phase5o)
+    if "pipe" in res and "model80" in res:
+        smoke.phase("phase 5p: COCO evaluation from JPEGs: the committed fixture tree's decodes, evaluate_voc, the "
+                    "device resize at 896x1408, evaluate_coco of HISFCOS(80, 256) at B=4, the CLI", phase5p)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

@@ -43,7 +43,6 @@ def main(argv=None) -> int:
     if args.torch_checkpoint:
         ap.error("--torch-checkpoint is not ported yet (ROADMAP.md queue 1, item 8)")
 
-    import numpy as np
     import torch
 
     from pytorch_object_detection_tpu_torch.core import config as C
@@ -80,17 +79,7 @@ def main(argv=None) -> int:
     if args.ref_4stride:
         strides = tuple(strides)[:4]
     if args.int8:
-        from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader
-
-        calib_batch = next(iter(DetectionLoader(dataset, min(args.batch_size, 8), shuffle=False, drop_last=False,
-                                                num_workers=2)))
-        calib_u8 = torch.from_numpy(calib_batch.images).to(dev)
-        if args.device_resize:
-            from pytorch_object_detection_tpu_torch.data.pipeline import make_device_resize
-
-            src_hw = torch.from_numpy(np.stack([calib_batch.content_h, calib_batch.content_w], 1).astype(np.int32))
-            calib_u8 = make_device_resize(canvas)(calib_u8, src_hw)[0]
-        calib = calib_images(calib_u8)
+        calib = first_batch_calib(dataset, args.batch_size, canvas, dev)
         pipeline = make_eval_pipeline_int8(model, calib, strides, canvas, score_threshold, nms_iou, max_detections,
                                            device_resize=args.device_resize, compute_dtype=compute_dtype)
     else:
@@ -99,6 +88,24 @@ def main(argv=None) -> int:
     evaluate_voc(model, dataset, strides=strides, batch_size=args.batch_size, num_classes=C.num_classes(cfg),
                  score_threshold=score_threshold, nms_iou=nms_iou, max_detections=max_detections, pipeline=pipeline)
     return 0
+
+
+def first_batch_calib(dataset, batch_size: int, canvas_hw, device):
+    """The calibration batch of ``--int8``: the first ``min(batch_size, 8)``
+    images of ``dataset`` on ``device``, resized onto the canvas on the
+    device where the dataset has ``raw_tiles`` (the JAX CLIs calibrate on
+    cv2's canvases), normalized (:func:`calib_images`)."""
+    import numpy as np
+    import torch
+
+    from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_resize
+
+    batch = next(iter(DetectionLoader(dataset, min(batch_size, 8), shuffle=False, drop_last=False, num_workers=2)))
+    canvas_u8 = torch.from_numpy(batch.images).to(device)
+    if getattr(dataset, "raw_tiles", False):
+        src_hw = torch.from_numpy(np.stack([batch.content_h, batch.content_w], 1).astype(np.int32))
+        canvas_u8 = make_device_resize(canvas_hw)(canvas_u8, src_hw)[0]
+    return calib_images(canvas_u8)
 
 
 def calib_images(canvas_u8):

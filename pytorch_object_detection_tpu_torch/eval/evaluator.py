@@ -13,9 +13,10 @@ device is CUDA.  With ``device_resize=True`` a pipeline takes raw decoded
 tiles and their sizes, ``pipeline(tiles_u8, src_hw)``, and resizes them onto
 the canvas on that device (``data/pipeline.make_device_resize``).
 
-``evaluate_voc`` (with ``collect_voc_predictions`` and ``_collect``) runs a
-pipeline over a dataset through the port's loaders and scores it with VOC
-AP@0.5 (``eval/voc_map.py``), printing the JAX function's lines.  The
+``evaluate_voc`` and ``evaluate_coco`` run a pipeline over a dataset
+through the port's loaders (``iter_predictions``, ``_collect``) and score it
+with VOC AP@0.5 (``eval/voc_map.py``) or the COCO protocol
+(``eval/coco_map.py``), printing the JAX functions' lines.  The
 port's models carry their weights, so these functions take no ``params``
 or ``batch_stats``, and a pipeline is called on the frames alone.
 """
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -304,7 +305,7 @@ def _collect(det: Detections, scales, n_valid: int = -1):
     return [(boxes[i][valid[i]] / scales[i], classes[i][valid[i]], scores[i][valid[i]]) for i in range(n)]
 
 
-def collect_voc_predictions(
+def iter_predictions(
     pipeline,
     dataset,
     batch_size: int = 16,
@@ -313,14 +314,14 @@ def collect_voc_predictions(
     process_count: Optional[int] = None,
     process_index: Optional[int] = None,
     use_ring_loader: bool = False,
-):
-    """Run ``pipeline`` over this process's shard of ``dataset``.
-
-    Returns per-image lists ``(gt_boxes, gt_labels, pred_boxes, pred_labels,
-    pred_scores, image_ids)`` in original-image coordinates; the union over
-    processes covers every image once.  A raw-tile dataset
-    (``raw_tiles=True``) feeds ``pipeline(tiles, src_hw)``, which must
-    resize on the device.  ``use_ring_loader``: batches from
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, str]]:
+    """Run ``pipeline`` over this process's shard of ``dataset``, yielding
+    ``(gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, image_id)``
+    per image in original-image coordinates; the union over processes covers
+    every image once.  The ground truth is the loader's batch, so at most
+    ``max_boxes`` (64) boxes an image, as in the JAX evaluators.  A raw-tile
+    dataset (``raw_tiles=True``) feeds ``pipeline(tiles, src_hw)``, which
+    must resize on the device.  ``use_ring_loader``: batches from
     ``data/pipeline.RingTileLoader`` (one native batch decode per batch; a
     raw-tile VOC dataset), else ``DetectionLoader``; the same batches.
     ``mesh`` raises: data-parallel serving is not ported yet.
@@ -337,7 +338,6 @@ def collect_voc_predictions(
         loader = DetectionLoader(dataset, batch_size, shuffle=False, drop_last=False, num_workers=num_workers,
                                  pad_last=True, process_count=process_count, process_index=process_index)
     raw_tiles = bool(getattr(dataset, "raw_tiles", False))
-    gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, ids = [], [], [], [], [], []
     for batch in loader:
         images = torch.from_numpy(batch.images)
         if raw_tiles:
@@ -346,13 +346,28 @@ def collect_voc_predictions(
             det = pipeline(images)
         for i, (b, c, s) in enumerate(_collect(det, batch.scales, batch.n_valid)):
             gt_valid = batch.labels[i] > 0
-            gt_boxes.append(batch.boxes[i][gt_valid] / batch.scales[i])
-            gt_labels.append(batch.labels[i][gt_valid])
-            pred_boxes.append(b)
-            pred_labels.append(c)
-            pred_scores.append(s)
-            ids.append(batch.image_ids[i])
-    return gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, ids
+            yield batch.boxes[i][gt_valid] / batch.scales[i], batch.labels[i][gt_valid], b, c, s, batch.image_ids[i]
+
+
+def collect_voc_predictions(
+    pipeline,
+    dataset,
+    batch_size: int = 16,
+    num_workers: int = 8,
+    mesh=None,
+    process_count: Optional[int] = None,
+    process_index: Optional[int] = None,
+    use_ring_loader: bool = False,
+):
+    """Run ``pipeline`` over this process's shard of ``dataset``.
+
+    Returns per-image lists ``(gt_boxes, gt_labels, pred_boxes, pred_labels,
+    pred_scores, image_ids)`` in original-image coordinates
+    (:func:`iter_predictions`, whose arguments these are).
+    """
+    rows = list(iter_predictions(pipeline, dataset, batch_size, num_workers, mesh, process_count, process_index,
+                                 use_ring_loader))
+    return tuple(list(col) for col in zip(*rows)) if rows else ([], [], [], [], [], [])
 
 
 def evaluate_voc(
@@ -409,3 +424,87 @@ def evaluate_voc(
             print(f"ap for {label} is {ap}")
         print(f"mAP=====>{result['mAP']:.3f}  ({result['images_per_sec']:.1f} img/s)")
     return result
+
+
+def evaluate_coco(
+    model,
+    dataset,
+    strides: Sequence[int] = (8, 16, 32, 64, 128),
+    batch_size: int = 16,
+    num_workers: int = 8,
+    results_json: Optional[str] = None,
+    verbose: bool = True,
+    mesh=None,
+    score_threshold: float = 0.05,
+    nms_iou: float = 0.6,
+    max_detections: int = 1000,
+    process_count: Optional[int] = None,
+    process_index: Optional[int] = None,
+    pipeline=None,
+) -> Dict:
+    """COCO-protocol eval: the 12-number summary, images/sec, and optionally
+    a results JSON (xyxy -> xywh in original coordinates, the dataset's
+    category ids, int image ids: reference Test_coco.py:144-177).
+
+    The JAX function's arguments less ``params`` and ``batch_stats`` (the
+    model carries its weights).  ``pipeline`` injects a pipeline (e.g.
+    :func:`make_eval_pipeline_int8`'s; made with ``device_resize=True`` for
+    a dataset with ``raw_tiles``); by default the float pipeline of
+    ``model`` in bf16 (:func:`make_eval_pipeline`, with the device resize
+    where the dataset has ``raw_tiles``).  Crowd regions
+    (``dataset.eval_crowds``) join each image's GT as ``gt_crowd`` rows.
+    The batches come from :func:`iter_predictions` (so the GT is the
+    loader's, at most 64 boxes an image, as in JAX); the matching runs in
+    the native ops library (``eval/coco_map.COCOEvaluator``).  ``mesh``
+    raises: data-parallel serving is not ported yet.  ``images_per_sec``
+    counts the loader, the pipeline, the fetch of its detections and the
+    evaluator's bookkeeping, not the summary.
+    """
+    import json
+
+    from pytorch_object_detection_tpu_torch.eval.coco_map import COCOEvaluator
+
+    if mesh is not None:
+        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
+    if pipeline is None:
+        pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
+                                      device_resize=bool(getattr(dataset, "raw_tiles", False)))
+    evaluator = COCOEvaluator(len(dataset.class_names))
+    json_records = []
+    n_images = 0
+    t0 = time.perf_counter()
+    for gt_b, gt_l, b, c, s, image_id in iter_predictions(pipeline, dataset, batch_size, num_workers,
+                                                         process_count=process_count, process_index=process_index):
+        image_id = int(image_id)
+        crowd_flags = np.zeros(len(gt_l), bool)
+        if hasattr(dataset, "eval_crowds"):
+            # crowd regions: ignore GTs with COCOeval iscrowd semantics
+            cb, cl = dataset.eval_crowds(image_id)
+            if len(cl):
+                gt_b = np.concatenate([gt_b, cb])
+                gt_l = np.concatenate([gt_l, cl])
+                crowd_flags = np.concatenate([crowd_flags, np.ones(len(cl), bool)])
+        evaluator.add_image(image_id, gt_b, gt_l, b, c, s, gt_crowd=crowd_flags)
+        if results_json is not None:
+            for box, cls_id, score in zip(b, c, s):
+                x1, y1, x2, y2 = [float(v) for v in box]
+                json_records.append({
+                    "image_id": image_id,
+                    "category_id": int(dataset.contig_to_cat[int(cls_id)]),
+                    "bbox": [x1, y1, x2 - x1, y2 - y1],
+                    "score": float(score),
+                })
+        n_images += 1
+    elapsed = time.perf_counter() - t0
+
+    if results_json is not None:
+        with open(results_json, "w") as f:
+            json.dump(json_records, f)
+
+    stats = evaluator.summarize()
+    stats["images_per_sec"] = n_images / elapsed
+    stats["num_images"] = n_images
+    if verbose:
+        for k, v in stats.items():
+            print(f"{k}: {v:.4f}" if isinstance(v, float) else f"{k}: {v}")
+    return stats

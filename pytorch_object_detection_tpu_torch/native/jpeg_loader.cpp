@@ -11,8 +11,14 @@
 // unlike per-image Python decode calls).
 //
 // Exposed as a plain C ABI for ctypes (no pybind11).
-// Unsupported color spaces (CMYK/YCCK) and corrupt streams return an
-// error code; the Python wrapper raises for those (it has no PIL fallback).
+// Grayscale streams are decoded as gray and replicated to RGB. CMYK and
+// YCCK streams are decoded to CMYK (libjpeg converts YCCK itself) and
+// converted to RGB as PIL's Image.convert("RGB") does after its JPEG
+// plugin reads them: the stored values are inverted first (PIL always
+// assumes the Adobe polarity, "CMYK;I"), then R = nk - nk * C / 255 with
+// nk = 255 - K and PIL's rounding of the product. Streams libjpeg cannot
+// read return an error code; the Python wrapper raises for those (it has
+// no PIL fallback).
 
 #include <cstddef>
 #include <cstdint>
@@ -38,6 +44,25 @@ void on_error(j_common_ptr cinfo) {
 }
 
 void on_message(j_common_ptr, int) {}  // swallow warnings
+
+// One decoded scanline of `comps` components (1 gray, 3 RGB, 4 CMYK as
+// stored) to `w` RGB pixels.
+void row_to_rgb(const uint8_t* in, uint8_t* out, int w, int comps) {
+  if (comps == 3) {
+    std::memcpy(out, in, static_cast<size_t>(w) * 3);
+  } else if (comps == 1) {
+    for (int x = 0; x < w; ++x) out[3 * x] = out[3 * x + 1] = out[3 * x + 2] = in[x];
+  } else {
+    for (int x = 0; x < w; ++x) {
+      const uint8_t* p = in + 4 * x;
+      const int nk = p[3];  // 255 - (255 - stored K): the inverted K's complement
+      for (int c = 0; c < 3; ++c) {
+        const int t = (255 - p[c]) * nk + 128;  // PIL's MULDIV255(C, nk)
+        out[3 * x + c] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+      }
+    }
+  }
+}
 
 // Decode `buf` into `tile` (th x tw x 3, row-major uint8). Content lands
 // top-left; rows/cols past the content are zero except one replicated
@@ -65,12 +90,15 @@ int decode_tile_impl(const uint8_t* buf, size_t len, uint8_t* tile, int th,
     return 1;
   }
   if (cinfo.jpeg_color_space == JCS_CMYK || cinfo.jpeg_color_space == JCS_YCCK) {
-    jpeg_destroy_decompress(&cinfo);
-    return 2;  // no native CMYK->RGB; Python falls back to PIL
+    cinfo.out_color_space = JCS_CMYK;  // libjpeg turns YCCK into CMYK
+  } else if (cinfo.jpeg_color_space == JCS_GRAYSCALE) {
+    cinfo.out_color_space = JCS_GRAYSCALE;
+  } else {
+    cinfo.out_color_space = JCS_RGB;
   }
-  cinfo.out_color_space = JCS_RGB;
   jpeg_start_decompress(&cinfo);
-  if (cinfo.output_components != 3) {
+  const int comps = cinfo.output_components;
+  if (comps != 1 && comps != 3 && comps != 4) {
     jpeg_destroy_decompress(&cinfo);
     return 2;
   }
@@ -78,18 +106,15 @@ int decode_tile_impl(const uint8_t* buf, size_t len, uint8_t* tile, int th,
   const int full_w = static_cast<int>(cinfo.output_width);
   const int h = std::min(full_h, th);
   const int w = std::min(full_w, tw);
-  const size_t row_bytes = static_cast<size_t>(full_w) * 3;
-  const bool direct = (full_w == tw);  // decode rows in place, no copy
-  if (!direct) rowbuf.resize(row_bytes);
+  const bool direct = (comps == 3 && full_w == tw);  // decode rows in place, no copy
+  if (!direct) rowbuf.resize(static_cast<size_t>(full_w) * comps);
   while (cinfo.output_scanline < cinfo.output_height) {
     const int y = static_cast<int>(cinfo.output_scanline);
     if (y >= h) break;  // tile-cropped: skip the remaining scanlines
-    JSAMPROW row = direct ? tile + static_cast<size_t>(y) * tw * 3
-                          : rowbuf.data();
+    uint8_t* dst = tile + static_cast<size_t>(y) * tw * 3;
+    JSAMPROW row = direct ? dst : rowbuf.data();
     jpeg_read_scanlines(&cinfo, &row, 1);
-    if (!direct)
-      std::memcpy(tile + static_cast<size_t>(y) * tw * 3, rowbuf.data(),
-                  static_cast<size_t>(w) * 3);
+    if (!direct) row_to_rgb(rowbuf.data(), dst, w, comps);
   }
   if (cinfo.output_scanline < cinfo.output_height) {
     jpeg_abort_decompress(&cinfo);  // cropped: discard the rest cleanly
@@ -123,6 +148,23 @@ int decode_tile_impl(const uint8_t* buf, size_t len, uint8_t* tile, int th,
 }  // namespace
 
 extern "C" {
+
+// The libjpeg ABI this file was compiled against, and whether the linked
+// library agrees: jpeg_create_decompress checks the version and the size of
+// the struct, and raises through error_exit on a mismatch. Returns 0 when
+// they agree.
+int jpeg_selftest(int32_t* version_out) {
+  version_out[0] = JPEG_LIB_VERSION;
+  jpeg_decompress_struct cinfo;
+  ErrorTrap trap;
+  cinfo.err = jpeg_std_error(&trap.mgr);
+  trap.mgr.error_exit = on_error;
+  trap.mgr.emit_message = on_message;
+  if (setjmp(trap.jump)) return 1;
+  jpeg_create_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
 
 // Header-only parse: writes (height, width) without decoding. Returns 0
 // on success, nonzero on corrupt/unsupported streams.

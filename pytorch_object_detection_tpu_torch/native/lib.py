@@ -7,7 +7,16 @@ that VOC AP never needs libjpeg:
   * the ops library (``detection_ops.cpp``): VOC and COCO matching and the
     exact greedy NMS, no dependency;
   * the JPEG library (``jpeg_loader.cpp``, ``-ljpeg``): decode straight into
-    a fixed uint8 tile, and a threaded batch decode.
+    a fixed uint8 tile, and a threaded batch decode; grayscale, RGB, CMYK
+    and YCCK streams, the last two converted to RGB as PIL converts them.
+
+The JPEG library links the system's libjpeg where its ``jpeglib.h`` is
+installed (``-ljpeg``).  On a machine with none, it links the ABI-62
+libjpeg-turbo shared object an installed Pillow wheel bundles
+(``pillow.libs/libjpeg-*.so.62*``, found by path: PIL is not imported),
+compiled against the ABI-62 headers in ``native/jpeg62``
+(:func:`jpeg_link`); the loaded library checks that header and shared
+object agree.
 
 Each is built with ``g++`` at first use into ``build/`` inside this package
 (git-ignored), under a name that hashes the source and the flags, written
@@ -82,10 +91,59 @@ def ops_lib() -> ctypes.CDLL:
     return lib
 
 
+def _system_jpeg_headers() -> bool:
+    """Whether g++ finds the system's ``jpeglib.h``."""
+    try:
+        proc = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                              input="#include <cstdio>\n#include <jpeglib.h>\n", capture_output=True, text=True)
+    except OSError as err:
+        raise RuntimeError(f"native build of jpeg_loader.cpp: g++ did not run: {err}") from err
+    return proc.returncode == 0
+
+
+def _wheel_libjpeg() -> Optional[Path]:
+    """The ABI-62 libjpeg shared object an installed Pillow wheel bundles, or
+    None (found by path: PIL is not imported)."""
+    import importlib.util
+
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    site = Path(list(spec.submodule_search_locations)[0]).parent
+    found = sorted(site.glob("pillow.libs/libjpeg*.so.62*")) + sorted(site.glob("Pillow.libs/libjpeg*.so.62*"))
+    return found[0] if found else None
+
+
 @functools.lru_cache(maxsize=None)
-def jpeg_lib() -> ctypes.CDLL:
-    """The JPEG decode library (built at first use; links the system libjpeg)."""
-    lib = ctypes.CDLL(str(build_library("jpeg_loader.cpp", ("-ljpeg", "-lpthread"))))
+def jpeg_link(system: Optional[bool] = None):
+    """``(flags, what)``: how the JPEG library links libjpeg.  The system's
+    (``-ljpeg``) where g++ finds its ``jpeglib.h``; else the ABI-62
+    libjpeg-turbo of an installed Pillow wheel against the headers in
+    ``native/jpeg62``.  ``system`` forces one of the two (tests).  Raises
+    ``RuntimeError`` where there is no libjpeg to link."""
+    if system is None:
+        system = _system_jpeg_headers()
+    if system:
+        return ("-ljpeg", "-lpthread"), "the system libjpeg (-ljpeg)"
+    so = _wheel_libjpeg()
+    if so is None:
+        raise RuntimeError("native build of jpeg_loader.cpp: no libjpeg: the system has no jpeglib.h and no "
+                           "installed Pillow wheel bundles an ABI-62 libjpeg (pillow.libs/libjpeg-*.so.62*)")
+    return (f"-I{NATIVE_DIR / 'jpeg62'}", str(so), f"-Wl,-rpath,{so.parent}", "-lpthread"), \
+        f"{so.name} (ABI 62, from the installed Pillow wheel) against native/jpeg62"
+
+
+@functools.lru_cache(maxsize=None)
+def jpeg_lib(system: Optional[bool] = None) -> ctypes.CDLL:
+    """The JPEG decode library (built at first use; links libjpeg as
+    :func:`jpeg_link` says; ``system`` forces the system's or the wheel's)."""
+    lib = ctypes.CDLL(str(build_library("jpeg_loader.cpp", jpeg_link(system)[0])))
+    lib.jpeg_selftest.argtypes = [_i32p]
+    lib.jpeg_selftest.restype = ctypes.c_int
+    version = np.zeros(1, np.int32)
+    if lib.jpeg_selftest(version.ctypes.data_as(_i32p)) != 0:
+        raise RuntimeError(f"the JPEG library was compiled for libjpeg ABI {int(version[0])}, which the linked "
+                           f"libjpeg ({jpeg_link(system)[1]}) does not take")
     lib.jpeg_peek.argtypes = [_u8p, ctypes.c_size_t, _i32p]
     lib.jpeg_peek.restype = ctypes.c_int
     lib.jpeg_decode_tile.argtypes = [_u8p, ctypes.c_size_t, _u8p, ctypes.c_int, ctypes.c_int, _i32p]
@@ -146,17 +204,29 @@ def _as_bytes(data) -> bytes:
         return f.read()
 
 
-def jpeg_decode_native(data) -> Optional[np.ndarray]:
-    """Full-size RGB decode of one JPEG (bytes or path); ``None`` where the
-    decoder declines the stream (CMYK, not a JPEG, corrupt)."""
-    lib = jpeg_lib()
+def jpeg_size_native(data) -> Optional[tuple]:
+    """``(h, w)`` of one JPEG (bytes or path) from its header alone; ``None``
+    where libjpeg cannot read the header."""
     buf = np.frombuffer(_as_bytes(data), np.uint8)
     hw = np.zeros(2, np.int32)
-    if lib.jpeg_peek(_u8ptr(buf), buf.size, hw.ctypes.data_as(_i32p)) != 0:
+    if jpeg_lib().jpeg_peek(_u8ptr(buf), buf.size, hw.ctypes.data_as(_i32p)) != 0:
         return None
-    h, w = int(hw[0]), int(hw[1])
+    return int(hw[0]), int(hw[1])
+
+
+def jpeg_decode_native(data) -> Optional[np.ndarray]:
+    """Full-size RGB decode of one JPEG (bytes or path: RGB, grayscale, CMYK
+    or YCCK, the last two converted as PIL converts them); ``None`` where
+    libjpeg cannot read the stream (not a JPEG, corrupt)."""
+    data = _as_bytes(data)
+    size = jpeg_size_native(data)
+    if size is None:
+        return None
+    h, w = size
+    buf = np.frombuffer(data, np.uint8)
     out = np.empty((h, w, 3), np.uint8)
-    rc = lib.jpeg_decode_tile(_u8ptr(buf), buf.size, _u8ptr(out), h, w, hw.ctypes.data_as(_i32p))
+    hw = np.zeros(2, np.int32)
+    rc = jpeg_lib().jpeg_decode_tile(_u8ptr(buf), buf.size, _u8ptr(out), h, w, hw.ctypes.data_as(_i32p))
     return out if rc == 0 else None
 
 

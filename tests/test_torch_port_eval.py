@@ -22,8 +22,8 @@ at a 128x128 canvas:
 
 The JAX package's native library is built by whichever test first needs it
 and written straight to its path (ROADMAP "tests/test_native.py may skip
-itself"): :func:`jax_native` loads it again where a concurrent build left it
-half written.
+itself"): ``torch_port_fixtures.jax_native`` loads it again where a
+concurrent build left it half written.
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ import hashlib
 import os
 import subprocess
 import sys
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,7 +54,7 @@ from pytorch_object_detection_tpu_torch.nn.resnet_int8 import calibrate_resnet50
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, resolve_nms_impl
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_flax_variables
 from test_data import _write_voc_fixture
-from torch_port_fixtures import FEATURES, NUM_CLASSES, STRIDES, jax_model, perturbed_variables
+from torch_port_fixtures import FEATURES, NUM_CLASSES, STRIDES, jax_model, jax_native, perturbed_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANVAS = (128, 128)
@@ -73,19 +72,6 @@ def voc_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("voc") / "VOC2007")
     _write_voc_fixture(root, n=N_IMAGES)
     return root
-
-
-def jax_native():
-    """The JAX package's native library module, loaded; a load that found a
-    library another process was still writing is tried again."""
-    from pytorch_object_detection_tpu.native import lib
-
-    for _ in range(10):
-        if lib.native_available():
-            return lib
-        lib._tried = False
-        time.sleep(1.0)
-    pytest.fail("the JAX package's native library did not build")
 
 
 # ---------------------------------------------------------------------------

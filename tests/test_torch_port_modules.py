@@ -163,19 +163,22 @@ def test_seeded_init_is_reproducible_and_follows_jax_distributions():
 
 def test_port_imports_no_jax():
     """Importing the port, and everything chip_smoke.py imports, leaves jax
-    out of sys.modules, and PyYAML, cv2 and PIL too (the card has no cv2 or
-    PIL, and the serving path needs no PyYAML at import)."""
+    out of sys.modules, and PyYAML, cv2 and PIL too (the raw-tile evaluation
+    path needs no cv2, nothing falls back to PIL, and the serving path needs
+    no PyYAML at import); finding the libjpeg a Pillow wheel bundles does not
+    import PIL."""
     code = (
         "import sys\n"
         "import pytorch_object_detection_tpu_torch\n"
         "from pytorch_object_detection_tpu_torch.models import registry, fcos, heads\n"
         "from pytorch_object_detection_tpu_torch.nn import layers, resnet, fpn\n"
         "from pytorch_object_detection_tpu_torch.ops import boxes, nms, cuda_nms, gn, postprocess\n"
-        "from pytorch_object_detection_tpu_torch.eval import evaluator, voc_map\n"
+        "from pytorch_object_detection_tpu_torch.eval import evaluator, voc_map, coco_map\n"
         "from pytorch_object_detection_tpu_torch.core import config\n"
         "from pytorch_object_detection_tpu_torch.native import lib\n"
-        "from pytorch_object_detection_tpu_torch.data import voc, decode, pipeline\n"
-        "from pytorch_object_detection_tpu_torch.cli import eval_voc\n"
+        "from pytorch_object_detection_tpu_torch.data import voc, coco, decode, pipeline\n"
+        "from pytorch_object_detection_tpu_torch.cli import eval_voc, eval_coco\n"
+        "lib.jpeg_link(False)\n"
         "from pytorch_object_detection_tpu_torch.train import checkpoints\n"
         "from pytorch_object_detection_tpu_torch import _build\n"
         "import chip_smoke\n"

@@ -74,6 +74,25 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS"):
     return fill(shapes["params"]), fill(shapes["batch_stats"])
 
 
+def jax_native():
+    """The JAX package's native library module, loaded.  Its build step
+    writes the library straight to its path (ROADMAP "tests/test_native.py
+    may skip itself"), so a load that found a library another process was
+    still writing is tried again."""
+    import time
+
+    import pytest
+
+    from pytorch_object_detection_tpu.native import lib
+
+    for _ in range(10):
+        if lib.native_available():
+            return lib
+        lib._tried = False
+        time.sleep(1.0)
+    pytest.fail("the JAX package's native library did not build")
+
+
 def assert_close_to_ref(got, want, what: str = "", ref_scale=None) -> None:
     """max |got - want| <= 1e-4 * max|ref| + 1e-5.
 
