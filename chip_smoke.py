@@ -169,6 +169,24 @@ Phases (each prints its results on its own lines):
      tiles on the card and the pipeline with its copies over the same
      window; (f) the eval_coco CLI (--device-resize --int8) on the tree's
      config;
+  5q. training (train/trainer.py, cli/train.py; the port's main path
+     has no kernel in it: the GroupNorms take F.group_norm while autograd
+     records): (a) one f32 step on the card against the same step on the
+     CPU (HISFCOS(20, 256) at 256x256, B=2, TF32 off: loss, gradient
+     cosine, updated parameters), the bf16 autocast step against the f32
+     step at 512x512, B=16 (loss, gradient cosine of the backbone, the FPN
+     and the head), the stem, layer1 and every BatchNorm buffer unchanged,
+     kernel B launched no time in a step and 20 times in an eval forward
+     right after it, groupnorm_act raising under autograd; (b) ms a step,
+     img/s and the split into forward, targets + loss, backward and
+     optimizer by CUDA events over TRAIN_WINDOW steps at 512x512, B=16,
+     bf16, the peak memory, and a profile of 3 steps (the top kernels, the
+     device's idle share); (c) learning on the committed VOC tree's
+     eight frames until the loss is below 0.7 of its first value, on to
+     TRAIN_FIT_STEPS steps, then evaluate_voc of the trained weights
+     through the float pipeline and the default int8 pipeline, each batch
+     counted, the float mAP above the untrained model's; (d) podt-torch-train on the tree's training config
+     (DetectionLoader with HostAugment), --resume, --ring-loader;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -271,6 +289,22 @@ DEFAULT_PIPELINE_LAUNCHES = dict(FPN_PIPELINE_LAUNCHES, groupnorm_act=0, qhishea
 # ... and at the 896x1408 COCO canvas: K9 on P3 (112x176) and P4 (56x88), above 64x64 pixels
 COCO_CANVAS = (896, 1408)
 COCO_PIPELINE_LAUNCHES = dict(DEFAULT_PIPELINE_LAUNCHES, qhishead_level=3, qhishead_level2=2)
+# launches in one call of the float pipeline: kernel B on the head's 20 GroupNorms, kernel A
+FLOAT_PIPELINE_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, groupnorm_act=20, cuda_nms_keep_mask=1)
+# phase 5q: config/voc.yaml's HISFCOS ranges; the optimizer of the timed and compared steps (the block's SGD)
+# and of the learning run (tests/test_end_to_end.py's overfit: lr 5e-3, 50 steps of warm-up), its step cap
+TRAIN_RANGES = [(-1, 32), (32, 96), (96, 192), (192, 384), (384, 9999999)]
+TRAIN_OPT = {"name": "SGD", "lr": 1e-2, "momentum": 0.9, "weight_decay": 1e-4, "warmup_steps": 500}
+TRAIN_FIT_OPT = {"name": "SGD", "lr": 5e-3, "warmup_steps": 50, "milestones": (100000,)}
+TRAIN_MAX_STEPS, TRAIN_FIT_STEPS, TRAIN_WARMUP, TRAIN_WINDOW = 300, 160, 10, 60
+# the f32 step on the card against the CPU: the two sum the convolutions in another order, which the
+# ResNet's backward amplifies (tests/test_torch_port_train.py: 3.3 % of a parameter's largest gradient
+# between two f32 CPU runs, cosine 0.999998; the card against the CPU here: the updates 3.78 % of
+# lr x max|g| apart, cosine 0.99999984); an update within 8 % of lr x max|g|
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_COS, TRAIN_F32_UPDATE = 1e-4, 0.9999, 0.08
+# the bf16 autocast step against the f32 step: bf16 keeps 8 bits of each activation and weight (first card
+# run: loss 2.65e-4 apart, gradient cosines 0.9958 backbone, 0.99972 FPN, 0.99986 head)
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_COS = 2e-2, 0.98
 # the int8 ResNet-50's other backends (phase 5h): make_eval_pipeline_int8 keywords, launches in one call
 BACKEND_PATHS = {
     # 16 conv1 + 4 projection shortcuts + 16 conv3 on K4, and the 3 FPN laterals; 13 stride-1 conv2 on K11
@@ -1998,6 +2032,263 @@ def main() -> int:
                     f"podt-torch-eval-coco --config {FIXTURE_TREE}/coco.yaml --device-resize --int8: exit {rc} in "
                     f"{time.perf_counter() - t0:.1f} s")
 
+    def phase5q():
+        """Training (train/trainer.py, cli/train.py): (a) correctness on seeded
+        weights and batches: one f32 step on the card against the same step on
+        the CPU (TF32 off), the bf16 autocast step against the f32 step (loss,
+        gradient cosine of the backbone, the FPN and the head), the stem,
+        layer1 and every BatchNorm buffer bit-identical after the steps,
+        kernel B launched no time in a train step and 20 times in an eval
+        forward right after it (the model left in train mode), groupnorm_act
+        raising when asked for a gradient; (b) the time of a step at
+        HISFCOS(20, 256), 512x512, B=16, over a steady window, split into
+        forward, targets + loss, backward and optimizer by CUDA events, and
+        the peak memory; (c) learning: the eight frames of the committed VOC
+        tree, no augmentation, until the loss is below 0.7 of its first value
+        (at most TRAIN_MAX_STEPS steps), on to TRAIN_FIT_STEPS steps (the
+        JAX overfit test's 160), then evaluate_voc of the trained
+        weights through the float pipeline and the default int8 pipeline,
+        each batch counted; the float mAP above the untrained model's; (d)
+        podt-torch-train on the tree's training config (DetectionLoader and
+        HostAugment), --resume from its checkpoint, and --ring-loader."""
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+        from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_preprocess
+        from pytorch_object_detection_tpu_torch.data.synthetic import synthetic_batch
+        from pytorch_object_detection_tpu_torch.data.voc import VOCDataset
+        from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_voc
+
+        strides = default_strides()
+
+        def train_setup(canvas, seed=SEED, device=dev, cfg=None):
+            model = build_model("HISFCOS", NUM_CLASSES, FEATURES, frozen_stages=1, device=device,
+                                generator=torch.Generator().manual_seed(seed))
+            state = trainer.create_train_state(model, cfg or TRAIN_OPT, freeze_bn=True, frozen_stages=1)
+            shapes = [(canvas[0] // st, canvas[1] // st) for st in strides]
+            return state, shapes
+
+        def seeded_batch(canvas, b, seed, device):
+            g = torch.Generator().manual_seed(seed)
+            images, boxes, labels = synthetic_batch(g, b, canvas, NUM_CLASSES, max_boxes=32)
+            mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+            return (((images - mean) / std).to(device), boxes.to(device), labels.to(device))
+
+        def grads_of(state):
+            return {k: p.grad.detach().float() for k, p in state.model.named_parameters() if p.grad is not None}
+
+        def cos64(a, b):  # in f64: the sums run over 30 M gradients
+            a, b = a.double(), b.double()
+            return float((a @ b) / (a.norm() * b.norm()))
+
+        def group_cos(a, b, prefix):
+            keys = [k for k in a if k.startswith(prefix)]
+            return cos64(torch.cat([a[k].flatten() for k in keys]), torch.cat([b[k].flatten() for k in keys]))
+
+        # (a) one f32 step on the card against the CPU, full width at 256x256, B=2
+        small = (256, 256)
+        cpu_state, shapes = train_setup(small, device="cpu")
+        card_state, _ = train_setup(small)
+        frozen_before = {k: v.clone() for k, v in card_state.model.state_dict().items()
+                         if k not in set(card_state.trainable_names())}
+        batch_cpu = seeded_batch(small, 2, SEED + 5, "cpu")
+        t0 = time.perf_counter()
+        want = trainer.make_train_step(cpu_state.model, shapes, strides, TRAIN_RANGES, "giou",
+                                       torch.float32)(cpu_state, *batch_cpu)
+        cpu_s = time.perf_counter() - t0
+        gn.groupnorm_act.launches = 0
+        got = trainer.make_train_step(card_state.model, shapes, strides, TRAIN_RANGES, "giou", torch.float32)(
+            card_state, *(t.to(dev) for t in batch_cpu))
+        torch.cuda.synchronize()
+        step_gn = gn.groupnorm_act.launches
+        loss_err = abs(float(got["total"]) - float(want["total"])) / abs(float(want["total"]))
+        g_card, g_cpu = grads_of(card_state), grads_of(cpu_state)
+        g_cos = cos64(torch.cat([g_card[k].cpu().flatten() for k in g_cpu]),
+                      torch.cat([g_cpu[k].flatten() for k in g_cpu]))
+        lr0 = cpu_state.schedule(0)
+        g_all = max(float(g.abs().max()) for g in g_cpu.values())
+        p_card = dict(card_state.model.named_parameters())
+        worst = 0.0  # each updated parameter's distance over lr0 x (its largest gradient + 1e-4 of the model's)
+        for k, p in cpu_state.model.named_parameters():
+            if p.requires_grad:
+                d = float((p_card[k].detach().cpu() - p.detach()).abs().max())
+                worst = max(worst, d / (lr0 * (float(g_cpu[k].abs().max()) + 1e-4 * g_all)))
+        print(f"  f32 step, HISFCOS({NUM_CLASSES}, {FEATURES}) 256x256 B=2, TF32 off: loss card "
+              f"{float(got['total']):.7f} CPU {float(want['total']):.7f} (CPU step {cpu_s:.1f} s); gradient cosine "
+              f"{g_cos:.8f}; updated parameters within {worst:.4f} of lr x max|g| of the CPU's")
+        smoke.check(loss_err <= TRAIN_F32_LOSS_RTOL and g_cos >= TRAIN_F32_COS and worst <= TRAIN_F32_UPDATE,
+                    f"f32 train step on the card vs the CPU: loss rel err {loss_err:.3g} (tol {TRAIN_F32_LOSS_RTOL}), "
+                    f"gradient cosine {g_cos:.8f} (>= {TRAIN_F32_COS}), updates within {worst:.4f} "
+                    f"(<= {TRAIN_F32_UPDATE}) of lr x max|g|")
+        smoke.check(step_gn == 0, f"kernel B: {step_gn} launches in a train step (0 by design: autograd records)")
+
+        # the bf16 autocast step against the f32 step, from the same weights and batch, full size
+        f32_state, shapes = train_setup(CANVAS, seed=SEED + 1)
+        bf_state, _ = train_setup(CANVAS, seed=SEED + 1)
+        big = seeded_batch(CANVAS, 16, SEED + 6, dev)
+        m32 = trainer.make_train_step(f32_state.model, shapes, strides, TRAIN_RANGES, "giou", torch.float32)(
+            f32_state, *big)
+        m16 = trainer.make_train_step(bf_state.model, shapes, strides, TRAIN_RANGES, "giou", torch.bfloat16)(
+            bf_state, *big)
+        g32, g16 = grads_of(f32_state), grads_of(bf_state)
+        coses = {part: group_cos(g16, g32, part + ".") for part in ("backbone", "fpn", "head")}
+        bf_err = abs(float(m16["total"]) - float(m32["total"])) / abs(float(m32["total"]))
+        print(f"  bf16 autocast vs f32 step, 512x512 B=16: loss {float(m16['total']):.6f} vs "
+              f"{float(m32['total']):.6f} (rel {bf_err:.3g}); gradient cosines "
+              f"{', '.join(f'{k} {v:.6f}' for k, v in coses.items())}")
+        smoke.check(bf_err <= TRAIN_BF16_LOSS_RTOL and min(coses.values()) >= TRAIN_BF16_COS,
+                    f"bf16 step vs f32 step: loss rel err {bf_err:.3g} (tol {TRAIN_BF16_LOSS_RTOL}), gradient "
+                    f"cosines >= {TRAIN_BF16_COS}: {coses}")
+        frozen_after = card_state.model.state_dict()
+        same = all(torch.equal(v, frozen_after[k]) for k, v in frozen_before.items())
+        bn_buffers = [k for k in frozen_after if k.endswith("running_var")]
+        smoke.check(same and "backbone.conv1.weight" in frozen_before and "backbone.layer1_2.conv3.weight"
+                    in frozen_before and all(k in frozen_before for k in bn_buffers),
+                    f"after the step: the stem, layer1 and every BatchNorm buffer ({len(bn_buffers)} BatchNorms) "
+                    f"bit-identical, {len(frozen_before)} tensors")
+        card_state.model.train()  # the mode does not choose the GroupNorm path: autograd does
+        gn.groupnorm_act.launches = 0
+        with torch.inference_mode():
+            card_state.model(big[0][:2, :256, :256].contiguous())
+        torch.cuda.synchronize()
+        smoke.check(gn.groupnorm_act.launches == 20,
+                    f"kernel B: {gn.groupnorm_act.launches} launches in an eval forward right after the step, the "
+                    f"model in train mode (20)")
+        x = torch.randn(2, 256, 16, 16, device=dev, requires_grad=True)
+        w = torch.ones(256, device=dev)
+        raised = []
+        for args in ((x, w, torch.zeros_like(w)), (x.detach(), w.clone().requires_grad_(), torch.zeros_like(w))):
+            try:
+                gn.groupnorm_act(*args)
+            except RuntimeError:
+                raised.append(True)
+        smoke.check(len(raised) == 2, "groupnorm_act raises on a CUDA tensor when asked to record a gradient "
+                                      "(input or scale requiring grad)")
+        del cpu_state, card_state, f32_state, bf_state, g32, g16
+
+        # (b) the step's time at HISFCOS(20, 256), 512x512, B=16, bf16, over a steady window
+        state, shapes = train_setup(CANVAS)
+        step = trainer.make_train_step(state.model, shapes, strides, TRAIN_RANGES, "giou", torch.bfloat16)
+        for _ in range(TRAIN_WARMUP):
+            step(state, *big)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        phases = ("forward", "loss", "backward", "optimizer")
+        marks = []
+
+        def record(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[-1][name] = ev
+
+        gn.groupnorm_act.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_WINDOW):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            marks.append({"start": start})
+            last = step(state, *big, record=record)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / TRAIN_WINDOW
+        split = {ph: statistics.median(m[prev].elapsed_time(m[ph]) for m in marks)
+                 for prev, ph in zip(("start",) + phases[:-1], phases)}
+        per_step = [m["start"].elapsed_time(m["optimizer"]) for m in marks]
+        device_ms = statistics.median(per_step)
+        between = [a["start"].elapsed_time(b["start"]) for a, b in zip(marks, marks[1:])]
+        ms = statistics.median(between)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["train"] = {"ms": ms, "img_s": 16 * 1000.0 / ms, "split": split, "peak_gib": peak}
+        print(f"  train step HISFCOS({NUM_CLASSES}, {FEATURES}) bf16 512x512 B=16, {TRAIN_WINDOW} steps after "
+              f"{TRAIN_WARMUP} of warm-up: {ms:.3f} ms a step start to start (median; host clock {wall:.3f}), "
+              f"{16 * 1000.0 / ms:.1f} img/s; a step's own span {device_ms:.3f} ms: "
+              + ", ".join(f"{ph} {split[ph]:.3f}" for ph in phases)
+              + f"; peak memory allocated {peak:.2f} GiB; kernel B launches {gn.groupnorm_act.launches}; "
+              f"loss {float(last['total']):.4f}; clocks {smi_clocks()} {card}")
+        smoke.check(bool(torch.isfinite(last["total"])) and gn.groupnorm_act.launches == 0,
+                    f"timed steps: finite loss, kernel B launched no time in {TRAIN_WINDOW} steps")
+        print("  the step's kernels (torch.profiler, 3 steps):")
+        profile_calls(lambda: step(state, *big), top=20)
+        del state, step, big
+
+        # (c) learning on the committed VOC tree's eight frames, no augmentation
+        root = os.path.join(FIXTURE_TREE, "voc")
+        train_ds = VOCDataset([root], "test", CANVAS)
+        batch = next(iter(DetectionLoader(train_ds, 8, shuffle=False, drop_last=False, num_workers=4)))
+        pp = make_device_preprocess(train=False)
+        imgs, bxs = pp(None, torch.from_numpy(batch.images).to(dev), torch.from_numpy(batch.boxes),
+                       torch.from_numpy(batch.content_w))
+        lbls = torch.from_numpy(batch.labels).to(dev)
+        state, shapes = train_setup(CANVAS, cfg=TRAIN_FIT_OPT)
+        untrained = copy.deepcopy(state.model)
+        step = trainer.make_train_step(state.model, shapes, strides, TRAIN_RANGES, "giou", torch.bfloat16)
+        t0 = time.perf_counter()
+        first = float(step(state, imgs, bxs, lbls)["total"])
+        last, n_steps = first, 1
+        while last >= 0.7 * first and n_steps < TRAIN_MAX_STEPS:
+            last = float(step(state, imgs, bxs, lbls)["total"])
+            n_steps += 1
+        print(f"  learning: loss {first:.4f} -> {last:.4f} in {n_steps} steps ({time.perf_counter() - t0:.1f} s), "
+              f"HISFCOS({NUM_CLASSES}, {FEATURES}) bf16 on the tree's 8 frames at B=8")
+        smoke.check(last < 0.7 * first, f"learning: the loss below 0.7 of its first value within {TRAIN_MAX_STEPS} "
+                                        f"steps (the JAX bar): {n_steps} steps")
+        while n_steps < TRAIN_FIT_STEPS:  # on to tests/test_end_to_end.py's 160 steps before the evaluation
+            last = float(step(state, imgs, bxs, lbls)["total"])
+            n_steps += 1
+        print(f"  then to {n_steps} steps: loss {last:.4f}")
+        voc = VOCDataset(root, "test", CANVAS, raw_tiles=True)
+        maps = {}
+        for what, model in (("untrained", untrained), ("trained", state.model)):
+            fpipe = make_eval_pipeline(model, strides, CANVAS, compute_dtype=torch.bfloat16, device_resize=True)
+            for counter in counters.values():
+                counter.launches = 0
+            with torch.inference_mode():
+                r = evaluate_voc(model, voc, batch_size=4, pipeline=fpipe, verbose=False)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            calls = -(-len(voc) // 4)
+            maps[what] = r["mAP"]
+            smoke.check(launches == {k: calls * n for k, n in FLOAT_PIPELINE_LAUNCHES.items()},
+                        f"evaluate_voc, {what} weights, float pipeline, B=4: {calls} calls, kernels B and A "
+                        f"launched {calls} times their per-call count: mAP {r['mAP']:.4f}")
+        ipipe = make_eval_pipeline_int8(state.model, first_batch_calib(voc, 8, CANVAS, dev), strides, CANVAS,
+                                        device_resize=True, compute_dtype=torch.bfloat16)
+        for counter in counters.values():
+            counter.launches = 0
+        with torch.inference_mode():
+            r = evaluate_voc(state.model, voc, batch_size=4, pipeline=ipipe, verbose=False)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        maps["int8"] = r["mAP"]
+        smoke.check(launches == {k: calls * n for k, n in DEFAULT_PIPELINE_LAUNCHES.items()} and np.isfinite(r["mAP"]),
+                    f"evaluate_voc, trained weights, default int8 pipeline (calibrated on the tree's frames), B=4: "
+                    f"each kernel launched {calls} times its per-call count: mAP {r['mAP']:.4f}")
+        smoke.check(maps["trained"] > maps["untrained"],
+                    f"trained float mAP {maps['trained']:.4f} above the untrained model's {maps['untrained']:.4f} "
+                    f"(int8 {maps['int8']:.4f})")
+        res["train_fit"] = {"steps": n_steps, "first": first, "last": last, **maps}
+        del state, step, untrained, ipipe
+
+        # (d) the CLI on the tree's training config: the loader with HostAugment, --resume, --ring-loader
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.train", "--config",
+                   os.path.join(FIXTURE_TREE, "voc_train.yaml"), "--checkpoint-dir", tmp, "--log-every", "1"]
+            runs = (("DetectionLoader + HostAugment", []), ("--resume", ["--resume", os.path.join(tmp, "port_train")]),
+                    ("--ring-loader", ["--ring-loader", "--checkpoint-dir", os.path.join(tmp, "ring")]))
+            for what, extra in runs:
+                t0 = time.perf_counter()
+                out = subprocess.run(cmd + extra, capture_output=True, text=True, timeout=600)
+                lines = [ln for ln in out.stdout.splitlines() if ln.startswith(("step ", "resumed", "training done"))]
+                for ln in lines:
+                    print(f"    {ln}")
+                ok = out.returncode == 0 and any(ln.startswith("training done") for ln in lines)
+                if what == "--resume":
+                    ok = ok and "resumed from" in out.stdout and "training done: step 6" in out.stdout
+                smoke.check(ok, f"podt-torch-train {what}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s"
+                                + ("" if ok else f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}"))
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -2602,19 +2893,25 @@ def main() -> int:
         res["k9"] = dict(ms=t9, k7_ms=t7, plain_ms=p9, host_ms=h9, bound=b_k9)
 
     def phase6_profile(pipe, ours=("gn_act_kernel", "nms_"), split=()):
-        """Where the time goes in one B=64 pipeline call (torch.profiler);
-        ``split``: kernel name prefixes whose kernels are also summed by name
-        (their template arguments dropped), one line a prefix."""
+        """Where the time goes in one B=64 pipeline call (torch.profiler)."""
+        fr = res["frames"].repeat(8, 1, 1, 1)
+        profile_calls(lambda: pipe(fr), ours, split)
+
+    def profile_calls(fn, ours=(), split=(), top=15):
+        """Where the time goes in 3 calls of ``fn`` after 2 of warm-up
+        (torch.profiler): the device's kernel time and idle share, the
+        ``top`` kernels and those named in ``ours``; ``split``: kernel name
+        prefixes whose kernels are also summed by name (their template
+        arguments dropped), one line a prefix."""
         from torch.profiler import ProfilerActivity, profile
 
-        fr = res["frames"].repeat(8, 1, 1, 1)
         for _ in range(2):
-            pipe(fr)
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
-                pipe(fr)
+                fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
         # kernels only (device-side events), so no time is counted twice
@@ -2627,8 +2924,8 @@ def main() -> int:
         print(f"  3 calls: wall {wall_ms:.2f} ms, device kernel time {total_us / 1000.0:.2f} ms, "
               f"device idle share {max(0.0, 1.0 - total_us / 1000.0 / wall_ms):.3f} {card}")
         ranked = sorted(events, key=lambda e: -getattr(e, attr))
-        mine = [e for e in ranked[15:] if any(k in e.key for k in ours)]
-        for e in ranked[:15] + mine:
+        mine = [e for e in ranked[top:] if any(k in e.key for k in ours)]
+        for e in ranked[:top] + mine:
             print(f"    {getattr(e, attr) / 1000.0:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
         for prefix in split:
             parts = {}
@@ -2761,6 +3058,8 @@ def main() -> int:
     if "pipe" in res and "model80" in res:
         smoke.phase("phase 5p: COCO evaluation from JPEGs: the committed fixture tree's decodes, evaluate_voc, the "
                     "device resize at 896x1408, evaluate_coco of HISFCOS(80, 256) at B=4, the CLI", phase5p)
+    smoke.phase("phase 5q: training: the f32 step against the CPU, bf16 against f32, kernel B's path, the step's "
+                "time at HISFCOS(20, 256) 512x512 B=16, learning on the VOC tree, the CLI", phase5q)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

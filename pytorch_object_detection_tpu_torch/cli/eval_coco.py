@@ -4,7 +4,8 @@
     python -m pytorch_object_detection_tpu_torch.cli.eval_coco --config ... --device cpu
 
 Loads the config, builds the model (random weights from seed 0 unless
-``--checkpoint`` names a port state dict, ``torch.save(model.state_dict())``),
+``--checkpoint`` names a ``podt-torch-train`` checkpoint or a port state dict,
+``torch.save(model.state_dict())``),
 and runs ``eval/evaluator.evaluate_coco`` over the config's ``ValData`` /
 ``ValAnnotation``: the 12-number COCO summary and images/sec, the JAX CLI's
 lines, and the results JSON (``--results-json``).  The official numbers
@@ -24,8 +25,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="COCO evaluation of the PyTorch port (COCO AP summary, img/s)")
     ap.add_argument("--config", default="config/main.yaml")
     ap.add_argument("--checkpoint", default="",
-                    help="a port state dict (torch.save(model.state_dict())); the JAX package's orbax checkpoints "
-                         "need jax to read and wait for the port's checkpoint work (ROADMAP.md queue 1, item 8)")
+                    help="a podt-torch-train checkpoint (a step_XXXXXXXX.pt file, or the newest under a directory) "
+                         "or a port state dict (torch.save(model.state_dict())); the JAX package's orbax "
+                         "checkpoints need jax to read")
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--results-json", default="coco_bbox_results.json")
     ap.add_argument("--int8", action="store_true",
@@ -50,6 +52,7 @@ def main(argv=None) -> int:
         make_eval_pipeline_int8,
     )
     from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.train.checkpoints import load_model_checkpoint
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("eval_coco: no CUDA device (torch.cuda.is_available() is false); --device cpu runs on the CPU",
@@ -67,7 +70,7 @@ def main(argv=None) -> int:
         print(f"eval_coco: {err}", file=sys.stderr)
         return 2
     if args.checkpoint:
-        model.load_state_dict(torch.load(args.checkpoint, map_location=dev, weights_only=True))
+        load_model_checkpoint(model, args.checkpoint)
     model.eval()
 
     ds_cfg = cfg["dataset_setting"]

@@ -4,7 +4,8 @@
     python -m pytorch_object_detection_tpu_torch.cli.eval_voc --config ... --device cpu
 
 Loads the config, builds the model (random weights from seed 0 unless
-``--checkpoint`` names a port state dict, ``torch.save(model.state_dict())``),
+``--checkpoint`` names a ``podt-torch-train`` checkpoint or a port state dict,
+``torch.save(model.state_dict())``),
 and runs ``eval/evaluator.evaluate_voc`` over the config's VOC tree: per-class
 AP@0.5, mAP and images/sec, the JAX CLI's lines.  The JAX CLI's flags, and
 ``--device``.  What each path needs on the machine: PyYAML (the config),
@@ -21,10 +22,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="VOC evaluation of the PyTorch port (per-class AP@0.5, mAP, img/s)")
     ap.add_argument("--config", default="config/main.yaml")
     ap.add_argument("--checkpoint", default="",
-                    help="a port state dict (torch.save(model.state_dict())); the JAX package's orbax checkpoints "
-                         "need jax to read and wait for the port's checkpoint work (ROADMAP.md queue 1, item 8)")
+                    help="a podt-torch-train checkpoint (a step_XXXXXXXX.pt file, or the newest under a directory) "
+                         "or a port state dict (torch.save(model.state_dict())); the JAX package's orbax "
+                         "checkpoints need jax to read")
     ap.add_argument("--torch-checkpoint", default="",
-                    help="a reference .pth detector checkpoint: not ported yet (ROADMAP.md queue 1, item 8)")
+                    help="a reference .pth detector checkpoint: refused (the JAX CLI takes the flag and does not "
+                         "use it); load_pretrained_backbone grafts a torchvision ResNet-50 for training")
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--split", default="test")
     ap.add_argument("--int8", action="store_true",
@@ -41,7 +44,7 @@ def main(argv=None) -> int:
                     help="where the model runs: the card (bf16, the kernels) or the CPU (f32, their plain versions)")
     args = ap.parse_args(argv)
     if args.torch_checkpoint:
-        ap.error("--torch-checkpoint is not ported yet (ROADMAP.md queue 1, item 8)")
+        ap.error("--torch-checkpoint is not supported: the JAX CLI takes the flag and does not use it")
 
     import torch
 
@@ -53,6 +56,7 @@ def main(argv=None) -> int:
         make_eval_pipeline_int8,
     )
     from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.train.checkpoints import load_model_checkpoint
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("eval_voc: no CUDA device (torch.cuda.is_available() is false); --device cpu runs on the CPU",
@@ -66,7 +70,7 @@ def main(argv=None) -> int:
     model = build_model(cfg["model"]["name"], C.num_classes(cfg), int(block["channel"]), device=dev,
                         generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
-        model.load_state_dict(torch.load(args.checkpoint, map_location=dev, weights_only=True))
+        load_model_checkpoint(model, args.checkpoint)
     model.eval()
 
     ds_root = cfg["dataset_setting"].get("test_07", cfg["dataset_setting"].get("train_07"))

@@ -10,7 +10,13 @@ The port's counterpart of ``pytorch_object_detection_tpu/data/pipeline.py``
     native batch decode per batch into a preallocated ring), yielding the
     JAX loaders' batches byte for byte;
   * :func:`make_device_resize`: the aspect-preserving resize of raw tiles
-    onto the canvas, batched on the tensors' device.
+    onto the canvas, batched on the tensors' device;
+  * :func:`make_device_preprocess`: uint8 -> float, the train-time random
+    horizontal flip (:func:`hflip`) and colour jitter
+    (:func:`color_jitter`), and the normalize, on the images' device.  Each
+    random function is its draws (``*_draws``, from a ``torch.Generator``)
+    and a deterministic core that takes them (``*_apply``), so that a test
+    can feed the JAX functions' draws to the core.
 
 The loaders shard the index list across processes: ``process_count`` and
 ``process_index`` when given, else ``torch.distributed``'s world size and
@@ -23,7 +29,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Iterator, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +141,127 @@ def make_device_resize(canvas_hw: Tuple[int, int]):
         return canvas, scale, torch.stack([nh, nw], dim=1).to(torch.int32)
 
     return resize
+
+
+def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.amax(dim=-1)
+    minc = rgb.amin(dim=-1)
+    v = maxc
+    delta = maxc - minc
+    zero = torch.zeros((), device=rgb.device)
+    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-8), zero)
+    rc = (maxc - r) / delta.clamp(min=1e-8)
+    gc = (maxc - g) / delta.clamp(min=1e-8)
+    bc = (maxc - b) / delta.clamp(min=1e-8)
+    h = torch.where(maxc == r, bc - gc, torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0), zero)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def select(*by_sector):  # the value of sector i, for i in 0..5
+        out = by_sector[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, by_sector[k], out)
+        return out
+
+    return torch.stack([select(v, q, p, p, t, v), select(t, v, v, q, p, p), select(p, p, t, v, v, q)], dim=-1)
+
+
+def color_jitter_draws(generator: torch.Generator, batch: int, prob: float = 0.3,
+                       strength: float = 0.1) -> Dict[str, torch.Tensor]:
+    """The draws of :func:`color_jitter` on ``generator.device``: ``apply``
+    [B, 1, 1, 1] bool (p=``prob``), the brightness, contrast and saturation
+    factors [B, 1, 1, 1] in ``[1 - strength, 1 + strength)`` and ``hue``
+    [B, 1, 1] in ``[-strength, strength)``."""
+    dev = generator.device
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=generator, device=dev) * (hi - lo) + lo
+
+    apply = torch.rand((batch, 1, 1, 1), generator=generator, device=dev) < prob
+    factors = {k: uniform((batch, 1, 1, 1), 1.0 - strength, 1.0 + strength)
+               for k in ("brightness", "contrast", "saturation")}
+    return {"apply": apply, **factors, "hue": uniform((batch, 1, 1), -strength, strength)}
+
+
+def color_jitter_apply(images: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Brightness, contrast, saturation, then hue (torchvision's semantics in
+    that fixed order; the contrast's mean and the saturation's gray both
+    from the brightened image), clipped to [0, 1], on the images where
+    ``apply``: the JAX ``color_jitter`` given its draws."""
+    out = images * draws["brightness"]
+    gray = out.mean(dim=-1, keepdim=True)
+    gray_mean = gray.mean(dim=(1, 2), keepdim=True)
+    out = (out - gray_mean) * draws["contrast"] + gray_mean
+    out = (out - gray) * draws["saturation"] + gray
+    hsv = _rgb_to_hsv(out.clamp(0.0, 1.0))
+    hsv = torch.cat([torch.remainder(hsv[..., :1] + draws["hue"][..., None], 1.0), hsv[..., 1:]], dim=-1)
+    out = _hsv_to_rgb(hsv)
+    return torch.where(draws["apply"], out.clamp(0.0, 1.0), images)
+
+
+def color_jitter(generator: torch.Generator, images: torch.Tensor, prob: float = 0.3,
+                 strength: float = 0.1) -> torch.Tensor:
+    """Batched colour jitter of ``images [B, H, W, 3]`` in [0, 1] (p=``prob``)."""
+    return color_jitter_apply(images, color_jitter_draws(generator, images.shape[0], prob, strength))
+
+
+def hflip_draws(generator: torch.Generator, batch: int, prob: float = 0.5) -> torch.Tensor:
+    """The draws of :func:`hflip`: ``flip`` [B] bool (p=``prob``) on ``generator.device``."""
+    return torch.rand((batch,), generator=generator, device=generator.device) < prob
+
+
+def hflip_apply(images: torch.Tensor, boxes: torch.Tensor, content_w: torch.Tensor,
+                flip: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror each flipped image about its content width (the content sits
+    at the canvas's left edge, so it stays there and the padding is
+    untouched) and its valid boxes with it: the JAX ``hflip`` given its draws."""
+    b, _, w, c = images.shape
+    cols = torch.arange(w, device=images.device)[None, :]  # [1, W]
+    nw = content_w.to(images.device)[:, None].long()  # [B, 1]
+    src = torch.where(cols < nw, nw - 1 - cols, cols)
+    src = torch.where(flip[:, None], src, cols)  # [B, W]
+    flipped = images.gather(2, src[:, None, :, None].expand(b, images.shape[1], w, c))
+    valid = boxes[..., 0] > -0.5
+    nw_b = content_w.to(boxes.device)[:, None].to(boxes.dtype)
+    fb = torch.stack([nw_b - 1.0 - boxes[..., 2], boxes[..., 1], nw_b - 1.0 - boxes[..., 0], boxes[..., 3]], dim=-1)
+    return flipped, torch.where((flip[:, None] & valid)[..., None], fb, boxes)
+
+
+def hflip(generator: torch.Generator, images: torch.Tensor, boxes: torch.Tensor, content_w: torch.Tensor,
+          prob: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random horizontal flip (p=``prob``) of images and boxes about each image's content width."""
+    return hflip_apply(images, boxes, content_w, hflip_draws(generator, images.shape[0], prob))
+
+
+def make_device_preprocess(train: bool, mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD,
+                           flip_prob: float = 0.5, jitter_prob: float = 0.3):
+    """``fn(generator, images_u8 [B, H, W, 3], boxes [B, M, 4], content_w
+    [B]) -> (images f32 normalized, boxes)`` on the images' device: ``u8 /
+    255``, then with ``train`` the flip and the jitter (drawn from
+    ``generator`` in that order; ``generator`` is unused otherwise), then
+    ``(x - mean) / std``."""
+    def fn(generator: Optional[torch.Generator], images_u8: torch.Tensor, boxes: torch.Tensor,
+           content_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = images_u8.device
+        boxes = boxes.to(dev)
+        x = images_u8.float() / 255.0
+        if train:
+            x, boxes = hflip(generator, x, boxes, content_w.to(dev), flip_prob)
+            x = color_jitter(generator, x, jitter_prob)
+        return (x - torch.tensor(mean, device=dev)) / torch.tensor(std, device=dev), boxes
+
+    return fn
 
 
 def decode_to_tile(image: np.ndarray, tile_hw: Tuple[int, int]) -> Tuple[np.ndarray, Tuple[int, int]]:

@@ -5,7 +5,9 @@ Counterparts of ``pytorch_object_detection_tpu/models/fcos.py``'s ``HISFCOS``
 -> LightweightFPN -> MNHead).  The forward takes NHWC float images
 (normalized) and returns per-level NHWC (cls, cnt, reg) lists, the JAX
 package's layouts; inside, everything runs NCHW.  Every BatchNorm is frozen
-(the reference's only trained configuration).
+(the reference's only trained configuration).  ``frozen_stages=k`` puts the
+backbone's gradient barrier after ``layer{k}``; the trainer freezes the
+matching parameters (``train/trainer.param_labels``).
 """
 from __future__ import annotations
 
@@ -42,11 +44,11 @@ class HISFCOS(_Detector):
     """
 
     def __init__(self, num_classes: int = 20, features: int = 256, stem_mode: str = "conv7", *,
-                 device: torch.device | str = "cuda",
+                 frozen_stages: int = 0, device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone = ResNet50(stem_mode=stem_mode, generator=generator)
+        self.backbone = ResNet50(stem_mode=stem_mode, grad_barrier_stages=frozen_stages, generator=generator)
         self.fpn = HisFPN((512, 1024, 2048), features, generator=generator)
         self.head = HISHead(num_classes, features, generator=generator)
         self.eval()
@@ -58,11 +60,11 @@ class MNFCOS(_Detector):
     device as :class:`HISFCOS`.  Its float forward runs kernel B 10 times
     (the head's GroupNorms)."""
 
-    def __init__(self, num_classes: int = 20, features: int = 256, *, device: torch.device | str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, num_classes: int = 20, features: int = 256, *, frozen_stages: int = 0,
+                 device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone = ResNet50(generator=generator)
+        self.backbone = ResNet50(grad_barrier_stages=frozen_stages, generator=generator)
         self.fpn = LightweightFPN((512, 1024, 2048), features, generator=generator)
         self.head = MNHead(num_classes, features, generator=generator)
         self.eval()

@@ -23,7 +23,7 @@ def available_models():
 
 def build_model(name: str, num_classes: int, features: int = 256, **kwargs) -> nn.Module:
     """Build a detector by config name.  ``kwargs`` go to the constructor
-    (``device``, ``generator``; HISFCOS also ``stem_mode``); the model goes
+    (``device``, ``generator``, ``frozen_stages``; HISFCOS also ``stem_mode``); the model goes
     to the card unless ``device`` says otherwise."""
     key = name.upper()
     if key == "HISFCOS":

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act
+from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_autograd
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -90,9 +90,16 @@ class BatchNorm(nn.Module):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with 32 groups and the following activation folded in
-    (``act``: 'none', 'relu', 'silu').  On CUDA tensors it runs kernel B
-    (``ops/gn.py``); ``plain=True`` runs the plain version instead, for the
-    comparison only."""
+    (``act``: 'none', 'relu', 'silu').
+
+    The path is chosen by whether autograd records, not by
+    ``self.training``: where ``torch.is_grad_enabled()`` and the input or
+    the affine requires grad (a train step), ``F.group_norm`` + act
+    (``ops/gn.groupnorm_act_autograd``; kernel B has no backward, and the
+    JAX training path's ``nn.GroupNorm`` runs no Pallas kernel either);
+    otherwise kernel B on CUDA tensors (``ops/gn.py``), whatever the
+    module's mode.  ``plain=True`` runs kernel B's plain version instead,
+    for the comparison only."""
 
     def __init__(self, ch: int, act: str = "none"):
         super().__init__()
@@ -101,6 +108,8 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad):
+            return groupnorm_act_autograd(x, self.weight, self.bias, groups=32, eps=1e-5, act=self.act)
         return groupnorm_act(x, self.weight, self.bias, groups=32, eps=1e-5, act=self.act, plain=plain)
 
 

@@ -6,6 +6,10 @@ then BN + ReLU + 3x3/2 max pool, bottleneck stages [3,4,6,3]
 of widths [64,128,256,512] (x4 expansion), projection on the first block of
 each stage.  Returns (C3, C4, C5) = (512 ch /8, 1024 ch /16, 2048 ch /32).
 Module names follow the flax scopes (``conv1``, ``bn1``, ``layer{s}_{b}``).
+``grad_barrier_stages=k`` detaches the map after stage k: with the stem and
+``layer1..k`` frozen for training, their backward is never computed (the
+JAX package's ``stop_gradient``; the same gradients for every trainable
+parameter).
 """
 from __future__ import annotations
 
@@ -69,8 +73,10 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """ResNet-50 returning the stage taps (C3, C4, C5)."""
 
-    def __init__(self, stem_mode: str = "conv7", generator: Optional[torch.Generator] = None):
+    def __init__(self, stem_mode: str = "conv7", grad_barrier_stages: int = 0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.grad_barrier_stages = grad_barrier_stages
         if stem_mode not in ("conv7", "s2d"):
             raise ValueError(f"stem_mode must be 'conv7' or 's2d'; got {stem_mode!r}")
         self.stem_mode = stem_mode
@@ -106,8 +112,10 @@ class ResNet50(nn.Module):
         x = relu(self.bn1(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         outputs = []
-        for names in self.stages:
+        for stage, names in enumerate(self.stages):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage + 1 == self.grad_barrier_stages:
+                x = x.detach()
             outputs.append(x)
         return tuple(outputs[-3:])

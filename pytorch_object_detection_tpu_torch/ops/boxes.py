@@ -3,6 +3,9 @@
 Counterpart of ``pytorch_object_detection_tpu/ops/boxes.py``, operation for
 operation, so that the port's decode and NMS round exactly as the JAX ones.
 
+``ltrb_iou`` and ``ltrb_giou`` are the regression loss's overlaps in ltrb-offset
+space.
+
 Conventions: boxes are ``(x1, y1, x2, y2)`` in image pixels, float32; grid
 coords are ``(x, y)`` cell centres; per-level maps are flattened NHWC
 row-major (y outer, x inner).
@@ -54,3 +57,35 @@ def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area_b = (boxes_b[..., 2] - boxes_b[..., 0]) * (boxes_b[..., 3] - boxes_b[..., 1])
     union = area_a[..., :, None] + area_b[..., None, :] - overlap
     return overlap / torch.where(union > 0, union, torch.ones_like(union))
+
+
+def ltrb_iou(preds: torch.Tensor, targets: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """IoU of two ltrb offset sets measured from the same grid point,
+    elementwise over the last axis (``[..., 4]`` -> ``[...]``); a zero union
+    is replaced by ``eps``."""
+    lt = torch.minimum(preds[..., :2], targets[..., :2])
+    rb = torch.minimum(preds[..., 2:], targets[..., 2:])
+    wh = (lt + rb).clamp(min=0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area_p = (preds[..., 0] + preds[..., 2]) * (preds[..., 1] + preds[..., 3])
+    area_t = (targets[..., 0] + targets[..., 2]) * (targets[..., 1] + targets[..., 3])
+    union = area_p + area_t - overlap
+    return overlap / torch.where(union != 0, union, torch.full_like(union, eps))
+
+
+def ltrb_giou(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """GIoU of two ltrb offset sets, elementwise; a zero union is replaced
+    by 1e-10 and the enclosing area floored at 1e-10."""
+    lt_min = torch.minimum(preds[..., :2], targets[..., :2])
+    rb_min = torch.minimum(preds[..., 2:], targets[..., 2:])
+    wh_min = (lt_min + rb_min).clamp(min=0.0)
+    overlap = wh_min[..., 0] * wh_min[..., 1]
+    area_p = (preds[..., 0] + preds[..., 2]) * (preds[..., 1] + preds[..., 3])
+    area_t = (targets[..., 0] + targets[..., 2]) * (targets[..., 1] + targets[..., 3])
+    union = area_p + area_t - overlap
+    iou = overlap / torch.where(union != 0, union, torch.full_like(union, 1e-10))
+    lt_max = torch.maximum(preds[..., :2], targets[..., :2])
+    rb_max = torch.maximum(preds[..., 2:], targets[..., 2:])
+    wh_max = (lt_max + rb_max).clamp(min=0.0)
+    g_area = wh_max[..., 0] * wh_max[..., 1]
+    return iou - (g_area - union) / g_area.clamp(min=1e-10)

@@ -21,6 +21,7 @@ import functools
 from typing import Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
@@ -161,6 +162,19 @@ class _Call(ctypes.Structure):
 _CALLS: Dict[tuple, Tuple[_Call, int]] = {}
 
 
+def groupnorm_act_autograd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                           groups: int = 32, eps: float = 1e-5, act: str = "none") -> torch.Tensor:
+    """``F.group_norm`` + activation, on any device, with a backward: the
+    path ``nn/layers.GroupNorm32`` takes where autograd records (a train
+    step), since kernel B has none."""
+    y = F.group_norm(x, groups, scale, bias, eps)
+    if act == "relu":
+        return F.relu(y)
+    if act == "silu":
+        return F.silu(y)
+    return y
+
+
 def _make_call(x: torch.Tensor, scale: torch.Tensor, groups: int, eps: float, act: str, tile) -> Tuple[_Call, int]:
     """The launch's ``GnCall`` for the chooser's tile, or for a forced one
     checked against :func:`gn_options`."""
@@ -195,7 +209,10 @@ def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, g
     checks; the output does not depend on it.  ``plain=True`` runs the plain
     version on any device; it exists only to compare the kernel with its
     plain version.  ``groupnorm_act.launches`` counts kernel launches.
-    Inference only: the kernel has no backward.
+    The kernel has no backward: on a CUDA tensor, a call that autograd would
+    record (grad enabled and ``x``, ``scale`` or ``bias`` requiring grad)
+    raises rather than return a result cut from the graph;
+    :func:`groupnorm_act_autograd` is the path with a backward.
     """
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}; got {act!r}")

@@ -1,4 +1,22 @@
-"""Load a flax variable tree from the JAX package into the port's modules.
+"""Checkpoints of the port's training, and weights from elsewhere.
+
+The port's own checkpoints (the JAX ``save_checkpoint`` /
+``restore_checkpoint`` semantics, in ``torch.save`` files): the full train
+state, weights and buffers, optimizer state and step, one file
+``step_XXXXXXXX.pt`` a save, written to a temporary file and
+``os.replace``d, the last ``keep`` kept; the restore loads into a
+template :class:`~pytorch_object_detection_tpu_torch.train.trainer.TrainState`;
+:func:`load_model_checkpoint` takes a model's weights from one (the eval
+CLIs' ``--checkpoint``).
+
+Reference ``.pth`` files: :func:`load_torch_state_dict` (``module.``
+stripped, ``torch.load(weights_only=True)``) and
+:func:`load_pretrained_backbone` (torchvision ResNet-50 names onto the
+backbone's: ``layer1.0.conv1.weight`` -> ``backbone.layer1_0.conv1.weight``,
+``downsample.0``/``.1`` -> ``downsample_conv``/``downsample_bn``, the BN
+statistics into the buffers).
+
+A flax variable tree from the JAX package, loaded into the port's modules.
 
 The inverse direction of the JAX package's
 ``train/checkpoints.torchvision_resnet50_to_pytree``.  The tree comes in as
@@ -24,11 +42,141 @@ and ``quantize_mnhead``) across in the same way, to the card unless
 """
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+_CKPT_RE = re.compile(r"^step_(\d{8})\.pt$")
+
+
+def _checkpoints(directory: str):
+    """The ``step_XXXXXXXX.pt`` files under ``directory``, oldest first."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(f for f in os.listdir(directory) if _CKPT_RE.match(f))
+
+
+def _newest(directory_or_path: str) -> str:
+    """The file named, or the newest checkpoint under a directory."""
+    if not os.path.isdir(directory_or_path):
+        return directory_or_path
+    found = _checkpoints(directory_or_path)
+    if not found:
+        raise FileNotFoundError(f"no checkpoints under {directory_or_path}")
+    return os.path.join(directory_or_path, found[-1])
+
+
+def save_checkpoint(directory: str, state, step: Optional[int] = None, keep: int = 5) -> str:
+    """Save ``state`` (a ``TrainState``) as ``directory/step_XXXXXXXX.pt``
+    (the state's step unless ``step`` is given): written to a temporary
+    file in ``directory`` and renamed over the target, so a reader never
+    sees half a file.  Then all but the newest ``keep`` checkpoints are
+    removed.  Returns the path."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    step = state.step if step is None else int(step)
+    path = os.path.join(directory, f"step_{step:08d}.pt")
+    fd, tmp = tempfile.mkstemp(prefix=".step_", suffix=".tmp", dir=directory)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(state.state_dict(), f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    for old in _checkpoints(directory)[:-keep]:
+        os.remove(os.path.join(directory, old))
+    return path
+
+
+def restore_checkpoint(directory_or_path: str, state):
+    """Load the newest checkpoint under a directory, or the file named,
+    into the template ``state`` (weights, buffers, step; the optimizer's
+    state only where it was saved over the same trainable parameters: a
+    checkpoint saved with other freeze masks keeps the template's fresh
+    optimizer).  Tensors go to the model's device.  Returns ``state``."""
+    path = _newest(directory_or_path)
+    device = next(state.model.parameters()).device
+    state.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    return state
+
+
+def load_model_checkpoint(model, path: str):
+    """Load ``model``'s weights and buffers from a training checkpoint (a
+    ``step_XXXXXXXX.pt`` file, or the newest under a directory: its
+    ``model`` entry) or from a file holding a plain state dict
+    (``torch.save(model.state_dict())``), onto the model's device.  Returns
+    ``model``."""
+    sd = torch.load(_newest(path), map_location=next(model.parameters()).device, weights_only=True)
+    model.load_state_dict(sd["model"] if "model" in sd and "step" in sd else sd)
+    return model
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state dict (or a dict holding one under ``state_dict``) on
+    the CPU, DDP's ``module.`` prefix stripped; ``weights_only=True``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+
+
+def _torchvision_names(sd: Mapping[str, Any], prefix: str = "") -> Dict[str, str]:
+    """``port name -> torchvision name`` for the backbone of a detector,
+    over the keys of a torchvision ResNet-50 state dict (``prefix`` selects
+    a nested one, e.g. ``"backbone."``); ``fc`` and ``num_batches_tracked``
+    are not mapped."""
+    out = {}
+    for key in sd:
+        if not key.startswith(prefix):
+            continue
+        name = key[len(prefix):]
+        m = re.match(r"^(conv1|bn1)\.(weight|bias|running_mean|running_var)$", name)
+        if m:
+            out[f"backbone.{name}"] = key
+            continue
+        m = re.match(r"^layer(\d)\.(\d+)\.(conv\d|bn\d|downsample\.[01])\.(weight|bias|running_mean|running_var)$",
+                     name)
+        if m:
+            stage, block, mod, leaf = m.groups()
+            mod = {"downsample.0": "downsample_conv", "downsample.1": "downsample_bn"}.get(mod, mod)
+            out[f"backbone.layer{stage}_{block}.{mod}.{leaf}"] = key
+    return out
+
+
+def load_pretrained_backbone(state_or_model, pth_path: str, prefix: str = ""):
+    """Graft torchvision ResNet-50 weights (a ``.pth`` file) into the
+    backbone of a ``TrainState``'s model, or of a model: convs, BN affines
+    and statistics, in place on the model's device.  A model with the s2d
+    stem gets ``conv1`` rewritten as its 4x4 kernel.  Raises ``KeyError``
+    where a backbone tensor has no source, ``ValueError`` on a shape that
+    does not match.  Returns its argument."""
+    from pytorch_object_detection_tpu_torch.nn.resnet import s2d_stem_kernel
+
+    model = getattr(state_or_model, "model", state_or_model)
+    sd = load_torch_state_dict(pth_path)
+    names = _torchvision_names(sd, prefix)
+    dst = {k: v for k, v in model.state_dict(keep_vars=True).items() if k.startswith("backbone.")}
+    if "backbone.conv1_s2d.weight" in dst and "backbone.conv1.weight" in names:
+        k7 = sd[names.pop("backbone.conv1.weight")].permute(2, 3, 1, 0)  # OIHW -> HWIO
+        sd = dict(sd, _conv1_s2d=s2d_stem_kernel(k7).permute(3, 2, 0, 1))
+        names["backbone.conv1_s2d.weight"] = "_conv1_s2d"
+    missing = sorted(set(dst) - set(names))
+    if missing:
+        raise KeyError(f"the state dict has no source for {missing[:8]} ({len(missing)})")
+    for name, key in names.items():
+        if tuple(dst[name].shape) != tuple(sd[key].shape):
+            raise ValueError(f"{name}: model has shape {tuple(dst[name].shape)}, {key} {tuple(sd[key].shape)}")
+    with torch.no_grad():
+        for name, key in names.items():
+            dst[name].copy_(sd[key])
+    return state_or_model
+
 
 _INNER_SCOPES = {"conv", "dw", "bn", "gn"}
 _NORM_SCOPES = {"bn", "gn"}

@@ -1,11 +1,26 @@
-"""int8 PTQ of the backbone, the FPN and the head, and the int8 eval forwards (PyTorch).
+"""Training, int8 PTQ and the int8 eval forwards (PyTorch).
 
-Counterpart of ``pytorch_object_detection_tpu/train/trainer.py``:
-``quantize_backbone``, ``_backbone_int8_feats``, ``quantize_fpn`` and
-``quantize_head`` (:412-582, the HISFCOS and MNFCOS branches), and
-``make_eval_forward_int8`` (:596-776) for the two ResNet-50 FCOS families
-ported so far.  An int8 ResNet-50 (its stem float, or the exact uint8 stem
-with ``u8_input=True``), then:
+Counterpart of ``pytorch_object_detection_tpu/train/trainer.py``.
+
+Training (JAX ``:35-270``): the freeze set (:func:`param_labels`),
+:func:`make_optimizer`, :class:`TrainState`, :func:`create_train_state`,
+:func:`make_train_step` and :func:`make_train_step_scan`.  A step is
+forward (under ``torch.autocast`` in bf16 over the f32 master weights, or
+in f32), the outputs cast to f32, FCOS targets on the device
+(``ops/targets.py``), ``fcos_loss``, backward and the optimizer's update,
+with no host sync inside.  Frozen parameters get ``requires_grad=False``
+and stay out of the optimizer (optax's ``set_to_zero``); every BatchNorm is
+frozen, its affine and statistics being buffers.  The GroupNorms take
+``F.group_norm`` while autograd records (``nn/layers.GroupNorm32``), so a
+train step launches kernel B no time; an eval forward after it does.  Not
+ported: ``bn_train`` (SyncBN) and ``make_shard_map_train_step`` (ROADMAP
+queue 1 item 11), ``make_anchor_train_step`` (item 10).
+
+int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
+``quantize_fpn`` and ``quantize_head`` (:412-582, the HISFCOS and MNFCOS
+branches), and ``make_eval_forward_int8`` (:596-776) for the two ResNet-50
+FCOS families ported so far.  An int8 ResNet-50 (its stem float, or the
+exact uint8 stem with ``u8_input=True``), then:
 
   * HISFCOS: either the BN-folded float HisFPN (``int8_fpn=False``) and the
     float HISHead (its GroupNorms on kernel B), or the int8 HisFPN, whose
@@ -26,8 +41,10 @@ other model families.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, List, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,14 +61,239 @@ from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import (
 )
 from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, hisfpn_int8_forward, quantize_hisfpn
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
+from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     calibrate_resnet50,
     quantize_resnet50,
     resnet50_int8_forward,
 )
 from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_params_pack
+from pytorch_object_detection_tpu_torch.ops.losses import fcos_loss, flatten_level_preds
+from pytorch_object_detection_tpu_torch.ops.targets import generate_targets
+from pytorch_object_detection_tpu_torch.train.schedules import warmup_step_decay
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def param_labels(model: nn.Module, freeze_bn: bool = True, frozen_stages: int = 0) -> Dict[str, str]:
+    """``name -> "train" | "freeze"`` for every tensor the JAX package keeps
+    under ``params``: the parameters and the BatchNorm affines (buffers
+    here).  The JAX ``param_labels``: with ``freeze_bn`` every BatchNorm;
+    the backbone's ``conv1``/``bn1`` (even at ``frozen_stages=0``) and
+    ``layer1..k`` at ``frozen_stages=k``.  :func:`make_optimizer` applies
+    the labels only where ``freeze_bn`` or ``frozen_stages > 0`` (JAX
+    ``:112``); ``conv1_s2d`` trains, as in JAX."""
+    names = [n for n, _ in model.named_parameters()]
+    bn_names = {f"{m}.{leaf}" for m, mod in model.named_modules() if isinstance(mod, BatchNorm)
+                for leaf in ("weight", "bias")}
+
+    def label(name: str) -> str:
+        keys = name.split(".")
+        if freeze_bn and name in bn_names:
+            return "freeze"
+        if frozen_stages >= 0 and len(keys) >= 2 and keys[0] == "backbone":
+            if keys[1] in ("conv1", "bn1"):
+                return "freeze"
+            if any(keys[1].startswith(f"layer{s}_") for s in range(1, frozen_stages + 1)):
+                return "freeze"
+        return "train"
+
+    return {n: label(n) for n in names + sorted(bn_names)}
+
+
+class RAdam(torch.optim.Optimizer):
+    """RAdam as optax's ``scale_by_radam``: the rectified Adam update
+    ``r * mu_hat / (sqrt(nu_hat) + eps)`` where ``rho >= threshold``, else the
+    bias-corrected momentum alone (``torch.optim.RAdam`` rectifies where
+    ``rho > 5`` and puts ``eps`` inside the bias correction)."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8, threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                t, mu, nu = state["step"], state["mu"], state["nu"]
+                mu.mul_(b1).add_(p.grad, alpha=1.0 - b1)
+                nu.mul_(b2).addcmul_(p.grad, p.grad, value=1.0 - b2)
+                b2t = b2 ** t
+                ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
+                mu_hat = mu / (1.0 - b1 ** t)
+                if ro >= group["threshold"]:
+                    r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+                    mu_hat = r * mu_hat / ((nu / (1.0 - b2t)).sqrt() + group["eps"])
+                p.add_(mu_hat, alpha=-group["lr"])
+
+
+def make_optimizer(name: str, params, lr: float = 1e-2, momentum: float = 0.9,
+                   weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+    """The JAX ``make_optimizer``'s chains over ``params`` (the trainable
+    ones): SGD is ``add_decayed_weights -> trace -> scale_by_learning_rate``
+    (torch's SGD: decay before momentum, no dampening, no Nesterov); Adam
+    and RAdam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, RAdam's
+    threshold 5) and no decay; AdamW with decoupled decay.  The train step
+    sets each group's ``lr`` from the schedule before the update."""
+    params = list(params)
+    key = name.upper()
+    if key == "SGD":
+        return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay, dampening=0.0,
+                               nesterov=False)
+    if key == "ADAM":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    if key == "ADAMW":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    if key == "RADAM":
+        return RAdam(params, lr=lr)
+    raise NotImplementedError(f"optimizer {name}")
+
+
+class TrainState:
+    """The model (its trainable parameters the f32 master weights), the
+    optimizer over those, the ``step -> lr`` schedule and the step count
+    (on the host: the count of updates taken)."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
+                 step: int = 0):
+        self.model, self.optimizer, self.schedule, self.step = model, optimizer, schedule, step
+
+    def trainable_names(self) -> List[str]:
+        return [n for n, p in self.model.named_parameters() if p.requires_grad]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Weights, buffers, optimizer state and step; ``trainable`` names the
+        optimizer's parameters in order."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": self.step,
+                "trainable": self.trainable_names()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load :meth:`state_dict`'s output.  The weights must match the
+        model; an optimizer state saved over other trainable parameters
+        (other freeze masks) is not loaded, and the optimizer stays as it is."""
+        self.model.load_state_dict(state["model"])
+        if list(state.get("trainable", [])) == self.trainable_names():
+            self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+def create_train_state(model: nn.Module, optimizer_cfg: Optional[Dict] = None, freeze_bn: bool = True,
+                       frozen_stages: int = 1) -> TrainState:
+    """The JAX ``create_train_state`` for a built model (its weights are
+    the initial state): the schedule from ``optimizer_cfg`` (``lr``,
+    ``warmup_steps``, ``warmup_factor``, ``milestones``, ``gamma``, and
+    ``swa_lr`` from ``swa_start_step`` on), the freeze set applied
+    (``requires_grad=False``), and the optimizer (``name``, ``momentum``,
+    ``weight_decay``) over the parameters left trainable."""
+    if not freeze_bn:
+        raise NotImplementedError("freeze_bn=False (trainable BatchNorm affines) is not ported: the port's "
+                                  "BatchNorms are frozen buffers; ROADMAP.md queue 1 item 11 (bn_train, SyncBN)")
+    cfg = optimizer_cfg or {}
+    schedule = warmup_step_decay(cfg.get("lr", 1e-2), cfg.get("warmup_steps", 500),
+                                 cfg.get("warmup_factor", 1.0 / 3.0), cfg.get("milestones", (120000, 160000)),
+                                 cfg.get("gamma", 0.1))
+    if cfg.get("swa_lr"):
+        base, swa_v, start = schedule, float(cfg["swa_lr"]), int(cfg.get("swa_start_step", 0))
+        schedule = lambda step: base(step) if step < start else float(np.float32(swa_v))
+    labels = param_labels(model, freeze_bn, frozen_stages)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] == "train")
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    optimizer = make_optimizer(cfg.get("name", "SGD"), trainable, schedule(0), cfg.get("momentum", 0.9),
+                               cfg.get("weight_decay", 1e-4))
+    return TrainState(model, optimizer, schedule)
+
+
+def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
+                    limit_ranges: Sequence[Tuple[float, float]], reg_mode: str = "giou",
+                    compute_dtype: torch.dtype = torch.bfloat16, bn_train: bool = False, remat: bool = False,
+                    cnt_mode: str = "bce"):
+    """The train step: ``step(state, images [B, H, W, 3] normalized f32,
+    boxes [B, M, 4], labels [B, M], record=None) -> {"cls", "cnt", "reg",
+    "total"}``, 0-d f32 tensors on the device, detached.  It sets the lr to
+    ``state.schedule(state.step)``, runs the forward (under
+    ``torch.autocast`` on the images' device for ``compute_dtype=bf16``, in
+    f32 otherwise; ``remat=True`` recomputes it in the backward by
+    non-reentrant ``torch.utils.checkpoint``), casts the per-level outputs
+    to f32, builds the targets, the loss, the backward and the update, and
+    adds one to ``state.step``.  ``record(phase)``, where given, is called
+    after each of ``"forward"``, ``"loss"`` (targets and loss),
+    ``"backward"`` and ``"optimizer"`` (for timing the phases apart).
+    ``model`` must be ``state.model``."""
+    if bn_train:
+        raise NotImplementedError("bn_train=True (BatchNorm statistics in training, SyncBN) is not ported: "
+                                  "ROADMAP.md queue 1 item 11")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"compute_dtype must be bfloat16 or float32; got {compute_dtype}")
+
+    def forward(images):
+        return model(images)
+
+    def step(state: TrainState, images: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
+             record: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the train step was made for another model than state.model")
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(forward, images, use_reentrant=False)
+            else:
+                out = forward(images)
+        if record:
+            record("forward")
+        cls_p, cnt_p, reg_p = (flatten_level_preds([t.float() for t in branch]) for branch in out)
+        tgt = generate_targets(level_shapes, strides, limit_ranges, boxes, labels)
+        losses = fcos_loss(cls_p, cnt_p, reg_p, tgt.cls, tgt.cnt, tgt.reg, reg_mode, cnt_mode)
+        if record:
+            record("loss")
+        losses["total"].backward()
+        if record:
+            record("backward")
+        state.optimizer.step()
+        state.step += 1
+        if record:
+            record("optimizer")
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def make_train_step_scan(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
+                         limit_ranges: Sequence[Tuple[float, float]], reg_mode: str = "giou",
+                         compute_dtype: torch.dtype = torch.bfloat16, bn_train: bool = False, remat: bool = False,
+                         cnt_mode: str = "bce"):
+    """K train steps in one call: ``steps(state, images [K, B, ...], boxes
+    [K, B, M, 4], labels [K, B, M]) -> {name: [K] tensor}``, numerically the
+    K calls of :func:`make_train_step`'s step."""
+    single = make_train_step(model, level_shapes, strides, limit_ranges, reg_mode, compute_dtype, bn_train, remat,
+                             cnt_mode)
+
+    def steps(state: TrainState, images: torch.Tensor, boxes: torch.Tensor,
+              labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        per_step = [single(state, images[k], boxes[k], labels[k]) for k in range(images.shape[0])]
+        return {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
+
+    return steps
+
+
+# ---------------------------------------------------------------------------
+# int8 PTQ and the int8 eval forwards
+# ---------------------------------------------------------------------------
 
 
 def _require_ported(model: nn.Module) -> None:

@@ -57,6 +57,7 @@ from pytorch_object_detection_tpu_torch.native import lib as native
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_flax_variables
 from torch_port_fixtures import FEATURES, NUM_CLASSES, STRIDES, jax_model, jax_native, perturbed_variables
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "port_eval")
@@ -581,7 +582,8 @@ def test_eval_coco_cli_on_cpu(tmp_path, flags):
     out = tmp_path / "results.json"
     cmd = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.eval_coco", "--config",
            _cli_config(tmp_path), "--batch-size", "4", "--device", "cpu", "--results-json", str(out), *flags]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))  # one torch thread, as in-process
     assert proc.returncode == 0, proc.stderr[-3000:]
     keys = [line.split(":")[0] for line in proc.stdout.splitlines()]
     assert keys[:4] == ["AP", "AP50", "AP75", "AR@100"] and keys[-2:] == ["images_per_sec", "num_images"]

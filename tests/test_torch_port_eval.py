@@ -55,6 +55,7 @@ from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, resol
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_flax_variables
 from test_data import _write_voc_fixture
 from torch_port_fixtures import FEATURES, NUM_CLASSES, STRIDES, jax_model, jax_native, perturbed_variables
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANVAS = (128, 128)
@@ -533,7 +534,8 @@ def _cli_config(tmp_path, root):
 def test_eval_voc_cli_on_cpu(voc_root, tmp_path, flags):
     cmd = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.eval_voc", "--config",
            _cli_config(tmp_path, voc_root), "--split", "trainval", "--batch-size", "2", "--device", "cpu", *flags]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))  # one torch thread, as in-process
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
     assert lines[-1].startswith("mAP=====>") and "img/s" in lines[-1], proc.stdout[-2000:]
@@ -543,4 +545,4 @@ def test_eval_voc_cli_on_cpu(voc_root, tmp_path, flags):
 def test_eval_voc_cli_refuses_what_waits():
     cmd = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.eval_voc", "--torch-checkpoint", "x.pth"]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "item 8" in proc.stderr
+    assert proc.returncode == 2 and "--torch-checkpoint is not supported" in proc.stderr

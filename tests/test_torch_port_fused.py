@@ -43,6 +43,7 @@ from pytorch_object_detection_tpu_torch.ops.qmm_variants import qmm_variant_plai
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_backbone_qtree, load_flax_variables
 from pytorch_object_detection_tpu_torch.train.trainer import make_eval_forward_int8, quantize_backbone, quantize_fpn
 from torch_port_fixtures import BATCH, FEATURES, NUM_CLASSES, STRIDES, jax_model, perturbed_variables
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 SLICE_CANVAS = 256  # levels 32x32 .. 2x2
 # K15's plain version against the JAX kernel in interpret mode: max |diff|

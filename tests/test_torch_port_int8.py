@@ -39,6 +39,7 @@ from torch_port_fixtures import (
     rand_qblock,
     run_port_block,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 LADDER_HW = (96, 80)  # stem output 24x20; stages 24x20, 12x10, 6x5, 3x3 (odd, not powers of two)
 

@@ -50,6 +50,7 @@ from torch_port_fixtures import (
     port_block,
     rand_qblock,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 # stages 32x32 .. 4x4, levels 16x16 .. 1x1: the smallest frame whose float
 # HisFPN (the calibration of the int8 one) keeps a 1x1 P7

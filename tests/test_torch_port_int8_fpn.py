@@ -55,6 +55,7 @@ from torch_port_fixtures import (
     perturbed_variables,
     port_head_qtree,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 CANVAS = 256  # the head's 1x1 stride-128 level at 128 makes its GroupNorm ill-conditioned (test_torch_port_pipeline)
 INT8_EPS = 4 * float(np.finfo(np.float32).eps)

@@ -44,6 +44,7 @@ from pytorch_object_detection_tpu_torch.train.checkpoints import (
 )
 from torch_port_fixtures import BATCH, FEATURES, NUM_CLASSES, STRIDES, jax_head_form, jax_model, perturbed_variables
 from torch_port_fixtures import port_head_qtree
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 CANVAS = 256  # levels 32x32 .. 2x2; at 128 the 1x1 level's GroupNorm is ill-conditioned
 STAGES = ("x1q", "x2q", "yq", "cq", "rq")

@@ -7,7 +7,10 @@ HISHead level), K10 (int8 3x3/2 pool), K11 (int8 3x3 conv), K13 (a chain of
 int8 bottlenecks), K15 (one bf16 HISHead level), K16 (the bf16 GEMM with
 the BN/residual/ReLU epilogue), K17 (the bf16 stem tail) and K12 (one
 whole int8 MNBlock); kernel B and K17 also under every tile their choosers
-weigh, with one CUDA kernel a call.
+weigh, with one CUDA kernel a call.  A train step on the card: kernel B
+launched no time in it (its wrapper raises when asked for a gradient) and 20
+times in an eval forward after it, the frozen weights unchanged, the bf16
+step against the f32 step.
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -1471,3 +1474,88 @@ def test_qmnblock_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
         qmnblock(blk, sc, x, 4, 1)
     with pytest.raises(ValueError, match="s_out"):
         qmnblock(blk, dict(sc, s_out=0.06), x, 7, 1)
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the GroupNorms take F.group_norm while autograd records
+# ---------------------------------------------------------------------------
+TRAIN_HW = (128, 128)
+TRAIN_SHAPES = [(TRAIN_HW[0] // s, TRAIN_HW[1] // s) for s in (8, 16, 32, 64, 128)]
+TRAIN_RANGES = [(-1, 32), (32, 96), (96, 192), (192, 384), (384, 9999999)]
+
+
+def _train_state(device, seed=0):
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.train import trainer
+
+    model = build_model("HISFCOS", 5, 64, frozen_stages=1, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    return trainer.create_train_state(model, {"lr": 1e-2, "warmup_steps": 10}, True, 1)
+
+
+def _train_batch(device, seed=1):
+    from pytorch_object_detection_tpu_torch.data.synthetic import synthetic_batch
+
+    images, boxes, labels = synthetic_batch(torch.Generator().manual_seed(seed), 2, TRAIN_HW, 5, max_boxes=8)
+    return (images - 0.5).to(device) / 0.25, boxes.to(device), labels.to(device)
+
+
+def _train_step(state, dtype):
+    from pytorch_object_detection_tpu_torch.train import trainer
+
+    return trainer.make_train_step(state.model, TRAIN_SHAPES, (8, 16, 32, 64, 128), TRAIN_RANGES, "giou", dtype)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_keeps_frozen_weights_and_launches_no_kernel_b(cuda):
+    """A small f32 train step: finite losses on the card, the frozen weights
+    and every buffer unchanged, kernel B launched no time in the step and 20
+    times in an eval forward after it (the model left in train mode)."""
+    state = _train_state(cuda)
+    trainable = set(state.trainable_names())
+    before = {k: v.clone() for k, v in state.model.state_dict().items() if k not in trainable}
+    groupnorm_act.launches = 0
+    losses = _train_step(state, torch.float32)(state, *_train_batch(cuda))
+    torch.cuda.synchronize()
+    assert groupnorm_act.launches == 0
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in losses.values())
+    after = state.model.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
+    state.model.train()
+    with torch.inference_mode():
+        state.model(_train_batch(cuda)[0])
+    torch.cuda.synchronize()
+    assert groupnorm_act.launches == 20
+
+
+@pytest.mark.cuda
+def test_groupnorm_takes_the_autograd_path_and_kernel_b_raises_for_a_gradient(cuda):
+    from pytorch_object_detection_tpu_torch.nn.layers import GroupNorm32
+
+    x, scale, bias = _gn_inputs(256, 8, torch.float32, cuda, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        groupnorm_act(x.clone().requires_grad_(), scale, bias)
+    with pytest.raises(RuntimeError, match="no backward"):
+        groupnorm_act(x, scale.clone().requires_grad_(), bias)
+    gn = GroupNorm32(256, "silu").to(cuda)
+    groupnorm_act.launches = 0
+    y = gn(x.clone().requires_grad_())
+    assert y.grad_fn is not None and groupnorm_act.launches == 0
+    with torch.no_grad():
+        gn(x)
+    assert groupnorm_act.launches == 1
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_against_f32(cuda):
+    """The bf16 autocast step against the f32 step from the same weights and
+    batch: the loss within 2 % and the gradients at cosine >= 0.98 (the
+    bounds chip_smoke.py phase 5q holds at full size)."""
+    s32, s16 = _train_state(cuda), _train_state(cuda)
+    batch = _train_batch(cuda)
+    m32 = _train_step(s32, torch.float32)(s32, *batch)
+    m16 = _train_step(s16, torch.bfloat16)(s16, *batch)
+    assert abs(float(m16["total"]) - float(m32["total"])) <= 2e-2 * abs(float(m32["total"]))
+    g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
+    g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])
+    assert float(g16 @ g32 / (g16.norm() * g32.norm())) >= 0.98

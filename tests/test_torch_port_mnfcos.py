@@ -69,6 +69,7 @@ from torch_port_fixtures import (
     nhwc,
     perturbed_variables,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 RTOL, ATOL = 1e-4, 2e-4
 # (block in the pyramid, kernel, dilation): the five forms of the model

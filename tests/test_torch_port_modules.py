@@ -41,6 +41,7 @@ from torch_port_fixtures import (
     nhwc,
     perturbed_variables,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

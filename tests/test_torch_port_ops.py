@@ -24,6 +24,7 @@ from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_a
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 from pytorch_object_detection_tpu_torch.ops.postprocess import decode_detections
 from torch_port_fixtures import ADVERSARIAL_KEEP, STRIDES, nchw, nhwc, nms_case
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 # ---------------------------------------------------------------- boxes
 

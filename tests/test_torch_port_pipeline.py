@@ -38,6 +38,7 @@ from torch_port_fixtures import (
     jax_model,
     perturbed_variables,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 CANVAS = 256
 

@@ -13,6 +13,7 @@ can import the NMS cases from here.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 NUM_CLASSES = 20
@@ -22,14 +23,28 @@ CANVAS = 128
 STRIDES = (8, 16, 32, 64, 128)
 
 
-def jax_model(name: str = "HISFCOS"):
-    """The small JAX detector ``name`` (HISFCOS or MNFCOS), 20 classes, 64 features."""
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module (import it into the
+    module: it is autouse).  Under pytest-xdist every worker would
+    otherwise start a thread a core, and the ops then wait on each other's
+    spinning threads: with six workers on eight cores a 3 s train-step case
+    took 546 s, a 28 s pipeline case 455 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def jax_model(name: str = "HISFCOS", num_classes: int = NUM_CLASSES, **kw):
+    """The small JAX detector ``name`` (HISFCOS or MNFCOS), 20 classes unless
+    ``num_classes`` says otherwise, 64 features; ``kw`` to its constructor."""
     from pytorch_object_detection_tpu.models import fcos
 
-    return getattr(fcos, name)(num_classes=NUM_CLASSES, features=FEATURES)
+    return getattr(fcos, name)(num_classes=num_classes, features=FEATURES, **kw)
 
 
-def perturbed_variables(seed: int = 0, model: str = "HISFCOS"):
+def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int = NUM_CLASSES):
     """(params, batch_stats) for the small JAX detector ``model`` as nested numpy dicts.
 
     The tree's structure comes from ``jax.eval_shape`` of the flax init (no
@@ -40,7 +55,7 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS"):
     import jax
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(lambda key, x: jax_model(model).init(key, x, False),
+    shapes = jax.eval_shape(lambda key, x: jax_model(model, num_classes).init(key, x, False),
                             jax.random.PRNGKey(seed), jnp.zeros((1, CANVAS, CANVAS, 3), jnp.float32))
     rng = np.random.default_rng(seed)
 
