@@ -187,6 +187,28 @@ Phases (each prints its results on its own lines):
      through the float pipeline and the default int8 pipeline, each batch
      counted, the float mAP above the untrained model's; (d) podt-torch-train on the tree's training config
      (DetectionLoader with HostAugment), --resume, --ring-loader;
+  5r. the classic FCOS: full-width FCOS(20, 256) from a seed on the 8
+     frames: the float pipeline (40 kernel B launches, 1 A), the default
+     int8 pipeline from raw uint8 frames (1 K1, 13 K2, 3 K3, 1 A, no B;
+     the classic FPN and the FCOSHead per-op int8) and int8_head=False (the
+     same and 40 B), each counted and against its plain run, the default's
+     cls and reg maps at cosine >= 0.99 to the float maps (cnt printed: the
+     JAX detector-level test's contract), and the classic ladder's own: the
+     int8 FPN against the f32 float FPN on the same C3..C5 and the int8
+     FCOSHead against the f32 float head on the same levels, every branch at
+     cosine >= 0.99 (tests/test_quant.py:823-870); a bf16 train
+     step at B=16 (finite, the frozen stem and every BatchNorm buffer
+     bit-identical, no kernel B) and ms a step with its split over
+     FAMILY_TRAIN_WINDOW steps; podt-torch-train on config/voc.yaml's FCOS
+     block, synthetic, 4 steps;
+  5s. MC_FCOS: full-width MC_FCOS(20, 256) (four levels, strides 8-64):
+     the float pipeline (1 A, no B), the one-shot int8 ladder from raw
+     uint8 frames (1 K1, 13 K2, 3 K3, 1 A), each counted and against its
+     plain run, the int8 cls and reg maps at cosine >= 0.99 to the float
+     ones (the JAX test's contract; cnt printed); the train step as in
+     5r (at lr 1e-4: FAMILY_TRAIN_OPT); evaluate_voc of the int8 pipeline
+     with the device resize over the committed VOC tree, B=4, each batch
+     counted;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -213,11 +235,13 @@ Phases (each prints its results on its own lines):
      wrapper's host time, the fused backbone against the module forward
      (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
      (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
-     MNFCOS pipelines' among them;
-  6b-6j. torch.profiler breakdowns of one B=64 call of the float, the
+     MNFCOS pipelines', and FCOS's and MC_FCOS's float and default int8
+     pipelines among them; the classic FCOS's per-op int8 head at B=8
+     and B=64 beside K7;
+  6b-6l. torch.profiler breakdowns of one B=64 call of the float, the
      int8-backbone, the int8-FPN, the default, the per-conv, the
      fused-head, the MNFCOS int8-ladder, the chained and the stem-tail
-     pipeline (a profile that raises
+     pipeline, and of FCOS's and MC_FCOS's default int8 pipelines (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
@@ -305,6 +329,22 @@ TRAIN_F32_LOSS_RTOL, TRAIN_F32_COS, TRAIN_F32_UPDATE = 1e-4, 0.9999, 0.08
 # the bf16 autocast step against the f32 step: bf16 keeps 8 bits of each activation and weight (first card
 # run: loss 2.65e-4 apart, gradient cosines 0.9958 backbone, 0.99972 FPN, 0.99986 head)
 TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_COS = 2e-2, 0.98
+# phases 5r and 5s: the classic FCOS and MC_FCOS, each with its block's strides and ranges in config/voc.yaml
+# (voc_block); the launches in one call of each path: the float pipelines (FCOS: the FCOSHead's 8 tower
+# GroupNorms a level; MC_FCOS: none), the default int8 pipelines from raw uint8 frames (K1 and kernel C; the
+# FPN, neck and heads per-op: no kernel) and FCOS's int8_head=False (the float FCOSHead's 40 B); their train
+# steps' warm-up and window
+FAMILY_INT8_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, qstem_conv=1, qbottleneck=13, qbottleneck_s2=3,
+                            cuda_nms_keep_mask=1)
+FAMILY_FLOAT_LAUNCHES = {"FCOS": dict(FLOAT_PIPELINE_LAUNCHES, groupnorm_act=40),
+                         "MC_FCOS": dict(FLOAT_PIPELINE_LAUNCHES, groupnorm_act=0)}
+FCOS_FLOAT_HEAD_LAUNCHES = dict(FAMILY_INT8_LAUNCHES, groupnorm_act=40)
+FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_WINDOW = 5, 20
+# their optimizers: FCOS config/voc.yaml's block (TRAIN_OPT); MC_FCOS at lr 1e-4, since from random weights the
+# block's 1e-2 diverges, in the JAX train step as in the port's (tests/torch_port_mcfcos_lr.py: MC_FCOS(20, 256)
+# from the flax init, 256x256, B=4, f32 on the CPU: the two losses agree to 5 digits through step 9, 273 to
+# 11.7, reach -1.8e7 at step 10 and NaN at 11); a step's work does not depend on the lr
+FAMILY_TRAIN_OPT = {"FCOS": TRAIN_OPT, "MC_FCOS": dict(TRAIN_OPT, lr=1e-4)}
 # the int8 ResNet-50's other backends (phase 5h): make_eval_pipeline_int8 keywords, launches in one call
 BACKEND_PATHS = {
     # 16 conv1 + 4 projection shortcuts + 16 conv3 on K4, and the 3 FPN laterals; 13 stride-1 conv2 on K11
@@ -480,6 +520,18 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def voc_block(family: str):
+    """The strides and ranges of ``family``'s block in config/voc.yaml, through
+    the port's config accessors, as podt-torch-train reads them."""
+    import yaml
+
+    from pytorch_object_detection_tpu_torch.core import config as C
+
+    with open("config/voc.yaml") as f:
+        cfg = dict(yaml.safe_load(f), model={"name": family})
+    return tuple(C.strides(cfg)), C.limit_ranges(cfg)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -492,7 +544,7 @@ def main() -> int:
     from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
     from pytorch_object_detection_tpu_torch.eval.evaluator import (
         Int8EvalPipeline, make_eval_pipeline, make_eval_pipeline_int8)
-    from pytorch_object_detection_tpu_torch.models import head_int8, mnfcos_int8
+    from pytorch_object_detection_tpu_torch.models import fcos_int8, head_int8, mnfcos_int8
     from pytorch_object_detection_tpu_torch.models.fcos import default_strides
     from pytorch_object_detection_tpu_torch.models.registry import build_model
     from pytorch_object_detection_tpu_torch.nn import fpn_int8, fused_resnet, layers, resnet_int8
@@ -2032,6 +2084,47 @@ def main() -> int:
                     f"podt-torch-eval-coco --config {FIXTURE_TREE}/coco.yaml --device-resize --int8: exit {rc} in "
                     f"{time.perf_counter() - t0:.1f} s")
 
+    def time_train_steps(state, step, batch, warmup, window):
+        """``window`` steps of ``step`` on ``batch`` after ``warmup``, each
+        marked by CUDA events: the median ms a step start to start, img/s,
+        the median split into forward, targets + loss, backward and
+        optimizer, the step's own span, the peak memory, kernel B's launches
+        in the window, the last loss, and the line that prints them."""
+        for _ in range(warmup):
+            step(state, *batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        phases = ("forward", "loss", "backward", "optimizer")
+        marks = []
+
+        def record(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[-1][name] = ev
+
+        gn.groupnorm_act.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(window):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            marks.append({"start": start})
+            last = step(state, *batch, record=record)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / window
+        split = {ph: statistics.median(m[prev].elapsed_time(m[ph]) for m in marks)
+                 for prev, ph in zip(("start",) + phases[:-1], phases)}
+        device_ms = statistics.median(m["start"].elapsed_time(m["optimizer"]) for m in marks)
+        ms = statistics.median(a["start"].elapsed_time(b["start"]) for a, b in zip(marks, marks[1:]))
+        b = batch[0].shape[0]
+        out = {"ms": ms, "img_s": b * 1000.0 / ms, "split": split, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "gn": gn.groupnorm_act.launches, "loss": last["total"]}
+        out["line"] = (f"{window} steps after {warmup} of warm-up: {ms:.3f} ms a step start to start (median; host "
+                       f"clock {wall:.3f}), {out['img_s']:.1f} img/s; a step's own span {device_ms:.3f} ms: "
+                       + ", ".join(f"{ph} {split[ph]:.3f}" for ph in phases)
+                       + f"; peak memory allocated {out['peak_gib']:.2f} GiB; kernel B launches {out['gn']}; "
+                       f"loss {float(last['total']):.4f}; clocks {smi_clocks()} {card}")
+        return out
+
     def phase5q():
         """Training (train/trainer.py, cli/train.py): (a) correctness on seeded
         weights and batches: one f32 step on the card against the same step on
@@ -2172,42 +2265,10 @@ def main() -> int:
         # (b) the step's time at HISFCOS(20, 256), 512x512, B=16, bf16, over a steady window
         state, shapes = train_setup(CANVAS)
         step = trainer.make_train_step(state.model, shapes, strides, TRAIN_RANGES, "giou", torch.bfloat16)
-        for _ in range(TRAIN_WARMUP):
-            step(state, *big)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        phases = ("forward", "loss", "backward", "optimizer")
-        marks = []
-
-        def record(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks[-1][name] = ev
-
-        gn.groupnorm_act.launches = 0
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_WINDOW):
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            marks.append({"start": start})
-            last = step(state, *big, record=record)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1000.0 / TRAIN_WINDOW
-        split = {ph: statistics.median(m[prev].elapsed_time(m[ph]) for m in marks)
-                 for prev, ph in zip(("start",) + phases[:-1], phases)}
-        per_step = [m["start"].elapsed_time(m["optimizer"]) for m in marks]
-        device_ms = statistics.median(per_step)
-        between = [a["start"].elapsed_time(b["start"]) for a, b in zip(marks, marks[1:])]
-        ms = statistics.median(between)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        res["train"] = {"ms": ms, "img_s": 16 * 1000.0 / ms, "split": split, "peak_gib": peak}
-        print(f"  train step HISFCOS({NUM_CLASSES}, {FEATURES}) bf16 512x512 B=16, {TRAIN_WINDOW} steps after "
-              f"{TRAIN_WARMUP} of warm-up: {ms:.3f} ms a step start to start (median; host clock {wall:.3f}), "
-              f"{16 * 1000.0 / ms:.1f} img/s; a step's own span {device_ms:.3f} ms: "
-              + ", ".join(f"{ph} {split[ph]:.3f}" for ph in phases)
-              + f"; peak memory allocated {peak:.2f} GiB; kernel B launches {gn.groupnorm_act.launches}; "
-              f"loss {float(last['total']):.4f}; clocks {smi_clocks()} {card}")
-        smoke.check(bool(torch.isfinite(last["total"])) and gn.groupnorm_act.launches == 0,
+        t = time_train_steps(state, step, big, TRAIN_WARMUP, TRAIN_WINDOW)
+        res["train"] = {k: t[k] for k in ("ms", "img_s", "split", "peak_gib")}
+        print(f"  train step HISFCOS({NUM_CLASSES}, {FEATURES}) bf16 512x512 B=16, {t['line']}")
+        smoke.check(bool(torch.isfinite(t["loss"])) and t["gn"] == 0,
                     f"timed steps: finite loss, kernel B launched no time in {TRAIN_WINDOW} steps")
         print("  the step's kernels (torch.profiler, 3 steps):")
         profile_calls(lambda: step(state, *big), top=20)
@@ -2288,6 +2349,174 @@ def main() -> int:
                     ok = ok and "resumed from" in out.stdout and "training done: step 6" in out.stdout
                 smoke.check(ok, f"podt-torch-train {what}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s"
                                 + ("" if ok else f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}"))
+
+    def phase_family(family):
+        """Phases 5r (the classic FCOS) and 5s (MC_FCOS): full-width
+        ``family``(20, 256) from a seed at 512x512 on the 8 frames: (i) the
+        float pipeline and the default int8 pipeline from raw uint8 frames
+        (and FCOS's ``int8_head=False``), each counted and against its plain
+        run, the int8 maps against the float maps (cosine, the JAX tests'
+        contract: every branch for FCOS, cls and reg for MC_FCOS); (ii) a
+        bf16 train step at B=16: finite, the frozen weights and BatchNorm
+        buffers bit-identical, kernel B launched no time, ms a step with its
+        split; (iii) FCOS: ``podt-torch-train`` for a few synthetic steps on
+        its block of config/voc.yaml; MC_FCOS: ``evaluate_voc`` of its int8
+        pipeline over the committed VOC tree, counted once a batch.  The
+        pipelines' img/s are timed in phase 6."""
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+        from pytorch_object_detection_tpu_torch.data.synthetic import synthetic_batch
+        from pytorch_object_detection_tpu_torch.data.voc import VOCDataset
+        from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_voc
+
+        frames = res["frames"]
+        norm = res.get("norm", normalized(frames))
+        strides, ranges = voc_block(family)
+        seed = SEED + (15 if family == "FCOS" else 16)
+        tag = f"{family}({NUM_CLASSES}, {FEATURES})"
+        t0 = time.perf_counter()
+        model = build_model(family, NUM_CLASSES, FEATURES, device=dev, generator=torch.Generator().manual_seed(seed))
+        args = (model, norm, strides, CANVAS)
+        paths = [("float", make_eval_pipeline(model, strides, CANVAS, compute_dtype=torch.bfloat16),
+                  make_eval_pipeline(model, strides, CANVAS, compute_dtype=torch.bfloat16, plain=True),
+                  FAMILY_FLOAT_LAUNCHES[family])]
+        for what, kw, want in (("int8 default", {}, FAMILY_INT8_LAUNCHES),
+                               ("int8_head=False", dict(int8_head=False), FCOS_FLOAT_HEAD_LAUNCHES)):
+            if what == "int8_head=False" and family != "FCOS":
+                continue
+            pipe = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, **kw)
+            plain = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, plain=True, **kw)
+            plain.qtree = pipe.qtree  # one calibration for both, as in phase 5b
+            paths.append((what, pipe, plain, want))
+        torch.cuda.synchronize()
+        print(f"  {tag} and its pipelines built (int8 calibration on the 8 frames, bf16) in "
+              f"{time.perf_counter() - t0:.2f} s; {sum(p.numel() for p in model.parameters())} parameters; "
+              f"strides {strides}")
+        levels = {}
+        for what, pipe, plain, want in paths:
+            # the main path, counted: counters to 0 just before, read just after
+            dets, launches = count_launches(pipe, frames)
+            res[f"{family} {what} launches"] = launches
+            print(f"  launches in one {family} {what} pipeline call (B=8): "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            smoke.check(launches == want, f"{family} {what}: "
+                        + ", ".join(f"{k} {v}" for k, v in want.items() if v) + " per call, no other kernel")
+            check_dets(dets, f"{family} {what}")
+            levels[what] = pipe.forward_levels(frames)
+            compare_levels(levels[what], plain.forward_levels(frames), f"{family} {what} pipeline")
+            if what == "int8 default":
+                smoke.check(pipe.u8_input and sorted(pipe.qtree) == (["backbone", "fpn", "head"] if family == "FCOS"
+                                                                     else ["backbone", "neck_head"]),
+                            f"{family} int8 default: raw uint8 frames, qtree {sorted(pipe.qtree)}")
+        # the whole detector: cls and reg held, cnt (near zero-mean on random weights) printed, as the JAX
+        # detector-level tests hold them (tests/test_quant.py:873-905, tests/test_mcfcos_int8.py:19-47)
+        for b, name in enumerate(("cls", "cnt", "reg")):
+            coses = [cosine(a, f) for a, f in zip(levels["int8 default"][b], levels["float"][b])]
+            line = (f"{family} int8 default vs float pipeline, {name}: cosine per level "
+                    + ", ".join(f"{c:.6f}" for c in coses))
+            if name != "cnt":
+                smoke.check(min(coses) >= INT8_COS_MIN, f"{line} (min {INT8_COS_MIN})")
+            else:
+                print(f"  {line} (not held: the JAX detector-level tests hold cls and reg)")
+        res[f"{family} pipes"] = [(f"{family} float kernels", paths[0][1]),
+                                  (f"{family} int8 default u8 kernels", paths[1][1])]
+        if family == "FCOS":
+            # the classic ladder's own contract (tests/test_quant.py:823-870): the int8 FPN against the float FPN
+            # on the same dequantized C3..C5, the int8 head against the float head on the same dequantized int8
+            # levels, every level and branch at cosine >= 0.99 (f32, TF32 off)
+            qt = paths[1][1].qtree
+            with torch.inference_mode():
+                feats_q, feat_scales = resnet_int8.resnet50_int8_forward(
+                    qt["backbone"], frames, torch.bfloat16, backend="pallas_block", fuse_strided=True, dequant=False,
+                    u8_stem=True)
+                levels_q, level_scales = fcos_int8.fpn_classic_int8_forward(qt["fpn"], feats_q, dequant=False)
+                nchw = lambda qs, ss: [(q.float() * s).permute(0, 3, 1, 2).contiguous() for q, s in zip(qs, ss)]
+                ref_levels = model.fpn(nchw(feats_q, feat_scales))
+                ref_maps = model.head(nchw(levels_q, level_scales))
+                maps = fcos_int8.fcoshead_int8_forward(qt["head"], levels_q)
+            coses = [cosine(q.float() * sc, r.permute(0, 2, 3, 1)) for q, sc, r in zip(levels_q, level_scales, ref_levels)]
+            smoke.check(min(coses) >= INT8_COS_MIN, "FCOS int8 classic FPN vs the float FPN (f32) on the same C3..C5: "
+                        f"cosine per level {', '.join(f'{c:.6f}' for c in coses)} (min {INT8_COS_MIN})")
+            for b, name in enumerate(("cls", "cnt", "reg")):
+                coses = [cosine(a, r.permute(0, 2, 3, 1)) for a, r in zip(maps[b], ref_maps[b])]
+                smoke.check(min(coses) >= INT8_COS_MIN,
+                            f"FCOS int8 FCOSHead vs the float FCOSHead (f32) on the same levels, {name}: cosine per "
+                            f"level {', '.join(f'{c:.6f}' for c in coses)} (min {INT8_COS_MIN})")
+            res["fcos_head_in"] = (qt["head"], levels_q)  # the per-op int8 head's inputs, timed beside K7 in phase 6
+        del paths, levels
+
+        # (ii) a bf16 train step at B=16, then the steady window
+        tmodel = build_model(family, NUM_CLASSES, FEATURES, device=dev, generator=torch.Generator().manual_seed(seed))
+        state = trainer.create_train_state(tmodel, FAMILY_TRAIN_OPT[family], freeze_bn=True, frozen_stages=0)
+        shapes = [(CANVAS[0] // st, CANVAS[1] // st) for st in strides]
+        g = torch.Generator().manual_seed(seed + 100)
+        images, boxes, labels = synthetic_batch(g, 16, CANVAS, NUM_CLASSES, max_boxes=32)
+        mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+        batch = (((images - mean) / std).to(dev), boxes.to(dev), labels.to(dev))
+        step = trainer.make_train_step(state.model, shapes, strides, ranges, "giou", torch.bfloat16)
+        trainable = set(state.trainable_names())
+        frozen_before = {k: v.clone() for k, v in state.model.state_dict().items() if k not in trainable}
+        gn.groupnorm_act.launches = 0
+        first = step(state, *batch)
+        torch.cuda.synchronize()
+        after = state.model.state_dict()
+        bn_buffers = [k for k in after if k.endswith("running_var")]
+        smoke.check(bool(torch.isfinite(first["total"])) and gn.groupnorm_act.launches == 0
+                    and all(torch.equal(v, after[k]) for k, v in frozen_before.items())
+                    and all(k in frozen_before for k in bn_buffers) and "backbone.conv1.weight" in frozen_before,
+                    f"{family} bf16 train step, B=16: loss {float(first['total']):.4f} finite, kernel B "
+                    f"{gn.groupnorm_act.launches} launches, the stem and every BatchNorm buffer ({len(bn_buffers)} "
+                    f"BatchNorms, {len(frozen_before)} tensors) bit-identical")
+        t = time_train_steps(state, step, batch, FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_WINDOW)
+        res[f"{family} train"] = {k: t[k] for k in ("ms", "img_s", "split", "peak_gib")}
+        print(f"  train step {tag} bf16 512x512 B=16, {t['line']}")
+        smoke.check(bool(torch.isfinite(t["loss"])) and t["gn"] == 0,
+                    f"{family} timed steps: finite loss, kernel B launched no time in {FAMILY_TRAIN_WINDOW} steps")
+        del state, step, batch, tmodel
+
+        if family == "FCOS":  # (iii) the CLI on config/voc.yaml's FCOS block, synthetic
+            with tempfile.TemporaryDirectory() as tmp:
+                data = os.path.join(tmp, "voc.yaml")
+                with open(data, "w") as f:
+                    f.write(f"dataset_setting:\n  class_num : 20\n  train_07 : '{FIXTURE_TREE}/voc'\n"
+                            f"  input : [512, 512]\n  max_boxes : 16\nFCOS :\n  channel : 256\n  Epoch : 1\n"
+                            f"  batch_size : 8\n  optimizer : {{name : SGD, lr : 1.0e-2, momentum : 0.9, "
+                            f"weight_decay : 0.0001}}\n  criterion : giou\n  stride : {list(strides)}\n"
+                            f"  range : {[list(r) for r in ranges]}\n")
+                main_cfg = os.path.join(tmp, "main.yaml")
+                with open(main_cfg, "w") as f:
+                    f.write(f"dataset : VOC\nmodel : FCOS\nVOC : {data}\nsavename : fcos_smoke\n")
+                t0 = time.perf_counter()
+                out = subprocess.run([sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.train", "--config",
+                                      main_cfg, "--synthetic", "--steps", "4", "--log-every", "2", "--checkpoint-dir",
+                                      tmp], capture_output=True, text=True, timeout=600)
+                lines = [ln for ln in out.stdout.splitlines() if ln.startswith(("training", "step "))]
+                for ln in lines:
+                    print(f"    {ln}")
+                ok = out.returncode == 0 and "training FCOS on cuda" in out.stdout and "training done: step 4" in out.stdout
+                smoke.check(ok, f"podt-torch-train FCOS (config/voc.yaml's block, B=8, synthetic, 4 steps): exit "
+                                f"{out.returncode} in {time.perf_counter() - t0:.1f} s"
+                            + ("" if ok else f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}"))
+        else:  # (iii) evaluate_voc of the int8 pipeline over the committed VOC tree, counted once a batch
+            voc = VOCDataset(os.path.join(FIXTURE_TREE, "voc"), "test", CANVAS, raw_tiles=True)
+            epipe = make_eval_pipeline_int8(model, first_batch_calib(voc, 8, CANVAS, dev), strides, CANVAS,
+                                            device_resize=True, compute_dtype=torch.bfloat16)
+            for counter in counters.values():
+                counter.launches = 0
+            with torch.inference_mode():
+                r = evaluate_voc(model, voc, strides=strides, batch_size=4, pipeline=epipe, verbose=False)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            calls = -(-len(voc) // 4)
+            smoke.check(launches == {k: calls * n for k, n in FAMILY_INT8_LAUNCHES.items()} and np.isfinite(r["mAP"])
+                        and r["num_images"] == len(voc),
+                        f"evaluate_voc, {tag} int8 pipeline with the device resize, B=4, the committed tree's "
+                        f"{len(voc)} images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} "
+                        f"(random weights), {r['images_per_sec']:.1f} img/s")
 
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
@@ -2406,6 +2635,7 @@ def main() -> int:
         pipes += [(name, res[key]) for name, key in (("MNFCOS float kernels", "mn_pipe"),
                                                      ("MNFCOS int8-backbone kernels", "mn_pipe8"),
                                                      ("MNFCOS int8 ladder u8 kernels", "lpipe")) if key in res]
+        pipes += res.get("FCOS pipes", []) + res.get("MC_FCOS pipes", [])
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
             for name, p in pipes:
@@ -2875,6 +3105,18 @@ def main() -> int:
               f"{b_k7[0]:.5f} ms ({b_k7[1]}), {ops / 2 / tk / 1e9:.2f} T multiply-adds/s, wrapper host time "
               f"{th:.4f} ms; the bf16 float head at the same levels {tf:.4f} ms {card}")
         res["k7"] = dict(ms=tk, plain_ms=tp, host_ms=th, bound=b_k7, float_head_ms=tf)
+        if "fcos_head_in" in res:  # the classic FCOS's per-op int8 head (phase 5r's levels) beside K7
+            qf, levels_q = res["fcos_head_in"]
+            c, nc = levels_q[0].shape[-1], qf["wpc"].shape[0]
+            with torch.inference_mode():
+                tfc = cuda_ms(lambda: fcos_int8.fcoshead_int8_forward(qf, levels_q), iters=5, reps=3)
+                rep = [lq.repeat(8, 1, 1, 1) for lq in levels_q]
+                tfc64 = cuda_ms(lambda: fcos_int8.fcoshead_int8_forward(qf, rep), iters=2, reps=3)
+            macs = sum(lq.shape[0] * lq.shape[1] * lq.shape[2] for lq in levels_q) * 9 * c * (8 * c + nc + 5)
+            print(f"  the classic FCOS's int8 head per forward (B=8, five levels, per-op conv_i8 + the f32 "
+                  f"GroupNorms): {tfc:.4f} ms, {macs / tfc / 1e9:.2f} T multiply-adds/s ({macs / 1e9:.1f} G); B=64 "
+                  f"{tfc64:.4f} ms; K7's HISFCOS head at B=8 {tk:.4f} ms {card}")
+            res["fcos_head"] = dict(ms=tfc, ms64=tfc64, k7_ms=tk, gmacs=macs / 1e9)
 
         if "coco_p3" not in res:
             return
@@ -3061,6 +3303,11 @@ def main() -> int:
     smoke.phase("phase 5q: training: the f32 step against the CPU, bf16 against f32, kernel B's path, the step's "
                 "time at HISFCOS(20, 256) 512x512 B=16, learning on the VOC tree, the CLI", phase5q)
     if "pipe" in res:
+        smoke.phase("phase 5r: the classic FCOS(20, 256) 512x512 B=8: float and int8 pipelines, counted; a bf16 train "
+                    "step at B=16; podt-torch-train", phase_family, "FCOS")
+        smoke.phase("phase 5s: MC_FCOS(20, 256) 512x512 B=8: float and int8 pipelines, counted; a bf16 train step at "
+                    "B=16; evaluate_voc of the int8 pipeline on the VOC tree", phase_family, "MC_FCOS")
+    if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
     if "ipipe" in res:
@@ -3086,6 +3333,10 @@ def main() -> int:
         smoke.phase("phase 6j: profile, stem-tail pipeline; kernel B, K17 and the copy kernels", phase6_profile,
                     res["paths"]["stem tail"][0], ("stem_tail_kernel", "gn_act_kernel", "nms_"),
                     ("gn_act_kernel", "stem_tail_kernel", "copy"))
+    for family, tag in (("FCOS", "6k"), ("MC_FCOS", "6l")):
+        if f"{family} pipes" in res:
+            smoke.phase(f"phase {tag}: profile, {family} default int8 pipeline", phase6_profile,
+                        res[f"{family} pipes"][1][1], ("qstem_kernel", "qblock_kernel", "nms_"))
     print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)

@@ -67,8 +67,12 @@ def main(argv=None) -> int:
     cfg = C.load_config(args.config)
     block = C.model_block(cfg)
     canvas = C.canvas_hw(cfg)
-    model = build_model(cfg["model"]["name"], C.num_classes(cfg), int(block["channel"]), device=dev,
-                        generator=torch.Generator().manual_seed(0))
+    try:
+        model = build_model(cfg["model"]["name"], C.num_classes(cfg), int(block["channel"]), device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    except NotImplementedError as err:  # RetinaNet, SSD300: ROADMAP.md queue 1 item 10
+        print(f"eval_voc: {err}", file=sys.stderr)
+        return 2
     if args.checkpoint:
         load_model_checkpoint(model, args.checkpoint)
     model.eval()

@@ -3,11 +3,12 @@
     podt-torch-train --config config/main.yaml [--steps N] [--synthetic] [--ring-loader]
     python -m pytorch_object_detection_tpu_torch.cli.train --config ... --device cpu
 
-Builds the config's model (HISFCOS or MNFCOS; random weights from seed 0,
+Builds the config's model (FCOS, HISFCOS, MNFCOS or MC_FCOS, its strides and
+ranges from the config's block: MC_FCOS has four; random weights from seed 0,
 ``--pretrained-backbone`` grafts a torchvision ResNet-50 ``.pth``), the
 train state (the config's optimizer block and optional ``schedule``
 block, every BatchNorm frozen, HISFCOS with stage 1 frozen as in the JAX
-CLI) and ``train/trainer.make_train_step`` (bf16 autocast where the config
+CLI, the others with none) and ``train/trainer.make_train_step`` (bf16 autocast where the config
 says ``amp`` and the device is the card, f32 otherwise), then trains over
 one of three inputs:
 
@@ -142,9 +143,9 @@ def main(argv=None) -> int:
         return 1
     cfg = C.load_config(args.config)
     name = cfg["model"]["name"]
-    if name not in ("HISFCOS", "MNFCOS"):
+    if name not in ("FCOS", "HISFCOS", "MNFCOS", "MC_FCOS"):
         print(f"train: {name} does not train in the port yet: ROADMAP.md queue 1 item 10 (the anchor train "
-              f"step and the other families)", file=sys.stderr)
+              f"step and the anchor families)", file=sys.stderr)
         return 2
     dev = torch.device(args.device)
     block = C.model_block(cfg)

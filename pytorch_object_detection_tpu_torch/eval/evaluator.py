@@ -1,12 +1,13 @@
 """Serving pipelines and VOC evaluation: loader -> [device resize ->] forward -> decode -> NMS -> AP.
 
 Counterpart of ``pytorch_object_detection_tpu/eval/evaluator.py``:
-``make_eval_pipeline`` (float path, HISFCOS or MNFCOS) and
-``make_eval_pipeline_int8`` (for a HISFCOS by default from raw uint8 frames
-through the exact uint8 stem, the int8 backbone, the int8 HisFPN and the
-int8 HISHead; or with the float head behind the int8 HisFPN,
-``int8_head=False``; or the int8 backbone with the float HisFPN,
-``int8_fpn=False``, which is also what an MNFCOS always gets, as in JAX).
+``make_eval_pipeline`` (float path, any ported detector) and
+``make_eval_pipeline_int8`` (for a HISFCOS or an FCOS by default from raw
+uint8 frames through the exact uint8 stem, the int8 backbone, the int8 FPN
+and the int8 head; or with the float head behind the int8 FPN,
+``int8_head=False``; or the int8 backbone with the float FPN,
+``int8_fpn=False``, which is also what an MNFCOS always gets, as in JAX;
+an MC_FCOS always gets its one-shot int8 ladder from raw uint8 frames).
 The JAX versions are one jitted program each; here the pipelines run
 eagerly on the model's device, with the kernels (``ops/``) wherever that
 device is CUDA.  With ``device_resize=True`` a pipeline takes raw decoded
@@ -37,7 +38,9 @@ from pytorch_object_detection_tpu_torch.data.pipeline import (
     make_device_resize,
 )
 from pytorch_object_detection_tpu_torch.eval.voc_map import eval_voc_ap, mean_ap
-from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS
+from pytorch_object_detection_tpu_torch.models.fcos import FCOS, HISFCOS
+from pytorch_object_detection_tpu_torch.models.mcfcos import MC_FCOS
+from pytorch_object_detection_tpu_torch.models.mcfcos_int8 import quantize_mcfcos
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections, resolve_nms_impl
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
@@ -244,8 +247,20 @@ def make_eval_pipeline_int8(
     switch would be ignored silently (``int8_fpn=True``, ``backend="xla"``
     or a model other than HISFCOS) it raises ``ValueError``.
 
+    An FCOS takes the same defaults and switches: its int8 classic FPN and
+    int8 FCOSHead are per-op ladders (``models/fcos_int8.py``: no kernel of
+    theirs), so its default path launches K1, kernel C and A, and with
+    ``int8_head=False`` also kernel B (the float FCOSHead's 40 GroupNorms).
+    An MC_FCOS gets the JAX function's one-shot ladder whatever
+    ``int8_fpn`` and ``int8_head`` say (its evaluator.py:325-336): raw
+    uint8 frames, the exact uint8 stem (K1), the int8 ResNet-50 (kernel C on
+    ``backend="pallas_block"``, with ``fuse_strided``), then the int8 neck
+    and head per-op (``models/mcfcos_int8.py``), calibrated by
+    ``quantize_mcfcos``; on the CPU the backbone takes ``backend="xla"``,
+    as the JAX function picks there.
+
     An MNFCOS keeps the JAX gate (its evaluator.py:340): the int8 FPN and
-    head are for HISFCOS only, so an MNFCOS gets ``int8_fpn=False`` whatever
+    head are for HISFCOS and FCOS only, so an MNFCOS gets ``int8_fpn=False`` whatever
     is asked: normalized frames, the int8 ResNet-50, then the float
     LightweightFPN and MNHead in ``compute_dtype``.  Its full int8 ladder
     from raw uint8 frames is ``quantize_backbone`` / ``quantize_fpn`` /
@@ -266,7 +281,8 @@ def make_eval_pipeline_int8(
     (``ops/postprocess.resolve_nms_impl``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
     """
-    int8_fpn = int8_fpn and isinstance(model, HISFCOS)  # the JAX gate: FCOS is not ported, MNFCOS stays float
+    is_mc = isinstance(model, MC_FCOS)
+    int8_fpn = int8_fpn and isinstance(model, (HISFCOS, FCOS))  # the JAX gate: MNFCOS stays float
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
     if fused_head and not fused_head_applies(model, backend, int8_fpn):
         raise ValueError(f"fused_head=True runs the float HISHead on K15 behind the float HisFPN: it needs a "
@@ -278,13 +294,18 @@ def make_eval_pipeline_int8(
     resolve_nms_impl(nms_impl, device)  # raises on a value the port does not take, before the calibration
     mean = IMAGENET_MEAN if mean is None else mean
     std = IMAGENET_STD if std is None else std
-    # u8 serving input: the normalize affine folds into the exact uint8 stem
-    u8_input = int8_fpn
-    qtree = quantize_backbone(model, calib_images, compute_dtype, mean, std)
-    if int8_fpn:
-        qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}
-        if int8_head:
-            qtree["head"] = quantize_head(model, qtree["backbone"], qtree["fpn"], calib_images)
+    if is_mc:  # the one-shot ladder from raw uint8 frames (JAX evaluator.py:325-336)
+        u8_input = True
+        backend = "xla" if device.type == "cpu" else backend
+        qtree = quantize_mcfcos(model, calib_images, compute_dtype, mean, std)
+    else:
+        # u8 serving input: the normalize affine folds into the exact uint8 stem
+        u8_input = int8_fpn
+        qtree = quantize_backbone(model, calib_images, compute_dtype, mean, std)
+        if int8_fpn:
+            qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}
+            if int8_head:
+                qtree["head"] = quantize_head(model, qtree["backbone"], qtree["fpn"], calib_images)
     fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, fuse_strided=fuse_strided, int8_fpn=int8_fpn,
                                  int8_head=int8_head, u8_input=u8_input, direct_stem=direct_stem,
                                  chain_segments=chain_segments, fused_head=fused_head, plain=plain)

@@ -1,8 +1,9 @@
-"""HISFCOS and MNFCOS detector assembly (PyTorch).
+"""FCOS, HISFCOS and MNFCOS detector assembly (PyTorch).
 
-Counterparts of ``pytorch_object_detection_tpu/models/fcos.py``'s ``HISFCOS``
-(ResNet-50 -> HisFPN -> HISHead) and ``MNFCOS`` (ResNet-50 with the 7x7 stem
--> LightweightFPN -> MNHead).  The forward takes NHWC float images
+Counterparts of ``pytorch_object_detection_tpu/models/fcos.py``'s ``FCOS``
+(ResNet-50 -> the classic FPN -> FCOSHead), ``HISFCOS`` (ResNet-50 ->
+HisFPN -> HISHead) and ``MNFCOS`` (ResNet-50 with the 7x7 stem ->
+LightweightFPN -> MNHead).  The forward takes NHWC float images
 (normalized) and returns per-level NHWC (cls, cnt, reg) lists, the JAX
 package's layouts; inside, everything runs NCHW.  Every BatchNorm is frozen
 (the reference's only trained configuration).  ``frozen_stages=k`` puts the
@@ -16,8 +17,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pytorch_object_detection_tpu_torch.models.heads import HISHead, LevelOutputs, MNHead
-from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN, LightweightFPN
+from pytorch_object_detection_tpu_torch.models.heads import FCOSHead, HISHead, LevelOutputs, MNHead
+from pytorch_object_detection_tpu_torch.nn.fpn import FPN, HisFPN, LightweightFPN
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
 
 
@@ -32,6 +33,27 @@ class _Detector(nn.Module):
         levels = self.fpn(self.backbone(x))
         outs = self.head(levels, plain)
         return tuple([o.permute(0, 2, 3, 1) for o in branch] for branch in outs)
+
+
+class FCOS(_Detector):
+    """The classic FCOS; weights and device as :class:`HISFCOS`.  Its float
+    forward runs kernel B 40 times (the FCOSHead's eight tower GroupNorms a
+    level).  ``backbone="efficientnet-b0"`` (the JAX model's other
+    backbone) is not ported and raises."""
+
+    def __init__(self, num_classes: int = 20, features: int = 256, backbone: str = "resnet50", *,
+                 frozen_stages: int = 0, device: torch.device | str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if backbone != "resnet50":
+            raise NotImplementedError(f"FCOS backbone {backbone!r} is not ported yet: ROADMAP.md queue 1, item 10 "
+                                      f"(EfficientNet)")
+        self.num_classes = num_classes
+        self.backbone = ResNet50(grad_barrier_stages=frozen_stages, generator=generator)
+        self.fpn = FPN((512, 1024, 2048), features, generator=generator)
+        self.head = FCOSHead(num_classes, features, generator=generator)
+        self.eval()
+        self.to(device)
 
 
 class HISFCOS(_Detector):

@@ -36,7 +36,7 @@ scales, ``Ac``, ``inv_c``, ``Ar``, ``inv_r``, ``Apc``, ``Acr``); scalars are
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,12 +59,19 @@ HEAD_BLOCKS = (("block1", 3, 2), ("block2", 3, 2))
 BACKENDS = ("xla", "pallas")
 
 
-def _conv_f(x: torch.Tensor, conv: torch.nn.Conv2d, bias: bool = True) -> torch.Tensor:
-    """The f32 conv of ``conv``'s kernel (its padding, dilation and groups)
-    on NHWC ``x``, the bias added after it, as the JAX ``_conv_f`` does."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.float(), None, padding=conv.padding, dilation=conv.dilation,
-                 groups=conv.groups).permute(0, 2, 3, 1)
-    return y + conv.bias.float() if bias and conv.bias is not None else y
+def _conv_f(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 1,
+            dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """The f32 conv of the OIHW kernel ``w`` on NHWC ``x`` with the port's
+    ``Conv`` padding ``dilation * (k - 1) // 2``, the bias added after it, as
+    the JAX ``_conv_f`` does."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.float(), None, stride=stride, padding=dilation * (w.shape[-1] - 1) // 2,
+                 dilation=dilation, groups=groups).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.float()
+
+
+def _kb(conv) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``conv``'s kernel and bias (``None`` without one), detached, in f32."""
+    return conv.weight.detach().float(), None if conv.bias is None else conv.bias.detach().float()
 
 
 # ------------------------------------------------------------ MNBlock
@@ -74,12 +81,12 @@ def _mnblock_f32(blk: MNBlock, x: torch.Tensor, taps: Dict, prefix: str) -> torc
     """Float MNBlock (BN folded, as the JAX one) recording the three
     requant-point abs-maxes."""
     mult, shift = fold_bn(blk.bn1)
-    a1 = _conv_f(x, blk.ddw, bias=False) * mult + shift
+    a1 = _conv_f(x, blk.ddw.weight, dilation=blk.ddw.dilation[0], groups=blk.ddw.groups) * mult + shift
     taps[f"{prefix}.a1"] = a1.abs().max()
-    a2 = _conv_f(a1, blk.pw1)
+    a2 = _conv_f(a1, *_kb(blk.pw1))
     a2 = a2 * torch.sigmoid(a2)
     taps[f"{prefix}.a2"] = a2.abs().max()
-    out = x + _conv_f(a2, blk.pw2)
+    out = x + _conv_f(a2, *_kb(blk.pw2))
     taps[f"{prefix}.out"] = out.abs().max()
     return out
 
@@ -123,13 +130,13 @@ def calibrate_lwfpn(fpn: LightweightFPN, feats: Sequence[torch.Tensor]) -> Dict[
     def mnb(x, name):
         return _mnblock_f32(getattr(fpn, name), x, taps, name)
 
-    l5 = _conv_f(c5, fpn.lateral5)
+    l5 = _conv_f(c5, *_kb(fpn.lateral5))
     taps["l5"] = l5.abs().max()
     p5 = mnb(l5, "mnb5")
-    m4 = upsample2x_i8(p5) + _conv_f(c4, fpn.lateral4)
+    m4 = upsample2x_i8(p5) + _conv_f(c4, *_kb(fpn.lateral4))
     taps["m4"] = m4.abs().max()
     p4 = mnb(m4, "mnb4")
-    m3 = upsample2x_i8(p4) + _conv_f(c3, fpn.lateral3)
+    m3 = upsample2x_i8(p4) + _conv_f(c3, *_kb(fpn.lateral3))
     taps["m3"] = m3.abs().max()
     mnb(m3, "mnb3")
     p6 = mnb(qmaxpool2x2_plain(p5), "mnb6")
@@ -217,9 +224,9 @@ def calibrate_mnhead(head: MNHead, levels: Sequence[torch.Tensor]) -> Dict[str, 
         y = x.float()
         for name, _, _ in HEAD_BLOCKS:
             y = _mnblock_f32(getattr(head, name), y, taps, f"L{i}.{name}")
-        c = _gn(_conv_f(y, head.cls_tower0), *_gn_of(head.cls_gn0), act="silu")
+        c = _gn(_conv_f(y, *_kb(head.cls_tower0)), *_gn_of(head.cls_gn0), act="silu")
         taps[f"L{i}.c"] = c.abs().max()
-        r = _gn(_conv_f(y, head.reg_tower0), *_gn_of(head.reg_gn0), act="silu")
+        r = _gn(_conv_f(y, *_kb(head.reg_tower0)), *_gn_of(head.reg_gn0), act="silu")
         taps[f"L{i}.r"] = r.abs().max()
     return {k: float(v) for k, v in taps.items()}
 

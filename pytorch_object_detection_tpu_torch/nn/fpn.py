@@ -1,8 +1,9 @@
-"""Feature pyramids (PyTorch, NCHW): the half-inverted-stage HisFPN and the MNFCOS LightweightFPN.
+"""Feature pyramids (PyTorch, NCHW): the classic FPN, the half-inverted-stage HisFPN and the MNFCOS LightweightFPN.
 
-Counterparts of ``pytorch_object_detection_tpu/nn/fpn.py``'s ``HisFPN`` and
-``LightweightFPN``: each takes (C3, C4, C5) and returns (P3..P7) at strides
-(8, 16, 32, 64, 128).  As in the JAX package, the HisFPN's C4 and C3
+Counterparts of ``pytorch_object_detection_tpu/nn/fpn.py``'s ``FPN``,
+``HisFPN`` and ``LightweightFPN``: each takes (C3, C4, C5) and returns
+(P3..P7) at strides (8, 16, 32, 64, 128).  The classic FPN's P6 and P7 are
+stride-2 3x3 convs of P5 and of ReLU(P6).  As in the JAX package, the HisFPN's C4 and C3
 laterals share ONE BatchNorm (``bn_lat_shared``), and its two extra levels
 are seeded by max pools of the transformed C5; the LightweightFPN's P6 and
 P7 are 2x2 max pools of P5 and P6, each through an MNBlock.
@@ -23,6 +24,36 @@ from pytorch_object_detection_tpu_torch.nn.layers import (
     relu,
     upsample2x,
 )
+
+
+class FPN(nn.Module):
+    """The classic FCOS pyramid: 1x1 laterals, top-down nearest upsample and
+    add, 3x3 smoothing, stride-2 ``down6`` on P5 and ``down7`` on ReLU(P6);
+    every conv with a bias and the kaiming-uniform(a=1) init."""
+
+    def __init__(self, in_channels: Sequence[int] = (512, 1024, 2048), features: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c3, c4, c5 = in_channels
+        f, g = features, generator
+        self.lateral5 = Conv(c5, f, 1, winit="fpn", generator=g)
+        self.lateral4 = Conv(c4, f, 1, winit="fpn", generator=g)
+        self.smooth4 = Conv(f, f, 3, winit="fpn", generator=g)
+        self.lateral3 = Conv(c3, f, 1, winit="fpn", generator=g)
+        self.smooth3 = Conv(f, f, 3, winit="fpn", generator=g)
+        self.smooth5 = Conv(f, f, 3, winit="fpn", generator=g)
+        self.down6 = Conv(f, f, 3, stride=2, winit="fpn", generator=g)
+        self.down7 = Conv(f, f, 3, stride=2, winit="fpn", generator=g)
+
+    def forward(self, feats: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]):
+        c3, c4, c5 = feats
+        p5 = self.lateral5(c5)
+        p4 = self.smooth4(upsample2x(p5) + self.lateral4(c4))
+        p3 = self.smooth3(upsample2x(p4) + self.lateral3(c3))
+        p5 = self.smooth5(p5)
+        p6 = self.down6(p5)
+        p7 = self.down7(relu(p6))
+        return p3, p4, p5, p6, p7
 
 
 class HisFPN(nn.Module):

@@ -8,6 +8,8 @@ package's distributions from an explicit ``torch.Generator``:
   * ``winit='torch'``: kaiming-uniform(a=sqrt 5) kernel, uniform(+-1/sqrt
     fan_in) bias (torch's Conv2d default);
   * ``winit='resnet'``: normal(0, sqrt(2 / fan_out)) kernel, zero bias;
+  * ``winit='head'``: normal(0, 0.01) kernel, zero bias (the detection heads);
+  * ``winit='fpn'``: kaiming-uniform(a=1) kernel, zero bias (the classic FPN);
   * ``bias_const`` overrides the bias (the cls prior).
 
 Each JAX wrapper (``Conv``, ``DepthwiseConv``, ``BatchNorm``,
@@ -48,13 +50,17 @@ class Conv(nn.Conv2d):
                 self.weight.copy_(_uniform(shape, bound, generator))
                 if bias:
                     self.bias.copy_(_uniform(out_ch, 1.0 / math.sqrt(fan_in), generator))
-            elif winit == "resnet":
-                std = math.sqrt(2.0 / (out_ch * kernel * kernel))
+            elif winit in ("resnet", "head"):
+                std = math.sqrt(2.0 / (out_ch * kernel * kernel)) if winit == "resnet" else 0.01
                 self.weight.copy_(torch.empty(shape).normal_(0.0, std, generator=generator))
                 if bias:
                     self.bias.zero_()
+            elif winit == "fpn":
+                self.weight.copy_(_uniform(shape, math.sqrt(3.0 / fan_in), generator))  # gain 1 at a=1
+                if bias:
+                    self.bias.zero_()
             else:
-                raise ValueError(f"winit must be 'torch' or 'resnet'; got {winit!r}")
+                raise ValueError(f"winit must be 'torch', 'resnet', 'head' or 'fpn'; got {winit!r}")
             if bias and bias_const is not None:
                 self.bias.fill_(bias_const)
 
@@ -128,12 +134,13 @@ silu = F.silu
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-excitation: GAP -> 1x1 (C/4) -> SiLU -> 1x1 -> sigmoid -> scale."""
+    """Squeeze-and-excitation: GAP -> 1x1 (C/reduction) -> SiLU -> 1x1 -> sigmoid -> scale
+    (reduction 4, the HisBlock's; the MCBlock's is 6)."""
 
-    def __init__(self, ch: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, ch: int, reduction: int = 4, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.fc1 = Conv(ch, ch // 4, 1, generator=generator)
-        self.fc2 = Conv(ch // 4, ch, 1, generator=generator)
+        self.fc1 = Conv(ch, ch // reduction, 1, generator=generator)
+        self.fc2 = Conv(ch // reduction, ch, 1, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.mean(dim=(2, 3), keepdim=True)

@@ -23,8 +23,11 @@ The inverse direction of the JAX package's
 nested dicts of numpy arrays (``params`` and ``batch_stats``), so nothing
 here imports JAX.  The mapping:
 
-  * the JAX wrappers' inner scopes (``conv``, ``dw``, ``bn``, ``gn``) are
-    dropped: ``head/stem_dw/dw/conv/kernel`` -> ``head.stem_dw.weight``;
+  * the JAX wrappers' inner scopes at the end of a path (``conv``, ``bn``,
+    ``gn``, and a ``DepthwiseConv``'s ``dw/conv``) are dropped:
+    ``head/stem_dw/dw/conv/kernel`` -> ``head.stem_dw.weight``,
+    ``mb_top/dw/dw/conv/kernel`` -> ``mb_top.dw.weight`` (an MCBlock's
+    depthwise conv is itself named ``dw``);
   * conv kernels HWIO -> OIHW (a depthwise ``[3,3,1,C]`` becomes
     ``[C,1,3,3]`` by the same transpose);
   * BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``;
@@ -33,12 +36,15 @@ here imports JAX.  The mapping:
 A missing key, an unused key or a shape that does not match raises.
 
 ``load_backbone_qtree``, ``load_fpn_qtree``, ``load_head_qtree``,
-``load_lwfpn_qtree`` and ``load_mnhead_qtree`` carry the JAX package's int8
-backbone, HisFPN, HISHead, LightweightFPN and MNHead qtrees
-(``nn/resnet_int8.quantize_resnet50``, ``nn/fpn_int8.quantize_hisfpn``,
-``models/head_int8.quantize_hishead``, ``models/mnfcos_int8.quantize_lwfpn``
-and ``quantize_mnhead``) across in the same way, to the card unless
-``device`` says otherwise.
+``load_lwfpn_qtree``, ``load_mnhead_qtree``, ``load_fpn_classic_qtree``,
+``load_fcoshead_qtree`` and ``load_mcfcos_qtree`` carry the JAX package's
+int8 backbone, HisFPN, HISHead, LightweightFPN, MNHead, classic FPN,
+FCOSHead and MC-FCOS neck/head qtrees (``nn/resnet_int8.quantize_resnet50``,
+``nn/fpn_int8.quantize_hisfpn``, ``models/head_int8.quantize_hishead``,
+``models/mnfcos_int8.quantize_lwfpn`` and ``quantize_mnhead``,
+``models/fcos_int8.quantize_fpn_classic`` and ``quantize_fcoshead``,
+``models/mcfcos_int8.quantize_mcfcos_neck_head``) across in the same way,
+to the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -178,7 +184,7 @@ def load_pretrained_backbone(state_or_model, pth_path: str, prefix: str = ""):
     return state_or_model
 
 
-_INNER_SCOPES = {"conv", "dw", "bn", "gn"}
+_INNER_SCOPES = {"conv", "bn", "gn"}
 _NORM_SCOPES = {"bn", "gn"}
 _LEAF_NAMES = {"kernel": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
@@ -203,7 +209,11 @@ def flax_to_torch_name(path: Tuple[str, ...]) -> str:
         name = _LEAF_NAMES[leaf]
     else:
         raise KeyError(f"unknown flax leaf {'/'.join(path)}")
-    return ".".join([s for s in scopes if s not in _INNER_SCOPES] + [name])
+    if scopes and scopes[-1] in _INNER_SCOPES:
+        inner = scopes.pop()
+        if inner == "conv" and len(scopes) >= 2 and scopes[-1] == "dw":  # DepthwiseConv's dw/conv
+            scopes.pop()
+    return ".".join(scopes + [name])
 
 
 def flax_to_state_dict(params: Mapping[str, Any],
@@ -444,6 +454,68 @@ def load_head_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "c
     return out
 
 
+def _port_leaf(path: Tuple[Any, ...], arr: np.ndarray) -> np.ndarray:
+    """A qtree leaf in the port's form: a depthwise ``[k, k, 1, C]`` (an
+    MNBlock's ``wdw``, an MCBlock's ``dw/w``) becomes ``[k, k, C]``, an SE's
+    1x1 kernels ``k1``/``k2`` matmul operands ``[Cin, Cout]``, any other int8
+    HWIO kernel ``[O, I]`` (1x1) or ``[O, k, k, I]``; the rest stays."""
+    if path[-1] == "wdw" or path[-2:] == ("dw", "w"):
+        return arr[:, :, 0]
+    if path[-1] in ("k1", "k2"):
+        return arr[0, 0]
+    return _port_kernel(arr) if arr.dtype == np.int8 else arr
+
+
+def _port_qtree(src: Dict[Tuple[Any, ...], np.ndarray], device) -> Dict:
+    """Nested dicts of :func:`_port_leaf` tensors on ``device``; a node whose
+    keys are 0..n-1 becomes a list (a tuple for a GroupNorm pair, ``gn*``)."""
+    out: Dict[Any, Any] = {}
+    for path, arr in src.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        arr = _port_leaf(path, arr)
+        node[path[-1]] = _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32, device)
+
+    def seq(node, key=""):
+        if not isinstance(node, dict):
+            return node
+        node = {k: seq(v, k) for k, v in node.items()}
+        if node and all(isinstance(k, int) for k in node):
+            items = [node[i] for i in range(len(node))]
+            return tuple(items) if str(key).startswith("gn") else items
+        return node
+
+    return seq(out)
+
+
+def _num_classes(qtree_np: Mapping[str, Any], what: str) -> int:
+    if "num_classes" not in qtree_np or not isinstance(qtree_np.get("levels"), (list, tuple)):
+        raise KeyError(f"qtree does not match {what}: num_classes or the levels list is missing")
+    nc = np.asarray(qtree_np["num_classes"])
+    if nc.ndim or nc.dtype.kind not in "iu" or int(nc) < 1:
+        raise ValueError(f"num_classes: expected a positive int, got {nc!r}")
+    return int(nc)
+
+
+def _width(qtree_np: Mapping[str, Any], scope: str, leaf: str, what: str) -> int:
+    """The output width of the int8 HWIO kernel ``scope/leaf`` (``scope`` may be None: a top-level leaf)."""
+    node = qtree_np if scope is None else qtree_np.get(scope)
+    w = np.asarray(node[leaf]) if isinstance(node, Mapping) and leaf in node else None
+    if w is None or w.ndim != 4:
+        raise KeyError(f"qtree does not match {what}: {'/'.join(filter(None, (scope, leaf)))} (an HWIO kernel) "
+                       f"is missing")
+    return w.shape[-1]
+
+
+def _load_port_qtree(qtree_np: Mapping[str, Any], want: Dict, is_int8, what: str, device) -> Dict:
+    """Check ``qtree_np`` (less ``num_classes``) against ``want`` (path ->
+    shape), then convert it by :func:`_port_qtree`."""
+    src = {path: np.asarray(v) for path, v in _leaves({k: v for k, v in qtree_np.items() if k != "num_classes"})}
+    _check_tree(src, want, is_int8, what)
+    return _port_qtree(src, device)
+
+
 _MN_INT8 = ("wdw", "w1", "w2")
 _MN_SCALES = ("s_in", "s_a1", "s_a2", "s_out")
 
@@ -456,61 +528,27 @@ def _mnblock_shapes(c: int, cmid: int, kernel: int) -> Dict[str, Tuple[int, ...]
     return shapes
 
 
-def _mn_width(qtree_np: Mapping[str, Any], block: str, what: str) -> Tuple[int, int]:
-    """(C, cmid) from ``block/w1`` [1, 1, C, cmid]."""
-    blk = qtree_np.get(block)
-    w1 = np.asarray(blk["w1"]) if isinstance(blk, Mapping) and "w1" in blk else None
-    if w1 is None or w1.ndim != 4:
-        raise KeyError(f"qtree does not match {what}: {block}/w1 [1, 1, C, cmid] is missing")
-    return w1.shape[2], w1.shape[3]
-
-
-def _mn_tensor(path: Tuple[Any, ...], arr: np.ndarray, device) -> torch.Tensor:
-    """A leaf of an MNFCOS qtree in the port's form: the depthwise ``[k, k,
-    1, C]`` becomes ``[k, k, C]``, other int8 HWIO kernels ``[O, I]`` (1x1)
-    or ``[O, 3, 3, I]``, the rest f32."""
-    if path[-1] == "wdw":
-        arr = arr[:, :, 0]
-    elif arr.dtype == np.int8:
-        arr = _port_kernel(arr)
-    return _to_tensor(arr, torch.int8 if arr.dtype == np.int8 else torch.float32, device)
-
-
-def _mn_tree(src: Dict[Tuple[Any, ...], np.ndarray], device) -> Dict:
-    """Nested dicts (lists where the key is an index) of :func:`_mn_tensor` leaves."""
-    out: Dict[Any, Any] = {}
-    for path, arr in src.items():
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = _mn_tensor(path, arr, device)
-    if "levels" in out:
-        out["levels"] = [out["levels"][i] for i in range(len(out["levels"]))]
-    return out
-
-
 def load_lwfpn_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
     """The JAX ``quantize_lwfpn`` qtree, as numpy, in the port's form
     (``models/mnfcos_int8.py``): the laterals' ``w`` become ``[F, Cin]``, each
     MNBlock's depthwise ``[k, k, 1, F]`` becomes ``[k, k, F]`` and its 1x1
     kernels ``[O, I]``; the rest (``sc``'s scales, ``p5_to_m4``,
     ``p4_to_m3``) becomes f32 tensors, 0-d for the scalars.  The widths come
-    from ``mnb5/w1``.  Raises ``KeyError`` on a missing or unused key and
-    ``ValueError`` on a shape or dtype that does not match, before anything
-    is converted.
+    from ``lateral5/w`` and ``mnb5/w1``.  Raises ``KeyError`` on a missing or
+    unused key and ``ValueError`` on a shape or dtype that does not match,
+    before anything is converted.
     """
     from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import FPN_BLOCKS
 
-    f, cmid = _mn_width(qtree_np, "mnb5", "the LightweightFPN")
+    what = "the LightweightFPN"
+    f, cmid = _width(qtree_np, "lateral5", "w", what), _width(qtree_np, "mnb5", "w1", what)
     want = {("p5_to_m4",): (), ("p4_to_m3",): ()}
     for name, cin in (("lateral5", 2048), ("lateral4", 1024), ("lateral3", 512)):
         want.update({(name, "w"): (1, 1, cin, f), (name, "A"): (f,), (name, "B"): (f,)})
     for name, kernel, _ in FPN_BLOCKS:
         want.update({(name, k): v for k, v in _mnblock_shapes(f, cmid, kernel).items()})
         want.update({("sc", name, k): () for k in _MN_SCALES})
-    src = {path: np.asarray(v) for path, v in _leaves(qtree_np)}
-    _check_tree(src, want, lambda p: p[-1] in ("w",) + _MN_INT8, "the LightweightFPN")
-    return _mn_tree(src, device)
+    return _load_port_qtree(qtree_np, want, lambda p: p[-1] in ("w",) + _MN_INT8, what, device)
 
 
 def load_mnhead_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
@@ -520,19 +558,15 @@ def load_mnhead_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = 
     C]`` and ``wcr [5, C]``; the GroupNorm pairs stay (gamma, beta) tuples
     and ``levels`` a list of dicts (each with its two blocks' scales), of
     f32 tensors (0-d for the scalars); ``num_classes`` stays an int.  The
-    widths come from ``block1/w1``, the class count from ``num_classes``.
-    Raises ``KeyError`` on a missing or unused key and ``ValueError`` on a
-    shape or dtype that does not match, before anything is converted.
+    widths come from ``wc`` and ``block1/w1``, the class count from
+    ``num_classes``.  Raises ``KeyError`` on a missing or unused key and
+    ``ValueError`` on a shape or dtype that does not match, before anything
+    is converted.
     """
     from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import HEAD_BLOCKS
 
-    if "num_classes" not in qtree_np or not isinstance(qtree_np.get("levels"), (list, tuple)):
-        raise KeyError("qtree does not match the MNHead: num_classes or the levels list is missing")
-    nc = np.asarray(qtree_np["num_classes"])
-    if nc.ndim or nc.dtype.kind not in "iu" or int(nc) < 1:
-        raise ValueError(f"num_classes: expected a positive int, got {nc!r}")
-    nc = int(nc)
-    c, cmid = _mn_width(qtree_np, "block1", "the MNHead")
+    nc = _num_classes(qtree_np, "the MNHead")
+    c, cmid = _width(qtree_np, None, "wc", "the MNHead"), _width(qtree_np, "block1", "w1", "the MNHead")
     n_levels = len(qtree_np["levels"])
     want = {("wc",): (3, 3, c, c), ("wr",): (3, 3, c, c), ("wpc",): (1, 1, c, nc), ("wcr",): (1, 1, c, 5),
             ("bpc",): (nc,), ("bcr",): (5,), ("scale_exp",): (n_levels,)}
@@ -544,8 +578,106 @@ def load_mnhead_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = 
     for i in range(n_levels):
         want.update({("levels", i, k): v for k, v in lv.items()})
         want.update({("levels", i, name, k): () for name, _, _ in HEAD_BLOCKS for k in _MN_SCALES})
-    src = {path: np.asarray(v) for path, v in _leaves({k: v for k, v in qtree_np.items() if k != "num_classes"})}
-    _check_tree(src, want, lambda p: p[-1] in ("wc", "wr", "wpc", "wcr") + _MN_INT8, "the MNHead")
-    out = _mn_tree(src, device)
-    out.update(num_classes=nc, gnc=(out["gnc"][0], out["gnc"][1]), gnr=(out["gnr"][0], out["gnr"][1]))
+    out = _load_port_qtree(qtree_np, want, lambda p: p[-1] in ("wc", "wr", "wpc", "wcr") + _MN_INT8, "the MNHead",
+                           device)
+    out["num_classes"] = nc
+    return out
+
+
+def load_fpn_classic_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_fpn_classic`` qtree, as numpy, in the port's form
+    (``models/fcos_int8.py``): the int8 HWIO kernels become ``[F, Cin]``
+    (1x1) and ``[F, 3, 3, F]``; the rest f32 tensors, 0-d for the scalars.
+    The width comes from ``lateral5/w``.  Raises ``KeyError`` on a missing
+    or unused key and ``ValueError`` on a shape or dtype that does not
+    match, before anything is converted."""
+    from pytorch_object_detection_tpu_torch.models.fcos_int8 import FPN_TAPS
+
+    f = _width(qtree_np, "lateral5", "w", "the classic FPN")
+    want = {("t5_to_m4",): (), ("p4_to_m3",): ()}
+    want.update({("scales", t): () for t in FPN_TAPS})
+    for name, cin, k in (("lateral5", 2048, 1), ("lateral4", 1024, 1), ("lateral3", 512, 1), ("smooth4", f, 3),
+                         ("smooth3", f, 3), ("smooth5", f, 3), ("down6", f, 3), ("down7", f, 3)):
+        want.update({(name, "w"): (k, k, cin, f), (name, "A"): (f,), (name, "B"): (f,)})
+    return _load_port_qtree(qtree_np, want, lambda p: p[-1] == "w", "the classic FPN", device)
+
+
+def load_fcoshead_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_fcoshead`` qtree, as numpy, in the port's form
+    (``models/fcos_int8.py``): the towers ``wc0..3``/``wr0..3`` become ``[F,
+    3, 3, F]``, the predictions ``wpc [nc, 3, 3, F]`` and ``wcr [5, 3, 3,
+    F]``; the GroupNorm pairs stay (gamma, beta) tuples and ``levels`` a list
+    of dicts, of f32 tensors (0-d for the scalars); ``num_classes`` stays an
+    int.  The width comes from ``wc0``, the class count from
+    ``num_classes``.  Raises as :func:`load_fpn_classic_qtree`."""
+    from pytorch_object_detection_tpu_torch.models.heads import FCOS_TOWER
+
+    nc = _num_classes(qtree_np, "the FCOSHead")
+    f = _width(qtree_np, None, "wc0", "the FCOSHead")
+    n_levels = len(qtree_np["levels"])
+    want = {("wpc",): (3, 3, f, nc), ("wcr",): (3, 3, f, 5), ("bpc",): (nc,), ("bcr",): (5,),
+            ("scale_exp",): (n_levels,)}
+    lv = {"Apc": (nc,), "Acr": (5,)}
+    for j in range(FCOS_TOWER):
+        want.update({(f"wc{j}",): (3, 3, f, f), (f"wr{j}",): (3, 3, f, f)})
+        want.update({(f"gn{b}{j}", i): (f,) for b in "cr" for i in (0, 1)})
+        lv.update({f"Ac{j}": (f,), f"Ar{j}": (f,), f"inv_c{j}": (), f"inv_r{j}": ()})
+    for i in range(n_levels):
+        want.update({("levels", i, k): v for k, v in lv.items()})
+    out = _load_port_qtree(qtree_np, want, lambda p: p[0][0] == "w", "the FCOSHead", device)
+    out["num_classes"] = nc
+    return out
+
+
+def _mcblock_qtree_shapes(cin: int, features: int, parts: int) -> Dict[Tuple[Any, ...], Tuple[int, ...]]:
+    """Leaf path -> shape of one JAX MCBlock entry (``_quantize_mcblock``) on
+    ``cin`` input channels in ``parts`` concat parts."""
+    half = cin // 2
+    r = half // 6
+    shapes = {("s_out",): (), ("pw1", "w"): (1, 1, cin, half), ("pw1", "B"): (half,), ("pw1", "inv"): (),
+              ("dw", "w"): (3, 3, 1, half), ("dw", "A"): (half,), ("dw", "B"): (half,), ("dw", "inv"): (),
+              ("se", "k1"): (1, 1, half, r), ("se", "b1"): (r,), ("se", "k2"): (1, 1, r, half),
+              ("se", "b2"): (half,), ("se", "s_a2"): ()}
+    shapes.update({("pw1", "A", i): (half,) for i in range(parts)})
+    for name, c_in, c_out in (("pw3", half, half), ("pw4", half, half), ("pw5", 2 * half, features)):
+        shapes.update({(name, "w"): (1, 1, c_in, c_out), (name, "A"): (c_out,), (name, "B"): (c_out,),
+                       (name, "inv"): ()})
+    return shapes
+
+
+def load_mcfcos_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_mcfcos_neck_head`` qtree (``quantize_mcfcos``'s
+    ``neck_head``), as numpy, in the port's form (``models/mcfcos_int8.py``):
+    each MCBlock's 1x1 kernels ``[O, I]``, its depthwise ``[3, 3, C/2]``, the
+    SE's kernels ``k1 [C/2, r]`` and ``k2 [r, C/2]``, ``pw1``'s per-part
+    ``A`` a list; ``h2/w`` and the head's ``wt0..3 [F, 3, 3, F]``, ``wpc
+    [nc, 3, 3, F]``, ``wcr [5, 3, 3, F]``; ``levels`` a list of dicts; f32
+    tensors, 0-d for the scalars; ``num_classes`` an int.  The width comes
+    from ``tf1/w``, the class count from ``num_classes``.  Raises as
+    :func:`load_fpn_classic_qtree`."""
+    from pytorch_object_detection_tpu_torch.models.mcfcos import MC_TOWER
+
+    nc = _num_classes(qtree_np, "the MC-FCOS neck and head")
+    f = _width(qtree_np, "tf1", "w", "the MC-FCOS neck and head")
+    want: Dict[Tuple[Any, ...], Tuple[int, ...]] = {}
+    for block, cin, parts in (("mb_top", 2048, 1), ("ffm_mb1", f, 1), ("ffm_mb2", f, 1), ("fpn_mb1", f, 1),
+                              ("fpn_mb2", f, 1), ("fpn_mb3", f, 1), ("refine_mb1", 2 * f, 2),
+                              ("refine_mb2", 2 * f, 2)):
+        want.update({(block,) + k: v for k, v in _mcblock_qtree_shapes(cin, f, parts).items()})
+    for name, cin in (("ffm_pw1", 1024 + 2048), ("ffm_pw2", 512 + 1024)):
+        want.update({(name, "w"): (1, 1, cin, f), (name, "A", 0): (f,), (name, "A", 1): (f,), (name, "B"): (f,),
+                     (name, "inv"): ()})
+    want.update({("tf1", "w"): (1, 1, 2048, f), ("tf1", "A"): (f,), ("tf1", "B"): (f,), ("tf1", "inv"): (),
+                 ("h2", "w"): (3, 3, f, f), ("h2", "A"): (f,), ("h2", "m2"): ()})
+    want.update({(name, m): () for name in ("p2in", "p3in", "h1", "h3", "h4") for m in ("m1", "m2")})
+    want.update({("wpc",): (3, 3, f, nc), ("wcr",): (3, 3, f, 5)})
+    lv = {"Apc": (nc,), "Acr": (5,)}
+    for j in range(MC_TOWER):
+        want.update({(f"wt{j}",): (3, 3, f, f), (f"bt{j}",): (f,)})
+        lv.update({f"A{j}": (f,), f"inv{j}": ()})
+    for i in range(len(qtree_np["levels"])):
+        want.update({("levels", i, k): v for k, v in lv.items()})
+    is_int8 = lambda p: p[-1] == "w" and p[-2] != "se" or p[0] in ("wpc", "wcr") or str(p[0]).startswith("wt")
+    out = _load_port_qtree(qtree_np, want, is_int8, "the MC-FCOS neck and head", device)
+    out["num_classes"] = nc
     return out

@@ -17,10 +17,10 @@ ported: ``bn_train`` (SyncBN) and ``make_shard_map_train_step`` (ROADMAP
 queue 1 item 11), ``make_anchor_train_step`` (item 10).
 
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
-``quantize_fpn`` and ``quantize_head`` (:412-582, the HISFCOS and MNFCOS
-branches), and ``make_eval_forward_int8`` (:596-776) for the two ResNet-50
-FCOS families ported so far.  An int8 ResNet-50 (its stem float, or the
-exact uint8 stem with ``u8_input=True``), then:
+``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
+classic-FCOS branches), and ``make_eval_forward_int8`` (:596-776) for the
+four ResNet-50 FCOS families ported so far.  An int8 ResNet-50 (its stem
+float, or the exact uint8 stem with ``u8_input=True``), then:
 
   * HISFCOS: either the BN-folded float HisFPN (``int8_fpn=False``) and the
     float HISHead (its GroupNorms on kernel B), or the int8 HisFPN, whose
@@ -30,13 +30,20 @@ exact uint8 stem with ``u8_input=True``), then:
   * MNFCOS: either the float LightweightFPN with its BN and the float
     MNHead (``int8_fpn=False``), or the int8 LightweightFPN
     (``models/mnfcos_int8.py``), whose levels go dequantized to the float
-    MNHead or stay int8 into the int8 MNHead.
+    MNHead or stay int8 into the int8 MNHead;
+  * FCOS: either the float classic FPN and the float FCOSHead (its 40
+    GroupNorms on kernel B), or the int8 classic FPN
+    (``models/fcos_int8.py``), whose levels go dequantized to the float
+    FCOSHead or stay int8 into the int8 FCOSHead;
+  * MC_FCOS: the one-shot ladder of ``models/mcfcos_int8.py`` (backbone,
+    neck and head int8, ``models/mcfcos_int8.quantize_mcfcos``), whatever ``int8_fpn``
+    and ``int8_head`` say, as the JAX serving pipeline builds it.
 
 Every int8 backbone backend of the JAX function is ported
 (``nn/resnet_int8.resnet50_int8_forward``), and ``fused_head=True``: the
 whole-level bf16 HISHead on K15 (``ops/head.py``) behind the float HisFPN.
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-other model families.
+anchor families and FCOS's EfficientNet backbone.
 """
 from __future__ import annotations
 
@@ -49,8 +56,18 @@ import torch
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
-from pytorch_object_detection_tpu_torch.models.fcos import HISFCOS, MNFCOS
+from pytorch_object_detection_tpu_torch.models.fcos import FCOS, HISFCOS, MNFCOS
+from pytorch_object_detection_tpu_torch.models.fcos_int8 import (
+    calibrate_fcoshead,
+    calibrate_fpn_classic,
+    fcoshead_int8_forward,
+    fpn_classic_int8_forward,
+    quantize_fcoshead,
+    quantize_fpn_classic,
+)
 from pytorch_object_detection_tpu_torch.models.head_int8 import calibrate_hishead, hishead_int8_forward, quantize_hishead
+from pytorch_object_detection_tpu_torch.models.mcfcos import MC_FCOS
+from pytorch_object_detection_tpu_torch.models.mcfcos_int8 import mcfcos_int8_forward
 from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import (
     calibrate_lwfpn,
     calibrate_mnhead,
@@ -297,10 +314,18 @@ def make_train_step_scan(model: nn.Module, level_shapes: Sequence[Tuple[int, int
 
 
 def _require_ported(model: nn.Module) -> None:
-    if not isinstance(model, (HISFCOS, MNFCOS)):
+    if not isinstance(model, (FCOS, HISFCOS, MNFCOS, MC_FCOS)):
         raise NotImplementedError(
-            f"the int8 ladder is ported for the ResNet-50 FCOS families HISFCOS and MNFCOS; got "
+            f"the int8 ladder is ported for the ResNet-50 FCOS families FCOS, HISFCOS and MNFCOS, and MC_FCOS; got "
             f"{type(model).__name__}: ROADMAP.md queue 1 item 10 (the other families)")
+
+
+def _require_pyramid(model: nn.Module) -> None:
+    """MC_FCOS has no separate pyramid and head ladders: its neck and head
+    quantize together (``models/mcfcos_int8.quantize_mcfcos``)."""
+    _require_ported(model)
+    if isinstance(model, MC_FCOS):
+        raise ValueError("MC_FCOS quantizes its neck and head together: models/mcfcos_int8.quantize_mcfcos")
 
 
 def quantize_backbone(model: nn.Module, calib_images: torch.Tensor,
@@ -326,7 +351,8 @@ def _backbone_int8_feats(qtree_bb: Dict, images: torch.Tensor, **kw):
 
 def quantize_fpn(model: nn.Module, qtree_bb: Dict, calib_images: torch.Tensor) -> Dict:
     """PTQ of the FPN (extends :func:`quantize_backbone`; the HisFPN of a
-    HISFCOS, the LightweightFPN of an MNFCOS): calibrate its activation
+    HISFCOS, the LightweightFPN of an MNFCOS, the classic FPN of an FCOS):
+    calibrate its activation
     scales on the int8 backbone's dequantized C3..C5, the distribution the
     int8 FPN sees when serving, and return the FPN qtree for
     ``make_eval_forward_int8(int8_fpn=True)``.
@@ -335,17 +361,19 @@ def quantize_fpn(model: nn.Module, qtree_bb: Dict, calib_images: torch.Tensor) -
     the float stem, in f32, on the NORMALIZED ``calib_images`` (not from the
     uint8 stem), whatever compute dtype the pipeline serves in.
     """
-    _require_ported(model)
+    _require_pyramid(model)
     feats_q, scales = _backbone_int8_feats(qtree_bb, calib_images)
     feats = [q.float() * s for q, s in zip(feats_q, scales)]
     if isinstance(model, MNFCOS):
         return quantize_lwfpn(model.fpn, calibrate_lwfpn(model.fpn, feats), scales)
+    if isinstance(model, FCOS):
+        return quantize_fpn_classic(model.fpn, calibrate_fpn_classic(model.fpn, feats), scales)
     return quantize_hisfpn(model.fpn, calibrate_hisfpn(model.fpn, feats), scales)
 
 
 def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_images: torch.Tensor) -> Dict:
     """PTQ of the head (extends :func:`quantize_fpn` through the whole
-    detector; the HISHead or the MNHead): calibrate its per-level
+    detector; the HISHead, the MNHead or the FCOSHead): calibrate its per-level
     activation scales on the int8 FPN's dequantized levels and return the
     head qtree for ``make_eval_forward_int8(int8_fpn=True, int8_head=True)``.
 
@@ -353,8 +381,12 @@ def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_image
     f32: the backbone with the float stem on the NORMALIZED
     ``calib_images``, then the int8 FPN with ``dequant=False``.
     """
-    _require_ported(model)
+    _require_pyramid(model)
     feats_q, _ = _backbone_int8_feats(qtree_bb, calib_images)
+    if isinstance(model, FCOS):
+        levels_q, level_scales = fpn_classic_int8_forward(qtree_fpn, feats_q, dequant=False)
+        levels = [q.float() * s for q, s in zip(levels_q, level_scales)]
+        return quantize_fcoshead(model.head, calibrate_fcoshead(model.head, levels), level_scales, model.num_classes)
     if isinstance(model, MNFCOS):
         levels_q, level_scales = lwfpn_int8_forward(qtree_fpn, feats_q, dequant=False, backend="xla")
         levels = [q.float() * s for q, s in zip(levels_q, level_scales)]
@@ -380,13 +412,14 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     """Inference forward with an int8-PTQ backbone: ``fwd(qtree, images) ->
     per-level f32 NHWC (cls, cnt, reg)``; ``images`` normalized NHWC
     floats, or raw uint8 frames with ``u8_input=True`` (the exact uint8
-    stem).  ``model`` is a HISFCOS or an MNFCOS.
+    stem).  ``model`` is an FCOS, a HISFCOS, an MNFCOS or an MC_FCOS.
 
     ``int8_fpn=False``: the int8 C3..C5 are dequantized to
     ``compute_dtype`` and turned NCHW there, once; a HISFCOS's HisFPN runs
     BN-folded (its kernels folded here, once, from the model's f32
-    weights), an MNFCOS's LightweightFPN as a ``compute_dtype`` copy of
-    ``model.fpn`` with its BatchNorms (JAX folds the BN for HISFCOS only).
+    weights), an MNFCOS's LightweightFPN (with its BatchNorms) and an
+    FCOS's classic FPN as a ``compute_dtype`` copy of ``model.fpn`` (JAX
+    folds the BN for HISFCOS only).
     ``int8_fpn=True``: ``qtree`` is ``{"backbone": ..., "fpn": ...}``
     (:func:`quantize_backbone` + :func:`quantize_fpn`); the int8 C3..C5 go
     straight into the int8 FPN, whose levels are dequantized to
@@ -400,7 +433,15 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     ``"xla"`` (or ``plain=True``) their per-op oracles; any other backend
     their kernels: the HisFPN on K4, K5, K6 and the HISHead on K7 and K9;
     the MNFCOS's fifteen MNBlocks on K12 (the JAX package's ``PODT_QMN=1``;
-    its default ``PODT_QMN=0`` is ``backend="xla"``).
+    its default ``PODT_QMN=0`` is ``backend="xla"``).  The FCOS's classic
+    FPN and FCOSHead are per-op ladders on any backend (no kernel: XLA int8
+    convs in JAX).
+
+    An MC_FCOS gets the one-shot ladder (``models/mcfcos_int8.py``):
+    ``qtree`` is ``models/mcfcos_int8.quantize_mcfcos``'s ``{"backbone", "neck_head"}``,
+    the backbone on ``backend`` (``fuse_strided``, ``u8_input``), the neck
+    and head per-op; ``int8_fpn``, ``int8_head`` and ``fused_head`` are
+    ignored, ``direct_stem`` and ``chain_segments`` raise ``ValueError``.
 
     ``fused_head=True`` (the JAX serving bench's ``PODT_FUSED_HEAD=1``):
     for a HISFCOS with ``int8_fpn=False`` and ``backend != "xla"`` each level goes to K15
@@ -423,14 +464,25 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     """
     del use_pallas_gn  # kernel B on the card either way (docstring)
     _require_ported(model)
+    if isinstance(model, MC_FCOS):
+        if direct_stem or chain_segments:
+            raise ValueError("MC_FCOS's one-shot ladder takes no direct_stem or chain_segments")
+
+        @torch.inference_mode()
+        def fwd_mc(qtree: Dict, images: torch.Tensor) -> Levels:
+            return mcfcos_int8_forward(qtree, images, backend=backend, u8_stem=u8_input, fuse_strided=fuse_strided,
+                                       plain=plain)
+
+        return fwd_mc
     int8_head = int8_head and int8_fpn  # the head is int8 only behind an int8 FPN, as in JAX
     fused_head = fused_head and fused_head_applies(model, backend, int8_fpn)
-    is_mn = isinstance(model, MNFCOS)
-    fpn_int8_forward = lwfpn_int8_forward if is_mn else hisfpn_int8_forward
-    head_int8_forward = mnhead_int8_forward if is_mn else hishead_int8_forward
+    is_mn, is_fcos = isinstance(model, MNFCOS), isinstance(model, FCOS)
+    fpn_int8_forward = fpn_classic_int8_forward if is_fcos else lwfpn_int8_forward if is_mn else hisfpn_int8_forward
+    head_int8_forward = fcoshead_int8_forward if is_fcos else mnhead_int8_forward if is_mn else hishead_int8_forward
     fpn = model.fpn
-    folded = None if int8_fpn or is_mn else fold_hisfpn(fpn, compute_dtype)
-    fpn_copy = copy.deepcopy(fpn).to(compute_dtype).eval() if is_mn and not int8_fpn else None
+    float_fpn = (is_mn or is_fcos) and not int8_fpn  # the module in compute_dtype (JAX folds the HisFPN only)
+    folded = None if int8_fpn or float_fpn else fold_hisfpn(fpn, compute_dtype)
+    fpn_copy = copy.deepcopy(fpn).to(compute_dtype).eval() if float_fpn else None
     head = None if int8_head or fused_head else copy.deepcopy(model.head).to(compute_dtype).eval()
     packed = hishead_params_pack(model.head, model.num_classes) if fused_head else None
     scales = [getattr(model.head, f"scale{i}").scale.detach().float() for i in range(5)] if fused_head else None
@@ -451,7 +503,7 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
         else:
             feats = resnet50_int8_forward(qtree, images, compute_dtype, **bb_kw)
             feats = [f.permute(0, 3, 1, 2).contiguous() for f in feats]  # the dequant seam: NHWC -> NCHW
-            levels = fpn_copy(feats) if is_mn else hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
+            levels = fpn_copy(feats) if float_fpn else hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
         if fused_head:
             nc = model.num_classes
             outs = ([], [], [])

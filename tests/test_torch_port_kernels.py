@@ -10,7 +10,8 @@ whole int8 MNBlock); kernel B and K17 also under every tile their choosers
 weigh, with one CUDA kernel a call.  A train step on the card: kernel B
 launched no time in it (its wrapper raises when asked for a gradient) and 20
 times in an eval forward after it, the frozen weights unchanged, the bf16
-step against the f32 step.
+step against the f32 step.  FCOS and MC_FCOS: small pipelines (float and
+int8, counted, against their plain runs) and train steps on the card.
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -21,6 +22,8 @@ The CPU cases check what the wrappers do without a card: plain version,
 no launch counted, bad operands refused.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
@@ -1555,6 +1558,107 @@ def test_bf16_train_step_against_f32(cuda):
     batch = _train_batch(cuda)
     m32 = _train_step(s32, torch.float32)(s32, *batch)
     m16 = _train_step(s16, torch.bfloat16)(s16, *batch)
+    assert abs(float(m16["total"]) - float(m32["total"])) <= 2e-2 * abs(float(m32["total"]))
+    g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
+    g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])
+    assert float(g16 @ g32 / (g16.norm() * g32.norm())) >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# the classic FCOS and MC_FCOS on the card: their pipelines and train steps
+# ---------------------------------------------------------------------------
+FAMILIES = ("FCOS", "MC_FCOS")
+# kernel B launches in one float forward: the FCOSHead's 8 tower GroupNorms a level; MC_FCOS has none
+FAMILY_GN = {"FCOS": 40, "MC_FCOS": 0}
+
+
+def _voc_block(family):
+    """The strides and ranges of ``family``'s block in config/voc.yaml, as
+    podt-torch-train reads them."""
+    import yaml
+
+    from pytorch_object_detection_tpu_torch.core import config as C
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "config", "voc.yaml")) as f:
+        cfg = dict(yaml.safe_load(f), model={"name": family})
+    return tuple(C.strides(cfg)), C.limit_ranges(cfg)
+
+
+def _family_launches(pipe, frames):
+    """One pipeline call with the counters of the family paths' kernels zeroed
+    just before and read just after."""
+    counters = {"K1": qstem_conv, "K2": qbottleneck, "K3": qbottleneck_s2, "B": groupnorm_act,
+                "A": cuda_nms_keep_mask}
+    for c in counters.values():
+        c.launches = 0
+    dets = pipe(frames)
+    torch.cuda.synchronize()
+    return dets, {k: c.launches for k, c in counters.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_pipelines_on_the_card(cuda, family):
+    """FCOS(20, 64) and MC_FCOS(20, 64) at 128x128, B=2: the float pipeline
+    (bf16; FCOS's 40 kernel B launches, one A) and the default int8 pipeline
+    from raw uint8 frames (K1, 13 K2, 3 K3, one A, no B; FCOS with
+    ``int8_head=False`` also its 40 B), finite detections, and the maps
+    against the same pipelines' plain runs."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline, make_eval_pipeline_int8
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+
+    strides, _ = _voc_block(family)
+    model = build_model(family, 20, 64, device=cuda, generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8).to(cuda)
+    norm = (frames.float() / 255.0 - torch.tensor([0.485, 0.456, 0.406], device=cuda)) / torch.tensor(
+        [0.229, 0.224, 0.225], device=cuda)
+    pipes = [("float", make_eval_pipeline(model, strides, (128, 128)),
+              make_eval_pipeline(model, strides, (128, 128), plain=True), dict(B=FAMILY_GN[family], A=1))]
+    cases = [dict()] + ([dict(int8_head=False)] if family == "FCOS" else [])
+    for kw in cases:
+        pipe = make_eval_pipeline_int8(model, norm, strides, (128, 128), **kw)
+        plain = make_eval_pipeline_int8(model, norm, strides, (128, 128), plain=True, **kw)
+        plain.qtree = pipe.qtree  # one calibration for both
+        pipes.append((f"int8 {kw}", pipe, plain, dict(K1=1, K2=13, K3=3, B=40 if kw else 0, A=1)))
+    for what, pipe, plain, want in pipes:
+        dets, launches = _family_launches(pipe, frames)
+        assert launches == dict(dict(K1=0, K2=0, K3=0), **want), (what, launches)
+        assert bool(torch.isfinite(dets.scores).all()) and all(int(n) > 0 for n in dets.valid.sum(dim=1)), what
+        for got_b, want_b in zip(pipe.forward_levels(frames), plain.forward_levels(frames)):
+            for a, b in zip(got_b, want_b):
+                assert bool(torch.isfinite(a).all())
+                assert float((a - b).abs().max()) <= 2.0**-5 * float(b.abs().max()) + 1e-6, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_train_steps_on_the_card(cuda, family):
+    """A small f32 train step of FCOS(5, 64) and MC_FCOS(5, 64) at 128x128:
+    finite losses, the frozen weights and every buffer unchanged, kernel B
+    launched no time; the bf16 autocast step within 2 % of its loss and at
+    gradient cosine >= 0.98."""
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.train import trainer
+
+    strides, ranges = _voc_block(family)
+    shapes = [(TRAIN_HW[0] // s, TRAIN_HW[1] // s) for s in strides]
+    states = []
+    for _ in range(2):
+        model = build_model(family, 5, 64, device=cuda, generator=torch.Generator().manual_seed(5))
+        states.append(trainer.create_train_state(model, {"lr": 1e-2, "warmup_steps": 10}, True, 0))
+    s32, s16 = states
+    trainable = set(s32.trainable_names())
+    before = {k: v.clone() for k, v in s32.model.state_dict().items() if k not in trainable}
+    batch = _train_batch(cuda)
+    groupnorm_act.launches = 0
+    m32 = trainer.make_train_step(s32.model, shapes, strides, ranges, "giou", torch.float32)(s32, *batch)
+    m16 = trainer.make_train_step(s16.model, shapes, strides, ranges, "giou", torch.bfloat16)(s16, *batch)
+    torch.cuda.synchronize()
+    assert groupnorm_act.launches == 0
+    assert all(bool(torch.isfinite(v)) for v in list(m32.values()) + list(m16.values()))
+    after = s32.model.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
     assert abs(float(m16["total"]) - float(m32["total"])) <= 2e-2 * abs(float(m32["total"]))
     g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
     g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])

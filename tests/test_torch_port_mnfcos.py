@@ -63,6 +63,8 @@ from torch_port_fixtures import (
     NUM_CLASSES,
     STRIDES,
     assert_close_to_ref,
+    assert_same_qtree,
+    assert_taps,
     branch_scales,
     jax_model,
     nchw,
@@ -247,61 +249,26 @@ def test_jax_interpret_kernel_within_one_step_of_plain_k12():
 
 # ---------------------------------------------------------------- (c)
 
-def _flat(q, prefix=""):
-    """A port qtree's tensors by dotted name."""
-    out = {}
-    items = enumerate(q) if isinstance(q, (list, tuple)) else q.items()
-    for k, v in items:
-        name = f"{prefix}{k}"
-        if isinstance(v, (dict, list, tuple)):
-            out.update(_flat(v, name + "."))
-        elif isinstance(v, torch.Tensor):
-            out[name] = v
-    return out
-
-
-def _assert_same_qtree(got, want):
-    got, want = _flat(got), _flat(want)
-    assert sorted(got) == sorted(want)
-    for name, w in want.items():
-        g = got[name]
-        assert g.dtype == w.dtype and g.shape == w.shape, name
-        if w.dtype == torch.int8:
-            assert torch.equal(g, w), f"{name}: {int((g != w).sum())} int8 weights differ"
-        else:
-            # atol: a BN shift (bias - mean * mult) near 0 keeps only the absolute precision of its
-            # terms, and JAX's jitted quantize computes it as one fused multiply-add
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()), msg=lambda m: f"{name}: {m}")
-
-
-def _assert_taps(got, want):
-    assert sorted(got) == sorted(want)
-    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
-    worst = max(rel, key=rel.get)
-    print(f"worst tap {worst}: relative difference {rel[worst]:.3g} ({len(want)} taps)")
-    assert rel[worst] <= 1e-5, worst
-
-
 def test_calibrate_and_quantize_lwfpn_match_jax(mn):
     """Taps within rtol 1e-5 of JAX's on the same f32 C3..C5; from the JAX
     taps, int8 weights identical and every scale and shift within rtol
     1e-5 (plus 1e-6 of the vector's range)."""
     fpn = mn["model"].fpn
-    _assert_taps(mnfcos_int8.calibrate_lwfpn(fpn, [torch.from_numpy(f) for f in mn["feats"]]), mn["fpn_taps"])
+    assert_taps(mnfcos_int8.calibrate_lwfpn(fpn, [torch.from_numpy(f) for f in mn["feats"]]), mn["fpn_taps"])
     got = mnfcos_int8.quantize_lwfpn(fpn, mn["fpn_taps"], [torch.from_numpy(s) for s in mn["feat_scales"]])
-    _assert_same_qtree(got, load_lwfpn_qtree(mn["jq_fpn"], "cpu"))
+    assert_same_qtree(got, load_lwfpn_qtree(mn["jq_fpn"], "cpu"))
 
 
 def test_calibrate_and_quantize_mnhead_match_jax(mn):
     head = mn["model"].head
-    _assert_taps(mnfcos_int8.calibrate_mnhead(head, [torch.from_numpy(lv) for lv in mn["cal_levels"]]),
+    assert_taps(mnfcos_int8.calibrate_mnhead(head, [torch.from_numpy(lv) for lv in mn["cal_levels"]]),
                  mn["head_taps"])
     got = mnfcos_int8.quantize_mnhead(head, mn["head_taps"], [torch.from_numpy(s) for s in mn["level_scales"]],
                                       NUM_CLASSES)
     want = load_mnhead_qtree(mn["jq_head"], "cpu")
     assert got["num_classes"] == want["num_classes"] == NUM_CLASSES and len(want["levels"]) == 5
     assert isinstance(want["gnc"], tuple)
-    _assert_same_qtree(got, want)
+    assert_same_qtree(got, want)
 
 
 @pytest.fixture(scope="module")
@@ -446,7 +413,7 @@ def test_float_pipeline_and_entry_points(mn):
     assert tuple(built.head.cls_pred.weight.shape) == (5, 32, 1, 1) and built.head.scale2.scale.item() == 1.0
     assert tuple(built.fpn.mnb7.ddw.weight.shape) == (32, 1, 7, 7) and built.fpn.mnb5.ddw.dilation == (2, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("FCOS", 20)
+        build_model("RETINANET", 20)
     with pytest.raises(NotImplementedError, match="HISFCOS and MNFCOS"):
         trainer.quantize_backbone(torch.nn.Linear(2, 2), torch.zeros(1, 8, 8, 3))
 

@@ -86,12 +86,12 @@ def numpy_batch(seed: int = 1, hw=HW, batch: int = 2, max_boxes: int = 8):
     return images, boxes_, labels
 
 
-def jax_capture_state(name: str, frozen_stages: int, params, stats):
+def jax_capture_state(name: str, frozen_stages: int, params, stats, opt=OPT_CFG):
     """A JAX TrainState whose optimizer is ``optax.chain(capture, make_optimizer(...))``:
     ``opt_state[0]`` holds the last step's raw gradients."""
     capture = optax.GradientTransformation(lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
                                            lambda g, s, p=None: (g, g))
-    sched = jax_schedules.warmup_step_decay(OPT_CFG["lr"], OPT_CFG["warmup_steps"])
+    sched = jax_schedules.warmup_step_decay(opt["lr"], opt["warmup_steps"])
     tx = optax.chain(capture, jax_trainer.make_optimizer("SGD", sched, 0.9, 1e-4, params=params, freeze_bn=True,
                                                          frozen_stages=frozen_stages))
     params = jax.tree_util.tree_map(jnp.asarray, params)
@@ -122,17 +122,18 @@ def jax_his():
     return JaxRun("HISFCOS", 1, 2)
 
 
-def port_state(name: str, frozen_stages: int, params, stats, barrier: bool = True):
+def port_state(name: str, frozen_stages: int, params, stats, barrier: bool = True, opt=OPT_CFG):
     model = build_model(name, N_CLASSES, 64, frozen_stages=frozen_stages if barrier else 0, device="cpu")
     load_flax_variables(model, params, stats)
-    return trainer.create_train_state(model, OPT_CFG, freeze_bn=True, frozen_stages=frozen_stages)
+    return trainer.create_train_state(model, opt, freeze_bn=True, frozen_stages=frozen_stages)
 
 
 def port_batch(run):
     return torch.from_numpy(run.images), torch.from_numpy(run.boxes), torch.from_numpy(run.labels)
 
 
-def assert_step_matches(state, got_losses, grads, after, want_losses, want_grads, want_after, what, n_steps=1):
+def assert_step_matches(state, got_losses, grads, after, want_losses, want_grads, want_after, what, n_steps=1,
+                        lr=OPT_CFG["lr"]):
     """Losses, gradients and the parameters after ``n_steps`` SGD updates
     against JAX's (the tolerances above): a parameter within the lr (at
     most 1e-2) times its gradient's tolerance, once a step, the momentum's
@@ -154,7 +155,7 @@ def assert_step_matches(state, got_losses, grads, after, want_losses, want_grads
     assert cos >= GRAD_COS, (what, cos)
     for name, p in after.items():
         want = want_after[name]
-        p_tol = n_steps * 1.9 * OPT_CFG["lr"] * g_tol.get(name, 0.0) + 2.4e-7 * float(np.abs(want).max())
+        p_tol = n_steps * 1.9 * lr * g_tol.get(name, 0.0) + 2.4e-7 * float(np.abs(want).max())
         err = float((p - torch.from_numpy(want)).abs().max())
         assert err <= p_tol, (what, name, err, p_tol)
 

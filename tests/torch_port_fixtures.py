@@ -1,6 +1,6 @@
 """Shared set-up for the PyTorch port's CPU tests (tests/test_torch_port_*.py).
 
-One small JAX HISFCOS or MNFCOS (20 classes, 64 features, 128x128 canvas) gets a
+One small JAX detector (HISFCOS, MNFCOS, FCOS or MC_FCOS: 20 classes, 64 features, 128x128 canvas) gets a
 variable tree whose BN statistics and affines, GN affines and ScaleExp
 scales sit away from their init values, so that a graft that drops or
 misplaces one of them shows in the outputs.  Inputs come from numpy seeds
@@ -12,6 +12,10 @@ can import the NMS cases from here.
 """
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,8 @@ FEATURES = 64
 BATCH = 2
 CANVAS = 128
 STRIDES = (8, 16, 32, 64, 128)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VOC_TREE = os.path.join(REPO, "tests", "fixtures", "port_eval", "voc")  # the committed eight-image tree
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,11 +43,12 @@ def one_torch_thread():
 
 
 def jax_model(name: str = "HISFCOS", num_classes: int = NUM_CLASSES, **kw):
-    """The small JAX detector ``name`` (HISFCOS or MNFCOS), 20 classes unless
-    ``num_classes`` says otherwise, 64 features; ``kw`` to its constructor."""
-    from pytorch_object_detection_tpu.models import fcos
+    """The small JAX detector ``name`` (HISFCOS, MNFCOS, FCOS or MC_FCOS), 20
+    classes unless ``num_classes`` says otherwise, 64 features; ``kw`` to its
+    constructor."""
+    from pytorch_object_detection_tpu.models import fcos, mcfcos
 
-    return getattr(fcos, name)(num_classes=num_classes, features=FEATURES, **kw)
+    return getattr(mcfcos if name == "MC_FCOS" else fcos, name)(num_classes=num_classes, features=FEATURES, **kw)
 
 
 def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int = NUM_CLASSES):
@@ -129,6 +136,56 @@ def assert_close_to_ref(got, want, what: str = "", ref_scale=None) -> None:
     scale = float(np.max(np.abs(want))) if ref_scale is None else float(ref_scale)
     tol = 1e-4 * scale + 1e-5
     assert err <= tol, f"{what}: max abs err {err:.3g} > tol {tol:.3g}"
+
+
+def cosine(a, b) -> float:
+    """Cosine of two tensors or arrays, in float64."""
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def flat_qtree(q, prefix=""):
+    """A port qtree's tensors by dotted name."""
+    out = {}
+    items = enumerate(q) if isinstance(q, (list, tuple)) else q.items()
+    for k, v in items:
+        name = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flat_qtree(v, name + "."))
+        elif isinstance(v, torch.Tensor):
+            out[name] = v
+    return out
+
+
+def assert_same_qtree(got, want, int8_flip_share: float = 0.0):
+    """The same leaves; int8 weights identical (or, with ``int8_flip_share``,
+    at most one step apart on at most that share of a tensor's elements),
+    every scale and shift within rtol 1e-5 plus 1e-6 of its vector's range
+    (a BN shift near 0 keeps only the absolute precision of its terms, and
+    JAX's jitted quantize computes it as one fused multiply-add)."""
+    got, want = flat_qtree(got), flat_qtree(want)
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if w.dtype == torch.int8:
+            d = (g.int() - w.int()).abs()
+            if int((d > 0).sum()):
+                print(f"{name}: {int((d > 0).sum())} of {d.numel()} int8 weights differ, max {int(d.max())} step")
+            assert int(d.max()) <= (1 if int8_flip_share else 0) and float((d > 0).float().mean()) <= int8_flip_share
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()), msg=lambda m: f"{name}: {m}")
+
+
+def assert_taps(got, want, rtol=1e-5):
+    """Calibration taps (abs-maxes) within ``rtol`` of JAX's; the worst printed."""
+    assert sorted(got) == sorted(want)
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    worst = max(rel, key=rel.get)
+    print(f"worst tap {worst}: relative difference {rel[worst]:.3g} ({len(want)} taps)")
+    assert rel[worst] <= rtol, worst
 
 
 def branch_scales(outputs):
@@ -325,3 +382,41 @@ def port_hisfpn_qtree(features: int, seed: int = 0):
     feats = [torch.randn(2, s, s, c, generator=g).abs() for s, c in ((16, 512), (8, 1024), (4, 2048))]
     scales = [f.abs().max() / 127.0 for f in feats]
     return quantize_hisfpn(fpn, calibrate_hisfpn(fpn, feats), scales)
+
+
+def tiny_voc_config(tmp_path, model: str, strides, ranges) -> str:
+    """A main config under ``tmp_path`` for ``model`` (64 features, 128x128,
+    B=2, SGD) over the committed VOC tree's test split; returns its path."""
+    data = tmp_path / f"{model}_data.yaml"
+    data.write_text(f"dataset_setting:\n  class_num : 20\n  train_07 : '{VOC_TREE}'\n  test_07 : '{VOC_TREE}'\n"
+                    f"  type : 'test'\n  input : [128, 128]\n  num_workers : 2\n  max_boxes : 16\n"
+                    f"{model}:\n  channel: {FEATURES}\n  Epoch: 1\n  batch_size: 2\n"
+                    f"  optimizer: {{name : SGD, lr : 0.01}}\n  schedule: {{warmup_steps : 10}}\n"
+                    f"  criterion : giou\n  stride : {list(strides)}\n  range : {[list(r) for r in ranges]}\n")
+    main = tmp_path / f"{model}.yaml"
+    main.write_text(f"dataset : VOC\nmodel : {model}\nVOC : {data}\nsavename : {model.lower()}\n")
+    return str(main)
+
+
+def run_cli(tmp_path, module: str, *args):
+    """``python -m pytorch_object_detection_tpu_torch.cli.<module> *args`` in ``tmp_path``."""
+    cmd = [sys.executable, "-m", f"pytorch_object_detection_tpu_torch.cli.{module}", *args]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # one torch thread, as in-process
+    return subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+
+
+def check_family_clis(tmp_path, model: str, strides, ranges, eval_flags) -> None:
+    """``podt-torch-train --synthetic`` for two steps, then ``eval_voc`` of its
+    checkpoint over the committed VOC tree (eight images)."""
+    cfg = tiny_voc_config(tmp_path, model, strides, ranges)
+    run = run_cli(tmp_path, "train", "--config", cfg, "--device", "cpu", "--synthetic", "--steps", "2",
+                  "--log-every", "1000")  # no TensorBoard writer: it would import TensorFlow
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert f"training {model} on cpu" in run.stdout and "training done: step 2" in run.stdout
+    ckpt = str(tmp_path / "checkpoint" / model.lower())
+    run = run_cli(tmp_path, "eval_voc", "--config", cfg, "--split", "test", "--batch-size", "4", "--device", "cpu",
+                  "--checkpoint", ckpt, *eval_flags)
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = run.stdout.splitlines()
+    assert lines[-1].startswith("mAP=====>") and "img/s" in lines[-1], run.stdout[-2000:]
+    assert sum(line.startswith("ap for ") for line in lines) == 20
