@@ -209,6 +209,20 @@ Phases (each prints its results on its own lines):
      5r (at lr 1e-4: FAMILY_TRAIN_OPT); evaluate_voc of the int8 pipeline
      with the device resize over the committed VOC tree, B=4, each batch
      counted;
+  5t. RetinaNet: full-width RetinaNet(20, 256) (ResNet-50, RetinaFPN, 4-conv
+     subnets, 9 anchors a cell: 49,104 anchors) at 512x512 on 8 seeded
+     frames: the float anchor pipeline (bf16: 1 A) and the int8 one (the
+     backbone with JAX's fuse_strided=False: 13 K2 and, for the three
+     stride-2 blocks per conv, 9 K4; the FPN and subnets per-op; 1 A), each
+     counted and against its plain run (the int8 one exactly), the int8 loc
+     and cls at cosine >= 0.99 to the float ones; a bf16 focal train step
+     at the block's B=16 (finite, the stem and every BatchNorm buffer
+     bit-identical) and ms a step with its split; podt-torch-train on
+     config/voc.yaml's RETINANET block, synthetic, 3 steps; evaluate_voc of
+     the int8 pipeline over the committed VOC tree, each batch counted;
+  5u. SSD300: full SSD300(21) at 300x300 (8,732 default boxes), as 5t: both
+     pipelines launch 1 A (the int8 VGG ladder is per-op), the MultiBox
+     train step at the block's B=32, evaluate_voc of the float pipeline;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -236,12 +250,14 @@ Phases (each prints its results on its own lines):
      (B=8 and B=64, in turns), and each pipeline's images/s at B=8 and B=64
      (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
      MNFCOS pipelines', and FCOS's and MC_FCOS's float and default int8
-     pipelines among them; the classic FCOS's per-op int8 head at B=8
+     pipelines among them, and the anchor families' float and int8
+     pipelines on their own canvases; the classic FCOS's per-op int8 head at B=8
      and B=64 beside K7;
   6b-6l. torch.profiler breakdowns of one B=64 call of the float, the
      int8-backbone, the int8-FPN, the default, the per-conv, the
      fused-head, the MNFCOS int8-ladder, the chained and the stem-tail
-     pipeline, and of FCOS's and MC_FCOS's default int8 pipelines (a profile that raises
+     pipeline, of FCOS's and MC_FCOS's default int8 pipelines, and (6m,
+     6n) of RetinaNet's and SSD300's int8 anchor pipelines (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
@@ -345,6 +361,21 @@ FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_WINDOW = 5, 20
 # from the flax init, 256x256, B=4, f32 on the CPU: the two losses agree to 5 digits through step 9, 273 to
 # 11.7, reach -1.8e7 at step 10 and NaN at 11); a step's work does not depend on the lr
 FAMILY_TRAIN_OPT = {"FCOS": TRAIN_OPT, "MC_FCOS": dict(TRAIN_OPT, lr=1e-4)}
+# phases 5t and 5u: the anchor families at their blocks of config/voc.yaml (anchor_block): RetinaNet(20, 256) at
+# 512x512, SSD300(21) at its 300x300; the launches in one call of each path: the float pipelines (kernel A only),
+# RetinaNet's int8 pipeline (the backbone on kernel C with JAX's fuse_strided=False: 13 K2, and the three stride-2
+# blocks per conv: w1, wd and w3 on K4; the FPN and subnets per-op) and SSD300's (per-op: A only); their train
+# steps at the blocks' batches (16, 32) over the blocks' optimizers
+ANCHOR_FLOAT_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, cuda_nms_keep_mask=1)
+ANCHOR_INT8_LAUNCHES = {"RETINANET": dict(ANCHOR_FLOAT_LAUNCHES, qbottleneck=13, qmatmul=9),
+                        "SSD300": ANCHOR_FLOAT_LAUNCHES}
+ANCHOR_CANVAS = {"RETINANET": CANVAS, "SSD300": (300, 300)}
+# the counted pipelines keep every top-1000 box for the NMS: at its init RetinaNet's classification prior (p = 0.01)
+# puts every score under the 0.05 default, which would leave kernel A no box to resolve
+ANCHOR_SCORE_THRESHOLD = 0.0
+# the int8 loc and cls against the bf16 float pipeline's, by cosine (the JAX tests hold f32 at loc 0.995, cls and
+# SSD's 0.999: tests/test_retinanet_int8.py:47-49, tests/test_ssd_int8.py:49-50; the float side here is bf16)
+ANCHOR_INT8_COS = 0.99
 # the int8 ResNet-50's other backends (phase 5h): make_eval_pipeline_int8 keywords, launches in one call
 BACKEND_PATHS = {
     # 16 conv1 + 4 projection shortcuts + 16 conv3 on K4, and the 3 FPN laterals; 13 stride-1 conv2 on K11
@@ -2518,6 +2549,170 @@ def main() -> int:
                         f"{len(voc)} images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} "
                         f"(random weights), {r['images_per_sec']:.1f} img/s")
 
+    def anchor_block(family):
+        """``family``'s block of config/voc.yaml through the port's config
+        accessors, with its canvas, as podt-torch-train reads them."""
+        import yaml
+
+        from pytorch_object_detection_tpu_torch.core import config as C
+
+        with open("config/voc.yaml") as f:
+            cfg = dict(yaml.safe_load(f), model={"name": family})
+        return C.model_block(cfg), C.canvas_hw(cfg)
+
+    def phase_anchor(family):
+        """Phases 5t (RetinaNet) and 5u (SSD300): full-width ``family`` from a
+        seed on 8 seeded frames at its canvas: (i) the float pipeline (bf16)
+        and the int8 anchor pipeline, each counted and against its plain run
+        (one calibration); (ii) the int8 loc and cls against the float ones
+        by cosine; (iii) a bf16 train step at the block's batch: finite, the
+        frozen weights and every BatchNorm buffer bit-identical, ms a step
+        with its split; (iv) ``podt-torch-train`` for a few synthetic steps on
+        the block; (v) ``evaluate_voc`` over the committed VOC tree (RetinaNet:
+        the int8 pipeline; SSD300: the float one), counted once a batch.  The
+        pipelines' img/s and profiles are phase 6's."""
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+        from pytorch_object_detection_tpu_torch.data.synthetic import synthetic_batch
+        from pytorch_object_detection_tpu_torch.data.voc import VOCDataset
+        from pytorch_object_detection_tpu_torch.eval.evaluator import (
+            evaluate_voc, make_eval_pipeline_anchor, make_eval_pipeline_anchor_int8)
+
+        block, hw = anchor_block(family)
+        assert hw == ANCHOR_CANVAS[family], hw
+        seed = SEED + (17 if family == "RETINANET" else 18)
+        t0 = time.perf_counter()
+        model = build_model(family, NUM_CLASSES, int(block["channel"]), device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+        tag = (f"RetinaNet({model.num_classes}, {model.features})" if family == "RETINANET"
+               else f"SSD300({model.num_classes})")
+        frames = torch.randint(0, 256, (8, *hw, 3), generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                               device=dev, dtype=torch.uint8)
+        norm = normalized(frames)
+        nms_iou = float(block["eval"]["nms_iou"])
+        kw = dict(score_threshold=ANCHOR_SCORE_THRESHOLD, nms_iou=nms_iou)
+        fpipe = make_eval_pipeline_anchor(model, hw, compute_dtype=torch.bfloat16, **kw)
+        fplain = make_eval_pipeline_anchor(model, hw, compute_dtype=torch.bfloat16, plain=True, **kw)
+        ipipe = make_eval_pipeline_anchor_int8(model, norm, hw, **kw)
+        iplain = make_eval_pipeline_anchor_int8(model, norm, hw, plain=True, **kw)
+        iplain.qtree = ipipe.qtree  # one calibration for both, as in phase 5b
+        torch.cuda.synchronize()
+        print(f"  {tag} and its pipelines built (int8 calibration on the 8 frames, the backbone in bf16) in "
+              f"{time.perf_counter() - t0:.2f} s; {sum(p.numel() for p in model.parameters())} parameters; "
+              f"{ipipe.anchors.shape[0]} anchors; nms_iou {nms_iou}, score threshold {ANCHOR_SCORE_THRESHOLD}")
+        outs = {}
+        for what, pipe, plain, want in (("float", fpipe, fplain, ANCHOR_FLOAT_LAUNCHES),
+                                        ("int8", ipipe, iplain, ANCHOR_INT8_LAUNCHES[family])):
+            # the main path, counted: counters to 0 just before, read just after
+            dets, launches = count_launches(pipe, frames)
+            res[f"{family} {what} launches"] = launches
+            print(f"  launches in one {family} {what} pipeline call (B=8): "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            smoke.check(launches == want, f"{family} {what}: " + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+                        + " per call, no other kernel")
+            check_dets(dets, f"{family} {what}")
+            outs[what] = pipe.forward_levels(frames)
+            for name, got, ref in zip(("loc", "cls"), outs[what], plain.forward_levels(frames)):
+                scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+                tol = LEVEL_TOL * scale if what == "float" else 0.0  # int8: exact int32 sums, the same f32 epilogues
+                smoke.check(bool(torch.isfinite(got).all()) and err <= tol,
+                            f"{family} {what} pipeline {name} {tuple(got.shape)}: kernel vs plain max abs err "
+                            f"{err:.4g} (range {scale:.4g}, tol {tol:.4g})")
+        for name, a, f in zip(("loc", "cls"), outs["int8"], outs["float"]):
+            c = cosine(a, f)
+            smoke.check(c >= ANCHOR_INT8_COS, f"{family} int8 vs bf16 float pipeline, {name}: cosine {c:.6f} "
+                                              f"(min {ANCHOR_INT8_COS})")
+        res[f"{family} anchor pipes"] = (frames, [(f"{family} float kernels", fpipe),
+                                                  (f"{family} int8 kernels", ipipe)])
+        del fplain, iplain, outs
+
+        # (iii) a bf16 train step at the block's batch, then the steady window
+        from pytorch_object_detection_tpu_torch.models.ssd import default_boxes
+        from pytorch_object_detection_tpu_torch.ops.anchors import generate_anchors
+
+        b = int(block["batch_size"])
+        opt = dict(TRAIN_OPT, lr=float(block["optimizer"]["lr"]),
+                   weight_decay=float(block["optimizer"]["weight_decay"]))
+        tmodel = build_model(family, NUM_CLASSES, int(block["channel"]), device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+        state = trainer.create_train_state(tmodel, opt, freeze_bn=True, frozen_stages=0)
+        if family == "SSD300":
+            anchors, loss = default_boxes(hw[0], dev), "multibox"
+        else:
+            anchors, loss = generate_anchors(tmodel.level_shapes(hw), block["stride"], device=dev), "focal"
+        step = trainer.make_anchor_train_step(state.model, anchors, NUM_CLASSES, torch.bfloat16,
+                                              float(block["pos_iou"]), float(block["neg_iou"]), loss)
+        images, boxes, labels = synthetic_batch(torch.Generator().manual_seed(seed + 100), b, hw, NUM_CLASSES,
+                                                max_boxes=32)
+        mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+        batch = (((images - mean) / std).to(dev), boxes.to(dev), labels.to(dev))
+        trainable = set(state.trainable_names())
+        frozen_before = {k: v.clone() for k, v in state.model.state_dict().items() if k not in trainable}
+        first = step(state, *batch)
+        torch.cuda.synchronize()
+        after = state.model.state_dict()
+        bn_buffers = [k for k in after if k.endswith("running_var")]
+        smoke.check(bool(torch.isfinite(first["total"]))
+                    and all(torch.equal(v, after[k]) for k, v in frozen_before.items())
+                    and all(k in frozen_before for k in bn_buffers),
+                    f"{family} bf16 train step ({loss}), B={b}: loss {float(first['total']):.4f} finite, the frozen "
+                    f"tensors ({len(frozen_before)}: {len(bn_buffers)} BatchNorms' buffers"
+                    f"{', the stem' if 'backbone.conv1.weight' in frozen_before else ''}) bit-identical; "
+                    f"{len(trainable)} trainable")
+        t = time_train_steps(state, step, batch, FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_WINDOW)
+        res[f"{family} train"] = {k: t[k] for k in ("ms", "img_s", "split", "peak_gib")}
+        print(f"  train step {tag} bf16 {hw[0]}x{hw[1]} B={b} (lr {opt['lr']}), {t['line']}")
+        smoke.check(bool(torch.isfinite(t["loss"])), f"{family} timed steps: finite loss after {FAMILY_TRAIN_WINDOW}")
+        del state, step, batch, tmodel
+
+        # (iv) the CLI on config/voc.yaml's block, synthetic
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "voc.yaml")
+            with open("config/voc.yaml") as f:
+                text = f.read()
+            with open(data, "w") as f:  # the repo's config with the committed tree for its paths
+                f.write(text.replace("./data/voc/VOCdevkit/VOC2007", f"{FIXTURE_TREE}/voc")
+                        .replace("./data/voc/VOCdevkit/VOC2012", f"{FIXTURE_TREE}/voc"))
+            main_cfg = os.path.join(tmp, "main.yaml")
+            with open(main_cfg, "w") as f:
+                f.write(f"dataset : VOC\nmodel : {family}\nVOC : {data}\nsavename : anchor_smoke\n")
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.train", "--config",
+                                  main_cfg, "--synthetic", "--steps", "3", "--log-every", "1", "--checkpoint-dir",
+                                  tmp], capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in out.stdout.splitlines() if ln.startswith(("training", "step "))]
+            for ln in lines:
+                print(f"    {ln}")
+            ok = (out.returncode == 0 and f"training {family} on cuda" in out.stdout
+                  and "training done: step 3" in out.stdout)
+            smoke.check(ok, f"podt-torch-train {family} (config/voc.yaml's block, B={b}, synthetic, 3 steps): exit "
+                            f"{out.returncode} in {time.perf_counter() - t0:.1f} s"
+                        + ("" if ok else f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}"))
+
+        # (v) evaluate_voc over the committed VOC tree (the default score threshold), counted once a batch
+        voc = VOCDataset(os.path.join(FIXTURE_TREE, "voc"), "test", hw)
+        if family == "RETINANET":
+            what, epipe, want = "int8", make_eval_pipeline_anchor_int8(model, first_batch_calib(voc, 8, hw, dev), hw,
+                                                                       nms_iou=nms_iou), ANCHOR_INT8_LAUNCHES[family]
+        else:
+            what, epipe, want = "float", make_eval_pipeline_anchor(model, hw, nms_iou=nms_iou), ANCHOR_FLOAT_LAUNCHES
+        for counter in counters.values():
+            counter.launches = 0
+        with torch.inference_mode():
+            r = evaluate_voc(model, voc, batch_size=4, pipeline=epipe, verbose=False)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        calls = -(-len(voc) // 4)
+        smoke.check(launches == {k: calls * n for k, n in want.items()} and np.isfinite(r["mAP"])
+                    and r["num_images"] == len(voc),
+                    f"evaluate_voc, {tag} {what} pipeline at {hw[0]}x{hw[1]}, B=4, the committed tree's {len(voc)} "
+                    f"images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} (random "
+                    f"weights), {r['images_per_sec']:.1f} img/s")
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -2642,6 +2837,18 @@ def main() -> int:
                 ms = cuda_ms(lambda: p(fr), iters=iters, reps=3)
                 print(f"  pipeline B={b} bf16 512x512 ({name}): {ms:.3f} ms/batch, "
                       f"{b * 1000.0 / ms:.1f} img/s {card}")
+        # the anchor families' pipelines (phases 5t, 5u) on their own frames and canvases
+        for family in ("RETINANET", "SSD300"):
+            if f"{family} anchor pipes" not in res:
+                continue
+            own, anchor_pipes = res[f"{family} anchor pipes"]
+            for b, iters in ((8, 10), (64, 3)):
+                fr = own.repeat(b // own.shape[0], 1, 1, 1)
+                for name, p in anchor_pipes:
+                    ms = cuda_ms(lambda: p(fr), iters=iters, reps=3)
+                    res[f"{name} B={b} ms"] = ms
+                    print(f"  pipeline B={b} {fr.shape[1]}x{fr.shape[2]} ({name}): {ms:.3f} ms/batch, "
+                          f"{b * 1000.0 / ms:.1f} img/s {card}")
         # the other backends of phase 5h: the per-conv and chained paths at both batches, the two stems at B=64
         for name, batches in (("per-conv", (8, 64)), ("chained", (8, 64)), ("direct stem", (64,)),
                               ("stem tail", (64,))):
@@ -3307,6 +3514,11 @@ def main() -> int:
                     "step at B=16; podt-torch-train", phase_family, "FCOS")
         smoke.phase("phase 5s: MC_FCOS(20, 256) 512x512 B=8: float and int8 pipelines, counted; a bf16 train step at "
                     "B=16; evaluate_voc of the int8 pipeline on the VOC tree", phase_family, "MC_FCOS")
+    smoke.phase("phase 5t: RetinaNet(20, 256) 512x512 B=8: float and int8 anchor pipelines, counted; a bf16 train "
+                "step at B=16; podt-torch-train; evaluate_voc of the int8 pipeline on the VOC tree", phase_anchor,
+                "RETINANET")
+    smoke.phase("phase 5u: SSD300(21) 300x300 B=8: float and int8 anchor pipelines, counted; a bf16 train step at "
+                "B=32; podt-torch-train; evaluate_voc of the float pipeline on the VOC tree", phase_anchor, "SSD300")
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
@@ -3337,6 +3549,12 @@ def main() -> int:
         if f"{family} pipes" in res:
             smoke.phase(f"phase {tag}: profile, {family} default int8 pipeline", phase6_profile,
                         res[f"{family} pipes"][1][1], ("qstem_kernel", "qblock_kernel", "nms_"))
+    for family, tag in (("RETINANET", "6m"), ("SSD300", "6n")):
+        if f"{family} anchor pipes" in res:
+            own, anchor_pipes = res[f"{family} anchor pipes"]
+            smoke.phase(f"phase {tag}: profile, {family} int8 anchor pipeline, B=64", profile_calls,
+                        lambda p=anchor_pipes[1][1], fr=own.repeat(8, 1, 1, 1): p(fr),
+                        ("qblock_kernel", "qmm_", "nms_"))
     print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)

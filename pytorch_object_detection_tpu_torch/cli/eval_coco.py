@@ -8,7 +8,11 @@ Loads the config, builds the model (random weights from seed 0 unless
 ``torch.save(model.state_dict())``),
 and runs ``eval/evaluator.evaluate_coco`` over the config's ``ValData`` /
 ``ValAnnotation``: the 12-number COCO summary and images/sec, the JAX CLI's
-lines, and the results JSON (``--results-json``).  The official numbers
+lines, and the results JSON (``--results-json``).  RETINANET and SSD300 serve
+through the anchor pipelines (``--int8``: RETINANET's
+``make_eval_pipeline_anchor_int8``; SSD300 is refused with exit code 2, as
+the JAX CLI asserts: its VGG ladder is not this CLI's int8 path), and
+refuse ``--device-resize`` with exit code 2.  The official numbers
 follow where pycocotools imports, as in the JAX CLI.  The JAX CLI's flags,
 plus ``--device-resize`` and ``--device``.  What each path needs on the
 machine: PyYAML (the config), g++ (the native matching and JPEG libraries,
@@ -43,7 +47,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+    from pytorch_object_detection_tpu_torch.cli.eval_voc import anchor_pipeline, first_batch_calib
     from pytorch_object_detection_tpu_torch.core import config as C
     from pytorch_object_detection_tpu_torch.data.coco import COCODataset
     from pytorch_object_detection_tpu_torch.eval.evaluator import (
@@ -63,12 +67,18 @@ def main(argv=None) -> int:
     cfg = C.load_config(args.config)
     block = C.model_block(cfg)
     canvas = C.canvas_hw(cfg)
-    try:
-        model = build_model(cfg["model"]["name"], C.num_classes(cfg), int(block["channel"]), device=dev,
-                            generator=torch.Generator().manual_seed(0))
-    except NotImplementedError as err:  # RetinaNet, SSD300: ROADMAP.md queue 1 item 10
-        print(f"eval_coco: {err}", file=sys.stderr)
+    name = cfg["model"]["name"]
+    anchor_based = name in ("RETINANET", "SSD300")
+    if name == "SSD300" and args.int8:
+        print("eval_coco: --int8 covers the ResNet-50 families (FCOS-family + RetinaNet); SSD300 (VGG backbone) "
+              "evaluates on the bf16 path", file=sys.stderr)
         return 2
+    if anchor_based and args.device_resize:
+        print(f"eval_coco: --device-resize is for the FCOS families; {name} decodes through its anchors",
+              file=sys.stderr)
+        return 2
+    model = build_model(name, C.num_classes(cfg), int(block["channel"]), device=dev,
+                        generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         load_model_checkpoint(model, args.checkpoint)
     model.eval()
@@ -81,7 +91,9 @@ def main(argv=None) -> int:
     nms_iou = float(eval_cfg.get("nms_iou", 0.6))
     max_detections = int(eval_cfg.get("max_detections", 1000))
     strides = C.strides(cfg) if "stride" in block else (8, 16, 32, 64, 128)
-    if args.int8:
+    if anchor_based:
+        pipeline = anchor_pipeline(model, dataset, args.int8, args.batch_size, canvas, dev, compute_dtype, eval_cfg)
+    elif args.int8:
         calib = first_batch_calib(dataset, args.batch_size, canvas, dev)
         pipeline = make_eval_pipeline_int8(model, calib, C.strides(cfg), canvas, score_threshold, nms_iou,
                                            max_detections, device_resize=args.device_resize,

@@ -7,7 +7,12 @@ Loads the config, builds the model (random weights from seed 0 unless
 ``--checkpoint`` names a ``podt-torch-train`` checkpoint or a port state dict,
 ``torch.save(model.state_dict())``),
 and runs ``eval/evaluator.evaluate_voc`` over the config's VOC tree: per-class
-AP@0.5, mAP and images/sec, the JAX CLI's lines.  The JAX CLI's flags, and
+AP@0.5, mAP and images/sec, the JAX CLI's lines.  RETINANET and SSD300 serve
+through the anchor pipelines (``make_eval_pipeline_anchor``, ``--int8``:
+``make_eval_pipeline_anchor_int8``, the oracle backbone on the CPU as the JAX
+CLI picks it); ``--ref-4stride`` and ``--device-resize`` are refused for
+them with exit code 2, as the JAX CLI asserts against the first and its
+default pipeline against the second.  The JAX CLI's flags, and
 ``--device``.  What each path needs on the machine: PyYAML (the config),
 g++ (the native matching and JPEG libraries, built at first use), libjpeg
 (decode); ``cv2`` only without ``--device-resize`` (the host resize).
@@ -67,12 +72,15 @@ def main(argv=None) -> int:
     cfg = C.load_config(args.config)
     block = C.model_block(cfg)
     canvas = C.canvas_hw(cfg)
-    try:
-        model = build_model(cfg["model"]["name"], C.num_classes(cfg), int(block["channel"]), device=dev,
-                            generator=torch.Generator().manual_seed(0))
-    except NotImplementedError as err:  # RetinaNet, SSD300: ROADMAP.md queue 1 item 10
-        print(f"eval_voc: {err}", file=sys.stderr)
+    name = cfg["model"]["name"]
+    anchor_based = name in ("RETINANET", "SSD300")
+    if anchor_based and (args.ref_4stride or args.device_resize):
+        flag = "--ref-4stride is a FCOS-family eval-compat mode" if args.ref_4stride else \
+            "--device-resize is for the FCOS families"
+        print(f"eval_voc: {flag}; {name} decodes through its anchors", file=sys.stderr)
         return 2
+    model = build_model(name, C.num_classes(cfg), int(block["channel"]), device=dev,
+                        generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         load_model_checkpoint(model, args.checkpoint)
     model.eval()
@@ -86,7 +94,9 @@ def main(argv=None) -> int:
     strides = C.strides(cfg) if "stride" in block else (8, 16, 32, 64, 128)
     if args.ref_4stride:
         strides = tuple(strides)[:4]
-    if args.int8:
+    if anchor_based:
+        pipeline = anchor_pipeline(model, dataset, args.int8, args.batch_size, canvas, dev, compute_dtype, eval_cfg)
+    elif args.int8:
         calib = first_batch_calib(dataset, args.batch_size, canvas, dev)
         pipeline = make_eval_pipeline_int8(model, calib, strides, canvas, score_threshold, nms_iou, max_detections,
                                            device_resize=args.device_resize, compute_dtype=compute_dtype)
@@ -96,6 +106,27 @@ def main(argv=None) -> int:
     evaluate_voc(model, dataset, strides=strides, batch_size=args.batch_size, num_classes=C.num_classes(cfg),
                  score_threshold=score_threshold, nms_iou=nms_iou, max_detections=max_detections, pipeline=pipeline)
     return 0
+
+
+def anchor_pipeline(model, dataset, int8: bool, batch_size: int, canvas_hw, device, compute_dtype, eval_cfg):
+    """The eval CLIs' pipeline of a RetinaNet or an SSD300: the float anchor
+    pipeline, or with ``int8`` the int8 one calibrated on the first batch
+    (:func:`first_batch_calib`; the oracle backbone on the CPU, as the JAX
+    CLIs pick it).  The block's ``eval`` gives the thresholds; the JAX CLIs'
+    NMS IoU default is 0.6 for the float pipeline and 0.5 for the int8 one."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import (
+        make_eval_pipeline_anchor,
+        make_eval_pipeline_anchor_int8,
+    )
+
+    score, max_det = float(eval_cfg.get("score_threshold", 0.05)), int(eval_cfg.get("max_detections", 1000))
+    if not int8:
+        return make_eval_pipeline_anchor(model, canvas_hw, score, float(eval_cfg.get("nms_iou", 0.6)), max_det,
+                                         compute_dtype)
+    calib = first_batch_calib(dataset, batch_size, canvas_hw, device)
+    return make_eval_pipeline_anchor_int8(model, calib, canvas_hw, score, float(eval_cfg.get("nms_iou", 0.5)), max_det,
+                                          backend="xla" if device.type == "cpu" else "pallas_block",
+                                          compute_dtype=compute_dtype)
 
 
 def first_batch_calib(dataset, batch_size: int, canvas_hw, device):

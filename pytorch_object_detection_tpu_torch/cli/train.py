@@ -4,13 +4,18 @@
     python -m pytorch_object_detection_tpu_torch.cli.train --config ... --device cpu
 
 Builds the config's model (FCOS, HISFCOS, MNFCOS or MC_FCOS, its strides and
-ranges from the config's block: MC_FCOS has four; random weights from seed 0,
-``--pretrained-backbone`` grafts a torchvision ResNet-50 ``.pth``), the
-train state (the config's optimizer block and optional ``schedule``
-block, every BatchNorm frozen, HISFCOS with stage 1 frozen as in the JAX
-CLI, the others with none) and ``train/trainer.make_train_step`` (bf16 autocast where the config
-says ``amp`` and the device is the card, f32 otherwise), then trains over
-one of three inputs:
+ranges from the config's block: MC_FCOS has four; or RETINANET or SSD300;
+random weights from seed 0, ``--pretrained-backbone`` grafts a torchvision
+ResNet-50 ``.pth``), the train state (the config's optimizer block and
+optional ``schedule`` block, every BatchNorm frozen, HISFCOS with stage 1
+frozen as in the JAX CLI, the others with none) and the train step (bf16
+autocast where the config says ``amp`` and the device is the card, f32
+otherwise): ``train/trainer.make_train_step`` for the FCOS families,
+``make_anchor_train_step`` for the anchor families, as the JAX CLI picks it
+(RETINANET: the anchors of its five levels on the canvas, 0.5/0.4 from the
+block's ``pos_iou``/``neg_iou``, the focal loss; SSD300: the default boxes
+at 300x300, 0.5/0.5, the MultiBox loss), then trains over one of three
+inputs:
 
   * the dataset: ``DetectionLoader`` over the config's train split with
     ``HostAugment`` (rotation, crop), then the device preprocess (flip,
@@ -33,7 +38,7 @@ and writes them to TensorBoard under ``runs/<savename>``.
 The JAX CLI's flags less ``--model-parallel``, ``--layout``,
 ``--coordinator``, ``--num-processes``, ``--process-id`` (ROADMAP.md queue 1
 item 11) and ``--swa*`` (item 12), plus ``--device``.  Without a card it
-exits 1 unless ``--device cpu``; RETINANET and SSD300 exit 2 (item 10).
+exits 1 unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -88,13 +93,14 @@ def synthetic_batches(batch_size: int, canvas, n_classes: int):
 
 
 def run_eval(cfg, model, compute_dtype) -> float:
-    """Evaluation on the config's test split: VOC mAP or COCO AP."""
+    """Evaluation on the config's test split: VOC mAP or COCO AP (the anchor
+    families through their anchor pipeline, as the JAX dispatch does)."""
     from pytorch_object_detection_tpu_torch.core import config as C
-    from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_coco, evaluate_voc, make_eval_pipeline
+    from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_coco, evaluate_voc, make_default_pipeline
 
     dataset = build_dataset(cfg, train=False)
-    strides = C.strides(cfg)
-    pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, compute_dtype=compute_dtype)
+    strides = C.strides(cfg) if "stride" in C.model_block(cfg) else (8, 16, 32, 64, 128)
+    pipeline = make_default_pipeline(model, strides, dataset.canvas_hw, compute_dtype=compute_dtype)
     if cfg["model"]["dataset"] == "VOC":
         return float(evaluate_voc(model, dataset, strides=strides, num_classes=C.num_classes(cfg), verbose=False,
                                   pipeline=pipeline)["mAP"])
@@ -102,7 +108,7 @@ def run_eval(cfg, model, compute_dtype) -> float:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Train the PyTorch port's FCOS detectors")
+    ap = argparse.ArgumentParser(description="Train the PyTorch port's detectors")
     ap.add_argument("--config", default="config/main.yaml")
     ap.add_argument("--steps", type=int, default=0, help="stop after N steps (0 = full epochs)")
     ap.add_argument("--synthetic", action="store_true", help="train on synthetic data (no dataset needed)")
@@ -134,7 +140,11 @@ def main(argv=None) -> int:
     from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_preprocess
     from pytorch_object_detection_tpu_torch.models.registry import build_model
     from pytorch_object_detection_tpu_torch.train import checkpoints as ckpt
-    from pytorch_object_detection_tpu_torch.train.trainer import create_train_state, make_train_step
+    from pytorch_object_detection_tpu_torch.train.trainer import (
+        create_train_state,
+        make_anchor_train_step,
+        make_train_step,
+    )
     from pytorch_object_detection_tpu_torch.utils.metrics import MetricWriter
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -143,15 +153,14 @@ def main(argv=None) -> int:
         return 1
     cfg = C.load_config(args.config)
     name = cfg["model"]["name"]
-    if name not in ("FCOS", "HISFCOS", "MNFCOS", "MC_FCOS"):
-        print(f"train: {name} does not train in the port yet: ROADMAP.md queue 1 item 10 (the anchor train "
-              f"step and the anchor families)", file=sys.stderr)
-        return 2
     dev = torch.device(args.device)
     block = C.model_block(cfg)
     canvas = C.canvas_hw(cfg)
     n_classes = C.num_classes(cfg)
-    strides, ranges, shapes = C.strides(cfg), C.limit_ranges(cfg), C.level_shapes(cfg)
+    anchor_based = name in ("RETINANET", "SSD300")
+    strides = C.strides(cfg) if "stride" in block else ()
+    ranges = C.limit_ranges(cfg) if "range" in block else ()
+    shapes = C.level_shapes(cfg) if "stride" in block else ()
     batch_size = int(block["batch_size"])
     compute_dtype = torch.bfloat16 if cfg["model"].get("amp", True) and dev.type == "cuda" else torch.float32
 
@@ -177,7 +186,20 @@ def main(argv=None) -> int:
     if args.resume:
         ckpt.restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
-    train_step = make_train_step(model, shapes, strides, ranges, block.get("criterion", "giou"), compute_dtype)
+    if name == "SSD300":
+        from pytorch_object_detection_tpu_torch.models.ssd import default_boxes
+
+        train_step = make_anchor_train_step(model, default_boxes(canvas[0], dev), n_classes, compute_dtype,
+                                            pos_iou=float(block.get("pos_iou", 0.5)),
+                                            neg_iou=float(block.get("neg_iou", 0.5)), loss="multibox")
+    elif anchor_based:
+        from pytorch_object_detection_tpu_torch.ops.anchors import generate_anchors
+
+        train_step = make_anchor_train_step(model, generate_anchors(model.level_shapes(canvas), strides, device=dev),
+                                            n_classes, compute_dtype, pos_iou=float(block.get("pos_iou", 0.5)),
+                                            neg_iou=float(block.get("neg_iou", 0.4)), loss="focal")
+    else:
+        train_step = make_train_step(model, shapes, strides, ranges, block.get("criterion", "giou"), compute_dtype)
     preprocess = make_device_preprocess(train=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     writer = MetricWriter(os.path.join("runs", cfg["savename"]))

@@ -7,7 +7,10 @@ uint8 frames through the exact uint8 stem, the int8 backbone, the int8 FPN
 and the int8 head; or with the float head behind the int8 FPN,
 ``int8_head=False``; or the int8 backbone with the float FPN,
 ``int8_fpn=False``, which is also what an MNFCOS always gets, as in JAX;
-an MC_FCOS always gets its one-shot int8 ladder from raw uint8 frames).
+an MC_FCOS always gets its one-shot int8 ladder from raw uint8 frames),
+and for the anchor families (RetinaNet, SSD300) ``make_eval_pipeline_anchor``
+and ``make_eval_pipeline_anchor_int8``, whose decode is the anchor codec
+(``ops/anchors.decode_anchor_detections``) with the same ``Detections``.
 The JAX versions are one jitted program each; here the pipelines run
 eagerly on the model's device, with the kernels (``ops/``) wherever that
 device is CUDA.  With ``device_resize=True`` a pipeline takes raw decoded
@@ -41,6 +44,12 @@ from pytorch_object_detection_tpu_torch.eval.voc_map import eval_voc_ap, mean_ap
 from pytorch_object_detection_tpu_torch.models.fcos import FCOS, HISFCOS
 from pytorch_object_detection_tpu_torch.models.mcfcos import MC_FCOS
 from pytorch_object_detection_tpu_torch.models.mcfcos_int8 import quantize_mcfcos
+from pytorch_object_detection_tpu_torch.models.retinanet import STRIDES as RETINA_STRIDES
+from pytorch_object_detection_tpu_torch.models.retinanet import RetinaNet
+from pytorch_object_detection_tpu_torch.models.retinanet_int8 import quantize_retinanet, retinanet_int8_forward
+from pytorch_object_detection_tpu_torch.models.ssd import SSD300, default_boxes
+from pytorch_object_detection_tpu_torch.models.ssd_int8 import quantize_ssd300, ssd300_int8_forward
+from pytorch_object_detection_tpu_torch.ops.anchors import decode_anchor_detections, generate_anchors
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections, resolve_nms_impl
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
@@ -313,6 +322,138 @@ def make_eval_pipeline_int8(
                             mean, std, u8_input, device_resize, nms_impl)
 
 
+class AnchorEvalPipeline(_Pipeline):
+    """The serving pipeline of an anchor detector (RetinaNet, SSD300):
+    ``forward(qtree, x) -> (loc [B, N, 4], cls [B, N, C])`` on the
+    normalized frames (``qtree`` None for the float forward), then the
+    anchor decode (``ops/anchors.decode_anchor_detections`` with
+    ``activation``) over ``anchors`` on the device.  ``forward_levels``
+    returns ``(loc, cls)`` in f32; ``__call__``, ``canvas`` and ``device``
+    are those of the FCOS pipelines, and so are the ``Detections``.  No
+    device resize: the JAX dispatch refuses it for these families."""
+
+    def __init__(self, forward: Callable[[Optional[Dict], torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+                 qtree: Optional[Dict], anchors: torch.Tensor, activation: str, device: torch.device,
+                 canvas_hw: Tuple[int, int], score_threshold: float, nms_iou: float, max_detections: int, plain: bool,
+                 mean: Sequence[float], std: Sequence[float]):
+        super().__init__(device, (), canvas_hw, score_threshold, nms_iou, max_detections, plain, mean, std)
+        self.forward, self.qtree, self.anchors, self.activation = forward, qtree, anchors.to(device), activation
+
+    @torch.inference_mode()
+    def forward_levels(self, images_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
+            raise ValueError(f"images must be uint8 [B, H, W, 3]; got {images_u8.dtype} {tuple(images_u8.shape)}")
+        loc, cls = self.forward(self.qtree, self._input(images_u8))
+        return loc.float(), cls.float()
+
+    @torch.inference_mode()
+    def decode(self, outputs: Tuple[torch.Tensor, torch.Tensor]) -> Detections:
+        loc, cls = outputs
+        return decode_anchor_detections(self.anchors, loc, cls, self.activation, self.score_threshold, self.nms_iou,
+                                        self.max_detections, self.canvas_hw, plain=self.nms_plain)
+
+
+def _anchor_layout(model: nn.Module, canvas_hw: Tuple[int, int]) -> Tuple[torch.Tensor, str]:
+    """(anchors on the CPU, activation) of an anchor detector at ``canvas_hw``:
+    SSD300's default boxes (it is defined at 300x300 only) with the
+    background softmax, or RetinaNet's anchors at strides 8..128 with the
+    sigmoid."""
+    if isinstance(model, SSD300):
+        if tuple(canvas_hw) != (300, 300):
+            raise ValueError(f"SSD300 is defined at 300x300 (config block: input [300, 300], canvas_align 1); "
+                             f"got {tuple(canvas_hw)}")
+        return default_boxes(300), "softmax_bg0"
+    if not isinstance(model, RetinaNet):
+        raise ValueError(f"the anchor pipelines take a RetinaNet or an SSD300; got {type(model).__name__}")
+    return generate_anchors(model.level_shapes(canvas_hw), RETINA_STRIDES), "sigmoid"
+
+
+def make_eval_pipeline_anchor(
+    model: nn.Module,
+    canvas_hw: Tuple[int, int],
+    score_threshold: float = 0.05,
+    nms_iou: float = 0.5,
+    max_detections: int = 1000,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    mean: Sequence[float] = None,
+    std: Sequence[float] = None,
+    plain: bool = False,
+) -> AnchorEvalPipeline:
+    """Float serving pipeline of a RetinaNet or an SSD300 on the model's
+    device: ``(u8/255 - mean) / std`` in f32, the forward in
+    ``compute_dtype`` (on a copy of the model cast once, as
+    :class:`EvalPipeline` does), loc and cls cast to f32, the anchor decode
+    (sigmoid for RetinaNet, the background softmax for SSD300) and
+    class-aware NMS: kernel A on CUDA, the plain NMS on the CPU or with
+    ``plain=True`` (for the comparison only).  SSD300 takes the 300x300
+    canvas only."""
+    anchors, activation = _anchor_layout(model, canvas_hw)
+    param = next(model.parameters())
+    net = model if param.dtype == compute_dtype else copy.deepcopy(model).to(compute_dtype)
+    net.eval()
+    return AnchorEvalPipeline(lambda _qtree, x: net(x.to(compute_dtype)), None, anchors, activation, param.device,
+                              canvas_hw, score_threshold, nms_iou, max_detections, plain,
+                              IMAGENET_MEAN if mean is None else mean, IMAGENET_STD if std is None else std)
+
+
+def make_eval_pipeline_anchor_int8(
+    model: nn.Module,
+    calib_images: torch.Tensor,
+    canvas_hw: Tuple[int, int],
+    score_threshold: float = 0.05,
+    nms_iou: float = 0.5,
+    max_detections: int = 1000,
+    mean: Sequence[float] = None,
+    std: Sequence[float] = None,
+    backend: str = "pallas_block",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    plain: bool = False,
+) -> AnchorEvalPipeline:
+    """int8-PTQ serving pipeline of the anchor families (the JAX function's
+    signature and defaults less ``variables``: the model carries its weights).
+
+    RetinaNet: the int8 ResNet-50 on the normalized frames in f32 on
+    ``backend`` (``"pallas_block"``: kernel C on the 13 stride-1 blocks, the
+    three stride-2 blocks per conv on K4, JAX's ``fuse_strided=False``;
+    ``"xla"``: the per-op oracle, the JAX CLIs' choice on the CPU), then the
+    BN-folded int8 RetinaFPN and int8 subnets per-op
+    (``models/retinanet_int8.py``).  SSD300: the whole int8 VGG-16 multibox
+    ladder per-op (``models/ssd_int8.py``; ``backend`` unused, as in JAX).
+    Then the anchor decode and NMS (kernel A on CUDA).
+
+    ``calib_images``: a representative NORMALIZED NHWC float batch of canvas
+    images on the model's device; RetinaNet's backbone calibrates in
+    ``compute_dtype`` (the JAX ``quantize_backbone``'s bf16 by default; f32
+    in the CPU tests), everything else in f32.  ``plain=True`` runs every
+    kernel's plain version, for the comparison only.
+    """
+    anchors, activation = _anchor_layout(model, canvas_hw)
+    device = next(model.parameters()).device
+    if isinstance(model, SSD300):
+        qtree = quantize_ssd300(model, calib_images)
+        forward = lambda qt, x: ssd300_int8_forward(model, qt, x)
+    else:
+        qtree = quantize_retinanet(model, calib_images, backend, compute_dtype, plain)
+        forward = lambda qt, x: retinanet_int8_forward(model, qt, x, backend, plain)
+    return AnchorEvalPipeline(forward, qtree, anchors, activation, device, canvas_hw, score_threshold, nms_iou,
+                              max_detections, plain, IMAGENET_MEAN if mean is None else mean,
+                              IMAGENET_STD if std is None else std)
+
+
+def make_default_pipeline(model: nn.Module, strides: Sequence[int], canvas_hw: Tuple[int, int],
+                          score_threshold: float = 0.05, nms_iou: float = 0.6, max_detections: int = 1000,
+                          device_resize: bool = False, compute_dtype: torch.dtype = torch.bfloat16):
+    """The JAX ``_default_pipeline``: the anchor codec's float pipeline for a
+    RetinaNet or an SSD300 (no device resize: ``ValueError``, where JAX
+    asserts), else :func:`make_eval_pipeline`."""
+    if isinstance(model, (RetinaNet, SSD300)):
+        if device_resize:
+            raise ValueError("the device resize is for the FCOS families: the anchor pipelines take canvas frames")
+        return make_eval_pipeline_anchor(model, canvas_hw, score_threshold, nms_iou, max_detections, compute_dtype)
+    return make_eval_pipeline(model, strides, canvas_hw, score_threshold, nms_iou, max_detections, compute_dtype,
+                              device_resize=device_resize)
+
+
 def _collect(det: Detections, scales, n_valid: int = -1):
     """Fetch detections to the host, unscale them to the original images and
     keep the valid entries: ``[(boxes, classes, scores)]`` per image.
@@ -414,8 +555,9 @@ def evaluate_voc(
     The JAX function's arguments less ``params`` and ``batch_stats`` (the
     model carries its weights).  ``pipeline`` injects a pipeline (e.g.
     :func:`make_eval_pipeline_int8`'s); by default the float pipeline of
-    ``model`` in bf16 (:func:`make_eval_pipeline`, with the device resize
-    where the dataset has ``raw_tiles``).  ``process_count``/``process_index``
+    ``model`` in bf16 (:func:`make_default_pipeline`: with the device resize
+    where the dataset has ``raw_tiles``; the anchor codec's for RetinaNet and
+    SSD300).  ``process_count``/``process_index``
     override the loader's shard; ``use_ring_loader``: see
     :func:`collect_voc_predictions`.  The AP matches in the native ops
     library (``eval/voc_map.eval_voc_ap``).  ``mesh`` raises: data-parallel
@@ -423,8 +565,8 @@ def evaluate_voc(
     pipeline and the fetch of its detections.
     """
     if pipeline is None:
-        pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
-                                      device_resize=bool(getattr(dataset, "raw_tiles", False)))
+        pipeline = make_default_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
+                                         device_resize=bool(getattr(dataset, "raw_tiles", False)))
     t0 = time.perf_counter()
     gt_boxes, gt_labels, pred_boxes, pred_labels, pred_scores, _ids = collect_voc_predictions(
         pipeline, dataset, batch_size, num_workers, mesh=mesh, process_count=process_count,
@@ -471,8 +613,7 @@ def evaluate_coco(
     model carries its weights).  ``pipeline`` injects a pipeline (e.g.
     :func:`make_eval_pipeline_int8`'s; made with ``device_resize=True`` for
     a dataset with ``raw_tiles``); by default the float pipeline of
-    ``model`` in bf16 (:func:`make_eval_pipeline`, with the device resize
-    where the dataset has ``raw_tiles``).  Crowd regions
+    ``model`` in bf16 (:func:`make_default_pipeline`).  Crowd regions
     (``dataset.eval_crowds``) join each image's GT as ``gt_crowd`` rows.
     The batches come from :func:`iter_predictions` (so the GT is the
     loader's, at most 64 boxes an image, as in JAX); the matching runs in
@@ -488,8 +629,8 @@ def evaluate_coco(
     if mesh is not None:
         raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     if pipeline is None:
-        pipeline = make_eval_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
-                                      device_resize=bool(getattr(dataset, "raw_tiles", False)))
+        pipeline = make_default_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
+                                         device_resize=bool(getattr(dataset, "raw_tiles", False)))
     evaluator = COCOEvaluator(len(dataset.class_names))
     json_records = []
     n_images = 0

@@ -60,11 +60,12 @@ BACKENDS = ("xla", "pallas")
 
 
 def _conv_f(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 1,
-            dilation: int = 1, groups: int = 1) -> torch.Tensor:
+            dilation: int = 1, groups: int = 1, pad: Optional[int] = None) -> torch.Tensor:
     """The f32 conv of the OIHW kernel ``w`` on NHWC ``x`` with the port's
-    ``Conv`` padding ``dilation * (k - 1) // 2``, the bias added after it, as
-    the JAX ``_conv_f`` does."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.float(), None, stride=stride, padding=dilation * (w.shape[-1] - 1) // 2,
+    ``Conv`` padding ``dilation * (k - 1) // 2`` (or ``pad``), the bias added
+    after it, as the JAX ``_conv_f`` does."""
+    pad = dilation * (w.shape[-1] - 1) // 2 if pad is None else pad
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.float(), None, stride=stride, padding=pad,
                  dilation=dilation, groups=groups).permute(0, 2, 3, 1)
     return y if bias is None else y + bias.float()
 

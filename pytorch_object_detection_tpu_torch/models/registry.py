@@ -1,21 +1,21 @@
 """Model construction by config name (counterpart of the JAX package's registry).
 
-FCOS, HISFCOS, MNFCOS and MC_FCOS are ported; the other names the JAX
-package registers (the anchor families) raise and point at the ROADMAP item
-that ports them.
+Every name the JAX package registers is ported: FCOS, HISFCOS, MNFCOS,
+MC_FCOS and the anchor families RETINANET and SSD300.
 """
 from __future__ import annotations
+
+import inspect
 
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.models.fcos import FCOS, HISFCOS, MNFCOS
 from pytorch_object_detection_tpu_torch.models.mcfcos import MC_FCOS
+from pytorch_object_detection_tpu_torch.models.retinanet import RetinaNet
+from pytorch_object_detection_tpu_torch.models.ssd import SSD300
 
-_PORTED = {"FCOS": FCOS, "HISFCOS": HISFCOS, "MNFCOS": MNFCOS, "MC_FCOS": MC_FCOS}
-_NOT_PORTED = {
-    "RETINANET": "ROADMAP.md queue 1, item 10 (other families: RetinaNet)",
-    "SSD300": "ROADMAP.md queue 1, item 10 (other families: SSD300)",
-}
+_PORTED = {"FCOS": FCOS, "HISFCOS": HISFCOS, "MNFCOS": MNFCOS, "MC_FCOS": MC_FCOS, "RETINANET": RetinaNet,
+           "SSD300": SSD300}
 
 
 def available_models():
@@ -24,11 +24,17 @@ def available_models():
 
 def build_model(name: str, num_classes: int, features: int = 256, **kwargs) -> nn.Module:
     """Build a detector by config name.  ``kwargs`` go to the constructor
-    (``device``, ``generator``, ``frozen_stages``; HISFCOS also ``stem_mode``, FCOS ``backbone``); the
-    model goes to the card unless ``device`` says otherwise."""
+    (``device``, ``generator``, ``frozen_stages``; HISFCOS also
+    ``stem_mode``, FCOS ``backbone``), those it does not take dropped, as
+    the JAX registry drops the fields a model lacks (RetinaNet and SSD300
+    take no ``frozen_stages``); the model goes to the card unless
+    ``device`` says otherwise.  SSD300 gets ``num_classes + 1`` logits a
+    box: its softmax carries the background as class 0."""
     key = name.upper()
-    if key in _PORTED:
-        return _PORTED[key](num_classes, features, **kwargs)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(f"model '{name}' is not ported yet: {_NOT_PORTED[key]}")
-    raise KeyError(f"unknown model '{name}'; available: {available_models()}")
+    if key not in _PORTED:
+        raise KeyError(f"unknown model '{name}'; available: {available_models()}")
+    ctor = _PORTED[key]
+    if key == "SSD300":
+        num_classes = num_classes + 1
+    taken = inspect.signature(ctor).parameters
+    return ctor(num_classes, features, **{k: v for k, v in kwargs.items() if k in taken})

@@ -10,6 +10,8 @@ package's distributions from an explicit ``torch.Generator``:
   * ``winit='resnet'``: normal(0, sqrt(2 / fan_out)) kernel, zero bias;
   * ``winit='head'``: normal(0, 0.01) kernel, zero bias (the detection heads);
   * ``winit='fpn'``: kaiming-uniform(a=1) kernel, zero bias (the classic FPN);
+  * ``winit='lecun'``: truncated-normal(fan_in) kernel, zero bias (a bare
+    flax ``nn.Conv``'s default: SSD's ``ExtraLayer.conv2``);
   * ``bias_const`` overrides the bias (the cls prior).
 
 Each JAX wrapper (``Conv``, ``DepthwiseConv``, ``BatchNorm``,
@@ -34,12 +36,14 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch
 
 
 class Conv(nn.Conv2d):
-    """2D conv with symmetric padding ``d*(k-1)//2`` and the JAX package's init."""
+    """2D conv with symmetric padding ``d*(k-1)//2`` (or ``padding``) and the JAX package's init."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  dilation: int = 1, groups: int = 1, bias: bool = True, winit: str = "torch",
-                 bias_const: Optional[float] = None, generator: Optional[torch.Generator] = None):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=dilation * (kernel - 1) // 2,
+                 bias_const: Optional[float] = None, generator: Optional[torch.Generator] = None,
+                 padding: Optional[int] = None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=dilation * (kernel - 1) // 2 if padding is None else padding,
                          dilation=dilation, groups=groups, bias=bias)
         shape = self.weight.shape
         fan_in = (in_ch // groups) * kernel * kernel
@@ -59,8 +63,14 @@ class Conv(nn.Conv2d):
                 self.weight.copy_(_uniform(shape, math.sqrt(3.0 / fan_in), generator))  # gain 1 at a=1
                 if bias:
                     self.bias.zero_()
+            elif winit == "lecun":
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # unit variance after the cut at 2 std
+                self.weight.copy_(nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std,
+                                                        generator=generator))
+                if bias:
+                    self.bias.zero_()
             else:
-                raise ValueError(f"winit must be 'torch', 'resnet', 'head' or 'fpn'; got {winit!r}")
+                raise ValueError(f"winit must be 'torch', 'resnet', 'head', 'fpn' or 'lecun'; got {winit!r}")
             if bias and bias_const is not None:
                 self.bias.fill_(bias_const)
 

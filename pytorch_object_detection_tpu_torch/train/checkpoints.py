@@ -37,14 +37,21 @@ A missing key, an unused key or a shape that does not match raises.
 
 ``load_backbone_qtree``, ``load_fpn_qtree``, ``load_head_qtree``,
 ``load_lwfpn_qtree``, ``load_mnhead_qtree``, ``load_fpn_classic_qtree``,
-``load_fcoshead_qtree`` and ``load_mcfcos_qtree`` carry the JAX package's
-int8 backbone, HisFPN, HISHead, LightweightFPN, MNHead, classic FPN,
-FCOSHead and MC-FCOS neck/head qtrees (``nn/resnet_int8.quantize_resnet50``,
+``load_fcoshead_qtree``, ``load_mcfcos_qtree``, ``load_retinanet_qtree``
+and ``load_ssd300_qtree`` carry the JAX package's int8 backbone, HisFPN,
+HISHead, LightweightFPN, MNHead, classic FPN, FCOSHead, MC-FCOS neck/head,
+RetinaNet and SSD300 qtrees (``nn/resnet_int8.quantize_resnet50``,
 ``nn/fpn_int8.quantize_hisfpn``, ``models/head_int8.quantize_hishead``,
 ``models/mnfcos_int8.quantize_lwfpn`` and ``quantize_mnhead``,
 ``models/fcos_int8.quantize_fpn_classic`` and ``quantize_fcoshead``,
-``models/mcfcos_int8.quantize_mcfcos_neck_head``) across in the same way,
-to the card unless ``device`` says otherwise.
+``models/mcfcos_int8.quantize_mcfcos_neck_head``,
+``models/retinanet_int8.quantize_retinanet``,
+``models/ssd_int8.quantize_ssd300``) across in the same way, to the card
+unless ``device`` says otherwise.  The flax trees of RetinaNet and SSD300
+need nothing more than the rules above: RetinaFPN's ``p5_1_bn/bn`` scopes
+are norm scopes (``scale`` -> ``weight``, the statistics -> the running
+buffers), SSD's ``l2norm/scale`` stays ``scale``, and ``ExtraLayer``'s
+bare ``conv2`` has no inner scope to drop.
 """
 from __future__ import annotations
 
@@ -681,3 +688,72 @@ def load_mcfcos_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = 
     out = _load_port_qtree(qtree_np, want, is_int8, "the MC-FCOS neck and head", device)
     out["num_classes"] = nc
     return out
+
+
+def load_retinanet_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_retinanet`` qtree ``{"backbone", "fpn", "head"}``,
+    as numpy, in the port's form (``models/retinanet_int8.py``): the
+    backbone by :func:`load_backbone_qtree`; the FPN's and subnets' int8
+    HWIO kernels ``[O, I]`` (1x1) and ``[O, 3, 3, I]``, the rest f32 tensors
+    (0-d for the scalars), the subnets' ``levels`` a list of dicts.  The
+    width comes from ``fpn/p5_1/w``, the prediction widths (anchors times
+    classes, anchors times 4) from ``head/wpc`` and ``head/wpr``.  Raises as
+    :func:`load_fpn_classic_qtree`."""
+    from pytorch_object_detection_tpu_torch.models.retinanet import FPN_BLOCKS, NUM_TOWER
+    from pytorch_object_detection_tpu_torch.models.retinanet_int8 import FPN_TAPS
+
+    if sorted(qtree_np) != ["backbone", "fpn", "head"]:
+        raise KeyError(f"qtree does not match RetinaNet: keys {sorted(qtree_np)}, want backbone, fpn, head")
+    fpn_np, head_np = qtree_np["fpn"], qtree_np["head"]
+    f = _width(fpn_np, "p5_1", "w", "the RetinaFPN")
+    cin = {"c3": 512, "c4": 1024, "c5": 2048, "f": f}
+    want = {("t5_to_m4",): (), ("m4_to_m3",): ()}
+    want.update({("scales", t): () for t in FPN_TAPS})
+    for name, src, k, _ in FPN_BLOCKS:
+        want.update({(name, "w"): (k, k, cin[src], f), (name, "A"): (f,), (name, "B"): (f,)})
+    fpn = _load_port_qtree(fpn_np, want, lambda p: p[-1] == "w", "the RetinaFPN", device)
+
+    if not isinstance(head_np.get("levels"), (list, tuple)):
+        raise KeyError("qtree does not match the RetinaNet subnets: the levels list is missing")
+    nc_a, n4_a = _width(head_np, None, "wpc", "the subnets"), _width(head_np, None, "wpr", "the subnets")
+    want = {("wpc",): (3, 3, f, nc_a), ("wpr",): (3, 3, f, n4_a), ("spc",): (nc_a,), ("spr",): (n4_a,),
+            ("bpc",): (nc_a,), ("bpr",): (n4_a,)}
+    lv = {"Apc": (nc_a,), "Apr": (n4_a,)}
+    for j in range(NUM_TOWER):
+        for b in "cr":
+            want.update({(f"w{b}{j}",): (3, 3, f, f), (f"b{b}{j}",): (f,)})
+            lv.update({f"A{b}{j}": (f,), f"B{b}{j}": (f,)})
+    for i in range(len(head_np["levels"])):
+        want.update({("levels", i, k): v for k, v in lv.items()})
+    head = _load_port_qtree(head_np, want, lambda p: p[0][0] == "w", "the RetinaNet subnets", device)
+    return {"backbone": load_backbone_qtree(qtree_np["backbone"], device), "fpn": fpn, "head": head}
+
+
+def load_ssd300_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_ssd300`` qtree, as numpy, in the port's form
+    (``models/ssd_int8.py``): every int8 HWIO kernel ``[O, I]`` (1x1) or
+    ``[O, k, k, I]``, the rest f32 tensors (0-d for the scalars); the keys
+    stay the JAX ones (``conv1_1``, ``extra1.c1``, ``loc0``).  The class
+    count comes from ``conf0/w``.  Raises as :func:`load_fpn_classic_qtree`."""
+    from pytorch_object_detection_tpu_torch.models.ssd import EXTRAS, LEVEL_CHANNELS, NUM_ANCHORS
+    from pytorch_object_detection_tpu_torch.models.ssd_int8 import VGG_CONVS
+    from pytorch_object_detection_tpu_torch.nn.vgg import STAGES
+
+    nc = _width(qtree_np, "conf0", "w", "SSD300") // NUM_ANCHORS[0]
+    want = {("s_input",): (), ("l2_gamma",): (512,), ("s_f1",): ()}
+
+    def conv(name, k, cin, cout):
+        want.update({(name, "w"): (k, k, cin, cout), (name, "A"): (cout,), (name, "B"): (cout,)})
+
+    cin = 3
+    widths = [ch for ch, n in STAGES for _ in range(n)] + [1024, 1024]  # conv1_1 .. conv5_3, conv6, conv7
+    for (name, *_), cout in zip(VGG_CONVS, widths):
+        conv(name, 1 if name == "conv7" else 3, cin, cout)
+        cin = cout
+    for i, (c_in, mid, out, _, _) in enumerate(EXTRAS):
+        conv(f"extra{i + 1}.c1", 1, c_in, mid)
+        conv(f"extra{i + 1}.c2", 3, mid, out)
+    for i, (ch, na) in enumerate(zip(LEVEL_CHANNELS, NUM_ANCHORS)):
+        conv(f"loc{i}", 3, ch, na * 4)
+        conv(f"conf{i}", 3, ch, na * nc)
+    return _load_port_qtree(qtree_np, want, lambda p: p[-1] == "w", "SSD300", device)

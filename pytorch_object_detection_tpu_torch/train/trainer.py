@@ -12,14 +12,18 @@ with no host sync inside.  Frozen parameters get ``requires_grad=False``
 and stay out of the optimizer (optax's ``set_to_zero``); every BatchNorm is
 frozen, its affine and statistics being buffers.  The GroupNorms take
 ``F.group_norm`` while autograd records (``nn/layers.GroupNorm32``), so a
-train step launches kernel B no time; an eval forward after it does.  Not
+train step launches kernel B no time; an eval forward after it does.  The anchor
+families (RetinaNet, SSD300) train through :func:`make_anchor_train_step`
+(JAX ``:358-408``): the same step with the anchor codec's targets
+(``ops/anchors.encode_targets``) and its focal or MultiBox loss.  Not
 ported: ``bn_train`` (SyncBN) and ``make_shard_map_train_step`` (ROADMAP
-queue 1 item 11), ``make_anchor_train_step`` (item 10).
+queue 1 item 11).
 
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
 ``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
 classic-FCOS branches), and ``make_eval_forward_int8`` (:596-776) for the
-four ResNet-50 FCOS families ported so far.  An int8 ResNet-50 (its stem
+four ResNet-50 FCOS families; ``quantize_backbone`` also takes a
+RetinaNet (the first step of ``models/retinanet_int8.quantize_retinanet``).  An int8 ResNet-50 (its stem
 float, or the exact uint8 stem with ``u8_input=True``), then:
 
   * HISFCOS: either the BN-folded float HisFPN (``int8_fpn=False``) and the
@@ -42,8 +46,10 @@ float, or the exact uint8 stem with ``u8_input=True``), then:
 Every int8 backbone backend of the JAX function is ported
 (``nn/resnet_int8.resnet50_int8_forward``), and ``fused_head=True``: the
 whole-level bf16 HISHead on K15 (``ops/head.py``) behind the float HisFPN.
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-anchor families and FCOS's EfficientNet backbone.
+The anchor families' int8 ladders are ``models/retinanet_int8.py`` and
+``models/ssd_int8.py``, served by ``eval/evaluator.make_eval_pipeline_anchor_int8``;
+the FCOS-family functions here refuse them.  Not ported yet, raising
+``NotImplementedError`` with its ROADMAP item: FCOS's EfficientNet backbone.
 """
 from __future__ import annotations
 
@@ -79,11 +85,14 @@ from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import (
 from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, hisfpn_int8_forward, quantize_hisfpn
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
 from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm
+from pytorch_object_detection_tpu_torch.models.retinanet import RetinaNet
+from pytorch_object_detection_tpu_torch.models.ssd import SSD300
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
     calibrate_resnet50,
     quantize_resnet50,
     resnet50_int8_forward,
 )
+from pytorch_object_detection_tpu_torch.ops.anchors import encode_targets, multibox_loss, retinanet_loss
 from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_params_pack
 from pytorch_object_detection_tpu_torch.ops.losses import fcos_loss, flatten_level_preds
 from pytorch_object_detection_tpu_torch.ops.targets import generate_targets
@@ -252,11 +261,22 @@ def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], s
     if bn_train:
         raise NotImplementedError("bn_train=True (BatchNorm statistics in training, SyncBN) is not ported: "
                                   "ROADMAP.md queue 1 item 11")
+
+    def losses_of(out, boxes, labels):
+        cls_p, cnt_p, reg_p = (flatten_level_preds([t.float() for t in branch]) for branch in out)
+        tgt = generate_targets(level_shapes, strides, limit_ranges, boxes, labels)
+        return fcos_loss(cls_p, cnt_p, reg_p, tgt.cls, tgt.cnt, tgt.reg, reg_mode, cnt_mode)
+
+    return _step(model, losses_of, compute_dtype, remat)
+
+
+def _step(model: nn.Module, losses_of: Callable, compute_dtype: torch.dtype, remat: bool = False):
+    """The step both train-step makers return: the lr from the schedule, the
+    forward under autocast (``remat``: recomputed in the backward), then
+    ``losses_of(out, boxes, labels)`` (targets and loss, in f32), the
+    backward, the update, ``record`` after each phase."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype must be bfloat16 or float32; got {compute_dtype}")
-
-    def forward(images):
-        return model(images)
 
     def step(state: TrainState, images: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
              record: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
@@ -268,14 +288,12 @@ def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], s
         state.optimizer.zero_grad(set_to_none=True)
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
             if remat:
-                out = torch.utils.checkpoint.checkpoint(forward, images, use_reentrant=False)
+                out = torch.utils.checkpoint.checkpoint(model, images, use_reentrant=False)
             else:
-                out = forward(images)
+                out = model(images)
         if record:
             record("forward")
-        cls_p, cnt_p, reg_p = (flatten_level_preds([t.float() for t in branch]) for branch in out)
-        tgt = generate_targets(level_shapes, strides, limit_ranges, boxes, labels)
-        losses = fcos_loss(cls_p, cnt_p, reg_p, tgt.cls, tgt.cnt, tgt.reg, reg_mode, cnt_mode)
+        losses = losses_of(out, boxes, labels)
         if record:
             record("loss")
         losses["total"].backward()
@@ -308,16 +326,49 @@ def make_train_step_scan(model: nn.Module, level_shapes: Sequence[Tuple[int, int
     return steps
 
 
+def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes: int,
+                           compute_dtype: torch.dtype = torch.bfloat16, pos_iou: float = 0.5, neg_iou: float = 0.4,
+                           loss: str = "focal"):
+    """The train step of the anchor detectors (RetinaNet, SSD300):
+    ``step(state, images, boxes, labels, record=None) -> {"cls", "reg",
+    "total"}``, as :func:`make_train_step`'s (the lr from the schedule, the
+    forward under bf16 autocast over the f32 master weights or in f32, the
+    backward and the update, ``record`` after each phase) with the anchor
+    codec: ``loc`` and ``cls`` cast to f32, ``encode_targets`` over
+    ``anchors`` (``[N, 4]``, on the images' device) at ``pos_iou`` /
+    ``neg_iou``, then ``loss``: ``"focal"`` (RetinaNet: focal with the
+    ignore band + smooth-L1 1/9, ``num_classes`` foreground classes) or
+    ``"multibox"`` (SSD: softmax CE with 3:1 hard-negative mining +
+    smooth-L1 1; pass ``neg_iou=pos_iou``).  ``model`` must be
+    ``state.model``."""
+    if loss not in ("focal", "multibox"):
+        raise ValueError(f"loss must be 'focal' or 'multibox'; got {loss!r}")
+
+    def losses_of(out, boxes, labels):
+        loc, cls = out
+        loc_t, cls_t = encode_targets(anchors, boxes, labels, pos_iou, neg_iou)
+        if loss == "multibox":
+            return multibox_loss(cls.float(), loc.float(), cls_t, loc_t)
+        return retinanet_loss(cls.float(), loc.float(), cls_t, loc_t, num_classes)
+
+    return _step(model, losses_of, compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # int8 PTQ and the int8 eval forwards
 # ---------------------------------------------------------------------------
 
 
 def _require_ported(model: nn.Module) -> None:
+    """The FCOS-family int8 ladders take FCOS, HISFCOS, MNFCOS and MC_FCOS;
+    the anchor families have their own (``ValueError``)."""
+    if isinstance(model, (RetinaNet, SSD300)):
+        raise ValueError(f"{type(model).__name__} quantizes through its own ladder: eval/evaluator."
+                         f"make_eval_pipeline_anchor_int8 (models/retinanet_int8.py, models/ssd_int8.py)")
     if not isinstance(model, (FCOS, HISFCOS, MNFCOS, MC_FCOS)):
         raise NotImplementedError(
             f"the int8 ladder is ported for the ResNet-50 FCOS families FCOS, HISFCOS and MNFCOS, and MC_FCOS; got "
-            f"{type(model).__name__}: ROADMAP.md queue 1 item 10 (the other families)")
+            f"{type(model).__name__}")
 
 
 def _require_pyramid(model: nn.Module) -> None:
@@ -335,8 +386,10 @@ def quantize_backbone(model: nn.Module, calib_images: torch.Tensor,
     model's device) in ``compute_dtype`` and return the int8 qtree for
     :func:`make_eval_forward_int8`.  ``mean``/``std`` (the input-normalize
     constants, ImageNet's by default) make the exact uint8 stem's
-    ``stem_s2d`` entry."""
-    _require_ported(model)
+    ``stem_s2d`` entry.  A RetinaNet's ResNet-50 quantizes here too (the
+    JAX ``quantize_retinanet`` calls this function)."""
+    if not isinstance(model, RetinaNet):
+        _require_ported(model)
     taps = calibrate_resnet50(model.backbone, calib_images, compute_dtype)
     return quantize_resnet50(model.backbone, taps, IMAGENET_MEAN if mean is None else mean,
                              IMAGENET_STD if std is None else std)

@@ -598,10 +598,20 @@ def test_eval_coco_cli_on_cpu(tmp_path, flags):
 
 @pytest.mark.parametrize("model", ["RETINANET", "SSD300"])
 def test_eval_coco_cli_refuses_what_waits(tmp_path, model, capsys):
+    """The anchor families with ``--int8``: RetinaNet evaluates through its
+    int8 anchor pipeline; SSD300 is refused with exit 2, as the JAX CLI
+    asserts (its int8 path covers the ResNet-50 families)."""
     from pytorch_object_detection_tpu_torch.cli import eval_coco
 
-    assert eval_coco.main(["--config", _cli_config(tmp_path, model), "--device", "cpu"]) == 2
-    assert "item 10" in capsys.readouterr().err
+    args = ["--config", _cli_config(tmp_path, model), "--device", "cpu", "--int8", "--batch-size", "4",
+            "--results-json", str(tmp_path / "r.json")]
+    if model == "SSD300":
+        assert eval_coco.main(args) == 2
+        assert "SSD300" in capsys.readouterr().err
+        return
+    assert eval_coco.main(args) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("AP: ") and lines[-1] == f"num_images: {N_IMAGES}"
 
 
 def test_eval_coco_cli_needs_the_card(tmp_path, capsys):

@@ -12,6 +12,9 @@ launched no time in it (its wrapper raises when asked for a gradient) and 20
 times in an eval forward after it, the frozen weights unchanged, the bf16
 step against the f32 step.  FCOS and MC_FCOS: small pipelines (float and
 int8, counted, against their plain runs) and train steps on the card.
+RetinaNet and SSD300: the anchor decode's kernel-A keep mask against the
+fixpoint on their decoded boxes, and their small pipelines (float and int8,
+counted, against their plain runs).
 
 The kernel cases need an NVIDIA card (marker ``cuda``) and skip elsewhere.
 This file imports no JAX, so it runs on the card's machine, which has none:
@@ -1663,3 +1666,83 @@ def test_family_train_steps_on_the_card(cuda, family):
     g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
     g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])
     assert float(g16 @ g32 / (g16.norm() * g32.norm())) >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# the anchor families on the card: the anchor decode's NMS, their pipelines
+# ---------------------------------------------------------------------------
+ANCHOR_CANVAS = {"RETINANET": (128, 128), "SSD300": (300, 300)}
+
+
+def _anchor_model(family, cuda):
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+
+    model = build_model(family, 20, 64, device=cuda, generator=torch.Generator().manual_seed(6))
+    g = torch.Generator().manual_seed(7)
+    frames = torch.randint(0, 256, (2, *ANCHOR_CANVAS[family], 3), generator=g, dtype=torch.uint8).to(cuda)
+    norm = (frames.float() / 255.0 - torch.tensor([0.485, 0.456, 0.406], device=cuda)) / torch.tensor(
+        [0.229, 0.224, 0.225], device=cuda)
+    return model, frames, norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ("RETINANET", "SSD300"))
+def test_anchor_decode_kernel_a_matches_fixpoint(cuda, family):
+    """The anchor decode on a small model's own decoded boxes (RetinaNet(20,
+    64) at 128x128, SSD300(21) at 300x300, B=2): kernel A's keep mask equal
+    to the plain fixpoint's, everything else the same tensors, one launch."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline_anchor
+    from pytorch_object_detection_tpu_torch.ops.anchors import decode_anchor_detections
+
+    model, frames, _ = _anchor_model(family, cuda)
+    pipe = make_eval_pipeline_anchor(model, ANCHOR_CANVAS[family])
+    loc, cls = pipe.forward_levels(frames)
+    # score threshold 0: at its init RetinaNet's prior puts every score under 0.05, and the NMS would have no box
+    args = (pipe.anchors, loc, cls, pipe.activation, 0.0, pipe.nms_iou, 1000, ANCHOR_CANVAS[family])
+    cuda_nms_keep_mask.launches = 0
+    got = decode_anchor_detections(*args)
+    torch.cuda.synchronize()
+    assert cuda_nms_keep_mask.launches == 1
+    want = decode_anchor_detections(*args, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(int(n) > 0 for n in got.valid.sum(dim=1)) and int((~got.valid).sum()) > 0  # kept and suppressed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ("RETINANET", "SSD300"))
+def test_anchor_pipelines_on_the_card(cuda, family):
+    """The float pipeline (bf16: one A) and the int8 anchor pipeline:
+    RetinaNet's on ``backend="pallas_block"`` (13 K2 for the stride-1
+    blocks; the three stride-2 blocks per conv: 9 K4; no K3, K11 or B; one
+    A), SSD300's per-op (one A); each against its plain run on the same
+    qtree, the int8 loc and cls equal to the plain run's."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import (
+        make_eval_pipeline_anchor,
+        make_eval_pipeline_anchor_int8,
+    )
+
+    model, frames, norm = _anchor_model(family, cuda)
+    hw = ANCHOR_CANVAS[family]
+    counters = {"K2": qbottleneck, "K3": qbottleneck_s2, "K4": qmatmul, "K11": qconv3x3, "B": groupnorm_act,
+                "A": cuda_nms_keep_mask}
+    kw = dict(score_threshold=0.0)  # every top-1000 box to the NMS (see the test above)
+    pipe8 = make_eval_pipeline_anchor_int8(model, norm, hw, **kw)
+    plain8 = make_eval_pipeline_anchor_int8(model, norm, hw, plain=True, **kw)
+    plain8.qtree = pipe8.qtree  # one calibration for both
+    int8 = dict(K2=13, K4=9) if family == "RETINANET" else {}
+    for what, pipe, plain, want in (("float", make_eval_pipeline_anchor(model, hw, **kw),
+                                     make_eval_pipeline_anchor(model, hw, plain=True, **kw), {}),
+                                    ("int8", pipe8, plain8, int8)):
+        for c in counters.values():
+            c.launches = 0
+        dets = pipe(frames)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        assert launches == dict({k: 0 for k in counters}, A=1, **want), (what, launches)
+        assert bool(torch.isfinite(dets.scores).all()) and all(int(n) > 0 for n in dets.valid.sum(dim=1)), what
+        for a, b in zip(pipe.forward_levels(frames), plain.forward_levels(frames)):
+            assert bool(torch.isfinite(a).all())
+            if what == "int8":
+                assert torch.equal(a, b), what
+            else:
+                assert float((a - b).abs().max()) <= 2.0**-5 * float(b.abs().max()) + 1e-6, what

@@ -142,7 +142,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="stem_mode"):
         ResNet50(stem_mode="s4d")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("RETINANET", 20)
+        build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
     with pytest.raises(KeyError):
         build_model("NOPE", 20)
 

@@ -1,8 +1,8 @@
 """Shared set-up for the PyTorch port's CPU tests (tests/test_torch_port_*.py).
 
-One small JAX detector (HISFCOS, MNFCOS, FCOS or MC_FCOS: 20 classes, 64 features, 128x128 canvas) gets a
-variable tree whose BN statistics and affines, GN affines and ScaleExp
-scales sit away from their init values, so that a graft that drops or
+One small JAX detector (HISFCOS, MNFCOS, FCOS, MC_FCOS or RETINANET: 20 classes, 64 features, 128x128
+canvas; or SSD300 at its 300x300) gets a variable tree whose BN statistics and affines, GN affines,
+ScaleExp scales and L2Norm scale sit away from their init values, so that a graft that drops or
 misplaces one of them shows in the outputs.  Inputs come from numpy seeds
 and reach both frameworks as numpy arrays.
 
@@ -43,9 +43,14 @@ def one_torch_thread():
 
 
 def jax_model(name: str = "HISFCOS", num_classes: int = NUM_CLASSES, **kw):
-    """The small JAX detector ``name`` (HISFCOS, MNFCOS, FCOS or MC_FCOS), 20
-    classes unless ``num_classes`` says otherwise, 64 features; ``kw`` to its
-    constructor."""
+    """The small JAX detector ``name`` (HISFCOS, MNFCOS, FCOS, MC_FCOS or
+    RETINANET; SSD300 has no width), 20 classes unless ``num_classes`` says
+    otherwise (SSD300: that many and the background), 64 features; ``kw`` to
+    its constructor."""
+    if name in ("RETINANET", "SSD300"):
+        from pytorch_object_detection_tpu.models.registry import build_model
+
+        return build_model(name, num_classes, FEATURES, **kw)
     from pytorch_object_detection_tpu.models import fcos, mcfcos
 
     return getattr(mcfcos if name == "MC_FCOS" else fcos, name)(num_classes=num_classes, features=FEATURES, **kw)
@@ -62,8 +67,9 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int 
     import jax
     import jax.numpy as jnp
 
+    canvas = 300 if model == "SSD300" else CANVAS
     shapes = jax.eval_shape(lambda key, x: jax_model(model, num_classes).init(key, x, False),
-                            jax.random.PRNGKey(seed), jnp.zeros((1, CANVAS, CANVAS, 3), jnp.float32))
+                            jax.random.PRNGKey(seed), jnp.zeros((1, canvas, canvas, 3), jnp.float32))
     rng = np.random.default_rng(seed)
 
     def fill(tree, path=()):
@@ -73,10 +79,12 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int 
                 out[key] = fill(value, path + (key,))
                 continue
             n, parent = value.shape, path[-1]
-            if key == "kernel":
+            if key == "kernel" and path[0] in ("classification", "regression"):
+                v = rng.normal(0.0, 0.01, n)  # RetinaNet's subnets: their head init (no norm layer to rescale)
+            elif key == "kernel":
                 fan_in = int(np.prod(n[:3]))
                 v = rng.normal(0.0, np.sqrt(2.0 / fan_in), n)
-            elif key == "bias" and "cls_pred" in path:
+            elif key == "bias" and ("cls_pred" in path or path[:2] == ("classification", "out")):
                 v = -np.log(99.0) + rng.normal(0.0, 0.1, n)
             elif key == "bias" and parent == "conv":
                 v = rng.normal(0.0, 0.05, n)
@@ -86,6 +94,8 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int 
                 v = rng.uniform(0.5, 1.5, n)
             elif key == "scale" and parent in ("bn", "gn"):
                 v = rng.uniform(0.7, 1.3, n)
+            elif key == "scale" and parent == "l2norm":
+                v = 20.0 * rng.uniform(0.8, 1.2, n)
             elif key == "scale":  # ScaleExp
                 v = 1.2 * rng.uniform(0.8, 1.2, n)
             else:
@@ -93,7 +103,7 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int 
             out[key] = v.astype(np.float32)
         return out
 
-    return fill(shapes["params"]), fill(shapes["batch_stats"])
+    return fill(shapes["params"]), fill(shapes.get("batch_stats", {}))
 
 
 def jax_native():
