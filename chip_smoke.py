@@ -223,6 +223,22 @@ Phases (each prints its results on its own lines):
   5u. SSD300: full SSD300(21) at 300x300 (8,732 default boxes), as 5t: both
      pipelines launch 1 A (the int8 VGG ladder is per-op), the MultiBox
      train step at the block's B=32, evaluate_voc of the float pipeline;
+  5v. FCOS on EfficientNet-B0: full-width FCOS(20, 256, backbone=
+     "efficientnet-b0") from its own seed on the 8 frames: the float
+     pipeline (40 B, 1 A), the default int8 pipeline (the per-op
+     EfficientNet ladder on the f32-normalized frames, the classic FPN and
+     FCOSHead per-op: 1 A and no other kernel) and int8_head=False (40 B, 1
+     A), each counted and against its plain run, the int8 cls and reg at
+     cosine >= 0.99 to the float ones, the ladder's dequantized C3..C5 at
+     cosine >= 0.99 to the f32 backbone's; evaluate_voc of the default int8
+     pipeline over the committed VOC tree, each batch counted; a bf16 train
+     step at B=16 (every BatchNorm's affine and statistics bit-identical)
+     and ms a step with its split and peak memory; EfficientNet-B7's
+     backbone alone on 2 frames (its int8 ladder at width 2.0, depth 3.1
+     against its f32 forward, by endpoint cosine); MobileNetV2 at B=8, bf16
+     against f32; DeformableConv(256, 3) on [8, 256, 64, 64] with offsets
+     that put taps outside the map, forward and backward in f32 on the card
+     against the CPU;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -251,13 +267,16 @@ Phases (each prints its results on its own lines):
      (paths 3 and 4 of 5h at B=64 only, path 2 not timed), the three
      MNFCOS pipelines', and FCOS's and MC_FCOS's float and default int8
      pipelines among them, and the anchor families' float and int8
-     pipelines on their own canvases; the classic FCOS's per-op int8 head at B=8
-     and B=64 beside K7;
+     pipelines on their own canvases, and the EfficientNet FCOS's float and
+     default int8; the classic FCOS's per-op int8 head at B=8 and B=64
+     beside K7; the EfficientNet-B0 int8 ladder at B=8 and B=64 with its 16
+     depthwise calls and its 1x1 convs apart;
   6b-6l. torch.profiler breakdowns of one B=64 call of the float, the
      int8-backbone, the int8-FPN, the default, the per-conv, the
      fused-head, the MNFCOS int8-ladder, the chained and the stem-tail
      pipeline, of FCOS's and MC_FCOS's default int8 pipelines, and (6m,
-     6n) of RetinaNet's and SSD300's int8 anchor pipelines (a profile that raises
+     6n) of RetinaNet's and SSD300's int8 anchor pipelines, and (6o, 6p) of
+     the EfficientNet FCOS's default int8 and float pipelines (a profile that raises
      fails the run; one whose profiler sees no device events prints "not
      measured"); 6e also splits K7's device time by its CUDA kernels
      (head_pw1, head_dw, head_pw2, head_towers, head_pred and the
@@ -367,6 +386,16 @@ FAMILY_TRAIN_OPT = {"FCOS": TRAIN_OPT, "MC_FCOS": dict(TRAIN_OPT, lr=1e-4)}
 # blocks per conv: w1, wd and w3 on K4; the FPN and subnets per-op) and SSD300's (per-op: A only); their train
 # steps at the blocks' batches (16, 32) over the blocks' optimizers
 ANCHOR_FLOAT_LAUNCHES = dict({k: 0 for k in FPN_PIPELINE_LAUNCHES}, cuda_nms_keep_mask=1)
+# phase 5v: FCOS on EfficientNet-B0 (the strides and ranges of config/voc.yaml's FCOS block): the float pipeline and
+# the int8 pipeline with int8_head=False launch the float FCOSHead's 40 B and one A; the default int8 pipeline only
+# A (its EfficientNet ladder, classic FPN and FCOSHead are per-op: XLA int8 convs in JAX, no Pallas kernel)
+EFF_FLOAT_LAUNCHES = dict(ANCHOR_FLOAT_LAUNCHES, groupnorm_act=40)
+EFF_INT8_LAUNCHES = ANCHOR_FLOAT_LAUNCHES
+# a float backbone in bf16 against f32: bf16 keeps 8 bits of each activation and weight over 17 blocks
+BACKBONE_BF16_COS = 0.99
+# DCNv2 on the card against the CPU, f32 both: the same gathers, the (tap, channel) contraction of 2304 terms and
+# the convs summed in another order; each output and gradient within this share of its largest value
+DCN_REL_ERR = 1e-4
 ANCHOR_INT8_LAUNCHES = {"RETINANET": dict(ANCHOR_FLOAT_LAUNCHES, qbottleneck=13, qmatmul=9),
                         "SSD300": ANCHOR_FLOAT_LAUNCHES}
 ANCHOR_CANVAS = {"RETINANET": CANVAS, "SSD300": (300, 300)}
@@ -2549,6 +2578,216 @@ def main() -> int:
                         f"{len(voc)} images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} "
                         f"(random weights), {r['images_per_sec']:.1f} img/s")
 
+    def phase5v():
+        """Phase 5v: FCOS(20, 256) on EfficientNet-B0 from its own seed at
+        512x512 on the 8 frames: (i) the float pipeline (bf16), the default
+        int8 pipeline (the per-op EfficientNet ladder on the f32-normalized
+        frames, then the int8 classic FPN and FCOSHead per-op) and its
+        ``int8_head=False``, each counted and against its plain run; the int8
+        cls and reg against the float ones, and the ladder's dequantized
+        C3..C5 against the float backbone's (f32, TF32 off), by cosine; (ii)
+        ``evaluate_voc`` of the default int8 pipeline over the committed VOC
+        tree, counted once a batch; (iii) a bf16 train step at B=16: finite,
+        every BatchNorm affine and buffer bit-identical, ms a step with its
+        split and the peak memory; (iv) EfficientNet-B7's backbone alone on 2
+        frames: its int8 ladder (``width_mult=2.0``, ``depth_mult=3.1``)
+        against its f32 forward by endpoint cosine; (v) MobileNetV2, B=8,
+        bf16 against f32 by cosine; (vi) ``DeformableConv(256, 3)`` on a
+        P3-like [8, 256, 64, 64] map with random offsets that put taps
+        outside the map: forward and backward in f32 on the card against the
+        CPU on the same tensors.  The pipelines' img/s and profiles are phase
+        6's."""
+        import os
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+        from pytorch_object_detection_tpu_torch.data.synthetic import synthetic_batch
+        from pytorch_object_detection_tpu_torch.data.voc import VOCDataset
+        from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_voc
+        from pytorch_object_detection_tpu_torch.nn import efficientnet_int8
+        from pytorch_object_detection_tpu_torch.nn.deform import DeformableConv
+        from pytorch_object_detection_tpu_torch.nn.efficientnet import EfficientNet
+        from pytorch_object_detection_tpu_torch.nn.mobilenet import MobileNetV2
+
+        frames = res["frames"]
+        norm = res.get("norm", normalized(frames))
+        strides, ranges = voc_block("FCOS")
+        seed = SEED + 19
+        tag = f"FCOS({NUM_CLASSES}, {FEATURES}) on EfficientNet-B0"
+        t0 = time.perf_counter()
+        model = build_model("FCOS", NUM_CLASSES, FEATURES, backbone="efficientnet-b0", device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+        args = (model, norm, strides, CANVAS)
+        paths = [("float", make_eval_pipeline(model, strides, CANVAS, compute_dtype=torch.bfloat16),
+                  make_eval_pipeline(model, strides, CANVAS, compute_dtype=torch.bfloat16, plain=True),
+                  EFF_FLOAT_LAUNCHES)]
+        for what, kw, want in (("int8 default", {}, EFF_INT8_LAUNCHES),
+                               ("int8_head=False", dict(int8_head=False), EFF_FLOAT_LAUNCHES)):
+            pipe = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, **kw)
+            plain = make_eval_pipeline_int8(*args, compute_dtype=torch.bfloat16, plain=True, **kw)
+            plain.qtree = pipe.qtree  # one calibration for both, as in phase 5b
+            paths.append((what, pipe, plain, want))
+        torch.cuda.synchronize()
+        print(f"  {tag} and its pipelines built (int8 calibration on the 8 frames) in "
+              f"{time.perf_counter() - t0:.2f} s; {sum(p.numel() for p in model.parameters())} parameters; "
+              f"strides {strides}")
+        levels = {}
+        for what, pipe, plain, want in paths:
+            # the main path, counted: counters to 0 just before, read just after
+            dets, launches = count_launches(pipe, frames)
+            res[f"EFFNET {what} launches"] = launches
+            print(f"  launches in one EfficientNet FCOS {what} pipeline call (B=8): "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            smoke.check(launches == want, f"EfficientNet FCOS {what}: "
+                        + ", ".join(f"{k} {v}" for k, v in want.items() if v) + " per call, no other kernel")
+            check_dets(dets, f"EfficientNet FCOS {what}")
+            levels[what] = pipe.forward_levels(frames)
+            compare_levels(levels[what], plain.forward_levels(frames), f"EfficientNet FCOS {what} pipeline")
+        ipipe = paths[1][1]
+        smoke.check(not ipipe.u8_input and sorted(ipipe.qtree) == ["backbone", "fpn", "head"]
+                    and torch.equal(ipipe._input(frames), normalized(frames)),
+                    f"EfficientNet FCOS int8 default: the frames normalized in f32 before the ladder (no uint8 "
+                    f"stem), qtree {sorted(ipipe.qtree)}")
+        for what in ("int8 default", "int8_head=False"):
+            for b, name in enumerate(("cls", "cnt", "reg")):
+                coses = [cosine(a, f) for a, f in zip(levels[what][b], levels["float"][b])]
+                line = (f"EfficientNet FCOS {what} vs float pipeline, {name}: cosine per level "
+                        + ", ".join(f"{c:.6f}" for c in coses))
+                if name != "cnt":
+                    smoke.check(min(coses) >= INT8_COS_MIN, f"{line} (min {INT8_COS_MIN})")
+                else:
+                    print(f"  {line} (not held: the JAX detector-level tests hold cls and reg)")
+        with torch.inference_mode():
+            feats_q, scales = efficientnet_int8.efficientnet_int8_forward(ipipe.qtree["backbone"], norm,
+                                                                          dequant=False)
+            ref = model.backbone(norm.permute(0, 3, 1, 2).contiguous())[-3:]
+        coses = [cosine(q.float() * s, r.permute(0, 2, 3, 1)) for q, s, r in zip(feats_q, scales, ref)]
+        smoke.check(min(coses) >= INT8_COS_MIN, "EfficientNet-B0 int8 ladder's dequantized C3..C5 vs the float "
+                    f"backbone (f32): cosine {', '.join(f'{c:.6f}' for c in coses)} (min {INT8_COS_MIN})")
+        res["EFFNET pipes"] = [("EfficientNet FCOS float kernels", paths[0][1]),
+                               ("EfficientNet FCOS int8 default kernels", ipipe)]
+        print(f"  (i) done at {time.perf_counter() - t0:.1f} s")
+
+        # (ii) evaluate_voc of the default int8 pipeline over the committed VOC tree, counted once a batch
+        voc = VOCDataset(os.path.join(FIXTURE_TREE, "voc"), "test", CANVAS, raw_tiles=True)
+        epipe = make_eval_pipeline_int8(model, first_batch_calib(voc, 8, CANVAS, dev), strides, CANVAS,
+                                        device_resize=True, compute_dtype=torch.bfloat16)
+        for counter in counters.values():
+            counter.launches = 0
+        with torch.inference_mode():
+            r = evaluate_voc(model, voc, strides=strides, batch_size=4, pipeline=epipe, verbose=False)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        calls = -(-len(voc) // 4)
+        smoke.check(launches == {k: calls * n for k, n in EFF_INT8_LAUNCHES.items()} and np.isfinite(r["mAP"])
+                    and r["num_images"] == len(voc),
+                    f"evaluate_voc, {tag} int8 pipeline with the device resize, B=4, the committed tree's "
+                    f"{len(voc)} images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} "
+                    f"(random weights), {r['images_per_sec']:.1f} img/s")
+        del paths, levels, epipe
+
+        # (iii) a bf16 train step at B=16, then the steady window
+        tmodel = build_model("FCOS", NUM_CLASSES, FEATURES, backbone="efficientnet-b0", device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+        state = trainer.create_train_state(tmodel, TRAIN_OPT, freeze_bn=True, frozen_stages=0)
+        shapes = [(CANVAS[0] // st, CANVAS[1] // st) for st in strides]
+        g = torch.Generator().manual_seed(seed + 100)
+        images, boxes, labels = synthetic_batch(g, 16, CANVAS, NUM_CLASSES, max_boxes=32)
+        mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+        batch = (((images - mean) / std).to(dev), boxes.to(dev), labels.to(dev))
+        step = trainer.make_train_step(state.model, shapes, strides, ranges, "giou", torch.bfloat16)
+        trainable = set(state.trainable_names())
+        frozen_before = {k: v.clone() for k, v in state.model.state_dict().items() if k not in trainable}
+        bns = [n for n, m in state.model.named_modules() if isinstance(m, layers.BatchNorm)]
+        gn.groupnorm_act.launches = 0
+        first = step(state, *batch)
+        torch.cuda.synchronize()
+        after = state.model.state_dict()
+        smoke.check(bool(torch.isfinite(first["total"])) and gn.groupnorm_act.launches == 0
+                    and all(torch.equal(v, after[k]) for k, v in frozen_before.items())
+                    and all(f"{n}.{leaf}" in frozen_before for n in bns
+                            for leaf in ("weight", "bias", "running_mean", "running_var")),
+                    f"EfficientNet FCOS bf16 train step, B=16: loss {float(first['total']):.4f} finite, kernel B "
+                    f"{gn.groupnorm_act.launches} launches, every BatchNorm's affine and statistics ({len(bns)} "
+                    f"BatchNorms) bit-identical")
+        t = time_train_steps(state, step, batch, FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_WINDOW)
+        res["EFFNET train"] = {k: t[k] for k in ("ms", "img_s", "split", "peak_gib")}
+        print(f"  train step {tag} bf16 512x512 B=16, {t['line']}")
+        smoke.check(bool(torch.isfinite(t["loss"])) and t["gn"] == 0,
+                    f"EfficientNet FCOS timed steps: finite loss, kernel B launched no time in {FAMILY_TRAIN_WINDOW} "
+                    f"steps")
+        del state, step, batch, tmodel
+        print(f"  (iii) done at {time.perf_counter() - t0:.1f} s")
+
+        # (iv) EfficientNet-B7's backbone alone: its int8 ladder against its f32 forward (TF32 off)
+        b7 = EfficientNet.variant("b7", generator=torch.Generator().manual_seed(seed + 1)).eval().to(dev)
+        x7 = norm[:2]
+        with torch.inference_mode():
+            q7 = efficientnet_int8.quantize_efficientnet(b7, efficientnet_int8.calibrate_efficientnet(b7, x7))
+            f7 = b7(x7.permute(0, 3, 1, 2).contiguous())
+            i7 = efficientnet_int8.efficientnet_int8_forward(q7, x7, torch.float32, width_mult=2.0, depth_mult=3.1)
+        coses = [cosine(q, r.permute(0, 2, 3, 1)) for q, r in zip(i7, f7[-3:])]
+        smoke.check(len(q7["blocks"]) == 55 and [t.shape[-1] for t in i7] == [80, 224, 640]
+                    and min(coses) >= INT8_COS_MIN,
+                    f"EfficientNet-B7 backbone, 2 frames 512x512: 55 blocks, C3..C5 of {[t.shape[-1] for t in i7]} "
+                    f"channels; int8 ladder vs f32 forward cosine {', '.join(f'{c:.6f}' for c in coses)} "
+                    f"(min {INT8_COS_MIN}); {sum(p.numel() for p in b7.parameters())} parameters")
+        del b7, q7, f7, i7
+
+        # (v) MobileNetV2, B=8: bf16 against f32
+        mb = MobileNetV2(generator=torch.Generator().manual_seed(seed + 2)).eval().to(dev)
+        x = norm.permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            ref = mb(x)
+            got = copy.deepcopy(mb).to(torch.bfloat16)(x.to(torch.bfloat16))
+        coses = [cosine(a, b) for a, b in zip(got, ref)]
+        smoke.check([t.shape[1] for t in got] == [32, 96, 320] and min(coses) >= BACKBONE_BF16_COS,
+                    f"MobileNetV2, B=8 512x512: taps of {[tuple(t.shape[1:]) for t in got]}; bf16 vs f32 cosine "
+                    f"{', '.join(f'{c:.6f}' for c in coses)} (min {BACKBONE_BF16_COS})")
+        del mb
+
+        # (vi) DCNv2 on a P3-like map: forward and backward, the card against the CPU
+        dcn = DeformableConv(256, 256, 3, generator=torch.Generator().manual_seed(seed + 3))
+        g = torch.Generator().manual_seed(seed + 4)
+        with torch.no_grad():
+            # random offsets of a few pixels (taps fall outside the 64x64 map), each a whole number of pixels in
+            # -3..3 plus a fraction in [0.25, 0.75] plus about +-0.1 from the input: the bilinear weights' slope
+            # jumps where a coordinate crosses a whole pixel, so an offset within the f32 rounding of the two
+            # devices' convs of one would give the gradients reaching the offsets two different values
+            dcn.offset_conv.weight.normal_(0.0, 5e-4, generator=g)
+            dcn.offset_conv.bias.copy_(torch.randint(-3, 4, (18,), generator=g) + 0.25
+                                       + 0.5 * torch.rand(18, generator=g))
+            dcn.modulator_conv.weight.normal_(0.0, 0.02, generator=g)
+        xin = torch.randn(8, 256, 64, 64, generator=g)
+        gout = torch.randn(8, 256, 64, 64, generator=g)
+        outs = {}
+        for where in ("cpu", "cuda"):
+            m = copy.deepcopy(dcn).to(where)
+            xi = xin.detach().to(where).requires_grad_(True)  # a leaf on each device
+            t1 = time.perf_counter()
+            out = m(xi)
+            (out * gout.to(where)).sum().backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+            grads = {"input": xi.grad}
+            grads.update({n: p.grad for n, p in m.named_parameters()})
+            outs[where] = (out.detach().cpu(), {k: v.cpu() for k, v in grads.items()},
+                           time.perf_counter() - t1)
+            off = m.offset_conv(xi.detach())
+        rows = torch.arange(64, device=off.device).reshape(1, 1, 64, 1).float() + off[:, 0::2]  # [B, T, Ho, Wo]
+        outside = float(((rows < 0) | (rows > 63)).float().mean())
+        (o_cpu, g_cpu, s_cpu), (o_gpu, g_gpu, s_gpu) = outs["cpu"], outs["cuda"]
+        errs = {"forward": float((o_gpu - o_cpu).abs().max() / o_cpu.abs().max())}
+        errs.update({k: float((g_gpu[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu})
+        smoke.check(outside > 0.01 and max(errs.values()) <= DCN_REL_ERR,
+                    f"DeformableConv(256, 3) [8, 256, 64, 64], {outside:.3f} of the row taps outside the map: card vs "
+                    f"CPU (f32) max err over each one's largest: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" (tol {DCN_REL_ERR}); forward+backward {s_gpu * 1000:.1f} ms card (first call), "
+                      f"{s_cpu * 1000:.1f} ms CPU")
+        print(f"  phase 5v took {time.perf_counter() - t0:.1f} s")
+
     def anchor_block(family):
         """``family``'s block of config/voc.yaml through the port's config
         accessors, with its canvas, as podt-torch-train reads them."""
@@ -2817,6 +3056,8 @@ def main() -> int:
             time_k4_prime()
         if "mn_calls" in res:
             time_k12()
+        if "EFFNET pipes" in res:
+            time_effnet_ladder()
 
         pipes = [("float kernels", pipe), ("float plain", plain_pipe)]
         if "ipipe" in res:
@@ -2830,7 +3071,7 @@ def main() -> int:
         pipes += [(name, res[key]) for name, key in (("MNFCOS float kernels", "mn_pipe"),
                                                      ("MNFCOS int8-backbone kernels", "mn_pipe8"),
                                                      ("MNFCOS int8 ladder u8 kernels", "lpipe")) if key in res]
-        pipes += res.get("FCOS pipes", []) + res.get("MC_FCOS pipes", [])
+        pipes += res.get("FCOS pipes", []) + res.get("MC_FCOS pipes", []) + res.get("EFFNET pipes", [])
         for b, iters in ((8, 10), (64, 3)):
             fr = frames.repeat(b // frames.shape[0], 1, 1, 1)
             for name, p in pipes:
@@ -2861,6 +3102,32 @@ def main() -> int:
                 print(f"  pipeline B={b} bf16 512x512 ({name} kernels): {ms:.3f} ms/batch, "
                       f"{b * 1000.0 / ms:.1f} img/s {card}")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def time_effnet_ladder():
+        """The EfficientNet-B0 int8 ladder of phase 5v's default pipeline at
+        B=8 and B=64 (the 8 frames repeated): the whole ladder to int8
+        C3..C5, and apart its 16 depthwise calls (``ops/qhis.depthwise_i8``)
+        and its 1x1 convs (``ops/quant.conv_i8``: 15 expand and 16 project) on
+        the inputs one forward gives them, back to back by CUDA events; the
+        rest (the f32 stem, the epilogues, the SE gates) by difference."""
+        from pytorch_object_detection_tpu_torch.nn import efficientnet_int8
+        from pytorch_object_detection_tpu_torch.ops import quant
+
+        qbb = res["EFFNET pipes"][1][1].qtree["backbone"]
+        for b in (8, 64):
+            x = normalized(res["frames"]).repeat(b // 8, 1, 1, 1)
+            ladder = lambda: efficientnet_int8.efficientnet_int8_forward(qbb, x, dequant=False)
+            whole = cuda_ms(ladder, iters=10 if b == 8 else 3, reps=3)
+            calls = record_calls(efficientnet_int8, ("depthwise_i8", "conv_i8"), ladder)
+            parts = {}
+            for name, fn in (("depthwise_i8", qhis.depthwise_i8), ("conv_i8", quant.conv_i8)):
+                with torch.inference_mode():
+                    parts[name] = sum(cuda_ms(lambda a=a, k=k: fn(*a, **k), iters=5, reps=3) for a, k in calls[name])
+            rest = whole - sum(parts.values())
+            print(f"  EfficientNet-B0 int8 ladder, B={b} 512x512: {whole:.3f} ms; its {len(calls['depthwise_i8'])} "
+                  f"depthwise calls {parts['depthwise_i8']:.3f} ms ({parts['depthwise_i8'] / whole:.3f} of it), "
+                  f"{len(calls['conv_i8'])} 1x1 conv_i8 {parts['conv_i8']:.3f} ms ({parts['conv_i8'] / whole:.3f}), "
+                  f"the rest (stem, epilogues, SE) {rest:.3f} ms {card}")
 
     def time_fpn_kernels():
         """K1, K4, K5, K6 per B=8 forward of the int8-FPN pipeline, on the
@@ -3520,6 +3787,9 @@ def main() -> int:
     smoke.phase("phase 5u: SSD300(21) 300x300 B=8: float and int8 anchor pipelines, counted; a bf16 train step at "
                 "B=32; podt-torch-train; evaluate_voc of the float pipeline on the VOC tree", phase_anchor, "SSD300")
     if "pipe" in res:
+        smoke.phase("phase 5v: FCOS(20, 256) on EfficientNet-B0 512x512 B=8: float and int8 pipelines, counted; "
+                    "evaluate_voc; a bf16 train step at B=16; EfficientNet-B7, MobileNetV2, DeformableConv", phase5v)
+    if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])
     if "ipipe" in res:
@@ -3555,6 +3825,10 @@ def main() -> int:
             smoke.phase(f"phase {tag}: profile, {family} int8 anchor pipeline, B=64", profile_calls,
                         lambda p=anchor_pipes[1][1], fr=own.repeat(8, 1, 1, 1): p(fr),
                         ("qblock_kernel", "qmm_", "nms_"))
+    for i, tag in ((1, "6o"), (0, "6p")):
+        if "EFFNET pipes" in res:
+            name, pipe = res["EFFNET pipes"][i]
+            smoke.phase(f"phase {tag}: profile, {name[:-8]} pipeline", phase6_profile, pipe, ("gn_act_kernel", "nms_"))
     print(f"chip_smoke: all phases done in {time.perf_counter() - smoke.t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed: {smoke.failures}", file=sys.stderr)

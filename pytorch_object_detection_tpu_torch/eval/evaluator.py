@@ -53,6 +53,7 @@ from pytorch_object_detection_tpu_torch.ops.anchors import decode_anchor_detecti
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections, resolve_nms_impl
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
+    is_efficientnet,
     make_eval_forward_int8,
     quantize_backbone,
     quantize_fpn,
@@ -260,6 +261,11 @@ def make_eval_pipeline_int8(
     int8 FCOSHead are per-op ladders (``models/fcos_int8.py``: no kernel of
     theirs), so its default path launches K1, kernel C and A, and with
     ``int8_head=False`` also kernel B (the float FCOSHead's 40 GroupNorms).
+    An FCOS on EfficientNet takes them too, but its backbone ladder is
+    per-op (``nn/efficientnet_int8.py``) and has no uint8 stem: the pipeline
+    normalizes the uint8 frames in f32 first (the JAX gate's ``u8_input =
+    int8_fpn and backbone == "resnet50"``), so its default path launches A
+    alone, and kernel B's 40 with ``int8_head=False``.
     An MC_FCOS gets the JAX function's one-shot ladder whatever
     ``int8_fpn`` and ``int8_head`` say (its evaluator.py:325-336): raw
     uint8 frames, the exact uint8 stem (K1), the int8 ResNet-50 (kernel C on
@@ -308,8 +314,9 @@ def make_eval_pipeline_int8(
         backend = "xla" if device.type == "cpu" else backend
         qtree = quantize_mcfcos(model, calib_images, compute_dtype, mean, std)
     else:
-        # u8 serving input: the normalize affine folds into the exact uint8 stem
-        u8_input = int8_fpn
+        # u8 serving input: the normalize affine folds into the exact uint8 stem (ResNet-only, JAX
+        # evaluator.py:343-346; the EfficientNet ladder takes normalized floats)
+        u8_input = int8_fpn and not is_efficientnet(model)
         qtree = quantize_backbone(model, calib_images, compute_dtype, mean, std)
         if int8_fpn:
             qtree = {"backbone": qtree, "fpn": quantize_fpn(model, qtree, calib_images)}

@@ -81,10 +81,14 @@ class Conv(nn.Conv2d):
 
 class DepthwiseConv(Conv):
     """Per-channel ``kernel`` x ``kernel`` conv (groups == channels), dilation
-    ``dilation``, same padding, no bias; 3x3, dilation 1 by default (the HISHead's)."""
+    ``dilation``, stride ``stride``, symmetric padding ``dilation * (kernel -
+    1) // 2`` (the JAX ``Conv``'s, never "SAME"), no bias; 3x3, dilation 1,
+    stride 1 by default (the HISHead's)."""
 
-    def __init__(self, ch: int, kernel: int = 3, dilation: int = 1, generator: Optional[torch.Generator] = None):
-        super().__init__(ch, ch, kernel, dilation=dilation, groups=ch, bias=False, generator=generator)
+    def __init__(self, ch: int, kernel: int = 3, dilation: int = 1, generator: Optional[torch.Generator] = None,
+                 stride: int = 1):
+        super().__init__(ch, ch, kernel, stride=stride, dilation=dilation, groups=ch, bias=False,
+                         generator=generator)
 
 
 class BatchNorm(nn.Module):

@@ -200,16 +200,19 @@ def combine_plain(x_q, xb_q, combine, ca, cb) -> torch.Tensor:
     return clip8(xa.float() * ca + xb_q.float() * cb)
 
 
-def depthwise_i8(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.Tensor:
-    """Per-channel k x k int8 conv (k odd), dilation ``dilation``, zero
-    "same" padding ``dilation * (k - 1) // 2``, exact int32 sum as f32
-    (exact: at k = 7 the largest sum is 127 * 127 * 49 < 2**24):
-    x ``[B, H, W, C]``, w ``[k, k, C]``."""
-    k, d = w.shape[0], dilation
+def depthwise_i8(x: torch.Tensor, w: torch.Tensor, dilation: int = 1, stride: int = 1) -> torch.Tensor:
+    """Per-channel k x k int8 conv (k odd), dilation ``dilation``, stride
+    ``stride``, symmetric zero padding ``dilation * (k - 1) // 2``, exact
+    int32 sum as f32 (exact: at k = 7 the largest sum is 127 * 127 * 49 <
+    2**24): x ``[B, H, W, C]``, w ``[k, k, C]``.  Each tap reads a strided
+    slice of the padded map, so only the strided outputs are computed."""
+    k, d, s = w.shape[0], dilation, stride
     pad = d * (k - 1) // 2
     _, h, wd, _ = x.shape
+    ho, wo = (h + 2 * pad - d * (k - 1) - 1) // s + 1, (wd + 2 * pad - d * (k - 1) - 1) // s + 1
     xp = F.pad(x, (0, 0, pad, pad, pad, pad)).int()
-    acc = sum(xp[:, ky * d:ky * d + h, kx * d:kx * d + wd] * w[ky, kx].int() for ky in range(k) for kx in range(k))
+    acc = sum(xp[:, ky * d:ky * d + s * (ho - 1) + 1:s, kx * d:kx * d + s * (wo - 1) + 1:s] * w[ky, kx].int()
+              for ky in range(k) for kx in range(k))
     return acc.float()
 
 

@@ -29,7 +29,10 @@ here imports JAX.  The mapping:
     ``mb_top/dw/dw/conv/kernel`` -> ``mb_top.dw.weight`` (an MCBlock's
     depthwise conv is itself named ``dw``);
   * conv kernels HWIO -> OIHW (a depthwise ``[3,3,1,C]`` becomes
-    ``[C,1,3,3]`` by the same transpose);
+    ``[C,1,3,3]`` by the same transpose); a ``DeformableConv``'s (DCNv2)
+    offset and modulator convs are bare flax ``nn.Conv``s with no inner
+    scope (``dcn/offset_conv/kernel`` -> ``dcn.offset_conv.weight``), and
+    its own ``[k*k, C, F]`` ``kernel`` becomes ``weight`` as it is;
   * BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``;
     GN ``scale/bias`` -> ``weight/bias``; ``ScaleExp`` ``scale[1]`` stays.
 
@@ -37,21 +40,27 @@ A missing key, an unused key or a shape that does not match raises.
 
 ``load_backbone_qtree``, ``load_fpn_qtree``, ``load_head_qtree``,
 ``load_lwfpn_qtree``, ``load_mnhead_qtree``, ``load_fpn_classic_qtree``,
-``load_fcoshead_qtree``, ``load_mcfcos_qtree``, ``load_retinanet_qtree``
-and ``load_ssd300_qtree`` carry the JAX package's int8 backbone, HisFPN,
-HISHead, LightweightFPN, MNHead, classic FPN, FCOSHead, MC-FCOS neck/head,
-RetinaNet and SSD300 qtrees (``nn/resnet_int8.quantize_resnet50``,
+``load_fcoshead_qtree``, ``load_mcfcos_qtree``, ``load_retinanet_qtree``,
+``load_ssd300_qtree`` and ``load_efficientnet_qtree`` carry the JAX
+package's int8 backbone, HisFPN, HISHead, LightweightFPN, MNHead, classic
+FPN, FCOSHead, MC-FCOS neck/head, RetinaNet, SSD300 and EfficientNet
+qtrees (``nn/resnet_int8.quantize_resnet50``,
 ``nn/fpn_int8.quantize_hisfpn``, ``models/head_int8.quantize_hishead``,
 ``models/mnfcos_int8.quantize_lwfpn`` and ``quantize_mnhead``,
 ``models/fcos_int8.quantize_fpn_classic`` and ``quantize_fcoshead``,
 ``models/mcfcos_int8.quantize_mcfcos_neck_head``,
 ``models/retinanet_int8.quantize_retinanet``,
-``models/ssd_int8.quantize_ssd300``) across in the same way, to the card
+``models/ssd_int8.quantize_ssd300``,
+``nn/efficientnet_int8.quantize_efficientnet``) across in the same way, to the card
 unless ``device`` says otherwise.  The flax trees of RetinaNet and SSD300
 need nothing more than the rules above: RetinaFPN's ``p5_1_bn/bn`` scopes
 are norm scopes (``scale`` -> ``weight``, the statistics -> the running
 buffers), SSD's ``l2norm/scale`` stays ``scale``, and ``ExtraLayer``'s
-bare ``conv2`` has no inner scope to drop.
+bare ``conv2`` has no inner scope to drop.  Nor do EfficientNet's
+(``stem_conv/conv``, ``stem_bn/bn``, ``block{i}/{expand,project}/conv``,
+``block{i}/dw/dw/conv``, ``block{i}/se/fc{1,2}/conv``,
+``block{i}/bn{0,1,2}/bn``) and MobileNetV2's (``stem/conv``,
+``block{i}/{expand,dw,project}``).
 """
 from __future__ import annotations
 
@@ -233,7 +242,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
             if name in out:
                 raise KeyError(f"two flax leaves map to {name!r} (second: {'/'.join(path)})")
             arr = np.asarray(value)
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and arr.ndim != 3:  # 3-D: a DeformableConv's own [k*k, C, F], kept as it is
                 if arr.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: expected a 4-D HWIO kernel, got {arr.shape}")
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -515,6 +524,14 @@ def _width(qtree_np: Mapping[str, Any], scope: str, leaf: str, what: str) -> int
     return w.shape[-1]
 
 
+def _in_width(qtree_np: Mapping[str, Any], scope: str) -> int:
+    """The input width of the HWIO kernel ``scope/w``, or -1 where there is
+    none (the shape check then refuses the tree)."""
+    node = qtree_np.get(scope)
+    w = np.asarray(node["w"]) if isinstance(node, Mapping) and "w" in node else None
+    return w.shape[2] if w is not None and w.ndim == 4 else -1
+
+
 def _load_port_qtree(qtree_np: Mapping[str, Any], want: Dict, is_int8, what: str, device) -> Dict:
     """Check ``qtree_np`` (less ``num_classes``) against ``want`` (path ->
     shape), then convert it by :func:`_port_qtree`."""
@@ -595,15 +612,18 @@ def load_fpn_classic_qtree(qtree_np: Mapping[str, Any], device: torch.device | s
     """The JAX ``quantize_fpn_classic`` qtree, as numpy, in the port's form
     (``models/fcos_int8.py``): the int8 HWIO kernels become ``[F, Cin]``
     (1x1) and ``[F, 3, 3, F]``; the rest f32 tensors, 0-d for the scalars.
-    The width comes from ``lateral5/w``.  Raises ``KeyError`` on a missing
-    or unused key and ``ValueError`` on a shape or dtype that does not
-    match, before anything is converted."""
+    The width comes from ``lateral5/w``, the widths of C3..C5 from the
+    laterals' input axis (ResNet-50's 512, 1024, 2048; EfficientNet-B0's
+    40, 112, 320).  Raises ``KeyError`` on a missing or unused key and
+    ``ValueError`` on a shape or dtype that does not match, before anything
+    is converted."""
     from pytorch_object_detection_tpu_torch.models.fcos_int8 import FPN_TAPS
 
     f = _width(qtree_np, "lateral5", "w", "the classic FPN")
+    c3, c4, c5 = (_in_width(qtree_np, f"lateral{i}") for i in (3, 4, 5))
     want = {("t5_to_m4",): (), ("p4_to_m3",): ()}
     want.update({("scales", t): () for t in FPN_TAPS})
-    for name, cin, k in (("lateral5", 2048, 1), ("lateral4", 1024, 1), ("lateral3", 512, 1), ("smooth4", f, 3),
+    for name, cin, k in (("lateral5", c5, 1), ("lateral4", c4, 1), ("lateral3", c3, 1), ("smooth4", f, 3),
                          ("smooth3", f, 3), ("smooth5", f, 3), ("down6", f, 3), ("down7", f, 3)):
         want.update({(name, "w"): (k, k, cin, f), (name, "A"): (f,), (name, "B"): (f,)})
     return _load_port_qtree(qtree_np, want, lambda p: p[-1] == "w", "the classic FPN", device)
@@ -757,3 +777,55 @@ def load_ssd300_qtree(qtree_np: Mapping[str, Any], device: torch.device | str = 
         conv(f"loc{i}", 3, ch, na * 4)
         conv(f"conf{i}", 3, ch, na * nc)
     return _load_port_qtree(qtree_np, want, lambda p: p[-1] == "w", "SSD300", device)
+
+
+def load_efficientnet_qtree(qtree_np: Mapping[str, Any], width_mult: float = 1.0, depth_mult: float = 1.0,
+                            device: torch.device | str = "cuda") -> Dict:
+    """The JAX ``quantize_efficientnet`` qtree at ``width_mult`` x
+    ``depth_mult``, as numpy, in the port's form
+    (``nn/efficientnet_int8.py``): the f32 stem kernel HWIO -> OIHW, its
+    ``bn`` pair a (mult, shift) tuple; per block the int8 1x1 ``expand``
+    and ``project`` kernels ``[O, I]``, the depthwise ``[k, k, 1, C]`` ->
+    ``[k, k, C]``, the SE's raw flax convs as matmul operands ``w1 [C,
+    r]``, ``b1``, ``w2 [r, C]``, ``b2``; the rest f32 tensors, 0-d for the
+    scalars; ``blocks`` a list.  Raises as :func:`load_fpn_classic_qtree`."""
+    from pytorch_object_detection_tpu_torch.nn.efficientnet import block_specs, se_reduction
+
+    specs = block_specs(width_mult, depth_mult)
+    stem = specs[0][0]
+    want: Dict[Tuple[Any, ...], Tuple[int, ...]] = {("stem", "kernel"): (3, 3, 3, stem), ("stem", "bn", 0): (stem,),
+                                                   ("stem", "bn", 1): (stem,), ("stem", "inv"): ()}
+    for i, (cin, cout, expand, k, _) in enumerate(specs):
+        mid = cin * expand
+        r = mid // se_reduction(cin, expand)
+        convs = ([("expand", (1, 1, cin, mid))] if expand != 1 else []) + [("dw", (k, k, 1, mid)),
+                                                                           ("project", (1, 1, mid, cout))]
+        for name, shape in convs:
+            want.update({("blocks", i, name, "w"): shape, ("blocks", i, name, "A"): (shape[-1],),
+                         ("blocks", i, name, "B"): (shape[-1],), ("blocks", i, name, "inv"): ()})
+        for fc, (a, b) in (("fc1", (mid, r)), ("fc2", (r, mid))):
+            want.update({("blocks", i, "se", fc, "conv", "kernel"): (1, 1, a, b),
+                         ("blocks", i, "se", fc, "conv", "bias"): (b,)})
+        want.update({("blocks", i, "res_mul"): (), ("blocks", i, "s_out"): ()})
+    src = {path: np.asarray(v) for path, v in _leaves(qtree_np)}
+    _check_tree(src, want, lambda p: p[-1] == "w", "the EfficientNet ladder")
+    f32 = lambda arr: _to_tensor(arr, torch.float32, device)
+    out: Dict[str, Any] = {"stem": {"kernel": f32(src[("stem", "kernel")].transpose(3, 2, 0, 1)),
+                                    "bn": (f32(src[("stem", "bn", 0)]), f32(src[("stem", "bn", 1)])),
+                                    "inv": f32(src[("stem", "inv")])},
+                           "blocks": [{"se": {}} for _ in specs]}
+    for path, arr in src.items():
+        if path[0] != "blocks":
+            continue
+        blk, key = out["blocks"][path[1]], path[2]
+        if key == "se":
+            name = ("w" if path[-1] == "kernel" else "b") + path[3][-1]
+            blk["se"][name] = f32(arr[0, 0] if path[-1] == "kernel" else arr)
+        elif len(path) == 3:
+            blk[key] = f32(arr)
+        elif path[-1] == "w":
+            w = arr[:, :, 0] if key == "dw" else _port_kernel(arr)
+            blk.setdefault(key, {})["w"] = _to_tensor(w, torch.int8, device)
+        else:
+            blk.setdefault(key, {})[path[-1]] = f32(arr)
+    return out

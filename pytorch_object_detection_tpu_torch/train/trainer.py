@@ -22,9 +22,13 @@ queue 1 item 11).
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
 ``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
 classic-FCOS branches), and ``make_eval_forward_int8`` (:596-776) for the
-four ResNet-50 FCOS families; ``quantize_backbone`` also takes a
-RetinaNet (the first step of ``models/retinanet_int8.quantize_retinanet``).  An int8 ResNet-50 (its stem
-float, or the exact uint8 stem with ``u8_input=True``), then:
+FCOS families; ``quantize_backbone`` also takes a RetinaNet (the first step
+of ``models/retinanet_int8.quantize_retinanet``).  The backbone ladder
+follows the model's backbone, as the JAX functions dispatch on it: an int8
+ResNet-50 (its stem float, or the exact uint8 stem with ``u8_input=True``),
+or for an FCOS on EfficientNet-B0 the per-op EfficientNet ladder
+(``nn/efficientnet_int8.py``: the stem float, normalized float frames
+only), then:
 
   * HISFCOS: either the BN-folded float HisFPN (``int8_fpn=False``) and the
     float HISHead (its GroupNorms on kernel B), or the int8 HisFPN, whose
@@ -35,8 +39,8 @@ float, or the exact uint8 stem with ``u8_input=True``), then:
     MNHead (``int8_fpn=False``), or the int8 LightweightFPN
     (``models/mnfcos_int8.py``), whose levels go dequantized to the float
     MNHead or stay int8 into the int8 MNHead;
-  * FCOS: either the float classic FPN and the float FCOSHead (its 40
-    GroupNorms on kernel B), or the int8 classic FPN
+  * FCOS (either backbone): either the float classic FPN and the float
+    FCOSHead (its 40 GroupNorms on kernel B), or the int8 classic FPN
     (``models/fcos_int8.py``), whose levels go dequantized to the float
     FCOSHead or stay int8 into the int8 FCOSHead;
   * MC_FCOS: the one-shot ladder of ``models/mcfcos_int8.py`` (backbone,
@@ -48,8 +52,7 @@ Every int8 backbone backend of the JAX function is ported
 whole-level bf16 HISHead on K15 (``ops/head.py``) behind the float HisFPN.
 The anchor families' int8 ladders are ``models/retinanet_int8.py`` and
 ``models/ssd_int8.py``, served by ``eval/evaluator.make_eval_pipeline_anchor_int8``;
-the FCOS-family functions here refuse them.  Not ported yet, raising
-``NotImplementedError`` with its ROADMAP item: FCOS's EfficientNet backbone.
+the FCOS-family functions here refuse them.
 """
 from __future__ import annotations
 
@@ -83,6 +86,11 @@ from pytorch_object_detection_tpu_torch.models.mnfcos_int8 import (
     quantize_mnhead,
 )
 from pytorch_object_detection_tpu_torch.nn.fpn_int8 import calibrate_hisfpn, hisfpn_int8_forward, quantize_hisfpn
+from pytorch_object_detection_tpu_torch.nn.efficientnet_int8 import (
+    calibrate_efficientnet,
+    efficientnet_int8_forward,
+    quantize_efficientnet,
+)
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
 from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm
 from pytorch_object_detection_tpu_torch.models.retinanet import RetinaNet
@@ -111,7 +119,9 @@ def param_labels(model: nn.Module, freeze_bn: bool = True, frozen_stages: int = 
     the backbone's ``conv1``/``bn1`` (even at ``frozen_stages=0``) and
     ``layer1..k`` at ``frozen_stages=k``.  :func:`make_optimizer` applies
     the labels only where ``freeze_bn`` or ``frozen_stages > 0`` (JAX
-    ``:112``); ``conv1_s2d`` trains, as in JAX."""
+    ``:112``); ``conv1_s2d`` trains, as in JAX.  An EfficientNet backbone
+    has no ``conv1`` or ``layer*``: only its BatchNorms freeze, whatever
+    ``frozen_stages`` says, as in JAX."""
     names = [n for n, _ in model.named_parameters()]
     bn_names = {f"{m}.{leaf}" for m, mod in model.named_modules() if isinstance(mod, BatchNorm)
                 for leaf in ("weight", "bias")}
@@ -360,15 +370,21 @@ def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes:
 
 
 def _require_ported(model: nn.Module) -> None:
-    """The FCOS-family int8 ladders take FCOS, HISFCOS, MNFCOS and MC_FCOS;
-    the anchor families have their own (``ValueError``)."""
+    """The FCOS-family int8 ladders take FCOS (on either backbone), HISFCOS,
+    MNFCOS and MC_FCOS; the anchor families have their own (``ValueError``)."""
     if isinstance(model, (RetinaNet, SSD300)):
         raise ValueError(f"{type(model).__name__} quantizes through its own ladder: eval/evaluator."
                          f"make_eval_pipeline_anchor_int8 (models/retinanet_int8.py, models/ssd_int8.py)")
     if not isinstance(model, (FCOS, HISFCOS, MNFCOS, MC_FCOS)):
         raise NotImplementedError(
-            f"the int8 ladder is ported for the ResNet-50 FCOS families FCOS, HISFCOS and MNFCOS, and MC_FCOS; got "
+            f"the int8 ladder is ported for the FCOS families FCOS, HISFCOS and MNFCOS, and MC_FCOS; got "
             f"{type(model).__name__}")
+
+
+def is_efficientnet(model: nn.Module) -> bool:
+    """Whether ``model`` is an FCOS on the EfficientNet backbone (the JAX
+    functions' ``model.backbone.startswith("efficientnet")``)."""
+    return isinstance(model, FCOS) and model.backbone_name.startswith("efficientnet")
 
 
 def _require_pyramid(model: nn.Module) -> None:
@@ -381,23 +397,31 @@ def _require_pyramid(model: nn.Module) -> None:
 
 def quantize_backbone(model: nn.Module, calib_images: torch.Tensor,
                       compute_dtype: torch.dtype = torch.bfloat16, mean=None, std=None) -> Dict:
-    """PTQ of the detector's ResNet-50: calibrate activation scales on
+    """PTQ of the detector's backbone: calibrate activation scales on
     ``calib_images`` (a representative NORMALIZED NHWC batch, on the
-    model's device) in ``compute_dtype`` and return the int8 qtree for
-    :func:`make_eval_forward_int8`.  ``mean``/``std`` (the input-normalize
-    constants, ImageNet's by default) make the exact uint8 stem's
-    ``stem_s2d`` entry.  A RetinaNet's ResNet-50 quantizes here too (the
-    JAX ``quantize_retinanet`` calls this function)."""
+    model's device) and return the int8 qtree for
+    :func:`make_eval_forward_int8`.  A ResNet-50 calibrates in
+    ``compute_dtype``; ``mean``/``std`` (the input-normalize constants,
+    ImageNet's by default) make the exact uint8 stem's ``stem_s2d`` entry.
+    An EfficientNet calibrates in f32 (the JAX function's
+    ``calibrate_efficientnet`` has no compute dtype) and has no uint8 stem.
+    A RetinaNet's ResNet-50 quantizes here too (the JAX
+    ``quantize_retinanet`` calls this function)."""
     if not isinstance(model, RetinaNet):
         _require_ported(model)
+    if is_efficientnet(model):
+        return quantize_efficientnet(model.backbone, calibrate_efficientnet(model.backbone, calib_images))
     taps = calibrate_resnet50(model.backbone, calib_images, compute_dtype)
     return quantize_resnet50(model.backbone, taps, IMAGENET_MEAN if mean is None else mean,
                              IMAGENET_STD if std is None else std)
 
 
-def _backbone_int8_feats(qtree_bb: Dict, images: torch.Tensor, **kw):
-    """(C3..C5) int8 NHWC + scales through the int8 ResNet-50 ladder (the
-    per-op oracle unless ``backend`` says otherwise)."""
+def _backbone_int8_feats(qtree_bb: Dict, images: torch.Tensor, model: Optional[nn.Module] = None, **kw):
+    """(C3..C5) int8 NHWC + scales through ``model``'s int8 backbone ladder:
+    the EfficientNet's for an FCOS on it, else the ResNet-50's (the per-op
+    oracle unless ``backend`` says otherwise)."""
+    if model is not None and is_efficientnet(model):
+        return efficientnet_int8_forward(qtree_bb, images, torch.float32, dequant=False)
     kw.setdefault("backend", "xla")
     return resnet50_int8_forward(qtree_bb, images, torch.float32, dequant=False, **kw)
 
@@ -415,7 +439,7 @@ def quantize_fpn(model: nn.Module, qtree_bb: Dict, calib_images: torch.Tensor) -
     uint8 stem), whatever compute dtype the pipeline serves in.
     """
     _require_pyramid(model)
-    feats_q, scales = _backbone_int8_feats(qtree_bb, calib_images)
+    feats_q, scales = _backbone_int8_feats(qtree_bb, calib_images, model)
     feats = [q.float() * s for q, s in zip(feats_q, scales)]
     if isinstance(model, MNFCOS):
         return quantize_lwfpn(model.fpn, calibrate_lwfpn(model.fpn, feats), scales)
@@ -435,7 +459,7 @@ def quantize_head(model: nn.Module, qtree_bb: Dict, qtree_fpn: Dict, calib_image
     ``calib_images``, then the int8 FPN with ``dequant=False``.
     """
     _require_pyramid(model)
-    feats_q, _ = _backbone_int8_feats(qtree_bb, calib_images)
+    feats_q, _ = _backbone_int8_feats(qtree_bb, calib_images, model)
     if isinstance(model, FCOS):
         levels_q, level_scales = fpn_classic_int8_forward(qtree_fpn, feats_q, dequant=False)
         levels = [q.float() * s for q, s in zip(levels_q, level_scales)]
@@ -465,7 +489,8 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     """Inference forward with an int8-PTQ backbone: ``fwd(qtree, images) ->
     per-level f32 NHWC (cls, cnt, reg)``; ``images`` normalized NHWC
     floats, or raw uint8 frames with ``u8_input=True`` (the exact uint8
-    stem).  ``model`` is an FCOS, a HISFCOS, an MNFCOS or an MC_FCOS.
+    stem).  ``model`` is an FCOS (on either backbone), a HISFCOS, an MNFCOS
+    or an MC_FCOS.
 
     ``int8_fpn=False``: the int8 C3..C5 are dequantized to
     ``compute_dtype`` and turned NCHW there, once; a HISFCOS's HisFPN runs
@@ -514,9 +539,19 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     ``resnet50_int8_forward``, which says what each selects.  ``plain=True``
     runs every kernel's plain version, K15's included, for the comparison
     only.
+
+    An FCOS on EfficientNet runs the per-op EfficientNet ladder
+    (``nn/efficientnet_int8.efficientnet_int8_forward``, no kernel; the JAX
+    function passes it no backend) on normalized float frames:
+    ``u8_input=True`` raises ``ValueError``, as JAX asserts, and so do the
+    ResNet-only ``direct_stem`` and ``chain_segments``.
     """
     del use_pallas_gn  # kernel B on the card either way (docstring)
     _require_ported(model)
+    effnet = is_efficientnet(model)
+    if effnet and (u8_input or direct_stem or chain_segments):
+        raise ValueError("the exact uint8 stem, direct_stem and chain_segments are ResNet-only; the EfficientNet "
+                         "ladder takes normalized float images")
     if isinstance(model, MC_FCOS):
         if direct_stem or chain_segments:
             raise ValueError("MC_FCOS's one-shot ladder takes no direct_stem or chain_segments")
@@ -541,20 +576,25 @@ def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.
     scales = [getattr(model.head, f"scale{i}").scale.detach().float() for i in range(5)] if fused_head else None
     sub = "xla" if backend == "xla" or plain else "pallas"  # the JAX mapping, trainer.py:640
 
+    def backbone_int8(qtree_bb: Dict, images: torch.Tensor, dequant: bool = True):
+        if effnet:
+            return efficientnet_int8_forward(qtree_bb, images, compute_dtype, dequant=dequant)
+        return resnet50_int8_forward(qtree_bb, images, compute_dtype, dequant=dequant, backend=backend,
+                                     fuse_strided=fuse_strided, u8_stem=u8_input, direct_stem=direct_stem,
+                                     chain_segments=chain_segments, plain=plain)
+
     @torch.inference_mode()
     def fwd(qtree: Dict, images: torch.Tensor) -> Levels:
-        bb_kw = dict(backend=backend, fuse_strided=fuse_strided, u8_stem=u8_input, direct_stem=direct_stem,
-                     chain_segments=chain_segments, plain=plain)
         if int8_head:
-            feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
+            feats_q, _ = backbone_int8(qtree["backbone"], images, dequant=False)
             levels_q, _ = fpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend=sub, dequant=False)
             return head_int8_forward(qtree["head"], levels_q, backend=sub, num_classes=model.num_classes)
         if int8_fpn:
-            feats_q, _ = resnet50_int8_forward(qtree["backbone"], images, compute_dtype, dequant=False, **bb_kw)
+            feats_q, _ = backbone_int8(qtree["backbone"], images, dequant=False)
             levels = fpn_int8_forward(qtree["fpn"], feats_q, compute_dtype, backend=sub)
             levels = [lv.permute(0, 3, 1, 2).contiguous() for lv in levels]  # the dequant seam: NHWC -> NCHW
         else:
-            feats = resnet50_int8_forward(qtree, images, compute_dtype, **bb_kw)
+            feats = backbone_int8(qtree, images)
             feats = [f.permute(0, 3, 1, 2).contiguous() for f in feats]  # the dequant seam: NHWC -> NCHW
             levels = fpn_copy(feats) if float_fpn else hisfpn_folded_forward(fpn, feats, compute_dtype, folded=folded)
         if fused_head:

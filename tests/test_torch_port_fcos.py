@@ -298,7 +298,8 @@ def test_int8_pipeline_fcos_gate(fc, qtrees, gate):
 def test_float_pipeline_and_entry_points(fc):
     """The float pipeline through the FCOSHead's 40 GroupNorms (kernel B's
     plain version on the CPU, no launch counted); the registry; the
-    EfficientNet backbone refused with its ROADMAP item."""
+    EfficientNet backbone built, its C3..C5 widths the FPN's laterals, and an
+    unknown backbone refused."""
     model = fc["model"]
     pipe = make_eval_pipeline(model, STRIDES, (CANVAS, CANVAS), compute_dtype=torch.float32)
     before = groupnorm_act.launches
@@ -313,8 +314,11 @@ def test_float_pipeline_and_entry_points(fc):
     assert abs(float(built.head.cls_tower0.weight.detach().std()) - 0.01) < 2e-3
     assert float(built.fpn.down7.bias.detach().abs().max()) == 0
     assert built.fpn.down6.stride == (2, 2) and sum(1 for n, _ in built.head.named_modules() if "_gn" in n) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    effnet = build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    assert effnet.backbone.endpoint_channels()[-3:] == (40, 112, 320)
+    assert [getattr(effnet.fpn, f"lateral{i}").in_channels for i in (3, 4, 5)] == [40, 112, 320]
+    with pytest.raises(ValueError, match="backbone"):
+        build_model("FCOS", 20, backbone="efficientnet-b3", device="cpu")
 
 
 # ---------------------------------------------------------------- (e)

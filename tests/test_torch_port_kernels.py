@@ -11,7 +11,9 @@ weigh, with one CUDA kernel a call.  A train step on the card: kernel B
 launched no time in it (its wrapper raises when asked for a gradient) and 20
 times in an eval forward after it, the frozen weights unchanged, the bf16
 step against the f32 step.  FCOS and MC_FCOS: small pipelines (float and
-int8, counted, against their plain runs) and train steps on the card.
+int8, counted, against their plain runs) and train steps on the card; so
+FCOS on EfficientNet-B0, with ``evaluate_coco`` of its int8 pipeline and
+its strided int8 depthwise against the CPU.
 RetinaNet and SSD300: the anchor decode's kernel-A keep mask against the
 fixpoint on their decoded boxes, and their small pipelines (float and int8,
 counted, against their plain runs).
@@ -1666,6 +1668,127 @@ def test_family_train_steps_on_the_card(cuda, family):
     g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
     g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])
     assert float(g16 @ g32 / (g16.norm() * g32.norm())) >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# FCOS on EfficientNet-B0 on the card: its pipelines, train step and
+# evaluate_coco; the strided int8 depthwise of its ladder
+# ---------------------------------------------------------------------------
+EFF = dict(backbone="efficientnet-b0")
+
+
+@pytest.mark.cuda
+def test_efficientnet_pipelines_on_the_card(cuda):
+    """FCOS(20, 64) on EfficientNet-B0 at 128x128, B=2: the float pipeline
+    (bf16: the FCOSHead's 40 kernel B launches, one A), the default int8
+    pipeline (the per-op EfficientNet ladder on the f32-normalized frames,
+    the int8 FPN and head per-op: one A and no other kernel) and
+    ``int8_head=False`` (40 B, one A); finite detections, and the maps
+    against the same pipelines' plain runs."""
+    from pytorch_object_detection_tpu_torch.eval.evaluator import make_eval_pipeline, make_eval_pipeline_int8
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+
+    strides, _ = _voc_block("FCOS")
+    model = build_model("FCOS", 20, 64, device=cuda, generator=torch.Generator().manual_seed(3), **EFF)
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8).to(cuda)
+    norm = (frames.float() / 255.0 - torch.tensor([0.485, 0.456, 0.406], device=cuda)) / torch.tensor(
+        [0.229, 0.224, 0.225], device=cuda)
+    pipes = [("float", make_eval_pipeline(model, strides, (128, 128)),
+              make_eval_pipeline(model, strides, (128, 128), plain=True), dict(B=40, A=1))]
+    for kw in (dict(), dict(int8_head=False)):
+        pipe = make_eval_pipeline_int8(model, norm, strides, (128, 128), **kw)
+        plain = make_eval_pipeline_int8(model, norm, strides, (128, 128), plain=True, **kw)
+        plain.qtree = pipe.qtree  # one calibration for both
+        assert not pipe.u8_input and torch.equal(pipe._input(frames), norm)
+        pipes.append((f"int8 {kw}", pipe, plain, dict(B=40 if kw else 0, A=1)))
+    for what, pipe, plain, want in pipes:
+        dets, launches = _family_launches(pipe, frames)
+        assert launches == dict(dict(K1=0, K2=0, K3=0), **want), (what, launches)
+        assert bool(torch.isfinite(dets.scores).all()) and all(int(n) > 0 for n in dets.valid.sum(dim=1)), what
+        for got_b, want_b in zip(pipe.forward_levels(frames), plain.forward_levels(frames)):
+            for a, b in zip(got_b, want_b):
+                assert bool(torch.isfinite(a).all())
+                assert float((a - b).abs().max()) <= 2.0**-5 * float(b.abs().max()) + 1e-6, what
+
+
+@pytest.mark.cuda
+def test_efficientnet_train_step_on_the_card(cuda):
+    """A small f32 train step of FCOS(5, 64) on EfficientNet-B0 at 128x128:
+    finite losses, every BatchNorm affine and buffer unchanged, kernel B
+    launched no time; the bf16 autocast step within 2 % of its loss and at
+    gradient cosine >= 0.98."""
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.train import trainer
+
+    strides, ranges = _voc_block("FCOS")
+    shapes = [(TRAIN_HW[0] // s, TRAIN_HW[1] // s) for s in strides]
+    states = []
+    for _ in range(2):
+        model = build_model("FCOS", 5, 64, device=cuda, generator=torch.Generator().manual_seed(5), **EFF)
+        states.append(trainer.create_train_state(model, {"lr": 1e-2, "warmup_steps": 10}, True, 0))
+    s32, s16 = states
+    trainable = set(s32.trainable_names())
+    before = {k: v.clone() for k, v in s32.model.state_dict().items() if k not in trainable}
+    assert any(k.endswith("bn1.running_var") for k in before) and "backbone.stem_conv.weight" in trainable
+    batch = _train_batch(cuda)
+    groupnorm_act.launches = 0
+    m32 = trainer.make_train_step(s32.model, shapes, strides, ranges, "giou", torch.float32)(s32, *batch)
+    m16 = trainer.make_train_step(s16.model, shapes, strides, ranges, "giou", torch.bfloat16)(s16, *batch)
+    torch.cuda.synchronize()
+    assert groupnorm_act.launches == 0
+    assert all(bool(torch.isfinite(v)) for v in list(m32.values()) + list(m16.values()))
+    after = s32.model.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
+    assert abs(float(m16["total"]) - float(m32["total"])) <= 2e-2 * abs(float(m32["total"]))
+    g32 = torch.cat([p.grad.flatten() for p in s32.model.parameters() if p.grad is not None])
+    g16 = torch.cat([p.grad.flatten() for p in s16.model.parameters() if p.grad is not None])
+    assert float(g16 @ g32 / (g16.norm() * g32.norm())) >= 0.98
+
+
+@pytest.mark.cuda
+def test_efficientnet_evaluate_coco_on_the_card(cuda):
+    """``evaluate_coco`` of FCOS(80, 64) on EfficientNet-B0's default int8
+    pipeline over the committed COCO frames at 896x1408 (raw tiles, the
+    device resize), B=4: every image scored, a finite summary, one A a
+    batch and no other kernel."""
+    from pytorch_object_detection_tpu_torch.cli.eval_voc import first_batch_calib
+    from pytorch_object_detection_tpu_torch.data.coco import COCODataset
+    from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_coco, make_eval_pipeline_int8
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+
+    tree = os.path.join(os.path.dirname(__file__), "fixtures", "port_eval", "coco")
+    canvas = (896, 1408)
+    coco = COCODataset(os.path.join(tree, "val"), os.path.join(tree, "instances_val.json"), canvas, raw_tiles=True)
+    model = build_model("FCOS", 80, 64, device=cuda, generator=torch.Generator().manual_seed(9), **EFF)
+    pipe = make_eval_pipeline_int8(model, first_batch_calib(coco, 4, canvas, cuda), (8, 16, 32, 64, 128), canvas,
+                                   device_resize=True)
+    counters = {"K1": qstem_conv, "K2": qbottleneck, "K3": qbottleneck_s2, "B": groupnorm_act,
+                "A": cuda_nms_keep_mask}
+    for c in counters.values():
+        c.launches = 0
+    r = evaluate_coco(model, coco, batch_size=4, pipeline=pipe, verbose=False)
+    torch.cuda.synchronize()
+    calls = -(-len(coco) // 4)
+    assert {k: c.launches for k, c in counters.items()} == dict(K1=0, K2=0, K3=0, B=0, A=calls)
+    assert r["num_images"] == len(coco) and np.isfinite(r["AP"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,hw", [(3, 2, (256, 256)), (5, 2, (128, 128)), (5, 1, (64, 64)), (3, 2, (17, 23))])
+def test_depthwise_i8_strided_on_the_card(cuda, k, stride, hw):
+    """``ops/qhis.depthwise_i8`` at the EfficientNet-B0 ladder's shapes (its
+    first stride-2 3x3 on 96 channels at 256x256, a stride-2 5x5, a stride-1
+    5x5) and an odd map: the card's int32 sums equal the CPU's."""
+    from pytorch_object_detection_tpu_torch.ops.qhis import depthwise_i8
+
+    g = torch.Generator().manual_seed(k + stride)
+    c = 96 if hw[0] == 256 else 144
+    x = torch.randint(-127, 128, (2, *hw, c), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, c), generator=g, dtype=torch.int8)
+    got = depthwise_i8(x.to(cuda), w.to(cuda), stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), depthwise_i8(x, w, stride=stride))
 
 
 # ---------------------------------------------------------------------------

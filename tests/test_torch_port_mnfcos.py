@@ -412,8 +412,10 @@ def test_float_pipeline_and_entry_points(mn):
     built = build_model("mnfcos", 5, 32, device="cpu", generator=torch.Generator().manual_seed(1))
     assert tuple(built.head.cls_pred.weight.shape) == (5, 32, 1, 1) and built.head.scale2.scale.item() == 1.0
     assert tuple(built.fpn.mnb7.ddw.weight.shape) == (32, 1, 7, 7) and built.fpn.mnb5.ddw.dilation == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    effnet = build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    assert [getattr(effnet.fpn, f"lateral{i}").in_channels for i in (3, 4, 5)] == [40, 112, 320]
+    with pytest.raises(ValueError, match="backbone"):
+        build_model("FCOS", 20, backbone="mobilenet-v2", device="cpu")
     with pytest.raises(NotImplementedError, match="HISFCOS and MNFCOS"):
         trainer.quantize_backbone(torch.nn.Linear(2, 2), torch.zeros(1, 8, 8, 3))
 

@@ -29,6 +29,7 @@ from pytorch_object_detection_tpu_torch.models.registry import build_model
 from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN
 from pytorch_object_detection_tpu_torch.nn.layers import HisBlock
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
+from pytorch_object_detection_tpu_torch.train import trainer
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_flax_variables
 from torch_port_fixtures import (
     BATCH,
@@ -141,8 +142,10 @@ def test_unported_options_raise():
     assert tuple(s2d.conv1_s2d.weight.shape) == (64, 12, 4, 4) and not hasattr(s2d, "conv1")
     with pytest.raises(ValueError, match="stem_mode"):
         ResNet50(stem_mode="s4d")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    effnet = build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
+    assert [getattr(effnet.fpn, f"lateral{i}").in_channels for i in (3, 4, 5)] == [40, 112, 320]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+        trainer.make_train_step(effnet, [(16, 16)], [8], [(-1, 64)], bn_train=True)
     with pytest.raises(KeyError):
         build_model("NOPE", 20)
 

@@ -103,9 +103,9 @@ def jax_capture_state(name: str, frozen_stages: int, params, stats, opt=OPT_CFG)
 class JaxRun:
     """The JAX step's losses, gradients and parameters after each of ``n`` steps."""
 
-    def __init__(self, name: str, frozen_stages: int, n: int, seed: int = 0):
-        self.params, self.stats = perturbed_variables(seed, name, N_CLASSES)
-        model = jax_model(name, N_CLASSES, frozen_stages=frozen_stages)
+    def __init__(self, name: str, frozen_stages: int, n: int, seed: int = 0, **model_kw):
+        self.params, self.stats = perturbed_variables(seed, name, N_CLASSES, **model_kw)
+        model = jax_model(name, N_CLASSES, frozen_stages=frozen_stages, **model_kw)
         state = jax_capture_state(name, frozen_stages, self.params, self.stats)
         step = jax_trainer.make_train_step(model, SHAPES, STRIDES, RANGES, "giou", jnp.float32, donate=False)
         self.images, self.boxes, self.labels = numpy_batch()
@@ -122,8 +122,8 @@ def jax_his():
     return JaxRun("HISFCOS", 1, 2)
 
 
-def port_state(name: str, frozen_stages: int, params, stats, barrier: bool = True, opt=OPT_CFG):
-    model = build_model(name, N_CLASSES, 64, frozen_stages=frozen_stages if barrier else 0, device="cpu")
+def port_state(name: str, frozen_stages: int, params, stats, barrier: bool = True, opt=OPT_CFG, **model_kw):
+    model = build_model(name, N_CLASSES, 64, frozen_stages=frozen_stages if barrier else 0, device="cpu", **model_kw)
     load_flax_variables(model, params, stats)
     return trainer.create_train_state(model, opt, freeze_bn=True, frozen_stages=frozen_stages)
 

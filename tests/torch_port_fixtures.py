@@ -56,8 +56,18 @@ def jax_model(name: str = "HISFCOS", num_classes: int = NUM_CLASSES, **kw):
     return getattr(mcfcos if name == "MC_FCOS" else fcos, name)(num_classes=num_classes, features=FEATURES, **kw)
 
 
-def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int = NUM_CLASSES):
-    """(params, batch_stats) for the small JAX detector ``model`` as nested numpy dicts.
+def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int = NUM_CLASSES, **model_kw):
+    """(params, batch_stats) for the small JAX detector ``model`` (``model_kw``
+    to its constructor, e.g. ``backbone="efficientnet-b0"``) as nested numpy
+    dicts; :func:`perturbed_module_variables` draws the values."""
+    canvas = 300 if model == "SSD300" else CANVAS
+    return perturbed_module_variables(jax_model(model, num_classes, **model_kw), (1, canvas, canvas, 3), seed)
+
+
+def perturbed_module_variables(module, input_shape, seed: int = 0, *call_args):
+    """(params, batch_stats) of the flax ``module`` applied to an f32 input of
+    ``input_shape`` (and ``call_args``, e.g. ``train=False``) as nested
+    numpy dicts.
 
     The tree's structure comes from ``jax.eval_shape`` of the flax init (no
     compile); its values are numpy draws: He-normal conv kernels, small conv
@@ -67,9 +77,9 @@ def perturbed_variables(seed: int = 0, model: str = "HISFCOS", num_classes: int 
     import jax
     import jax.numpy as jnp
 
-    canvas = 300 if model == "SSD300" else CANVAS
-    shapes = jax.eval_shape(lambda key, x: jax_model(model, num_classes).init(key, x, False),
-                            jax.random.PRNGKey(seed), jnp.zeros((1, canvas, canvas, 3), jnp.float32))
+    args = call_args or (False,)
+    shapes = jax.eval_shape(lambda key, x: module.init(key, x, *args),
+                            jax.random.PRNGKey(seed), jnp.zeros(input_shape, jnp.float32))
     rng = np.random.default_rng(seed)
 
     def fill(tree, path=()):
