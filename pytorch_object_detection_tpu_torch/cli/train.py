@@ -35,10 +35,25 @@ diverged weights.  ``--eval-every N`` runs ``evaluate_voc`` (mAP) or
 under ``<savename>_best``.  ``--log-every`` prints the losses and img/s
 and writes them to TensorBoard under ``runs/<savename>``.
 
-The JAX CLI's flags less ``--model-parallel``, ``--layout``,
-``--coordinator``, ``--num-processes``, ``--process-id`` (ROADMAP.md queue 1
-item 11) and ``--swa*`` (item 12), plus ``--device``.  Without a card it
-exits 1 unless ``--device cpu``.
+Data parallelism (the reference's DDP launch, its ``train.py:43-58``):
+one process a device, joined by ``--coordinator host:port --num-processes N
+--process-id I`` (the JAX CLI's flags) or by a launcher that sets ``RANK``
+and ``WORLD_SIZE`` (``torchrun --nproc-per-node N -m
+pytorch_object_detection_tpu_torch.cli.train ...``); NCCL where each rank
+has a card of its own, gloo on the CPU or where ranks share a card
+(``parallel/mesh.initialize_distributed`` prints the choice).  With more
+than one rank: the ``(data, model)`` mesh, rank 0's state replicated (after
+``--resume``, which every rank loads), the batch size per rank, each rank
+its shard of the dataset (``--synthetic``: the same generated batches on
+every rank, as in JAX), the gradients and losses averaged over the ranks
+in each step (so every rank prints the same losses and a non-finite loss
+stops them all), evaluation served by all ranks together; rank 0 alone
+writes TensorBoard and the checkpoints while the others wait at a barrier.
+
+The JAX CLI's flags less ``--model-parallel`` and ``--layout`` (tensor
+parallelism and spatial partitioning: ROADMAP.md queue 1 item 11b) and
+``--swa*`` (item 12), plus ``--device``.  Without a card it exits 1 unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -92,9 +107,10 @@ def synthetic_batches(batch_size: int, canvas, n_classes: int):
                [str(i) for i in range(batch_size)])
 
 
-def run_eval(cfg, model, compute_dtype) -> float:
+def run_eval(cfg, model, compute_dtype, mesh=None) -> float:
     """Evaluation on the config's test split: VOC mAP or COCO AP (the anchor
-    families through their anchor pipeline, as the JAX dispatch does)."""
+    families through their anchor pipeline, as the JAX dispatch does); with
+    ``mesh`` served by its ranks together, each getting the whole score."""
     from pytorch_object_detection_tpu_torch.core import config as C
     from pytorch_object_detection_tpu_torch.eval.evaluator import evaluate_coco, evaluate_voc, make_default_pipeline
 
@@ -103,8 +119,8 @@ def run_eval(cfg, model, compute_dtype) -> float:
     pipeline = make_default_pipeline(model, strides, dataset.canvas_hw, compute_dtype=compute_dtype)
     if cfg["model"]["dataset"] == "VOC":
         return float(evaluate_voc(model, dataset, strides=strides, num_classes=C.num_classes(cfg), verbose=False,
-                                  pipeline=pipeline)["mAP"])
-    return float(evaluate_coco(model, dataset, strides=strides, verbose=False, pipeline=pipeline)["AP"])
+                                  mesh=mesh, pipeline=pipeline)["mAP"])
+    return float(evaluate_coco(model, dataset, strides=strides, verbose=False, mesh=mesh, pipeline=pipeline)["AP"])
 
 
 def main(argv=None) -> int:
@@ -131,14 +147,43 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model trains: the card (bf16 autocast where the config says amp) or the CPU "
                          "(f32)")
+    ap.add_argument("--coordinator", default="",
+                    help="multi-process launch: the coordinator's host:port (rank 0's; any free port). Start one "
+                         "process a device with the same --coordinator and --num-processes and its own "
+                         "--process-id; torchrun's environment needs none of these")
+    ap.add_argument("--num-processes", type=int, default=0, help="the number of processes of a --coordinator launch")
+    ap.add_argument("--process-id", type=int, default=-1, help="this process's rank in a --coordinator launch")
     args = ap.parse_args(argv)
 
+    import torch
+
+    from pytorch_object_detection_tpu_torch.parallel import mesh as pmesh
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("train: no CUDA device (torch.cuda.is_available() is false); --device cpu trains on the CPU",
+              file=sys.stderr)
+        return 1
+    if args.coordinator:
+        pmesh.initialize_distributed(args.coordinator, args.num_processes or None,
+                                     args.process_id if args.process_id >= 0 else None, device=args.device)
+    else:
+        pmesh.initialize_distributed(device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args) -> int:
+    """The run of :func:`main` once this process is in its group."""
     import numpy as np
     import torch
 
     from pytorch_object_detection_tpu_torch.core import config as C
     from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_preprocess
     from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.parallel import mesh as pmesh
     from pytorch_object_detection_tpu_torch.train import checkpoints as ckpt
     from pytorch_object_detection_tpu_torch.train.trainer import (
         create_train_state,
@@ -147,13 +192,12 @@ def main(argv=None) -> int:
     )
     from pytorch_object_detection_tpu_torch.utils.metrics import MetricWriter
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("train: no CUDA device (torch.cuda.is_available() is false); --device cpu trains on the CPU",
-              file=sys.stderr)
-        return 1
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
     cfg = C.load_config(args.config)
     name = cfg["model"]["name"]
-    dev = torch.device(args.device)
+    dev = pmesh.rank_device(args.device)
     block = C.model_block(cfg)
     canvas = C.canvas_hw(cfg)
     n_classes = C.num_classes(cfg)
@@ -186,6 +230,10 @@ def main(argv=None) -> int:
     if args.resume:
         ckpt.restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
+    # more than one rank needs the mesh: each rank would otherwise train alone (the JAX CLI's use_mesh)
+    mesh = pmesh.create_mesh(device_type=dev.type) if world > 1 else None
+    if mesh is not None:
+        pmesh.replicate_state(mesh, state)
     if name == "SSD300":
         from pytorch_object_detection_tpu_torch.models.ssd import default_boxes
 
@@ -202,8 +250,15 @@ def main(argv=None) -> int:
         train_step = make_train_step(model, shapes, strides, ranges, block.get("criterion", "giou"), compute_dtype)
     preprocess = make_device_preprocess(train=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    writer = MetricWriter(os.path.join("runs", cfg["savename"]))
+    writer = MetricWriter(os.path.join("runs", cfg["savename"])) if rank == 0 else None
     run_dir = os.path.join(args.checkpoint_dir, cfg["savename"])
+
+    def save(path, **kw):
+        """Rank 0 writes the checkpoint; the other ranks wait for it."""
+        out = ckpt.save_checkpoint(path, state, **kw) if rank == 0 else None
+        if world > 1:
+            dist.barrier()
+        return out
 
     ring_resize = None
     if args.synthetic:
@@ -235,7 +290,8 @@ def main(argv=None) -> int:
 
     previous = {sig: signal.signal(sig, on_signal) for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
-        print(f"training {name} on {dev} ({str(compute_dtype)[6:]}) from step {state.step}", flush=True)
+        print(f"training {name} on {dev} ({str(compute_dtype)[6:]}) from step {state.step}"
+              + (f", rank {rank} of {world}" if world > 1 else ""), flush=True)
         step_count = state.step
         t0 = time.perf_counter()
         prev_total = None
@@ -268,34 +324,43 @@ def main(argv=None) -> int:
                         return 1
                     rate = args.log_every * batch_size / (time.perf_counter() - t0)
                     t0 = time.perf_counter()
-                    writer.write(step_count, {**m, "images_per_sec": rate})
+                    if writer:
+                        writer.write(step_count, {**m, "images_per_sec": rate})
                     print(f"step {step_count} epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
                           + f" ({rate:.1f} img/s)", flush=True)
+                if world > 1:  # a signal to one rank stops them all after the same step
+                    flag = torch.tensor([float(bool(interrupted))], device=dev)
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                    if float(flag) and not interrupted:
+                        interrupted.append("another rank's")
                 if interrupted or (args.steps and step_count >= args.steps):
                     done = True
                     break
             if interrupted:
                 break
             if not args.synthetic and ((epoch + 1) % args.ckpt_every == 0 or done or epoch + 1 == epochs):
-                ckpt.save_checkpoint(run_dir, state)
+                save(run_dir)
             if args.eval_every and not args.synthetic and (epoch + 1) % args.eval_every == 0:
-                score = run_eval(cfg, model, compute_dtype)
-                writer.write(step_count, {"mAP": score})
+                score = run_eval(cfg, model, compute_dtype, mesh)
+                if writer:
+                    writer.write(step_count, {"mAP": score})
                 if score > best_map:
                     best_map = score
-                    ckpt.save_checkpoint(run_dir + "_best", state, keep=1)
+                    save(run_dir + "_best", keep=1)
                     print(f"new best mAP {score:.4f} at epoch {epoch}", flush=True)
             if done:
                 break
         if prev_total is not None and not np.isfinite(float(prev_total)):
             print(f"NON-FINITE loss at step {step_count}: stopping without a checkpoint", flush=True)
             return 1
-        path = ckpt.save_checkpoint(run_dir, state)
-        print(f"checkpoint {path}", flush=True)
+        path = save(run_dir)
+        if path:
+            print(f"checkpoint {path}", flush=True)
         print("training done: step", step_count, flush=True)
         return 0
     finally:
-        writer.close()
+        if writer:
+            writer.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
 

@@ -17,6 +17,14 @@ device is CUDA.  With ``device_resize=True`` a pipeline takes raw decoded
 tiles and their sizes, ``pipeline(tiles_u8, src_hw)``, and resizes them onto
 the canvas on that device (``data/pipeline.make_device_resize``).
 
+Data-parallel serving (JAX: the pipeline under ``jax.shard_map`` over the
+batch): :class:`DataParallelPipeline` wraps a pipeline for the ranks of a
+mesh's data group; every rank takes the global batch, runs its rows on
+its own device and all-gathers the fixed-shape detections, so every rank
+returns what the pipeline alone returns.  ``make_eval_pipeline_int8``,
+``iter_predictions``, ``collect_voc_predictions``, ``evaluate_voc`` and
+``evaluate_coco`` take the ``mesh`` to do so.
+
 ``evaluate_voc`` and ``evaluate_coco`` run a pipeline over a dataset
 through the port's loaders (``iter_predictions``, ``_collect``) and score it
 with VOC AP@0.5 (``eval/voc_map.py``) or the COCO protocol
@@ -51,6 +59,8 @@ from pytorch_object_detection_tpu_torch.models.ssd import SSD300, default_boxes
 from pytorch_object_detection_tpu_torch.models.ssd_int8 import quantize_ssd300, ssd300_int8_forward
 from pytorch_object_detection_tpu_torch.ops.anchors import decode_anchor_detections, generate_anchors
 from pytorch_object_detection_tpu_torch.ops.postprocess import Detections, decode_detections, resolve_nms_impl
+from pytorch_object_detection_tpu_torch.parallel.collectives import all_gather_rows, broadcast_
+from pytorch_object_detection_tpu_torch.parallel.mesh import data_group
 from pytorch_object_detection_tpu_torch.train.trainer import (
     fused_head_applies,
     is_efficientnet,
@@ -179,6 +189,30 @@ class Int8EvalPipeline(_Pipeline):
         return self.forward(self.qtree, x)
 
 
+class DataParallelPipeline:
+    """``pipeline`` served by the ranks of ``mesh``'s data group (the JAX
+    pipeline under ``shard_map`` with the batch on the ``data`` axis):
+    every rank calls it with the same global batch of B frames (and
+    ``src_hw``), runs rows ``[r B / n, (r + 1) B / n)`` through ``pipeline``
+    on its own device and all-gathers the fixed-shape ``Detections``, so
+    every rank returns what ``pipeline`` alone returns on the whole batch.
+    A batch that does not divide by the data size ``n`` raises
+    ``ValueError`` (JAX asserts)."""
+
+    def __init__(self, pipeline, mesh):
+        self.pipeline = pipeline
+        self.group = data_group(mesh)
+        self.size, self.rank = torch.distributed.get_world_size(self.group), torch.distributed.get_rank(self.group)
+
+    def __call__(self, images_u8, src_hw=None) -> Detections:
+        b = images_u8.shape[0]
+        if b % self.size:
+            raise ValueError(f"batch {b} does not divide by the data-parallel size {self.size}")
+        rows = slice(self.rank * b // self.size, (self.rank + 1) * b // self.size)
+        det = self.pipeline(images_u8[rows]) if src_hw is None else self.pipeline(images_u8[rows], src_hw[rows])
+        return Detections(*(all_gather_rows(t, self.group) for t in det))
+
+
 def make_eval_pipeline(
     model: nn.Module,
     strides: Sequence[int],
@@ -230,7 +264,7 @@ def make_eval_pipeline_int8(
     fused_head: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
-) -> Int8EvalPipeline:
+) -> Int8EvalPipeline | DataParallelPipeline:
     """int8-PTQ serving pipeline (the JAX function's signature and defaults;
     the model carries its weights, so there is no ``variables`` argument).
 
@@ -295,6 +329,10 @@ def make_eval_pipeline_int8(
     NMS on any device); the JAX ``PODT_NMS`` override is not read
     (``ops/postprocess.resolve_nms_impl``).
     ``plain=True`` runs every kernel's plain version, for comparisons only.
+    ``mesh`` (a ``parallel/mesh.create_mesh``): the pipeline is a
+    :class:`DataParallelPipeline` over its data group, every rank
+    calibrating and then taking rank 0's qtree, so every rank serves the
+    same int8 weights.
     """
     is_mc = isinstance(model, MC_FCOS)
     int8_fpn = int8_fpn and isinstance(model, (HISFCOS, FCOS))  # the JAX gate: MNFCOS stays float
@@ -303,10 +341,9 @@ def make_eval_pipeline_int8(
         raise ValueError(f"fused_head=True runs the float HISHead on K15 behind the float HisFPN: it needs a "
                          f"HISFCOS, int8_fpn=False and a backend other than 'xla' (got {type(model).__name__}, "
                          f"int8_fpn={int8_fpn}, backend={backend!r})")
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
     device = next(model.parameters()).device
     resolve_nms_impl(nms_impl, device)  # raises on a value the port does not take, before the calibration
+    group = data_group(mesh) if mesh is not None else None  # raises on a mesh without a group, before it too
     mean = IMAGENET_MEAN if mean is None else mean
     std = IMAGENET_STD if std is None else std
     if is_mc:  # the one-shot ladder from raw uint8 frames (JAX evaluator.py:325-336)
@@ -325,8 +362,24 @@ def make_eval_pipeline_int8(
     fwd = make_eval_forward_int8(model, compute_dtype, backend=backend, fuse_strided=fuse_strided, int8_fpn=int8_fpn,
                                  int8_head=int8_head, u8_input=u8_input, direct_stem=direct_stem,
                                  chain_segments=chain_segments, fused_head=fused_head, plain=plain)
-    return Int8EvalPipeline(fwd, qtree, device, strides, canvas_hw, score_threshold, nms_iou, max_detections, plain,
-                            mean, std, u8_input, device_resize, nms_impl)
+    pipeline = Int8EvalPipeline(fwd, qtree, device, strides, canvas_hw, score_threshold, nms_iou, max_detections,
+                                plain, mean, std, u8_input, device_resize, nms_impl)
+    if mesh is None:
+        return pipeline
+    broadcast_(list(_tensors(qtree)), group)
+    return DataParallelPipeline(pipeline, mesh)
+
+
+def _tensors(tree):
+    """The tensors of a nested dict, list or tuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 class AnchorEvalPipeline(_Pipeline):
@@ -493,10 +546,16 @@ def iter_predictions(
     must resize on the device.  ``use_ring_loader``: batches from
     ``data/pipeline.RingTileLoader`` (one native batch decode per batch; a
     raw-tile VOC dataset), else ``DetectionLoader``; the same batches.
-    ``mesh`` raises: data-parallel serving is not ported yet.
+    ``mesh``: every rank of its data group loads every batch (unless
+    ``process_count`` and ``process_index`` say otherwise) and serves it
+    through ``pipeline`` as a :class:`DataParallelPipeline`, so every rank
+    yields every image; ``batch_size`` must divide by the data size.
     """
     if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
+        if not isinstance(pipeline, DataParallelPipeline):
+            pipeline = DataParallelPipeline(pipeline, mesh)
+        if process_count is None and process_index is None:
+            process_count, process_index = 1, 0
     if use_ring_loader:
         from pytorch_object_detection_tpu_torch.data.pipeline import RingTileLoader
 
@@ -567,8 +626,9 @@ def evaluate_voc(
     SSD300).  ``process_count``/``process_index``
     override the loader's shard; ``use_ring_loader``: see
     :func:`collect_voc_predictions`.  The AP matches in the native ops
-    library (``eval/voc_map.eval_voc_ap``).  ``mesh`` raises: data-parallel
-    serving is not ported yet.  ``images_per_sec`` counts the loader, the
+    library (``eval/voc_map.eval_voc_ap``).  ``mesh``: the ranks of its data
+    group serve every batch together (:func:`iter_predictions`), and every
+    rank returns the whole result.  ``images_per_sec`` counts the loader, the
     pipeline and the fetch of its detections.
     """
     if pipeline is None:
@@ -624,8 +684,8 @@ def evaluate_coco(
     (``dataset.eval_crowds``) join each image's GT as ``gt_crowd`` rows.
     The batches come from :func:`iter_predictions` (so the GT is the
     loader's, at most 64 boxes an image, as in JAX); the matching runs in
-    the native ops library (``eval/coco_map.COCOEvaluator``).  ``mesh``
-    raises: data-parallel serving is not ported yet.  ``images_per_sec``
+    the native ops library (``eval/coco_map.COCOEvaluator``).  ``mesh`` as
+    :func:`evaluate_voc`'s.  ``images_per_sec``
     counts the loader, the pipeline, the fetch of its detections and the
     evaluator's bookkeeping, not the summary.
     """
@@ -634,7 +694,7 @@ def evaluate_coco(
     from pytorch_object_detection_tpu_torch.eval.coco_map import COCOEvaluator
 
     if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel serving) is not ported yet: ROADMAP.md queue 1 item 11")
+        data_group(mesh)  # a mesh without a process group raises before anything is built
     if pipeline is None:
         pipeline = make_default_pipeline(model, strides, dataset.canvas_hw, score_threshold, nms_iou, max_detections,
                                          device_resize=bool(getattr(dataset, "raw_tiles", False)))
@@ -642,8 +702,8 @@ def evaluate_coco(
     json_records = []
     n_images = 0
     t0 = time.perf_counter()
-    for gt_b, gt_l, b, c, s, image_id in iter_predictions(pipeline, dataset, batch_size, num_workers,
-                                                         process_count=process_count, process_index=process_index):
+    for gt_b, gt_l, b, c, s, image_id in iter_predictions(pipeline, dataset, batch_size, num_workers, mesh,
+                                                         process_count, process_index):
         image_id = int(image_id)
         crowd_flags = np.zeros(len(gt_l), bool)
         if hasattr(dataset, "eval_crowds"):

@@ -6,7 +6,10 @@ HisFPN -> HISHead) and ``MNFCOS`` (ResNet-50 with the 7x7 stem ->
 LightweightFPN -> MNHead).  The forward takes NHWC float images
 (normalized) and returns per-level NHWC (cls, cnt, reg) lists, the JAX
 package's layouts; inside, everything runs NCHW.  Every BatchNorm is frozen
-(the reference's only trained configuration).  ``frozen_stages=k`` puts the
+(the reference's only trained configuration) unless the model is built
+with ``freeze_bn=False`` (the JAX field): then its affines are parameters
+and, in training mode, it normalizes with the batch's statistics (JAX:
+``bn_train = train and not freeze_bn``; ``nn/layers.BatchNorm``).  ``frozen_stages=k`` puts the
 ResNet-50's gradient barrier after ``layer{k}``; the trainer freezes the
 matching parameters (``train/trainer.param_labels``).
 """
@@ -20,6 +23,7 @@ from torch import nn
 from pytorch_object_detection_tpu_torch.models.heads import FCOSHead, HISHead, LevelOutputs, MNHead
 from pytorch_object_detection_tpu_torch.nn.efficientnet import EfficientNet
 from pytorch_object_detection_tpu_torch.nn.fpn import FPN, HisFPN, LightweightFPN
+from pytorch_object_detection_tpu_torch.nn.layers import unfreeze_batchnorms
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
 
 BACKBONES = ("resnet50", "efficientnet-b0")  # the JAX FCOS's
@@ -27,6 +31,14 @@ BACKBONES = ("resnet50", "efficientnet-b0")  # the JAX FCOS's
 
 class _Detector(nn.Module):
     """``backbone`` -> ``fpn`` -> ``head``, set by the subclass."""
+
+    def _finish(self, freeze_bn: bool, device) -> None:
+        """Eval mode, the BatchNorms trainable unless ``freeze_bn``, on ``device``."""
+        self.freeze_bn = freeze_bn
+        if not freeze_bn:
+            unfreeze_batchnorms(self)
+        self.eval()
+        self.to(device)
 
     def forward(self, images: torch.Tensor, plain: bool = False) -> LevelOutputs:
         """images ``[B, H, W, 3]`` float -> per-level ``[B, H_i, W_i, C]``
@@ -47,7 +59,7 @@ class FCOS(_Detector):
     the JAX model passes it to the ResNet-50 alone."""
 
     def __init__(self, num_classes: int = 20, features: int = 256, backbone: str = "resnet50", *,
-                 frozen_stages: int = 0, device: torch.device | str = "cuda",
+                 frozen_stages: int = 0, freeze_bn: bool = True, device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if backbone not in BACKBONES:
@@ -62,8 +74,7 @@ class FCOS(_Detector):
             in_channels = (512, 1024, 2048)
         self.fpn = FPN(in_channels, features, generator=generator)
         self.head = FCOSHead(num_classes, features, generator=generator)
-        self.eval()
-        self.to(device)
+        self._finish(freeze_bn, device)
 
 
 class HISFCOS(_Detector):
@@ -76,15 +87,14 @@ class HISFCOS(_Detector):
     """
 
     def __init__(self, num_classes: int = 20, features: int = 256, stem_mode: str = "conv7", *,
-                 frozen_stages: int = 0, device: torch.device | str = "cuda",
+                 frozen_stages: int = 0, freeze_bn: bool = True, device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = ResNet50(stem_mode=stem_mode, grad_barrier_stages=frozen_stages, generator=generator)
         self.fpn = HisFPN((512, 1024, 2048), features, generator=generator)
         self.head = HISHead(num_classes, features, generator=generator)
-        self.eval()
-        self.to(device)
+        self._finish(freeze_bn, device)
 
 
 class MNFCOS(_Detector):
@@ -93,14 +103,14 @@ class MNFCOS(_Detector):
     (the head's GroupNorms)."""
 
     def __init__(self, num_classes: int = 20, features: int = 256, *, frozen_stages: int = 0,
-                 device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None):
+                 freeze_bn: bool = True, device: torch.device | str = "cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = ResNet50(grad_barrier_stages=frozen_stages, generator=generator)
         self.fpn = LightweightFPN((512, 1024, 2048), features, generator=generator)
         self.head = MNHead(num_classes, features, generator=generator)
-        self.eval()
-        self.to(device)
+        self._finish(freeze_bn, device)
 
 
 def default_strides() -> Sequence[int]:

@@ -6,7 +6,8 @@ reduction 6), the top-down FeatureFusion (concat + 1x1), an MBConv FPN, a
 FeatureRefine stage giving 4 levels at strides (8, 16, 32, 64), and a
 4-conv head with BatchNorm + SiLU and bias-free predictions, WITHOUT
 ScaleExp (the regression output is the raw conv).  Every conv has its own
-BatchNorm, as in the JAX package; every BatchNorm is frozen.  The head has
+BatchNorm, as in the JAX package; every BatchNorm is frozen unless the model
+is built with ``freeze_bn=False`` (as :class:`~.fcos.HISFCOS`).  The head has
 no GroupNorm, so the float forward launches no kernel B.
 
 The forward takes NHWC float images (normalized) and returns per-level
@@ -28,6 +29,7 @@ from pytorch_object_detection_tpu_torch.nn.layers import (
     SEBlock,
     maxpool2x2,
     silu,
+    unfreeze_batchnorms,
     upsample2x,
 )
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
@@ -100,7 +102,8 @@ class MC_FCOS(nn.Module):
     alone keeps those parameters, and the barrier changes no update)."""
 
     def __init__(self, num_classes: int = 20, features: int = 256, *, frozen_stages: int = 0,
-                 device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None):
+                 freeze_bn: bool = True, device: torch.device | str = "cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         f, g = features, generator
         self.num_classes = num_classes
@@ -118,6 +121,9 @@ class MC_FCOS(nn.Module):
         self.refine_mb2 = MCBlock(2 * f, f, generator=g)
         self.refine_conv = Conv(f, f, 3, bias=False, generator=g)
         self.head = MCHead(num_classes, f, generator=g)
+        self.freeze_bn = freeze_bn
+        if not freeze_bn:
+            unfreeze_batchnorms(self)
         self.eval()
         self.to(device)
 

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.models.heads import prior_bias
-from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm, Conv, relu, upsample2x
+from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm, Conv, relu, unfreeze_batchnorms, upsample2x
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
 
 STRIDES = (8, 16, 32, 64, 128)
@@ -79,10 +79,12 @@ class SubNet(nn.Module):
 class RetinaNet(nn.Module):
     """RetinaNet; weights are drawn on the CPU from ``generator`` and moved to
     ``device``: the card by default; pass ``device="cpu"`` for the CPU.
-    Every BatchNorm is frozen (the JAX model's ``freeze_bn=True``)."""
+    Every BatchNorm is frozen unless ``freeze_bn=False`` (the JAX model's
+    field; ``nn/layers.BatchNorm``)."""
 
     def __init__(self, num_classes: int = 80, features: int = 256, num_anchors: int = 9, *,
-                 device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None):
+                 freeze_bn: bool = True, device: torch.device | str = "cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.num_classes, self.features, self.num_anchors = num_classes, features, num_anchors
@@ -90,6 +92,9 @@ class RetinaNet(nn.Module):
         self.fpn = RetinaFPN((512, 1024, 2048), features, generator=g)
         self.regression = SubNet(num_anchors * 4, features, generator=g)
         self.classification = SubNet(num_anchors * num_classes, features, bias_const=prior_bias(0.01), generator=g)
+        self.freeze_bn = freeze_bn
+        if not freeze_bn:
+            unfreeze_batchnorms(self)
         self.eval()
         self.to(device)
 

@@ -21,6 +21,7 @@ the flax path without those scopes (``train/checkpoints.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_autograd
+from pytorch_object_detection_tpu_torch.parallel.collectives import all_reduce_autograd
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -92,9 +94,24 @@ class DepthwiseConv(Conv):
 
 
 class BatchNorm(nn.Module):
-    """Frozen BatchNorm: running statistics only, eps 1e-5 (the reference
-    freezes every BN; the JAX package runs them with
-    ``use_running_average=True``)."""
+    """BatchNorm over NCHW channels, eps 1e-5, frozen by default.
+
+    Frozen (the reference's only trained configuration; the JAX package's
+    ``use_running_average=True``): the running statistics normalize, and
+    the affine and the statistics are buffers.  :func:`unfreeze_batchnorms`
+    (a detector built with ``freeze_bn=False``) makes ``weight`` and
+    ``bias`` parameters under the same ``state_dict`` names and sets
+    ``batch_stats``: then, in training mode, the layer normalizes with the
+    batch's statistics in f32 (or the input's wider type) and updates the
+    running ones as flax's ``nn.BatchNorm`` (momentum 0.9) does: the biased variance
+    ``E[x^2] - E[x]^2``, clipped at 0, normalizes and goes into
+    ``running_var`` (``F.batch_norm`` would store the unbiased one).
+    ``sync_group``, where set (:func:`batch_statistics`), makes the
+    statistics those of the whole data-parallel batch: one all-reduce of
+    the per-channel count, sum and sum of squares, through which autograd
+    runs.  ``update_stats=False`` (:func:`frozen_running_stats`) leaves the
+    running statistics alone: a recomputed forward must not update them a
+    second time."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -102,10 +119,83 @@ class BatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
+        self.batch_stats = False
+        self.sync_group = None
+        self.update_stats = True
+
+    def affine_parameters(self) -> None:
+        """``weight`` and ``bias`` as parameters (a trainer's ``freeze_bn=False``)."""
+        for name in ("weight", "bias"):
+            if name in self._buffers:
+                self.register_parameter(name, nn.Parameter(self._buffers.pop(name)))
+
+    def unfreeze(self) -> None:
+        """The affine as parameters, the batch statistics in training mode."""
+        self.affine_parameters()
+        self.batch_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, momentum=0.0, eps=1e-5)
+        if not (self.training and self.batch_stats):
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, momentum=0.0, eps=1e-5)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax computes
+        if self.sync_group is None:
+            mean, mean2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            c = xf.shape[1]
+            count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+            sums = all_reduce_autograd(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+                                       self.sync_group)
+            mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean.detach())
+                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var.detach())
+        mul = torch.rsqrt(var + 1e-5) * self.weight.to(xf.dtype)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
+        return y.to(x.dtype)
+
+
+def batchnorms(module: nn.Module):
+    """The :class:`BatchNorm` layers of ``module``."""
+    return [m for m in module.modules() if isinstance(m, BatchNorm)]
+
+
+def unfreeze_batchnorms(module: nn.Module) -> None:
+    """Every BatchNorm of ``module`` trainable (a detector's ``freeze_bn=False``)."""
+    for bn in batchnorms(module):
+        bn.unfreeze()
+
+
+@contextlib.contextmanager
+def batch_statistics(bns, group=None):
+    """Within the block, those of the BatchNorms ``bns`` that train their
+    statistics run in training mode (the batch's statistics, the running
+    ones updated), over the whole batch of ``group``'s ranks where given
+    (SyncBatchNorm); the rest of the model keeps its mode."""
+    bns = [bn for bn in bns if bn.batch_stats]
+    modes = [bn.training for bn in bns]
+    for bn in bns:
+        bn.training, bn.sync_group = True, group
+    try:
+        yield
+    finally:
+        for bn, mode in zip(bns, modes):
+            bn.training, bn.sync_group = mode, None
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, ``module``'s BatchNorms leave their running statistics as they are."""
+    bns = batchnorms(module)
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
 
 class GroupNorm32(nn.Module):

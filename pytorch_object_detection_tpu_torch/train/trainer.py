@@ -9,15 +9,25 @@ forward (under ``torch.autocast`` in bf16 over the f32 master weights, or
 in f32), the outputs cast to f32, FCOS targets on the device
 (``ops/targets.py``), ``fcos_loss``, backward and the optimizer's update,
 with no host sync inside.  Frozen parameters get ``requires_grad=False``
-and stay out of the optimizer (optax's ``set_to_zero``); every BatchNorm is
-frozen, its affine and statistics being buffers.  The GroupNorms take
+and stay out of the optimizer (optax's ``set_to_zero``).  A BatchNorm is
+frozen (its affine and statistics buffers) unless the model was built with
+``freeze_bn=False`` (``nn/layers.BatchNorm``: batch statistics in the
+step, the running ones updated as flax does, the step's ``bn_train``) or
+the state with ``freeze_bn=False`` (the affines train).  The GroupNorms take
 ``F.group_norm`` while autograd records (``nn/layers.GroupNorm32``), so a
 train step launches kernel B no time; an eval forward after it does.  The anchor
 families (RetinaNet, SSD300) train through :func:`make_anchor_train_step`
 (JAX ``:358-408``): the same step with the anchor codec's targets
-(``ops/anchors.encode_targets``) and its focal or MultiBox loss.  Not
-ported: ``bn_train`` (SyncBN) and ``make_shard_map_train_step`` (ROADMAP
-queue 1 item 11).
+(``ops/anchors.encode_targets``) and its focal or MultiBox loss.
+
+Data parallelism (JAX: the same step under a mesh; ``parallel/``): in a
+process group every step averages the gradients and the metrics over the
+data group after the backward, and with ``bn_train`` its BatchNorms take
+the statistics of the whole batch (SyncBatchNorm), so two ranks at B equal
+one process at 2B.  :func:`make_shard_map_train_step` (JAX ``:272-355``) is
+the reference's DDP instead: local statistics in the forward, the updated
+running ones averaged after it.  Tensor parallelism and spatial
+partitioning are not ported (ROADMAP.md queue 1 item 11b).
 
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
 ``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
@@ -56,6 +66,7 @@ the FCOS-family functions here refuse them.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -92,7 +103,7 @@ from pytorch_object_detection_tpu_torch.nn.efficientnet_int8 import (
     quantize_efficientnet,
 )
 from pytorch_object_detection_tpu_torch.nn.fused_fpn import fold_hisfpn, hisfpn_folded_forward
-from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm
+from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm, batch_statistics, batchnorms, frozen_running_stats
 from pytorch_object_detection_tpu_torch.models.retinanet import RetinaNet
 from pytorch_object_detection_tpu_torch.models.ssd import SSD300
 from pytorch_object_detection_tpu_torch.nn.resnet_int8 import (
@@ -104,6 +115,8 @@ from pytorch_object_detection_tpu_torch.ops.anchors import encode_targets, multi
 from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_params_pack
 from pytorch_object_detection_tpu_torch.ops.losses import fcos_loss, flatten_level_preds
 from pytorch_object_detection_tpu_torch.ops.targets import generate_targets
+from pytorch_object_detection_tpu_torch.parallel.collectives import all_reduce_, pmean_grads, pmean_metrics
+from pytorch_object_detection_tpu_torch.parallel.mesh import data_group
 from pytorch_object_detection_tpu_torch.train.schedules import warmup_step_decay
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
@@ -232,10 +245,13 @@ def create_train_state(model: nn.Module, optimizer_cfg: Optional[Dict] = None, f
     ``warmup_steps``, ``warmup_factor``, ``milestones``, ``gamma``, and
     ``swa_lr`` from ``swa_start_step`` on), the freeze set applied
     (``requires_grad=False``), and the optimizer (``name``, ``momentum``,
-    ``weight_decay``) over the parameters left trainable."""
-    if not freeze_bn:
-        raise NotImplementedError("freeze_bn=False (trainable BatchNorm affines) is not ported: the port's "
-                                  "BatchNorms are frozen buffers; ROADMAP.md queue 1 item 11 (bn_train, SyncBN)")
+    ``weight_decay``) over the parameters left trainable.  ``freeze_bn=False``
+    makes every BatchNorm's affine a parameter and leaves it trainable (the
+    statistics stay as the model was built: batch statistics in the step
+    where it was built with ``freeze_bn=False``); as JAX's
+    ``make_optimizer``, the freeze set applies only where ``freeze_bn`` or
+    ``frozen_stages > 0``, so ``freeze_bn=False, frozen_stages=0`` trains
+    every parameter, the stem too."""
     cfg = optimizer_cfg or {}
     schedule = warmup_step_decay(cfg.get("lr", 1e-2), cfg.get("warmup_steps", 500),
                                  cfg.get("warmup_factor", 1.0 / 3.0), cfg.get("milestones", (120000, 160000)),
@@ -243,9 +259,13 @@ def create_train_state(model: nn.Module, optimizer_cfg: Optional[Dict] = None, f
     if cfg.get("swa_lr"):
         base, swa_v, start = schedule, float(cfg["swa_lr"]), int(cfg.get("swa_start_step", 0))
         schedule = lambda step: base(step) if step < start else float(np.float32(swa_v))
+    if not freeze_bn:
+        for bn in batchnorms(model):
+            bn.affine_parameters()
+    masked = freeze_bn or frozen_stages > 0
     labels = param_labels(model, freeze_bn, frozen_stages)
     for name, p in model.named_parameters():
-        p.requires_grad_(labels[name] == "train")
+        p.requires_grad_(not masked or labels[name] == "train")
     trainable = [p for p in model.parameters() if p.requires_grad]
     optimizer = make_optimizer(cfg.get("name", "SGD"), trainable, schedule(0), cfg.get("momentum", 0.9),
                                cfg.get("weight_decay", 1e-4))
@@ -267,53 +287,112 @@ def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], s
     adds one to ``state.step``.  ``record(phase)``, where given, is called
     after each of ``"forward"``, ``"loss"`` (targets and loss),
     ``"backward"`` and ``"optimizer"`` (for timing the phases apart).
-    ``model`` must be ``state.model``."""
-    if bn_train:
-        raise NotImplementedError("bn_train=True (BatchNorm statistics in training, SyncBN) is not ported: "
-                                  "ROADMAP.md queue 1 item 11")
+    ``model`` must be ``state.model``.
 
+    ``bn_train=True`` (JAX: ``mutable=["batch_stats"]``) lets the
+    BatchNorms of a model built with ``freeze_bn=False`` normalize with the
+    batch's statistics and update their running ones (in the module's
+    buffers, in f32); a frozen model's stay as they are.  Such a model
+    without ``bn_train`` raises ``ValueError`` (flax refuses to update
+    immutable statistics).
+
+    In a process group (the default group: the data group of
+    ``parallel/mesh.create_mesh``'s mesh, whose model dimension is 1) each
+    rank passes its shard of the global batch; the group is the one this
+    process has when the step is made.  The gradients and the returned
+    metrics are averaged over the group, and
+    with ``bn_train`` the statistics are those of the whole batch (the JAX
+    step under a mesh, where GSPMD's mean over the sharded batch is global).
+    Every loss is a batch mean of per-image terms, so ranks with equal
+    shards take the single-process step on the whole batch."""
+    group = data_group()
+    return _step(model, _fcos_losses(level_shapes, strides, limit_ranges, reg_mode, cnt_mode), compute_dtype, remat,
+                 bn_train, group, sync_bn=bn_train and group is not None)
+
+
+def make_shard_map_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
+                              limit_ranges: Sequence[Tuple[float, float]], mesh, reg_mode: str = "giou",
+                              compute_dtype: torch.dtype = torch.bfloat16, bn_train: bool = False,
+                              cnt_mode: str = "bce"):
+    """The reference's DDP step (JAX ``make_shard_map_train_step``, the
+    step of ``jax.shard_map`` with explicit collectives): each rank's
+    forward on its shard with LOCAL BatchNorm statistics, its loss
+    normalized over its own images, then the mean of the gradients over
+    ``mesh``'s data group (``parallel/collectives.pmean_grads``), the
+    update, the mean of the metrics (``pmean_metrics``), and with
+    ``bn_train`` the mean of each BatchNorm's updated running mean and
+    variance (``sync_batch_stats``, the JAX ``sync_stats_tree``), so every
+    rank holds the same statistics.  The step's signature is
+    :func:`make_train_step`'s."""
+    return _step(model, _fcos_losses(level_shapes, strides, limit_ranges, reg_mode, cnt_mode), compute_dtype, False,
+                 bn_train, data_group(mesh), sync_bn=False, sync_stats=bn_train)
+
+
+def _fcos_losses(level_shapes, strides, limit_ranges, reg_mode: str, cnt_mode: str) -> Callable:
+    """``losses_of(out, boxes, labels)`` of the FCOS families: the per-level
+    outputs cast to f32 and flattened, the targets, ``fcos_loss``."""
     def losses_of(out, boxes, labels):
         cls_p, cnt_p, reg_p = (flatten_level_preds([t.float() for t in branch]) for branch in out)
         tgt = generate_targets(level_shapes, strides, limit_ranges, boxes, labels)
         return fcos_loss(cls_p, cnt_p, reg_p, tgt.cls, tgt.cnt, tgt.reg, reg_mode, cnt_mode)
 
-    return _step(model, losses_of, compute_dtype, remat)
+    return losses_of
 
 
-def _step(model: nn.Module, losses_of: Callable, compute_dtype: torch.dtype, remat: bool = False):
-    """The step both train-step makers return: the lr from the schedule, the
-    forward under autocast (``remat``: recomputed in the backward), then
+def _step(model: nn.Module, losses_of: Callable, compute_dtype: torch.dtype, remat: bool = False,
+          bn_train: bool = False, group=None, sync_bn: bool = False, sync_stats: bool = False):
+    """The step every train-step maker returns: the lr from the schedule,
+    the forward under autocast with the BatchNorms that train their
+    statistics in training mode (``remat``: recomputed in the backward, the
+    running statistics updated once), then
     ``losses_of(out, boxes, labels)`` (targets and loss, in f32), the
-    backward, the update, ``record`` after each phase."""
+    backward, the update, ``record`` after each phase.  With ``group``: the
+    gradients averaged over it before the update and the metrics after it;
+    ``sync_bn`` the BatchNorms' statistics over it in the forward,
+    ``sync_stats`` their running statistics averaged after the update."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype must be bfloat16 or float32; got {compute_dtype}")
+    bns = batchnorms(model)
+    if not bn_train and any(bn.batch_stats for bn in bns):
+        raise ValueError("the model's BatchNorms train their statistics (built with freeze_bn=False): pass "
+                         "bn_train=True")
+    recompute = lambda: (contextlib.nullcontext(), frozen_running_stats(model))
 
     def step(state: TrainState, images: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
              record: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the train step was made for another model than state.model")
         lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for g in state.optimizer.param_groups:
+            g["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
-            if remat:
-                out = torch.utils.checkpoint.checkpoint(model, images, use_reentrant=False)
-            else:
-                out = model(images)
-        if record:
-            record("forward")
-        losses = losses_of(out, boxes, labels)
-        if record:
-            record("loss")
-        losses["total"].backward()
+        # the backward too: a recomputed forward takes the same statistics
+        with batch_statistics(bns, group if sync_bn else None):
+            with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
+                if remat:
+                    out = torch.utils.checkpoint.checkpoint(model, images, use_reentrant=False, context_fn=recompute)
+                else:
+                    out = model(images)
+            if record:
+                record("forward")
+            losses = losses_of(out, boxes, labels)
+            if record:
+                record("loss")
+            losses["total"].backward()
+        if group is not None:
+            pmean_grads([p.grad for p in model.parameters() if p.grad is not None], group)
         if record:
             record("backward")
         state.optimizer.step()
         state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            metrics = pmean_metrics(metrics, group)
+            if sync_stats:
+                all_reduce_([t for bn in bns for t in (bn.running_mean, bn.running_var)], group, mean=True)
         if record:
             record("optimizer")
-        return {k: v.detach() for k, v in losses.items()}
+        return metrics
 
     return step
 
@@ -338,7 +417,7 @@ def make_train_step_scan(model: nn.Module, level_shapes: Sequence[Tuple[int, int
 
 def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes: int,
                            compute_dtype: torch.dtype = torch.bfloat16, pos_iou: float = 0.5, neg_iou: float = 0.4,
-                           loss: str = "focal"):
+                           loss: str = "focal", bn_train: bool = False):
     """The train step of the anchor detectors (RetinaNet, SSD300):
     ``step(state, images, boxes, labels, record=None) -> {"cls", "reg",
     "total"}``, as :func:`make_train_step`'s (the lr from the schedule, the
@@ -350,7 +429,9 @@ def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes:
     ignore band + smooth-L1 1/9, ``num_classes`` foreground classes) or
     ``"multibox"`` (SSD: softmax CE with 3:1 hard-negative mining +
     smooth-L1 1; pass ``neg_iou=pos_iou``).  ``model`` must be
-    ``state.model``."""
+    ``state.model``.  In a process group the gradients and metrics are
+    averaged over it, and ``bn_train`` acts, as in :func:`make_train_step`.
+    SSD300 has no BatchNorm."""
     if loss not in ("focal", "multibox"):
         raise ValueError(f"loss must be 'focal' or 'multibox'; got {loss!r}")
 
@@ -361,7 +442,8 @@ def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes:
             return multibox_loss(cls.float(), loc.float(), cls_t, loc_t)
         return retinanet_loss(cls.float(), loc.float(), cls_t, loc_t, num_classes)
 
-    return _step(model, losses_of, compute_dtype)
+    group = data_group()
+    return _step(model, losses_of, compute_dtype, False, bn_train, group, sync_bn=bn_train and group is not None)
 
 
 # ---------------------------------------------------------------------------

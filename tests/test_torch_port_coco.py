@@ -560,7 +560,9 @@ def test_evaluate_coco_int8_pipeline(tmp_path):
 
 
 def test_evaluate_coco_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A mesh serves the ranks of a process group (parallel/mesh.py): one
+    process without a group refuses it."""
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         evaluator.evaluate_coco(None, None, pipeline=lambda x: x, mesh=object())
 
 

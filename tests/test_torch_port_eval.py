@@ -515,9 +515,10 @@ def test_nms_impl_mapping_and_errors():
         evaluator.make_eval_pipeline_int8(model, calib, STRIDES, CANVAS, nms_impl="pallas")
     with pytest.raises(ValueError, match="nms_impl"):
         evaluator.make_eval_pipeline_int8(model, calib, STRIDES, CANVAS, nms_impl="fast")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh serves the ranks of a process group (parallel/mesh.py): one process without a group refuses it
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         evaluator.make_eval_pipeline_int8(model, calib, STRIDES, CANVAS, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         evaluator.evaluate_voc(model, None, pipeline=lambda x: x, mesh=object())
 
 

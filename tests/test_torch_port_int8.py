@@ -445,7 +445,8 @@ def test_int8_pipeline_options(slice_runs):
     assert sorted(default.qtree) == ["backbone", "fpn", "head"]
     for a_b, b_b in zip(default.forward_levels(frames), xla.forward_levels(frames)):
         assert all(torch.equal(a, b) and bool(torch.isfinite(a).all()) for a, b in zip(a_b, b_b))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh serves the ranks of a process group (parallel/mesh.py): one process without a group refuses it
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         make_eval_pipeline_int8(*args, int8_fpn=False, mesh=object())
     # device_resize=True (ported since): tiles of the canvas's size pass the device resize unchanged, so the
     # pipeline on (tiles, src_hw) gives the canvas pipeline's detections

@@ -29,7 +29,7 @@ from pytorch_object_detection_tpu_torch.models.registry import build_model
 from pytorch_object_detection_tpu_torch.nn.fpn import HisFPN
 from pytorch_object_detection_tpu_torch.nn.layers import HisBlock
 from pytorch_object_detection_tpu_torch.nn.resnet import ResNet50
-from pytorch_object_detection_tpu_torch.train import trainer
+from pytorch_object_detection_tpu_torch.parallel.mesh import create_mesh
 from pytorch_object_detection_tpu_torch.train.checkpoints import load_flax_variables
 from torch_port_fixtures import (
     BATCH,
@@ -144,8 +144,8 @@ def test_unported_options_raise():
         ResNet50(stem_mode="s4d")
     effnet = build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
     assert [getattr(effnet.fpn, f"lateral{i}").in_channels for i in (3, 4, 5)] == [40, 112, 320]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-        trainer.make_train_step(effnet, [(16, 16)], [8], [(-1, 64)], bn_train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11b"):  # tp and sp
+        create_mesh(model_parallel=2)
     with pytest.raises(KeyError):
         build_model("NOPE", 20)
 

@@ -42,6 +42,7 @@ from pytorch_object_detection_tpu_torch.models.registry import build_model
 from pytorch_object_detection_tpu_torch.nn.layers import GroupNorm32
 from pytorch_object_detection_tpu_torch.ops import boxes, losses, targets
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act_plain
+from pytorch_object_detection_tpu_torch.parallel.mesh import create_mesh
 from pytorch_object_detection_tpu_torch.train import schedules, trainer
 from pytorch_object_detection_tpu_torch.train.checkpoints import flax_to_state_dict, flax_to_torch_name, load_flax_variables
 from torch_port_fixtures import jax_model, one_torch_thread, perturbed_variables  # noqa: F401 (autouse)
@@ -423,13 +424,19 @@ def test_grad_barrier_scan_and_remat_match_the_plain_step(jax_his):
 
 
 def test_train_step_refusals():
-    model = build_model("HISFCOS", N_CLASSES, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trainer.make_train_step(model, SHAPES, STRIDES, RANGES, bn_train=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trainer.create_train_state(model, OPT_CFG, freeze_bn=False)
+    """A model whose BatchNorms train their statistics (freeze_bn=False) needs
+    bn_train=True (flax refuses to update immutable statistics); an unknown
+    optimizer and model parallelism (ROADMAP item 11b) are refused.
+    tests/test_torch_port_parallel.py holds bn_train and freeze_bn=False
+    to JAX."""
+    model = build_model("HISFCOS", N_CLASSES, 64, freeze_bn=False, device="cpu")
+    trainer.create_train_state(model, OPT_CFG, freeze_bn=False)
+    with pytest.raises(ValueError, match="bn_train=True"):
+        trainer.make_train_step(model, SHAPES, STRIDES, RANGES)
     with pytest.raises(NotImplementedError):
         trainer.make_optimizer("LAMB", [torch.zeros(1, requires_grad=True)])
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        create_mesh(model_parallel=2)
 
 
 # ---------------------------------------------------------------------------
