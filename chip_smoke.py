@@ -253,6 +253,17 @@ Phases (each prints its results on its own lines):
      make_eval_pipeline, f32, three microbatches of 8; (e) podt-torch-train
      in two processes on the card, --synthetic --steps 3: identical losses,
      one checkpoint;
+  5x. tensor parallelism and spatial partitioning: HISFCOS(20, 256) at
+     512x512, f32, TF32 off, two ranks on the card over gloo as one model
+     group at B=8 against one process at B=8, (a) under tp2: the loss, the
+     whole weights after a step, each rank's bytes of weights, gradients
+     and momenta against tp_spec's prediction; (b) under sp2: the same and
+     each rank's peak memory against one process's; step ms and the
+     collectives' ms (a check of correctness, not of scaling); (c)
+     podt-torch-train --synthetic --steps 2 in two processes with
+     --model-parallel 2 --layout tp, then sp (one whole checkpoint, the
+     ranks' losses identical), and --swa --swa-every 1 beside a one-step
+     run (the _swa checkpoint the mean of the snapshots);
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -475,6 +486,14 @@ K12_MAX_STEP, K12_MAX_SHARE, MN_LADDER_COS = 1, 1e-3, 0.999
 DP_CANVAS, DP_BATCH, DP_STEP_BATCH, DP_STEP_ITERS = (512, 512), 8, 16, 10
 DP_SERVE_BATCH, DP_SERVE_ITERS = 16, 10
 DP_LOSS_RTOL, DP_P_RTOL, DP_P_ATOL = 1e-4, 2e-4, 2e-6
+# phase 5x: tensor parallelism and spatial partitioning.  Two ranks share the card over gloo as one model group
+# (data parallel 1): HISFCOS(20, 256) at DP_CANVAS, f32, TF32 off, the MP_BATCH seeded batch on each, one step
+# against one process's (JAX tests/test_tp.py and test_sp.py's tolerances; the loss to 1e-4, as phase 5w), then
+# one step timed with its collectives timed; then podt-torch-train in two processes under each layout and with
+# --swa at MP_CLI_BATCH a data shard on MP_CLI_CANVAS (a check of the CLI: its collectives' count, not the
+# canvas, sets its time)
+MP_BATCH, MP_CLI_BATCH, MP_CLI_CANVAS = 8, 4, (256, 256)
+MP_LOSS_RTOL, MP_P_RTOL, MP_TP_ATOL, MP_SP_ATOL = 1e-4, 2e-4, 2e-6, 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # device memory, int8 tensor-core operations, f32 on the CUDA cores
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 1979e12, 67e12, 989e12
@@ -636,6 +655,23 @@ def launch_counters():
             "qmnblock": qmnblock.qmnblock}
 
 
+def close_state(got, want, rtol, atol):
+    """(every floating tensor of ``want`` within rtol/atol in ``got``, the
+    worst |diff| - tol, its key); a NaN counts as an infinite excess."""
+    import math
+
+    worst, where = -1.0, ""
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d = (got[k].double() - w.double()).abs() - (atol + rtol * w.double().abs())
+        m = float(d.max()) if d.numel() else -1.0
+        m = math.inf if math.isnan(m) else m
+        if m > worst:
+            worst, where = m, k
+    return worst <= 0.0, worst, where
+
+
 def dp_batch(canvas, b, seed):
     """A seeded normalized training batch on the CPU: (images, boxes, labels)."""
     import torch
@@ -735,6 +771,121 @@ def dp_rank(rank, world, init_url, out_dir):
         det[0].cpu()  # the all-gathered detections: the card has finished the calls
         out["serve_s"] = (time.perf_counter() - t0) / DP_SERVE_ITERS
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mp_state_bytes(state):
+    """This rank's bytes of weights and buffers, gradients and momenta, and
+    their whole shapes by name (the state's ``sharded`` record, else the
+    tensors' own)."""
+    whole = getattr(state, "sharded", {})
+    names = dict(state.model.named_parameters())
+    by_id = {id(p): n for n, p in names.items()}
+    kinds = {"weights": list(state.model.state_dict().items()),
+             "grads": [(n, p.grad) for n, p in names.items() if p.grad is not None],
+             "momenta": [(by_id[id(p)], v) for p, st in state.optimizer.state.items() for v in st.values()
+                         if hasattr(v, "dim") and v.dim()]}
+    return ({k: sum(v.numel() * v.element_size() for _, v in ts) for k, ts in kinds.items()},
+            {k: [(n, tuple(whole.get(n, v.shape)), v.element_size()) for n, v in ts] for k, ts in kinds.items()})
+
+
+def mp_train_case(layout, device, mesh=None, warm_steps=0):
+    """Phase 5x's step: HISFCOS(20, 256) at DP_CANVAS in f32 on the MP_BATCH
+    seeded batch, one process (``layout`` None) or this rank of ``mesh``'s
+    model group ("tp": the state sharded; "sp": the images in row bands).
+    One step from the seeded weights with each collective timed on the host
+    (the card synchronised around it: where gloo takes them through the
+    host they wait on the card anyway), then ``warm_steps`` timed steps:
+    {metrics, whole state, bytes, shapes, peak memory (the model, its state
+    and the first step's, over what the process held before), the first
+    step's ms and its collectives' ms and count, the warm steps' ms}."""
+    import torch
+
+    from pytorch_object_detection_tpu_torch.models.fcos import default_strides
+    from pytorch_object_detection_tpu_torch.models.registry import build_model
+    from pytorch_object_detection_tpu_torch.parallel import collectives, sp, tp
+    from pytorch_object_detection_tpu_torch.train import trainer
+
+    before = torch.cuda.memory_allocated()  # what the process holds already (the smoke's earlier phases)
+    model = build_model("HISFCOS", NUM_CLASSES, FEATURES, frozen_stages=1, device=device,
+                        generator=torch.Generator().manual_seed(SEED + 47))
+    state = trainer.create_train_state(model, TRAIN_OPT, freeze_bn=True, frozen_stages=1)
+    batch = tuple(t.to(device) for t in dp_batch(DP_CANVAS, MP_BATCH, SEED + 48))
+    if layout == "tp":
+        tp.shard_state_tp(mesh, state)
+    elif layout == "sp":
+        batch = sp.shard_batch_spatial(mesh, *batch)
+    shapes = [(DP_CANVAS[0] // s, DP_CANVAS[1] // s) for s in default_strides()]
+    step = trainer.make_train_step(model, shapes, default_strides(), TRAIN_RANGES, "giou", torch.float32,
+                                   mesh=mesh if layout else None)
+    spent = {"ms": 0.0, "calls": 0}
+    saved = {}
+    for fn in (collectives._AllGather, collectives._Halo, collectives._AllReduceSum):
+        for name in ("forward", "backward"):
+            saved[(fn, name)] = orig = getattr(fn, name)
+
+            def timed(*args, _orig=orig):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = _orig(*args)
+                torch.cuda.synchronize()
+                spent["ms"] += (time.perf_counter() - t0) * 1e3
+                spent["calls"] += 1
+                return res
+
+            setattr(fn, name, staticmethod(timed))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = t_case = time.perf_counter()
+        metrics = {k: v.cpu() for k, v in step(state, *batch).items()}
+        torch.cuda.synchronize()
+    finally:
+        for (fn, name), orig in saved.items():
+            setattr(fn, name, staticmethod(orig))
+    out = {"metrics": metrics, "peak": torch.cuda.max_memory_allocated() - before,
+           "first_ms": (time.perf_counter() - t0) * 1e3, "collective_ms": spent["ms"], "collective_calls": spent["calls"]}
+    if layout:  # progress, for a run cut short
+        print(f"    {layout} rank {torch.distributed.get_rank()}: first step at {time.perf_counter() - t_case:.1f} s",
+              flush=True)
+    out["bytes"], out["shapes"] = mp_state_bytes(state)
+    out["state"] = {k: v.detach().to("cpu", copy=True) for k, v in state.state_dict()["model"].items()}
+    out["warm_ms"] = []
+    for _ in range(warm_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        out["warm_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mp_rank(rank, world, init_url, out_dir, warm_steps=0):
+    """One rank of phase 5x (a) and (b), spawned twice by the smoke onto the
+    one card (gloo): :func:`mp_train_case` under tp, then under sp, over a
+    (1, world) mesh.  Writes ``<out_dir>/mp_rank<rank>.pt`` (the whole
+    state from rank 0 only)."""
+    import os
+
+    import torch
+
+    from pytorch_object_detection_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pmesh.initialize_distributed(init_url, world, rank, device="cuda")
+    out = {}
+    try:
+        mesh = pmesh.create_mesh(data_parallel=1, model_parallel=world, device_type="cuda")
+        for layout in ("tp", "sp"):
+            res = mp_train_case(layout, pmesh.rank_device("cuda"), mesh, warm_steps)
+            res["digest"] = float(sum(v.double().sum() for v in res["state"].values() if v.is_floating_point()))
+            if rank:
+                del res["state"]
+            out[layout] = res
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"mp_rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2960,18 +3111,6 @@ def main() -> int:
                 sk.bind(("127.0.0.1", 0))
                 return sk.getsockname()[1]
 
-        def close_state(got, want, rtol, atol):
-            """(all within rtol/atol, worst |diff| - tol, its key)."""
-            worst, where = -1.0, ""
-            for k, w in want.items():
-                if not w.is_floating_point():
-                    continue
-                d = (got[k].double() - w.double()).abs() - (atol + rtol * w.double().abs())
-                m = float(d.max()) if d.numel() else -1.0
-                if m > worst:
-                    worst, where = m, k
-            return worst <= 0.0, worst, where
-
         # (a) a world-size-1 NCCL group
         shapes = [(CANVAS[0] // st, CANVAS[1] // st) for st in strides]
         big = tuple(t.to(dev) for t in dp_batch(CANVAS, DP_STEP_BATCH, SEED + 44))
@@ -3147,6 +3286,179 @@ def main() -> int:
                             f"{time.perf_counter() - t0:.1f} s {card}, the ranks' losses identical, checkpoint {ckpts}"
                         + ("" if ok else "\n" + "\n".join(log[-2000:] for log in logs)))
         print(f"  phase 5w took {time.perf_counter() - t_phase:.1f} s {card}")
+
+    def phase5x():
+        """Phase 5x: tensor parallelism and spatial partitioning (parallel/tp.py,
+        parallel/sp.py, the train steps under a (data, model) mesh, the train
+        CLI's --model-parallel, --layout and --swa*).  (a) and (b): two ranks on
+        the card over gloo (``mp_rank``, spawned; NCCL takes one rank a card)
+        as one model group, HISFCOS(20, 256) 512x512 f32 (TF32 off) at B=8
+        each, tp then sp, against one process at B=8: the loss, the whole
+        weights after one step, the ranks' agreement, under tp each rank's
+        bytes of weights, gradients and momenta against tp_spec's
+        prediction, each rank's peak memory against one process's; step ms
+        and the collectives' ms (two ranks sharing one card: a check of
+        correctness, not of scaling).  (c) podt-torch-train --synthetic, six
+        processes at once: --steps 2 in two processes under each layout (one
+        whole checkpoint, the ranks' losses identical), and one process with
+        --swa --swa-every 1 beside a one-step run (the _swa checkpoint the
+        mean of the two snapshots)."""
+        import os
+        import socket
+        import tempfile
+
+        import torch.multiprocessing as mp
+        import yaml
+
+        from pytorch_object_detection_tpu_torch.parallel.tp import tp_spec
+
+        t_phase = time.perf_counter()
+
+        def free_port():
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                return sk.getsockname()[1]
+
+        def newest(d):
+            found = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            return torch.load(os.path.join(d, found[-1]), map_location="cpu", weights_only=True) if found else None
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # (c)'s configuration: config/voc.yaml's HISFCOS block at MP_CLI_BATCH on MP_CLI_CANVAS
+            with open("config/voc.yaml") as f:
+                voc = yaml.safe_load(f)
+            voc["HISFCOS"]["batch_size"] = MP_CLI_BATCH
+            voc["dataset_setting"]["input"] = list(MP_CLI_CANVAS)
+            with open(os.path.join(tmp, "voc.yaml"), "w") as f:
+                yaml.safe_dump(voc, f)
+            with open(os.path.join(tmp, "main.yaml"), "w") as f:
+                f.write(f"dataset : VOC\nmodel : HISFCOS\nVOC : {os.path.join(tmp, 'voc.yaml')}\namp : True\n"
+                        f"savename : hisfcos_voc\n")
+            base = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.train", "--config",
+                    os.path.join(tmp, "main.yaml"), "--synthetic", "--log-every", "1"]
+            swa = ["--swa", "--swa-every", "1", "--swa-lr", "1e-4"]
+            runs = {"swa": base + ["--steps", "2", "--checkpoint-dir", os.path.join(tmp, "swa")] + swa,
+                    "one": base + ["--steps", "1", "--checkpoint-dir", os.path.join(tmp, "one")] + swa}
+            for layout in ("tp", "sp"):
+                port = free_port()
+                for r in range(2):
+                    runs[f"{layout}{r}"] = base + ["--steps", "2", "--checkpoint-dir", os.path.join(tmp, layout),
+                                                   "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                                                   "--process-id", str(r), "--model-parallel", "2", "--layout",
+                                                   layout]
+            cli = {}
+            t_cli = time.perf_counter()
+
+            def launch(*keys):
+                for k in keys:
+                    cli[k] = subprocess.Popen(runs[k], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+            try:
+                # (a) and (b): two ranks spawned, one process's reference here meanwhile
+                ctx = mp.get_context("spawn")
+                ranks_procs = [ctx.Process(target=mp_rank, args=(r, 2, f"file://{os.path.join(tmp, 'store')}", tmp))
+                               for r in range(2)]
+                t0 = time.perf_counter()
+                for p in ranks_procs:
+                    p.start()
+                allow = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    one = mp_train_case(None, dev, warm_steps=1)
+                finally:
+                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+                torch.cuda.empty_cache()
+                deadline = time.perf_counter() + 420
+                for p in ranks_procs:
+                    p.join(timeout=max(1.0, deadline - time.perf_counter()))
+                for p in ranks_procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+                codes = [p.exitcode for p in ranks_procs]
+                smoke.check(codes == [0, 0], f"tp and sp, two ranks on the card (gloo): exit codes {codes} in "
+                                             f"{time.perf_counter() - t0:.1f} s {card}")
+                t_cli = time.perf_counter()
+                launch("swa", "one", "tp0", "tp1", "sp0", "sp1")
+                if codes == [0, 0]:
+                    ranks = [torch.load(os.path.join(tmp, f"mp_rank{r}.pt"), weights_only=False) for r in range(2)]
+                    print(f"  one process, B={MP_BATCH}: peak {one['peak'] / 2**30:.2f} GiB, first step "
+                          f"{one['first_ms']:.1f} ms, then {one['warm_ms'][0]:.1f} ms {card}")
+                    for layout, atol in (("tp", MP_TP_ATOL), ("sp", MP_SP_ATOL)):
+                        loss_err = [max(abs(float(out[layout]["metrics"][k]) - float(v)) / abs(float(v))
+                                        for k, v in one["metrics"].items()) for out in ranks]
+                        ok, worst, where = close_state(ranks[0][layout]["state"], one["state"], MP_P_RTOL, atol)
+                        same = ranks[1][layout]["digest"] == ranks[0][layout]["digest"]
+                        smoke.check(max(loss_err) <= MP_LOSS_RTOL and ok and same,
+                                    f"{layout}2: one step of 2 ranks x B={MP_BATCH} (one model group) vs 1 process, "
+                                    f"HISFCOS({NUM_CLASSES}, {FEATURES}) {DP_CANVAS[0]}x{DP_CANVAS[1]} f32: loss rel "
+                                    f"err " + ", ".join(f"{e:.2e}" for e in loss_err) + f" (rtol {MP_LOSS_RTOL}); "
+                                    f"whole weights worst excess over rtol {MP_P_RTOL} atol {atol}: {worst:.2e} "
+                                    f"({where}); the ranks agree: {same}")
+                        for r, out in enumerate(ranks):
+                            got = out[layout]
+                            if layout == "tp":
+                                want = {k: sum(int(torch.Size(shape).numel()) * size
+                                               // (2 if tp_spec(shape, 2) is not None else 1) for _, shape, size in v)
+                                        for k, v in one["shapes"].items()}
+                                share = sum(got["bytes"].values()) / sum(one["bytes"].values())
+                                smoke.check(got["bytes"] == want,
+                                            f"tp2 rank {r}: bytes of weights, gradients and momenta {got['bytes']} "
+                                            f"== tp_spec's prediction {want} ({share:.3f} of one process's)")
+                            else:
+                                smoke.check(got["peak"] < one["peak"],
+                                            f"sp2 rank {r}: peak memory {got['peak'] / 2**30:.2f} GiB < one "
+                                            f"process's {one['peak'] / 2**30:.2f} GiB "
+                                            f"({got['peak'] / one['peak']:.3f})")
+                            print(f"  {layout}2 rank {r}: peak {got['peak'] / 2**30:.2f} GiB "
+                                  f"({got['peak'] / one['peak']:.3f} of one process's), the step {got['first_ms']:.1f}"
+                                  f" ms (the first: cuDNN's set-up in it), of it {got['collective_calls']} "
+                                  f"collectives {got['collective_ms']:.1f} ms (two ranks share the card over gloo: a "
+                                  f"check of correctness, not of scaling) {card}")
+                    del ranks
+                del one
+
+                # (c) the CLI runs' results
+                logs = {k: p.communicate(timeout=max(1.0, t_cli + 420 - time.perf_counter()))[0]
+                        for k, p in cli.items()}
+            finally:
+                for p in cli.values():
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            codes = {k: p.returncode for k, p in cli.items()}
+            for k, log in logs.items():
+                for ln in log.splitlines():
+                    if ln.startswith(("initialize_distributed", "training", "step ", "checkpoint", "swa:")):
+                        print(f"    {k}: {ln}")
+            for layout in ("tp", "sp"):
+                steps = [[ln.split(" (")[0] for ln in logs[f"{layout}{r}"].splitlines() if ln.startswith("step ")]
+                         for r in range(2)]
+                ckpt = newest(os.path.join(tmp, layout, "hisfcos_voc"))
+                ok = (codes[f"{layout}0"] == codes[f"{layout}1"] == 0 and len(steps[0]) == 2
+                      and steps[0] == steps[1] and ckpt is not None and ckpt["step"] == 2
+                      and all("training done: step 2" in logs[f"{layout}{r}"] for r in range(2)))
+                smoke.check(ok, f"podt-torch-train --model-parallel 2 --layout {layout}, 2 processes on the card "
+                                f"(gloo), HISFCOS B={MP_CLI_BATCH} {MP_CLI_CANVAS[0]}x{MP_CLI_CANVAS[1]} bf16 "
+                                f"--synthetic --steps 2: exit codes {[codes[f'{layout}{r}'] for r in range(2)]}, the "
+                                f"ranks' losses identical, one whole checkpoint" + ("" if ok else "\n" + "\n".join(
+                                    logs[f"{layout}{r}"][-2000:] for r in range(2))))
+            averaged = newest(os.path.join(tmp, "swa", "hisfcos_voc_swa"))
+            live2 = newest(os.path.join(tmp, "swa", "hisfcos_voc"))
+            live1 = newest(os.path.join(tmp, "one", "hisfcos_voc"))
+            ok = codes["swa"] == codes["one"] == 0 and None not in (averaged, live1, live2)
+            worst, where = -1.0, ""
+            if ok:
+                names = [k for k in averaged["model"] if "running" not in k]
+                mean = {k: (live1["model"][k].double() + live2["model"][k].double()) / 2 for k in names}
+                ok, worst, where = close_state(averaged["model"], mean, 1e-5, 1e-6)
+                ok = ok and "swa: averaged 2 snapshots" in logs["swa"]
+            smoke.check(ok, f"podt-torch-train --swa --swa-every 1 --swa-lr 1e-4 --steps 2: 'swa: averaged 2 "
+                            f"snapshots', <savename>_swa the mean of the weights after step 1 (a one-step run) and "
+                            f"step 2 (rtol 1e-5, atol 1e-6: worst excess {worst:.2e} at {where}); the six CLI "
+                            f"processes in {time.perf_counter() - t_cli:.1f} s {card}"
+                        + ("" if ok else "\n" + logs["swa"][-2000:] + logs["one"][-1000:]))
+        print(f"  phase 5x took {time.perf_counter() - t_phase:.1f} s {card}")
 
     def anchor_block(family):
         """``family``'s block of config/voc.yaml through the port's config
@@ -4152,6 +4464,9 @@ def main() -> int:
     smoke.phase("phase 5w: data parallelism: the step in a world-size-1 NCCL group, two ranks on the card (gloo): "
                 "DDP and SyncBN steps against one process, data-parallel int8 serving; the two-stage pipeline; "
                 "podt-torch-train in two processes", phase5w)
+    smoke.phase("phase 5x: tensor parallelism and spatial partitioning: tp2 and sp2 steps of two ranks on the card "
+                "(gloo) against one process; podt-torch-train --model-parallel 2 under each layout and --swa",
+                phase5x)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

@@ -50,14 +50,34 @@ in each step (so every rank prints the same losses and a non-finite loss
 stops them all), evaluation served by all ranks together; rank 0 alone
 writes TensorBoard and the checkpoints while the others wait at a barrier.
 
-The JAX CLI's flags less ``--model-parallel`` and ``--layout`` (tensor
-parallelism and spatial partitioning: ROADMAP.md queue 1 item 11b) and
-``--swa*`` (item 12), plus ``--device``.  Without a card it exits 1 unless
+Tensor parallelism and spatial partitioning (``--model-parallel N
+--layout tp|sp``): the mesh's model dimension of N ranks carries the
+channel shards of the state (``parallel/tp.py``) or the row bands of each
+image (``parallel/sp.py``), and the data dimension the rest.  Unlike the
+JAX CLI, whose layouts are one process over many devices, the port runs
+one process a device, so a layout takes a ``--coordinator`` or
+``torchrun`` launch of ``data_parallel x N`` processes (it exits 2 with
+fewer, or a count N does not divide).  The N ranks of a model group
+(consecutive ranks) read the same shard of the dataset and the batch size
+is per data shard; rank 0's state is replicated over the whole mesh, then
+sharded for tp; a tp checkpoint is gathered, and world rank 0 writes the
+whole state, which resumes in one process or under either layout.
+
+Stochastic weight averaging (``--swa``, ``--swa-start-step``,
+``--swa-every``, ``--swa-decay``, ``--swa-lr``, as in the JAX CLI;
+``train/swa.py``): a running average of the weights from
+``--swa-start-step``, taken every ``--swa-every`` steps or at each epoch's
+end, the learning rate then ``--swa-lr`` where given; at the end it
+prints ``swa: averaged N snapshots`` and saves the average under
+``<savename>_swa`` (under tp kept on the shards and gathered there).
+
+The JAX CLI's flags, plus ``--device``.  Without a card it exits 1 unless
 ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import sys
@@ -153,6 +173,24 @@ def main(argv=None) -> int:
                          "--process-id; torchrun's environment needs none of these")
     ap.add_argument("--num-processes", type=int, default=0, help="the number of processes of a --coordinator launch")
     ap.add_argument("--process-id", type=int, default=-1, help="this process's rank in a --coordinator launch")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the mesh's 'model' axis (devices per model-parallel group); data axis gets the "
+                         "rest")
+    ap.add_argument("--layout", default="tp", choices=("tp", "sp"),
+                    help="what the 'model' axis carries when --model-parallel > 1: tp = tensor parallelism "
+                         "(parallel/tp.py, params+optimizer channel-sharded), sp = spatial partitioning "
+                         "(parallel/sp.py, image rows sharded; params replicated)")
+    ap.add_argument("--swa", action="store_true",
+                    help="stochastic weight averaging: keep a running average of params (train/swa.py) and save it "
+                         "as <savename>_swa at the end (the reference's dead swa_enabled flag, made real)")
+    ap.add_argument("--swa-start-step", type=int, default=0,
+                    help="step to start averaging (and to drop to --swa-lr)")
+    ap.add_argument("--swa-every", type=int, default=0,
+                    help="also average every N steps (0 = at epoch ends only)")
+    ap.add_argument("--swa-decay", type=float, default=0.0,
+                    help="EMA decay in (0,1); 0 = uniform average (torch AveragedModel default)")
+    ap.add_argument("--swa-lr", type=float, default=0.0,
+                    help="SWALR constant learning rate after --swa-start-step (0 = keep the base schedule)")
     args = ap.parse_args(argv)
 
     import torch
@@ -184,6 +222,7 @@ def _train(args) -> int:
     from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader, make_device_preprocess
     from pytorch_object_detection_tpu_torch.models.registry import build_model
     from pytorch_object_detection_tpu_torch.parallel import mesh as pmesh
+    from pytorch_object_detection_tpu_torch.parallel.collectives import model_axis
     from pytorch_object_detection_tpu_torch.train import checkpoints as ckpt
     from pytorch_object_detection_tpu_torch.train.trainer import (
         create_train_state,
@@ -195,6 +234,11 @@ def _train(args) -> int:
     dist = torch.distributed
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
+    mp = max(1, args.model_parallel)
+    if mp > 1 and (world < mp or world % mp):
+        print(f"train: --model-parallel {mp} takes a launch of data_parallel x {mp} processes (--coordinator or "
+              f"torchrun, one process a device); this one has {world}", file=sys.stderr)
+        return 2
     cfg = C.load_config(args.config)
     name = cfg["model"]["name"]
     dev = pmesh.rank_device(args.device)
@@ -224,6 +268,8 @@ def _train(args) -> int:
         "warmup_factor": float(sched.get("warmup_factor", 1.0 / 3.0)),
         "milestones": tuple(sched.get("milestones", (120000, 160000))),
         "gamma": float(sched.get("gamma", 0.1)),
+        "swa_lr": args.swa_lr if args.swa else 0.0,
+        "swa_start_step": args.swa_start_step,
     }, freeze_bn=True, frozen_stages=frozen_stages)
     if args.pretrained_backbone:
         ckpt.load_pretrained_backbone(state, args.pretrained_backbone)
@@ -231,34 +277,42 @@ def _train(args) -> int:
         ckpt.restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
     # more than one rank needs the mesh: each rank would otherwise train alone (the JAX CLI's use_mesh)
-    mesh = pmesh.create_mesh(device_type=dev.type) if world > 1 else None
+    mesh = pmesh.create_mesh(model_parallel=mp, device_type=dev.type) if world > 1 else None
     if mesh is not None:
         pmesh.replicate_state(mesh, state)
+    tp_layout, sp_layout = mp > 1 and args.layout == "tp", mp > 1 and args.layout == "sp"
+    if tp_layout:
+        from pytorch_object_detection_tpu_torch.parallel.tp import shard_state_tp
+
+        shard_state_tp(mesh, state)
+    shard = dict(process_count=world // mp, process_index=rank // mp) if mp > 1 else {}
     if name == "SSD300":
         from pytorch_object_detection_tpu_torch.models.ssd import default_boxes
 
         train_step = make_anchor_train_step(model, default_boxes(canvas[0], dev), n_classes, compute_dtype,
                                             pos_iou=float(block.get("pos_iou", 0.5)),
-                                            neg_iou=float(block.get("neg_iou", 0.5)), loss="multibox")
+                                            neg_iou=float(block.get("neg_iou", 0.5)), loss="multibox", mesh=mesh)
     elif anchor_based:
         from pytorch_object_detection_tpu_torch.ops.anchors import generate_anchors
 
         train_step = make_anchor_train_step(model, generate_anchors(model.level_shapes(canvas), strides, device=dev),
                                             n_classes, compute_dtype, pos_iou=float(block.get("pos_iou", 0.5)),
-                                            neg_iou=float(block.get("neg_iou", 0.4)), loss="focal")
+                                            neg_iou=float(block.get("neg_iou", 0.4)), loss="focal", mesh=mesh)
     else:
-        train_step = make_train_step(model, shapes, strides, ranges, block.get("criterion", "giou"), compute_dtype)
+        train_step = make_train_step(model, shapes, strides, ranges, block.get("criterion", "giou"), compute_dtype,
+                                     mesh=mesh)
     preprocess = make_device_preprocess(train=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     writer = MetricWriter(os.path.join("runs", cfg["savename"])) if rank == 0 else None
     run_dir = os.path.join(args.checkpoint_dir, cfg["savename"])
 
     def save(path, **kw):
-        """Rank 0 writes the checkpoint; the other ranks wait for it."""
-        out = ckpt.save_checkpoint(path, state, **kw) if rank == 0 else None
+        """Rank 0 writes the checkpoint (under tp every rank gives its
+        shards to it); the other ranks wait for it."""
+        out = ckpt.save_checkpoint(path, state, **kw) if rank == 0 or tp_layout else None
         if world > 1:
             dist.barrier()
-        return out
+        return out if rank == 0 else None
 
     ring_resize = None
     if args.synthetic:
@@ -272,14 +326,14 @@ def _train(args) -> int:
         ds_cfg = cfg["dataset_setting"]
         loader = RingTileLoader(build_dataset(cfg, raw_tiles=True), batch_size,
                                 max_boxes=int(ds_cfg.get("max_boxes", 64)),
-                                decode_threads=int(ds_cfg.get("num_workers", 0)))
+                                decode_threads=int(ds_cfg.get("num_workers", 0)), **shard)
         ring_resize = make_device_resize(canvas)
         epochs = int(block["Epoch"])
     else:
         ds_cfg = cfg["dataset_setting"]
         loader = DetectionLoader(build_dataset(cfg, cache_decoded=args.cache_decoded), batch_size,
                                  max_boxes=int(ds_cfg.get("max_boxes", 64)),
-                                 num_workers=int(ds_cfg.get("num_workers", 8)))
+                                 num_workers=int(ds_cfg.get("num_workers", 8)), **shard)
         epochs = int(block["Epoch"])
 
     interrupted = []
@@ -288,10 +342,18 @@ def _train(args) -> int:
         interrupted.append(signum)
         print(f"signal {signum}: checkpointing and exiting after this step", flush=True)
 
+    swa_state = swa_decay = None
+    if args.swa:
+        from pytorch_object_detection_tpu_torch.train.swa import averaged, swa_init, swa_params, swa_update
+
+        swa_state = swa_init(swa_params(model))
+        swa_decay = args.swa_decay if args.swa_decay > 0 else None
+
     previous = {sig: signal.signal(sig, on_signal) for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
         print(f"training {name} on {dev} ({str(compute_dtype)[6:]}) from step {state.step}"
-              + (f", rank {rank} of {world}" if world > 1 else ""), flush=True)
+              + (f", rank {rank} of {world}" if world > 1 else "")
+              + (f", {args.layout} over {mp} ranks" if mp > 1 else ""), flush=True)
         step_count = state.step
         t0 = time.perf_counter()
         prev_total = None
@@ -308,8 +370,16 @@ def _train(args) -> int:
                 else:
                     content_w = torch.from_numpy(content_w)
                 imgs, bxs = preprocess(gen, images_u8, torch.from_numpy(boxes), content_w)
-                metrics = train_step(state, imgs, bxs, torch.from_numpy(labels).to(dev))
+                lbls = torch.from_numpy(labels).to(dev)
+                if sp_layout:
+                    from pytorch_object_detection_tpu_torch.parallel.sp import shard_batch_spatial
+
+                    imgs, bxs, lbls = shard_batch_spatial(mesh, imgs, bxs, lbls)
+                metrics = train_step(state, imgs, bxs, lbls)
                 step_count += 1
+                if (args.swa and args.swa_every and step_count >= args.swa_start_step
+                        and step_count % args.swa_every == 0):
+                    swa_state = swa_update(swa_state, swa_params(model), swa_decay)
                 # the previous step's loss, fetched while this one runs
                 if (prev_total is not None and step_count % args.nan_check_every == 0
                         and not np.isfinite(float(prev_total))):
@@ -338,10 +408,14 @@ def _train(args) -> int:
                     break
             if interrupted:
                 break
+            if args.swa and not args.swa_every and step_count >= args.swa_start_step:
+                swa_state = swa_update(swa_state, swa_params(model), swa_decay)
             if not args.synthetic and ((epoch + 1) % args.ckpt_every == 0 or done or epoch + 1 == epochs):
                 save(run_dir)
             if args.eval_every and not args.synthetic and (epoch + 1) % args.eval_every == 0:
-                score = run_eval(cfg, model, compute_dtype, mesh)
+                # under a layout every rank serves the whole split (tp: in its model group, for the shards)
+                with model_axis(pmesh.model_group(mesh)) if tp_layout else contextlib.nullcontext():
+                    score = run_eval(cfg, model, compute_dtype, None if mp > 1 else mesh)
                 if writer:
                     writer.write(step_count, {"mAP": score})
                 if score > best_map:
@@ -356,6 +430,11 @@ def _train(args) -> int:
         path = save(run_dir)
         if path:
             print(f"checkpoint {path}", flush=True)
+        if args.swa and swa_state.count > 0:
+            # the average as a run of its own (the frozen BatchNorms' statistics never moved: no re-estimation)
+            with averaged(model, swa_state):
+                save(run_dir + "_swa", keep=1)
+            print(f"swa: averaged {swa_state.count} snapshots", flush=True)
         print("training done: step", step_count, flush=True)
         return 0
     finally:

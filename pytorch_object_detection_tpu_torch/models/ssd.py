@@ -22,6 +22,7 @@ from torch import nn
 
 from pytorch_object_detection_tpu_torch.nn.layers import Conv, relu
 from pytorch_object_detection_tpu_torch.nn.vgg import VGG16
+from pytorch_object_detection_tpu_torch.parallel import tp
 
 FEATURE_SIZES = (38, 19, 10, 5, 3, 1)
 STEPS = (8, 16, 32, 64, 100, 300)
@@ -70,7 +71,8 @@ class L2Norm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.sqrt((x * x).sum(dim=1, keepdim=True)) + 1e-10
-        return x / norm * self.scale[:, None, None]
+        (scale,) = tp.full((self.scale,), x.shape[1])  # whole, where a tensor-parallel shard (parallel/tp.py)
+        return x / norm * scale[:, None, None]
 
 
 class ExtraLayer(nn.Module):

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.ops.gn import groupnorm_act, groupnorm_act_autograd
+from pytorch_object_detection_tpu_torch.parallel import sp, tp
 from pytorch_object_detection_tpu_torch.parallel.collectives import all_reduce_autograd
 
 
@@ -79,6 +80,12 @@ class Conv(nn.Conv2d):
     def reset_parameters(self) -> None:
         """No-op: ``__init__`` draws the weights from the caller's generator
         (``nn.Conv2d.__init__`` would otherwise draw from the global RNG)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.shape[0] != self.out_channels:  # a tensor-parallel shard (parallel/tp.py)
+            return tp.sharded_conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                                     self.groups, self.out_channels)
+        return super().forward(x)
 
 
 class DepthwiseConv(Conv):
@@ -135,25 +142,29 @@ class BatchNorm(nn.Module):
         self.batch_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # tensor parallelism: the affine and statistics whole, gathered from this rank's slices
+        weight, bias, running_mean, running_var = tp.full(
+            (self.weight, self.bias, self.running_mean, self.running_var), x.shape[1])
         if not (self.training and self.batch_stats):
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                training=False, momentum=0.0, eps=1e-5)
+            return F.batch_norm(x, running_mean, running_var, weight, bias, training=False, momentum=0.0, eps=1e-5)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax computes
-        if self.sync_group is None:
+        if self.sync_group is None:  # a row band's sums span its whole image (parallel/sp.py)
             mean, mean2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
         else:
             c = xf.shape[1]
-            count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+            count = torch.full((1,), sp.global_numel(xf) // c, dtype=xf.dtype, device=xf.device)
             sums = all_reduce_autograd(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
                                        self.sync_group)
             mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean.detach())
-                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var.detach())
-        mul = torch.rsqrt(var + 1e-5) * self.weight.to(xf.dtype)
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
+                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * tp.local(mean.detach(),
+                                                                                          self.running_mean))
+                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * tp.local(var.detach(),
+                                                                                        self.running_var))
+        mul = torch.rsqrt(var + 1e-5) * weight.to(xf.dtype)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + bias.to(xf.dtype)[:, None, None]
         return y.to(x.dtype)
 
 
@@ -218,9 +229,11 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad):
-            return groupnorm_act_autograd(x, self.weight, self.bias, groups=32, eps=1e-5, act=self.act)
-        return groupnorm_act(x, self.weight, self.bias, groups=32, eps=1e-5, act=self.act, plain=plain)
+        weight, bias = tp.full((self.weight, self.bias), x.shape[1])  # whole, where tensor-parallel shards
+        if sp.is_band(x) or (torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                                          or bias.requires_grad)):
+            return groupnorm_act_autograd(x, weight, bias, groups=32, eps=1e-5, act=self.act)
+        return groupnorm_act(x, weight, bias, groups=32, eps=1e-5, act=self.act, plain=plain)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

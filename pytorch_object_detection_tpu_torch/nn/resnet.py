@@ -20,11 +20,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_object_detection_tpu_torch.nn.layers import BatchNorm, Conv, relu
+from pytorch_object_detection_tpu_torch.parallel import sp, tp
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """NHWC ``[B, H, W, C]`` -> ``[B, H/b, W/b, b*b*C]``, channels in (dy, dx, c)
-    order (the JAX package's ``nn/resnet.space_to_depth``)."""
+    order (the JAX package's ``nn/resnet.space_to_depth``).  A row band of
+    even height (``parallel/sp.py``) gives the band of the result."""
+    if sp.is_band(x) and x.row_dim == 1 and x.shape[1] % block == 0:
+        return sp.rowwise(lambda t: space_to_depth(t, block), x, x.rows // block)
     b, h, w, c = x.shape
     x = x.reshape(b, h // block, block, w // block, block, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h // block, w // block, block * block * c)
@@ -102,11 +106,16 @@ class ResNet50(nn.Module):
 
     def stem_conv(self, x: torch.Tensor) -> torch.Tensor:
         """The stem conv alone, NCHW in and out, in ``x``'s dtype: the 7x7/2
-        conv, or space-to-depth and the 4x4/1 conv over pad (2, 1)."""
+        conv, or space-to-depth and the 4x4/1 conv over pad (2, 1); each
+        on a tensor-parallel shard of its weight or a row band of ``x``
+        as the ``Conv`` modules are (``parallel/tp.py``, ``parallel/sp.py``)."""
         if self.stem_mode == "conv7":
-            return F.conv2d(x, self.conv1.weight.to(x.dtype), None, 2, 3)
+            return tp.conv2d(x, self.conv1.weight.to(x.dtype), None, 2, 3, out_channels=self.conv1.out_channels)
         s2d = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        return F.conv2d(F.pad(s2d, (2, 1, 2, 1)), self.conv1_s2d.weight.to(x.dtype))
+        weight = self.conv1_s2d.weight.to(x.dtype)
+        if sp.is_band(s2d):
+            return sp.conv2d(s2d, weight, padding=((2, 1), (2, 1)))
+        return tp.conv2d(F.pad(s2d, (2, 1, 2, 1)), weight, out_channels=self.conv1_s2d.out_channels)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = relu(self.bn1(self.stem_conv(x)))

@@ -5,9 +5,10 @@ package builds one ``jax.sharding.Mesh`` over every device and lets XLA
 place the collectives; here, as in the reference's DDP
 (the reference's ``train.py:43-58``), one process drives one device, the
 processes join a ``torch.distributed`` process group, and the mesh is a
-``DeviceMesh`` over their ranks with the dimensions ``("data", "model")``.
-The ``model`` dimension stays 1: tensor parallelism and spatial
-partitioning are not ported (ROADMAP.md queue 1 item 11b).
+``DeviceMesh`` over their ranks with the dimensions ``("data", "model")``,
+row-major: the ranks of one model group are consecutive.  The ``model``
+dimension carries tensor parallelism (``parallel/tp.py``) or spatial
+partitioning (``parallel/sp.py``) where it is larger than 1.
 
 The backend: NCCL where every rank has a card of its own; gloo on the CPU
 and where several ranks share a card (NCCL refuses two ranks on one GPU),
@@ -81,25 +82,34 @@ def create_mesh(devices: Optional[Sequence[int]] = None, data_parallel: int = -1
     """A ``DeviceMesh`` over the ranks ``devices`` (all of the group's by
     default), shaped ``(data_parallel, model_parallel)`` with the dimension
     names ``(DATA_AXIS, MODEL_AXIS)``; ``data_parallel`` defaults to every
-    rank.  ``device_type``: ``"cuda"`` where there is a card, else ``"cpu"``.
-    Needs the process group (:func:`initialize_distributed`; a world of
-    one rank is a group too).  ``model_parallel > 1`` raises
-    ``NotImplementedError``."""
+    rank, divided by ``model_parallel``: rank ``d * model_parallel + m``
+    sits at ``(d, m)``, so each model group is ``model_parallel``
+    consecutive ranks.  ``device_type``: ``"cuda"`` where there is a card,
+    else ``"cpu"``.  Needs the process group (:func:`initialize_distributed`;
+    a world of one rank is a group too).  Every rank of the group calls it
+    (it makes the dimensions' groups)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if model_parallel > 1:
-        raise NotImplementedError("model_parallel > 1 (tensor parallelism, spatial partitioning: parallel/tp.py, "
-                                  "parallel/sp.py) is not ported: ROADMAP.md queue 1 item 11b")
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: call initialize_distributed(...) first")
     ranks = list(range(dist.get_world_size())) if devices is None else [int(r) for r in devices]
     if data_parallel == -1:
         data_parallel = len(ranks) // model_parallel
-    if data_parallel * model_parallel != len(ranks):
+    if model_parallel < 1 or data_parallel * model_parallel != len(ranks):
         raise ValueError(f"data_parallel {data_parallel} x model_parallel {model_parallel} != {len(ranks)} ranks")
     device_type = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
-    mesh = torch.tensor(ranks, dtype=torch.int64).reshape(data_parallel, model_parallel)
-    return DeviceMesh(device_type, mesh, mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    grid = torch.tensor(ranks, dtype=torch.int64).reshape(data_parallel, model_parallel)
+    if model_parallel == 1:
+        mesh = DeviceMesh(device_type, grid, mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    else:
+        # the dimensions' groups on the default group's backend: DeviceMesh would give a CUDA mesh NCCL groups,
+        # which refuse two ranks on one card (gloo's use here)
+        mesh = DeviceMesh(device_type, grid, mesh_dim_names=(DATA_AXIS, MODEL_AXIS), _init_backend=False)
+        backend = dist.get_backend()
+        mesh._podt_dims = {DATA_AXIS: dist.new_subgroups_by_enumeration(grid.T.tolist(), backend=backend)[0],
+                           MODEL_AXIS: dist.new_subgroups_by_enumeration(grid.tolist(), backend=backend)[0]}
+    mesh._podt_group = None if ranks == list(range(dist.get_world_size())) else dist.new_group(ranks)
+    return mesh
 
 
 def data_group(mesh=None):
@@ -120,6 +130,30 @@ def data_group(mesh=None):
     raise TypeError(f"mesh must be a DeviceMesh (create_mesh) or a process group; got {type(mesh).__name__}")
 
 
+def model_group(mesh):
+    """The process group of ``mesh``'s model dimension (the ranks that
+    share one data shard: tensor parallelism's channel shards or spatial
+    partitioning's row bands)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (create_mesh); got {type(mesh).__name__}")
+    return group_of(mesh, MODEL_AXIS)
+
+
+def mesh_group(mesh):
+    """The process group of every rank of ``mesh``: the default group where
+    the mesh spans the world (:func:`create_mesh`'s default), else the
+    group of its ranks (:func:`create_mesh` makes it)."""
+    group = getattr(mesh, "_podt_group", None)
+    return dist.group.WORLD if group is None else group
+
+
+def model_parallel_size(mesh) -> int:
+    """The size of ``mesh``'s model dimension (1 for ``None`` or a process group)."""
+    return int(mesh.mesh.shape[1]) if hasattr(mesh, "mesh_dim_names") else 1
+
+
 def shard_batch(mesh, batch):
     """This rank's shard of the batch on its device.  As the JAX function's
     multi-process meaning (the reference's DDP: the batch size is per
@@ -134,12 +168,13 @@ def shard_batch(mesh, batch):
 
 
 def replicate_state(mesh, state):
-    """Every rank's state made rank 0's (of the mesh's data group): the
-    weights and buffers, the optimizer's state and the step of a
-    ``TrainState``, or the weights and buffers of a module; returned.
-    Every rank must hold the same structure (the same model, the same
-    checkpoint restored): the optimizer state's layout is checked first."""
-    group = data_group(mesh)
+    """Every rank's state made rank 0's (of the mesh's data group; of the
+    whole mesh where its model dimension is above 1): the weights and
+    buffers, the optimizer's state and the step of a ``TrainState``, or
+    the weights and buffers of a module; returned.  Every rank must hold
+    the same structure (the same model, the same checkpoint restored): the
+    optimizer state's layout is checked first."""
+    group = mesh_group(mesh) if model_parallel_size(mesh) > 1 else data_group(mesh)
     model = getattr(state, "model", state)
     tensors = [p.data for p in model.parameters()] + list(model.buffers())
     optimizer = getattr(state, "optimizer", None)

@@ -98,15 +98,21 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None, keep: int
     (the state's step unless ``step`` is given): written to a temporary
     file in ``directory`` and renamed over the target, so a reader never
     sees half a file.  Then all but the newest ``keep`` checkpoints are
-    removed.  Returns the path."""
+    removed.  Returns the path.  A tensor-parallel state
+    (``parallel/tp.shard_state_tp``) is gathered whole first, so every rank
+    of its mesh calls this; world rank 0 alone writes it, with the names
+    and shapes of a one-process checkpoint."""
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     step = state.step if step is None else int(step)
     path = os.path.join(directory, f"step_{step:08d}.pt")
+    whole = state.state_dict()
+    if getattr(state, "sharded", None) and torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return path
+    os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=".step_", suffix=".tmp", dir=directory)
     try:
         with os.fdopen(fd, "wb") as f:
-            torch.save(state.state_dict(), f)
+            torch.save(whole, f)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)
@@ -121,7 +127,9 @@ def restore_checkpoint(directory_or_path: str, state):
     into the template ``state`` (weights, buffers, step; the optimizer's
     state only where it was saved over the same trainable parameters: a
     checkpoint saved with other freeze masks keeps the template's fresh
-    optimizer).  Tensors go to the model's device.  Returns ``state``."""
+    optimizer).  Tensors go to the model's device; a tensor-parallel state
+    takes its slices of them (a one-process checkpoint resumes under tp,
+    and a tp checkpoint in one process).  Returns ``state``."""
     path = _newest(directory_or_path)
     device = next(state.model.parameters()).device
     state.load_state_dict(torch.load(path, map_location=device, weights_only=True))

@@ -26,8 +26,11 @@ data group after the backward, and with ``bn_train`` its BatchNorms take
 the statistics of the whole batch (SyncBatchNorm), so two ranks at B equal
 one process at 2B.  :func:`make_shard_map_train_step` (JAX ``:272-355``) is
 the reference's DDP instead: local statistics in the forward, the updated
-running ones averaged after it.  Tensor parallelism and spatial
-partitioning are not ported (ROADMAP.md queue 1 item 11b).
+running ones averaged after it.  Under a ``(data, model)`` mesh with a
+model dimension above 1 (``mesh=``, or the state that
+``parallel/tp.shard_state_tp`` sharded) the same steps run tensor-parallel
+(the state channel-sharded) or spatially partitioned (the images in row
+bands, ``parallel/sp.shard_batch_spatial``); see :func:`make_train_step`.
 
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
 ``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
@@ -71,7 +74,6 @@ import copy
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -115,8 +117,10 @@ from pytorch_object_detection_tpu_torch.ops.anchors import encode_targets, multi
 from pytorch_object_detection_tpu_torch.ops.head import hishead_level_fused, hishead_params_pack
 from pytorch_object_detection_tpu_torch.ops.losses import fcos_loss, flatten_level_preds
 from pytorch_object_detection_tpu_torch.ops.targets import generate_targets
-from pytorch_object_detection_tpu_torch.parallel.collectives import all_reduce_, pmean_grads, pmean_metrics
-from pytorch_object_detection_tpu_torch.parallel.mesh import data_group
+from pytorch_object_detection_tpu_torch.parallel import sp, tp
+from pytorch_object_detection_tpu_torch.parallel.collectives import all_reduce_, model_axis, pmean_grads, pmean_metrics
+from pytorch_object_detection_tpu_torch.parallel.mesh import data_group, mesh_group, model_group, model_parallel_size
+from pytorch_object_detection_tpu_torch.train.swa import swa_lr
 from pytorch_object_detection_tpu_torch.train.schedules import warmup_step_decay
 
 Levels = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
@@ -213,25 +217,34 @@ def make_optimizer(name: str, params, lr: float = 1e-2, momentum: float = 0.9,
 class TrainState:
     """The model (its trainable parameters the f32 master weights), the
     optimizer over those, the ``step -> lr`` schedule and the step count
-    (on the host: the count of updates taken)."""
+    (on the host: the count of updates taken).  A tensor-parallel state
+    (``parallel/tp.shard_state_tp``) also holds its mesh and ``sharded``,
+    the whole shapes of its sharded tensors by name."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
                  step: int = 0):
         self.model, self.optimizer, self.schedule, self.step = model, optimizer, schedule, step
+        self.mesh, self.sharded = None, {}
 
     def trainable_names(self) -> List[str]:
         return [n for n, p in self.model.named_parameters() if p.requires_grad]
 
     def state_dict(self) -> Dict[str, Any]:
         """Weights, buffers, optimizer state and step; ``trainable`` names the
-        optimizer's parameters in order."""
+        optimizer's parameters in order.  A tensor-parallel state gives the
+        whole tensors (a collective: every rank calls it)."""
+        if self.sharded:
+            return tp.gather_state_dict(self)
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": self.step,
                 "trainable": self.trainable_names()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Load :meth:`state_dict`'s output.  The weights must match the
+        """Load :meth:`state_dict`'s output (a tensor-parallel state takes
+        its slices of the whole tensors).  The weights must match the
         model; an optimizer state saved over other trainable parameters
         (other freeze masks) is not loaded, and the optimizer stays as it is."""
+        if self.sharded:
+            state = tp.shard_state_dict(self, state)
         self.model.load_state_dict(state["model"])
         if list(state.get("trainable", [])) == self.trainable_names():
             self.optimizer.load_state_dict(state["optimizer"])
@@ -257,8 +270,7 @@ def create_train_state(model: nn.Module, optimizer_cfg: Optional[Dict] = None, f
                                  cfg.get("warmup_factor", 1.0 / 3.0), cfg.get("milestones", (120000, 160000)),
                                  cfg.get("gamma", 0.1))
     if cfg.get("swa_lr"):
-        base, swa_v, start = schedule, float(cfg["swa_lr"]), int(cfg.get("swa_start_step", 0))
-        schedule = lambda step: base(step) if step < start else float(np.float32(swa_v))
+        schedule = swa_lr(schedule, float(cfg["swa_lr"]), int(cfg.get("swa_start_step", 0)))
     if not freeze_bn:
         for bn in batchnorms(model):
             bn.affine_parameters()
@@ -275,7 +287,7 @@ def create_train_state(model: nn.Module, optimizer_cfg: Optional[Dict] = None, f
 def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
                     limit_ranges: Sequence[Tuple[float, float]], reg_mode: str = "giou",
                     compute_dtype: torch.dtype = torch.bfloat16, bn_train: bool = False, remat: bool = False,
-                    cnt_mode: str = "bce"):
+                    cnt_mode: str = "bce", mesh=None):
     """The train step: ``step(state, images [B, H, W, 3] normalized f32,
     boxes [B, M, 4], labels [B, M], record=None) -> {"cls", "cnt", "reg",
     "total"}``, 0-d f32 tensors on the device, detached.  It sets the lr to
@@ -304,10 +316,25 @@ def make_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], s
     with ``bn_train`` the statistics are those of the whole batch (the JAX
     step under a mesh, where GSPMD's mean over the sharded batch is global).
     Every loss is a batch mean of per-image terms, so ranks with equal
-    shards take the single-process step on the whole batch."""
-    group = data_group()
+    shards take the single-process step on the whole batch.
+
+    Under ``mesh`` (``parallel/mesh.create_mesh``), or the mesh of a state
+    that ``parallel/tp.shard_state_tp`` sharded, with a model dimension
+    above 1: the ranks of a model group share one data shard, tensor-
+    parallel (the state sharded) or spatially partitioned (``images`` the
+    rank's row band, ``parallel/sp.shard_batch_spatial``; the head's
+    outputs are gathered before the loss, so every rank of the group has
+    the same loss).  The forward and the backward run in the model group
+    (``collectives.model_axis``); then a sharded parameter's gradient is
+    divided by the model group's size and averaged over the data group, a
+    replicated one's averaged over the whole mesh (each collective's
+    backward is its adjoint, so each is the gradient of the model group's
+    summed losses, a replicated one split across its ranks); the metrics
+    are averaged over the mesh, and with ``bn_train`` the statistics span
+    the data group as well.  ``remat`` and ``bn_train`` act as without it."""
+    group = data_group(mesh) if mesh is not None and model_parallel_size(mesh) == 1 else data_group()
     return _step(model, _fcos_losses(level_shapes, strides, limit_ranges, reg_mode, cnt_mode), compute_dtype, remat,
-                 bn_train, group, sync_bn=bn_train and group is not None)
+                 bn_train, group, sync_bn=bn_train and group is not None, mesh=mesh)
 
 
 def make_shard_map_train_step(model: nn.Module, level_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
@@ -340,16 +367,19 @@ def _fcos_losses(level_shapes, strides, limit_ranges, reg_mode: str, cnt_mode: s
 
 
 def _step(model: nn.Module, losses_of: Callable, compute_dtype: torch.dtype, remat: bool = False,
-          bn_train: bool = False, group=None, sync_bn: bool = False, sync_stats: bool = False):
+          bn_train: bool = False, group=None, sync_bn: bool = False, sync_stats: bool = False, mesh=None):
     """The step every train-step maker returns: the lr from the schedule,
     the forward under autocast with the BatchNorms that train their
     statistics in training mode (``remat``: recomputed in the backward, the
     running statistics updated once), then
-    ``losses_of(out, boxes, labels)`` (targets and loss, in f32), the
-    backward, the update, ``record`` after each phase.  With ``group``: the
-    gradients averaged over it before the update and the metrics after it;
-    ``sync_bn`` the BatchNorms' statistics over it in the forward,
-    ``sync_stats`` their running statistics averaged after the update."""
+    ``losses_of(out, boxes, labels)`` (targets and loss, in f32, on the
+    outputs gathered where they are row bands), the backward, the update,
+    ``record`` after each phase.  With ``group``: the gradients averaged
+    over it before the update and the metrics after it; ``sync_bn`` the
+    BatchNorms' statistics over it in the forward, ``sync_stats`` their
+    running statistics averaged after the update.  Under a mesh with a
+    model dimension (``mesh``, else the state's): :func:`make_train_step`'s
+    rule replaces ``group``'s."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute_dtype must be bfloat16 or float32; got {compute_dtype}")
     bns = batchnorms(model)
@@ -362,32 +392,47 @@ def _step(model: nn.Module, losses_of: Callable, compute_dtype: torch.dtype, rem
              record: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the train step was made for another model than state.model")
+        layout = mesh if mesh is not None else getattr(state, "mesh", None)
+        if layout is not None and model_parallel_size(layout) > 1:
+            if sync_stats:
+                raise ValueError("make_shard_map_train_step takes a mesh whose model dimension is 1")
+            data, everyone = data_group(layout), mesh_group(layout)
+            axis = model_axis(model_group(layout))
+        else:
+            data, everyone, axis = group, group, contextlib.nullcontext()
         lr = state.schedule(state.step)
         for g in state.optimizer.param_groups:
             g["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
-        # the backward too: a recomputed forward takes the same statistics
-        with batch_statistics(bns, group if sync_bn else None):
+        # the backward too: a recomputed forward takes the same statistics and model group
+        with axis, batch_statistics(bns, data if sync_bn else None):
             with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
                 if remat:
                     out = torch.utils.checkpoint.checkpoint(model, images, use_reentrant=False, context_fn=recompute)
                 else:
                     out = model(images)
+            out = sp.gather_tree(out)
             if record:
                 record("forward")
             losses = losses_of(out, boxes, labels)
             if record:
                 record("loss")
             losses["total"].backward()
-        if group is not None:
+        if everyone is not data:
+            named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+            sharded = getattr(state, "sharded", {})
+            all_reduce_([g for n, g in named if n not in sharded], everyone)
+            all_reduce_([g for n, g in named if n in sharded], data)
+            torch._foreach_div_([g for _, g in named], float(torch.distributed.get_world_size(everyone)))
+        elif group is not None:
             pmean_grads([p.grad for p in model.parameters() if p.grad is not None], group)
         if record:
             record("backward")
         state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
-        if group is not None:
-            metrics = pmean_metrics(metrics, group)
+        if everyone is not None:
+            metrics = pmean_metrics(metrics, everyone)
             if sync_stats:
                 all_reduce_([t for bn in bns for t in (bn.running_mean, bn.running_var)], group, mean=True)
         if record:
@@ -417,7 +462,7 @@ def make_train_step_scan(model: nn.Module, level_shapes: Sequence[Tuple[int, int
 
 def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes: int,
                            compute_dtype: torch.dtype = torch.bfloat16, pos_iou: float = 0.5, neg_iou: float = 0.4,
-                           loss: str = "focal", bn_train: bool = False):
+                           loss: str = "focal", bn_train: bool = False, mesh=None):
     """The train step of the anchor detectors (RetinaNet, SSD300):
     ``step(state, images, boxes, labels, record=None) -> {"cls", "reg",
     "total"}``, as :func:`make_train_step`'s (the lr from the schedule, the
@@ -430,8 +475,8 @@ def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes:
     ``"multibox"`` (SSD: softmax CE with 3:1 hard-negative mining +
     smooth-L1 1; pass ``neg_iou=pos_iou``).  ``model`` must be
     ``state.model``.  In a process group the gradients and metrics are
-    averaged over it, and ``bn_train`` acts, as in :func:`make_train_step`.
-    SSD300 has no BatchNorm."""
+    averaged over it, and ``bn_train`` and ``mesh`` act, as in
+    :func:`make_train_step`.  SSD300 has no BatchNorm."""
     if loss not in ("focal", "multibox"):
         raise ValueError(f"loss must be 'focal' or 'multibox'; got {loss!r}")
 
@@ -442,8 +487,9 @@ def make_anchor_train_step(model: nn.Module, anchors: torch.Tensor, num_classes:
             return multibox_loss(cls.float(), loc.float(), cls_t, loc_t)
         return retinanet_loss(cls.float(), loc.float(), cls_t, loc_t, num_classes)
 
-    group = data_group()
-    return _step(model, losses_of, compute_dtype, False, bn_train, group, sync_bn=bn_train and group is not None)
+    group = data_group(mesh) if mesh is not None and model_parallel_size(mesh) == 1 else data_group()
+    return _step(model, losses_of, compute_dtype, False, bn_train, group, sync_bn=bn_train and group is not None,
+                 mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -144,7 +144,7 @@ def test_unported_options_raise():
         ResNet50(stem_mode="s4d")
     effnet = build_model("FCOS", 20, backbone="efficientnet-b0", device="cpu")
     assert [getattr(effnet.fpn, f"lateral{i}").in_channels for i in (3, 4, 5)] == [40, 112, 320]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11b"):  # tp and sp
+    with pytest.raises(RuntimeError, match="process group"):  # tp and sp are ported: their mesh takes the ranks
         create_mesh(model_parallel=2)
     with pytest.raises(KeyError):
         build_model("NOPE", 20)

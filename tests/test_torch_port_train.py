@@ -426,16 +426,17 @@ def test_grad_barrier_scan_and_remat_match_the_plain_step(jax_his):
 def test_train_step_refusals():
     """A model whose BatchNorms train their statistics (freeze_bn=False) needs
     bn_train=True (flax refuses to update immutable statistics); an unknown
-    optimizer and model parallelism (ROADMAP item 11b) are refused.
-    tests/test_torch_port_parallel.py holds bn_train and freeze_bn=False
-    to JAX."""
+    optimizer is refused, and so is a (data, model) mesh in a process
+    without a process group (tests/test_torch_port_layouts.py runs the
+    layouts on gloo ranks).  tests/test_torch_port_parallel.py holds
+    bn_train and freeze_bn=False to JAX."""
     model = build_model("HISFCOS", N_CLASSES, 64, freeze_bn=False, device="cpu")
     trainer.create_train_state(model, OPT_CFG, freeze_bn=False)
     with pytest.raises(ValueError, match="bn_train=True"):
         trainer.make_train_step(model, SHAPES, STRIDES, RANGES)
     with pytest.raises(NotImplementedError):
         trainer.make_optimizer("LAMB", [torch.zeros(1, requires_grad=True)])
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(RuntimeError, match="process group"):
         create_mesh(model_parallel=2)
 
 
