@@ -264,6 +264,22 @@ Phases (each prints its results on its own lines):
      --model-parallel 2 --layout tp, then sp (one whole checkpoint, the
      ranks' losses identical), and --swa --swa-every 1 beside a one-step
      run (the _swa checkpoint the mean of the snapshots);
+  5y. the tooling: (a) utils/export: the default int8 (B=8) and float (B=8,
+     through export_eval_pipeline) pipelines, the COCO-canvas one (B=2) and
+     each backend of phase 5h and the fused head (B=8) traced by
+     torch.export with the kernels as torch.library ops (ops/library.py),
+     the first three saved and loaded; each program run once counted (the
+     eager pipeline's launches, one op node a launch) against its eager
+     pipeline bit for bit; export_eval_pipeline_int8 and the float export
+     at B=64; ms a call exported against eager at B=8 and B=64, export,
+     save and load seconds; (b) the op route's host ms against the direct
+     launch for one K2, one B and one A call (ops/library.EAGER_OPS), the
+     same bits; (c) utils/gradcam on the card against the same weights on
+     the CPU (f32) at P3 and P4, ms; (d) podt-torch-visualize's main on a
+     committed JPEG: the overlay written, its count the pipeline's valid
+     count; (e) podt-torch-model-info's main against model_info's totals;
+     (f) utils/profile.trace around a default call names the annotation and
+     qblock_kernel; device_memory_stats in bytes;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -444,6 +460,10 @@ BACKEND_PATHS = {
                        cuda_nms_keep_mask=1)),
     "chained": (dict(chain_segments=True), dict(DEFAULT_PIPELINE_LAUNCHES, qbottleneck=0, qbottleneck_s2=0, qchain=3)),
 }
+# phase 5y: GradCAM on the card against the CPU, f32 with TF32 off: the same ops summed in another order
+# through the FPN, the head and the backward, then a min-max normalization (a [0, 1] map); the visualize CLI's
+# score threshold (random weights put few scores over the CLI's 0.3)
+GRADCAM_TOL, VIS_SCORE = 1e-3, 0.05
 # K5 against its plain version: SiLU/sigmoid through expf and the SE dots in
 # another order move an element by one int8 step now and then
 K5_MAX_STEP, K5_MAX_SHARE = 1, 0.05
@@ -1455,7 +1475,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  HISFCOS(80, {FEATURES}) default pipeline at {COCO_CANVAS} built in {time.perf_counter() - t0:.2f} s")
         dets, launches = count_launches(cpipe, cframes)
-        res["coco_launches"] = launches
+        res.update(coco_launches=launches, cpipe=cpipe, cframes=cframes)
         print(f"  launches in one default pipeline call (B=2, {COCO_CANVAS}): {launches}")
         smoke.check(launches == COCO_PIPELINE_LAUNCHES, "COCO canvas: K9 on P3 and P4, K7 on P5-P7, the rest as at 512")
         smoke.check(bool(torch.isfinite(dets.scores).all()) and bool(torch.isfinite(dets.boxes).all())
@@ -3624,6 +3644,200 @@ def main() -> int:
                     f"images: each kernel launched {calls} times its per-call count; mAP {r['mAP']:.4f} (random "
                     f"weights), {r['images_per_sec']:.1f} img/s")
 
+    def phase5y():
+        import tempfile
+
+        import numpy as np
+
+        from pytorch_object_detection_tpu_torch.cli import model_info as cli_model_info
+        from pytorch_object_detection_tpu_torch.cli import visualize
+        from pytorch_object_detection_tpu_torch.ops import library
+        from pytorch_object_detection_tpu_torch.ops.nms import class_offset_boxes
+        from pytorch_object_detection_tpu_torch.utils import export as X
+        from pytorch_object_detection_tpu_torch.utils import gradcam, profile
+        from pytorch_object_detection_tpu_torch.utils.model_info import model_info
+
+        model, frames, norm = res["model"], res["frames"], res["norm"]
+        tmp = tempfile.TemporaryDirectory()
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+
+        def cli_main(main, argv):
+            """(exit code, standard output) of a console script's ``main(argv)``, run in this process (the
+            script's target in pyproject.toml: no second process to start and put on the card)."""
+            import contextlib
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main(argv)
+            return rc, buf.getvalue()
+        out = res["export"] = {}
+
+        def export_checked(what, make, eager, inputs, want, save=False):
+            """Export (``make()``), optionally save and load, run once counted;
+            detections bit for bit against ``eager``'s, launches as ``want``,
+            one op node a launch.  Returns the program's module."""
+            t0 = time.perf_counter()
+            ep = make()
+            secs = {"export_s": time.perf_counter() - t0}
+            if save:
+                path = f"{tmp.name}/{what.replace(' ', '_')}.pt2"
+                t0 = time.perf_counter()
+                X.save_exported(ep, path)
+                secs["save_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ep = X.load_exported(path)
+                secs["load_s"] = time.perf_counter() - t0
+            prog = ep.module()
+            nodes = X.op_counts(ep)
+            dets, launches = count_launches(prog, inputs)
+            print(f"  {what}: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}; op nodes {nodes}")
+            smoke.check(launches == want, f"{what}: launches per call of the program as the eager pipeline's")
+            ops = {k: v for k, v in nodes.items() if k != "nms_fixpoint"}
+            smoke.check(all(ops.get(k.replace("cuda_nms_keep_mask", "nms_keep_mask"), 0) == v
+                            for k, v in launches.items() if k != "qhisblock_pool_add"),
+                        f"{what}: one op node of the graph a launch")
+            if eager is not None:
+                smoke.check(same(dets, eager(inputs)), f"{what}: detections bit for bit the eager pipeline's")
+            out[what] = secs
+            return prog
+
+        # (a) the main-path pipelines: exported, saved, loaded, run
+        dpipe, pipe = res["dpipe"], res["pipe"]
+        dprog = export_checked("default int8 B=8", lambda: X.export_pipeline(dpipe, 8), dpipe, frames,
+                               DEFAULT_PIPELINE_LAUNCHES, save=True)
+        fprog = export_checked("float B=8", lambda: X.export_eval_pipeline(model, 8, CANVAS), pipe, frames,
+                               FLOAT_PIPELINE_LAUNCHES, save=True)
+        if "cpipe" in res:
+            export_checked("COCO canvas default int8 B=2", lambda: X.export_pipeline(res["cpipe"], 2), res["cpipe"],
+                           res["cframes"], COCO_PIPELINE_LAUNCHES, save=True)
+        backends = dict(res.get("paths", {}))
+        if "hpipe" in res:
+            backends["fused head"] = (res["hpipe"], None)
+        for name, (bpipe, _) in backends.items():
+            want = res["fused_head_launches"] if name == "fused head" else res["path_launches"][name]
+            export_checked(f"{name} B=8", lambda p=bpipe: X.export_pipeline(p, 8), bpipe, frames, want)
+        # the entry point at the throughput batch (its own calibration), then exported against eager
+        f64 = frames.repeat(8, 1, 1, 1)
+        dprog64 = export_checked("default int8 B=64 (export_eval_pipeline_int8)",
+                                 lambda: X.export_eval_pipeline_int8(model, norm, 64, CANVAS), None, f64,
+                                 DEFAULT_PIPELINE_LAUNCHES)
+        fprog64 = export_checked("float B=64", lambda: X.export_eval_pipeline(model, 64, CANVAS), pipe, f64,
+                                 FLOAT_PIPELINE_LAUNCHES)
+        times = res["export_ms"] = {}
+        for what, prog, eager, fr in (("default B=8", dprog, dpipe, frames), ("float B=8", fprog, pipe, frames),
+                                      ("default B=64", dprog64, dpipe, f64), ("float B=64", fprog64, pipe, f64)):
+            with torch.inference_mode():  # the eager pipelines' mode, for both
+                e1, x1 = cuda_ms(lambda: eager(fr), 5, 3, 1), cuda_ms(lambda: prog(fr), 5, 3, 1)
+                e2, x2 = cuda_ms(lambda: eager(fr), 5, 3, 1), cuda_ms(lambda: prog(fr), 5, 3, 1)
+            times[what] = (e1, x1, e2, x2)
+            print(f"  {what}: ms a call eager {e1:.4f}, exported {x1:.4f}, eager {e2:.4f}, exported {x2:.4f} {card}")
+
+        # (b) the op route's host cost against the direct launch: one K2, one B, one A call
+        calls = record_calls(resnet_int8, ("qbottleneck",), lambda: dpipe.forward_levels(frames))["qbottleneck"]
+        (k2_args, k2_kw), (gn_args, gn_kw) = calls[1], res["gn_calls"][0]
+        boxes, classes, valid_in = res["nms_boxes"]
+        shifted = class_offset_boxes(boxes, classes, valid_in).contiguous()
+        cases = {"K2": lambda: qblock.qbottleneck(*k2_args, **k2_kw),
+                 "B": lambda: gn.groupnorm_act(*gn_args, **gn_kw),
+                 "A": lambda: cuda_nms.cuda_nms_keep_mask(shifted, valid_in, 0.6)}
+        route = res["op_route"] = {}
+        with torch.inference_mode():
+            for name, fn in cases.items():
+                direct = fn()
+                library.EAGER_OPS = True
+                try:
+                    via_op = fn()
+                    torch.cuda.synchronize()
+                    ms = [host_ms(fn) for _ in range(2)]
+                finally:
+                    library.EAGER_OPS = False
+                ms_direct = [host_ms(fn) for _ in range(2)]
+                smoke.check(torch.equal(direct, via_op),
+                            f"{name}: the op route's output bit for bit the direct launch's")
+                route[name] = (min(ms_direct), min(ms))
+                print(f"  {name}: host ms a call direct {ms_direct}, through the op {ms}: "
+                      f"+{(min(ms) / min(ms_direct) - 1) * 100:.1f} % {card}")
+
+        # (c) GradCAM on the card against the same weights on the CPU (f32, TF32 off since phase 1): at P3, the
+        # JAX default (these random weights' map there is all zero: no positive evidence), and at P4
+        x, cpu_model = norm[:1], copy.deepcopy(model).cpu()
+        for level in (0, 1):
+            t0 = time.perf_counter()
+            cam = gradcam.gradcam_fcos(model, x, level=level)
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(3):
+                gradcam.gradcam_fcos(model, x, level=level)
+            ms = (time.perf_counter() - t0) / 3 * 1000.0
+            err = float(abs(cam - gradcam.gradcam_fcos(cpu_model, x.cpu(), level=level)).max())
+            res.setdefault("gradcam", {})[level] = (err, ms, float(cam.max()), float(cam.mean()))
+            print(f"  gradcam_fcos level {level}, 1x512x512 on the card: {ms:.2f} ms a call (host clock, first "
+                  f"{first:.2f} s); map max {cam.max():.4g}, mean {cam.mean():.4g}; against the CPU: max abs diff "
+                  f"{err:.3g} {card}")
+            smoke.check(cam.shape == (1, *CANVAS) and 0.0 <= cam.min() and cam.max() <= 1.0 and err <= GRADCAM_TOL,
+                        f"GradCAM level {level} [1, 512, 512] in [0, 1], card vs CPU max abs diff {err:.3g} "
+                        f"(tol {GRADCAM_TOL})")
+        smoke.check(res["gradcam"][1][2] == 1.0, "GradCAM at P4: a map with a maximum of 1 (not all zero)")
+
+        # (d) podt-torch-visualize on a committed JPEG; its count against the same pipeline here
+        image = f"{FIXTURE_TREE}/voc/JPEGImages/va00000.jpg"
+        cfg_path, overlay = f"{FIXTURE_TREE}/voc.yaml", f"{tmp.name}/overlay.jpg"
+        t0 = time.perf_counter()
+        rc, printed = cli_main(visualize.main, ["--config", cfg_path, "--image", image, "--out", overlay,
+                                                "--score-threshold", str(VIS_SCORE)])
+        print(f"  podt-torch-visualize: exit {rc} in {time.perf_counter() - t0:.2f} s: {printed.strip()[-200:]}")
+        smoke.check(rc == 0, "podt-torch-visualize exits 0")
+        import cv2
+        from PIL import Image
+
+        from pytorch_object_detection_tpu_torch.data.voc import resize_to_canvas
+
+        _, vmodel, vcanvas, vstrides = visualize.build(cfg_path, "", dev)
+        canvas_img = resize_to_canvas(np.asarray(Image.open(image).convert("RGB")), None, vcanvas)[0]
+        n_valid = int(visualize.detect(vmodel, canvas_img, vcanvas, vstrides, VIS_SCORE).valid.sum())
+        m = re.match(r"(\d+) detections", printed.strip().splitlines()[-1]) if printed.strip() else None
+        written = cv2.imread(overlay)
+        smoke.check(m is not None and int(m.group(1)) == n_valid and written is not None
+                    and written.shape[:2] == tuple(vcanvas),
+                    f"visualize wrote a {None if written is None else written.shape} overlay and counts "
+                    f"{m and m.group(1)} detections, its pipeline's valid count {n_valid}")
+
+        # (e) podt-torch-model-info prints model_info's totals
+        rc, printed = cli_main(cli_model_info.main, ["--model", "HISFCOS", "--size", "512"])
+        info = model_info("HISFCOS", (1, 512, 512, 3))
+        print(f"  podt-torch-model-info: exit {rc}; {printed.strip().splitlines()[1:2]}; model_info params "
+              f"{info['params']}, batch_stats {info['batch_stats']}, FLOPs {info['flops']:.6g}")
+        smoke.check(rc == 0 and f"total params: {info['params']:,}" in printed
+                    and f"batch_stats (BN moments): {info['batch_stats']:,}" in printed
+                    and f"forward FLOPs: {info['flops'] / 1e9:.2f} G" in printed,
+                    "podt-torch-model-info prints model_info's params, batch_stats and FLOPs")
+
+        # (f) a trace of one default-pipeline call; the card's memory
+        with profile.trace(f"{tmp.name}/trace") as logdir:
+            # the card's first events after a session starts can be lost (a trace of one call after phase 5q's
+            # session held 1 of its 16 qblock_kernel launches): a call before the annotated one
+            dpipe(frames)
+            with profile.annotate("podt_default_call"):
+                dpipe(frames)
+        with open(f"{logdir}/trace.json") as f:
+            events = json.load(f).get("traceEvents", [])
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        annotated = [e for e in events if e.get("name") == "podt_default_call"]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        print(f"  trace: {len(events)} events by category {cats}; the annotation {[e.get('cat') for e in annotated]}; "
+              f"{sum('qblock_kernel' in k for k in kernels)} qblock_kernel of {len(kernels)} kernels")
+        smoke.check(bool(annotated) and any("qblock_kernel" in k for k in kernels),
+                    "the trace names the annotated region and qblock_kernel")
+        stats = profile.device_memory_stats(dev)
+        print(f"  device_memory_stats: {stats}")
+        smoke.check(stats is not None and stats["bytes_in_use"] > 0 and stats["peak_bytes_in_use"] >= stats[
+            "bytes_in_use"] and stats["bytes_limit"] > stats["peak_bytes_in_use"],
+                    "device_memory_stats: bytes in use, peak and limit on the card")
+        tmp.cleanup()
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -4467,6 +4681,10 @@ def main() -> int:
     smoke.phase("phase 5x: tensor parallelism and spatial partitioning: tp2 and sp2 steps of two ranks on the card "
                 "(gloo) against one process; podt-torch-train --model-parallel 2 under each layout and --swa",
                 phase5x)
+    if "dpipe" in res:
+        smoke.phase("phase 5y: tooling: the main-path pipelines and each backend exported (torch.export, the kernels "
+                    "as torch.library ops), saved, loaded and run against eager; the op route's host cost; GradCAM, "
+                    "podt-torch-visualize, podt-torch-model-info, the profiler", phase5y)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

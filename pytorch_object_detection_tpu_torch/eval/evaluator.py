@@ -110,14 +110,23 @@ class _Pipeline:
 
     @torch.inference_mode()
     def forward_levels(self, images_u8: torch.Tensor) -> Levels:
+        return self._levels(images_u8)
+
+    @torch.inference_mode()
+    def decode(self, levels: Levels) -> Detections:
+        return self._decode(levels)
+
+    def _levels(self, images_u8: torch.Tensor) -> Levels:
+        """``forward_levels`` outside inference mode (``utils/export.py``
+        traces it under ``torch.no_grad()``)."""
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
             raise ValueError(f"images must be uint8 [B, H, W, 3]; got {images_u8.dtype} {tuple(images_u8.shape)}")
         cls_l, cnt_l, reg_l = self._forward(self._input(images_u8))
         f32 = lambda xs: [t.float() for t in xs]
         return f32(cls_l), f32(cnt_l), f32(reg_l)
 
-    @torch.inference_mode()
-    def decode(self, levels: Levels) -> Detections:
+    def _decode(self, levels: Levels) -> Detections:
+        """``decode`` outside inference mode."""
         cls_l, cnt_l, reg_l = levels
         # decode exactly len(strides) levels: one fewer stride than levels is
         # the reference's documented zip-truncation (test.py:176 decodes 4 of

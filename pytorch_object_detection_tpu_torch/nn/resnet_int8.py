@@ -309,15 +309,21 @@ def stem_tail_params(stem: Dict, compute_dtype: torch.dtype) -> Tuple[torch.Tens
     copies nothing), the folded BN rounded to bf16 as the JAX kernel rounds
     it.  Made at a qtree's first stem-tail call, whether the port quantized
     it or it came across from the JAX package, and kept beside the BN in
-    ``stem["tail"]``; later calls launch the conv and K17 only."""
+    ``stem["tail"]``; later calls launch the conv and K17 only.  While a
+    tracer runs (``utils/export.py``) the values are fake and nothing is
+    kept."""
+    keep = not torch.compiler.is_compiling()
     tail = stem.get("tail")
     if tail is None:
         mult, shift = fold_bn_params(**stem["bn"])
-        tail = stem["tail"] = {"mult": mult.to(torch.bfloat16), "shift": shift.to(torch.bfloat16), "kernel": {}}
+        tail = {"mult": mult.to(torch.bfloat16), "shift": shift.to(torch.bfloat16), "kernel": {}}
+        if keep:
+            stem["tail"] = tail
     kernel = tail["kernel"].get(compute_dtype)
     if kernel is None:
-        kernel = tail["kernel"][compute_dtype] = stem["kernel"].to(compute_dtype).contiguous(
-            memory_format=torch.channels_last)
+        kernel = stem["kernel"].to(compute_dtype).contiguous(memory_format=torch.channels_last)
+        if keep:
+            tail["kernel"][compute_dtype] = kernel
     return kernel, tail["mult"], tail["shift"]
 
 

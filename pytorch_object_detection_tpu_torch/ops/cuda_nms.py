@@ -5,7 +5,8 @@ Replaces ``pytorch_object_detection_tpu/ops/pallas_nms.py``
 note in ``csrc/nms.cu`` says what bounds it on the card and how the design
 answers.  The plain version is ``ops/nms.nms_keep_mask``: the wrapper takes
 it only for a tensor on the CPU; on a CUDA tensor it launches the kernel or
-raises.
+raises.  ``podt::nms_keep_mask`` (``ops/library.py``) is the op a tracer
+records: kernel A on CUDA, the plain fixpoint on the CPU.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import functools
 
 import torch
 
-from pytorch_object_detection_tpu_torch.ops.nms import class_offset_boxes, nms_keep_mask
+from pytorch_object_detection_tpu_torch.ops import library
+from pytorch_object_detection_tpu_torch.ops.nms import class_offset_boxes, fixpoint_keep_mask
 
 SOURCE = "nms.cu"
 # no FMA contraction: exact-threshold IoUs must round as the plain version's
@@ -42,8 +44,15 @@ def cuda_nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: 
     applied; valid ``[B, K]`` bool.  ``cuda_nms_keep_mask.launches`` counts
     kernel launches.
     """
+    if library.route(boxes):
+        return nms_keep_mask_op(boxes, valid, float(iou_threshold))
     if boxes.device.type == "cpu":
-        return nms_keep_mask(boxes, valid, iou_threshold)
+        return fixpoint_keep_mask(boxes, valid, iou_threshold)
+    return _launch(boxes, valid, iou_threshold)
+
+
+def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Kernel A on CUDA tensors, counted in ``cuda_nms_keep_mask.launches``."""
     if boxes.device.type != "cuda":
         raise ValueError(f"kernel A runs on CUDA tensors; got {boxes.device}")
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
@@ -71,6 +80,11 @@ def cuda_nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: 
 
 
 cuda_nms_keep_mask.launches = 0
+
+nms_keep_mask_op = library.define(
+    "nms_keep_mask", "(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor",
+    cpu=fixpoint_keep_mask, cuda=_launch,
+    fake=lambda boxes, valid, iou_threshold: library.empty_like_shape(valid, valid.shape, torch.bool))
 
 
 def cuda_batched_class_nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,

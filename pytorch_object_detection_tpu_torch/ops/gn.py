@@ -13,6 +13,10 @@ twice from device memory (``"stream"``), the blocks of a thread block
 cluster a slab is split across, and the slabs a block takes.  The kernel
 sums each slab in fixed 4 KB chunks folded in order, so every tile gives
 the same bits.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::groupnorm_act`` (``ops/library.py``): the same launch on CUDA, the
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
 SOURCE = "gn.cu"
@@ -158,7 +163,7 @@ class _Call(ctypes.Structure):
         "cpr")] + [("eps", ctypes.c_float)]
 
 
-# (shape, x dtype, scale dtype, act, eps, groups, device index) -> (the GnCall, its address)
+# (shape, x dtype, scale dtype, act, eps, groups, device index, forced tile) -> (the GnCall, its address)
 _CALLS: Dict[tuple, Tuple[_Call, int]] = {}
 
 
@@ -218,8 +223,22 @@ def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, g
         raise ValueError(f"act must be one of {sorted(ACTS)}; got {act!r}")
     if x.dim() != 4 or x.shape[1] % groups:
         raise ValueError(f"x must be [B, C, H, W] with C divisible by {groups}; got {tuple(x.shape)}")
-    if plain or x.is_cpu:
+    if plain:
         return groupnorm_act_plain(x, scale, bias, groups=groups, eps=eps, act=act)
+    if library.route(x):
+        if tile is None and x.is_cuda:
+            b, c, h, w = x.shape
+            tile = pick_gn_tile(b, c, h * w, groups, x.element_size(), *card_limits(x.device))
+        ints = None if tile is None else [GN_PATHS.index(tile[0]), int(tile[1]), int(tile[2])]
+        return groupnorm_act_op(x, scale, bias, groups, float(eps), act, ints)
+    if x.is_cpu:
+        return groupnorm_act_plain(x, scale, bias, groups=groups, eps=eps, act=act)
+    return _launch(x, scale, bias, groups, eps, act, tile)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, act: str,
+            tile) -> torch.Tensor:
+    """Kernel B on CUDA tensors, counted in ``groupnorm_act.launches``."""
     if not x.is_cuda:
         raise ValueError(f"kernel B runs on CUDA tensors; got {x.device}")
     dtype, pdtype = x.dtype, scale.dtype
@@ -240,13 +259,10 @@ def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, g
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    if tile is None:
-        key = (x.shape, dtype, pdtype, act, eps, groups, index)
-        call = _CALLS.get(key)
-        if call is None:
-            call = _CALLS[key] = _make_call(x, scale, groups, eps, act, None)
-    else:
-        call = _make_call(x, scale, groups, eps, act, tile)
+    key = (x.shape, dtype, pdtype, act, eps, groups, index, None if tile is None else tuple(tile))
+    call = _CALLS.get(key)
+    if call is None:
+        call = _CALLS[key] = _make_call(x, scale, groups, eps, act, tile)
     args = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), call[1])
     if index == torch._C._cuda_getDevice():
         err = _lib().gn_act_launch(*args, torch._C._cuda_getCurrentRawStream(index))
@@ -260,3 +276,14 @@ def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, g
 
 
 groupnorm_act.launches = 0
+
+
+def _op_cuda(x, scale, bias, groups, eps, act, tile):
+    return _launch(x, scale, bias, groups, eps, act, None if tile is None else (GN_PATHS[tile[0]], *tile[1:]))
+
+
+groupnorm_act_op = library.define(
+    "groupnorm_act", "(Tensor x, Tensor scale, Tensor bias, int groups, float eps, str act, int[]? tile) -> Tensor",
+    cpu=lambda x, scale, bias, groups, eps, act, tile: groupnorm_act_plain(x, scale, bias, groups=groups, eps=eps,
+                                                                          act=act),
+    cuda=_op_cuda, fake=lambda x, *_: torch.empty_like(x, memory_format=torch.contiguous_format))

@@ -18,6 +18,10 @@ docstring of ``csrc/head.cu``).
 On a CPU tensor :func:`hishead_level_fused` runs the plain version; on a
 CUDA tensor it launches the kernel (bf16 NHWC input, f a multiple of 32 up
 to 256) or raises.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::hishead_level_fused`` (``ops/library.py``): the same launch on CUDA,
+the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
 SOURCE = "head.cu"
@@ -362,8 +367,22 @@ def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: 
     nc = num_classes
     if packed["k_cls"].shape[0] != nc or packed["bias"].shape[1] < nc + 5:
         raise ValueError(f"packed holds {packed['k_cls'].shape[0]} classes; got num_classes={nc}")
-    if plain or x.device.type == "cpu":
+    if plain:
         return hishead_level_fused_plain(x, packed, nc)
+    if library.route(x):
+        if x.is_cuda:
+            cfg = pick_fhead_tile(*x.shape[:3], packed["f"], nc, *card_limits(x.device))
+            cfg.update(tile or {})
+            tile = [cfg[p] for p in FHEAD_PASSES]
+        return hishead_level_fused_op(x, [packed[k] for k in _OP_KEYS], packed["f"], packed["f2"], nc,
+                                      library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return hishead_level_fused_plain(x, packed, nc)
+    return _launch(x, packed, nc, tile)
+
+
+def _launch(x: torch.Tensor, packed: Dict, nc: int, tile) -> torch.Tensor:
+    """K15 on a CUDA tensor, counted in ``hishead_level_fused.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"K15 runs on CUDA tensors; got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -398,3 +417,19 @@ def hishead_level_fused(x: torch.Tensor, packed: Dict, num_classes: int, plain: 
 
 
 hishead_level_fused.launches = 0
+
+# the packed level's tensors as the op takes them: the plain version's, then the kernel's
+_OP_KEYS = ("pw1", "dw", "pw2", "cls_t", "reg_t", "pred_cls", "pred_cr", "gn", "bias", "k_pw1", "k_pw2", "k_tow",
+            "k_cls", "k_cr")
+
+
+def _packed(tensors, f: int, f2: int) -> Dict:
+    return dict(zip(_OP_KEYS, tensors), f=f, f2=f2)
+
+
+hishead_level_fused_op = library.define(
+    "hishead_level_fused", "(Tensor x, Tensor[] packed, int f, int f2, int nc, int[]? tile) -> Tensor",
+    cpu=lambda x, packed, f, f2, nc, tile: hishead_level_fused_plain(x, _packed(packed, f, f2), nc),
+    cuda=lambda x, packed, f, f2, nc, tile: _launch(x, _packed(packed, f, f2), nc,
+                                                    library.pairs(tile, FHEAD_PASSES, 3)),
+    fake=lambda x, packed, f, f2, nc, tile: library.empty_like_shape(x, (*x.shape[:3], nc + 5), torch.bfloat16))

@@ -4,16 +4,28 @@ Counterpart of ``pytorch_object_detection_tpu/ops/nms.py``: the keep mask is
 the fixpoint of ``keep[j] = valid[j] and no kept i < j has IoU(i, j) > t``
 over score-sorted boxes, class-aware through one coordinate offset per
 class.  This is the plain version of kernel A (``ops/cuda_nms.py``): the CPU
-path, and the reference the kernel is held to on the card.
+path, and the reference the kernel is held to on the card.  The fixpoint
+stops on a data-dependent test, which a tracer cannot follow, so while one
+runs :func:`nms_keep_mask` goes through the op ``podt::nms_fixpoint``, the
+same loop on the CPU and on the card (``ops/library.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.boxes import pairwise_iou
 
 
 def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask by fixpoint iteration (:func:`fixpoint_keep_mask`;
+    ``podt::nms_fixpoint`` while a tracer runs)."""
+    if library.tracing(boxes):
+        return nms_fixpoint_op(boxes, valid, float(iou_threshold))
+    return fixpoint_keep_mask(boxes, valid, iou_threshold)
+
+
+def fixpoint_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask by fixpoint iteration.
 
     boxes ``[..., K, 4]`` sorted by descending score; valid ``[..., K]``
@@ -33,6 +45,12 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
             break
         keep = new_keep
     return keep
+
+
+nms_fixpoint_op = library.define(
+    "nms_fixpoint", "(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor",
+    cpu=fixpoint_keep_mask, cuda=None,
+    fake=lambda boxes, valid, iou_threshold: library.empty_like_shape(valid, valid.shape, torch.bool))
 
 
 def class_offset_boxes(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

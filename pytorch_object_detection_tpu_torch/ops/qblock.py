@@ -20,6 +20,10 @@ operation for operation: exact int32 accumulation (``ops/quant.conv_i8``,
 ``torch._int_mm`` over an im2col of the int8 input), then the f32
 epilogues in the oracle's order.  On a CPU tensor the wrappers run it; on a CUDA tensor they launch
 kernel C or raise.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qbottleneck`` and ``podt::qbottleneck_s2`` (``ops/library.py``): the
+same launch on CUDA, the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
 
 SOURCE = "qblock.cu"
@@ -208,8 +213,20 @@ def _run(x, w1, w2, w3, vecs, stride, wd, short_mul, tile, plain, counter) -> to
     if short_mul is not None and not isinstance(short_mul, torch.Tensor):
         short_mul = torch.tensor(float(short_mul), dtype=torch.float32, device=x.device)
     _check(x, w1, w2, w3, vecs, stride, wd, short_mul)
-    if plain or x.device.type == "cpu":
+    if plain:
         return qbottleneck_plain(x, w1, w2, w3, **vecs, stride=stride, short_mul=short_mul, wd=wd)
+    if library.route(x):
+        if tile is None and x.is_cuda:
+            tile = pick_tile(*x.shape[:3], w1.shape[0], w3.shape[0], stride, *card_limits(x.device))
+        op = qbottleneck_op if stride == 1 else qbottleneck_s2_op
+        return op(x, w1, w2, w3, list(vecs.values()), wd, short_mul, library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return qbottleneck_plain(x, w1, w2, w3, **vecs, stride=stride, short_mul=short_mul, wd=wd)
+    return _cuda(x, w1, w2, w3, vecs, stride, wd, short_mul, tile, counter)
+
+
+def _cuda(x, w1, w2, w3, vecs, stride, wd, short_mul, tile, counter) -> torch.Tensor:
+    """Kernel C on CUDA tensors, counted in ``counter.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel C runs on CUDA tensors; got {x.device}")
     out = _launch(x, w1, w2, w3, vecs, stride, wd, short_mul, tile)
@@ -248,3 +265,28 @@ def qbottleneck_s2(x, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd, *,
 
 qbottleneck.launches = 0
 qbottleneck_s2.launches = 0
+
+
+_VECS = ("a1", "b1", "a2", "b2", "a3", "b3", "ad", "bd")
+
+
+def _define(name: str, stride: int, counter):
+    """The op of one wrapper: ``vecs`` in ``_VECS`` order (``ad``, ``bd`` with a projection)."""
+    def vec_dict(vecs):
+        return dict(zip(_VECS, vecs))
+
+    def cpu(x, w1, w2, w3, vecs, wd, short_mul, tile):
+        return qbottleneck_plain(x, w1, w2, w3, **vec_dict(vecs), stride=stride, short_mul=short_mul, wd=wd)
+
+    def cuda(x, w1, w2, w3, vecs, wd, short_mul, tile):
+        return _cuda(x, w1, w2, w3, vec_dict(vecs), stride, wd, short_mul, library.tile_tuple(tile), counter)
+
+    def fake(x, w1, w2, w3, vecs, wd, short_mul, tile):
+        return library.empty_like_shape(x, (x.shape[0], *out_hw(*x.shape[1:3], stride), w3.shape[0]))
+
+    return library.define(name, "(Tensor x, Tensor w1, Tensor w2, Tensor w3, Tensor[] vecs, Tensor? wd, "
+                                "Tensor? short_mul, int[]? tile) -> Tensor", cpu=cpu, cuda=cuda, fake=fake)
+
+
+qbottleneck_op = _define("qbottleneck", 1, qbottleneck)
+qbottleneck_s2_op = _define("qbottleneck_s2", 2, qbottleneck_s2)

@@ -22,6 +22,10 @@ backbone qtree (``nn/resnet_int8.quantize_resnet50``: ``w1 [Cw, Cin]``,
 ``Ad``, ``Bd`` or ``short_mul``), ``stride`` 1 or 2.  The plain version runs
 kernel C's plain version block after block; on a CPU tensor the wrapper
 runs it, on a CUDA tensor it launches K13 or raises.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qchain`` (``ops/library.py``): the same launch on CUDA, the plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import (
     SPLITS, TILE_WIDTHS, _check, card_limits, out_hw, qbottleneck_plain, smem_bytes, tile_grid)
 
@@ -195,6 +200,8 @@ def _plan(x: torch.Tensor, blocks: Chain) -> _Plan:
     """The chain's checked plan for ``x``'s shape and device, made once per
     list of block dicts (the dicts by identity, their tensors held and
     compared by identity on every call)."""
+    if library.tracing(x):  # a tracer's tensors are fake: a plan made of them is kept nowhere
+        return _Plan(x, blocks)
     key = (tuple(x.shape[1:]), x.device, tuple((id(blk), stride) for blk, stride in blocks))
     plan = _plans.get(key)
     if plan is None or not plan.holds(blocks):
@@ -240,8 +247,20 @@ def qchain(x: torch.Tensor, blocks: Chain, *, tile: Optional[Union[Tile, Sequenc
     if not 1 <= len(blocks) <= MAX_CHAIN:
         raise ValueError(f"a chain has 1 to {MAX_CHAIN} bottlenecks; got {len(blocks)}")
     plan = _plan(x, blocks)
-    if plain or x.device.type == "cpu":
+    if plain:
         return qchain_plain(x, blocks)
+    if library.route(x):
+        if x.is_cuda:
+            tile = _tiles(tile, plan, x.shape[0], *card_limits(x.device))[0]
+        flat = [t for blk, _ in blocks for t in _flat_block(blk, x.device)]
+        return qchain_op(x, flat, [stride for _, stride in blocks], library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return qchain_plain(x, blocks)
+    return _launch(x, blocks, plan, tile)
+
+
+def _launch(x: torch.Tensor, blocks: Chain, plan: _Plan, tile) -> torch.Tensor:
+    """K13 on a CUDA tensor, counted in ``qchain.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"K13 runs on CUDA tensors; got {x.device}")
     if not x.is_contiguous():
@@ -285,3 +304,36 @@ def qchain(x: torch.Tensor, blocks: Chain, *, tile: Optional[Union[Tile, Sequenc
 
 qchain.launches = 0
 qchain.grid = 0
+
+
+def _flat_block(blk: Dict, device: torch.device):
+    """A block's tensors in ``_KEYS`` order, None where it has none, ``short_mul`` as a 0-d tensor."""
+    out = [blk.get(k) for k in _KEYS]
+    if out[-1] is not None:
+        out[-1] = _operands(blk, device)[2]
+    return out
+
+
+def _blocks(flat, strides) -> List[Tuple[Dict, int]]:
+    """The inverse of :func:`_flat_block` over a chain."""
+    n = len(_KEYS)
+    return [({k: v for k, v in zip(_KEYS, flat[n * i:n * i + n]) if v is not None}, s) for i, s in enumerate(strides)]
+
+
+def _op_cuda(x, flat, strides, tile):
+    blocks = _blocks(flat, strides)
+    tiles = None if tile is None else [tuple(tile[2 * i:2 * i + 2]) for i in range(len(tile) // 2)]
+    return _launch(x, blocks, _plan(x, blocks), tiles)
+
+
+def _op_fake(x, flat, strides, tile):
+    b, h, w, _ = x.shape
+    n = len(_KEYS)
+    for s in strides:
+        h, w = out_hw(h, w, s)
+    return library.empty_like_shape(x, (b, h, w, flat[n * (len(strides) - 1) + 2].shape[0]))
+
+
+qchain_op = library.define(
+    "qchain", "(Tensor x, Tensor?[] blocks, int[] strides, int[]? tile) -> Tensor",
+    cpu=lambda x, flat, strides, tile: qchain_plain(x, _blocks(flat, strides)), cuda=_op_cuda, fake=_op_fake)

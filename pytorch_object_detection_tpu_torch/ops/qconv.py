@@ -30,6 +30,10 @@ and ``requantize``.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch their kernel or raise.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qmatmul`` and ``podt::qconv3x3`` (``ops/library.py``): the same
+launch on CUDA, the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, int_mm, requantize
 
@@ -143,8 +148,36 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, 
     if res is not None and not isinstance(res_scale, torch.Tensor):
         res_scale = torch.tensor(float(res_scale), dtype=torch.float32, device=x.device)
     _check(x, w, a, b, res, res_scale)
-    if plain or x.device.type == "cpu":
+    if plain:
         return qmatmul_plain(x, w, a, b, relu=relu, res=res, res_scale=res_scale)
+    if library.route(x):
+        if x.is_cuda:
+            tile = _qmm_tile(tile, *x.shape, w.shape[0], x.device)
+        return qmatmul_op(x, w, a, b, relu, res, res_scale if res is not None else None, library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return qmatmul_plain(x, w, a, b, relu=relu, res=res, res_scale=res_scale)
+    return _launch(x, w, a, b, relu, res, res_scale, tile)
+
+
+def _qmm_tile(tile, m: int, k: int, n: int, device: torch.device) -> Tuple[int, int, int]:
+    """``(bn, splits, steps_per)`` of a launch: the chooser's, or a forced
+    ``(bn, splits)`` checked (``splits`` rounded to what whole slices of
+    64-byte steps give), or an exported triple as it is."""
+    if tile is not None and len(tile) == 3:
+        return tuple(tile)
+    bn, splits, per = pick_qmm_tile(m, n, k, *card_limits(device))
+    if tile is not None:
+        bn, splits = tile
+        steps = -(-k // QMM_STEP)
+        if bn not in QMM_BNS or not 1 <= splits <= steps:
+            raise ValueError(f"tile={tile}: K4 takes tiles of 128 x 128 or 128 x 64 and 1 to {steps} K slices")
+        per = -(-steps // splits)
+        splits = -(-steps // per)
+    return bn, splits, per
+
+
+def _launch(x, w, a, b, relu, res, res_scale, tile) -> torch.Tensor:
+    """K4 on CUDA tensors, counted in ``qmatmul.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA tensors; got {x.device}")
     operands = [x, w, a, b] + ([res, res_scale] if res is not None else [])
@@ -160,15 +193,7 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, 
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
-    sm_count, smem_max = card_limits(x.device)
-    bn, splits, per = pick_qmm_tile(m, n, k, sm_count, smem_max)
-    if tile is not None:
-        bn, splits = tile
-        steps = -(-k // QMM_STEP)
-        if bn not in QMM_BNS or not 1 <= splits <= steps:
-            raise ValueError(f"tile={tile}: K4 takes tiles of 128 x 128 or 128 x 64 and 1 to {steps} K slices")
-        per = -(-steps // splits)
-        splits = -(-steps // per)
+    bn, splits, per = _qmm_tile(tile, m, k, n, x.device)
     if -(-n // bn) > 65535:
         raise ValueError(f"K4 takes at most {65535 * bn} output channels; got {n}")
     ws = torch.empty(splits * m * n, dtype=torch.int32, device=x.device) if splits > 1 else None
@@ -263,8 +288,21 @@ def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     for name, v in (("a", a), ("b", b)):
         if v.dtype != torch.float32 or tuple(v.shape) != (cout,):
             raise ValueError(f"{name} must be float32 [{cout}]; got {v.dtype} {tuple(v.shape)}")
-    if plain or x.device.type == "cpu":
+    if plain:
         return qconv3x3_plain(x, w, a, b)
+    if library.route(x):
+        if tile is None and x.is_cuda:
+            tile = pick_conv3_tile(bsz, h, wd, cin, cout, *card_limits(x.device))
+        return qconv3x3_op(x, w, a, b, library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return qconv3x3_plain(x, w, a, b)
+    return _launch3(x, w, a, b, tile)
+
+
+def _launch3(x, w, a, b, tile) -> torch.Tensor:
+    """K11 on CUDA tensors, counted in ``qconv3x3.launches``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"K11 runs on CUDA tensors; got {x.device}")
     operands = (x, w, a, b)
@@ -298,3 +336,18 @@ def qconv3x3(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 qmatmul.launches = 0
 qconv3x3.launches = 0
+
+
+qmatmul_op = library.define(
+    "qmatmul", "(Tensor x, Tensor w, Tensor a, Tensor b, bool relu, Tensor? res, Tensor? res_scale, int[]? tile) "
+               "-> Tensor",
+    cpu=lambda x, w, a, b, relu, res, res_scale, tile: qmatmul_plain(x, w, a, b, relu=relu, res=res,
+                                                                     res_scale=res_scale),
+    cuda=lambda x, w, a, b, relu, res, res_scale, tile: _launch(x, w, a, b, relu, res, res_scale,
+                                                                library.tile_tuple(tile)),
+    fake=lambda x, w, *_: library.empty_like_shape(x, (x.shape[0], w.shape[0])))
+qconv3x3_op = library.define(
+    "qconv3x3", "(Tensor x, Tensor w, Tensor a, Tensor b, int[]? tile) -> Tensor",
+    cpu=lambda x, w, a, b, tile: qconv3x3_plain(x, w, a, b),
+    cuda=lambda x, w, a, b, tile: _launch3(x, w, a, b, library.tile_tuple(tile)),
+    fake=lambda x, w, *_: library.empty_like_shape(x, (*x.shape[:3], w.shape[0])))

@@ -38,6 +38,10 @@ map's edges) of ``ipb`` images and one slice of the pass's output channels;
 :func:`pick_head_tile` chooses them per level from the card's SM count and
 shared memory, and the GEMM-shaped passes run on the int8 tensor cores
 (``csrc/qhead.cu``).  The outputs do not depend on the choice.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qhishead_level`` and ``podt::qhishead_level2`` (``ops/library.py``):
+the same launch on CUDA, the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.qhis import depthwise3x3_i8
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8
@@ -299,12 +304,13 @@ def qhishead_level(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None, pl
     only.  ``qhishead_level.launches`` counts kernel launches.
     """
     nc = _check(q, x_q, num_classes)
-    if plain or x_q.device.type == "cpu":
+    if plain:
         return qhishead_level_plain(q, lv, x_q)
-    out = _launch(q, lv, x_q, nc, False, tile)
-    if out[0].numel():
-        qhishead_level.launches += 1
-    return out
+    if library.route(x_q):
+        return _route(qhishead_level_op, q, lv, x_q, nc, False, tile)
+    if x_q.device.type == "cpu":
+        return qhishead_level_plain(q, lv, x_q)
+    return _cuda(q, lv, x_q, nc, False, tile)
 
 
 def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None, plain: bool = False,
@@ -315,15 +321,60 @@ def qhishead_level2(q: Dict, lv: Dict, x_q: torch.Tensor, *, num_classes=None, p
     does (``pallas_qhead.py:658-660``).  ``qhishead_level2.launches``
     counts K9's launches only."""
     nc = _check(q, x_q, num_classes)
-    if plain or x_q.device.type == "cpu":
+    if plain or (x_q.device.type == "cpu" and not library.route(x_q)):
         return qhishead_level_plain(q, lv, x_q)
     if x_q.shape[0] % 2:
         return qhishead_level(q, lv, x_q, num_classes=num_classes)
-    out = _launch(q, lv, x_q, nc, True, tile)
+    if library.route(x_q):
+        return _route(qhishead_level2_op, q, lv, x_q, nc, True, tile)
+    return _cuda(q, lv, x_q, nc, True, tile)
+
+
+def _cuda(q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool, tile) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 (``pair=False``) or K9 on CUDA tensors, counted in
+    ``qhishead_level.launches`` or ``qhishead_level2.launches``."""
+    out = _launch(q, lv, x_q, nc, pair, tile)
     if out[0].numel():
-        qhishead_level2.launches += 1
+        (qhishead_level2 if pair else qhishead_level).launches += 1
     return out
+
+
+def _route(op, q: Dict, lv: Dict, x_q: torch.Tensor, nc: int, pair: bool, tile):
+    """The call through ``op``, with the card's tile where ``x_q`` is on one."""
+    if tile is None and x_q.is_cuda:
+        tile = pick_head_tile(*x_q.shape, nc, *card_limits(x_q.device), pair=pair)
+    shared = [t for k in _SHARED for t in (q[k] if k.startswith("gn") else (q[k],))]
+    return op(x_q, shared, [lv[k] for k in _LEVEL], nc, library.tile_ints(
+        None if tile is None else [tile[p] for p in HEAD_PASSES]))
 
 
 qhishead_level.launches = 0
 qhishead_level2.launches = 0
+
+
+def _unflatten(shared, level):
+    """(q, lv) from the op's tensor lists (``_SHARED``'s GroupNorm pairs whole)."""
+    n = sum(not k.startswith("gn") for k in _SHARED)
+    q = dict(zip(_SHARED[:n], shared[:n]))
+    q.update({k: (shared[n + 2 * i], shared[n + 2 * i + 1]) for i, k in enumerate(_SHARED[n:])})
+    return q, dict(zip(_LEVEL, level))
+
+
+def _define(name: str, pair: bool):
+    def cpu(x_q, shared, level, nc, tile):
+        return qhishead_level_plain(*_unflatten(shared, level), x_q)
+
+    def cuda(x_q, shared, level, nc, tile):
+        return _cuda(*_unflatten(shared, level), x_q, nc, pair, library.pairs(tile, HEAD_PASSES))
+
+    def fake(x_q, shared, level, nc, tile):
+        b, h, w, _ = x_q.shape
+        return (library.empty_like_shape(x_q, (b, h, w, nc), torch.float32),
+                library.empty_like_shape(x_q, (b, h, w, 5), torch.float32))
+
+    return library.define(name, "(Tensor x_q, Tensor[] shared, Tensor[] level, int nc, int[]? tile) "
+                                "-> (Tensor, Tensor)", cpu=cpu, cuda=cuda, fake=fake)
+
+
+qhishead_level_op = _define("qhishead_level", False)
+qhishead_level2_op = _define("qhishead_level2", True)

@@ -29,6 +29,10 @@ On the card the three kernels' convolutions run on the int8 tensor cores
 images a block and its channel slices from the card's SM count and shared
 memory.  The int32 sums are exact in any order, so the outputs do not
 depend on the choice.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qhisblock`` (``ops/library.py``): the same launch on CUDA, the plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool2x2_plain
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8, requantize
@@ -322,8 +327,23 @@ def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = No
     those with ``combine="pool_add"`` among them.
     """
     _check(blk, x_q, xb_q, combine)
-    if plain or x_q.device.type == "cpu":
+    if plain:
         return qhisblock_plain(blk, combine_plain(x_q, xb_q, combine, ca, cb))
+    if library.route(x_q):
+        if tile is None and x_q.is_cuda:
+            b, h, w, cin = (xb_q if combine is not None else x_q).shape
+            tile = pick_his_tile(b, h, w, cin, *card_limits(x_q.device))
+        dev = x_q.device
+        return qhisblock_op(x_q, [_scalar(blk[k], dev) if k in _SCALARS else blk[k] for k in _OP_KEYS], xb_q,
+                            combine, _scalar(ca, dev), _scalar(cb, dev),
+                            library.tile_ints(None if tile is None else [tile[k] for k in HIS_KERNELS]))
+    if x_q.device.type == "cpu":
+        return qhisblock_plain(blk, combine_plain(x_q, xb_q, combine, ca, cb))
+    return _cuda(blk, x_q, xb_q, combine, ca, cb, tile)
+
+
+def _cuda(blk, x_q, xb_q, combine, ca, cb, tile) -> torch.Tensor:
+    """K5 on CUDA tensors, counted in ``qhisblock.launches``."""
     if x_q.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA tensors; got {x_q.device}")
     out = _launch(blk, x_q, xb_q, combine, ca, cb, tile)
@@ -335,3 +355,25 @@ def qhisblock(blk: Dict, x_q: torch.Tensor, *, xb_q: Optional[torch.Tensor] = No
 
 qhisblock.launches = 0
 qhisblock.pool_add_launches = 0
+
+# a block's tensors as the op takes them: the kernel's, then its three scalars (0-d f32)
+_SCALARS = ("inv_x1", "inv_out", "se_premul")
+_OP_KEYS = _PARAMS + _SCALARS
+
+
+def _op_cpu(x_q, blk, xb_q, combine, ca, cb, tile):
+    return qhisblock_plain(dict(zip(_OP_KEYS, blk)), combine_plain(x_q, xb_q, combine, ca, cb))
+
+
+def _op_cuda(x_q, blk, xb_q, combine, ca, cb, tile):
+    return _cuda(dict(zip(_OP_KEYS, blk)), x_q, xb_q, combine, ca, cb, library.pairs(tile, HIS_KERNELS))
+
+
+def _op_fake(x_q, blk, xb_q, combine, ca, cb, tile):
+    b, h, w, _ = (xb_q if combine is not None else x_q).shape
+    return library.empty_like_shape(x_q, (b, h, w, x_q.shape[-1]))
+
+
+qhisblock_op = library.define(
+    "qhisblock", "(Tensor x_q, Tensor[] blk, Tensor? xb_q, str? combine, Tensor ca, Tensor cb, int[]? tile) -> Tensor",
+    cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)

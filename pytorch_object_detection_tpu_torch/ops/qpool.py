@@ -19,6 +19,11 @@ no counterpart.  A K10 block stages a band of input rows once in shared
 memory and pools from there; :func:`pick_pool3_tile` picks the band.
 
 Unlike the Pallas wrappers, the kernels take every shape and never fall back.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qmaxpool2x2``, ``podt::qmaxpool2x2_seeds`` and
+``podt::qmaxpool3x3s2`` (``ops/library.py``): the same launch on CUDA, the
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
 SOURCE = "qpool.cu"
@@ -71,6 +77,14 @@ def qmaxpool2x2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     """
     if _check_k6(x, plain):
         return qmaxpool2x2_plain(x)
+    if library.route(x):
+        return qmaxpool2x2_op(x)
+    return _launch2(x)
+
+
+def _launch2(x: torch.Tensor) -> torch.Tensor:
+    """K6 on a CUDA tensor, counted in ``qmaxpool2x2.launches``."""
+    _check_k6_cuda(x)
     b, h, w, c = x.shape
     out = torch.empty((b, h // 2, w // 2, c), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
@@ -85,16 +99,18 @@ def qmaxpool2x2(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
 
 
 def _check_k6(x: torch.Tensor, plain: bool) -> bool:
-    """Checks K6's operand; True where the plain version runs."""
+    """Checks K6's operand; True where the plain version runs (``plain``, or
+    a CPU tensor outside a tracer)."""
     if x.dtype != torch.int8 or x.dim() != 4:
         raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
-    if plain or x.device.type == "cpu":
-        return True
+    return plain or (x.device.type == "cpu" and not library.route(x))
+
+
+def _check_k6_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA tensors; got {x.device}")
     if not x.is_contiguous() or (x.shape[-1] % 16 == 0 and x.data_ptr() % 16):
         raise ValueError("K6 takes NHWC-contiguous int8 (16-byte aligned where C % 16 == 0)")
-    return False
 
 
 def qmaxpool2x2_seeds_plain(x: torch.Tensor):
@@ -116,6 +132,14 @@ def qmaxpool2x2_seeds(x: torch.Tensor, *, plain: bool = False):
     """
     if _check_k6(x, plain):
         return qmaxpool2x2_seeds_plain(x)
+    if library.route(x):
+        return qmaxpool2x2_seeds_op(x)
+    return _launch_seeds(x)
+
+
+def _launch_seeds(x: torch.Tensor):
+    """K6's seeds kernel on a CUDA tensor, counted in ``qmaxpool2x2_seeds.launches``."""
+    _check_k6_cuda(x)
     b, h, w, c = x.shape
     if c % 16:
         raise ValueError(f"K6's seeds kernel reads 16-channel words: C must be a multiple of 16; got {c}")
@@ -212,8 +236,19 @@ def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False, tile=None) -> torch.T
     """
     if x.dtype is not torch.int8 or x.dim() != 4:
         raise ValueError(f"x must be int8 [B, H, W, C] (NHWC); got {x.dtype} {tuple(x.shape)}")
-    if plain or x.is_cpu:
+    if plain:
         return qmaxpool3x3s2_plain(x)
+    if library.route(x):
+        if tile is None and x.is_cuda:
+            tile = _pool3_launch_tile(*x.shape, x.get_device())
+        return qmaxpool3x3s2_op(x, library.tile_ints(tile))
+    if x.is_cpu:
+        return qmaxpool3x3s2_plain(x)
+    return _launch3(x, tile)
+
+
+def _launch3(x: torch.Tensor, tile) -> torch.Tensor:
+    """K10 on a CUDA tensor, counted in ``qmaxpool3x3s2.launches``."""
     if not x.is_cuda:
         raise ValueError(f"K10 runs on CUDA tensors; got {x.device}")
     b, h, w, c = x.shape
@@ -223,7 +258,7 @@ def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False, tile=None) -> torch.T
     if out.numel() == 0:
         return out
     index = x.get_device()
-    if tile is None:
+    if tile is None or tuple(tile) == _pool3_launch_tile(b, h, w, c, index):
         tile = _pool3_launch_tile(b, h, w, c, index)
     elif c % 16 or tuple(tile) not in [(r, cl) for r in POOL3_ROWS for cl in POOL3_COLS] or pool3_smem_bytes(
             c, *tile) > card_limits(x.device)[1]:
@@ -246,3 +281,23 @@ def qmaxpool3x3s2(x: torch.Tensor, *, plain: bool = False, tile=None) -> torch.T
 qmaxpool2x2.launches = 0
 qmaxpool2x2_seeds.launches = 0
 qmaxpool3x3s2.launches = 0
+
+
+def _pool_shape(x: torch.Tensor, k: int):
+    b, h, w, c = x.shape
+    return b, h // k, w // k, c
+
+
+qmaxpool2x2_op = library.define(
+    "qmaxpool2x2", "(Tensor x) -> Tensor", cpu=qmaxpool2x2_plain, cuda=_launch2,
+    fake=lambda x: library.empty_like_shape(x, _pool_shape(x, 2)))
+qmaxpool2x2_seeds_op = library.define(
+    "qmaxpool2x2_seeds", "(Tensor x) -> (Tensor, Tensor)", cpu=qmaxpool2x2_seeds_plain, cuda=_launch_seeds,
+    fake=lambda x: (library.empty_like_shape(x, _pool_shape(x, 2)),
+                    library.empty_like_shape(x, (x.shape[0], x.shape[1] // 2 // 2, x.shape[2] // 2 // 2, x.shape[3]))))
+qmaxpool3x3s2_op = library.define(
+    "qmaxpool3x3s2", "(Tensor x, int[]? tile) -> Tensor",
+    cpu=lambda x, tile: qmaxpool3x3s2_plain(x),
+    cuda=lambda x, tile: _launch3(x, library.tile_tuple(tile)),
+    fake=lambda x, tile: library.empty_like_shape(
+        x, (x.shape[0], (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1, x.shape[3])))

@@ -18,6 +18,10 @@ int32 accumulation, the f32 epilogue, the int8 pool.  The kernel computes
 the same space-to-depth form as an implicit GEMM on the int8 tensor cores
 (``wt``, ``pad``); :func:`pick_stem_tile` chooses the pooled positions a
 thread block owns.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::qstem_conv`` (``ops/library.py``): the same launch on CUDA, the
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_object_detection_tpu_torch.nn.resnet import space_to_depth
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 from pytorch_object_detection_tpu_torch.ops.qpool import qmaxpool3x3s2_plain
 from pytorch_object_detection_tpu_torch.ops.quant import clip8, conv_i8
@@ -202,8 +207,20 @@ def qstem_conv(images: torch.Tensor, st: Dict, *, plain: bool = False,
     b, h, w, cin = images.shape
     if h % 2 or w % 2:
         raise ValueError(f"the space-to-depth stem takes even H and W; got {h}x{w}")
-    if plain or images.device.type == "cpu":
+    if plain:
         return qstem_plain(st, space_to_depth(to_rgbx(images), 2))
+    if library.route(images):
+        if tile is None and images.is_cuda:
+            tile = pick_stem_tile(b, h, w, *card_limits(images.device))
+        return qstem_conv_op(images, [st.get(k) for k in _OP_KEYS], library.tile_ints(tile))
+    if images.device.type == "cpu":
+        return qstem_plain(st, space_to_depth(to_rgbx(images), 2))
+    return _launch(images, st, tile)
+
+
+def _launch(images: torch.Tensor, st: Dict, tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """K1 on CUDA frames, counted in ``qstem_conv.launches``."""
+    b, h, w, cin = images.shape
     if images.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors; got {images.device}")
     if not images.is_contiguous() or images.data_ptr() % 16:
@@ -227,3 +244,18 @@ def qstem_conv(images: torch.Tensor, st: Dict, *, plain: bool = False,
 
 
 qstem_conv.launches = 0
+
+# the stem entry's tensors as the op takes them: the plain version's, then K1's ``wt``
+_OP_KEYS = ("w", "A", "B", "pad", "wt")
+
+
+def _op_fake(images, st, tile):
+    b, h, w, _ = images.shape
+    return library.empty_like_shape(images, (b, *stem_sizes(h, w)[2:], COUT), torch.int8)
+
+
+qstem_conv_op = library.define(
+    "qstem_conv", "(Tensor images, Tensor?[] st, int[]? tile) -> Tensor",
+    cpu=lambda images, st, tile: qstem_plain(dict(zip(_OP_KEYS, st)), space_to_depth(to_rgbx(images), 2)),
+    cuda=lambda images, st, tile: _launch(images, dict(zip(_OP_KEYS, st)), library.tile_tuple(tile)),
+    fake=_op_fake)

@@ -16,6 +16,10 @@ layout copy, where an NCHW reader would need a transpose of the 67 MB map
 order; on a CPU tensor the wrapper runs it, on a CUDA tensor it launches K17
 or raises.  The stem tail keeps the bf16 ``mult`` and ``shift`` once per
 qtree (``nn/resnet_int8.stem_tail_params``), so a call launches K17 alone.
+
+While a tracer runs (``utils/export.py``) the wrappers call their ops,
+``podt::stem_bn_pool_quant`` (``ops/library.py``): the same launch on CUDA,
+the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_object_detection_tpu_torch.ops import library
 from pytorch_object_detection_tpu_torch.ops.qblock import card_limits
 
 SOURCE = "stem.cu"
@@ -138,13 +143,25 @@ def stem_bn_pool_quant(x: torch.Tensor, mult: torch.Tensor, shift: torch.Tensor,
     if scale.dtype != torch.float32 or scale.numel() != 1:
         raise ValueError(f"scale must be one float32 value; got {scale.dtype} {tuple(scale.shape)}")
     mult_b, shift_b = mult.to(torch.bfloat16), shift.to(torch.bfloat16)
-    if plain or x.device.type == "cpu":
+    if plain:
         return stem_bn_pool_quant_plain(x, mult_b, shift_b, (1.0 / scale).reshape(()))
+    if library.route(x):
+        if tile is None and x.is_cuda:
+            tile = pick_stem_tail_tile(b, h, w, *card_limits(x.device), c=c)
+        return stem_bn_pool_quant_op(x, mult_b, shift_b, scale, library.tile_ints(tile))
+    if x.device.type == "cpu":
+        return stem_bn_pool_quant_plain(x, mult_b, shift_b, (1.0 / scale).reshape(()))
+    return _launch(x, mult_b, shift_b, scale, tile)
+
+
+def _launch(x: torch.Tensor, mult_b: torch.Tensor, shift_b: torch.Tensor, scale: torch.Tensor, tile) -> torch.Tensor:
+    """K17 on CUDA tensors (``mult`` and ``shift`` in bf16), counted in ``stem_bn_pool_quant.launches``."""
+    b, h, w, c = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"K17 runs on CUDA tensors; got {x.device}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"K17 takes the bf16 stem; got {x.dtype}")
-    if any(t.device != x.device for t in (mult, shift, scale)):
+    if any(t.device != x.device for t in (mult_b, shift_b, scale)):
         raise ValueError(f"K17: every operand must be on {x.device}")
     if not x.is_contiguous() or c % 8 or x.data_ptr() % 16 or mult_b.data_ptr() % 16 or shift_b.data_ptr() % 16:
         raise ValueError(f"K17 reads x, mult and shift in 16-byte words: NHWC-contiguous, 16-byte aligned, with C a "
@@ -174,3 +191,12 @@ def stem_bn_pool_quant(x: torch.Tensor, mult: torch.Tensor, shift: torch.Tensor,
 
 
 stem_bn_pool_quant.launches = 0
+
+
+stem_bn_pool_quant_op = library.define(
+    "stem_bn_pool_quant", "(Tensor x, Tensor mult_b, Tensor shift_b, Tensor scale, int[]? tile) -> Tensor",
+    cpu=lambda x, mult_b, shift_b, scale, tile: stem_bn_pool_quant_plain(x, mult_b, shift_b,
+                                                                         (1.0 / scale).reshape(())),
+    cuda=lambda x, mult_b, shift_b, scale, tile: _launch(x, mult_b, shift_b, scale, library.tile_tuple(tile)),
+    fake=lambda x, *_: library.empty_like_shape(
+        x, (x.shape[0], (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1, x.shape[3]), torch.int8))
