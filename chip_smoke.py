@@ -280,6 +280,21 @@ Phases (each prints its results on its own lines):
      count; (e) podt-torch-model-info's main against model_info's totals;
      (f) utils/profile.trace around a default call names the annotation and
      qblock_kernel; device_memory_stats in bytes;
+  5z. learning at the COCO canvas: (a) a corpus of Z_TRAIN train and
+     Z_VAL val images written by data/synthetic_corpus.write_synthetic_coco
+     (seed 0) and a config of config/synth_coco.yaml's recipe pointing at
+     it (HISFCOS(80, 256), 896x1408, B=8, SGD 5e-3 with 300 steps of
+     warm-up; the corpus is one batch, so an epoch is a step); (b)
+     podt-torch-train on it by subprocess, at most Z_MAX_STEPS steps (COCODataset
+     with HostAugment, DetectionLoader with max_boxes 16), each step's loss
+     logged, stopped by SIGTERM once a step's loss is below 0.7 of the
+     first step's: that within the cap, exit 0, the checkpoint written;
+     (c) podt-torch-eval-coco's main on that checkpoint over the val split,
+     float and --int8 (calibrated on the first batch),
+     each batch counted inside evaluate_coco (float: 20 B and 1 A; int8: 1
+     K1, 13 K2, 3 K3, 3 K4, 7 K5, 1 K6, 3 K7, 2 K9, 1 A), finite AP; the
+     trained weights' int8 head against the bf16 float head on the same
+     dequantized levels of the val batch, cosine >= 0.99;
   6. timing with CUDA events: kernel vs plain for A, B (on the float
      pipeline's 20 recorded calls, bf16 maps, scale and bias, at B=8 and
      repeated to B=64, beside F.group_norm then the activation), C (per block
@@ -338,6 +353,7 @@ import copy
 import json
 import re
 import statistics
+import signal
 import subprocess
 import sys
 import time
@@ -460,6 +476,10 @@ BACKEND_PATHS = {
                        cuda_nms_keep_mask=1)),
     "chained": (dict(chain_segments=True), dict(DEFAULT_PIPELINE_LAUNCHES, qbottleneck=0, qbottleneck_s2=0, qchain=3)),
 }
+# phase 5z: the COCO corpus written on the card (train, val images; a train batch of Z_TRAIN is an epoch a step),
+# the train CLI's step cap (the loss must fall below 0.7 of its first value within it: the first card run read
+# 2.92 -> 2.23 in 100 steps at the recipe's warm-up) and the eval CLI's batch
+Z_TRAIN, Z_VAL, Z_MAX_STEPS, Z_EVAL_BATCH = 8, 4, 400, 4
 # phase 5y: GradCAM on the card against the CPU, f32 with TF32 off: the same ops summed in another order
 # through the FPN, the head and the backward, then a min-max normalization (a [0, 1] map); the visualize CLI's
 # score threshold (random weights put few scores over the CLI's 0.3)
@@ -3838,6 +3858,154 @@ def main() -> int:
                     "device_memory_stats: bytes in use, peak and limit on the card")
         tmp.cleanup()
 
+    def phase5z():
+        import contextlib
+        import io
+        import os
+        import tempfile
+
+        import numpy as np
+        import yaml
+
+        from pytorch_object_detection_tpu_torch.cli import eval_coco
+        from pytorch_object_detection_tpu_torch.cli.eval_voc import calib_images
+        from pytorch_object_detection_tpu_torch.data.coco import COCODataset
+        from pytorch_object_detection_tpu_torch.data.pipeline import DetectionLoader
+        from pytorch_object_detection_tpu_torch.data.synthetic_corpus import write_synthetic_coco
+        from pytorch_object_detection_tpu_torch.eval import evaluator
+        from pytorch_object_detection_tpu_torch.train.checkpoints import load_model_checkpoint
+
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) the corpus and the recipe's config pointing at it
+            t0 = time.perf_counter()
+            corpus = os.path.join(tmp, "synth_coco_data")
+            write_synthetic_coco(corpus, Z_TRAIN, Z_VAL, 0)
+            with open("config/synth_coco_data.yaml") as f:
+                data = yaml.safe_load(f)
+            data["dataset_setting"].update(
+                TrainData=os.path.join(corpus, "train"), TrainAnnotation=os.path.join(corpus, "instances_train.json"),
+                ValData=os.path.join(corpus, "val"), ValAnnotation=os.path.join(corpus, "instances_val.json"))
+            data["HISFCOS"]["Epoch"] = Z_MAX_STEPS
+            data_cfg, cfg = os.path.join(tmp, "synth_coco_data.yaml"), os.path.join(tmp, "synth_coco.yaml")
+            with open(data_cfg, "w") as f:
+                yaml.safe_dump(data, f)
+            with open(cfg, "w") as f:
+                f.write(f"dataset : COCO\nmodel : HISFCOS\nCOCO : {data_cfg}\namp : True\nsavename : z_coco\n")
+            block = data["HISFCOS"]
+            print(f"  corpus: {Z_TRAIN} train + {Z_VAL} val images written in {time.perf_counter() - t0:.1f} s; recipe "
+                  f"{block['optimizer']['name']} lr {block['optimizer']['lr']}, warm-up "
+                  f"{block['schedule']['warmup_steps']}, B={block['batch_size']}, input "
+                  f"{data['dataset_setting']['input']}, max_boxes {data['dataset_setting']['max_boxes']}")
+
+            # (b) podt-torch-train at full width on the COCO canvas, stopped by SIGTERM (a checkpoint after the
+            # step, exit 0) once a step's loss is below 0.7 of the first step's
+            ck_dir = os.path.join(tmp, "checkpoint")
+            cmd = [sys.executable, "-m", "pytorch_object_detection_tpu_torch.cli.train", "--config", cfg, "--steps",
+                   str(Z_MAX_STEPS), "--log-every", "1", "--ckpt-every", str(Z_MAX_STEPS), "--checkpoint-dir", ck_dir]
+            t0 = time.perf_counter()
+            losses, rates, lines, below = [], [], [], None
+            with subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) as proc:
+                for ln in proc.stdout:
+                    lines.append(ln.rstrip())
+                    m = re.match(r"step (\d+) .*total=(\S+) \(([\d.]+) img/s", ln)
+                    if m:
+                        losses.append(float(m.group(2)))
+                        rates.append(float(m.group(3)))
+                        if below is None and losses[-1] < 0.7 * losses[0]:
+                            below = len(losses)
+                            proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=600)
+            train_s = time.perf_counter() - t0
+            ck = os.path.join(ck_dir, "z_coco")
+            written = os.path.isdir(ck) and any(n.endswith(".pt") for n in os.listdir(ck))
+            stdout = "\n".join(lines)
+            if losses:
+                print(f"  podt-torch-train HISFCOS(80, {FEATURES}) at {COCO_CANVAS} B=8 bf16: {len(losses)} steps, "
+                      f"{train_s:.1f} s with the CLI's start: loss {losses[0]:.4f} -> {losses[-1]:.4f}; below 0.7 of "
+                      f"the first at step {below}; img/s of the last 20 steps (host clock, the loss fetched every "
+                      f"step) median {statistics.median(rates[-20:]):.1f} {card}")
+                print("    losses: " + " ".join(f"{v:.3f}" for v in losses))
+            smoke.check(rc == 0 and "training done" in stdout and written,
+                        f"podt-torch-train on the COCO corpus: exit {rc}, checkpoint written {written}"
+                        + ("" if rc == 0 else f"\n{stdout[-4000:]}"))
+            smoke.check(below is not None and all(np.isfinite(losses)) and (below is None or "signal" in stdout),
+                        f"learning at the COCO canvas: the loss below 0.7 of its first value within {Z_MAX_STEPS} "
+                        f"steps (step {below}); the run stopped by SIGTERM after that step")
+            if not written:
+                return
+
+            # (c) podt-torch-eval-coco float and --int8 on the checkpoint, each batch counted
+            counted = {}
+            real_evaluate = evaluator.evaluate_coco
+
+            def counted_evaluate(*args, **kw):
+                """evaluate_coco with every counter set to 0 just before and read just after."""
+                for counter in counters.values():
+                    counter.launches = 0
+                r = real_evaluate(*args, **kw)
+                torch.cuda.synchronize()
+                counted["launches"] = {k: c.launches for k, c in counters.items()}
+                return r
+
+            calls = -(-Z_VAL // Z_EVAL_BATCH)
+            aps = {}
+            evaluator.evaluate_coco = counted_evaluate
+            try:
+                for what, flags, per_call in (("float", [], FLOAT_PIPELINE_LAUNCHES),
+                                              ("int8", ["--int8"], COCO_PIPELINE_LAUNCHES)):
+                    buf = io.StringIO()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(buf):
+                        rc = eval_coco.main(["--config", cfg, "--checkpoint", ck, "--batch-size", str(Z_EVAL_BATCH),
+                                             "--results-json", os.path.join(tmp, f"{what}.json")] + flags)
+                    stats = dict(ln.split(": ", 1) for ln in buf.getvalue().splitlines() if ": " in ln)
+                    aps[what] = {k: float(stats[k]) for k in ("AP", "AP50", "AP75") if k in stats}
+                    launches = counted.pop("launches", None)
+                    print(f"  podt-torch-eval-coco {' '.join(flags) or '(float)'}: exit {rc} in "
+                          f"{time.perf_counter() - t0:.1f} s, {calls} batch(es) of {Z_EVAL_BATCH}: {aps[what]}")
+                    smoke.check(rc == 0 and len(aps[what]) == 3 and all(np.isfinite(list(aps[what].values())))
+                                and launches == {k: calls * n for k, n in per_call.items()},
+                                f"eval_coco {what} on the trained checkpoint: finite AP, each kernel launched {calls} "
+                                f"times its per-call count: {launches}")
+            finally:
+                evaluator.evaluate_coco = real_evaluate
+
+            # the int8 head against the bf16 float head on the same dequantized levels, trained weights
+            model = build_model("HISFCOS", 80, FEATURES, device=dev)
+            load_model_checkpoint(model, ck)
+            model.eval()
+            val = COCODataset(os.path.join(corpus, "val"), os.path.join(corpus, "instances_val.json"), COCO_CANVAS,
+                              filter_empty=False)
+            batch = next(iter(DetectionLoader(val, Z_EVAL_BATCH, shuffle=False, drop_last=False, num_workers=2)))
+            frames = torch.from_numpy(batch.images).to(dev)
+            zpipe = make_eval_pipeline_int8(model, calib_images(frames), default_strides(), COCO_CANVAS,
+                                            compute_dtype=torch.bfloat16)
+            qbb, qfpn, qh = (zpipe.qtree[k] for k in ("backbone", "fpn", "head"))
+            with torch.inference_mode():
+                feats_q, _ = resnet_int8.resnet50_int8_forward(qbb, frames, torch.bfloat16, backend="pallas_block",
+                                                               fuse_strided=True, dequant=False, u8_stem=True)
+                levels_q, scales = fpn_int8.hisfpn_int8_forward(qfpn, feats_q, backend="pallas", dequant=False)
+                int8_out = head_int8.hishead_int8_forward(qh, levels_q, backend="pallas")
+                float_head = copy.deepcopy(model.head).to(torch.bfloat16).eval()
+                deq = [(q.float() * s).to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+                       for q, s in zip(levels_q, scales)]
+                float_out = float_head(deq)
+                fpipe = make_eval_pipeline(model, default_strides(), COCO_CANVAS, compute_dtype=torch.bfloat16)
+                end_to_end = [min(cosine(a, b) for a, b in zip(ab, fb))
+                              for ab, fb in zip(zpipe.forward_levels(frames), fpipe.forward_levels(frames))]
+            cosines = {}
+            for name, a_b, f_b in zip(("cls", "cnt", "reg"), int8_out, float_out):
+                cosines[name] = min(cosine(a, f.permute(0, 2, 3, 1)) for a, f in zip(a_b, f_b))
+            print(f"  trained weights, int8 head vs bf16 float head on the same dequantized levels, lowest cosine over "
+                  f"P3-P7: {cosines}; the whole int8 pipeline's maps vs the float pipeline's (cls, cnt, reg): "
+                  f"{[round(c, 6) for c in end_to_end]}")
+            smoke.check(min(cosines.values()) >= INT8_COS_MIN,
+                        f"trained HISFCOS(80, {FEATURES}): int8 head maps at cosine >= {INT8_COS_MIN} to float: "
+                        f"{cosines}")
+            res["coco_learning"] = {"steps": len(losses), "below": below, "ap": aps, "cos": cosines}
+        print(f"  phase 5z took {time.perf_counter() - t_phase:.1f} s")
+
     def phase6():
         pipe, plain_pipe, frames = res["pipe"], res["plain_pipe"], res["frames"]
         print(f"  card {card}; ms per call, back-to-back calls between CUDA events, median of 5")
@@ -4685,6 +4853,9 @@ def main() -> int:
         smoke.phase("phase 5y: tooling: the main-path pipelines and each backend exported (torch.export, the kernels "
                     "as torch.library ops), saved, loaded and run against eager; the op route's host cost; GradCAM, "
                     "podt-torch-visualize, podt-torch-model-info, the profiler", phase5y)
+    smoke.phase("phase 5z: learning at the COCO canvas: podt-torch-train of HISFCOS(80, 256) at 896x1408 B=8 on a "
+                "synthetic COCO corpus written on the card, then podt-torch-eval-coco float and --int8, counted, and "
+                "the trained int8 head against float", phase5z)
     if "pipe" in res:
         smoke.phase("phase 6: timing", phase6)
         smoke.phase("phase 6b: profile, float pipeline", phase6_profile, res["pipe"])

@@ -31,9 +31,10 @@ one at its step.  SIGTERM or SIGINT saves a checkpoint after the current
 step and exits 0.  A non-finite loss, fetched one step behind so the card
 keeps working, stops the run with exit code 1 and no checkpoint of the
 diverged weights.  ``--eval-every N`` runs ``evaluate_voc`` (mAP) or
-``evaluate_coco`` (AP) on the test split every N epochs and keeps the best
-under ``<savename>_best``.  ``--log-every`` prints the losses and img/s
-and writes them to TensorBoard under ``runs/<savename>``.
+``evaluate_coco`` (AP) on the test split every N epochs, prints each score
+and keeps the best under ``<savename>_best``.  ``--log-every`` prints the
+losses, img/s and (on the card) the peak memory allocated, and writes the
+losses and img/s to TensorBoard under ``runs/<savename>``.
 
 Data parallelism (the reference's DDP launch, its ``train.py:43-58``):
 one process a device, joined by ``--coordinator host:port --num-processes N
@@ -396,8 +397,10 @@ def _train(args) -> int:
                     t0 = time.perf_counter()
                     if writer:
                         writer.write(step_count, {**m, "images_per_sec": rate})
+                    peak = (f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+                            else "")
                     print(f"step {step_count} epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
-                          + f" ({rate:.1f} img/s)", flush=True)
+                          + f" ({rate:.1f} img/s{peak})", flush=True)
                 if world > 1:  # a signal to one rank stops them all after the same step
                     flag = torch.tensor([float(bool(interrupted))], device=dev)
                     dist.all_reduce(flag, op=dist.ReduceOp.MAX)
@@ -418,6 +421,8 @@ def _train(args) -> int:
                     score = run_eval(cfg, model, compute_dtype, None if mp > 1 else mesh)
                 if writer:
                     writer.write(step_count, {"mAP": score})
+                print(f"eval {'mAP' if cfg['model']['dataset'] == 'VOC' else 'AP'} {score:.4f} at epoch {epoch}, "
+                      f"step {step_count}", flush=True)
                 if score > best_map:
                     best_map = score
                     save(run_dir + "_best", keep=1)

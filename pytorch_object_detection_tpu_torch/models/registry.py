@@ -18,6 +18,17 @@ _PORTED = {"FCOS": FCOS, "HISFCOS": HISFCOS, "MNFCOS": MNFCOS, "MC_FCOS": MC_FCO
            "SSD300": SSD300}
 
 
+def register(name: str):
+    """Decorator: ``@register("NAME")`` on a builder (a class or function
+    taking ``num_classes, features, **kwargs``) adds it under ``NAME``
+    (case-insensitive) to the table :func:`build_model` reads."""
+    def deco(ctor):
+        _PORTED[name.upper()] = ctor
+        return ctor
+
+    return deco
+
+
 def available_models():
     return sorted(_PORTED)
 

@@ -326,3 +326,90 @@ class MNBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.pw2(silu(self.pw1(self.bn1(self.ddw(x)))))
+
+
+class ConvBnAct(nn.Module):
+    """conv -> BN -> ReLU (``act='SiLU'``: SiLU); ``mode='DWconv'`` makes the
+    conv depthwise (its output keeps ``in_ch`` channels).  The conv has no
+    bias and is named as flax names an unnamed submodule (``Conv_0``,
+    ``DepthwiseConv_0``), so a JAX ``ConvBnAct``'s variables load by
+    ``train/checkpoints.load_flax_variables``."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1, dilation: int = 1,
+                 act: str = "relu", mode: str = "conv", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = act
+        if mode == "DWconv":
+            self.DepthwiseConv_0 = DepthwiseConv(in_ch, kernel, dilation, generator=generator, stride=stride)
+            out_ch = in_ch
+        else:
+            self.Conv_0 = Conv(in_ch, features, kernel, stride, dilation, bias=False, generator=generator)
+            out_ch = features
+        self.bn1 = BatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.DepthwiseConv_0 if hasattr(self, "DepthwiseConv_0") else self.Conv_0
+        x = self.bn1(conv(x))
+        return silu(x) if self.act == "SiLU" else relu(x)
+
+
+class SeparableConv(nn.Module):
+    """Depthwise ``kernel`` x ``kernel`` -> BN -> ReLU, then 1x1 to ``features``
+    -> BN -> ReLU (both convs with bias)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dw = Conv(in_ch, in_ch, kernel, groups=in_ch, generator=generator)
+        self.bn1 = BatchNorm(in_ch)
+        self.pw = Conv(in_ch, features, 1, generator=generator)
+        self.bn2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = relu(self.bn1(self.dw(x)))
+        return relu(self.bn2(self.pw(x)))
+
+
+class MCBottle(nn.Module):
+    """Inverted bottleneck: 1x1 up to ``beta`` x C -> BN -> SiLU, depthwise
+    ``kernel`` x ``kernel`` -> BN -> SiLU, SE (reduction ``alpha``), 1x1 down
+    to ``features`` -> BN -> SiLU, + residual (so ``features`` == ``in_ch``)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, beta: int = 4, alpha: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, mid = generator, in_ch * beta
+        self.pw1 = Conv(in_ch, mid, 1, bias=False, generator=g)
+        self.bn1 = BatchNorm(mid)
+        self.dw = DepthwiseConv(mid, kernel, generator=g)
+        self.bn2 = BatchNorm(mid)
+        self.se = SEBlock(mid, alpha, generator=g)
+        self.pw2 = Conv(mid, features, 1, bias=False, generator=g)
+        self.bn3 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = silu(self.bn1(self.pw1(x)))
+        y = self.se(silu(self.bn2(self.dw(y))))
+        return x + silu(self.bn3(self.pw2(y)))
+
+
+class ICSPBlock(nn.Module):
+    """CSP-style split: two :class:`MCBottle` s (``beta`` 2) then a 1x1 to
+    C/2, beside a 1x1 to C/2 of the input; concat -> BN -> ReLU -> 3x3 to
+    ``features`` -> BN -> ReLU."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, beta: int = 2, alpha: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, half = generator, in_ch // 2
+        self.bottle1 = MCBottle(in_ch, in_ch, kernel, beta, alpha, generator=g)
+        self.bottle2 = MCBottle(in_ch, in_ch, kernel, beta, alpha, generator=g)
+        self.pw3 = Conv(in_ch, half, 1, generator=g)
+        self.pw4 = Conv(in_ch, half, 1, generator=g)
+        self.bn3 = BatchNorm(2 * half)
+        self.conv5 = Conv(2 * half, features, 3, bias=False, generator=g)
+        self.bn4 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bottle2(self.bottle1(x))
+        z = relu(self.bn3(torch.cat([self.pw3(y), self.pw4(x)], dim=1)))
+        return relu(self.bn4(self.conv5(z)))

@@ -33,6 +33,17 @@ def all_level_coords(level_shapes: Sequence[Tuple[int, int]], strides: Sequence[
         [level_coords(h, w, s, device) for (h, w), s in zip(level_shapes, strides)], dim=0)
 
 
+def ltrb_to_boxes(coords: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Decode ltrb offsets at grid coords to xyxy boxes: coords ``[N, 2]``,
+    offsets ``[..., N, 4]`` (l, t, r, b) -> ``[..., N, 4]``."""
+    return torch.cat([coords - offsets[..., :2], coords + offsets[..., 2:]], dim=-1)
+
+
+def boxes_to_ltrb(coords: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`ltrb_to_boxes`: xyxy boxes to ltrb offsets at coords."""
+    return torch.cat([coords - boxes[..., :2], boxes[..., 2:] - coords], dim=-1)
+
+
 def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Clamp xyxy boxes into ``[0, w-1] x [0, h-1]``."""
     x1 = boxes[..., 0].clamp(0.0, width - 1)
@@ -40,6 +51,12 @@ def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
     x2 = boxes[..., 2].clamp(0.0, width - 1)
     y2 = boxes[..., 3].clamp(0.0, height - 1)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of xyxy boxes, ``[..., 4]`` -> ``[...]``: no +1 pixel, negative
+    extents clamped to 0."""
+    return (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0) * (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
 
 
 def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:

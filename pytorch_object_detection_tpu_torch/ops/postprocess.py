@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from pytorch_object_detection_tpu_torch.ops.boxes import clip_boxes
+from pytorch_object_detection_tpu_torch.ops.boxes import clip_boxes, ltrb_to_boxes
 from pytorch_object_detection_tpu_torch.ops.cuda_nms import cuda_batched_class_nms
 from pytorch_object_detection_tpu_torch.ops.nms import batched_class_nms
 
@@ -104,8 +104,7 @@ def decode_detections(
         cx = torch.where(in_level, (j % w).to(torch.float32) * s + s // 2, cx)
         cy = torch.where(in_level, torch.div(j, w, rounding_mode="floor").to(torch.float32) * s + s // 2, cy)
         start += h * w
-    top_boxes = torch.stack([cx - top_reg[..., 0], cy - top_reg[..., 1],
-                             cx + top_reg[..., 2], cy + top_reg[..., 3]], dim=-1)
+    top_boxes = ltrb_to_boxes(torch.stack([cx, cy], dim=-1), top_reg)
     if image_hw is not None:
         top_boxes = clip_boxes(top_boxes, image_hw[0], image_hw[1])
 

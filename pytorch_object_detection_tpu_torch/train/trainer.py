@@ -32,6 +32,8 @@ model dimension above 1 (``mesh=``, or the state that
 (the state channel-sharded) or spatially partitioned (the images in row
 bands, ``parallel/sp.shard_batch_spatial``); see :func:`make_train_step`.
 
+The float inference forward: :func:`make_eval_forward` (JAX ``:779-790``).
+
 int8 PTQ: ``quantize_backbone``, ``_backbone_int8_feats``,
 ``quantize_fpn`` and ``quantize_head`` (:412-593, the HISFCOS, MNFCOS and
 classic-FCOS branches), and ``make_eval_forward_int8`` (:596-776) for the
@@ -607,6 +609,26 @@ def fused_head_applies(model: nn.Module, backend: str, int8_fpn: bool) -> bool:
     oracle, as the JAX ``make_eval_forward_int8`` decides (its
     trainer.py:752)."""
     return isinstance(model, HISFCOS) and not int8_fpn and backend != "xla"
+
+
+def make_eval_forward(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16) -> Callable[[torch.Tensor], Levels]:
+    """Inference forward of an FCOS-family detector: ``fwd(images) ->
+    per-level f32 NHWC (cls, cnt, reg)`` from normalized NHWC images, run
+    in ``compute_dtype`` (JAX ``train/trainer.py:779-790``).  The model
+    carries its weights, so ``fwd`` takes no variables.  As in the float
+    serving pipeline, a model in another dtype is copied to
+    ``compute_dtype`` here, once (later changes to ``model`` are not seen);
+    the module that runs is put in eval mode."""
+    param = next(model.parameters())
+    net = model if param.dtype == compute_dtype else copy.deepcopy(model).to(compute_dtype)
+    net.eval()
+
+    def fwd(images: torch.Tensor) -> Levels:
+        with torch.no_grad():
+            outs = net(images.to(compute_dtype))
+        return tuple([x.float() for x in branch] for branch in outs)
+
+    return fwd
 
 
 def make_eval_forward_int8(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16,
